@@ -7,23 +7,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — the CUDA kernels, from the sources in the repository;
-3. kernels — every kernel of the main path (``norms_flat``, ``apply_flat``)
-             against its plain PyTorch version on the card, at LeNet's
-             packed shape (272, 512) and at (65536, 512), with the
-             kernel's, the plain version's and a library call's device
-             time (calls replayed from a CUDA graph between CUDA events)
-             beside the least time the card could take (its HBM bound),
-             and the kernel wrapper's per-call dispatch time;
-4. main    — ``repro_torch.launch.train``'s ``main`` on the card:
-             lenet-mnist at batch 8192 for 20 steps with LARS (exactly one
-             launch of each kernel per step), with SGD (none), and with
-             LARS again, warm;
+3. kernels — every kernel of the main paths (``norms_flat``,
+             ``apply_flat``, ``apply_flat_q8``) against its plain PyTorch
+             version on the card, at LeNet's packed shape (272, 512) and
+             at (65536, 512), with the kernel's, the plain version's and
+             a library call's device time (calls replayed from a CUDA
+             graph between CUDA events) beside the least time the card
+             could take (its HBM bound), and the kernel wrapper's
+             per-call dispatch time;
+4. main    — ``repro_torch.launch.train``'s ``main`` on the card,
+             lenet-mnist at batch 8192 for 20 steps: with LARS (exactly
+             one ``norms_flat`` and one ``apply_flat`` launch per step),
+             with SGD (none), with LARS again, warm, and the large-batch
+             path — LARS with int8 momentum, 8 accumulated microbatches
+             and bf16 compute (exactly one ``norms_flat`` and one
+             ``apply_flat_q8`` launch per step, no ``apply_flat``);
 5. card vs CPU — 5 LARS steps at batch 32 from one seeded init, on the CPU
-             with the plain versions and on the card with the kernels: the
-             two loss trajectories must agree (TF32 off);
-6. profile — a short ``torch.profiler`` window over main-path steps: the
-             device's busy share, time by kernel, and the hand kernels'
-             own device time inside a step.
+             with the plain versions and on the card with the kernels,
+             with f32 and with int8 momentum: the loss trajectories must
+             agree (TF32 off);
+6. checkpoint — the large-batch path for 10 steps, saved, restored into a
+             fresh state and run 10 more steps, against 20 uninterrupted
+             steps: bit for bit, with cuDNN's deterministic algorithms;
+7. profile — a short ``torch.profiler`` window over main-path steps (f32
+             LARS and the large-batch path): the device's busy share, time
+             by kernel, and the hand kernels' own device time in a step.
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It imports no JAX.
@@ -49,15 +57,25 @@ MAIN_ARGS = ["--arch", "lenet-mnist", "--batch", "8192",
              "--steps", str(MAIN_STEPS), "--lr", "0.01",
              "--lr-policy", "linear", "--base-batch", "32", "--warmup", "5",
              "--log-every", "0"]
+# the large-batch path: int8 LARS momentum, 8 microbatches, bf16 compute
+LARGE_BATCH = ["--optimizer", "lars", "--opt-state-dtype", "int8",
+               "--accum-steps", "8", "--precision", "bf16"]
+KERNELS = ("norms_flat", "apply_flat", "apply_flat_q8")
 # norms_flat sums 4096 squares per block in another order than torch.sum:
 # f32 relative error ~ sqrt(4096) * 2^-24 ~ 4e-6 for such sums.
 NORMS_RTOL = 1e-5
 # apply_flat is built with -fmad=false and does the plain version's
 # operations in its order: the two must agree bit for bit.
 APPLY_ATOL = 0.0
+# apply_flat_q8 likewise, and quantizes with IEEE division and round half
+# to even as its plain version does: bit for bit in w', q' and scale'.
+APPLY_Q8_ATOL = 0.0
 # 5 LARS steps at b32, card (cuDNN convs, kernels) vs CPU (plain): only
 # f32 summation orders differ; the golden b32 pin holds 1e-4 over 20 steps.
-CARD_CPU_RTOL = 1e-4
+# With int8 momentum such a difference can round a code the other way,
+# which moves its value by a whole step of the block scale: 1e-3.
+CARD_CPU_RTOL = {"f32": 1e-4, "int8": 1e-3}
+CKPT_STEPS = 10
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -136,7 +154,7 @@ def kernel_phase(lk, bw: float, flops: float) -> dict:
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"norms_flat": [], "apply_flat": []}
+    out = {k: [] for k in KERNELS}
     for rows, lane in SHAPES:
         n = rows * lane
         w = torch.randn(rows, lane, generator=gen, device=dev)
@@ -181,6 +199,7 @@ def kernel_phase(lk, bw: float, flops: float) -> dict:
                                                   weight_decay=1e-4),
                       calls=calls),
             None, nbytes, nops, bw, flops))
+        out["apply_flat_q8"].append(q8_row(lk, w, g, m, lr, bw, flops))
         del w, g, m, lr, w2, m2, pw2, pm2
         torch.cuda.empty_cache()
     for name, rows in out.items():
@@ -192,6 +211,39 @@ def kernel_phase(lk, bw: float, flops: float) -> dict:
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
                 f"max abs err {r['max_abs_err']:.3g}  rel {r['max_rel_err']:.3g}")
     return out
+
+
+def q8_row(lk, w, g, m, lr, bw: float, flops: float) -> dict:
+    """apply_flat_q8 against its plain version on (w, g, int8 m, lr)."""
+    import torch
+    from repro_torch.core.packing import quantize_blocks_q8
+    rows, lane = w.shape
+    n = rows * lane
+    q, s = quantize_blocks_q8(m.view(rows // 8, -1))
+    q = q.view(rows, lane)
+    kw = dict(momentum=0.9, weight_decay=1e-4)
+    got = lk.apply_flat_q8(w, g, q, s, lr, **kw)
+    want = lk.apply_flat_q8_plain(w, g, q, s, lr, **kw)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    if not err <= APPLY_Q8_ATOL:
+        raise AssertionError(f"apply_flat_q8 {rows}x{lane}: abs err {err} "
+                             f"> {APPLY_Q8_ATOL} (w', q', scale')")
+    # w, g read as f32 and q as int8, w' and q' written: 14 B per value;
+    # the block's scale and lr read and its new scale written: 12 B per
+    # block. 12 operations per value (dequantize, the 6 of apply_flat,
+    # |m'| and its max, the division, the rounding, the clip).
+    nbytes = 14 * n + 12 * (rows // 8)
+    nops = 12 * n
+    calls = GRAPH_CALLS[rows]
+    return _row(rows, lane, err, 0.0,
+                timings(lambda: lk.apply_flat_q8(w, g, q, s, lr, **kw),
+                        calls),
+                device_ms(lambda: lk.apply_flat_q8_plain(w, g, q, s, lr,
+                                                         **kw),
+                          calls=calls),
+                None, nbytes, nops, bw, flops)
 
 
 def _row(rows, lane, err, rel, kernel_times, plain_ms, library_ms, nbytes,
@@ -208,19 +260,28 @@ def _row(rows, lane, err, rel, kernel_times, plain_ms, library_ms, nbytes,
 
 def main_phase(train, lk) -> dict:
     """Phase 4: the port's entry point at batch 8192: LARS (the counted
-    run, first in the process, so it pays cuDNN's and cuBLAS's warm-up),
-    SGD, then LARS again for a warm timing."""
+    f32 run, first in the process, so it pays cuDNN's and cuBLAS's
+    warm-up), SGD, LARS again for a warm timing, and the large-batch
+    path (int8 momentum, 8 microbatches, bf16). Each run's launch counts
+    are set to 0 just before it and read just after."""
     runs = {}
-    for tag, opt in (("lars", "lars"), ("sgd", "sgd"), ("lars_warm", "lars")):
+    for tag, extra in (("lars", ["--optimizer", "lars"]),
+                       ("sgd", ["--optimizer", "sgd"]),
+                       ("lars_warm", ["--optimizer", "lars"]),
+                       ("lars_int8_bf16_accum8", LARGE_BATCH)):
         lk.reset_launch_counts()
-        summary = train.main(MAIN_ARGS + ["--optimizer", opt])
+        summary = train.main(MAIN_ARGS + extra)
         counts = dict(lk.LAUNCHES)
         losses = summary["losses"]
         if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{tag}: losses {losses}")
-        want = MAIN_STEPS if opt == "lars" else 0
-        if counts != {"norms_flat": want, "apply_flat": want}:
-            raise AssertionError(f"{tag}: launches {counts}, want {want} each")
+        lars_steps = MAIN_STEPS if "lars" in tag else 0
+        int8 = tag.startswith("lars_int8")
+        want = {"norms_flat": lars_steps,
+                "apply_flat": 0 if int8 else lars_steps,
+                "apply_flat_q8": lars_steps if int8 else 0}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, want {want}")
         runs[tag] = dict(summary, launches=counts)
         log(f"  {tag}: {summary['steps_per_s']:.3f} steps/s  "
             f"{summary['examples_per_s']:.1f} examples/s  eval accuracy "
@@ -229,49 +290,126 @@ def main_phase(train, lk) -> dict:
     return runs
 
 
-def card_vs_cpu_phase(train) -> float:
-    """Phase 5: the same 5 LARS steps on the CPU (plain) and the card."""
-    args = ["--arch", "lenet-mnist", "--optimizer", "lars", "--batch", "32",
-            "--steps", "5", "--lr", "0.05", "--log-every", "0"]
-    cpu = train.main(args + ["--device", "cpu"])["losses"]
-    card = train.main(args + ["--device", "cuda"])["losses"]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    log(f"  cpu  {cpu}\n  card {card}\n  max rel diff {rel:.3g} "
-        f"(tolerance {CARD_CPU_RTOL})")
-    if not rel <= CARD_CPU_RTOL:
-        raise AssertionError(f"card vs CPU loss rel diff {rel}")
-    return rel
+def card_vs_cpu_phase(train) -> dict:
+    """Phase 5: the same 5 LARS steps on the CPU (plain) and the card,
+    with f32 and with int8 momentum."""
+    out = {}
+    for slots, rtol in CARD_CPU_RTOL.items():
+        args = ["--arch", "lenet-mnist", "--optimizer", "lars", "--batch",
+                "32", "--steps", "5", "--lr", "0.05", "--log-every", "0",
+                "--opt-state-dtype", slots]
+        cpu = train.main(args + ["--device", "cpu"])["losses"]
+        card = train.main(args + ["--device", "cuda"])["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        log(f"  {slots}: cpu  {cpu}\n  {slots}: card {card}\n  max rel "
+            f"diff {rel:.3g} (tolerance {rtol})")
+        if not rel <= rtol:
+            raise AssertionError(f"{slots}: card vs CPU loss rel diff {rel}")
+        out[slots] = rel
+    return out
 
 
-def profile_phase(batch: int = 8192, steps: int = 5) -> dict:
-    """Phase 6: device busy share and time by kernel over main-path steps
-    (LARS, batch 8192), after two warm-up steps."""
+def _large_batch_pipeline(device):
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainPipeline
+    cfg = get_config("lenet-mnist")
+    return TrainPipeline(build_model(cfg), lars(0.01, slot_dtype="int8"),
+                         cfg, accum_steps=8, precision="bf16")
+
+
+def _batches(device, batch: int, n: int) -> list:
+    from repro_torch.data import batch_iterator, synthetic_mnist
+    from repro_torch.launch.train import to_device
+    x, y, _, _ = synthetic_mnist(batch, 8)
+    it = batch_iterator(x, y, batch=batch, seed=0)
+    return [to_device(next(it), device) for _ in range(n)]
+
+
+def checkpoint_phase(workdir: str) -> dict:
+    """Phase 6: 10 steps, save, restore into a fresh state, 10 more,
+    against 20 uninterrupted steps of the large-batch path; bit for bit
+    under cuDNN's deterministic algorithms."""
+    import torch
+    from repro_torch.checkpoint import restore_train_state, save_train_state
+    from repro_torch.treepath import tree_leaves
+    dev = torch.device("cuda")
+    pipe = _large_batch_pipeline(dev)
+    batches = _batches(dev, 8192, 2 * CKPT_STEPS)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def run(state, bs):
+            losses = []
+            for b in bs:
+                state, m = pipe(state, b)
+                losses.append(m["loss"])
+            return state, [float(x) for x in losses]
+
+        def fresh(seed):
+            return pipe.init_state(torch.Generator().manual_seed(seed), dev)
+
+        whole, whole_losses = run(fresh(0), batches)
+        half, first = run(fresh(0), batches[:CKPT_STEPS])
+        path = os.path.join(workdir, "state.npz")
+        save_train_state(path, half)
+        resumed = restore_train_state(path, fresh(1))
+        if resumed.opt_state.step != CKPT_STEPS:
+            raise AssertionError(f"resumed at step {resumed.opt_state.step}")
+        resumed, second = run(resumed, batches[CKPT_STEPS:])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = (first + second == whole_losses and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves(resumed.params) + tree_leaves(
+                resumed.opt_state.slots),
+            tree_leaves(whole.params) + tree_leaves(whole.opt_state.slots))))
+    slots = resumed.opt_state.slots
+    slot_bytes = {k: v.numel() * v.element_size() for k, v in slots.items()}
+    log(f"  20 uninterrupted vs 10 + save/restore + 10: "
+        f"{'bit-identical' if same else 'DIFFERENT'}; losses "
+        f"{whole_losses[0]:.4f} -> {whole_losses[-1]:.4f}; slot bytes "
+        f"{slot_bytes} (an f32 momentum: {slots['master'].numel() * 4})")
+    if not same:
+        raise AssertionError("resumed run differs from the uninterrupted "
+                             "one")
+    return {"bit_identical": same, "losses": whole_losses,
+            "slot_bytes": slot_bytes,
+            "f32_momentum_bytes": slots["master"].numel() * 4}
+
+
+def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
+    """Phase 7: device busy share and time by kernel over main-path steps
+    at batch 8192 (``path``: "f32" LARS or the "large_batch" path), after
+    two warm-up steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.core import lars
-    from repro_torch.data import batch_iterator, synthetic_mnist
-    from repro_torch.launch.train import to_device
     from repro_torch.models import build_model
-    from repro_torch.train import create_train_state, make_train_step
+    from repro_torch.train import TrainPipeline
 
     dev = torch.device("cuda")
-    cfg = get_config("lenet-mnist")
-    model = build_model(cfg)
-    opt = lars(0.01)
-    state = create_train_state(model, opt, torch.Generator().manual_seed(0),
-                               device=dev)
-    step = make_train_step(model, opt, cfg)
+    if path == "f32":
+        cfg = get_config("lenet-mnist")
+        pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg)
+    else:
+        pipe = _large_batch_pipeline(dev)
+    state = pipe.init_state(torch.Generator().manual_seed(0), dev)
+    from repro_torch.data import batch_iterator, synthetic_mnist
+    from repro_torch.launch.train import to_device
     x, y, _, _ = synthetic_mnist(batch, 8)
     it = batch_iterator(x, y, batch=batch, seed=0)
     for _ in range(2):
-        state, _ = step(state, to_device(next(it), dev))
+        state, _ = pipe(state, to_device(next(it), dev))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step(state, to_device(next(it), dev))
+            state, _ = pipe(state, to_device(next(it), dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -282,10 +420,11 @@ def profile_phase(batch: int = 8192, steps: int = 5) -> dict:
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
-            / steps for k in ("norms_flat", "apply_flat")}
-    log(f"  {steps} steps: wall {wall_ms:.2f} ms, device busy "
+            / steps for k in KERNELS}
+    log(f"  {path}, {steps} steps: wall {wall_ms:.2f} ms, device busy "
         f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%)" if busy else
-        "  device time: not measured (the profiler recorded no CUDA events)")
+        f"  {path}: device time not measured (the profiler recorded no "
+        "CUDA events)")
     for name, ms in top:
         log(f"    {ms / steps:9.4f} ms/step  {name[:90]}")
     log(f"  hand kernels, device ms/step: {ours}")
@@ -331,21 +470,31 @@ def main() -> int:
     log("== 5. card against CPU: 5 LARS steps at batch 32")
     card_cpu = card_vs_cpu_phase(train)
 
-    log("== 6. profile of main-path steps")
-    prof = profile_phase()
+    log("== 6. checkpoint: 10 + 10 steps against 20, large-batch path")
+    ckpt = checkpoint_phase(os.path.join(ROOT, "build"))
+
+    log("== 7. profile of main-path steps")
+    prof = {path: profile_phase(path) for path in ("f32", "large_batch")}
 
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
-                "apply_flat": "src/repro/kernels/lars_kernels.py:86"}
+                "apply_flat": "src/repro/kernels/lars_kernels.py:86",
+                "apply_flat_q8": "src/repro/kernels/lars_kernels.py:139"}
     entries = []
     for kname, rows in kern.items():
         main_row = next(r for r in rows if r["rows"] == MAIN_ROWS)
-        launches = runs["lars"]["launches"][kname]
+        # the run on the kernel's own main path: f32 LARS for norms_flat
+        # and apply_flat, the large-batch int8 path for apply_flat_q8
+        int8 = kname == "apply_flat_q8"
+        run = runs["lars_int8_bf16_accum8" if int8 else "lars"]
+        in_step = prof["large_batch" if int8 else "f32"]
+        launches = run["launches"][kname]
         entries.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lars_kernels.cu",
             "replaces": replaces[kname], "launches": launches,
             "launches_per_step": launches / MAIN_STEPS,
-            "launches_sgd": runs["sgd"]["launches"][kname],
+            "launches_by_run": {t: r["launches"][kname]
+                                for t, r in runs.items()},
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "kernel_ms": main_row["ms"],
             "dispatch_ms": main_row["dispatch_ms"],
@@ -353,13 +502,14 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "device_ms_in_step": prof["hand_kernel_device_ms_per_step"][kname],
+            "device_ms_in_step": in_step["hand_kernel_device_ms_per_step"][
+                kname],
             "shapes": rows})
-    main_path = {opt: {k: r[k] for k in ("steps_per_s", "examples_per_s",
+    main_path = {tag: {k: r[k] for k in ("steps_per_s", "examples_per_s",
                                         "eval_accuracy", "train_s")}
-                 for opt, r in runs.items()}
+                 for tag, r in runs.items()}
     log(json.dumps({"main_path": main_path, "card_vs_cpu_rel": card_cpu,
-                    "profile": prof}))
+                    "checkpoint": ckpt, "profile": prof}))
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ The caller turns the JAX side into numpy (``jax.device_get`` /
 ``np.asarray``) and back; this module only sees numpy, so the port stays
 free of JAX. Params are nested dicts in the reference's leaf layouts
 (HWIO convs, ``(in, out)`` dense weights). Packed slot buffers have the
-same ``(rows, 512)`` layout in both packages, so an optimizer state
-carries across mid-run.
+same ``(rows, 512)`` layout in both packages — f32, bf16-policy master,
+and int8 states alike — so an optimizer state carries across mid-run.
 
 bfloat16 arrays (``ml_dtypes.bfloat16`` on the JAX side) arrive through
 float32, which holds every bfloat16 value exactly; they leave as
@@ -20,7 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.optim_base import OptState
+from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
 from repro_torch.core.packing import PackedLayout
 from repro_torch.treepath import tree_map
 
@@ -56,13 +56,18 @@ def params_to_numpy(params: Pytree) -> Pytree:
 def opt_state_to_torch(step: int, slots: dict, layout: PackedLayout,
                        device: torch.device | str = "cpu") -> OptState:
     """A packed state from the reference's step and slot buffers. The
-    reference keeps the packed weights under the same ``WEIGHT_SLOT``
-    name; ``layout`` is the port's layout of the same params."""
+    slot names are the reference's (``WEIGHT_SLOT`` or ``MASTER_SLOT``,
+    the rule slots, and a ``<slot>_scale`` beside each int8 code slot);
+    ``layout`` is the port's layout of the same params. Code slots stay
+    int8 and scale slots are ``(num_blocks, 1)`` f32; every other slot
+    is a ``buffer_shape`` buffer."""
     out = {k: tensor_from_numpy(v, device) for k, v in slots.items()}
     for k, v in out.items():
-        if tuple(v.shape) != layout.buffer_shape:
+        want = (layout.num_blocks, 1) if k.endswith(SCALE_SUFFIX) \
+            else layout.buffer_shape
+        if tuple(v.shape) != want:
             raise ValueError(f"slot {k!r} has shape {tuple(v.shape)}, the "
-                             f"layout wants {layout.buffer_shape}")
+                             f"layout wants {want}")
     return OptState(step=int(step), slots=out, layout=layout)
 
 

@@ -7,9 +7,10 @@
 
 The two memory-bound phases go through :mod:`repro_torch.kernels.ops` —
 ONE joint ||w||,||g|| pass (``norms_flat``) and ONE fused
-momentum+decay+apply pass (``apply_flat``) over the whole superbuffer:
-two kernel launches per step on the card, whatever the leaf count, and
-the kernels' plain versions on the CPU.
+momentum+decay+apply pass (``apply_flat``, or ``apply_flat_q8`` when the
+momentum is stored as int8) over the whole superbuffer: two kernel
+launches per step on the card, whatever the leaf count, and the kernels'
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ def lars(learning_rate: float | Schedule = 0.01, *, momentum: float = 0.9,
     (default) takes either, ``True`` CUDA buffers (the kernels) and
     ``False`` CPU buffers (the plain versions). Any other placement
     raises; the kernel wrappers choose by the buffers' device.
+    ``slot_dtype="int8"`` stores the momentum as int8 codes + f32
+    per-block scales (~4x smaller optimizer state).
     """
 
     def direction(g, w, slots):
@@ -51,10 +54,21 @@ def lars(learning_rate: float | Schedule = 0.01, *, momentum: float = 0.9,
             momentum=momentum, weight_decay=weight_decay)
         return wbuf2, {"momentum": mbuf2}
 
+    def packed_apply_q8(layout, wbuf, gbuf, ubuf, lr_slices, slots):
+        # int8 momentum: dequantize, update and requantize in ONE launch;
+        # the f32 momentum never reaches memory
+        from repro_torch.kernels import ops as kops
+        wbuf2, q2, s2 = kops.lars_apply_packed_q8(
+            layout, wbuf, gbuf, slots["momentum"],
+            slots["momentum_scale"], lr_slices,
+            momentum=momentum, weight_decay=weight_decay)
+        return wbuf2, {"momentum": q2, "momentum_scale": s2}
+
     rule = LayerwiseRule(name="lars", slots=("momentum",),
                          direction=direction, trust=trust,
                          packed_norms=packed_norms,
                          packed_apply=packed_apply,
+                         packed_apply_q8=packed_apply_q8,
                          skip_adaptation_1d=skip_adaptation_1d)
     return make_optimizer(rule, learning_rate, slot_dtype=slot_dtype,
                           hyperparams=dict(learning_rate=learning_rate,

@@ -1,7 +1,7 @@
 """Shared layer-wise optimizer substrate (port of
-``repro/core/optim_base.py``: the flat-packed engine with f32 slots).
+``repro/core/optim_base.py``: the flat-packed engine).
 
-* ``Optimizer.init(params, stacked) -> OptState``;
+* ``Optimizer.init(params, stacked, master=False) -> OptState``;
   ``Optimizer.update(grads, state, params, stacked=None) ->
   (new_params, new_state)``. The step counter is a host ``int`` in the
   state, so the learning rate is computed on the host each step.
@@ -10,15 +10,21 @@
   per-layer ratio; ``None`` for SGD) and ``apply`` (fold the local LR
   into the weight and slot update). All are elementwise over the whole
   superbuffer or per-slice scalars.
-* The engine keeps the weights packed across steps in the
-  ``WEIGHT_SLOT`` buffer and every slot packed beside them; per step it
+* The engine keeps the weights packed across steps — in the
+  ``WEIGHT_SLOT`` buffer, or under the bf16 policy in the f32
+  ``MASTER_SLOT`` buffer — and every slot packed beside them; per step it
   packs only the gradients. A rule with a trust ratio (LARS) runs its two
   memory-bound passes through its kernel wrappers: exactly one
-  ``norms_flat`` and one ``apply_flat`` launch per step on CUDA buffers,
-  whatever the leaf count, and their plain versions on CPU buffers.
+  ``norms_flat`` and one ``apply_flat`` (``apply_flat_q8`` for int8
+  slots) launch per step on CUDA buffers, whatever the leaf count, and
+  their plain versions on CPU buffers.
+* ``slot_dtype="int8"`` stores every rule slot as int8 codes plus one
+  f32 scale per row block (sibling slot ``<name>_scale``). LARS hands
+  the raw codes to its fused kernel; SGD dequantizes, runs its ``apply``
+  and requantizes.
 
-Not yet ported: the per-leaf tree engine (``init`` without a marker),
-int8 slots, the bf16 master-weight slot and ZeRO-sharded layouts.
+Not yet ported: the per-leaf tree engine (``init`` without a marker)
+and ZeRO-sharded layouts.
 """
 
 from __future__ import annotations
@@ -35,7 +41,15 @@ from repro_torch.treepath import tree_map
 
 Pytree = Any
 
-SLOT_DTYPES = ("f32",)
+# Optimizer-slot storage dtypes. "int8" stores every rule slot as int8
+# codes + one f32 scale per row block; the weight and master buffers
+# always stay f32.
+SLOT_DTYPES = ("f32", "int8")
+
+# Suffix of the per-block f32 scale slot paired with each int8 code slot
+# ("momentum" -> "momentum_scale"), as in the JAX package, so npz
+# checkpoints carry the scales by name.
+SCALE_SUFFIX = "_scale"
 
 
 class PackedGrads(NamedTuple):
@@ -48,8 +62,9 @@ class PackedGrads(NamedTuple):
 
 @dataclasses.dataclass
 class OptState:
-    """Step counter + packed slot buffers. Each slot is a (rows, lane) f32
-    superbuffer; ``layout`` is the static
+    """Step counter + packed slot buffers. Each slot is a (rows, lane)
+    superbuffer (f32, or int8 codes with a (num_blocks, 1) f32 scale
+    slot beside it); ``layout`` is the static
     :class:`~repro_torch.core.packing.PackedLayout`."""
 
     step: int
@@ -74,6 +89,11 @@ class LayerwiseRule:
     # (layout, wbuf, gbuf, ubuf, lr_slices, slots) -> (wbuf', slots').
     packed_norms: Optional[Callable[..., tuple]] = None
     packed_apply: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
+    # int8 slots: packed_apply's signature, but ``slots`` holds the raw
+    # codes and scales (keys ``k`` and ``k + SCALE_SUFFIX``) and comes
+    # back requantized by the kernel. Only for rules whose ``direction``
+    # ignores its slots.
+    packed_apply_q8: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
     # rank<=1 slices (biases) keep trust ratio 1.
     skip_adaptation_1d: bool = True
 
@@ -97,17 +117,27 @@ class Optimizer:
 
 def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
                    lr: float, grads: Pytree | PackedGrads,
-                   slots: dict, wbuf: torch.Tensor) -> tuple[Pytree, dict]:
+                   slots: dict, wbuf: torch.Tensor, *, master: bool,
+                   quant: bool) -> tuple[Pytree, dict]:
     """Flat-packed engine: whole-pytree buffers, per-slice scalars.
 
-    A rule without a trust ratio updates the buffers with its ``apply``.
-    A rule with one takes the per-slice norms and the fused update from
-    its kernel wrappers; the trust ratio and the adaptation mask are
-    computed here. Returns the new params (views of the new weight
-    buffer) and the new slots, including the new ``WEIGHT_SLOT`` buffer.
+    ``wbuf`` is the f32 master (``master=True``) or the persistent
+    weight buffer. A rule without a trust ratio updates the buffers with
+    its ``apply``. A rule with one takes the per-slice norms and the
+    fused update from its kernel wrappers; the trust ratio and the
+    adaptation mask are computed here. ``quant``: the rule slots are
+    int8 codes + scales — handed raw to ``packed_apply_q8`` where the
+    rule has one, else dequantized on read and requantized on write.
+    Returns the new params (the storage-dtype view of the new weight
+    buffer) and the new slots, including the new weight or master buffer.
     """
     gbuf = grads.buf if isinstance(grads, PackedGrads) \
         else packing.pack(layout, grads)
+    q8_kernel = quant and rule.packed_apply_q8 is not None
+    if quant and not q8_kernel:
+        slots = {k: packing.dequantize_q8(layout, slots[k],
+                                          slots[k + SCALE_SUFFIX])
+                 for k in rule.slots}
     u, slots = rule.direction(gbuf, wbuf, dict(slots))
     if rule.trust is None:
         wbuf2, new_slots = rule.apply(wbuf, gbuf, u, lr, slots)
@@ -117,10 +147,17 @@ def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
         if rule.skip_adaptation_1d:
             ratio = torch.where(packing.adapt_mask(layout, ratio.device),
                                 ratio, torch.ones_like(ratio))
-        wbuf2, new_slots = rule.packed_apply(layout, wbuf, gbuf, u,
-                                             lr * ratio, slots)
-    wbuf2 = packing.quantize_to_storage(layout, wbuf2)
-    new_slots[packing.WEIGHT_SLOT] = wbuf2
+        apply = rule.packed_apply_q8 if q8_kernel else rule.packed_apply
+        wbuf2, new_slots = apply(layout, wbuf, gbuf, u, lr * ratio, slots)
+    if quant and not q8_kernel:
+        for k in rule.slots:
+            new_slots[k], new_slots[k + SCALE_SUFFIX] = \
+                packing.quantize_q8(layout, new_slots[k])
+    if master:
+        new_slots[packing.MASTER_SLOT] = wbuf2
+    else:
+        wbuf2 = packing.quantize_to_storage(layout, wbuf2)
+        new_slots[packing.WEIGHT_SLOT] = wbuf2
     return packing.unpack(layout, wbuf2), new_slots
 
 
@@ -134,20 +171,29 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
     """Build an :class:`Optimizer` from a rule."""
     lr_fn = as_schedule(learning_rate)
     if slot_dtype not in SLOT_DTYPES:
-        raise _not_yet_ported(f"slot_dtype={slot_dtype!r}")
+        raise ValueError(f"unknown slot_dtype {slot_dtype!r}; "
+                         f"have {SLOT_DTYPES}")
+    quant = slot_dtype == "int8"
 
     def init(params: Pytree, stacked: Optional[Pytree] = None,
              master: bool = False) -> OptState:
         if stacked is None:
             raise _not_yet_ported(
                 "the per-leaf tree engine (init without a stacked marker)")
-        if master:
-            raise _not_yet_ported("the bf16 master-weight slot")
         layout = packing.build_layout(params, normalize_stacked(params,
                                                                 stacked))
         weights = packing.pack(layout, params)
-        slots = {k: torch.zeros_like(weights) for k in rule.slots}
-        slots[packing.WEIGHT_SLOT] = weights
+        slots = {}
+        for k in rule.slots:
+            zeros = torch.zeros_like(weights)
+            if quant:
+                # 0 codes, unit scales: what quantizing f32 zeros gives
+                slots[k], slots[k + SCALE_SUFFIX] = \
+                    packing.quantize_q8(layout, zeros)
+            else:
+                slots[k] = zeros
+        slots[packing.MASTER_SLOT if master else packing.WEIGHT_SLOT] = \
+            weights
         return OptState(step=0, slots=slots, layout=layout)
 
     def update(grads: Pytree | PackedGrads, state: OptState, params: Pytree,
@@ -156,10 +202,13 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
         if stacked is not None:
             packing.check_marker(state.layout, params, stacked)
         slots = dict(state.slots)
-        weights = slots.pop(packing.WEIGHT_SLOT)
+        master = packing.MASTER_SLOT in slots
+        weights = slots.pop(packing.MASTER_SLOT if master
+                            else packing.WEIGHT_SLOT)
         lr = float(lr_fn(state.step))
         new_params, new_slots = _packed_update(
-            rule, state.layout, lr, grads, slots, weights)
+            rule, state.layout, lr, grads, slots, weights, master=master,
+            quant=quant)
         return new_params, OptState(step=state.step + 1, slots=new_slots,
                                     layout=state.layout)
 

@@ -33,7 +33,9 @@ LANE = 512        # superbuffer column count
 BLOCK_ROWS = 8    # rows per kernel block; slices are block-aligned
 
 # Reserved OptState slot name for the f32 master-weight copy kept by the
-# bf16 precision policy (not yet ported: the engine rejects it).
+# bf16 precision policy. The master IS the (rows, lane) superbuffer: the
+# optimizer reads and writes it, and the params are its storage-dtype
+# view.
 MASTER_SLOT = "master"
 
 # Reserved OptState slot name for the persistent packed weight buffer
@@ -313,3 +315,59 @@ def check_marker(layout: PackedLayout, params: Pytree,
             "stacked marker passed to update() disagrees with the marker "
             "the packed OptState was built with at init(); rebuild the "
             "optimizer state with the new marker")
+
+
+# ------------------------------------------------- int8 slot quantization
+
+# Symmetric int8 range. +-127 (not -128) keeps the code symmetric around
+# zero so q == -q for negated buffers and dequantize(quantize(0)) == 0
+# exactly: zero padding rows stay exactly zero through a round trip.
+Q8_LEVELS = 127.0
+
+
+def _q8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """absmax -> quantization scale, guarding all-zero groups (scale 1.0
+    round-trips zeros). A NaN absmax stays NaN, so a block whose values
+    went NaN keeps that visible instead of quantizing as finite. The
+    divisor is a tensor on amax's device: PyTorch's CUDA division by a
+    host scalar multiplies by its reciprocal instead of dividing, which
+    would move the scale off the IEEE quotient the CUDA kernel takes."""
+    keep = (amax > 0.0) | torch.isnan(amax)
+    return torch.where(keep, amax / amax.new_full((), Q8_LEVELS),
+                       torch.ones_like(amax))
+
+
+def quantize_blocks_q8(grouped: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``(groups, n)`` -> (int8 codes ``(groups, n)``, f32 scales
+    ``(groups, 1)``): symmetric absmax quantization per group, round
+    half to even, clip to +-127, code 0 where the value is NaN."""
+    scale = _q8_scale(torch.amax(torch.abs(grouped), dim=1, keepdim=True))
+    q = torch.clamp(torch.round(grouped / scale), -Q8_LEVELS, Q8_LEVELS)
+    q = torch.where(torch.isnan(q), torch.zeros_like(q), q)
+    return q.to(torch.int8), scale
+
+
+def quantize_q8(layout: PackedLayout, buf: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 superbuffer -> (int8 codes (rows, lane), f32 scales
+    (num_blocks, 1)): one scale per block_rows row block. Slices are
+    block-aligned, so every scale group lies inside one layer slice."""
+    if tuple(buf.shape) != layout.buffer_shape:
+        raise ValueError(f"buffer shape {tuple(buf.shape)} != layout "
+                         f"{layout.buffer_shape}")
+    q, scale = quantize_blocks_q8(buf.float().reshape(layout.num_blocks,
+                                                      -1))
+    return q.reshape(layout.buffer_shape), scale
+
+
+def dequantize_q8(layout: PackedLayout, q: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """(int8 codes, per-block scales) -> f32 superbuffer."""
+    if tuple(q.shape) != layout.buffer_shape \
+            or tuple(scale.shape) != (layout.num_blocks, 1):
+        raise ValueError(f"codes {tuple(q.shape)} / scales "
+                         f"{tuple(scale.shape)} do not fit the layout "
+                         f"{layout.buffer_shape}")
+    grouped = q.reshape(layout.num_blocks, -1).float() * scale
+    return grouped.reshape(layout.buffer_shape)

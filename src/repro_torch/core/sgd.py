@@ -5,7 +5,9 @@
     w <- w - lr_t * m
 
 The degenerate member of the trust-ratio family (``trust=None``); it has
-no kernel passes, so an SGD step launches no hand kernel.
+no kernel passes, so an SGD step launches no hand kernel. With
+``slot_dtype="int8"`` the engine dequantizes the momentum, runs ``apply``
+and requantizes it.
 """
 
 from __future__ import annotations

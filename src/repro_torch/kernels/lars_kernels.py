@@ -2,13 +2,16 @@
 kernels for Hopper (``csrc/lars_kernels.cu``), each beside its plain
 PyTorch version.
 
-Port of ``repro/kernels/lars_kernels.py`` (``norms_flat`` and
-``apply_flat``; the int8 ``apply_flat_q8`` is not yet ported):
+Port of ``repro/kernels/lars_kernels.py``:
 
-  * ``norms_flat``  — per 8x512 row block, f32 ``sum w^2`` and
-                      ``sum g^2`` over the packed ``(R, 512)`` pair;
-  * ``apply_flat``  — ``m' = mu*m + lr_blk*(g + beta*w); w' = w - m'``
-                      with one learning rate per row block.
+  * ``norms_flat``    — per 8x512 row block, f32 ``sum w^2`` and
+                        ``sum g^2`` over the packed ``(R, 512)`` pair;
+  * ``apply_flat``    — ``m' = mu*m + lr_blk*(g + beta*w); w' = w - m'``
+                        with one learning rate per row block;
+  * ``apply_flat_q8`` — ``apply_flat`` with the momentum held as int8
+                        codes and one f32 scale per row block: it
+                        dequantizes, updates and requantizes in one pass,
+                        and the f32 momentum never reaches memory.
 
 A wrapper runs its plain version only because the tensors it was given
 lie on the CPU. On CUDA tensors it launches the kernel or raises; there
@@ -23,13 +26,14 @@ import functools
 
 import torch
 
+from repro_torch.core.packing import quantize_blocks_q8
 from repro_torch.kernels import build
 
 LANE = 512
 BLOCK_ROWS = 8
 
 # kernel launches since the last reset_launch_counts()
-LAUNCHES = {"norms_flat": 0, "apply_flat": 0}
+LAUNCHES = {"norms_flat": 0, "apply_flat": 0, "apply_flat_q8": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P = ctypes.c_void_p
@@ -37,6 +41,8 @@ _ARGTYPES = {
     "norms_flat": [_P, _P, _P, _P, ctypes.c_longlong, _P],
     "apply_flat": [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
                    ctypes.c_longlong, _P],
+    "apply_flat_q8": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_longlong, _P],
 }
 
 
@@ -83,6 +89,15 @@ def _check_buffers(block_rows: int, *xs: torch.Tensor) -> tuple[int, int]:
             raise ValueError("the CUDA kernels take buffers that start on "
                              "a 16-byte boundary")
     return shape
+
+
+def _check_block_vector(name: str, x: torch.Tensor, rows: int) -> None:
+    """Per-row-block operands are contiguous f32 (rows // 8, 1)."""
+    if tuple(x.shape) != (rows // BLOCK_ROWS, 1) \
+            or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous f32 "
+                         f"({rows // BLOCK_ROWS}, 1), got "
+                         f"{tuple(x.shape)} {x.dtype}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -167,12 +182,7 @@ def apply_flat(w2: torch.Tensor, g2: torch.Tensor, m2: torch.Tensor,
         raise ValueError(f"apply_flat takes f32 or bf16 w and g of one "
                          f"dtype and f32 m, got {w2.dtype}, {g2.dtype}, "
                          f"{m2.dtype}")
-    if tuple(lr_blocks.shape) != (R // BLOCK_ROWS, 1) \
-            or lr_blocks.dtype != torch.float32 \
-            or not lr_blocks.is_contiguous():
-        raise ValueError(f"lr_blocks must be contiguous f32 "
-                         f"({R // BLOCK_ROWS}, 1), got "
-                         f"{tuple(lr_blocks.shape)} {lr_blocks.dtype}")
+    _check_block_vector("lr_blocks", lr_blocks, R)
     w_new = torch.empty_like(w2)
     m_new = torch.empty_like(m2)
     fn = _fn("apply_flat", w2.dtype)
@@ -183,3 +193,71 @@ def apply_flat(w2: torch.Tensor, g2: torch.Tensor, m2: torch.Tensor,
                      momentum, weight_decay, R, stream), "apply_flat")
     LAUNCHES["apply_flat"] += 1
     return w_new, m_new
+
+
+# ------------------------------------------------------------ int8 apply
+
+def apply_flat_q8_plain(w2: torch.Tensor, g2: torch.Tensor,
+                        q2: torch.Tensor, scale: torch.Tensor,
+                        lr_blocks: torch.Tensor, *, momentum: float,
+                        weight_decay: float, block_rows: int = BLOCK_ROWS
+                        ) -> tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """``apply_flat`` on the int8 momentum: m = q * scale_blk, the update,
+    then each row block requantized against its new absmax / 127 (round
+    half to even, clip to +-127, scale 1.0 for an all-zero block, a NaN
+    scale and code 0 where the block holds a NaN). q2: (R, 512) int8;
+    scale, lr_blocks: (R // block_rows, 1) f32. Returns (w' in w2.dtype,
+    q' int8, scale' f32)."""
+    R, C = w2.shape
+    nblk = R // block_rows
+    if R % block_rows or tuple(scale.shape) != (nblk, 1):
+        raise ValueError(f"rows {R} / scale {tuple(scale.shape)} do not "
+                         f"fit block_rows {block_rows}")
+    m = q2.reshape(nblk, -1).float() * scale.float()
+    w_new, m_new = apply_flat_plain(w2, g2, m.reshape(R, C), lr_blocks,
+                                    momentum=momentum,
+                                    weight_decay=weight_decay,
+                                    block_rows=block_rows)
+    q_new, s_new = quantize_blocks_q8(m_new.reshape(nblk, -1))
+    return w_new, q_new.reshape(R, C), s_new
+
+
+def apply_flat_q8(w2: torch.Tensor, g2: torch.Tensor, q2: torch.Tensor,
+                  scale: torch.Tensor, lr_blocks: torch.Tensor, *,
+                  momentum: float, weight_decay: float,
+                  block_rows: int = BLOCK_ROWS
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused dequantize + momentum/decay/apply + requantize over a packed
+    (R, 512) superbuffer whose momentum is int8 codes with one f32 scale
+    per row block.
+
+    w2, g2: f32 or bf16 of one dtype; q2: int8; scale, lr_blocks:
+    (R // 8, 1) f32. Returns fresh (w' in w2.dtype, q' int8, scale' f32)
+    buffers; nothing else is written. One launch.
+    """
+    if _on_cpu(w2, g2, q2, scale, lr_blocks):
+        return apply_flat_q8_plain(w2, g2, q2, scale, lr_blocks,
+                                   momentum=momentum,
+                                   weight_decay=weight_decay,
+                                   block_rows=block_rows)
+    R, _ = _check_buffers(block_rows, w2, g2, q2)
+    if w2.dtype not in _SUFFIX or g2.dtype != w2.dtype \
+            or q2.dtype != torch.int8:
+        raise ValueError(f"apply_flat_q8 takes f32 or bf16 w and g of one "
+                         f"dtype and int8 q, got {w2.dtype}, {g2.dtype}, "
+                         f"{q2.dtype}")
+    _check_block_vector("scale", scale, R)
+    _check_block_vector("lr_blocks", lr_blocks, R)
+    w_new = torch.empty_like(w2)
+    q_new = torch.empty_like(q2)
+    s_new = torch.empty_like(scale)
+    fn = _fn("apply_flat_q8", w2.dtype)
+    with torch.cuda.device(w2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(fn(lr_blocks.data_ptr(), scale.data_ptr(), w2.data_ptr(),
+                     g2.data_ptr(), q2.data_ptr(), w_new.data_ptr(),
+                     q_new.data_ptr(), s_new.data_ptr(), momentum,
+                     weight_decay, R, stream), "apply_flat_q8")
+    LAUNCHES["apply_flat_q8"] += 1
+    return w_new, q_new, s_new

@@ -1,6 +1,7 @@
 """Public wrappers around the LARS kernels (port of
 ``repro/kernels/ops.py``, LARS part): the whole-pytree packed phases
-``lars_norms_packed`` and ``lars_apply_packed`` over the superbuffer of
+``lars_norms_packed``, ``lars_apply_packed`` and, for int8 momentum,
+``lars_apply_packed_q8`` over the superbuffer of
 :mod:`repro_torch.core.packing` — one kernel launch each per optimizer
 step, whatever the leaf count — and ``check_use_kernels``, the check
 behind LARS's ``use_kernels`` option. The JAX package's per-leaf adapters are not
@@ -60,4 +61,19 @@ def lars_apply_packed(layout: packing.PackedLayout, wbuf: torch.Tensor,
     lr_blocks = packing.blocks_expand(layout, lr_slices.float())
     return lars_kernels.apply_flat(
         wbuf, gbuf, mbuf, lr_blocks, momentum=momentum,
+        weight_decay=weight_decay, block_rows=layout.block_rows)
+
+
+def lars_apply_packed_q8(layout: packing.PackedLayout, wbuf: torch.Tensor,
+                         gbuf: torch.Tensor, q_m: torch.Tensor,
+                         m_scale: torch.Tensor, lr_slices: torch.Tensor, *,
+                         momentum: float, weight_decay: float
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """``lars_apply_packed`` with int8 momentum codes + per-block scales:
+    dequantize, update and requantize in the ONE apply launch. Returns
+    (w_new, q_new, scale_new)."""
+    lr_blocks = packing.blocks_expand(layout, lr_slices.float())
+    return lars_kernels.apply_flat_q8(
+        wbuf, gbuf, q_m, m_scale, lr_blocks, momentum=momentum,
         weight_decay=weight_decay, block_rows=layout.block_rows)

@@ -1,16 +1,22 @@
 """Training entry point of the port (cnn family, one device): port of
-``repro/launch/train.py`` without the TrainPipeline layer.
+``repro/launch/train.py``. It runs through the large-batch
+:class:`~repro_torch.train.pipeline.TrainPipeline` — microbatched
+gradient accumulation, the bf16/f32 precision policy — with f32 or int8
+optimizer slots, and saves or resumes the full TrainState as npz.
 
-Example (on the card; ``--device cpu`` runs it on the CPU):
+Examples (on the card; ``--device cpu`` runs them on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-mnist \
       --optimizer lars --batch 8192 --steps 20 --lr 0.01 \
       --lr-policy linear --base-batch 32 --warmup 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-mnist \
+      --optimizer lars --opt-state-dtype int8 --accum-steps 8 \
+      --precision bf16 --batch 8192 --steps 20 --lr 0.01 \
+      --lr-policy linear --base-batch 32 --warmup 5 --checkpoint ckpt/s.npz
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
-Options of the JAX entry point that the port does not cover yet
-(gradient accumulation, bf16, meshes, int8 slots, checkpoints, config
-overrides) raise rather than being ignored.
+Options of the JAX entry point that the port does not cover yet (meshes,
+reduced configs, config overrides) raise rather than being ignored.
 """
 
 from __future__ import annotations
@@ -21,13 +27,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs import get_config
 from repro_torch.core import get_optimizer, schedules
 from repro_torch.core.scaling import scaled_lr
 from repro_torch.data import batch_iterator, synthetic_mnist
 from repro_torch.models import build_model
-from repro_torch.train import (create_train_state, make_eval_step,
-                               make_train_step, train_loop)
+from repro_torch.train import TrainPipeline, make_eval_step, train_loop
 from repro_torch.treepath import tree_leaves
 
 
@@ -62,15 +68,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="warmup steps; >0 switches to the You et al. "
                     "warmup + polynomial-decay schedule")
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--accum-steps", type=int, default=1)
-    ap.add_argument("--opt-state-dtype", default="f32")
-    ap.add_argument("--precision", default="f32")
+    ap.add_argument("--batch", type=int, default=32,
+                    help="GLOBAL batch size (split into --accum-steps "
+                    "microbatches)")
+    ap.add_argument("--accum-steps", type=int, default=1,
+                    help="microbatches accumulated per optimizer update")
+    ap.add_argument("--opt-state-dtype", default="f32",
+                    choices=("f32", "int8"),
+                    help="optimizer slot storage: int8 codes + per-block "
+                    "f32 scales (weights stay f32)")
+    ap.add_argument("--precision", default="f32", choices=("f32", "bf16"),
+                    help="bf16: bf16 compute + f32 master weights")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--checkpoint", default=None)
-    ap.add_argument("--resume", default=None)
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the FULL TrainState here when done")
+    ap.add_argument("--resume", default=None,
+                    help="restore a TrainState checkpoint before training")
     ap.add_argument("--set", action="append", default=[],
                     metavar="FIELD=VALUE")
     ap.add_argument("--device", default="cuda",
@@ -81,13 +96,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _check_ported(args) -> None:
     unported = {
         "--reduced": args.reduced,
-        f"--accum-steps {args.accum_steps}": args.accum_steps != 1,
-        f"--precision {args.precision}": args.precision != "f32",
-        f"--opt-state-dtype {args.opt_state_dtype}":
-            args.opt_state_dtype != "f32",
         f"--mesh {args.mesh}": args.mesh is not None,
-        "--checkpoint": args.checkpoint is not None,
-        "--resume": args.resume is not None,
         "--set": bool(args.set),
     }
     for flag, given in unported.items():
@@ -100,6 +109,9 @@ def main(argv=None) -> dict:
     """Train; returns a summary (losses, timings, eval accuracy)."""
     args = parse_args(argv)
     _check_ported(args)
+    if args.batch % args.accum_steps:
+        raise SystemExit(f"--batch {args.batch} must be divisible by "
+                         f"--accum-steps {args.accum_steps}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
@@ -109,13 +121,23 @@ def main(argv=None) -> dict:
 
     cfg = get_config(args.arch)
     model = build_model(cfg)
-    opt = get_optimizer(args.optimizer, learning_rate=make_lr_schedule(args))
-    state = create_train_state(
-        model, opt, torch.Generator().manual_seed(args.seed), device=device)
+    opt = get_optimizer(args.optimizer, learning_rate=make_lr_schedule(args),
+                        slot_dtype=args.opt_state_dtype)
+    pipeline = TrainPipeline(model, opt, cfg, accum_steps=args.accum_steps,
+                             precision=args.precision)
+    state = pipeline.init_state(torch.Generator().manual_seed(args.seed),
+                                device)
+    if args.resume:
+        state = restore_train_state(args.resume, state)
+        print(f"resumed from {args.resume} at step {state.opt_state.step}")
+    resumed_from = state.opt_state.step
     n_params = sum(x.numel() for x in tree_leaves(state.params))
     print(f"arch={cfg.name} family={cfg.family} params={n_params:,} "
           f"opt={opt.name} lr={args.lr} device={device} "
-          f"global_batch={args.batch}")
+          f"global_batch={args.batch} "
+          f"micro_batch={args.batch // args.accum_steps} "
+          f"accum={args.accum_steps} precision={args.precision} "
+          f"opt_state_dtype={args.opt_state_dtype}")
 
     # size the procedural dataset to the global batch: batch_iterator's
     # epoch wrap can only cover a shortfall of one dataset
@@ -125,8 +147,8 @@ def main(argv=None) -> dict:
     eval_batches = [to_device({"x": x_te[i:i + 256], "y": y_te[i:i + 256]},
                               device) for i in range(0, len(x_te), 256)]
 
-    state, hist = train_loop(make_train_step(model, opt, cfg), state,
-                             batches, args.steps, log_every=args.log_every,
+    state, hist = train_loop(pipeline, state, batches, args.steps,
+                             log_every=args.log_every,
                              eval_fn=make_eval_step(model, cfg),
                              eval_batches=eval_batches)
     run, ev = hist[-2], hist[-1]
@@ -134,6 +156,10 @@ def main(argv=None) -> dict:
     summary = {"arch": cfg.name, "optimizer": opt.name,
                "device": str(device), "params": n_params,
                "batch": args.batch, "steps": args.steps,
+               "accum_steps": args.accum_steps,
+               "precision": args.precision,
+               "opt_state_dtype": args.opt_state_dtype,
+               "resumed_from_step": resumed_from,
                "losses": run["losses"], "train_s": dt,
                "steps_per_s": args.steps / dt,
                "examples_per_s": args.steps * args.batch / dt,
@@ -142,6 +168,9 @@ def main(argv=None) -> dict:
           f"({summary['steps_per_s']:.2f} steps/s, "
           f"{summary['examples_per_s']:.0f} examples/s)")
     print(f"eval accuracy: {ev['eval_accuracy']:.4f}")
+    if args.checkpoint:
+        save_train_state(args.checkpoint, state)
+        print(f"full TrainState checkpoint -> {args.checkpoint}")
     return summary
 
 

@@ -1,16 +1,19 @@
 """TrainState: what is carried across steps (port of
-``repro/train/state.py``). The optimizer state is born on the
-flat-packed substrate: the model's stacked marker goes into
-``optimizer.init``, so weights and slots live in packed superbuffers.
+``repro/train/state.py``), and the precision policy it is built on. The
+optimizer state is born on the flat-packed substrate: the model's stacked
+marker goes into ``optimizer.init``, so weights and slots live in packed
+superbuffers.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import dataclasses
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.optim_base import OptState
+from repro_torch.treepath import tree_map
 
 Pytree = Any
 
@@ -20,17 +23,67 @@ class TrainState(NamedTuple):
     opt_state: OptState
 
 
+# ------------------------------------------------------------- precision
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Dtype policy for one training run: ``compute_dtype`` is what
+    params, activations and batch floats run in (``None`` leaves the
+    model's own dtypes); ``master_weights`` keeps an f32 master copy of
+    the params as an optimizer slot."""
+
+    name: str
+    compute_dtype: Optional[torch.dtype]
+    master_weights: bool
+
+
+PRECISIONS: dict[str, Precision] = {
+    "f32": Precision("f32", None, False),
+    "bf16": Precision("bf16", torch.bfloat16, True),
+}
+
+
+def get_precision(precision: str | Precision) -> Precision:
+    if isinstance(precision, Precision):
+        return precision
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; "
+                         f"have {sorted(PRECISIONS)}")
+    return PRECISIONS[precision]
+
+
+def cast_floats(tree: Pytree, dtype: Optional[torch.dtype]) -> Pytree:
+    """Cast float leaves to ``dtype``; int/bool leaves pass through."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+# ----------------------------------------------------------------- state
+
 def create_train_state(model, optimizer, generator: torch.Generator, *,
                        device: torch.device | str, packed: bool = True,
-                       precision: str = "f32") -> TrainState:
-    """Fresh TrainState on ``device`` from ``model.init(generator)``."""
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision {precision!r} is not yet ported to repro_torch")
+                       precision: str | Precision = "f32") -> TrainState:
+    """Fresh TrainState on ``device`` from ``model.init(generator)``;
+    ``precision="bf16"`` stores params in bfloat16 and seeds an f32
+    master-weight slot — the policy ``TrainPipeline`` applies."""
     if not packed:
         raise NotImplementedError(
             "per-leaf (packed=False) optimizer states are not yet ported "
             "to repro_torch")
-    params = model.init(generator, device)
+    return train_state_from_params(model, optimizer,
+                                   model.init(generator, device),
+                                   precision=precision)
+
+
+def train_state_from_params(model, optimizer, params: Pytree, *,
+                            precision: str | Precision = "f32"
+                            ) -> TrainState:
+    """TrainState from given params on a precision policy: params cast to
+    its compute dtype, the optimizer state packed from them."""
+    policy = get_precision(precision)
+    params = cast_floats(params, policy.compute_dtype)
     return TrainState(params=params, opt_state=optimizer.init(
-        params, stacked=model.stacked_marker(params)))
+        params, stacked=model.stacked_marker(params),
+        master=policy.master_weights))

@@ -15,7 +15,8 @@ import torch
 from repro_torch.train.losses import classification_loss
 from repro_torch.train.metrics import accuracy
 from repro_torch.train.state import TrainState
-from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
+from repro_torch.treepath import (tree_flatten_with_path, tree_leaves,
+                                  tree_unflatten)
 
 Pytree = Any
 
@@ -41,6 +42,17 @@ def value_and_grad(model, cfg, params: Pytree, batch
     return loss.detach(), tree_unflatten(treedef, grads), out
 
 
+def apply_update(model, optimizer, state: TrainState, grads, loss,
+                 aux_loss) -> tuple[TrainState, dict]:
+    """One optimizer update from the step's gradients (a tree, or
+    ``PackedGrads``), and the step's metrics."""
+    new_params, new_opt = optimizer.update(
+        grads, state.opt_state, state.params,
+        stacked=model.stacked_marker(state.params))
+    metrics = {"loss": loss, "aux_loss": aux_loss, "step": new_opt.step}
+    return TrainState(new_params, new_opt), metrics
+
+
 def make_train_step(model, optimizer, cfg=None) -> Callable:
     """(TrainState, batch) -> (TrainState, metrics dict)."""
     cfg = cfg if cfg is not None else model.cfg
@@ -48,12 +60,8 @@ def make_train_step(model, optimizer, cfg=None) -> Callable:
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss, grads, (_, aux) = value_and_grad(model, cfg, state.params,
                                                batch)
-        new_params, new_opt = optimizer.update(
-            grads, state.opt_state, state.params,
-            stacked=model.stacked_marker(state.params))
-        metrics = {"loss": loss, "aux_loss": aux["aux_loss"],
-                   "step": new_opt.step}
-        return TrainState(new_params, new_opt), metrics
+        return apply_update(model, optimizer, state, grads, loss,
+                            aux["aux_loss"])
 
     return step
 
@@ -65,6 +73,12 @@ def make_eval_step(model, cfg=None) -> Callable:
 
     @torch.no_grad()
     def step(params, batch) -> dict:
+        # batch floats in the params' float dtype, so a bf16-policy state
+        # evaluates on f32 host data
+        dt = next(x.dtype for x in tree_leaves(params)
+                  if x.is_floating_point())
+        batch = {k: v.to(dt) if v.is_floating_point() else v
+                 for k, v in batch.items()}
         loss, (logits, _) = _forward_and_loss(model, cfg, params, batch)
         return {"loss": loss, "accuracy": accuracy(logits, batch["y"])}
 

@@ -23,6 +23,20 @@ def _imports(path):
 
 def test_the_scan_sees_the_port():
     assert len(FILES) > 20
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/train/pipeline.py",
+            "src/repro_torch/checkpoint/npz.py",
+            "src/repro_torch/checkpoint/__init__.py"} <= names
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.train.pipeline", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.npz", "repro_torch.kernels.lars_kernels"])
+def test_new_modules_import_without_a_card(module):
+    """Importing builds nothing and needs no CUDA: kernels build inside
+    the call that launches them."""
+    import importlib
+    importlib.import_module(module)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(

@@ -34,14 +34,40 @@ def test_main_runs_on_cuda_unless_asked_otherwise():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--reduced"], ["--accum-steps", "2"], ["--precision", "bf16"],
-    ["--opt-state-dtype", "int8"], ["--mesh", "1x1"],
-    ["--checkpoint", "ckpt.npz"], ["--resume", "ckpt.npz"],
-    ["--set", "num_layers=3"], ["--optimizer", "lamb"],
-    ["--arch", "smollm-135m"]])
+    ["--reduced"], ["--mesh", "1x1"], ["--set", "num_layers=3"],
+    ["--optimizer", "lamb"], ["--arch", "smollm-135m"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(CPU + ["--steps", "1"] + extra)
+
+
+def test_large_batch_flags_checkpoint_and_resume(tmp_path):
+    """int8 slots, 4 accumulated microbatches, bf16 compute: train,
+    save the full TrainState, resume from it and go on."""
+    path = str(tmp_path / "ck" / "state.npz")
+    flags = CPU + ["--optimizer", "lars", "--opt-state-dtype", "int8",
+                   "--accum-steps", "4", "--precision", "bf16",
+                   "--batch", "64"]
+    out = train.main(flags + ["--steps", "3", "--checkpoint", path])
+    assert (out["accum_steps"], out["precision"], out["opt_state_dtype"],
+            out["resumed_from_step"]) == (4, "bf16", "int8", 0)
+    assert all(math.isfinite(x) for x in out["losses"])
+    with np.load(path) as data:
+        assert data[".opt_state/.slots/momentum"].dtype == np.int8
+        assert ".opt_state/.slots/master" in data.files
+        assert int(data[".opt_state/.step"]) == 3
+    out = train.main(flags + ["--steps", "2", "--resume", path,
+                              "--checkpoint", path])
+    assert out["resumed_from_step"] == 3
+    assert len(out["losses"]) == 2 and all(map(math.isfinite,
+                                                out["losses"]))
+    with np.load(path) as data:
+        assert int(data[".opt_state/.step"]) == 5
+    with pytest.raises(ValueError, match="cannot hold"):
+        train.main(CPU + ["--steps", "1", "--resume", path])
+    with pytest.raises(SystemExit):
+        train.main(CPU + ["--steps", "1", "--batch", "30",
+                          "--accum-steps", "4"])
 
 
 @pytest.mark.parametrize("warmup,policy", [(0, "none"), (0, "linear"),

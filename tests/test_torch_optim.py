@@ -27,7 +27,7 @@ from repro_torch.core import (get_optimizer, lars, packing, schedules, sgd,
                               trust_ratio as tr)
 from repro_torch.core.scaling import scaled_lr
 from repro_torch.kernels import lars_kernels as lk
-from repro_torch.treepath import tree_map
+from repro_torch.treepath import tree_leaves, tree_map
 
 SCHED_RTOL = 1e-6
 ENGINE_RTOL, ENGINE_ATOL = 1e-5, 1e-6
@@ -182,10 +182,8 @@ def test_unported_options_raise():
     tp = bridge.params_to_torch(params)
     with pytest.raises(NotImplementedError, match="tree engine"):
         lars(0.1).init(tp)
-    with pytest.raises(NotImplementedError, match="master"):
-        lars(0.1).init(tp, stacked=marker, master=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        sgd(0.1, slot_dtype="int8")
+    with pytest.raises(ValueError, match="slot_dtype"):
+        sgd(0.1, slot_dtype="int4")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_optimizer("lamb")
 
@@ -199,6 +197,40 @@ def test_use_kernels_true_raises_on_cpu_buffers():
         opt.update(tp, state, tp)
     with pytest.raises(ValueError, match="must be"):
         lars(0.1, use_kernels="pallas").update(tp, state, tp)
+
+
+@pytest.mark.parametrize("slot_dtype", ["f32", "int8"])
+def test_master_slot_engine_matches_reference(slot_dtype):
+    """init(master=True) keeps the f32 master in MASTER_SLOT (no packed
+    weight slot); update reads and writes it and returns the params as
+    its storage-dtype (bf16) view, as the reference does."""
+    params, marker = _lenet()
+    bf16 = jax.tree_util.tree_map(
+        lambda p: np.asarray(jnp.asarray(p, jnp.bfloat16)), params)
+    ref_opt = ref_core.lars(0.2, trust_coefficient=0.01, use_pallas=False,
+                            slot_dtype=slot_dtype)
+    rp = jax.tree_util.tree_map(jnp.asarray, bf16)
+    rs = ref_opt.init(rp, stacked=marker, master=True)
+    opt = lars(0.2, trust_coefficient=0.01, slot_dtype=slot_dtype)
+    tp = bridge.params_to_torch(bf16)
+    ts = opt.init(tp, stacked=marker, master=True)
+    assert sorted(ts.slots) == sorted(rs.slots)
+    assert packing.MASTER_SLOT in ts.slots
+    assert packing.WEIGHT_SLOT not in ts.slots
+    for step in range(2):
+        grads = _grads(params, step)
+        rp, rs = ref_opt.update(jax.tree_util.tree_map(jnp.asarray, grads),
+                                rs, rp, stacked=marker)
+        tp, ts = opt.update(bridge.params_to_torch(grads), ts, tp,
+                            stacked=marker)
+    master = ts.slots[packing.MASTER_SLOT]
+    assert master.dtype == torch.float32
+    _assert_close(master.numpy(), np.asarray(rs.slots[packing.MASTER_SLOT]),
+                  "master")
+    assert all(x.dtype == torch.bfloat16 for x in tree_leaves(tp))
+    view = packing.unpack(ts.layout, master)
+    tree_map(lambda a, b: np.testing.assert_array_equal(
+        a.float().numpy(), b.float().numpy()), tp, view)
 
 
 def test_update_rejects_a_different_marker():
