@@ -6,15 +6,22 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — the CUDA kernels, from the sources in the repository;
-3. kernels — every kernel of the main paths (``norms_flat``,
-             ``apply_flat``, ``apply_flat_q8``) against its plain PyTorch
-             version on the card, at LeNet's packed shape (272, 512) and
-             at (65536, 512), with the kernel's, the plain version's and
-             a library call's device time (calls replayed from a CUDA
+2. build   — the CUDA kernels, from the sources in the repository, one
+             ``nvcc`` per source, all started together;
+3. kernels — every kernel of the main paths against its plain PyTorch
+             version on the card, with the kernel's, the plain version's
+             and a library call's device time (calls replayed from a CUDA
              graph between CUDA events) beside the least time the card
              could take (its HBM bound), and the kernel wrapper's
-             per-call dispatch time;
+             per-call dispatch time: ``norms_flat``, ``apply_flat``,
+             ``apply_flat_q8`` at LeNet's packed shape (272, 512) and at
+             (65536, 512); ``flash_decode`` in bf16 at the serve path's
+             shape (B 32, S 4096, Hkv 3, G 3, D 64, lengths drawn in
+             1..S) and at a D = 128 GQA shape (B 8, S 32768, Hkv 8, G 5,
+             every length 32768), its library call one
+             ``F.scaled_dot_product_attention(..., enable_gqa=True)`` with
+             the length mask; and ``flash_decode`` in f32 and bf16 at D 64
+             and 128 with a zero-length row (which must give zeros);
 4. main    — ``repro_torch.launch.train``'s ``main`` on the card,
              lenet-mnist at batch 8192 for 20 steps: with LARS (exactly
              one ``norms_flat`` and one ``apply_flat`` launch per step),
@@ -31,10 +38,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
              steps: bit for bit, with cuDNN's deterministic algorithms;
 7. profile — a short ``torch.profiler`` window over main-path steps (f32
              LARS and the large-batch path): the device's busy share, time
-             by kernel, and the hand kernels' own device time in a step.
+             by kernel, and the hand kernels' own device time in a step;
+8. serve   — ``repro_torch.launch.serve``'s ``main`` on the card:
+             smollm-135m at full width (30 layers, bf16, random weights
+             from seed 0), 32 slots of capacity 4096 (a 3.0 GB KV cache),
+             64 requests with prompts of 256-2048 tokens and 32-256 new
+             tokens, a Poisson arrival every tick: exactly 30
+             ``flash_decode`` launches per decode tick and no LARS kernel,
+             every request finished with finite logits;
+9. serve card vs CPU — reduced smollm in f32: 16 teacher-forced decode
+             steps, card (kernel) against CPU (plain version), logits
+             within 1e-4; the engine's greedy tokens identical on both;
+             no ``flash_decode`` launch during prefill;
+10. serve profile — full-width smollm, 32 busy slots: admission launches
+             no ``flash_decode``; a ``torch.profiler`` window over 5
+             decode ticks: busy share, top device ops, ``flash_decode``'s
+             time and launches in a tick.
 
-It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``. It imports no JAX.
+It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
+kernels) and, last, ``{"ok": true, "device": {...}}``. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -76,6 +98,22 @@ APPLY_Q8_ATOL = 0.0
 # which moves its value by a whole step of the block scale: 1e-3.
 CARD_CPU_RTOL = {"f32": 1e-4, "int8": 1e-3}
 CKPT_STEPS = 10
+
+# flash_decode: (B, S, Hkv, G, D, lengths) timed in bf16 — the serve
+# path's shape (lengths drawn in 1..S) and decode_32k's D = 128 GQA shape
+FD_SHAPES = [(32, 4096, 3, 3, 64, "drawn"), (8, 32768, 8, 5, 128, "full")]
+FD_CALLS = {4096: 20, 32768: 5}       # calls per timed CUDA graph
+# the kernel sums in another order than its plain version (an online
+# rescale per tile of keys): f32 agrees to a few ulp of values of order
+# one; bf16 outputs round the same f32 result, so one bf16 ulp (2^-7
+# relative) may separate them
+FD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-6)}
+SERVE_ARGS = ["--arch", "smollm-135m", "--slots", "32", "--capacity", "4096",
+              "--requests", "64", "--prompt-min", "256", "--prompt-max",
+              "2048", "--new-min", "32", "--new-max", "256",
+              "--arrival-every", "1", "--seed", "0"]
+# reduced smollm, card vs CPU: only f32 summation orders differ
+SERVE_CARD_CPU_ATOL = 1e-4
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -258,7 +296,7 @@ def _row(rows, lane, err, rel, kernel_times, plain_ms, library_ms, nbytes,
             "bytes": nbytes, "operations": nops}
 
 
-def main_phase(train, lk) -> dict:
+def main_phase(train, lk, fdk) -> dict:
     """Phase 4: the port's entry point at batch 8192: LARS (the counted
     f32 run, first in the process, so it pays cuDNN's and cuBLAS's
     warm-up), SGD, LARS again for a warm timing, and the large-batch
@@ -270,8 +308,11 @@ def main_phase(train, lk) -> dict:
                        ("lars_warm", ["--optimizer", "lars"]),
                        ("lars_int8_bf16_accum8", LARGE_BATCH)):
         lk.reset_launch_counts()
+        fdk.reset_launch_counts()
         summary = train.main(MAIN_ARGS + extra)
         counts = dict(lk.LAUNCHES)
+        if fdk.LAUNCHES["flash_decode"]:
+            raise AssertionError(f"{tag}: training launched flash_decode")
         losses = summary["losses"]
         if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{tag}: losses {losses}")
@@ -434,6 +475,248 @@ def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
             "top_kernels_ms_per_step": [[n[:90], ms / steps] for n, ms in top]}
 
 
+def _fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen):
+    import torch
+    dev = torch.device("cuda")
+    q = torch.randn(B, Hkv, G, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+    if lengths == "drawn":
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    elif lengths == "full":
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    else:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, lens
+
+
+def _fd_err(fdk, q, k, v, lens, dtype_name) -> tuple[float, float]:
+    """(max abs err, max rel err) of the kernel against its plain
+    version; raises beyond FD_TOL."""
+    import torch
+    scale = q.shape[-1] ** -0.5
+    got = fdk.flash_decode(q, k, v, lens, scale=scale).float()
+    want = fdk.flash_decode_plain(q, k, v, lens, scale=scale).float()
+    torch.cuda.synchronize()
+    rtol, atol = FD_TOL[dtype_name]
+    err = (got - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"flash_decode {tuple(q.shape)} S "
+                             f"{k.shape[1]} {dtype_name}: max abs err "
+                             f"{err.max().item()} beyond rtol {rtol} atol "
+                             f"{atol}")
+    zero = (lens == 0).nonzero().flatten()
+    if len(zero) and not bool((got[zero] == 0).all()):
+        raise AssertionError("flash_decode: a zero-length row is not zero")
+    return err.max().item(), (err / want.abs().clamp(min=1e-6)).max().item()
+
+
+def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
+    """Phase 3, flash_decode: f32 and bf16 at D 64 and 128 with zero-length
+    rows, then the timed bf16 rows at FD_SHAPES."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for D, Hkv, G in ((64, 3, 3), (128, 8, 5)):
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v, lens = _fd_inputs(8, 4096, Hkv, G, D, "drawn", dt, gen)
+            lens[0], lens[1], lens[2] = 0, 1, 4096 + 7
+            err, rel = _fd_err(fdk, q, k, v, lens, name)
+            log(f"  flash_decode {name} D={D} G={G}: max abs err {err:.3g} "
+                f"(rel {rel:.3g}); lengths 0, 1, S+7 included")
+    rows = []
+    for B, S, Hkv, G, D, lengths in FD_SHAPES:
+        q, k, v, lens = _fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16,
+                                   gen)
+        err, rel = _fd_err(fdk, q, k, v, lens, "bfloat16")
+        scale = D ** -0.5
+        valid = int(lens.clamp(max=S).sum())
+        # K and V over the valid rows, q read and out written once, lengths
+        nbytes = valid * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + B * 4
+        # per valid key and query head: D multiply-adds for the score and
+        # D for the value product, plus the exp
+        nops = valid * Hkv * G * (4 * D + 1)
+        calls = FD_CALLS[S]
+        qs = q.reshape(B, Hkv * G, 1, D)
+        kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        mask = (torch.arange(S, device=q.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
+                                                  scale=scale,
+                                                  enable_gqa=True)
+        row = _row(B, S, err, rel, timings(
+            lambda: fdk.flash_decode(q, k, v, lens, scale=scale), calls),
+            device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens,
+                                                     scale=scale),
+                      calls=max(1, calls // 5)),
+            device_ms(sdpa, calls=calls), nbytes, nops, bw, flops)
+        del row["rows"], row["lane"]
+        row.update(shape={"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
+                          "dtype": "bfloat16", "lengths": lengths,
+                          "valid_rows": valid})
+        log(f"  flash_decode B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 "
+            f"({lengths} lengths, {valid} valid rows): kernel "
+            f"{row['ms']:.5f} ms (dispatch {row['dispatch_ms']:.4f})  plain "
+            f"{row['plain_ms']:.5f} ms  SDPA {row['library_ms']:.5f} ms  "
+            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  max abs "
+            f"err {err:.3g}")
+        rows.append(row)
+        del q, k, v, lens, kt, vt, mask, qs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_phase(serve, fdk, lk) -> dict:
+    """Phase 8: the serve entry point at full width. Every launch count is
+    set to 0 just before it and read just after."""
+    import torch
+    lk.reset_launch_counts()
+    fdk.reset_launch_counts()
+    rep = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(fdk.LAUNCHES)
+    lars = dict(lk.LAUNCHES)
+    ticks = rep["decode_steps"]
+    want = rep["num_layers"] * ticks
+    log(f"  {rep['requests']} requests, {rep['tokens']} tokens, "
+        f"{rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks, "
+        f"{rep['admit_calls']} admissions; flash_decode launches "
+        f"{launches['flash_decode']} (want {want}); LARS kernels {lars}; "
+        f"logits finite {rep['logits_finite']}")
+    if launches["flash_decode"] != want or ticks == 0:
+        raise AssertionError(f"serve: {launches} flash_decode launches for "
+                             f"{ticks} ticks of {rep['num_layers']} layers")
+    if any(lars.values()):
+        raise AssertionError(f"serve launched LARS kernels: {lars}")
+    if rep["requests"] != 64 or not rep["logits_finite"]:
+        raise AssertionError(f"serve: {rep['requests']} of 64 requests "
+                             f"finished, logits finite "
+                             f"{rep['logits_finite']}")
+    keys = ("requests", "tokens", "wall_s", "tok_per_s", "occupancy",
+            "latency_mean_s", "latency_p50_s", "latency_p90_s",
+            "latency_p99_s", "ttft_mean_s", "ttft_p50_s", "ttft_p90_s",
+            "ttft_p99_s", "decode_steps", "admit_calls", "logits_finite")
+    return dict({k: rep[k] for k in keys}, launches=launches)
+
+
+def _reduced_lm(device):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(0), device)
+
+
+def serve_card_vs_cpu_phase(fdk) -> dict:
+    """Phase 9: reduced smollm (f32) on the CPU (plain) and the card."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.treepath import tree_map
+    cfg, model, params = _reduced_lm("cpu")
+    card = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 24)))
+    lens = torch.tensor([24, 5, 17, 1], dtype=torch.int32)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (16, 4, 1)))
+    logits = {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        fdk.reset_launch_counts()
+        _, cache = model.prefill(p, toks.to(dev), cache_len=48,
+                                 lengths=lens.to(dev))
+        if fdk.LAUNCHES["flash_decode"]:
+            raise AssertionError("prefill launched flash_decode")
+        logits[dev] = torch.stack([model.decode_step(p, cache, t.to(dev))[0]
+                                   .cpu() for t in feed])
+        want = cfg.num_layers * len(feed) if dev == "cuda" else 0
+        if fdk.LAUNCHES["flash_decode"] != want:
+            raise AssertionError(f"{dev}: {fdk.LAUNCHES} launches, want "
+                                 f"{want}")
+    diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (3, 9, 30, 14,
+                                                              6)]
+    greedy = {dev: [t.tolist() for t in ServeEngine(
+        model, p, cfg, slots=2, capacity=64).generate(prompts, 12)]
+        for dev, p in (("cpu", params), ("cuda", card))}
+    same = greedy["cpu"] == greedy["cuda"]
+    log(f"  16 teacher-forced decode steps: max abs logits diff {diff:.3g} "
+        f"(tolerance {SERVE_CARD_CPU_ATOL}); greedy tokens of 5 requests "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not diff <= SERVE_CARD_CPU_ATOL or not same:
+        raise AssertionError(f"serve card vs CPU: diff {diff}, greedy "
+                             f"{greedy}")
+    return {"max_abs_logits_diff": diff, "greedy_identical": same}
+
+
+def serve_profile_phase(fdk, ticks: int = 5) -> dict:
+    """Phase 10: full-width smollm, 32 busy slots: admission launches no
+    flash_decode; then the profiler over ``ticks`` decode ticks."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    engine = ServeEngine(model, params, cfg, slots=32, capacity=4096,
+                         prefill_bucket=16)
+    rng = np.random.default_rng(1)
+    for _ in range(32):
+        engine.submit(rng.integers(0, cfg.vocab_size,
+                                   (int(rng.integers(256, 2049)),)), 1000)
+    fdk.reset_launch_counts()
+    engine._admit_pending()
+    torch.cuda.synchronize()
+    if fdk.LAUNCHES["flash_decode"] or len(engine.scheduler.active) != 32:
+        raise AssertionError(f"admission: {fdk.LAUNCHES}, "
+                             f"{len(engine.scheduler.active)} active")
+    for _ in range(3):                              # warm-up ticks
+        engine.step()
+    torch.cuda.synchronize()
+    fdk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = fdk.LAUNCHES["flash_decode"]
+    if launches != cfg.num_layers * ticks:
+        raise AssertionError(f"profile: {launches} launches in {ticks} "
+                             "ticks")
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    fd_ms = sum(ms for n, ms in kernels.items() if "flash_decode" in n)
+    log(f"  {ticks} decode ticks, 32 slots: wall {wall_ms / ticks:.3f} "
+        f"ms/tick, device busy {busy / ticks:.3f} ms/tick "
+        f"({100 * busy / wall_ms:.1f}%); flash_decode {fd_ms / ticks:.4f} "
+        f"ms/tick in {launches // ticks} launches" if busy else
+        "  device time not measured (the profiler recorded no CUDA events)")
+    for name, ms in top:
+        log(f"    {ms / ticks:9.4f} ms/tick  {name[:90]}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"wall_ms_per_tick": wall_ms / ticks,
+            "device_busy_ms_per_tick": busy / ticks if busy else None,
+            "flash_decode_ms_per_tick": fd_ms / ticks if busy else None,
+            "flash_decode_launches_per_tick": launches / ticks,
+            "top_kernels_ms_per_tick": [[n[:90], ms / ticks]
+                                        for n, ms in top]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -441,8 +724,9 @@ def main() -> int:
               "run needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import build, lars_kernels as lk
-    from repro_torch.launch import train
+    from repro_torch.kernels import build, flash_decode as fdk
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.launch import serve, train
 
     log("== 1. device")
     name = torch.cuda.get_device_name(0)
@@ -463,9 +747,10 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     kern = kernel_phase(lk, bw, flops)
+    fd_rows = flash_decode_phase(fdk, bw, flops)
 
     log("== 4. main path: lenet-mnist, batch 8192, 20 steps")
-    runs = main_phase(train, lk)
+    runs = main_phase(train, lk, fdk)
 
     log("== 5. card against CPU: 5 LARS steps at batch 32")
     card_cpu = card_vs_cpu_phase(train)
@@ -475,6 +760,15 @@ def main() -> int:
 
     log("== 7. profile of main-path steps")
     prof = {path: profile_phase(path) for path in ("f32", "large_batch")}
+
+    log("== 8. serve: smollm-135m at full width, 32 slots, 64 requests")
+    served = serve_phase(serve, fdk, lk)
+
+    log("== 9. serve, card against CPU: reduced smollm in f32")
+    serve_cpu = serve_card_vs_cpu_phase(fdk)
+
+    log("== 10. serve profile: 5 decode ticks at full width")
+    serve_prof = serve_profile_phase(fdk)
 
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
                 "apply_flat": "src/repro/kernels/lars_kernels.py:86",
@@ -505,11 +799,30 @@ def main() -> int:
             "device_ms_in_step": in_step["hand_kernel_device_ms_per_step"][
                 kname],
             "shapes": rows})
+    serve_row = fd_rows[0]                  # the serve path's shape
+    ticks = served["decode_steps"]
+    entries.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:85",
+        "launches": served["launches"]["flash_decode"],
+        "launches_per_tick": served["launches"]["flash_decode"] / ticks,
+        "max_abs_err": serve_row["max_abs_err"],
+        "ms": serve_row["ms"], "kernel_ms": serve_row["ms"],
+        "dispatch_ms": serve_row["dispatch_ms"],
+        "plain_ms": serve_row["plain_ms"],
+        "bound_ms": serve_row["bound_ms"],
+        "bound_by": serve_row["bound_by"],
+        "library_ms": serve_row["library_ms"],
+        "device_ms_in_tick": serve_prof["flash_decode_ms_per_tick"],
+        "shapes": fd_rows})
     main_path = {tag: {k: r[k] for k in ("steps_per_s", "examples_per_s",
                                         "eval_accuracy", "train_s")}
                  for tag, r in runs.items()}
     log(json.dumps({"main_path": main_path, "card_vs_cpu_rel": card_cpu,
-                    "checkpoint": ckpt, "profile": prof}))
+                    "checkpoint": ckpt, "profile": prof, "serve": served,
+                    "serve_card_vs_cpu": serve_cpu,
+                    "serve_profile": serve_prof}))
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

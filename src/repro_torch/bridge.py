@@ -1,5 +1,5 @@
-"""Carry params and packed optimizer states between the JAX package and
-the port, as numpy arrays.
+"""Carry params, packed optimizer states and LM decode caches between
+the JAX package and the port, as numpy arrays.
 
 The caller turns the JAX side into numpy (``jax.device_get`` /
 ``np.asarray``) and back; this module only sees numpy, so the port stays
@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
 from repro_torch.core.packing import PackedLayout
-from repro_torch.treepath import tree_map
+from repro_torch.treepath import tree_flatten_with_path, tree_map
 
 Pytree = Any
 
@@ -74,3 +74,42 @@ def opt_state_to_torch(step: int, slots: dict, layout: PackedLayout,
 def opt_state_to_numpy(state: OptState) -> tuple[int, dict]:
     return state.step, {k: tensor_to_numpy(v)
                         for k, v in state.slots.items()}
+
+
+def lm_params_to_torch(params: Pytree, model,
+                       device: torch.device | str = "cpu") -> Pytree:
+    """An LM's params (the reference's nested dict of numpy arrays:
+    stacked ``(L, ...)`` layer leaves, ``(in, out)`` dense weights) as
+    the port's tree on ``device``. Every leaf's path and shape is
+    checked against the port's own ``model.init`` (drawn on the meta
+    device, so nothing is computed)."""
+    got = params_to_torch(params, device)
+    want = model.init(torch.Generator().manual_seed(0), "meta")
+    got_leaves, got_def = tree_flatten_with_path(got)
+    want_leaves, want_def = tree_flatten_with_path(want)
+    if got_def != want_def:
+        raise ValueError(f"param paths differ from the port's init: "
+                         f"missing {sorted(set(want_def) - set(got_def))}, "
+                         f"extra {sorted(set(got_def) - set(want_def))}")
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        if g.shape != w.shape:
+            raise ValueError(f"param {'/'.join(path)} has shape "
+                             f"{tuple(g.shape)}, the port's init "
+                             f"{tuple(w.shape)}")
+    return got
+
+
+def cache_to_torch(cache: dict, device: torch.device | str = "cpu"
+                   ) -> dict:
+    """A dense LM's decode cache (``pos`` (B,) int32, ``k``/``v``
+    (L, B, S, Hkv, hd)) from the reference, as tensors on ``device``."""
+    if set(cache) != {"pos", "k", "v"}:
+        raise ValueError(f"expected a dense decode cache (pos, k, v), got "
+                         f"{sorted(cache)}")
+    out = {k: tensor_from_numpy(v, device) for k, v in cache.items()}
+    out["pos"] = out["pos"].to(torch.int32)
+    return out
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    return {k: tensor_to_numpy(v) for k, v in cache.items()}

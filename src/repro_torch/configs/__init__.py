@@ -3,14 +3,15 @@ architectures it runs; the JAX package's other archs are named here so
 that asking for one says it is not yet ported rather than unknown.
 """
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
-from repro_torch.configs import lenet_mnist
+from repro_torch.configs.base import ModelConfig, param_count  # noqa: F401
+from repro_torch.configs import lenet_mnist, smollm_135m
 
-ARCHS: dict[str, ModelConfig] = {lenet_mnist.CONFIG.name: lenet_mnist.CONFIG}
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (lenet_mnist, smollm_135m)}
 
 # registered in repro.configs, not yet in the port
 NOT_YET_PORTED = ("whisper-base", "deepseek-v2-236b", "zamba2-7b",
-                  "smollm-135m", "minitron-8b", "falcon-mamba-7b",
+                  "minitron-8b", "falcon-mamba-7b",
                   "qwen3-14b", "qwen2-72b", "paligemma-3b",
                   "granite-moe-3b-a800m")
 

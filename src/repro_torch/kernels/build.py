@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: dict[str, tuple[str, ...]] = {
     # no FMA contraction: apply_flat matches its plain version bit for bit
     "lars_kernels": ("-fmad=false",),
+    "flash_decode": (),
 }
 
 

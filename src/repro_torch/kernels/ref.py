@@ -1,7 +1,8 @@
-"""Plain-PyTorch oracles of the per-leaf LARS kernel semantics (port of
-``repro/kernels/ref.py``, LARS part): the ground truth the packed
-kernels and their adapters in :mod:`repro_torch.kernels.ops` are held
-against."""
+"""Plain-PyTorch oracles of the kernel semantics (port of
+``repro/kernels/ref.py``): the per-leaf LARS norms and apply, the ground
+truth the packed kernels and their adapters in
+:mod:`repro_torch.kernels.ops` are held against, and single-token decode
+attention, the plain version of the ``flash_decode`` kernel."""
 
 from __future__ import annotations
 
@@ -29,3 +30,35 @@ def lars_apply(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
         lr = lr.reshape(lr.shape + (1,) * (wf.ndim - lr.ndim))
     m_new = momentum * m.float() + lr * (gf + weight_decay * wf)
     return (wf - m_new).to(w.dtype), m_new
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor, *, scale: float | None = None
+                 ) -> torch.Tensor:
+    """Single-token decode attention with per-sequence valid lengths.
+
+    q: (B, H, D); k/v: (B, S, Hkv, D); lengths: (B,) int — positions
+    >= length are masked (a length past S masks nothing, a length of 0
+    everything: that row gives zeros). GQA: H = G * Hkv. Returns
+    (B, H, D) in q.dtype; scores and softmax in f32.
+    """
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, Hkv, G, D)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) * scale
+    pos = torch.arange(S, device=q.device)[None, None, None, :]
+    mask = pos < lengths.to(q.device)[:, None, None, None]
+    p = _softmax(torch.where(mask, scores, -torch.inf))
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    m = torch.amax(x, dim=-1, keepdim=True)
+    # guard fully-masked rows (all -inf): exp(-inf - -inf) -> nan; shift by 0
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.exp(x - m)
+    return e / torch.clamp(torch.sum(e, dim=-1, keepdim=True), min=1e-30)

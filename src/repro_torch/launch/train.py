@@ -120,6 +120,10 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch)
+    if cfg.family != "cnn":
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not yet "
+            "ported to repro_torch.launch.train")
     model = build_model(cfg)
     opt = get_optimizer(args.optimizer, learning_rate=make_lr_schedule(args),
                         slot_dtype=args.opt_state_dtype)

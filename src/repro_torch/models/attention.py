@@ -1,0 +1,150 @@
+"""GQA/MHA/MQA attention of the dense family: projections, the
+blockwise online-softmax core for prefill, and one-token decode over a
+persistent KV cache. Port of ``repro/models/attention.py``.
+
+Layouts as the reference's: q (B, S, H, D), k/v (B, S, Hkv, D), a
+layer's decode cache (B, S_buf, Hkv, D). The port updates the cache IN
+PLACE (the reference returns a new array): :func:`_insert_at` is an
+index write of one row per sequence, so a decode step never copies the
+cache.
+
+Prefill runs :func:`attention_core`, the reference's algorithm (it is
+jnp there, not Pallas): f32 scores, an online softmax over KV chunks,
+the causal mask. Decode runs the hand-written ``flash_decode`` kernel
+through :func:`repro_torch.kernels.ops.flash_decode` (its plain version
+on CPU tensors); the reference's other decode path, its jnp core,
+computes the same function and is not ported.
+
+Attention features that smollm does not use (``qkv_bias``, ``qk_norm``,
+``sliding_window`` rings, ``attn_logit_softcap``) and MLA raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+
+NEG_INF = -1.0e30
+
+
+def check_supported(cfg) -> None:
+    """Raise on attention features the port does not cover yet."""
+    unported = {"qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+                "sliding_window": cfg.sliding_window,
+                "use_mla": cfg.use_mla}
+    for name, value in unported.items():
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r} is not yet ported to repro_torch")
+    if cfg.attn_logit_softcap:
+        # the reference applies the cap on its jnp path but drops it on
+        # its flash-decode path; the port refuses rather than pick one
+        raise NotImplementedError(
+            f"attn_logit_softcap={cfg.attn_logit_softcap} is not yet "
+            "ported to repro_torch (the reference's flash-decode path "
+            "ignores it while its jnp path applies it)")
+
+
+def init_attention(gen: torch.Generator, cfg, d: int, dtype: torch.dtype,
+                   device) -> dict:
+    H, Hkv, hd = cfg.attn_dims
+    return {"wq": L.dense_init(gen, d, H * hd, dtype, device),
+            "wk": L.dense_init(gen, d, Hkv * hd, dtype, device),
+            "wv": L.dense_init(gen, d, Hkv * hd, dtype, device),
+            "wo": L.dense_init(gen, H * hd, d, dtype, device)}
+
+
+def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                rope: bool = True):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), rotated."""
+    check_supported(cfg)
+    H, Hkv, hd = cfg.attn_dims
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    if rope and cfg.use_rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_positions: torch.Tensor, kv_chunk: int = 1024
+                   ) -> torch.Tensor:
+    """Causal online-softmax attention over KV chunks of ``kv_chunk`` keys.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D). q_positions: (Sq,) or
+    (B, Sq); keys sit at positions 0..Sk-1 and a query attends the keys
+    at or before its position. Returns (B, Sq, H, D) in q.dtype; scores,
+    softmax and accumulation in f32. The last chunk may be short (the
+    reference pads it and masks the pad: the same function).
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    scale = D ** -0.5
+    kc = min(kv_chunk, Sk)
+    if q_positions.ndim == 1:
+        q_positions = q_positions[None].expand(B, Sq)
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, Dv), device=q.device)
+    for c0 in range(0, Sk, kc):
+        kb = k[:, c0:c0 + kc].float()
+        vb = v[:, c0:c0 + kc].float()
+        kp = torch.arange(c0, c0 + kb.shape[1], device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
+        mask = kp[None, None, :] <= q_positions[..., :, None]   # (B,Sq,kc)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]) * (s > NEG_INF / 2)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                    p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]    # (B,Hkv,G,Sq,Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor):
+    """One-token decode: x (B,1,d), a layer's cache (B,S_buf,Hkv,hd),
+    pos (B,) int32 absolute position. Writes the new K/V row into the
+    cache in place and attends it through ``flash_decode`` (ONE kernel
+    launch on CUDA tensors, the plain version on CPU tensors); returns
+    (out (B,1,d), cache_k, cache_v).
+
+    A free or retired slot keeps decoding, so its ``pos`` passes the
+    capacity. The reference's ``dynamic_update_slice`` clamps that
+    write to row S_buf - 1 and its masks then take every row; the port
+    writes at min(pos, S_buf - 1) and attends min(pos + 1, S_buf) rows —
+    the same function, and no write out of bounds on the card.
+    """
+    B = x.shape[0]
+    H, Hkv, hd = cfg.attn_dims
+    S_buf = cache_k.shape[1]
+    q, k_new, v_new = qkv_project(cfg, p, x, pos[:, None])
+    _insert_at(cache_k, k_new, pos)
+    _insert_at(cache_v, v_new, pos)
+    kv_len = torch.clamp(pos + 1, max=S_buf).to(torch.int32)
+    out = kops.flash_decode(q[:, 0], cache_k, cache_v, kv_len,
+                            scale=hd ** -0.5)
+    out = out.reshape(B, 1, H * hd) @ p["wo"]
+    return out, cache_k, cache_v
+
+
+def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
+               ) -> torch.Tensor:
+    """cache (B,S,h,d), new (B,1,h,d), pos (B,): write row
+    min(pos[b], S-1) of each sequence, in place; returns ``cache``."""
+    S = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, torch.clamp(pos, max=S - 1).long()] = new[:, 0].to(
+        cache.dtype)
+    return cache

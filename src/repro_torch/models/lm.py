@@ -1,0 +1,255 @@
+"""Decoder-only language model, dense family: port of the dense branch of
+``repro/models/lm.py`` — init, the decode cache, one-token decode,
+(length-masked) prefill and slot admission into a persistent cache.
+
+Params are nested dicts in the reference's leaf layouts: per-layer
+leaves stacked on a leading ``(L, ...)`` axis under ``"layers"``,
+``(in, out)`` dense weights, an ``(V, d)`` embedding (tied to the
+unembedding when the config says so), f32 norm scales. The layer loop
+is a Python loop over ``L`` views of the stacked leaves.
+
+The decode cache is ``{"pos": (B,) int32, "k", "v": (L, B, S, Hkv, hd)}``
+as the reference's. Where the reference returns new arrays (and donates
+the old ones to XLA), the port writes in place: :meth:`decode_step`
+writes one K/V row per sequence and layer and advances ``pos``;
+:meth:`prefill_at` writes the admitted slots' prompt rows and ``pos``.
+Both return the cache they were given.
+
+Other families (moe, ssm, hybrid, vlm) and the attention features of
+:func:`repro_torch.models.attention.check_supported` raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
+
+Pytree = Any
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class LanguageModel:
+    def __init__(self, cfg):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"model family {cfg.family!r} is not yet ported to "
+                "repro_torch (the LM port covers the dense family)")
+        A.check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = DTYPES[cfg.dtype]
+
+    # ------------------------------------------------------------------ init
+
+    def _init_layer(self, gen: torch.Generator, device) -> dict:
+        cfg, d, dt = self.cfg, self.cfg.d_model, self.dtype
+        return {"ln1": L.init_norm(cfg, d, device),
+                "ln2": L.init_norm(cfg, d, device),
+                "attn": A.init_attention(gen, cfg, d, dt, device),
+                "mlp": init_mlp(gen, cfg, d, cfg.d_ff, dt, device)}
+
+    def init(self, generator: torch.Generator, device) -> Pytree:
+        """Random params at the reference's distributions (fan-in normal
+        dense weights, embedding std 0.02, norms at one), drawn from
+        ``generator`` (a CPU generator) in a fixed order and moved to
+        ``device``: one seed gives the same weights on every device."""
+        cfg, d, dt = self.cfg, self.cfg.d_model, self.dtype
+        embed = L.embed_init(generator, cfg.vocab_size, d, dt, device)
+        layers = [self._init_layer(generator, device)
+                  for _ in range(cfg.num_layers)]
+        params = {"embed": embed,
+                  "layers": _stack(layers),
+                  "final_norm": L.init_norm(cfg, d, device)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.dense_init(generator, d, cfg.vocab_size,
+                                             dt, device)
+        return params
+
+    def stacked_marker(self, params: Pytree) -> Pytree:
+        """Bool pytree: True for (L, ...)-stacked leaves (under 'layers')."""
+        leaves, treedef = tree_flatten_with_path(params)
+        return tree_unflatten(treedef, ["layers" in path
+                                        for path, _ in leaves])
+
+    # ------------------------------------------------------------- embedding
+
+    def embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, params["embed"])
+
+    def logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm, then the matmul in the params' dtype, then f32."""
+        x = L.apply_norm(self.cfg, x, params["final_norm"])
+        w = (params["embed"].T if self.cfg.tie_embeddings
+             else params["unembed"])
+        return (x @ w).float()
+
+    # ----------------------------------------------------------------- cache
+
+    def init_cache(self, batch: int, seq_len: int, *, device=None) -> dict:
+        cfg = self.cfg
+        dt = self.dtype
+        _, Hkv, hd = cfg.attn_dims
+        shape = (cfg.num_layers, batch, seq_len, Hkv, hd)
+        return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def cache_capacity(self, cache: dict) -> int:
+        """Token capacity of a decode cache."""
+        return cache["k"].shape[2]
+
+    # ---------------------------------------------------------------- decode
+
+    def _layer_decode(self, params_l, x, cache_k, cache_v, pos):
+        """One layer, one token; writes this layer's cache rows."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, params_l["ln1"])
+        out, _, _ = A.decode_attention(cfg, params_l["attn"], h, cache_k,
+                                       cache_v, pos)
+        x = x + out
+        h = L.apply_norm(cfg, x, params_l["ln2"])
+        return x + mlp_block(cfg, params_l["mlp"], h)
+
+    @torch.no_grad()
+    def decode_step(self, params, cache: dict, tokens: torch.Tensor, *,
+                    use_flash: bool | str = "auto"
+                    ) -> tuple[torch.Tensor, dict]:
+        """tokens (B, 1) -> (logits (B, 1, V) f32, the cache, updated in
+        place: one K/V row per sequence and layer, and ``pos + 1``).
+
+        Attention runs through the ``flash_decode`` wrapper: one kernel
+        launch per layer on CUDA tensors, its plain version on CPU
+        tensors. ``use_flash`` only checks that placement, as LARS's
+        ``use_kernels`` does: ``"auto"`` takes either, ``True`` needs
+        CUDA tensors, ``False`` CPU tensors.
+        """
+        kops.check_use_kernels(use_flash, cache["k"].device,
+                               option="use_flash")
+        x = self.embed_tokens(params, tokens)
+        pos = cache["pos"]
+        layers = params["layers"]
+        for i in range(self.cfg.num_layers):
+            params_l = _index(layers, i)
+            x = self._layer_decode(params_l, x, cache["k"][i], cache["v"][i],
+                                   pos)
+        pos.add_(1)
+        return self.logits(params, x), cache
+
+    # --------------------------------------------------------------- prefill
+
+    @torch.no_grad()
+    def prefill(self, params, tokens: torch.Tensor, *,
+                cache_len: Optional[int] = None,
+                lengths: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, dict]:
+        """Run the full prompt, building a decode cache of capacity
+        ``cache_len`` (default: the prompt length).
+
+        ``lengths`` (B,) int32 marks per-row true prompt lengths of a
+        right-padded token batch: logits come from each row's last valid
+        position and the cache ``pos`` is set to ``lengths``. Causality
+        makes the padded forward exact for valid positions; pad-position
+        KV entries are never read back (decode masks kv_len = pos + 1).
+        Returns (last-valid-token logits (B, V) f32, cache).
+        """
+        cfg = self.cfg
+        x = self.embed_tokens(params, tokens)
+        B, S, _ = x.shape
+        H, _, hd = cfg.attn_dims
+        positions = torch.arange(S, device=x.device)
+        cap = cache_len or S
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            params_l = _index(params["layers"], i)
+            h = L.apply_norm(cfg, x, params_l["ln1"])
+            q, k, v = A.qkv_project(cfg, params_l["attn"], h, positions)
+            out = A.attention_core(q, k, v, q_positions=positions)
+            x = x + out.reshape(B, S, H * hd) @ params_l["attn"]["wo"]
+            h = L.apply_norm(cfg, x, params_l["ln2"])
+            x = x + mlp_block(cfg, params_l["mlp"], h)
+            ks.append(k)
+            vs.append(v)
+        logits = self._last_valid_logits(params, x, lengths)
+        # a copy: decode_step advances pos in place
+        pos = (torch.full((B,), S, dtype=torch.int32, device=x.device)
+               if lengths is None else lengths.to(torch.int32, copy=True))
+        cache = {"pos": pos,
+                 "k": _fit(torch.stack(ks).to(self.dtype), cap, dim=2),
+                 "v": _fit(torch.stack(vs).to(self.dtype), cap, dim=2)}
+        return logits, cache
+
+    def _last_valid_logits(self, params, x: torch.Tensor,
+                           lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """Logits of each row's last valid position ((B, V) f32)."""
+        if lengths is None:
+            return self.logits(params, x[:, -1:])[:, 0]
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_last = x[rows, lengths.long() - 1][:, None]          # (B, 1, d)
+        return self.logits(params, x_last)[:, 0]
+
+    # ------------------------------------------------------ slot admission
+
+    @torch.no_grad()
+    def prefill_at(self, params, cache: dict, tokens: torch.Tensor,
+                   slots: torch.Tensor, *,
+                   lengths: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, dict]:
+        """Prefill prompts and write the resulting decode state into
+        rows ``slots`` of a persistent slot cache (continuous-batching
+        admission).
+
+        cache: a live decode cache for ALL slots; tokens (n, S)
+        right-padded prompts; slots (n,) slot ids; lengths (n,) true
+        prompt lengths (None = all S). Returns (last-valid-token logits
+        (n, V), the cache): the admitted slots' ``pos`` and their first
+        S K/V rows are written in place, every other slot's state is
+        untouched. Rows at S and past keep what they held: decode writes
+        row ``pos`` before it attends to it, so they are never read.
+        """
+        S = tokens.shape[1]
+        cap = self.cache_capacity(cache)
+        if S > cap:
+            raise ValueError(f"prompt buffer {S} exceeds "
+                             f"cache capacity {cap}")
+        logits, small = self.prefill(params, tokens, lengths=lengths)
+        slots = slots.to(device=cache["pos"].device, dtype=torch.long)
+        cache["pos"].index_copy_(0, slots, small["pos"])
+        for name in ("k", "v"):                # (L, B, cap, ...)
+            cache[name][:, slots, :S] = small[name]
+        return logits, cache
+
+
+def _index(tree: Pytree, i: int) -> Pytree:
+    """Layer ``i``'s views of the stacked ``(L, ...)`` leaves."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list) -> Pytree:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _fit(x: torch.Tensor, cap: int, *, dim: int) -> torch.Tensor:
+    """Pad (zeros) or crop (keep the last ``cap``) x along ``dim``."""
+    S = x.shape[dim]
+    if S == cap:
+        return x
+    if S > cap:
+        return x.narrow(dim, S - cap, cap)
+    shape = list(x.shape)
+    shape[dim] = cap
+    out = x.new_zeros(shape)
+    out.narrow(dim, 0, S).copy_(x)
+    return out

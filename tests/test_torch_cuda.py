@@ -282,3 +282,139 @@ def test_pipeline_bf16_int8_accumulation_on_the_card(cuda):
     assert torch.isfinite(metrics["loss"])
     assert state.opt_state.slots[packing.MASTER_SLOT].dtype == torch.float32
     assert state.params["fc1"]["w"].dtype == torch.bfloat16
+
+
+# ------------------------------------------------------------ flash_decode
+#
+# The kernel sums the softmax and the value products in another order
+# than its plain version (tiles of 32 or 64 keys, an online rescale per
+# tile): in f32 the outputs agree to a few ulp of values of order one,
+# held at atol 1e-5 / rtol 1e-5. In bf16 both round the same f32 result
+# to bf16 at the end, so an output may differ by one bf16 ulp: rtol
+# 2^-7 (one ulp relative), atol 1e-6.
+
+from repro_torch.kernels import flash_decode as fdk  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.treepath import tree_map  # noqa: E402
+
+FD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
+# (B, S, Hkv, G, D): smollm's G = 3 at D 64, qwen3's G = 5 at D 128,
+# MQA with G = 8, G = 1, and the reduced smollm's D = 72
+FD_SHAPES = [(4, 1000, 3, 3, 64), (2, 700, 8, 5, 128), (3, 129, 1, 8, 64),
+             (2, 300, 2, 1, 128), (2, 50, 1, 4, 72)]
+
+
+def _fd_inputs(B, S, Hkv, G, D, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, Hkv, G, D, generator=g)
+    k = torch.randn(B, S, Hkv, D, generator=g)
+    v = torch.randn(B, S, Hkv, D, generator=g)
+    # lengths 0, 1, S and past S among the rows, the rest drawn
+    lengths = torch.randint(1, S + 1, (B,), generator=g, dtype=torch.int32)
+    lengths[0] = S
+    lengths[-1] = 0 if B > 2 else S + 7
+    if B > 3:
+        lengths[1] = 1
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            lengths.to(device))
+
+
+@pytest.mark.parametrize("shape", FD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_matches_plain(cuda, shape, dtype):
+    q, k, v, lengths = _fd_inputs(*shape, dtype, cuda)
+    scale = shape[-1] ** -0.5
+    before = fdk.LAUNCHES["flash_decode"]
+    got = fdk.flash_decode(q, k, v, lengths, scale=scale)
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES["flash_decode"] == before + 1
+    want = fdk.flash_decode_plain(q, k, v, lengths, scale=scale)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_zero_length_rows_give_zeros(cuda, dtype):
+    q, k, v, _ = _fd_inputs(3, 256, 2, 4, 64, dtype, cuda)
+    lengths = torch.tensor([0, 5, 0], dtype=torch.int32, device=cuda)
+    v[1] = 1.0
+    out = fdk.flash_decode(q, k, v, lengths, scale=0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    # a row attending to identical values gives that value
+    torch.testing.assert_close(out[1].float(), torch.ones_like(out[1].float()),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["misaligned", "strided", "dtype", "lengths",
+                                 "group", "head_dim", "device"])
+def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda, bad):
+    q, k, v, lengths = _fd_inputs(2, 64, 2, 3, 64, torch.bfloat16, cuda)
+    if bad == "misaligned":
+        flat = torch.zeros(k.numel() + 1, dtype=k.dtype, device=cuda)
+        k = flat[1:].view(k.shape)
+    elif bad == "strided":
+        k = torch.cat([k, k], dim=3)[..., ::2]
+    elif bad == "dtype":
+        k = k.half()
+    elif bad == "lengths":
+        lengths = lengths.long()
+    elif bad == "group":
+        q = torch.zeros(2, 2, 9, 64, dtype=q.dtype, device=cuda)
+    elif bad == "head_dim":
+        q, k, v = (x[..., :60].contiguous() for x in (q, k, v))
+    else:
+        lengths = lengths.cpu()
+    before = fdk.LAUNCHES["flash_decode"]
+    with pytest.raises(ValueError):
+        fdk.flash_decode(q, k, v, lengths, scale=0.125)
+    assert fdk.LAUNCHES["flash_decode"] == before
+
+
+def _lm(device, **changes):
+    import dataclasses
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), **changes)
+    model = build_model(cfg)
+    return cfg, model, model.init(torch.Generator().manual_seed(1), device)
+
+
+def test_decode_tick_is_one_flash_decode_launch_per_layer(cuda):
+    """A decode tick launches the kernel once per layer; admission
+    (prefill) launches it never."""
+    cfg, model, params = _lm(cuda, num_layers=3)
+    engine = ServeEngine(model, params, cfg, slots=4, capacity=64)
+    rng = np.random.default_rng(0)
+    for n in (5, 9, 17):
+        engine.submit(rng.integers(0, cfg.vocab_size, (n,)), 6)
+    fdk.reset_launch_counts()
+    engine._admit_pending()
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES["flash_decode"] == 0
+    while engine.scheduler.has_work():
+        engine.step()
+    assert engine.stats["decode_steps"] == 5
+    assert fdk.LAUNCHES["flash_decode"] == 5 * cfg.num_layers
+    assert engine.logits_finite
+
+
+def test_decode_step_on_the_card_matches_the_cpu(cuda):
+    """Reduced smollm in f32 (head_dim 64, G = 3): prefill then 8
+    teacher-forced decode steps, card (kernel) vs CPU (plain version).
+    Only f32 summation orders differ: logits within 1e-4."""
+    cfg, model, params = _lm("cpu", num_heads=9, num_kv_heads=3,
+                             head_dim=64)
+    card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 12)))
+    lens = torch.tensor([12, 4, 9], dtype=torch.int32)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 3, 1)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        _, cache = model.prefill(p, toks.to(dev), cache_len=32,
+                                 lengths=lens.to(dev))
+        out[dev] = [model.decode_step(p, cache, t.to(dev))[0].cpu()
+                    for t in feed]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

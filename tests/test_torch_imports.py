@@ -26,12 +26,22 @@ def test_the_scan_sees_the_port():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"src/repro_torch/train/pipeline.py",
             "src/repro_torch/checkpoint/npz.py",
-            "src/repro_torch/checkpoint/__init__.py"} <= names
+            "src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/kernels/flash_decode.py",
+            "src/repro_torch/models/lm.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/launch/serve.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
     "repro_torch.train.pipeline", "repro_torch.checkpoint",
-    "repro_torch.checkpoint.npz", "repro_torch.kernels.lars_kernels"])
+    "repro_torch.checkpoint.npz", "repro_torch.kernels.lars_kernels",
+    "repro_torch.kernels.flash_decode", "repro_torch.models.layers",
+    "repro_torch.models.mlp", "repro_torch.models.attention",
+    "repro_torch.models.lm", "repro_torch.serve",
+    "repro_torch.serve.sampling", "repro_torch.serve.cache",
+    "repro_torch.serve.scheduler", "repro_torch.serve.engine",
+    "repro_torch.launch.serve", "repro_torch.configs.smollm_135m"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""
