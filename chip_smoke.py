@@ -18,7 +18,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              (65536, 512); ``flash_decode`` in bf16 at the serve path's
              shape (B 32, S 4096, Hkv 3, G 3, D 64, lengths drawn in
              1..S) and at a D = 128 GQA shape (B 8, S 32768, Hkv 8, G 5,
-             every length 32768), its library call one
+             every length 32768), with each shape's split count and CTA
+             count (the kernel splits the keys), its library call one
              ``F.scaled_dot_product_attention(..., enable_gqa=True)`` with
              the length mask; and ``flash_decode`` in f32 and bf16 at D 64
              and 128 with a zero-length row (which must give zeros);
@@ -104,7 +105,7 @@ CKPT_STEPS = 10
 FD_SHAPES = [(32, 4096, 3, 3, 64, "drawn"), (8, 32768, 8, 5, 128, "full")]
 FD_CALLS = {4096: 20, 32768: 5}       # calls per timed CUDA graph
 # the kernel sums in another order than its plain version (an online
-# rescale per tile of keys): f32 agrees to a few ulp of values of order
+# rescale per tile of keys, a merge of warps and of splits): f32 agrees to a few ulp of values of order
 # one; bf16 outputs round the same f32 result, so one bf16 ulp (2^-7
 # relative) may separate them
 FD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-6)}
@@ -475,7 +476,9 @@ def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
             "top_kernels_ms_per_step": [[n[:90], ms / steps] for n, ms in top]}
 
 
-def _fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen):
+def fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen):
+    """q, k, v and lengths on the card for flash_decode, drawn from
+    ``gen``; ``lengths`` is "drawn" (1..S), "full" (S) or a list."""
     import torch
     dev = torch.device("cuda")
     q = torch.randn(B, Hkv, G, D, generator=gen, device=dev).to(dtype)
@@ -521,15 +524,15 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
     for D, Hkv, G in ((64, 3, 3), (128, 8, 5)):
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-            q, k, v, lens = _fd_inputs(8, 4096, Hkv, G, D, "drawn", dt, gen)
+            q, k, v, lens = fd_inputs(8, 4096, Hkv, G, D, "drawn", dt, gen)
             lens[0], lens[1], lens[2] = 0, 1, 4096 + 7
             err, rel = _fd_err(fdk, q, k, v, lens, name)
             log(f"  flash_decode {name} D={D} G={G}: max abs err {err:.3g} "
                 f"(rel {rel:.3g}); lengths 0, 1, S+7 included")
     rows = []
     for B, S, Hkv, G, D, lengths in FD_SHAPES:
-        q, k, v, lens = _fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16,
-                                   gen)
+        q, k, v, lens = fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16,
+                                  gen)
         err, rel = _fd_err(fdk, q, k, v, lens, "bfloat16")
         scale = D ** -0.5
         valid = int(lens.clamp(max=S).sum())
@@ -548,6 +551,7 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
             return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
                                                   scale=scale,
                                                   enable_gqa=True)
+        plan = fdk.plan(q, k)
         row = _row(B, S, err, rel, timings(
             lambda: fdk.flash_decode(q, k, v, lens, scale=scale), calls),
             device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens,
@@ -557,9 +561,12 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
         del row["rows"], row["lane"]
         row.update(shape={"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
                           "dtype": "bfloat16", "lengths": lengths,
-                          "valid_rows": valid})
+                          "valid_rows": valid},
+                   splits=plan.splits, keys_per_split=plan.keys_per_split,
+                   ctas=B * Hkv * plan.splits)
         log(f"  flash_decode B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 "
-            f"({lengths} lengths, {valid} valid rows): kernel "
+            f"({lengths} lengths, {valid} valid rows; {plan.splits} splits "
+            f"of {plan.keys_per_split} keys, {row['ctas']} CTAs): kernel "
             f"{row['ms']:.5f} ms (dispatch {row['dispatch_ms']:.4f})  plain "
             f"{row['plain_ms']:.5f} ms  SDPA {row['library_ms']:.5f} ms  "
             f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  max abs "
@@ -807,6 +814,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_decode.py:85",
         "launches": served["launches"]["flash_decode"],
         "launches_per_tick": served["launches"]["flash_decode"] / ticks,
+        "splits": serve_row["splits"],
         "max_abs_err": serve_row["max_abs_err"],
         "ms": serve_row["ms"], "kernel_ms": serve_row["ms"],
         "dispatch_ms": serve_row["dispatch_ms"],

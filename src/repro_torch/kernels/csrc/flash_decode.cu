@@ -1,4 +1,5 @@
-// Single-token GQA decode attention for Hopper (sm_90a).
+// Single-token GQA decode attention for Hopper (sm_90a), split over the
+// keys of the cache.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_decode.py:
 //   flash_decode_grouped (_decode_kernel) -> flash_decode_{f32,bf16}
@@ -7,364 +8,745 @@
 // over the valid positions j < min(lengths[b], S), for the G query heads
 // that share kv head h. Inputs: q (B, Hkv, G, D), k and v (B, S, Hkv, D),
 // lengths (B,) int32, all contiguous, in f32 or bf16; the output is
-// (B, Hkv, G, D) in q's type. A row of length 0 gives zeros (the reference
-// clamps the softmax denominator at 1e-30), never NaN.
+// (B, Hkv, G, D) in q's type. A row of length 0 gives zeros, never NaN.
 //
 // What bounds it on this card: HBM bytes. Each valid key costs 2 * D values
-// of K and V (256 B in bf16 at D = 64) for 4 * G * D flops, about 1.5 flop/B
-// at G = 3: two orders of magnitude below the H100's ridge. The design:
-//   * one CTA of 256 threads per (b, kv head). On the TPU the grid walked
-//     the S axis in order and carried the online-softmax state in VMEM
-//     scratch; here a loop inside the CTA walks the KV tiles and keeps the
-//     state (running max and denominator in shared memory, the G x D
-//     accumulator in registers). The G query rows sit in shared memory, f32.
-//   * the loop runs over the valid rows only, min(lengths[b], S), in tiles
-//     of 16 KB of K and 16 KB of V (128 keys in bf16 at D = 64). The Pallas
-//     grid walks all of S and masks; the function is the same, and the
-//     bytes read are those the data needs. Any S is taken, with no padding
-//     copy.
-//   * every global load is 16 B per thread, neighbouring threads on
-//     neighbouring addresses. The next tile's loads are issued into
-//     registers before the current tile is computed, so one tile (32 KB) is
-//     in flight while the CTA computes.
-//   * scores: one thread per (key, group of heads), 16-byte reads of the
-//     key's row out of shared memory (rows padded by 16 B: no bank
-//     conflicts), the query rows broadcast, four partial sums per head;
-//     softmax per query row by one warp (shuffles for max and sum); the
-//     value product: each thread owns 4 columns of d for every head and a
-//     strided subset of the tile's keys, G x 4 independent accumulators;
-//     the key subsets are summed once, after the last tile.
-//   * f32 everywhere inside; expf (not __expf); positions past the length
-//     get a score of -1e30 and a probability of exactly 0.
-//   * the head dim is a template bound (64 or 128): loops over d unroll; a
-//     smaller D (a multiple of 8) runs in the next bound up.
-// The simple design leaves bandwidth on the table: B * Hkv CTAs (96 at the
-// serve path's B = 32, Hkv = 3) for 132 SMs, one CTA per SM, one tile in
-// flight, and no split of S across CTAs, so the longest row sets the time.
-// Split-KV, TMA and wgmma are for a later change.
+// of K and V for 4 * G * D flops, 1.5-2.5 flop/B: two orders of magnitude
+// below the H100's ridge. The design keeps enough bytes in flight on every
+// SM and keeps the arithmetic per byte small enough to hide behind them:
+//   * split-KV. The grid is (B * Hkv) x splits; split s of a (b, h) pair
+//     walks keys [s * keys_per_split, (s + 1) * keys_per_split) of the
+//     valid rows. The host chooses the split count from the shapes and the
+//     SM count only (never from lengths, which would cost a sync): a few
+//     waves of CTAs over the card whatever B * Hkv is. A split that starts
+//     at or past min(lengths[b], S) exits at once, so short rows cost
+//     nothing and the longest row no longer sets the time.
+//   * the 4 warps of a CTA are independent streams. Warp w takes tiles w,
+//     w + 4, ... of its split (a K tile and a V tile) and copies them
+//     global -> shared with cp.async, 16 B per lane, into a ring of its
+//     own: two or three tiles are in flight while one is computed, and
+//     nothing is staged through registers. Only __syncwarp orders the ring:
+//     no block-wide barrier in the loop. Rows of one (b, h) are Hkv * D
+//     values apart; rows past the valid length (and chunks past D) are
+//     zero-filled by the copy (src-size 0). Shared-memory rows are
+//     XOR-swizzled by 16-byte chunk, so the reads are free of bank
+//     conflicts without padding.
+//   * each warp keeps its own online softmax in registers (running max,
+//     denominator, its slice of the accumulator), with scores, maxima and
+//     sums through warp shuffles.
+//     - bf16: tensor cores. Per tile of 16 keys, the scores are
+//       mma.sync m16n8k16 (bf16 in, f32 accumulate; the G query rows padded
+//       to 16, held as A fragments in registers for the whole split; K by
+//       ldmatrix): bf16 products are exact in f32. Lane (r, t) holds row
+//       g = r's scores for 4 keys, so its max and sum take 2 shuffles. The
+//       value product keeps P in f32: P = hi + mid + lo, three bf16 terms
+//       that carry all 24 bits of the f32 P, each an m16n8k16 against V
+//       (ldmatrix.trans) into an f32 accumulator; the score's C fragments
+//       are the value product's A fragments, with no data movement.
+//     - f32: CUDA cores (no TF32). Per tile of 8 or 4 keys, 32 / keys lanes
+//       share a key's dot product over their chunks of d (query rows in
+//       shared memory, scaled), summed by shuffles; each lane owns D / 32
+//       columns of the accumulator for every head, and a probability
+//       reaches the value product by one shuffle per key and head.
+//   * the merge stays in the launch. After its last tile a CTA merges its
+//     warps through shared memory (one barrier) and, if its (b, h) has more
+//     than one valid split, writes (m, l, accumulator) to an f32 workspace,
+//     fences, and takes a ticket (an integer per (b, h)). The CTA that takes
+//     the last ticket merges the splits in split order and resets the
+//     ticket to 0. No float atomics: two calls give the same bits.
+//   * f32 inside; scores in base 2 (scale * log2 e, then exp2f); positions
+//     past the length get a score of -1e30 and a probability of exactly 0.
+//     The head dim is a template bound (64 or 128); a smaller D (a multiple
+//     of 8) runs in the next bound up.
 //
 // Every entry point launches on the given stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of its launch.
+// synchronise, and returns cudaGetLastError() of its launch (or the error of
+// setting the kernel's dynamic shared memory, the first time on a device).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;
-constexpr int kTileBytes = 16384;          // one tile of K (and one of V)
-constexpr float kNegInf = -1.0e30f;
+using bf16 = __nv_bfloat16;
 
-// 16 bytes of T as floats: 4 for f32, 8 for bf16; 4 values as floats.
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxG = 8;
+constexpr int kMaxDevices = 64;
+constexpr int kNoRow = 1 << 29;            // a copy slot past D: zero-fill
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kNegInf = -1.0e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------------ helpers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+// c[0..1] += A B for rows 0-7 of a 16 x 8 tile: A (16 x 16 bf16) has rows
+// 8-15 zero (a1 = a3 = 0), so rows 8-15 of the product are dropped.
+__device__ __forceinline__ void mma_rows8(float* c, uint32_t a0, uint32_t a2,
+                                          uint32_t b0, uint32_t b1) {
+  float d2, d3;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%10,%11};\n"
+      : "+f"(c[0]), "+f"(c[1]), "=f"(d2), "=f"(d3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.0f),
+        "f"(0.0f));
+  (void)d2;
+  (void)d3;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x, y) = hi + mid + lo in three packed bf16 pairs: 24 bits of each f32.
+__device__ __forceinline__ void split3(float x, float y, uint32_t* hi,
+                                       uint32_t* mid, uint32_t* lo) {
+  const float xh = __bfloat162float(__float2bfloat16_rn(x));
+  const float yh = __bfloat162float(__float2bfloat16_rn(y));
+  const float xr = x - xh, yr = y - yh;
+  const float xm = __bfloat162float(__float2bfloat16_rn(xr));
+  const float ym = __bfloat162float(__float2bfloat16_rn(yr));
+  *hi = pack_bf16(xh, yh);
+  *mid = pack_bf16(xm, ym);
+  *lo = pack_bf16(xr - xm, yr - ym);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
 template <typename T>
 struct Conv;
 
 template <>
 struct Conv<float> {
-  __device__ static void chunk(const uint4& raw, float* out) {
-    const float4 f = *reinterpret_cast<const float4*>(&raw);
-    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
-  }
-  __device__ static void four(const unsigned char* p, float* out) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
-  }
   __device__ static float to_float(float x) { return x; }
   __device__ static float from_float(float x) { return x; }
 };
 
 template <>
-struct Conv<__nv_bfloat16> {
-  __device__ static void chunk(const uint4& raw, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void four(const unsigned char* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]);
-    const float2 b = __bfloat1622float2(h[1]);
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  }
-  __device__ static float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __nv_bfloat16 from_float(float x) { return __float2bfloat16(x); }
+struct Conv<bf16> {
+  __device__ static float to_float(bf16 x) { return __bfloat162float(x); }
+  __device__ static bf16 from_float(float x) { return __float2bfloat16(x); }
 };
 
-// The shapes of one instantiation: element type T, head dim bound DMAX.
-template <typename T, int DMAX>
-struct Cfg {
-  static constexpr int kE = 16 / sizeof(T);                 // values per chunk
-  static constexpr int kKeys = kTileBytes / (DMAX * sizeof(T));  // keys per tile
-  static constexpr int kRow = DMAX * sizeof(T) + 16;         // padded smem row, B
-  static constexpr int kChunksPerThread = kTileBytes / 16 / kThreads;  // 4
-  static constexpr int kHeadGroups = kThreads / kKeys;      // score phase
-  static constexpr int kHeadsPerThread = (kMaxG + kHeadGroups - 1) / kHeadGroups;
-  static constexpr int kCols = DMAX / 4;                    // value phase
-  static constexpr int kKeyGroups = kThreads / kCols;
-  static_assert(kKeys >= 32 && kKeys <= kThreads, "a warp's keys share heads");
-  static_assert(kKeyGroups * kMaxG * DMAX * 4 <= 2 * kKeys * kRow,
-                "the key-group sums fit in the tile buffers");
+// One tile's copies: this lane's SLOTS 16-byte chunks of the K tile and of
+// the V tile (the V tile tile_bytes after the K tile). A slot whose row is
+// at or past rows_left, or that lies past D (row kNoRow), is zero-filled.
+template <typename T, int SLOTS>
+__device__ __forceinline__ void copy_tile(uint32_t st, int tile_bytes,
+                                          const T* kt, const T* vt,
+                                          const int* soff, const int* srow,
+                                          const long long* goff,
+                                          int rows_left) {
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const bool ok = srow[s] < rows_left;
+    const long long off = ok ? goff[s] : 0;   // row 0 is valid memory
+    cp_async16(st + soff[s], kt + off, ok ? 16 : 0);
+    cp_async16(st + tile_bytes + soff[s], vt + off, ok ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// The first steps of both kernels: which keys this CTA reads, or none.
+struct Split {
+  int pair, b, h, n, nvalid, k0, k1;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+template <typename T>
+__device__ __forceinline__ bool open_split(const int* lengths, T* out, int S,
+                                           int Hkv, int G, int D,
+                                           int keys_per_split, Split* sp) {
+  sp->pair = blockIdx.x;
+  sp->b = sp->pair / Hkv;
+  sp->h = sp->pair - sp->b * Hkv;
+  sp->n = max(0, min(lengths[sp->b], S));
+  sp->nvalid = (sp->n + keys_per_split - 1) / keys_per_split;
+  const int split = blockIdx.y;
+  if (split >= sp->nvalid) {              // nothing to read in this split
+    if (sp->n == 0 && split == 0) {
+      T* ob = out + (long long)sp->pair * G * D;
+      for (int i = threadIdx.x; i < G * D; i += kThreads)
+        ob[i] = Conv<T>::from_float(0.0f);
+    }
+    return false;
+  }
+  sp->k0 = split * keys_per_split;
+  sp->k1 = min(sp->k0 + keys_per_split, sp->n);
+  return true;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Issue the loads of one tile (rows t0 .. t0 + kKeys - 1 of this (b, h))
-// into registers; rows at or past n are left as zeros.
+// After the loop, every warp has written its state to red[warp][g][0..DMAX+1]
+// (accumulator, m, l) and the CTA has synchronised. Merge the warps; with one
+// valid split store the output, else write the split's state to the
+// workspace and let the last CTA of the pair merge the splits in order.
 template <typename T, int DMAX>
-__device__ __forceinline__ void load_tile(const T* __restrict__ kbase,
-                                          const T* __restrict__ vbase,
-                                          long long row_stride, int t0, int n,
-                                          int chunks_per_row, uint4* kreg,
-                                          uint4* vreg) {
-  using C = Cfg<T, DMAX>;
+__device__ __forceinline__ void finish(const float* red, T* out, float* ws,
+                                       int* tickets, const Split& sp,
+                                       int splits, int G, int D) {
+  constexpr int kRed = DMAX + 2;
+  __shared__ int last_ticket;
+  const int tid = threadIdx.x;
+  const bool single = sp.nvalid == 1;
+  T* ob = out + (long long)sp.pair * G * D;
+  float* wsp = ws + ((long long)sp.pair * splits + blockIdx.y) * G * (D + 2);
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    float mx = kNegInf;
 #pragma unroll
-  for (int i = 0; i < C::kChunksPerThread; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int j = c / chunks_per_row;
-    const int col = (c - j * chunks_per_row) * C::kE;
-    kreg[i] = make_uint4(0u, 0u, 0u, 0u);
-    vreg[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (j < C::kKeys && t0 + j < n) {
-      const long long off = (long long)(t0 + j) * row_stride + col;
-      kreg[i] = __ldg(reinterpret_cast<const uint4*>(kbase + off));
-      vreg[i] = __ldg(reinterpret_cast<const uint4*>(vbase + off));
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[(w * kMaxG + g) * kRed + DMAX]);
+    float a = 0.0f, den = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* r = red + (w * kMaxG + g) * kRed;
+      const float f = exp2f(r[DMAX] - mx);
+      a += r[d] * f;
+      den += r[DMAX + 1] * f;
+    }
+    if (single) {
+      ob[i] = Conv<T>::from_float(a / fmaxf(den, 1e-30f));
+    } else {
+      float* wg = wsp + g * (D + 2);
+      wg[d] = a;
+      if (d == 0) {
+        wg[D] = mx;
+        wg[D + 1] = den;
+      }
     }
   }
+  if (single) return;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_ticket = atomicAdd(tickets + sp.pair, 1) == sp.nvalid - 1;
+  __syncthreads();
+  if (!last_ticket) return;
+  __threadfence();
+  const float* wp = ws + (long long)sp.pair * splits * G * (D + 2);
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    float mx = kNegInf;
+    for (int s = 0; s < sp.nvalid; ++s)
+      mx = fmaxf(mx, __ldcg(wp + (s * G + g) * (D + 2) + D));
+    float a = 0.0f, den = 0.0f;
+    for (int s = 0; s < sp.nvalid; ++s) {   // split order: the same bits
+      const float* wg = wp + (s * G + g) * (D + 2);
+      const float f = exp2f(__ldcg(wg + D) - mx);
+      a += __ldcg(wg + d) * f;
+      den += __ldcg(wg + D + 1) * f;
+    }
+    ob[i] = Conv<T>::from_float(a / fmaxf(den, 1e-30f));
+  }
+  if (tid == 0) tickets[sp.pair] = 0;     // ready for the next call
 }
 
-template <typename T, int DMAX>
+// ------------------------------------------------------- bf16: tensor cores
+
+template <int DMAX>
+struct MmaCfg {
+  static constexpr int kStages = 3;
+  static constexpr int kKeys = 16;                       // per warp tile
+  static constexpr int kChunks = DMAX / 8;               // 16 B per row
+  static constexpr int kRowBytes = DMAX * 2;
+  static constexpr int kTile = kKeys * kRowBytes;        // K (or V) tile
+  static constexpr int kSlots = kKeys * kChunks / 32;    // copies per lane
+  static constexpr int kKS = DMAX / 16;                  // score k-steps
+  static constexpr int kNB = DMAX / 8;                   // value n-blocks
+  static constexpr int kWarpRing = kStages * 2 * kTile;
+  static constexpr int kSmem = kWarps * kWarpRing;
+  static_assert(kSlots * 32 == kKeys * kChunks, "whole copies per lane");
+  static_assert(kWarps * kMaxG * (DMAX + 2) * 4 <= kSmem,
+                "the warps' merge fits over the rings");
+};
+
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ out, int S, int Hkv, int G, int D,
-                    float scale) {
-  using C = Cfg<T, DMAX>;
-  constexpr int kKeys = C::kKeys;
-  __shared__ __align__(16) float q_s[kMaxG * DMAX];
-  __shared__ __align__(16) unsigned char kv_s[2 * kKeys * C::kRow];  // K, V
-  __shared__ float p_s[kMaxG * kKeys];      // scores, then probabilities
-  __shared__ float m_s[kMaxG], l_s[kMaxG], a_s[kMaxG];
-  unsigned char* k_s = kv_s;
-  unsigned char* v_s = kv_s + kKeys * C::kRow;
+flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const int* __restrict__ lengths, bf16* __restrict__ out,
+                        float* __restrict__ ws, int* __restrict__ tickets,
+                        int S, int Hkv, int G, int D, float scale, int splits,
+                        int keys_per_split) {
+  using C = MmaCfg<DMAX>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Split sp;
+  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp)) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;               // fragment row: query head g
+  const int tq = lane & 3;                // fragment column pair
+  const long long row_stride = (long long)Hkv * D;
+  const bf16* kb = k + (long long)sp.b * S * row_stride + (long long)sp.h * D;
+  const bf16* vb = v + (long long)sp.b * S * row_stride + (long long)sp.h * D;
+  const uint32_t ring = smem_addr(smem + warp * C::kWarpRing);
 
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x - b * Hkv;
+  // the query rows as A fragments, for the whole split: row gr, columns
+  // 16 ks + 2 tq (+1) and 16 ks + 8 + 2 tq (+1); rows past G are zero
+  uint32_t qa[C::kKS][2];
+  const bf16* qrow = q + ((long long)sp.pair * G + gr) * D;
+#pragma unroll
+  for (int ks = 0; ks < C::kKS; ++ks)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int col = ks * 16 + hf * 8 + 2 * tq;
+      qa[ks][hf] = gr < G && col < D ? *reinterpret_cast<const uint32_t*>(qrow + col) : 0u;
+    }
+
+  // this lane's copies: the same (row, chunk) slots in every tile; chunk
+  // c of row r sits at chunk c ^ (r & 7), so ldmatrix's 8 rows hit 8 banks
+  const int cpr = D / 8;
+  int soff[C::kSlots], srow[C::kSlots];
+  long long goff[C::kSlots];
+#pragma unroll
+  for (int i = 0; i < C::kSlots; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / C::kChunks, c = idx % C::kChunks;
+    srow[i] = c < cpr ? r : kNoRow;
+    soff[i] = r * C::kRowBytes + ((c ^ (r & 7)) << 4);
+    goff[i] = r * row_stride + c * 8;
+  }
+  const int ntiles = (sp.k1 - sp.k0 + C::kKeys - 1) / C::kKeys;
+  const int mine = ntiles > warp ? (ntiles - warp + kWarps - 1) / kWarps : 0;
+  auto issue = [&](int i) {               // tile warp + 4 i into stage i % 3
+    if (i < mine) {
+      const int t0 = sp.k0 + (warp + i * kWarps) * C::kKeys;
+      copy_tile<bf16, C::kSlots>(ring + (i % C::kStages) * 2 * C::kTile,
+                                 C::kTile, kb + t0 * row_stride,
+                                 vb + t0 * row_stride, soff, srow, goff,
+                                 sp.k1 - t0);
+    } else {
+      cp_async_commit();                  // empty groups keep the count
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < C::kStages - 1; ++i) issue(i);
+
+  const float qscale = scale * kLog2e;
+  float m = kNegInf, l = 0.0f;            // row gr; l over this lane's keys
+  float acc[C::kNB][2];                   // row gr, columns 8 nb + 2 tq (+1)
+#pragma unroll
+  for (int nb = 0; nb < C::kNB; ++nb) acc[nb][0] = acc[nb][1] = 0.0f;
+
+  for (int i = 0; i < mine; ++i) {
+    issue(i + C::kStages - 1);
+    cp_async_wait<C::kStages - 1>();      // this lane's copies of tile i
+    __syncwarp();                         // ... and the other lanes'
+    const uint32_t kt = ring + (i % C::kStages) * 2 * C::kTile;
+    const uint32_t vt = kt + C::kTile;
+    const int t0 = sp.k0 + (warp + i * kWarps) * C::kKeys;
+
+    // scores of keys 8 nb + 2 tq (+1), nb = 0, 1: Q K^T by tensor cores
+    float sc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+      for (int j = 0; j < C::kKS / 2; ++j) {   // two k-steps per ldmatrix
+        if (32 * j < D) {
+          const int key = nb * 8 + (lane & 7);
+          const int chunk = 4 * j + (lane >> 3);
+          uint32_t bk[4];
+          ldmatrix_x4(kt + key * C::kRowBytes + ((chunk ^ (key & 7)) << 4), bk);
+          mma_rows8(sc[nb], qa[2 * j][0], qa[2 * j][1], bk[0], bk[1]);
+          mma_rows8(sc[nb], qa[2 * j + 1][0], qa[2 * j + 1][1], bk[2], bk[3]);
+        }
+      }
+    }
+
+    float s[4], mx = kNegInf;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = t0 + (e >> 1) * 8 + 2 * tq + (e & 1);
+      s[e] = key < sp.k1 ? sc[e >> 1][e & 1] * qscale : kNegInf;
+      mx = fmaxf(mx, s[e]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = exp2f(m - m_new);
+    m = m_new;
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = exp2f(s[e] - m_new);
+    l = l * alpha + ((p[0] + p[1]) + (p[2] + p[3]));
+#pragma unroll
+    for (int nb = 0; nb < C::kNB; ++nb) {
+      acc[nb][0] *= alpha;
+      acc[nb][1] *= alpha;
+    }
+
+    // P V: P's f32 values as three bf16 terms; the score's C fragments
+    // (keys 2 tq, 2 tq + 1 and 8 + 2 tq, 9 + 2 tq of row gr) are A's a0, a2
+    uint32_t ph[2], pm[2], pl[2];
+    split3(p[0], p[1], &ph[0], &pm[0], &pl[0]);
+    split3(p[2], p[3], &ph[1], &pm[1], &pl[1]);
+#pragma unroll
+    for (int pb = 0; pb < C::kNB / 2; ++pb) {  // 16 columns per ldmatrix
+      if (16 * pb < D) {
+        const int key = (lane & 7) + 8 * ((lane >> 3) & 1);
+        const int chunk = 2 * pb + (lane >> 4);
+        uint32_t bv[4];
+        ldmatrix_x4_trans(vt + key * C::kRowBytes + ((chunk ^ (key & 7)) << 4), bv);
+        mma_rows8(acc[2 * pb], pl[0], pl[1], bv[0], bv[1]);
+        mma_rows8(acc[2 * pb], pm[0], pm[1], bv[0], bv[1]);
+        mma_rows8(acc[2 * pb], ph[0], ph[1], bv[0], bv[1]);
+        if (16 * pb + 8 < D) {
+          mma_rows8(acc[2 * pb + 1], pl[0], pl[1], bv[2], bv[3]);
+          mma_rows8(acc[2 * pb + 1], pm[0], pm[1], bv[2], bv[3]);
+          mma_rows8(acc[2 * pb + 1], ph[0], ph[1], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncwarp();                         // the stage is free again
+  }
+  cp_async_wait<0>();
+  __syncthreads();                        // every warp is done with its ring
+
+  float* red = reinterpret_cast<float*>(smem);
+  l += __shfl_xor_sync(kFull, l, 1);
+  l += __shfl_xor_sync(kFull, l, 2);
+  if (gr < G) {
+    float* r = red + (warp * kMaxG + gr) * (DMAX + 2);
+#pragma unroll
+    for (int nb = 0; nb < C::kNB; ++nb) {
+      if (8 * nb < D) {
+        r[8 * nb + 2 * tq] = acc[nb][0];
+        r[8 * nb + 2 * tq + 1] = acc[nb][1];
+      }
+    }
+    if (tq == 0) {
+      r[DMAX] = m;
+      r[DMAX + 1] = l;
+    }
+  }
+  __syncthreads();
+  finish<bf16, DMAX>(red, out, ws, tickets, sp, splits, G, D);
+}
+
+// --------------------------------------------------------- f32: CUDA cores
+
+template <int DMAX>
+struct SimtCfg {
+  static constexpr int kStages = 4;
+  static constexpr int kE = 4;                           // f32 per chunk
+  static constexpr int kChunks = DMAX / kE;
+  static constexpr int kRowBytes = DMAX * 4;
+  static constexpr int kKeys = 2048 / kRowBytes;         // per warp tile
+  static constexpr int kTile = kKeys * kRowBytes;
+  static constexpr int kLK = 32 / kKeys;                 // lanes per key
+  static constexpr int kCPL = kChunks / kLK;             // chunks per lane
+  static constexpr int kSlots = kKeys * kChunks / 32;
+  static constexpr int kCols = DMAX / 32;                // value columns
+  // rows sharing a quarter-warp's 16-byte reads in the score
+  static constexpr int kSwzRows = kLK < 8 ? 8 / kLK : 1;
+  static constexpr int kWarpRing = kStages * 2 * kTile;
+  static constexpr int kSmem = kWarps * kWarpRing + kMaxG * DMAX * 4;
+  static_assert(kKeys * kLK == 32 && kCPL * kLK == kChunks, "lanes per key");
+  static_assert(kSlots * 32 == kKeys * kChunks, "whole copies per lane");
+  static_assert(kWarps * kMaxG * (DMAX + 2) * 4 <= kWarps * kWarpRing,
+                "the warps' merge fits over the rings");
+};
+
+// chunk c of row r sits at chunk c ^ swz(r): a quarter-warp's score reads
+// (kSwzRows keys, kLK consecutive chunks each) hit 8 distinct bank groups
+template <int DMAX>
+__device__ __forceinline__ int swz(int r) {
+  using C = SimtCfg<DMAX>;
+  return (r % C::kSwzRows) * C::kLK;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int* __restrict__ lengths, float* __restrict__ out,
+                         float* __restrict__ ws, int* __restrict__ tickets,
+                         int S, int Hkv, int G, int D, float scale, int splits,
+                         int keys_per_split) {
+  using C = SimtCfg<DMAX>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Split sp;
+  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp)) return;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int chunks_per_row = D / C::kE;
   const long long row_stride = (long long)Hkv * D;
-  const int n = max(0, min(lengths[b], S));
+  const float* kb = k + (long long)sp.b * S * row_stride + (long long)sp.h * D;
+  const float* vb = v + (long long)sp.b * S * row_stride + (long long)sp.h * D;
+  const int cpr = D / C::kE;
 
-  const T* qb = q + (long long)blockIdx.x * G * D;
-  const T* kb = k + (long long)b * S * row_stride + (long long)h * D;
-  const T* vb = v + (long long)b * S * row_stride + (long long)h * D;
-
+  unsigned char* ring = smem + warp * C::kWarpRing;
+  const uint32_t ring_s = smem_addr(ring);
+  float* q_s = reinterpret_cast<float*>(smem + kWarps * C::kWarpRing);
+  const float* qb = q + (long long)sp.pair * G * D;
+  const float qscale = scale * kLog2e;
   for (int i = tid; i < kMaxG * DMAX; i += kThreads) {
     const int g = i / DMAX, d = i - g * DMAX;
-    q_s[i] = (g < G && d < D) ? Conv<T>::to_float(qb[g * D + d]) : 0.0f;
-  }
-  if (tid < kMaxG) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.0f;
+    q_s[i] = (g < G && d < D) ? qb[g * D + d] * qscale : 0.0f;
   }
 
-  // score phase: this thread's key and heads
-  const int sj = tid % kKeys;
-  const int shg = tid / kKeys;
-  // value phase: this thread's 4 columns and key subset
-  const int col = (tid % C::kCols) * 4;
-  const int vjg = tid / C::kCols;
-  float acc[kMaxG][4];
+  int soff[C::kSlots], srow[C::kSlots];
+  long long goff[C::kSlots];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.0f;
-
-  uint4 kreg[C::kChunksPerThread], vreg[C::kChunksPerThread];
-  if (n > 0) load_tile<T, DMAX>(kb, vb, row_stride, 0, n, chunks_per_row, kreg, vreg);
-
-  for (int t0 = 0; t0 < n; t0 += kKeys) {
-    __syncthreads();                      // the last tile's readers are done
-#pragma unroll
-    for (int i = 0; i < C::kChunksPerThread; ++i) {
-      const int c = tid + i * kThreads;
-      const int j = c / chunks_per_row;
-      if (j < kKeys) {
-        const int off = j * C::kRow + (c - j * chunks_per_row) * 16;
-        *reinterpret_cast<uint4*>(k_s + off) = kreg[i];
-        *reinterpret_cast<uint4*>(v_s + off) = vreg[i];
-      }
+  for (int i = 0; i < C::kSlots; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / C::kChunks, c = idx % C::kChunks;
+    srow[i] = c < cpr ? r : kNoRow;
+    soff[i] = r * C::kRowBytes + ((c ^ swz<DMAX>(r)) << 4);
+    goff[i] = r * row_stride + c * C::kE;
+  }
+  const int ntiles = (sp.k1 - sp.k0 + C::kKeys - 1) / C::kKeys;
+  const int mine = ntiles > warp ? (ntiles - warp + kWarps - 1) / kWarps : 0;
+  auto issue = [&](int i) {               // tile warp + 4 i into stage i % 4
+    if (i < mine) {
+      const int t0 = sp.k0 + (warp + i * kWarps) * C::kKeys;
+      copy_tile<float, C::kSlots>(ring_s + (i % C::kStages) * 2 * C::kTile,
+                                  C::kTile, kb + t0 * row_stride,
+                                  vb + t0 * row_stride, soff, srow, goff,
+                                  sp.k1 - t0);
+    } else {
+      cp_async_commit();
     }
-    if (t0 + kKeys < n)                   // next tile in flight meanwhile
-      load_tile<T, DMAX>(kb, vb, row_stride, t0 + kKeys, n, chunks_per_row, kreg, vreg);
-    __syncthreads();
+  };
+#pragma unroll
+  for (int i = 0; i < C::kStages - 1; ++i) issue(i);
+  __syncthreads();                        // q_s is written
 
-    const int valid = min(kKeys, n - t0);
-    {
-      float s[C::kHeadsPerThread][4];
+  float m[kMaxG], l[kMaxG], acc[kMaxG][C::kCols];
 #pragma unroll
-      for (int i = 0; i < C::kHeadsPerThread; ++i)
+  for (int g = 0; g < kMaxG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.0f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
-      if (sj < valid) {
-        const unsigned char* krow = k_s + sj * C::kRow;
-#pragma unroll
-        for (int c = 0; c < DMAX / C::kE; ++c) {
-          if (c * C::kE < D) {
-            float kf[C::kE];
-            Conv<T>::chunk(*reinterpret_cast<const uint4*>(krow + c * 16), kf);
-#pragma unroll
-            for (int i = 0; i < C::kHeadsPerThread; ++i) {
-              const int g = shg + i * C::kHeadGroups;
-              if (g < G) {
-#pragma unroll
-                for (int e4 = 0; e4 < C::kE; e4 += 4) {
-                  const float4 qv = *reinterpret_cast<const float4*>(
-                      q_s + g * DMAX + c * C::kE + e4);
-                  s[i][0] += qv.x * kf[e4];
-                  s[i][1] += qv.y * kf[e4 + 1];
-                  s[i][2] += qv.z * kf[e4 + 2];
-                  s[i][3] += qv.w * kf[e4 + 3];
-                }
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < C::kHeadsPerThread; ++i) {
-        const int g = shg + i * C::kHeadGroups;
-        if (g < G)
-          p_s[g * kKeys + sj] = sj < valid
-              ? ((s[i][0] + s[i][1]) + (s[i][2] + s[i][3])) * scale
-              : kNegInf;
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < C::kCols; ++c) acc[g][c] = 0.0f;
+  }
+  const int kk = lane / C::kLK;           // score: this lane's key
+  const int lk = lane % C::kLK;           // ... and its part of d
+  const int col = lane * C::kCols;        // value: this lane's columns
+  const int vbyte = col * 4;
 
-    if (warp < G) {                       // softmax of query row g = warp
-      float* row = p_s + warp * kKeys;
-      float mx = kNegInf;
-      for (int j = lane; j < valid; j += 32) mx = fmaxf(mx, row[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[warp];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int j = lane; j < kKeys; j += 32) {
-        const float p = j < valid ? expf(row[j] - m_new) : 0.0f;
-        row[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[warp] = alpha;
-        l_s[warp] = alpha * l_s[warp] + sum;
-        m_s[warp] = m_new;
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < mine; ++i) {
+    issue(i + C::kStages - 1);
+    cp_async_wait<C::kStages - 1>();
+    __syncwarp();
+    const unsigned char* kt_s = ring + (i % C::kStages) * 2 * C::kTile;
+    const unsigned char* vt_s = kt_s + C::kTile;
+    const int t0 = sp.k0 + (warp + i * kWarps) * C::kKeys;
 
-    if (col < D) {
+    float s[kMaxG];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        const float alpha = g < G ? a_s[g] : 0.0f;
+    for (int g = 0; g < kMaxG; ++g) s[g] = 0.0f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] *= alpha;
-      }
-      for (int j = vjg; j < valid; j += C::kKeyGroups) {
-        float vf[4];
-        Conv<T>::four(v_s + j * C::kRow + col * sizeof(T), vf);
+    for (int j = 0; j < C::kCPL; ++j) {
+      const int c = lk + j * C::kLK;
+      if (c < cpr) {
+        const float4 kf = *reinterpret_cast<const float4*>(
+            kt_s + kk * C::kRowBytes + ((c ^ swz<DMAX>(kk)) << 4));
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) {
           if (g < G) {
-            const float p = p_s[g * kKeys + j];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[g][e] += p * vf[e];
+            const float4 qv = *reinterpret_cast<const float4*>(q_s + g * DMAX + c * C::kE);
+            s[g] = fmaf(qv.x, kf.x, s[g]);
+            s[g] = fmaf(qv.y, kf.y, s[g]);
+            s[g] = fmaf(qv.z, kf.z, s[g]);
+            s[g] = fmaf(qv.w, kf.w, s[g]);
           }
         }
       }
     }
-  }
-  __syncthreads();                        // the tile buffers are free again
 
-  // sum the key groups' partial accumulators, then normalise
-  float* red = reinterpret_cast<float*>(kv_s);      // [group][g][DMAX]
-  if (col < D) {
+    const bool valid = t0 + kk < sp.k1;
+    float p[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        float* dst = red + (vjg * kMaxG + g) * DMAX + col;
+      p[g] = 0.0f;
+      if (g < G) {                        // uniform: every lane shuffles
+        float x = s[g];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = acc[g][e];
+        for (int o = C::kLK / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+        x = valid ? x : kNegInf;
+        float mx = x;
+#pragma unroll
+        for (int o = 16; o >= C::kLK; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = exp2f(m[g] - m_new);
+        m[g] = m_new;
+        p[g] = exp2f(x - m_new);
+        l[g] = l[g] * alpha + (lk == 0 ? p[g] : 0.0f);
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) acc[g][c] *= alpha;
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < C::kKeys; ++j) {
+      float pj[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        pj[g] = g < G ? __shfl_sync(kFull, p[g], j * C::kLK) : 0.0f;
+      if (col < D) {
+        float vf[C::kCols];
+        const int byte = (((vbyte >> 4) ^ swz<DMAX>(j)) << 4) | (vbyte & 15);
+        const float* vp = reinterpret_cast<const float*>(vt_s + j * C::kRowBytes + byte);
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) vf[c] = vp[c];
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < G) {
+#pragma unroll
+            for (int c = 0; c < C::kCols; ++c) acc[g][c] = fmaf(pj[g], vf[c], acc[g][c]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g < G) {
+      const float lw = warp_sum(l[g]);
+      float* r = red + (warp * kMaxG + g) * (DMAX + 2);
+      if (col < D)
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) r[col + c] = acc[g][c];
+      if (lane == 0) {
+        r[DMAX] = m[g];
+        r[DMAX + 1] = lw;
       }
     }
   }
   __syncthreads();
-  T* ob = out + (long long)blockIdx.x * G * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i - g * D;
-    float sum = 0.0f;
-    for (int jg = 0; jg < C::kKeyGroups; ++jg) sum += red[(jg * kMaxG + g) * DMAX + d];
-    ob[i] = Conv<T>::from_float(sum / fmaxf(l_s[g], 1e-30f));
+  finish<float, DMAX>(red, out, ws, tickets, sp, splits, G, D);
+}
+
+// ------------------------------------------------------------------ launch
+
+// Allow a kernel its dynamic shared memory, once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <typename T, int DMAX>
+int launch_dmax(const T* q, const T* k, const T* v, const int* lengths, T* out,
+                float* ws, int* tickets, int B, int S, int Hkv, int G, int D,
+                float scale, int splits, int keys_per_split, cudaStream_t st) {
+  static bool done[kMaxDevices] = {};
+  const dim3 grid(B * Hkv, splits);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int smem = MmaCfg<DMAX>::kSmem;
+    err = allow_smem(flash_decode_mma_kernel<DMAX>, smem, done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_decode_mma_kernel<DMAX><<<grid, kThreads, smem, st>>>(
+        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, splits,
+        keys_per_split);
+  } else {
+    constexpr int smem = SimtCfg<DMAX>::kSmem;
+    err = allow_smem(flash_decode_simt_kernel<DMAX>, smem, done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_decode_simt_kernel<DMAX><<<grid, kThreads, smem, st>>>(
+        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, splits,
+        keys_per_split);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, int B, int S, int Hkv, int G, int D, float scale,
-           void* stream) {
+           void* out, void* ws, void* tickets, int B, int S, int Hkv, int G,
+           int D, float scale, int splits, int keys_per_split, void* stream) {
   if (B <= 0 || Hkv <= 0) return 0;
-  const dim3 grid(B * Hkv);
+  if (splits < 1 || keys_per_split < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const int* lp = static_cast<const int*>(lengths);
   T* op = static_cast<T*>(out);
+  float* wp = static_cast<float*>(ws);
+  int* tp = static_cast<int*>(tickets);
   if (D <= 64)
-    flash_decode_kernel<T, 64><<<grid, kThreads, 0, st>>>(qp, kp, vp, lp, op, S, Hkv, G, D, scale);
-  else
-    flash_decode_kernel<T, 128><<<grid, kThreads, 0, st>>>(qp, kp, vp, lp, op, S, Hkv, G, D, scale);
-  return static_cast<int>(cudaGetLastError());
+    return launch_dmax<T, 64>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                              scale, splits, keys_per_split, st);
+  return launch_dmax<T, 128>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                             scale, splits, keys_per_split, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); lengths: (B,) int32; out: like q.
-// 1 <= G <= 8, D % 8 == 0 and D <= 128; every pointer on a 16-byte boundary.
+// q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); lengths: (B,) int32; out: like q;
+// ws: f32 (B * Hkv, splits, G, D + 2); tickets: >= B * Hkv int32, all 0 on
+// entry and on return. 1 <= G <= 8, D % 8 == 0 and D <= 128; q, k, v on a
+// 16-byte boundary. Split s reads keys [s * keys_per_split, (s + 1) *
+// keys_per_split); splits * keys_per_split >= S.
 int flash_decode_f32(const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, int B, int S, int Hkv,
-                     int G, int D, float scale, void* stream) {
-  return launch<float>(q, k, v, lengths, out, B, S, Hkv, G, D, scale, stream);
+                     const void* lengths, void* out, void* ws, void* tickets,
+                     int B, int S, int Hkv, int G, int D, float scale,
+                     int splits, int keys_per_split, void* stream) {
+  return launch<float>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
+                       scale, splits, keys_per_split, stream);
 }
 
 int flash_decode_bf16(const void* q, const void* k, const void* v,
-                      const void* lengths, void* out, int B, int S, int Hkv,
-                      int G, int D, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, lengths, out, B, S, Hkv, G, D, scale,
-                               stream);
+                      const void* lengths, void* out, void* ws, void* tickets,
+                      int B, int S, int Hkv, int G, int D, float scale,
+                      int splits, int keys_per_split, void* stream) {
+  return launch<bf16>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
+                      scale, splits, keys_per_split, stream);
 }
 
 }  // extern "C"

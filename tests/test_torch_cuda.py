@@ -287,8 +287,9 @@ def test_pipeline_bf16_int8_accumulation_on_the_card(cuda):
 # ------------------------------------------------------------ flash_decode
 #
 # The kernel sums the softmax and the value products in another order
-# than its plain version (tiles of 32 or 64 keys, an online rescale per
-# tile): in f32 the outputs agree to a few ulp of values of order one,
+# than its plain version (splits of the keys, warps' tiles of 4-16 keys,
+# an online rescale per tile, base-2 exponentials of a query scaled by
+# log2 e, a fixed-order merge of warps and splits): in f32 the outputs agree to a few ulp of values of order one,
 # held at atol 1e-5 / rtol 1e-5. In bf16 both round the same f32 result
 # to bf16 at the end, so an output may differ by one bf16 ulp: rtol
 # 2^-7 (one ulp relative), atol 1e-6.
@@ -371,6 +372,79 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         fdk.flash_decode(q, k, v, lengths, scale=0.125)
     assert fdk.LAUNCHES["flash_decode"] == before
+
+
+def _fd_check(q, k, v, lengths, scale=None):
+    """One call: exactly one launch, within FD_TOL of the plain version."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    before = fdk.LAUNCHES["flash_decode"]
+    got = fdk.flash_decode(q, k, v, lengths, scale=scale)
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES["flash_decode"] == before + 1
+    want = fdk.flash_decode_plain(q, k, v, lengths, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), **FD_TOL[q.dtype])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_decode_split_boundaries(cuda, dtype, D):
+    """Lengths at every split boundary and one either side of it, with
+    many splits per (b, kv head)."""
+    B, S, Hkv, G = 12, 2048, 1, 3
+    q, k, v, _ = _fd_inputs(B, S, Hkv, G, D, dtype, cuda, seed=4)
+    plan = fdk.plan(q, k)
+    assert plan.splits >= 4
+    kps = plan.keys_per_split
+    lens = [kps - 1, kps, kps + 1, 2 * kps - 1, 2 * kps, 2 * kps + 1,
+            S - 1, S, S + 7, 1, 0, 3 * kps]
+    _fd_check(q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_all_splits_empty_gives_exact_zeros(cuda, dtype):
+    q, k, v, _ = _fd_inputs(3, 4096, 2, 5, 128, dtype, cuda, seed=5)
+    assert fdk.plan(q, k).splits > 1
+    lengths = torch.zeros(3, dtype=torch.int32, device=cuda)
+    out = _fd_check(q, k, v, lengths)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_flash_decode_many_pairs_few_splits(cuda):
+    """B * Hkv >= 2 * the SM count: few splits (or one) per pair."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B, Hkv = -(-2 * sms // 8), 8
+    q, k, v, lengths = _fd_inputs(B, 1024, Hkv, 5, 128, torch.bfloat16,
+                                  cuda, seed=6)
+    assert fdk.plan(q, k).splits <= 4
+    _fd_check(q, k, v, lengths)
+    q, k, v, lengths = _fd_inputs(B * 4, 512, Hkv, 3, 64, torch.bfloat16,
+                                  cuda, seed=7)
+    assert fdk.plan(q, k).splits == 1
+    _fd_check(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_repeat_calls_are_bit_identical(cuda, dtype):
+    """The splits merge in a fixed order with no float atomics."""
+    q, k, v, lengths = _fd_inputs(4, 8192, 2, 5, 128, dtype, cuda, seed=8)
+    assert fdk.plan(q, k).splits > 1
+    first = _fd_check(q, k, v, lengths)
+    for _ in range(3):
+        assert torch.equal(fdk.flash_decode(q, k, v, lengths, scale=128 ** -0.5),
+                           first)
+
+
+def test_flash_decode_tickets_reused_across_shapes_and_dtypes(cuda):
+    """The cached tickets serve calls of other shapes and dtypes, and
+    every call leaves them zero."""
+    shapes = [(4, 8192, 2, 5, 128), (32, 4096, 3, 3, 64), (2, 700, 8, 5, 128),
+              (3, 129, 1, 8, 64), (2, 50, 1, 4, 72), (4, 8192, 2, 5, 128)]
+    for i, shape in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, lengths = _fd_inputs(*shape, dtype, cuda, seed=10 + i)
+            _fd_check(q, k, v, lengths)
+            assert not bool(fdk._TICKETS[q.device].any())
 
 
 def _lm(device, **changes):

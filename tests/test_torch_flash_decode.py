@@ -124,3 +124,108 @@ def test_reference_kernel_path_pads_the_cache_and_attends_the_pad():
     got = ops.flash_decode(tq, tk, tv, tl).numpy()
     np.testing.assert_allclose(got, oracle, **TOL["float32"])
     assert np.abs(padded - oracle).max() > 1e-4
+
+
+# ------------------------------------------- the kernel's split of the keys
+#
+# flash_decode_split_plain models the CUDA kernel's decomposition: split s
+# reduces keys [s * kps, (s + 1) * kps) to (m, l, acc) in f32 and the valid
+# splits merge in split order. It is the same f32 function summed in
+# another order, so it is held at the tolerances above: f32 1e-5, bf16
+# one bf16 ulp (both round one f32 result to bf16 once).
+
+# (G, D, dtype, splits): G 1, 3 and 8; D 8, 64 and 128; one split, two,
+# and more splits than the S = 200 keys hold tiles of 16 (40 splits of 5)
+SPLIT_CASES = [(1, 8, "float32", 1), (3, 64, "bfloat16", 2),
+               (8, 128, "float32", 7), (3, 64, "float32", 40),
+               (8, 8, "bfloat16", 40), (1, 128, "bfloat16", 7),
+               (3, 128, "bfloat16", 2), (8, 64, "float32", 2),
+               (1, 64, "float32", 40), (3, 8, "float32", 7),
+               (8, 128, "bfloat16", 1), (1, 8, "bfloat16", 2)]
+
+
+@pytest.mark.parametrize("G,D,dtype,splits", SPLIT_CASES)
+def test_split_plain_matches_the_references(G, D, dtype, splits):
+    """Lengths 0, 1, S, S + 7 and each side of the first split boundary,
+    with S = 200 not a multiple of the split (ceil(200 / splits) keys):
+    the split model against the port's oracle, the reference's oracle and
+    the reference's Pallas kernel (interpret, one block of S: no pad)."""
+    B, Hkv, S = 7, 2, 200
+    kps = -(-S // splits)
+    lengths = [0, 1, S, S + 7, max(kps - 1, 0), kps, kps + 1]
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _inputs(B, Hkv * G, Hkv, S, D,
+                                                 dtype, lengths=lengths)
+    scale = D ** -0.5
+    got = fd.flash_decode_split_plain(tq.reshape(B, Hkv, G, D), tk, tv, tl,
+                                      scale=scale, splits=splits)
+    assert got.dtype == tq.dtype
+    got = got.reshape(B, Hkv * G, D)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got, ref.flash_decode(tq, tk, tv, tl).float(), dtype)
+    _close(got, ref_ref.flash_decode(jq, jk, jv, jl), dtype)
+    _close(got, ref_ops.flash_decode(jq, jk, jv, jl, block_size=S,
+                                     interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_plain_at_the_plans_split(dtype):
+    """The split the kernel would run at this shape on a 132-SM card,
+    lengths at its boundaries and one either side."""
+    B, Hkv, G, S, D = 9, 1, 3, 2048, 64
+    splits, kps, _ = fd.split_plan(B, S, Hkv, G, D, 132)
+    assert splits > 2
+    lengths = [kps - 1, kps, kps + 1, 2 * kps - 1, 2 * kps, S - kps + 1,
+               S, 0, 1]
+    _, (tq, tk, tv, tl) = _inputs(B, Hkv * G, Hkv, S, D, dtype,
+                                  lengths=lengths, seed=5)
+    q4 = tq.reshape(B, Hkv, G, D)
+    got = fd.flash_decode_split_plain(q4, tk, tv, tl, scale=0.125,
+                                      splits=splits, keys_per_split=kps)
+    _close(got, fd.flash_decode_plain(q4, tk, tv, tl, scale=0.125).float(),
+           dtype)
+
+
+# (B, S, Hkv, G, D, dtype, SMs): the serve shape, decode_32k, many pairs,
+# a short cache, an empty one, and odd sizes
+PLAN_SHAPES = [(32, 4096, 3, 3, 64, torch.bfloat16, 132),
+               (8, 32768, 8, 5, 128, torch.bfloat16, 132),
+               (40, 1024, 8, 5, 128, torch.bfloat16, 132),
+               (1056, 4096, 1, 8, 64, torch.bfloat16, 132),
+               (2, 100, 1, 1, 8, torch.float32, 132),
+               (1, 0, 2, 3, 64, torch.float32, 132),
+               (3, 524288, 1, 8, 128, torch.float32, 114),
+               (5, 4099, 3, 4, 72, torch.bfloat16, 78)]
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,dtype,sms", PLAN_SHAPES)
+def test_split_plan_covers_every_key_once(B, S, Hkv, G, D, dtype, sms):
+    """Every key of the cache lies in exactly one split, every split
+    holds keys, the splits are whole rounds of the CTA's tiles, the grid
+    aims at CTAS_PER_SM CTAs per SM, and the workspace is small against
+    the K/V bytes the pairs read."""
+    splits, kps, ws = fd.split_plan(B, S, Hkv, G, D, sms)
+    pairs = B * Hkv
+    assert splits >= 1 and kps % fd.SPLIT_ROUND == 0
+    assert splits * kps >= S and (splits - 1) * kps < max(S, 1)
+    cover = np.zeros(S, np.int64)
+    for s in range(splits):
+        cover[s * kps:(s + 1) * kps] += 1
+    assert (cover == 1).all()
+    assert kps >= min(fd.MIN_KEYS_PER_SPLIT, S) or splits == 1
+    if pairs >= fd.CTAS_PER_SM * sms:
+        assert splits == 1
+    else:
+        assert pairs * splits <= 2 * fd.CTAS_PER_SM * sms
+    assert ws == (pairs, splits, G, D + 2)
+    kv_bytes = 2 * pairs * S * D * torch.finfo(dtype).bits // 8
+    if S >= fd.MIN_KEYS_PER_SPLIT:
+        assert 4 * np.prod(ws) * 16 <= kv_bytes
+
+
+def test_split_plan_reads_shapes_not_lengths():
+    """The plan is a function of the shapes and the SM count: choosing
+    from the lengths would need them on the host, a sync per call."""
+    import inspect
+    assert list(inspect.signature(fd.split_plan).parameters) == [
+        "B", "S", "Hkv", "G", "D", "sm_count"]
+    assert list(inspect.signature(fd.plan).parameters) == ["q4", "k"]

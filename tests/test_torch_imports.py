@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the JAX package
-``repro`` (the card's machine has none of them)."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports ``jax``,
+``jaxlib`` or the JAX package ``repro`` (the card's machine has none of
+them)."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""What bounds the ``flash_decode`` CUDA kernel: time it beside a copy-only
+and a compute-only variant of its own source on one CUDA card.
+
+    python3 tools/flash_decode_probe.py [--dtype bfloat16|float32]
+
+Each variant is ``src/repro_torch/kernels/csrc/flash_decode.cu`` with one
+text edit, built by ``nvcc -Xptxas -v`` into ``build/probe/`` (one ``nvcc``
+per variant, all started together):
+
+- ``base``: the source as it is;
+- ``copy_only``: each warp waits for every tile of its ring and drops it:
+  the copy pipeline alone (the output is wrong);
+- ``compute_only``: no copy is issued: the arithmetic on whatever the
+  rings hold (the output is wrong).
+
+It prints each kernel's registers and spills from ``ptxas``, then each
+variant's device time at ``chip_smoke.py``'s FD_SHAPES (the same input
+maker and the same CUDA-graph timing) beside the HBM bound. It raises if
+an edit no longer matches the source. It imports no JAX. Without a card
+it exits with 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                   "flash_decode.cu")
+OUT = os.path.join(ROOT, "build", "probe")
+VARIANTS = ("base", "copy_only", "compute_only")
+# the first statement after a tile has landed, in each kernel's loop
+TILE_READY = "\n    const int t0 = sp.k0 + (warp + i * kWarps) * C::kKeys;\n"
+
+
+def variant(name: str, src: str) -> str:
+    if name == "base":
+        return src
+    if name == "copy_only":
+        out = src.replace(TILE_READY, TILE_READY + "    if (i >= 0) {\n"
+                          "      __syncwarp();\n      continue;\n    }\n")
+    else:
+        out = re.sub(r"cp_async16\(st \+[^;]*;", "", src)
+    if out == src:
+        raise RuntimeError(f"variant {name!r} edits nothing: the source "
+                           "changed under it")
+    return out
+
+
+def build() -> dict[str, tuple[str, str]]:
+    """{variant: (library path, ptxas report)}, built in parallel."""
+    from repro_torch.kernels import build as kbuild
+    os.makedirs(OUT, exist_ok=True)
+    src = open(SRC).read()
+    jobs = {}
+    for name in VARIANTS:
+        cu = os.path.join(OUT, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(variant(name, src))
+        so = os.path.join(OUT, f"{name}.so")
+        cmd = [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
+               cu]
+        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True))
+    built = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        built[name] = (so, log)
+    return built
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'kernel<D>: N registers, S B spilled' per compiled kernel."""
+    rows = []
+    for block in log.split("Compiling entry function")[1:]:
+        kernel = re.search(r"flash_decode_(\w+?)_kernelILi(\d+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if kernel and regs:
+            rows.append(f"{kernel.group(1)}<{kernel.group(2)}>: "
+                        f"{regs.group(1)} registers, "
+                        f"{spill.group(1) if spill else '?'} B spilled")
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_decode_probe: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_decode as fdk
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    bw, _ = cs.card_rates(smi)
+    print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    dtype = getattr(torch, args.dtype)
+    symbol = "flash_decode_bf16" if dtype == torch.bfloat16 else \
+        "flash_decode_f32"
+    fns = {}
+    for name, (so, log) in build().items():
+        fn = getattr(ctypes.CDLL(so), symbol)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fns[name] = fn
+        print(f"{name}: {'; '.join(ptxas_summary(log))}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tickets = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+    for B, S, Hkv, G, D, lengths in cs.FD_SHAPES:
+        q, k, v, lens = cs.fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen)
+        scale = D ** -0.5
+        splits, keys, ws_shape = fdk.plan(q, k)
+        ws = torch.empty(ws_shape, dtype=torch.float32, device="cuda")
+        want = fdk.flash_decode_plain(q, k, v, lens, scale=scale).float()
+        valid = int(lens.clamp(max=S).sum())
+        size = q.element_size()
+        nbytes = valid * Hkv * D * 2 * size + 2 * q.numel() * size + B * 4
+        print(f"B={B} S={S} Hkv={Hkv} G={G} D={D} {args.dtype} ({lengths} "
+              f"lengths, {valid} valid rows): {splits} splits of {keys} "
+              f"keys; HBM bound {nbytes / bw * 1e3:.5f} ms", flush=True)
+        for name, fn in fns.items():
+            out = torch.empty_like(q)
+
+            def call(fn=fn, out=out):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                         tickets.data_ptr(), B, S, Hkv, G, D, scale, splits,
+                         keys, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: cudaError {err}")
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs().max().item()
+            ms = cs.device_ms(call, calls=cs.FD_CALLS[S])
+            print(f"  {name:14s} {ms:.5f} ms  max abs err {err:.3g}",
+                  flush=True)
+        del q, k, v, lens, ws
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
