@@ -8,12 +8,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — the CUDA kernels, from the sources in the repository, one
              ``nvcc`` per source, all started together;
-3. kernels — every kernel of the main paths against its plain PyTorch
-             version on the card, with the kernel's, the plain version's
-             and a library call's device time (calls replayed from a CUDA
-             graph between CUDA events) beside the least time the card
-             could take (its HBM bound), and the kernel wrapper's
-             per-call dispatch time: ``norms_flat``, ``apply_flat``,
+3. kernels — first the launch floor (a one-element ``zero_()`` timed as
+             the kernels are), then every kernel of the main paths against
+             its plain PyTorch version on the card, with the kernel's, the
+             plain version's and a library call's device time (calls
+             replayed from a CUDA graph between CUDA events) beside the
+             least time the card could take (its HBM bound), and the kernel
+             wrapper's per-call dispatch time: ``norms_flat`` (per row),
+             ``apply_flat``,
              ``apply_flat_q8`` at LeNet's packed shape (272, 512) and at
              (65536, 512); ``flash_decode`` in bf16 at the serve path's
              shape (B 32, S 4096, Hkv 3, G 3, D 64, lengths drawn in
@@ -57,7 +59,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              time and launches in a tick.
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
-kernels) and, last, ``{"ok": true, "device": {...}}``. It imports no JAX.
+kernels, each with the launch floor as ``floor_ms``) and, last,
+``{"ok": true, "device": {...}}``. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -84,8 +87,8 @@ MAIN_ARGS = ["--arch", "lenet-mnist", "--batch", "8192",
 LARGE_BATCH = ["--optimizer", "lars", "--opt-state-dtype", "int8",
                "--accum-steps", "8", "--precision", "bf16"]
 KERNELS = ("norms_flat", "apply_flat", "apply_flat_q8")
-# norms_flat sums 4096 squares per block in another order than torch.sum:
-# f32 relative error ~ sqrt(4096) * 2^-24 ~ 4e-6 for such sums.
+# norms_flat sums the 512 squares of a row in another order than torch.sum:
+# f32 relative error ~ sqrt(512) * 2^-24 ~ 1.3e-6 for such sums.
 NORMS_RTOL = 1e-5
 # apply_flat is built with -fmad=false and does the plain version's
 # operations in its order: the two must agree bit for bit.
@@ -183,15 +186,28 @@ def device_ms(fn, *, calls: int, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def floor_ms(calls: int) -> float:
+    """The launch floor: device time of a one-element ``zero_()`` through
+    the same CUDA-graph replay as the kernels. No kernel timed that way
+    takes less."""
+    import torch
+    x = torch.empty(1, device="cuda")
+    return device_ms(x.zero_, calls=calls)
+
+
 def timings(fn, calls: int) -> tuple[float, float]:
     """(device ms per call from a CUDA graph, dispatch ms per call)."""
     return device_ms(fn, calls=calls), dispatch_ms(fn)
 
 
-def kernel_phase(lk, bw: float, flops: float) -> dict:
-    """Phase 3: each kernel against its plain version at SHAPES."""
+def kernel_phase(lk, bw: float, flops: float) -> tuple[dict, float]:
+    """Phase 3: the launch floor, then each kernel against its plain
+    version at SHAPES. Returns (rows by kernel, floor ms)."""
     import torch
     dev = torch.device("cuda")
+    floor = floor_ms(GRAPH_CALLS[MAIN_ROWS])
+    log(f"  launch floor (one-element zero_(), {GRAPH_CALLS[MAIN_ROWS]} "
+        f"calls per graph): {floor:.5f} ms")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {k: [] for k in KERNELS}
     for rows, lane in SHAPES:
@@ -201,8 +217,8 @@ def kernel_phase(lk, bw: float, flops: float) -> dict:
         m = torch.randn(rows, lane, generator=gen, device=dev) * 1e-3
         lr = torch.rand(rows // 8, 1, generator=gen, device=dev) * 1e-2
 
-        wsq, gsq = lk.norms_flat(w, g)
-        pw, pg = lk.norms_flat_plain(w, g)
+        wsq, gsq = lk.norms_flat(w, g, block_rows=1)
+        pw, pg = lk.norms_flat_plain(w, g, block_rows=1)
         torch.cuda.synchronize()
         err = max((wsq - pw).abs().max().item(), (gsq - pg).abs().max().item())
         rel = max(((wsq - pw).abs() / pw).max().item(),
@@ -210,13 +226,15 @@ def kernel_phase(lk, bw: float, flops: float) -> dict:
         if not rel <= NORMS_RTOL:
             raise AssertionError(f"norms_flat {rows}x{lane}: rel err {rel} "
                                  f"> {NORMS_RTOL}")
-        nbytes = 2 * n * 4 + 2 * (rows // 8) * 4
+        nbytes = 2 * n * 4 + 2 * rows * 4
         nops = 4 * n
         calls = GRAPH_CALLS[rows]
-        vn = lambda x: torch.linalg.vector_norm(x.view(rows // 8, -1), dim=1)
+        vn = lambda x: torch.linalg.vector_norm(x, dim=1)
         out["norms_flat"].append(_row(
-            rows, lane, err, rel, timings(lambda: lk.norms_flat(w, g), calls),
-            device_ms(lambda: lk.norms_flat_plain(w, g), calls=calls),
+            rows, lane, err, rel,
+            timings(lambda: lk.norms_flat(w, g, block_rows=1), calls),
+            device_ms(lambda: lk.norms_flat_plain(w, g, block_rows=1),
+                      calls=calls),
             device_ms(lambda: (vn(w), vn(g)), calls=calls),
             nbytes, nops, bw, flops))
 
@@ -244,12 +262,13 @@ def kernel_phase(lk, bw: float, flops: float) -> dict:
     for name, rows in out.items():
         for r in rows:
             log(f"  {name:10s} {r['rows']:6d}x{r['lane']}  kernel "
-                f"{r['ms']:.5f} ms (dispatch {r['dispatch_ms']:.4f})  "
+                f"{r['ms']:.5f} ms (floor {floor:.5f}; dispatch "
+                f"{r['dispatch_ms']:.4f})  "
                 f"plain {r['plain_ms']:.5f} ms  library "
                 f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms  "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
                 f"max abs err {r['max_abs_err']:.3g}  rel {r['max_rel_err']:.3g}")
-    return out
+    return out, floor
 
 
 def q8_row(lk, w, g, m, lr, bw: float, flops: float) -> dict:
@@ -753,7 +772,7 @@ def main() -> int:
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
 
     log("== 3. kernels against their plain versions")
-    kern = kernel_phase(lk, bw, flops)
+    kern, floor = kernel_phase(lk, bw, flops)
     fd_rows = flash_decode_phase(fdk, bw, flops)
 
     log("== 4. main path: lenet-mnist, batch 8192, 20 steps")
@@ -798,6 +817,7 @@ def main() -> int:
                                 for t, r in runs.items()},
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "kernel_ms": main_row["ms"],
+            "floor_ms": floor,
             "dispatch_ms": main_row["dispatch_ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -817,6 +837,7 @@ def main() -> int:
         "splits": serve_row["splits"],
         "max_abs_err": serve_row["max_abs_err"],
         "ms": serve_row["ms"], "kernel_ms": serve_row["ms"],
+        "floor_ms": floor,
         "dispatch_ms": serve_row["dispatch_ms"],
         "plain_ms": serve_row["plain_ms"],
         "bound_ms": serve_row["bound_ms"],

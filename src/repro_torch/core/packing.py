@@ -7,11 +7,12 @@ layer slice to whole ``BLOCK_ROWS`` row blocks, and the same leaf order
 (dict keys sorted, as ``jax.tree_util`` flattens them). Packed buffers
 and slot states therefore carry between the two packages unchanged.
 
-Per-slice reductions sum each row block, then fold the blocks into
-slices through a static ``(num_slices, max_blocks)`` gather and a row
-sum. Slices are contiguous, so that is a sorted-segment reduction with
-a fixed order: deterministic on the card, where ``index_add_`` would use
-atomics and change its summation order from run to run.
+Per-slice reductions sum each row block (or each row, as the CUDA
+``norms_flat`` does), then fold the partials into slices through a
+static ``(num_slices, max_partials)`` gather and a row sum. Slices are
+contiguous, so that is a sorted-segment reduction with a fixed order:
+deterministic on the card, where ``index_add_`` would use atomics and
+change its summation order from run to run.
 """
 
 from __future__ import annotations
@@ -167,11 +168,12 @@ def _adapt_mask(layout: PackedLayout) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _fold_index(layout: PackedLayout) -> np.ndarray:
-    """(num_slices, max_blocks) int64 gather index: the row-block ids of
-    each slice, in order, padded with the out-of-range id ``num_blocks``
-    (a zero appended by :func:`fold_blocks`)."""
-    ids = _row_slice_ids(layout)[::layout.block_rows]
+def _fold_index(layout: PackedLayout, stride: int) -> np.ndarray:
+    """(num_slices, max_partials) int64 gather index over partials of
+    ``stride`` rows each (``block_rows`` or 1): the partial ids of each
+    slice, in order, padded with the out-of-range id ``total_rows //
+    stride`` (a zero appended by :func:`_fold`)."""
+    ids = _row_slice_ids(layout)[::stride]
     counts = np.bincount(ids, minlength=layout.num_slices)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     cols = np.arange(int(counts.max()))
@@ -180,11 +182,12 @@ def _fold_index(layout: PackedLayout) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
-def _on_device(fn, layout: PackedLayout, device: torch.device
+def _on_device(fn, layout: PackedLayout, device: torch.device, *args
                ) -> torch.Tensor:
-    """One copy of a static map per (layout, device), so the step path
-    makes no host-to-device copy after the first. Callers only read it."""
-    return torch.from_numpy(fn(layout)).to(device)
+    """One copy of a static map per (layout, device, args), so the step
+    path makes no host-to-device copy after the first. Callers only read
+    it."""
+    return torch.from_numpy(fn(layout, *args)).to(device)
 
 
 def row_slice_ids(layout: PackedLayout, device=None) -> torch.Tensor:
@@ -199,13 +202,24 @@ def adapt_mask(layout: PackedLayout, device=None) -> torch.Tensor:
     return _on_device(_adapt_mask, layout, torch.device(device or "cpu"))
 
 
+def _fold(layout: PackedLayout, partials: torch.Tensor, stride: int
+          ) -> torch.Tensor:
+    idx = _on_device(_fold_index, layout, partials.device, stride)
+    padded = torch.cat([partials, partials.new_zeros(1)])
+    return padded[idx].sum(dim=1)
+
+
 def fold_blocks(layout: PackedLayout, per_block: torch.Tensor
                 ) -> torch.Tensor:
     """(num_blocks,) per-row-block partials -> (num_slices,) sums, in a
     fixed order (a sorted-segment sum over the static block counts)."""
-    idx = _on_device(_fold_index, layout, per_block.device)
-    padded = torch.cat([per_block, per_block.new_zeros(1)])
-    return padded[idx].sum(dim=1)
+    return _fold(layout, per_block, layout.block_rows)
+
+
+def fold_rows(layout: PackedLayout, per_row: torch.Tensor) -> torch.Tensor:
+    """(total_rows,) per-row partials -> (num_slices,) sums, in the same
+    fixed order and with the same ops as :func:`fold_blocks`."""
+    return _fold(layout, per_row, 1)
 
 
 # ---------------------------------------------------------- pack / unpack

@@ -5,32 +5,35 @@
 //   apply_flat     (_apply_kernel)    -> lars_apply_flat_{f32,bf16}
 //   apply_flat_q8  (_apply_q8_kernel) -> lars_apply_flat_q8_{f32,bf16}
 //
-// Both work on the packed (R, 512) superbuffer of repro_torch.core.packing,
+// All work on the packed (R, 512) superbuffer of repro_torch.core.packing,
 // whose layer slices are whole 8 x 512 row blocks (4096 values).
 //
-// What bounds them on this card: HBM bytes. norms_flat reads w and g once
-// (8 B per value in f32) and does 4 flops per value; apply_flat reads w, g, m
-// and writes w', m' (20 B per value in f32) for 6 flops. Both are three orders
-// of magnitude below the H100's 295 flop/B ridge, so the only thing that
-// matters is streaming every byte once at full width:
+// What bounds them on this card: HBM bytes, and at LeNet's (272, 512) the
+// launch itself. norms_flat reads w and g once (8 B per value in f32) and
+// does 4 flops per value; apply_flat reads w, g, m and writes w', m' (20 B
+// per value in f32) for 6 flops. Both are three orders of magnitude below
+// the H100's 295 flop/B ridge, so what matters is streaming every byte once
+// at full width, from every SM, with nothing carried between CTAs:
 //   * every load and store is 16 B per thread (float4 / 8 x bf16), with
 //     neighbouring threads on neighbouring addresses;
-//   * norms_flat gives each 8 x 512 row block its own CUDA block. On the TPU
-//     the grid ran the row blocks in sequence; here they run in parallel and
-//     nothing is carried between them: each block writes its own partial sums
-//     (warp shuffles, then shared memory), with no atomics, so the sums are
-//     the same from run to run. The fold of blocks into layer slices stays in
-//     torch (repro_torch.kernels.ops.lars_norms_packed).
-//   * apply_flat is one elementwise pass; each thread reads its row block's
-//     learning rate lr_blocks[row / 8].
-// The simple design leaves work on the table at LeNet's size (272 rows give
-// norms_flat 34 blocks for 132 SMs, and launch latency dominates); that is for
-// a later change.
-//
+//   * norms_flat gives Sum w^2 and Sum g^2 per ROW: the reference's
+//     norms_flat(..., block_rows=1). 64 threads own a row (8 values each,
+//     every load issued before the first add) and a CTA holds 2 whole rows,
+//     so LeNet's 272 rows make 136 CTAs where the TPU's grid of 8-row
+//     blocks made 34 (a third of a fill of the 132 SMs). Each row is
+//     reduced by warp shuffles and one shared-memory step across its two
+//     warps: no atomics, no cross-CTA step, the same bits from run to run.
+//     The fold of rows into layer slices stays in torch
+//     (repro_torch.kernels.ops.lars_norms_packed);
+//   * apply_flat is one elementwise pass in units of 16 B of w (4 f32 or
+//     8 bf16 values, with their f32 momentum), one unit per thread in
+//     128-thread CTAs: 272 CTAs at LeNet's size, so every SM has work.
+//     Each thread issues every load (and its row block's learning rate,
+//     lr_blocks[row / 8]) before the update and its stores;
 //   * apply_flat_q8 holds the momentum as int8 codes with one f32 scale per
 //     row block (14 B per value in f32 instead of apply_flat's 20). Its
 //     requantization needs the block's new absmax before any code can be
-//     written, so, like norms_flat, it gives each row block one CUDA block:
+//     written, so it gives each row block one CUDA block:
 //     256 threads x 16 values, the new momentum kept in registers, the absmax
 //     reduced through warp shuffles and shared memory, and only then w', the
 //     codes and the scale written. The f32 momentum never reaches HBM.
@@ -58,34 +61,35 @@ namespace {
 constexpr int kLane = 512;
 constexpr int kBlockRows = 8;
 constexpr int kBlockElems = kLane * kBlockRows;  // 4096
-constexpr int kNormThreads = 256;
-constexpr int kApplyThreads = 256;
+constexpr int kRowThreads = 64;               // norms_flat: threads per row
+constexpr int kRowsPerCta = 2;                // norms_flat: rows per CTA
+constexpr int kNormsThreads = kRowThreads * kRowsPerCta;
+constexpr int kApplyThreads = 128;            // apply_flat: threads per CTA
 constexpr int kQ8Threads = 256;
 constexpr int kQ8PerThread = kBlockElems / kQ8Threads;  // 16: one 16 B code load
 constexpr float kQ8Levels = 127.0f;
 
-// Eight values per 16-byte load: two float4 for f32, one uint4 for bf16.
+// The 16 bytes at p as floats: one float4 for f32, eight values for bf16.
 template <typename T>
-struct Vec8;
+struct Vec16;
 
 template <>
-struct Vec8<float> {
-  __device__ static void load(const float* p, float out[8]) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void load(const float* p, float out[4]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
     out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
   }
-  __device__ static void store(float* p, const float v[8]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  __device__ static void store(float* p, const float v[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 
 template <>
-struct Vec8<__nv_bfloat16> {
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
   __device__ static void load(const __nv_bfloat16* p, float out[8]) {
-    const uint4 raw = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -99,9 +103,26 @@ struct Vec8<__nv_bfloat16> {
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    reinterpret_cast<uint4*>(p)[0] = raw;
+    *reinterpret_cast<uint4*>(p) = raw;
   }
 };
+
+// N consecutive values through 16-byte accesses (N a multiple of Vec16's).
+template <typename T, int N>
+struct VecN {
+  static constexpr int kStep = Vec16<T>::kN;
+  __device__ static void load(const T* p, float out[N]) {
+#pragma unroll
+    for (int i = 0; i < N; i += kStep) Vec16<T>::load(p + i, out + i);
+  }
+  __device__ static void store(T* p, const float v[N]) {
+#pragma unroll
+    for (int i = 0; i < N; i += kStep) Vec16<T>::store(p + i, v + i);
+  }
+};
+
+template <typename T>
+using Vec8 = VecN<T, 8>;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -109,72 +130,74 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One CUDA block per 8 x 512 row block: 256 threads x 2 chunks of 8 values.
+// kRowsPerCta whole rows per CTA, 64 threads (two warps) per row, 8 values
+// per thread: all four (f32) or two (bf16) 16 B loads before the first add.
+// The row's 16 B units are dealt round the 64 threads, so each warp-wide load
+// reads 512 contiguous bytes.
 template <typename T>
-__global__ void __launch_bounds__(kNormThreads)
+__global__ void __launch_bounds__(kNormsThreads)
 norms_flat_kernel(const T* __restrict__ w, const T* __restrict__ g,
                   float* __restrict__ wsq, float* __restrict__ gsq) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * kBlockElems;
+  constexpr int N = Vec16<T>::kN;
+  constexpr int kStride = kRowThreads * N;      // values between a thread's units
+  const int local_row = threadIdx.x / kRowThreads;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRowsPerCta + local_row;
+  const size_t off = row * kLane + (threadIdx.x % kRowThreads) * N;
+  float a[8], b[8];
+#pragma unroll
+  for (int j = 0; j < 8 / N; ++j) Vec16<T>::load(w + off + j * kStride, a + j * N);
+#pragma unroll
+  for (int j = 0; j < 8 / N; ++j) Vec16<T>::load(g + off + j * kStride, b + j * N);
   float sw = 0.f, sg = 0.f;
 #pragma unroll
-  for (int c = 0; c < kBlockElems / (8 * kNormThreads); ++c) {
-    const size_t off = base + (static_cast<size_t>(c) * kNormThreads + threadIdx.x) * 8;
-    float a[8], b[8];
-    Vec8<T>::load(w + off, a);
-    Vec8<T>::load(g + off, b);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      sw += a[i] * a[i];
-      sg += b[i] * b[i];
-    }
+  for (int i = 0; i < 8; ++i) {
+    sw += a[i] * a[i];
+    sg += b[i] * b[i];
   }
   sw = warp_sum(sw);
   sg = warp_sum(sg);
-  __shared__ float part_w[kNormThreads / 32];
-  __shared__ float part_g[kNormThreads / 32];
-  const int lane = threadIdx.x & 31;
+  __shared__ float part_w[kNormsThreads / 32];
+  __shared__ float part_g[kNormsThreads / 32];
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
+  if ((threadIdx.x & 31) == 0) {
     part_w[warp] = sw;
     part_g[warp] = sg;
   }
   __syncthreads();
-  if (warp == 0) {
-    sw = lane < kNormThreads / 32 ? part_w[lane] : 0.f;
-    sg = lane < kNormThreads / 32 ? part_g[lane] : 0.f;
-    sw = warp_sum(sw);
-    sg = warp_sum(sg);
-    if (lane == 0) {
-      wsq[blockIdx.x] = sw;
-      gsq[blockIdx.x] = sg;
-    }
+  if (threadIdx.x % kRowThreads == 0) {
+    wsq[row] = part_w[2 * local_row] + part_w[2 * local_row + 1];
+    gsq[row] = part_g[2 * local_row] + part_g[2 * local_row + 1];
   }
 }
 
-// Each thread updates 8 consecutive values of one row block.
+// Thread t of CTA c takes unit c * kApplyThreads + t, 16 B of w: every
+// load first, then the update and the stores.
 template <typename T>
 __global__ void __launch_bounds__(kApplyThreads)
 apply_flat_kernel(const float* __restrict__ lr_blocks, const T* __restrict__ w,
                   const T* __restrict__ g, const float* __restrict__ m,
                   T* __restrict__ w_out, float* __restrict__ m_out,
-                  float momentum, float weight_decay, long long n_chunks) {
-  const long long chunk = static_cast<long long>(blockIdx.x) * kApplyThreads + threadIdx.x;
-  if (chunk >= n_chunks) return;
-  const size_t off = static_cast<size_t>(chunk) * 8;
-  const float lr = lr_blocks[off / kBlockElems];
-  float wv[8], gv[8], mv[8];
-  Vec8<T>::load(w + off, wv);
-  Vec8<T>::load(g + off, gv);
-  Vec8<float>::load(m + off, mv);
+                  float momentum, float weight_decay, long long n_units) {
+  constexpr int N = Vec16<T>::kN;
+  constexpr int kUnitsPerBlock = kBlockElems / N;
+  const long long u =
+      static_cast<long long>(blockIdx.x) * kApplyThreads + threadIdx.x;
+  if (u >= n_units) return;
+  const size_t off = static_cast<size_t>(u) * N;
+  float wv[N], gv[N], mv[N];
+  Vec16<T>::load(w + off, wv);
+  Vec16<T>::load(g + off, gv);
+  VecN<float, N>::load(m + off, mv);
+  const float lr = lr_blocks[u / kUnitsPerBlock];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float decayed = gv[i] + weight_decay * wv[i];
     const float m_new = momentum * mv[i] + lr * decayed;
     mv[i] = m_new;
     wv[i] = wv[i] - m_new;
   }
-  Vec8<T>::store(w_out + off, wv);
-  Vec8<float>::store(m_out + off, mv);
+  Vec16<T>::store(w_out + off, wv);
+  VecN<float, N>::store(m_out + off, mv);
 }
 
 // One CUDA block per 8 x 512 row block; thread t owns values [16t, 16t + 16).
@@ -235,9 +258,10 @@ apply_flat_q8_kernel(const float* __restrict__ lr_blocks,
 template <typename T>
 int launch_norms(const void* w, const void* g, void* wsq, void* gsq,
                  long long rows, void* stream) {
-  const long long blocks = rows / kBlockRows;
-  if (blocks > 0) {
-    norms_flat_kernel<T><<<static_cast<unsigned>(blocks), kNormThreads, 0,
+  if (rows % kRowsPerCta) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ctas = rows / kRowsPerCta;
+  if (ctas > 0) {
+    norms_flat_kernel<T><<<static_cast<unsigned>(ctas), kNormsThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(w), static_cast<const T*>(g),
         static_cast<float*>(wsq), static_cast<float*>(gsq));
@@ -249,15 +273,15 @@ template <typename T>
 int launch_apply(const void* lr_blocks, const void* w, const void* g,
                  const void* m, void* w_out, void* m_out, float momentum,
                  float weight_decay, long long rows, void* stream) {
-  const long long n_chunks = rows * kLane / 8;
-  const long long blocks = (n_chunks + kApplyThreads - 1) / kApplyThreads;
-  if (blocks > 0) {
-    apply_flat_kernel<T><<<static_cast<unsigned>(blocks), kApplyThreads, 0,
+  const long long n_units = rows * kLane / Vec16<T>::kN;
+  const long long ctas = (n_units + kApplyThreads - 1) / kApplyThreads;
+  if (ctas > 0) {
+    apply_flat_kernel<T><<<static_cast<unsigned>(ctas), kApplyThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(lr_blocks), static_cast<const T*>(w),
         static_cast<const T*>(g), static_cast<const float*>(m),
         static_cast<T*>(w_out), static_cast<float*>(m_out), momentum,
-        weight_decay, n_chunks);
+        weight_decay, n_units);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -284,7 +308,8 @@ int launch_apply_q8(const void* lr_blocks, const void* scale, const void* w,
 
 extern "C" {
 
-// w, g: (rows, 512) contiguous; wsq, gsq: (rows / 8,) f32. rows % 8 == 0.
+// w, g: (rows, 512) contiguous; wsq, gsq: (rows,) f32, one sum per row.
+// rows % 2 == 0.
 int lars_norms_flat_f32(const void* w, const void* g, void* wsq, void* gsq,
                         long long rows, void* stream) {
   return launch_norms<float>(w, g, wsq, gsq, rows, stream);

@@ -4,8 +4,9 @@ PyTorch version.
 
 Port of ``repro/kernels/lars_kernels.py``:
 
-  * ``norms_flat``    — per 8x512 row block, f32 ``sum w^2`` and
-                        ``sum g^2`` over the packed ``(R, 512)`` pair;
+  * ``norms_flat``    — per row (the reference's ``block_rows=1``), f32
+                        ``sum w^2`` and ``sum g^2`` over the packed
+                        ``(R, 512)`` pair;
   * ``apply_flat``    — ``m' = mu*m + lr_blk*(g + beta*w); w' = w - m'``
                         with one learning rate per row block;
   * ``apply_flat_q8`` — ``apply_flat`` with the momentum held as int8
@@ -70,11 +71,13 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
     return False
 
 
-def _check_buffers(block_rows: int, *xs: torch.Tensor) -> tuple[int, int]:
+def _check_buffers(block_rows: int, *xs: torch.Tensor,
+                   kernel_rows: int = BLOCK_ROWS) -> tuple[int, int]:
     """The kernels take contiguous (R, 512) buffers with R % 8 == 0 that
-    start on a 16-byte boundary (their loads and stores are 16 B wide)."""
-    if block_rows != BLOCK_ROWS:
-        raise ValueError(f"the CUDA kernels take block_rows={BLOCK_ROWS}, "
+    start on a 16-byte boundary (their loads and stores are 16 B wide),
+    and partials or learning rates per ``kernel_rows`` rows."""
+    if block_rows != kernel_rows:
+        raise ValueError(f"the CUDA kernel takes block_rows={kernel_rows}, "
                          f"got {block_rows}")
     shape = tuple(xs[0].shape)
     for x in xs:
@@ -108,7 +111,7 @@ def _raise_on(err: int, name: str) -> None:
 # --------------------------------------------------------------------- norms
 
 def norms_flat_plain(w2: torch.Tensor, g2: torch.Tensor, *,
-                     block_rows: int = BLOCK_ROWS
+                     block_rows: int = 1
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row-block (sum w^2, sum g^2) in f32; two (R // block_rows,)."""
     R = w2.shape[0]
@@ -120,17 +123,19 @@ def norms_flat_plain(w2: torch.Tensor, g2: torch.Tensor, *,
 
 
 def norms_flat(w2: torch.Tensor, g2: torch.Tensor, *,
-               block_rows: int = BLOCK_ROWS
+               block_rows: int = 1
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row-block (sum w^2, sum g^2) over a packed (R, 512) pair of
-    f32 or bf16 buffers: two (R // 8,) f32 vectors. One launch."""
+    f32 or bf16 buffers: two (R // block_rows,) f32 vectors. The kernel
+    sums per row, so on CUDA ``block_rows`` must be 1 (the caller folds
+    rows into slices). One launch."""
     if _on_cpu(w2, g2):
         return norms_flat_plain(w2, g2, block_rows=block_rows)
-    R, _ = _check_buffers(block_rows, w2, g2)
+    R, _ = _check_buffers(block_rows, w2, g2, kernel_rows=1)
     if w2.dtype not in _SUFFIX or g2.dtype != w2.dtype:
         raise ValueError(f"norms_flat takes f32 or bf16 w and g of one "
                          f"dtype, got {w2.dtype}, {g2.dtype}")
-    wsq = torch.empty(R // BLOCK_ROWS, dtype=torch.float32, device=w2.device)
+    wsq = torch.empty(R, dtype=torch.float32, device=w2.device)
     gsq = torch.empty_like(wsq)
     fn = _fn("norms_flat", w2.dtype)
     with torch.cuda.device(w2.device):

@@ -46,12 +46,11 @@ def lars_norms_packed(layout: packing.PackedLayout, wbuf: torch.Tensor,
                       gbuf: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Joint per-layer-slice (||w||, ||g||) over the whole superbuffer:
-    ONE norms_flat launch (per-block partial sums), then a fixed-order
-    fold of the blocks into slices. Two (num_slices,) f32 vectors."""
-    wsq_blk, gsq_blk = lars_kernels.norms_flat(
-        wbuf, gbuf, block_rows=layout.block_rows)
-    return (torch.sqrt(packing.fold_blocks(layout, wsq_blk)),
-            torch.sqrt(packing.fold_blocks(layout, gsq_blk)))
+    ONE norms_flat launch (per-row partial sums), then a fixed-order
+    fold of the rows into slices. Two (num_slices,) f32 vectors."""
+    wsq_rows, gsq_rows = lars_kernels.norms_flat(wbuf, gbuf, block_rows=1)
+    return (torch.sqrt(packing.fold_rows(layout, wsq_rows)),
+            torch.sqrt(packing.fold_rows(layout, gsq_rows)))
 
 
 def lars_apply_packed(layout: packing.PackedLayout, wbuf: torch.Tensor,

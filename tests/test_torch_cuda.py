@@ -8,9 +8,10 @@ in ``tests/test_torch_kernels.py``.
 Tolerances: ``apply_flat`` and ``apply_flat_q8`` are built with
 ``-fmad=false`` and perform the plain versions' operations in their
 order (IEEE division and round half to even in the requantization), so
-each agrees with its plain version bit for bit. ``norms_flat`` sums 4096 squares per block in another order than
-``torch.sum``; the f32 relative error of such a sum stays near
-sqrt(4096) * 2^-24 ~ 4e-6, so rtol 1e-5 holds it.
+each agrees with its plain version bit for bit. ``norms_flat`` sums the
+512 squares of a row in another order than ``torch.sum``; the f32
+relative error of such a sum stays near sqrt(512) * 2^-24 ~ 1.3e-6, so
+rtol 1e-5 holds it.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ pytestmark = pytest.mark.cuda
 
 NORMS_RTOL = 1e-5
 SHAPES = [(272, 512), (65536, 512)]
+ROWS = [8, 272, 65536]
 
 
 @pytest.fixture
@@ -46,35 +48,48 @@ def _buffers(rows, dtype, device, seed=0):
             lr.to(device))
 
 
-@pytest.mark.parametrize("rows", [r for r, _ in SHAPES])
+@pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_norms_flat_matches_plain(cuda, rows, dtype):
     w, g, _, _ = _buffers(rows, dtype, cuda)
     before = lk.LAUNCHES["norms_flat"]
-    wsq, gsq = lk.norms_flat(w, g)
+    wsq, gsq = lk.norms_flat(w, g, block_rows=1)
     torch.cuda.synchronize()
     assert lk.LAUNCHES["norms_flat"] == before + 1
-    pw, pg = lk.norms_flat_plain(w, g)
+    assert wsq.shape == gsq.shape == (rows,)
+    pw, pg = lk.norms_flat_plain(w, g, block_rows=1)
     torch.testing.assert_close(wsq, pw, rtol=NORMS_RTOL, atol=0)
     torch.testing.assert_close(gsq, pg, rtol=NORMS_RTOL, atol=0)
-    # no atomics: the same inputs give the same bits
-    wsq2, _ = lk.norms_flat(w, g)
-    assert torch.equal(wsq, wsq2)
+    # no atomics, no cross-CTA step: the same inputs give the same bits
+    for _ in range(3):
+        wsq2, gsq2 = lk.norms_flat(w, g, block_rows=1)
+        assert torch.equal(wsq, wsq2) and torch.equal(gsq, gsq2)
 
 
-@pytest.mark.parametrize("rows", [r for r, _ in SHAPES])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_apply_flat_matches_plain_bit_for_bit(cuda, rows, dtype):
-    w, g, m, lr = _buffers(rows, dtype, cuda, seed=1)
+def test_norms_flat_refuses_block_rows_other_than_1(cuda):
+    w, g, _, _ = _buffers(16, torch.float32, cuda)
+    before = lk.LAUNCHES["norms_flat"]
+    with pytest.raises(ValueError, match="block_rows=1"):
+        lk.norms_flat(w, g, block_rows=8)
+    assert lk.LAUNCHES["norms_flat"] == before
+
+
+def _apply_check(w, g, m, lr):
     before = lk.LAUNCHES["apply_flat"]
     w2, m2 = lk.apply_flat(w, g, m, lr, momentum=0.9, weight_decay=1e-4)
     torch.cuda.synchronize()
     assert lk.LAUNCHES["apply_flat"] == before + 1
     pw, pm = lk.apply_flat_plain(w, g, m, lr, momentum=0.9,
                                  weight_decay=1e-4)
-    assert w2.dtype == dtype and m2.dtype == torch.float32
+    assert w2.dtype == w.dtype and m2.dtype == torch.float32
     assert torch.equal(m2, pm)
     assert torch.equal(w2, pw)
+
+
+@pytest.mark.parametrize("rows", ROWS + [65544])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_flat_matches_plain_bit_for_bit(cuda, rows, dtype):
+    _apply_check(*_buffers(rows, dtype, cuda, seed=1))
 
 
 @pytest.mark.parametrize("bad", ["rows", "lane", "strided", "dtype",

@@ -4,12 +4,13 @@ runs them) and its ``kernels/ref.py`` oracles; and the wrappers' CPU
 dispatch. The CUDA kernels themselves are held against these plain
 versions on the card in tests/test_torch_cuda.py.
 
-Tolerances: block sums of squares rtol 1e-6 (4096 f32 squares summed in
-another order); the apply pass rtol 1e-6 / atol 1e-7 on the f32 momentum
-(the same five f32 operations; XLA may contract a multiply-add). The new
-weights w' = w - m' cancel near zero, so their error is held in absolute
-terms at a few f32 ulp of the unit-scale weights (atol 1e-6), plus one
-bf16 ulp (rtol 2^-8) for bf16 weights, which round from that difference.
+Tolerances: row and block sums of squares rtol 1e-6 (512 or 4096 f32
+squares summed in another order); the apply pass rtol 1e-6 / atol 1e-7
+on the f32 momentum (the same five f32 operations; XLA may contract a
+multiply-add). The new weights w' = w - m' cancel near zero, so their
+error is held in absolute terms at a few f32 ulp of the unit-scale
+weights (atol 1e-6), plus one bf16 ulp (rtol 2^-8) for bf16 weights,
+which round from that difference.
 """
 
 import jax.numpy as jnp
@@ -46,16 +47,19 @@ def _buffers(rows, dtype, seed=0):
     return j, t
 
 
-@pytest.mark.parametrize("rows", [8, 272])
+@pytest.mark.parametrize("block_rows", [1, 8])
+@pytest.mark.parametrize("rows", [8, 272, 1048])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_norms_flat_plain_matches_pallas_interpret(rows, dtype):
+def test_norms_flat_plain_matches_pallas_interpret(rows, dtype, block_rows):
+    """Per row (what the CUDA kernel gives) and per 8-row block."""
     (jw, jg, _, _), (tw, tg, _, _) = _buffers(rows, dtype)
-    want = ref_lk.norms_flat(jw, jg, interpret=True)
+    want = ref_lk.norms_flat(jw, jg, block_rows=block_rows, interpret=True)
     before = dict(lk.LAUNCHES)
     for fn in (lk.norms_flat_plain, lk.norms_flat):   # wrapper: plain on CPU
-        got = fn(tw, tg)
+        got = fn(tw, tg, block_rows=block_rows)
         for a, b in zip(got, want):
-            assert a.dtype == torch.float32 and a.shape == (rows // 8,)
+            assert a.dtype == torch.float32
+            assert a.shape == (rows // block_rows,)
             np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                        rtol=SUM_RTOL)
     assert lk.LAUNCHES == before          # no kernel ran
@@ -164,6 +168,16 @@ def test_check_use_kernels():
         ops.check_use_kernels(False, cuda)
     with pytest.raises(ValueError, match="must be"):
         ops.check_use_kernels("pallas", cpu)
+
+
+@pytest.mark.parametrize("block_rows", [2, 4, 8])
+def test_norms_flat_takes_per_row_partials_only_on_the_card(block_rows):
+    """The kernel sums per row: a CUDA call with any other block_rows is
+    refused before any launch, as one with a wrong shape is."""
+    t = torch.zeros(8, 512)
+    with pytest.raises(ValueError, match="block_rows=1"):
+        lk._check_buffers(block_rows, t, t, kernel_rows=1)
+    assert lk._check_buffers(1, t, t, kernel_rows=1) == (8, 512)
 
 
 def test_check_buffers_rejects_misaligned_views():

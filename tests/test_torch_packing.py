@@ -126,6 +126,22 @@ def test_per_slice_reductions_match_reference(case):
     np.testing.assert_allclose(gn.numpy(), 2 * np.sqrt(want), rtol=SUM_RTOL)
 
 
+def test_row_fold_matches_block_fold(case):
+    """fold_rows of per-row partials (what the CUDA norms_flat gives)
+    equals fold_blocks of per-block partials, on LeNet's layout and on
+    the stacked zoo: rtol 1e-6, the same squares summed in another
+    order."""
+    tree, _, _, got = case
+    buf = packing.pack(got, bridge.params_to_torch(tree))
+    for x in (buf, buf * 0.5 + 1.0):
+        sq = torch.square(x)
+        per_row = sq.sum(dim=1)
+        per_block = sq.reshape(got.num_blocks, -1).sum(dim=1)
+        np.testing.assert_allclose(
+            packing.fold_rows(got, per_row).numpy(),
+            packing.fold_blocks(got, per_block).numpy(), rtol=SUM_RTOL)
+
+
 def test_quantize_to_storage_and_init_master_match_reference():
     tree, marker = _zoo()
     j_tree = jax.tree_util.tree_map(jnp.asarray, tree)
