@@ -14,7 +14,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              plain version's and a library call's device time (calls
              replayed from a CUDA graph between CUDA events) beside the
              least time the card could take (its HBM bound), and the kernel
-             wrapper's per-call dispatch time: ``norms_flat`` (per row),
+             wrapper's per-call dispatch time: ``norms_flat`` (per row,
+             beside the device time of ``packing.fold_rows``, which folds
+             its 272 row sums into LeNet's 10 layer slices),
              ``apply_flat``,
              ``apply_flat_q8`` at LeNet's packed shape (272, 512) and at
              (65536, 512); ``flash_decode`` in bf16 at the serve path's
@@ -200,11 +202,27 @@ def timings(fn, calls: int) -> tuple[float, float]:
     return device_ms(fn, calls=calls), dispatch_ms(fn)
 
 
+def lenet_layout():
+    """LeNet's packed layout: (272, 512), 10 layer slices."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    from repro_torch.models import build_model
+    from repro_torch.treepath import tree_map
+    params = build_model(get_config("lenet-mnist")).init(
+        torch.Generator().manual_seed(0), "cpu")
+    return packing.build_layout(params, tree_map(lambda _: False, params))
+
+
 def kernel_phase(lk, bw: float, flops: float) -> tuple[dict, float]:
     """Phase 3: the launch floor, then each kernel against its plain
     version at SHAPES. Returns (rows by kernel, floor ms)."""
     import torch
+    from repro_torch.core import packing
     dev = torch.device("cuda")
+    layout = lenet_layout()
+    if layout.buffer_shape != (MAIN_ROWS, 512):
+        raise AssertionError(f"LeNet's layout is {layout.buffer_shape}")
     floor = floor_ms(GRAPH_CALLS[MAIN_ROWS])
     log(f"  launch floor (one-element zero_(), {GRAPH_CALLS[MAIN_ROWS]} "
         f"calls per graph): {floor:.5f} ms")
@@ -237,6 +255,11 @@ def kernel_phase(lk, bw: float, flops: float) -> tuple[dict, float]:
                       calls=calls),
             device_ms(lambda: (vn(w), vn(g)), calls=calls),
             nbytes, nops, bw, flops))
+        if rows == MAIN_ROWS:
+            # what a LARS step adds to the kernel: the fold of its row
+            # sums into layer slices (one for sum w^2, one for sum g^2)
+            out["norms_flat"][-1]["fold_ms"] = device_ms(
+                lambda: packing.fold_rows(layout, wsq), calls=calls)
 
         w2, m2 = lk.apply_flat(w, g, m, lr, momentum=0.9, weight_decay=1e-4)
         pw2, pm2 = lk.apply_flat_plain(w, g, m, lr, momentum=0.9,
@@ -267,7 +290,9 @@ def kernel_phase(lk, bw: float, flops: float) -> tuple[dict, float]:
                 f"plain {r['plain_ms']:.5f} ms  library "
                 f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms  "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-                f"max abs err {r['max_abs_err']:.3g}  rel {r['max_rel_err']:.3g}")
+                f"max abs err {r['max_abs_err']:.3g}  rel {r['max_rel_err']:.3g}"
+                + (f"  fold_rows {r['fold_ms']:.5f} ms" if "fold_ms" in r
+                   else ""))
     return out, floor
 
 
@@ -808,7 +833,7 @@ def main() -> int:
         run = runs["lars_int8_bf16_accum8" if int8 else "lars"]
         in_step = prof["large_batch" if int8 else "f32"]
         launches = run["launches"][kname]
-        entries.append({
+        entry = {
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lars_kernels.cu",
             "replaces": replaces[kname], "launches": launches,
@@ -825,7 +850,10 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "device_ms_in_step": in_step["hand_kernel_device_ms_per_step"][
                 kname],
-            "shapes": rows})
+            "shapes": rows}
+        if kname == "norms_flat":
+            entry["fold_ms"] = main_row["fold_ms"]
+        entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
     entries.append({

@@ -33,10 +33,26 @@
 //   * apply_flat_q8 holds the momentum as int8 codes with one f32 scale per
 //     row block (14 B per value in f32 instead of apply_flat's 20). Its
 //     requantization needs the block's new absmax before any code can be
-//     written, so it gives each row block one CUDA block:
-//     256 threads x 16 values, the new momentum kept in registers, the absmax
-//     reduced through warp shuffles and shared memory, and only then w', the
-//     codes and the scale written. The f32 momentum never reaches HBM.
+//     written, so each 8 x 512 row block is one thread-block cluster of 4
+//     CTAs of 2 rows (__cluster_dims__): 256 threads of one 16 B unit of w
+//     and g (4 f32 values and their 4 codes) in f32, 128 threads of 8 values
+//     in bf16, so LeNet's 272 rows make 136 CTAs where one CTA per block made
+//     34. A thread starts all its loads first, updates, stores w' at once
+//     (it needs no absmax) and keeps m' in registers. The absmax goes
+//     through distributed shared memory (DSMEM) without a full cluster
+//     barrier on the critical path: each warp's max of |m'| is stored into
+//     every CTA of the cluster by st.async, which also counts its bytes on
+//     the receiver's mbarrier; a CTA waits on its own mbarrier for the
+//     cluster's 32 (f32) or 16 (bf16) words, so all 4 CTAs derive the same
+//     new scale, then writes its codes; rank 0 writes the scale. A cluster
+//     barrier arrived at entry and waited on just before the first st.async
+//     guarantees that every peer has started and initialised its mbarrier;
+//     no CTA exits before its mbarrier has counted every word stored into
+//     it, so none is written after it exits, and none reads a peer's memory.
+//     (On an H100 80GB HBM3, pulling the words through a full cluster
+//     barrier took 0.0032 ms at LeNet's size against 0.0023 for this, and
+//     59-77 % of the HBM bound at 65536 rows against 90 %; PERF.md keeps
+//     the sweep.) The f32 momentum never reaches HBM.
 //
 // Arithmetic: the file is built with -fmad=false, so apply_flat rounds after
 // every multiply and add exactly as the plain PyTorch version does
@@ -65,8 +81,8 @@ constexpr int kRowThreads = 64;               // norms_flat: threads per row
 constexpr int kRowsPerCta = 2;                // norms_flat: rows per CTA
 constexpr int kNormsThreads = kRowThreads * kRowsPerCta;
 constexpr int kApplyThreads = 128;            // apply_flat: threads per CTA
-constexpr int kQ8Threads = 256;
-constexpr int kQ8PerThread = kBlockElems / kQ8Threads;  // 16: one 16 B code load
+constexpr int kQ8RowsPerCta = 2;              // apply_flat_q8: rows per CTA
+constexpr int kQ8Cluster = kBlockRows / kQ8RowsPerCta;  // CTAs per row block
 constexpr float kQ8Levels = 127.0f;
 
 // The 16 bytes at p as floats: one float4 for f32, eight values for bf16.
@@ -120,9 +136,6 @@ struct VecN {
     for (int i = 0; i < N; i += kStep) Vec16<T>::store(p + i, v + i);
   }
 };
-
-template <typename T>
-using Vec8 = VecN<T, 8>;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -200,29 +213,73 @@ apply_flat_kernel(const float* __restrict__ lr_blocks, const T* __restrict__ w,
   VecN<float, N>::store(m_out + off, mv);
 }
 
-// One CUDA block per 8 x 512 row block; thread t owns values [16t, 16t + 16).
+// The int8 codes of one 16 B unit of w: 4 bytes in f32, 8 in bf16.
+template <int N>
+struct Codes;
+
+template <>
+struct Codes<4> {
+  using Raw = uint32_t;
+};
+
+template <>
+struct Codes<8> {
+  using Raw = uint2;
+};
+
+// The shared-memory address of p, and the same address in CTA `rank` of
+// the cluster.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// kQ8RowsPerCta rows per CTA; thread t owns the CTA's 16 B unit t. The
+// kQ8Cluster CTAs of a cluster are the 8 rows of row block blockIdx.x / 4.
 template <typename T>
-__global__ void __launch_bounds__(kQ8Threads)
+__global__ void __cluster_dims__(kQ8Cluster, 1, 1)
+    __launch_bounds__(kQ8RowsPerCta * kLane / Vec16<T>::kN)
 apply_flat_q8_kernel(const float* __restrict__ lr_blocks,
                      const float* __restrict__ scale, const T* __restrict__ w,
                      const T* __restrict__ g, const int8_t* __restrict__ q,
                      T* __restrict__ w_out, int8_t* __restrict__ q_out,
                      float* __restrict__ scale_out, float momentum,
                      float weight_decay) {
-  const size_t off = static_cast<size_t>(blockIdx.x) * kBlockElems +
-                     static_cast<size_t>(threadIdx.x) * kQ8PerThread;
-  const float lr = lr_blocks[blockIdx.x];
-  const float s = scale[blockIdx.x];
-  float wv[kQ8PerThread], gv[kQ8PerThread], mv[kQ8PerThread];
-  Vec8<T>::load(w + off, wv);
-  Vec8<T>::load(w + off + 8, wv + 8);
-  Vec8<T>::load(g + off, gv);
-  Vec8<T>::load(g + off + 8, gv + 8);
-  const uint4 q_raw = *reinterpret_cast<const uint4*>(q + off);
+  constexpr int N = Vec16<T>::kN;
+  constexpr int kWarps = kQ8RowsPerCta * kLane / N / 32;  // 8 f32, 4 bf16
+  constexpr int kWords = kWarps * kQ8Cluster;   // every warp's max in the cluster
+  using Raw = typename Codes<N>::Raw;
+  __shared__ uint64_t arrived;      // mbarrier: the bytes of the kWords words
+  __shared__ unsigned words[kWords];
+  const uint32_t bar = smem_addr(&arrived);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+  uint32_t rank;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int blk = blockIdx.x / kQ8Cluster;
+  const size_t off = static_cast<size_t>(blockIdx.x) * kQ8RowsPerCta * kLane +
+                     static_cast<size_t>(threadIdx.x) * N;
+
+  // every load first
+  float wv[N], gv[N], mv[N];
+  Vec16<T>::load(w + off, wv);
+  Vec16<T>::load(g + off, gv);
+  const Raw q_raw = *reinterpret_cast<const Raw*>(q + off);
+  const float lr = lr_blocks[blk];
+  const float s = scale[blk];
   const int8_t* codes = reinterpret_cast<const int8_t*>(&q_raw);
   unsigned amax_bits = 0u;
 #pragma unroll
-  for (int i = 0; i < kQ8PerThread; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float m = static_cast<float>(codes[i]) * s;
     const float decayed = gv[i] + weight_decay * wv[i];
     const float m_new = momentum * m + lr * decayed;
@@ -230,29 +287,46 @@ apply_flat_q8_kernel(const float* __restrict__ lr_blocks,
     wv[i] = wv[i] - m_new;
     amax_bits = max(amax_bits, __float_as_uint(m_new) & 0x7fffffffu);
   }
+  Vec16<T>::store(w_out + off, wv);               // w' needs no absmax
+
+  // lane r of each warp stores the warp's max into word (rank, warp) of
+  // CTA r, counted in bytes on CTA r's mbarrier
   amax_bits = __reduce_max_sync(0xffffffffu, amax_bits);
-  __shared__ unsigned part[kQ8Threads / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax_bits;
-  __syncthreads();
-  amax_bits = part[0];
-#pragma unroll
-  for (int k = 1; k < kQ8Threads / 32; ++k) amax_bits = max(amax_bits, part[k]);
+  if (threadIdx.x == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(static_cast<uint32_t>(sizeof(words)))
+                 : "memory");
+  asm volatile("barrier.cluster.wait;" ::: "memory");  // every peer has started
+  const int lane = threadIdx.x & 31;
+  if (lane < kQ8Cluster) {
+    const int word = static_cast<int>(rank) * kWarps + (threadIdx.x >> 5);
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];"
+        :: "r"(peer_addr(smem_addr(&words[word]), lane)), "r"(amax_bits),
+           "r"(peer_addr(bar, lane))
+        : "memory");
+  }
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n\t"
+      "@!P1 bra LAB_WAIT;\n\t}"
+      :: "r"(bar) : "memory");
+  amax_bits = __reduce_max_sync(0xffffffffu, words[lane % kWords]);
   const float amax = __uint_as_float(amax_bits);
   const float s_new = (amax > 0.f || isnan(amax)) ? __fdiv_rn(amax, kQ8Levels) : 1.f;
 
-  Vec8<T>::store(w_out + off, wv);
-  Vec8<T>::store(w_out + off + 8, wv + 8);
-  uint4 out_raw;
+  Raw out_raw;
   int8_t* out = reinterpret_cast<int8_t*>(&out_raw);
 #pragma unroll
-  for (int i = 0; i < kQ8PerThread; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float r = rintf(__fdiv_rn(mv[i], s_new));
     out[i] = isnan(r) ? int8_t{0}
                       : static_cast<int8_t>(static_cast<int>(
                             fminf(fmaxf(r, -kQ8Levels), kQ8Levels)));
   }
-  *reinterpret_cast<uint4*>(q_out + off) = out_raw;
-  if (threadIdx.x == 0) scale_out[blockIdx.x] = s_new;
+  *reinterpret_cast<Raw*>(q_out + off) = out_raw;
+  if (rank == 0 && threadIdx.x == 0) scale_out[blk] = s_new;
 }
 
 template <typename T>
@@ -291,9 +365,11 @@ int launch_apply_q8(const void* lr_blocks, const void* scale, const void* w,
                     const void* g, const void* q, void* w_out, void* q_out,
                     void* scale_out, float momentum, float weight_decay,
                     long long rows, void* stream) {
-  const long long blocks = rows / kBlockRows;
-  if (blocks > 0) {
-    apply_flat_q8_kernel<T><<<static_cast<unsigned>(blocks), kQ8Threads, 0,
+  // kQ8RowsPerCta rows per CTA, a cluster of kQ8Cluster per row block
+  if (rows % kBlockRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    apply_flat_q8_kernel<T><<<static_cast<unsigned>(rows / kQ8RowsPerCta),
+                              kQ8RowsPerCta * kLane / Vec16<T>::kN, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(lr_blocks), static_cast<const float*>(scale),
         static_cast<const T*>(w), static_cast<const T*>(g),

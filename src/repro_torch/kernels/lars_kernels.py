@@ -239,7 +239,9 @@ def apply_flat_q8(w2: torch.Tensor, g2: torch.Tensor, q2: torch.Tensor,
 
     w2, g2: f32 or bf16 of one dtype; q2: int8; scale, lr_blocks:
     (R // 8, 1) f32. Returns fresh (w' in w2.dtype, q' int8, scale' f32)
-    buffers; nothing else is written. One launch.
+    buffers; nothing else is written. One launch of R / 2 CTAs of two
+    rows each, in thread-block clusters of 4 (one per row block) that
+    exchange the block's new absmax through distributed shared memory.
     """
     if _on_cpu(w2, g2, q2, scale, lr_blocks):
         return apply_flat_q8_plain(w2, g2, q2, scale, lr_blocks,

@@ -169,57 +169,103 @@ def test_use_kernels_true_runs_the_kernels(cuda):
         lars(0.2, use_kernels=False).update(params, state, params)
 
 
-def _q8_buffers(rows, dtype, device, seed=2):
+def _q8_buffers(rows, dtype, device, seed=2, zero_block=True):
     w, g, m, lr = _buffers(rows, dtype, device, seed)
     q, scale = packing.quantize_blocks_q8((m * 0.05).view(rows // 8, -1))
     scale = scale.contiguous()
     q = q.view(rows, 512)
-    q[:8] = 0                       # a zero block keeps scale 1.0 ...
-    scale[0] = 1.0
-    lr[0] = 0.0                     # ... when its lr and w, g are zero
-    w[:8] = 0
-    g[:8] = 0
+    if zero_block:
+        q[:8] = 0                   # a zero block keeps scale 1.0 ...
+        scale[0] = 1.0
+        lr[0] = 0.0                 # ... when its lr and w, g are zero
+        w[:8] = 0
+        g[:8] = 0
     return w, g, q, scale, lr
 
 
-@pytest.mark.parametrize("rows", [r for r, _ in SHAPES])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_apply_flat_q8_matches_plain_bit_for_bit(cuda, rows, dtype):
-    w, g, q, s, lr = _q8_buffers(rows, dtype, cuda)
-    ins = [x.clone() for x in (w, g, q, s, lr)]
+def _q8_check(w, g, q, s, lr):
+    """One launch; w', q' and scale' equal the plain version's bits."""
     before = dict(lk.LAUNCHES)
-    w2, q2, s2 = lk.apply_flat_q8(w, g, q, s, lr, momentum=0.9,
-                                  weight_decay=1e-4)
+    got = lk.apply_flat_q8(w, g, q, s, lr, momentum=0.9, weight_decay=1e-4)
     torch.cuda.synchronize()
     assert lk.LAUNCHES["apply_flat_q8"] == before["apply_flat_q8"] + 1
     assert lk.LAUNCHES["apply_flat"] == before["apply_flat"]
-    pw, pq, ps = lk.apply_flat_q8_plain(w, g, q, s, lr, momentum=0.9,
-                                        weight_decay=1e-4)
-    assert (w2.dtype, q2.dtype, s2.dtype) == (dtype, torch.int8,
-                                              torch.float32)
-    assert torch.equal(s2, ps)
-    assert torch.equal(q2, pq)
-    assert torch.equal(w2, pw)
-    assert float(s2[0]) == 1.0 and not q2[:8].any()
+    want = lk.apply_flat_q8_plain(w, g, q, s, lr, momentum=0.9,
+                                  weight_decay=1e-4)
+    assert tuple(x.dtype for x in got) == (w.dtype, torch.int8,
+                                           torch.float32)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
+
+
+# R = 8 is one cluster (one row block); 65544 is 8,193 clusters
+@pytest.mark.parametrize("rows", [8, 272, 65536, 65544])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_flat_q8_matches_plain_bit_for_bit(cuda, rows, dtype):
+    zero_block = rows > 8           # R = 8: its one block holds values
+    w, g, q, s, lr = _q8_buffers(rows, dtype, cuda, zero_block=zero_block)
+    ins = [x.clone() for x in (w, g, q, s, lr)]
+    w2, q2, s2 = _q8_check(w, g, q, s, lr)
+    if zero_block:
+        assert float(s2[0]) == 1.0 and not q2[:8].any()
+    else:
+        assert int(q2.abs().max()) == 127
     # its only outputs are w', q' and scale': the inputs are untouched
     for a, b in zip((w, g, q, s, lr), ins):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("row", range(8))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_flat_q8_absmax_in_each_row_of_a_block(cuda, row, dtype):
+    """The block's largest |m'| sits in one row, and so in one CTA of the
+    block's cluster, in a block that is not the first: every other CTA
+    must take it from that peer, so scale' and all the block's codes
+    match the plain version's. A word sent to the wrong rank, or read
+    before it arrived, shows here."""
+    w, g, q, s, lr = _q8_buffers(32, dtype, cuda, seed=5)
+    lr[2] = 0.05
+    col = (37 * row + 5) % 512
+    g[16 + row, col] = 40.0 if row % 2 else -40.0
+    w2, q2, s2 = _q8_check(w, g, q, s, lr)
+    assert abs(int(q2[16 + row, col])) == 127
+    assert int(q2[16:24].abs().max()) == 127
+    assert int((q2[16:24].abs() == 127).sum()) == 1
+    assert float(s2[2]) > float(s2[[1, 3]].max())
+
+
 def test_apply_flat_q8_propagates_nan(cuda):
     """A block holding a NaN comes out with a NaN scale, as the plain
-    version's does (fmaxf would have dropped it), and code 0 there."""
+    version's does (fmaxf would have dropped it), and code 0 there; with
+    the NaN in a block's second row and in another block's last row."""
     w, g, q, s, lr = _q8_buffers(32, torch.float32, cuda)
     g[9, 17] = float("nan")
+    g[31, 500] = float("nan")
     w2, q2, s2 = lk.apply_flat_q8(w, g, q, s, lr, momentum=0.9,
                                   weight_decay=1e-4)
     pw, pq, ps = lk.apply_flat_q8_plain(w, g, q, s, lr, momentum=0.9,
                                         weight_decay=1e-4)
     torch.cuda.synchronize()
-    assert torch.isnan(s2[1, 0]) and torch.isnan(ps[1, 0])
-    assert torch.isfinite(s2[[0, 2, 3]]).all()
-    assert q2[9, 17].item() == 0 and torch.equal(q2, pq)
-    assert torch.equal(s2[[0, 2, 3]], ps[[0, 2, 3]])
+    for blk in (1, 3):
+        assert torch.isnan(s2[blk, 0]) and torch.isnan(ps[blk, 0])
+    assert torch.isfinite(s2[[0, 2]]).all()
+    assert q2[9, 17].item() == 0 and q2[31, 500].item() == 0
+    assert torch.equal(q2, pq)
+    assert torch.equal(s2[[0, 2]], ps[[0, 2]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_flat_q8_repeat_calls_are_bit_identical(cuda, dtype):
+    """The absmax is a max over bit patterns, exchanged without atomics:
+    two calls on the same inputs give the same bits."""
+    w, g, q, s, lr = _q8_buffers(65544, dtype, cuda, seed=6)
+    kw = dict(momentum=0.9, weight_decay=1e-4)
+    first = lk.apply_flat_q8(w, g, q, s, lr, **kw)
+    second = lk.apply_flat_q8(w, g, q, s, lr, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("bad", ["q_misaligned", "q_dtype", "scale_shape",

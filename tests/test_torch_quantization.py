@@ -5,13 +5,14 @@ interpret mode, and LARS/SGD with ``slot_dtype="int8"`` step by step.
 Tolerances, each measured on the CPU:
   * ``quantize_q8`` / ``dequantize_q8``: bit-identical codes and scales
     (the same f32 division, round half to even and clip).
-  * ``apply_flat_q8_plain`` vs Pallas interpret at (32, 512): scales
-    rtol 5e-7 (measured 9.1e-8, one ulp: the absmax of a momentum that
-    differs by an ulp where XLA contracts a multiply-add), codes within
-    +-1 (a value on a .5 boundary may round either way; measured: no
-    code differs, f32 or bf16), weights atol 1e-6 as ``apply_flat``'s
-    (w' = w - m' cancels near zero; measured 2.4e-7 in f32, 0 in bf16)
-    plus one bf16 ulp for bf16 weights.
+  * ``apply_flat_q8_plain`` vs Pallas interpret at (32, 512) and at
+    LeNet's (272, 512): scales rtol 5e-7 (measured 9.1e-8 and 1.8e-7,
+    one to two ulp: the absmax of a momentum that differs by an ulp
+    where XLA contracts a multiply-add), codes within +-1 (a value on a
+    .5 boundary may round either way; measured: no code differs at 32
+    rows, one bf16 code of 139,264 at 272), weights atol 1e-6 as
+    ``apply_flat``'s (w' = w - m' cancels near zero; measured 2.4e-7 in
+    f32, 0 in bf16) plus one bf16 ulp for bf16 weights.
   * int8 LARS over 4 steps on LeNet: the trust ratios differ by ~1e-7
     relative (norms summed in another order), which flips a few codes by
     one step of their block's scale; measured 1-3 codes per step (of
@@ -140,16 +141,19 @@ def _q8_inputs(rows, dtype, seed=0):
     return j, t
 
 
+# 272 rows is LeNet's packed buffer: 34 blocks
+@pytest.mark.parametrize("rows", [32, 272])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_apply_flat_q8_plain_matches_pallas_interpret(dtype):
-    j, t = _q8_inputs(32, dtype)
+def test_apply_flat_q8_plain_matches_pallas_interpret(dtype, rows):
+    j, t = _q8_inputs(rows, dtype)
     kw = dict(momentum=0.9, weight_decay=1e-4)
     rw, rq, rs = ref_lk.apply_flat_q8(*j, **kw, interpret=True)
     before = dict(lk.LAUNCHES)
     for fn in (lk.apply_flat_q8_plain, lk.apply_flat_q8):   # CPU: plain
         w2, q2, s2 = fn(*t, **kw)
         assert w2.dtype == t[0].dtype and q2.dtype == torch.int8
-        assert tuple(s2.shape) == (4, 1) and s2.dtype == torch.float32
+        assert tuple(s2.shape) == (rows // 8, 1) \
+            and s2.dtype == torch.float32
         np.testing.assert_allclose(s2.numpy(), np.asarray(rs),
                                    rtol=SCALE_RTOL, atol=0)
         dq = np.abs(q2.numpy().astype(int) - np.asarray(rq).astype(int))
