@@ -58,7 +58,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
 10. serve profile — full-width smollm, 32 busy slots: admission launches
              no ``flash_decode``; a ``torch.profiler`` window over 5
              decode ticks: busy share, top device ops, ``flash_decode``'s
-             time and launches in a tick.
+             time and launches in a tick;
+11. experiments — the paper's experiment harness
+             (``repro_torch.experiments.GridRunner``) on the card, into
+             fresh directories under ``build/``: the registered
+             ``lars_vs_sgd_smoke`` grid (4 cells, 544 steps) and
+             ``int8_parity_smoke`` (8 cells, 1,088 bf16 steps of 4
+             microbatches): every cell finishes with finite losses, each
+             LARS cell launches exactly one ``norms_flat`` and one
+             ``apply_flat`` (f32 momentum) or ``apply_flat_q8`` (int8) per
+             step and each SGD cell none, and the report carries C1, C3,
+             C4 (and P1); the smoke grid killed mid-cell past a checkpoint
+             and resumed gives trajectories and rows equal to the
+             uninterrupted run's; steps/s of the b64 LARS cell with and
+             without the per-step statistics and with cuDNN's
+             deterministic algorithms on and off; a profile of 50 of its
+             steps (the device's busy share, time by kernel).
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -70,6 +85,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -120,6 +136,13 @@ SERVE_ARGS = ["--arch", "smollm-135m", "--slots", "32", "--capacity", "4096",
               "--arrival-every", "1", "--seed", "0"]
 # reduced smollm, card vs CPU: only f32 summation orders differ
 SERVE_CARD_CPU_ATOL = 1e-4
+
+# phase 11: the registered grids it runs; the kill lands in the smoke
+# grid's second cell (lars-b64, 256 steps, after sgd-b64's 256) at its
+# step 110, past its step-100 checkpoint
+EXP_GRIDS = ("lars_vs_sgd_smoke", "int8_parity_smoke")
+EXP_KILL_AFTER = 256 + 110
+EXP_PROFILE_STEPS = 50
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -466,6 +489,17 @@ def checkpoint_phase(workdir: str) -> dict:
             "f32_momentum_bytes": slots["master"].numel() * 4}
 
 
+def device_ms_by_kernel(prof) -> dict:
+    """Device ms by kernel name over a ``torch.profiler`` window."""
+    import torch
+    kernels: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3
+    return kernels
+
+
 def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
     """Phase 7: device busy share and time by kernel over main-path steps
     at batch 8192 (``path``: "f32" LARS or the "large_batch" path), after
@@ -498,11 +532,7 @@ def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
             state, _ = pipe(state, to_device(next(it), dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3
+    kernels = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
@@ -743,11 +773,7 @@ def serve_profile_phase(fdk, ticks: int = 5) -> dict:
     if launches != cfg.num_layers * ticks:
         raise AssertionError(f"profile: {launches} launches in {ticks} "
                              "ticks")
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3
+    kernels = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     fd_ms = sum(ms for n, ms in kernels.items() if "flash_decode" in n)
@@ -765,6 +791,208 @@ def serve_profile_phase(fdk, ticks: int = 5) -> dict:
             "flash_decode_ms_per_tick": fd_ms / ticks if busy else None,
             "flash_decode_launches_per_tick": launches / ticks,
             "top_kernels_ms_per_tick": [[n[:90], ms / ticks]
+                                        for n, ms in top]}
+
+
+def _want_launches(cell) -> dict:
+    """Kernel launches a cell must make: one norms_flat and one apply per
+    LARS step (apply_flat_q8 with int8 momentum), none for SGD."""
+    lars_steps = cell.steps if cell.optimizer == "lars" else 0
+    int8 = cell.opt_state_dtype == "int8"
+    return {"norms_flat": lars_steps,
+            "apply_flat": 0 if int8 else lars_steps,
+            "apply_flat_q8": lars_steps if int8 else 0}
+
+
+def _grid_outputs(out_dir: str, grid) -> tuple[dict, dict]:
+    """(trajectories without timing keys, manifest rows without wall_s)."""
+    from repro_torch.experiments import read_trajectory
+    from repro_torch.experiments.record import load_json
+    traj = {c.cell_id: read_trajectory(
+        os.path.join(out_dir, c.cell_id, "trajectory.jsonl"),
+        strip_timing=True) for c in grid.cells()}
+    rows = {cid: {k: v for k, v in row.items() if k != "wall_s"}
+            for cid, row in load_json(os.path.join(
+                out_dir, "manifest.json"))["cells"].items()}
+    return traj, rows
+
+
+def experiment_phase(workdir: str, lk) -> dict:
+    """Phase 11: the experiment harness on the card. Launch counts are set
+    to 0 just before each grid and read, then set to 0 again, as each of
+    its cells finishes."""
+    import torch
+    from repro_torch.experiments import (GridRunner, aggregate,
+                                         format_table, get_grid,
+                                         read_trajectory)
+    from repro_torch.experiments.runner import ABORT_ENV
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "experiments")
+    shutil.rmtree(root, ignore_errors=True)
+    deterministic = torch.backends.cudnn.deterministic
+    out: dict = {}
+    try:
+        for name in EXP_GRIDS:
+            grid = get_grid(name)
+            launches = {}
+
+            def on_row(row):
+                launches[row["cell_id"]] = dict(lk.LAUNCHES)
+                lk.reset_launch_counts()
+
+            lk.reset_launch_counts()
+            t0 = time.perf_counter()
+            manifest = GridRunner(grid, os.path.join(root, name),
+                                  device="cuda", log=log).run(on_row=on_row)
+            wall = time.perf_counter() - t0
+            if set(manifest["cells"]) != {c.cell_id for c in grid.cells()}:
+                raise AssertionError(
+                    f"{name}: cells {sorted(manifest['cells'])}")
+            cells = {}
+            for c in grid.cells():
+                row = manifest["cells"][c.cell_id]
+                recs = read_trajectory(os.path.join(root, name, c.cell_id,
+                                                    "trajectory.jsonl"))
+                losses = [r["loss"] for r in recs]
+                if len(losses) != c.steps or row.get("diverged") or not all(
+                        x is not None and math.isfinite(x) for x in losses):
+                    raise AssertionError(f"{c.cell_id}: {len(losses)} of "
+                                         f"{c.steps} steps, losses {losses}")
+                if not isinstance(row["peak_bytes"], int) \
+                        or row["peak_bytes"] <= 0:
+                    raise AssertionError(f"{c.cell_id}: peak bytes "
+                                         f"{row['peak_bytes']}")
+                if launches[c.cell_id] != _want_launches(c):
+                    raise AssertionError(
+                        f"{c.cell_id}: launches {launches[c.cell_id]}, want "
+                        f"{_want_launches(c)}")
+                train_s = recs[-1]["wall_s"]    # the cell's training loop
+                cells[c.cell_id] = {
+                    "steps": c.steps, "train_s": train_s,
+                    "steps_per_s": c.steps / train_s, "cell_wall_s":
+                    row["wall_s"], "test_acc": row["test_acc"],
+                    "train_acc": row["train_acc"], "loss": row["loss"],
+                    "peak_bytes": row["peak_bytes"],
+                    "launches": launches[c.cell_id]}
+                log(f"  {c.cell_id}: {c.steps} steps in {train_s:.3f} s "
+                    f"({c.steps / train_s:.1f} steps/s), test acc "
+                    f"{row['test_acc']}, loss {row['loss']:.4f}, peak "
+                    f"{row['peak_bytes']} B, launches {launches[c.cell_id]}")
+            payload = aggregate(grid, manifest)
+            claims = payload["claims"]
+            need = {"C1_comparable_at_small_batch",
+                    "C3_lars_ge_sgd_at_largest_batch",
+                    "C4_sgd_gen_error_grows_faster"}
+            if name == "int8_parity_smoke":
+                need.add("P1_int8_matches_f32")
+            if not need <= set(claims):
+                raise AssertionError(f"{name}: claims {sorted(claims)}")
+            log(f"  {name}: {len(cells)} cells in {wall:.2f} s\n" +
+                format_table(payload))
+            for key, val in claims.items():
+                log(f"  claim {key}: {val}")
+            out[name] = {"wall_s": wall, "cells": cells, "claims": claims}
+
+        # kill mid-cell, past a checkpoint, and resume
+        grid = get_grid(EXP_GRIDS[0])
+        kdir = os.path.join(root, "killed")
+        os.environ[ABORT_ENV] = str(EXP_KILL_AFTER)
+        killed = False
+        try:
+            GridRunner(grid, kdir, device="cuda", log=log).run()
+        except KeyboardInterrupt:
+            killed = True
+        finally:
+            os.environ.pop(ABORT_ENV, None)
+        ckpt = os.path.join(kdir, grid.cells()[1].cell_id, "state.npz")
+        if not killed or not os.path.exists(ckpt):
+            raise AssertionError(f"the kill after {EXP_KILL_AFTER} steps "
+                                 f"did not land mid-cell ({ckpt})")
+        GridRunner(grid, kdir, device="cuda", log=log).run(resume=True)
+        got = _grid_outputs(kdir, grid)
+        want = _grid_outputs(os.path.join(root, grid.name), grid)
+        differ = [f"{c.cell_id} trajectory" for c in grid.cells()
+                  if got[0][c.cell_id] != want[0][c.cell_id]] + [
+            f"{cid} {key}: {row.get(key)} != {want[1][cid].get(key)}"
+            for cid, row in got[1].items()
+            for key in set(row) | set(want[1][cid])
+            if row.get(key) != want[1][cid].get(key)]
+        same = not differ
+        log(f"  killed after {EXP_KILL_AFTER} steps and resumed: "
+            f"trajectories and rows {'equal' if same else 'DIFFERENT'} to "
+            "the uninterrupted run's" + "".join(f"\n    {d}" for d in differ))
+        if not same:
+            raise AssertionError("resumed grid differs from the "
+                                 "uninterrupted one")
+        out["kill_resume_equal"] = same
+
+        # steps/s of the b64 LARS cell: stats on/off x deterministic on/off,
+        # in the order ABCD DCBA
+        cell = next(c for c in grid.cells()
+                    if c.optimizer == "lars" and c.batch == 64)
+        configs = [(st, det) for st in (True, False) for det in (True, False)]
+        rates: dict = {}
+        for stats, det in configs + configs[::-1]:
+            runner = GridRunner(grid, os.path.join(root, "timing"),
+                                device="cuda", collect_stats=stats, log=None)
+            torch.backends.cudnn.deterministic = det
+            state, _ = runner.open_cell(cell)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.run_cell_segment(cell, state, start=0,
+                                    until_step=cell.steps)
+            torch.cuda.synchronize()
+            key = (f"stats_{'on' if stats else 'off'}_"
+                   f"deterministic_{'on' if det else 'off'}")
+            rates.setdefault(key, []).append(
+                cell.steps / (time.perf_counter() - t0))
+        for key, r in rates.items():
+            log(f"  {cell.cell_id} {key}: "
+                + " / ".join(f"{x:.2f}" for x in r) + " steps/s")
+        out["timing"] = {"cell": cell.cell_id, "steps": cell.steps,
+                         "steps_per_s": rates}
+        out["profile"] = experiment_profile(grid, cell, root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
+def experiment_profile(grid, cell, root: str, steps: int = EXP_PROFILE_STEPS
+                       ) -> dict:
+    """Phase 11: a ``torch.profiler`` window over ``steps`` steps of the
+    runner's b64 LARS cell as a grid runs it (stats on, deterministic
+    cuDNN, a checkpoint every 25 steps), after 25 warm-up steps: the
+    device's busy share and time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.experiments import GridRunner
+    runner = GridRunner(grid, os.path.join(root, "profile"), device="cuda",
+                        log=None)
+    state, _ = runner.open_cell(cell)
+    state, _, _ = runner.run_cell_segment(cell, state, start=0,
+                                          until_step=25)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run_cell_segment(cell, state, start=25, until_step=25 + steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_ms_by_kernel(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profile, {steps} steps of {cell.cell_id}: wall "
+        f"{wall_ms / steps:.3f} ms/step, device busy {busy / steps:.3f} "
+        f"ms/step ({100 * busy / wall_ms:.1f}%)" if busy else
+        "  profile: device time not measured (the profiler recorded no "
+        "CUDA events)")
+    for name, ms in top:
+        log(f"    {ms / steps:9.4f} ms/step  {name[:90]}")
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy / steps if busy else None,
+            "top_kernels_ms_per_step": [[n[:90], ms / steps]
                                         for n, ms in top]}
 
 
@@ -821,6 +1049,9 @@ def main() -> int:
     log("== 10. serve profile: 5 decode ticks at full width")
     serve_prof = serve_profile_phase(fdk)
 
+    log("== 11. experiments: lars_vs_sgd_smoke and int8_parity_smoke")
+    exp = experiment_phase(os.path.join(ROOT, "build"), lk)
+
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
                 "apply_flat": "src/repro/kernels/lars_kernels.py:86",
                 "apply_flat_q8": "src/repro/kernels/lars_kernels.py:139"}
@@ -853,6 +1084,9 @@ def main() -> int:
             "shapes": rows}
         if kname == "norms_flat":
             entry["fold_ms"] = main_row["fold_ms"]
+        entry["launches_by_grid"] = {
+            g: sum(c["launches"][kname] for c in exp[g]["cells"].values())
+            for g in EXP_GRIDS}
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
@@ -879,7 +1113,7 @@ def main() -> int:
     log(json.dumps({"main_path": main_path, "card_vs_cpu_rel": card_cpu,
                     "checkpoint": ckpt, "profile": prof, "serve": served,
                     "serve_card_vs_cpu": serve_cpu,
-                    "serve_profile": serve_prof}))
+                    "serve_profile": serve_prof, "experiments": exp}))
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

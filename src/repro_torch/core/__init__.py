@@ -8,7 +8,8 @@ from repro_torch.core.optim_base import (LayerwiseRule, Optimizer,  # noqa: F401
 from repro_torch.core.packing import PackedLayout, build_layout  # noqa: F401
 from repro_torch.core.sgd import sgd
 from repro_torch.core.lars import lars
-from repro_torch.core import packing, schedules, scaling, trust_ratio  # noqa: F401
+from repro_torch.core import (grad_stats, packing, schedules,  # noqa: F401
+                              scaling, trust_ratio)
 
 OPTIMIZERS = {"sgd": sgd, "lars": lars}
 NOT_YET_PORTED = ("lamb", "adamw")

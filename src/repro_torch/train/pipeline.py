@@ -21,10 +21,13 @@ is that execution layer:
   accumulate in f32. Batch float leaves are cast to bf16 inside the
   step. The policy itself (:class:`Precision`) lives in
   :mod:`repro_torch.train.state`.
+* **Statistics hook** — ``stats_fn(params, grads, stacked)`` (e.g.
+  :func:`repro_torch.core.grad_stats.stats_hook`) runs on the pre-update
+  params and the mean gradient of the global batch; its table rides back
+  on the device under ``metrics["stats"]``.
 
-Not yet ported: meshes, ZeRO-sharded optimizer states, the per-step
-statistics hook, and unfused (tree) accumulation, which the reference
-keeps for those.
+Not yet ported: meshes, ZeRO-sharded optimizer states, and unfused
+(tree) accumulation, which the reference keeps for those.
 
 Typical use::
 
@@ -36,6 +39,9 @@ Typical use::
 
 from __future__ import annotations
 
+import gc
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch.core import packing
@@ -43,8 +49,8 @@ from repro_torch.core.optim_base import PackedGrads
 from repro_torch.train.state import (PRECISIONS, Precision,  # noqa: F401
                                      TrainState, cast_floats,
                                      create_train_state, get_precision)
-from repro_torch.train.step import (apply_update, make_train_step,
-                                    value_and_grad)
+from repro_torch.train.step import apply_update, value_and_grad
+from repro_torch.treepath import tree_leaves
 
 
 class TrainPipeline:
@@ -53,13 +59,11 @@ class TrainPipeline:
     def __init__(self, model, optimizer, cfg=None, *, accum_steps: int = 1,
                  precision: str | Precision = "f32",
                  fuse_update: bool | str = "auto", mesh=None,
-                 zero: bool = False, stats_fn=None):
-        if mesh is not None or zero or stats_fn is not None \
-                or fuse_update not in (True, "auto"):
+                 zero: bool = False, stats_fn: Optional[Callable] = None):
+        if mesh is not None or zero or fuse_update not in (True, "auto"):
             raise NotImplementedError(
-                "TrainPipeline's mesh, zero, stats_fn and unfused "
-                "(fuse_update=False) accumulation are not yet ported to "
-                "repro_torch")
+                "TrainPipeline's mesh, zero and unfused (fuse_update="
+                "False) accumulation are not yet ported to repro_torch")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.model = model
@@ -67,7 +71,9 @@ class TrainPipeline:
         self.cfg = cfg if cfg is not None else model.cfg
         self.accum_steps = accum_steps
         self.precision = get_precision(precision)
-        self._step = make_train_step(model, optimizer, self.cfg)
+        self.stats_fn = stats_fn
+        self._peak_bytes: Optional[int] = None
+        self._card_steps = 0
 
     def init_state(self, generator: torch.Generator,
                    device: torch.device | str) -> TrainState:
@@ -75,33 +81,109 @@ class TrainPipeline:
         return create_train_state(self.model, self.optimizer, generator,
                                   device=device, precision=self.precision)
 
+    def peak_bytes(self, batch) -> Optional[int]:
+        """Peak device memory of one step on ``batch``'s device, in bytes;
+        ``None`` on the CPU.
+
+        This is the CUDA caching allocator's peak, not XLA's compile-time
+        memory analysis (the reference's ``compiled_peak_bytes``), so the
+        two packages' numbers do not compare. It is taken over the
+        pipeline's second step on the card (the first may allocate
+        cuBLAS's one-time workspace): ``max_memory_allocated`` after
+        ``reset_peak_memory_stats``, less what was allocated when the
+        step began, plus the step's inputs (state and batch). Cached per
+        pipeline; where fewer than two steps have run on the card, steps
+        of a fresh state (seed 0) on ``batch`` measure it.
+        """
+        first = next(iter(batch.values()))
+        if not first.is_cuda:
+            return None
+        if self._peak_bytes is None:
+            state = self.init_state(torch.Generator().manual_seed(0),
+                                    first.device)
+            while self._peak_bytes is None:
+                state, _ = self(state, batch)
+        return self._peak_bytes
+
     def __call__(self, state: TrainState, batch) -> tuple[TrainState, dict]:
+        if self._peak_bytes is None and next(iter(batch.values())).is_cuda:
+            self._card_steps += 1
+            if self._card_steps == 2:
+                return self._measured_step(state, batch)
+        return self._step(state, batch)
+
+    def _measured_step(self, state: TrainState, batch
+                       ) -> tuple[TrainState, dict]:
+        dev = next(iter(batch.values())).device
+        # tensors held only by reference cycles would otherwise be freed
+        # whenever the collector runs, inside the window or not
+        gc_enabled = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = self._step(state, batch)
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            if gc_enabled:
+                gc.enable()
+        inputs = {}                          # by storage: views count once
+        for leaf in tree_leaves(state.params) + tree_leaves(
+                state.opt_state.slots) + tree_leaves(batch):
+            st = leaf.untyped_storage()
+            inputs[st.data_ptr()] = st.nbytes()
+        self._peak_bytes = int(peak - before + sum(inputs.values()))
+        return out
+
+    def _step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
         model, cfg, k = self.model, self.cfg, self.accum_steps
         batch = cast_floats(batch, self.precision.compute_dtype)
         if k == 1:
-            return self._step(state, batch)
-        first = next(iter(batch.values()))
-        b, n = first.shape[0], first.shape[0] // k
-        if b % k:
-            raise ValueError(f"global batch {b} not divisible by "
-                             f"accum_steps={k}")
-        layout = state.opt_state.layout
-        gsum = torch.zeros(layout.buffer_shape, dtype=torch.float32,
-                           device=first.device)
-        lsum = asum = torch.zeros((), dtype=torch.float32,
-                                  device=first.device)
-        for i in range(k):
-            mb = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
-            loss, g, (_, aux) = value_and_grad(model, cfg, state.params, mb)
-            # pack casts to f32 before the add: the sum is in f32 even
-            # when the gradients are bf16
-            gsum = gsum + packing.pack(layout, g)
-            lsum = lsum + loss
-            asum = asum + aux["aux_loss"]
-        # equal-size microbatches + mean losses: the mean of the
-        # microbatch mean gradients IS the full-batch mean gradient, so
-        # the (single) LARS trust ratio matches one step on the whole
-        # global batch
-        inv = 1.0 / k
-        return apply_update(model, self.optimizer, state,
-                            PackedGrads(gsum * inv), lsum * inv, asum * inv)
+            # make_train_step's step
+            loss, grads, (_, aux) = value_and_grad(model, cfg, state.params,
+                                                   batch)
+            aux_loss = aux["aux_loss"]
+        else:
+            first = next(iter(batch.values()))
+            b, n = first.shape[0], first.shape[0] // k
+            if b % k:
+                raise ValueError(f"global batch {b} not divisible by "
+                                 f"accum_steps={k}")
+            layout = state.opt_state.layout
+            gsum = torch.zeros(layout.buffer_shape, dtype=torch.float32,
+                               device=first.device)
+            lsum = asum = torch.zeros((), dtype=torch.float32,
+                                      device=first.device)
+            for i in range(k):
+                mb = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
+                loss, g, (_, aux) = value_and_grad(model, cfg, state.params,
+                                                   mb)
+                # pack casts to f32 before the add: the sum is in f32 even
+                # when the gradients are bf16
+                gsum = gsum + packing.pack(layout, g)
+                lsum = lsum + loss
+                asum = asum + aux["aux_loss"]
+            # equal-size microbatches + mean losses: the mean of the
+            # microbatch mean gradients IS the full-batch mean gradient, so
+            # the (single) LARS trust ratio matches one step on the whole
+            # global batch
+            inv = 1.0 / k
+            grads = PackedGrads(gsum * inv)
+            loss, aux_loss = lsum * inv, asum * inv
+        stats = None
+        if self.stats_fn is not None:
+            # taken before the update, on the params the update starts
+            # from, as the reference's step reads them
+            stat_grads = packing.unpack(state.opt_state.layout, grads.buf,
+                                        dtype=torch.float32) \
+                if isinstance(grads, PackedGrads) else grads
+            stats = self.stats_fn(state.params, stat_grads,
+                                  model.stacked_marker(state.params))
+        state, metrics = apply_update(model, self.optimizer, state, grads,
+                                      loss, aux_loss)
+        if stats is not None:
+            metrics["stats"] = stats
+        return state, metrics

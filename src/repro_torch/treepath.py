@@ -24,20 +24,23 @@ def path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+def _walk(node, path: tuple, out: list) -> None:
+    # module level, not a closure: a nested function that calls itself is
+    # a reference cycle, and it would keep every leaf it appended to
+    # ``out`` alive until the cyclic garbage collector ran
+    if isinstance(node, dict):
+        for k in sorted(node):
+            if not isinstance(k, str):
+                raise TypeError(f"tree keys must be str, got {k!r}")
+            _walk(node[k], path + (k,), out)
+    else:
+        out.append((path, node))
+
+
 def tree_flatten_with_path(tree: Pytree) -> tuple[list, TreeDef]:
     """-> ([(path, leaf), ...], treedef) with dict keys in sorted order."""
     out: list = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                if not isinstance(k, str):
-                    raise TypeError(f"tree keys must be str, got {k!r}")
-                walk(node[k], path + (k,))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out, tuple(p for p, _ in out)
 
 

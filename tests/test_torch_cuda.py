@@ -345,6 +345,41 @@ def test_pipeline_bf16_int8_accumulation_on_the_card(cuda):
     assert state.params["fc1"]["w"].dtype == torch.bfloat16
 
 
+def test_pipeline_stats_and_peak_bytes_on_the_card(cuda):
+    """The statistics hook on the card matches the CPU's table on the same
+    init and batch (f32, the conv sums' order apart: rtol 1e-5), and
+    ``peak_bytes`` comes from the second step, makes no extra launch and
+    is the same for a fresh pipeline."""
+    from repro_torch.core import grad_stats
+    cfg = get_config("lenet-mnist")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"x": torch.rand(64, 28, 28, 1, generator=gen),
+             "y": torch.randint(0, 10, (64,), generator=gen)}
+    stats, peaks = {}, []
+    for dev in ("cpu", cuda, cuda):
+        pipe = TrainPipeline(model, lars(0.05), cfg,
+                             stats_fn=grad_stats.stats_hook(eta=0.02))
+        state = pipe.init_state(torch.Generator().manual_seed(0), dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        lk.reset_launch_counts()
+        for _ in range(2):
+            state, metrics = pipe(state, b)
+        stats[str(dev)] = grad_stats.summarize(metrics["stats"])
+        if dev == "cpu":
+            assert pipe.peak_bytes(b) is None
+            continue
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES == {"norms_flat": 2, "apply_flat": 2,
+                               "apply_flat_q8": 0}
+        peaks.append(pipe.peak_bytes(b))
+        assert lk.LAUNCHES["norms_flat"] == 2
+    assert isinstance(peaks[0], int) and peaks[0] > 0
+    assert peaks[0] == peaks[1]
+    for key, want in stats["cpu"].items():
+        assert abs(stats["cuda"][key] - want) <= 1e-5 * abs(want), key
+
+
 # ------------------------------------------------------------ flash_decode
 #
 # The kernel sums the softmax and the value products in another order

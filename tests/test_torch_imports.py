@@ -31,7 +31,10 @@ def test_the_scan_sees_the_port():
             "src/repro_torch/kernels/flash_decode.py",
             "src/repro_torch/models/lm.py",
             "src/repro_torch/serve/engine.py",
-            "src/repro_torch/launch/serve.py"} <= names
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/core/grad_stats.py",
+            "src/repro_torch/experiments/runner.py",
+            "src/repro_torch/launch/experiment.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -42,7 +45,11 @@ def test_the_scan_sees_the_port():
     "repro_torch.models.lm", "repro_torch.serve",
     "repro_torch.serve.sampling", "repro_torch.serve.cache",
     "repro_torch.serve.scheduler", "repro_torch.serve.engine",
-    "repro_torch.launch.serve", "repro_torch.configs.smollm_135m"])
+    "repro_torch.launch.serve", "repro_torch.configs.smollm_135m",
+    "repro_torch.core.grad_stats", "repro_torch.experiments",
+    "repro_torch.experiments.spec", "repro_torch.experiments.record",
+    "repro_torch.experiments.report", "repro_torch.experiments.runner",
+    "repro_torch.launch.experiment"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""

@@ -14,7 +14,7 @@ from repro.core import packing as ref_packing
 from repro.models.lenet import LeNet as RefLeNet
 from repro_torch import bridge
 from repro_torch.core import packing
-from repro_torch.treepath import tree_map
+from repro_torch.treepath import tree_flatten_with_path, tree_map
 
 SUM_RTOL = 1e-6
 
@@ -169,3 +169,25 @@ def test_check_marker_and_empty_tree_raise():
         packing.check_marker(layout, tree, bad)
     with pytest.raises(ValueError, match="empty"):
         packing.build_layout({}, {})
+
+
+def test_flatten_leaves_no_reference_cycle():
+    """A leaf is freed when its last reference goes, without the cyclic
+    garbage collector: flattening (which every pack, tree_map and
+    optimizer step does) must not park leaves in a reference cycle, or
+    device memory outlives its step until the collector runs."""
+    import gc
+    import weakref
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        flat, _ = tree_flatten_with_path({"a": {"w": leaf, "b": 1.0},
+                                          "c": 2.0})
+        assert [p for p, x in flat if x is leaf] == [("a", "w")]
+        del flat, leaf
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()

@@ -248,8 +248,7 @@ def test_create_train_state_precision_matches_pipeline():
 
 def test_pipeline_refuses_what_it_cannot_do():
     opt = _opt("lars")
-    for kw in ({"mesh": object()}, {"zero": True},
-               {"stats_fn": lambda *a: None}):
+    for kw in ({"mesh": object()}, {"zero": True}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TrainPipeline(MODEL, opt, CFG, **kw)
     with pytest.raises(ValueError, match="accum_steps"):
