@@ -42,8 +42,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              fresh state and run 10 more steps, against 20 uninterrupted
              steps: bit for bit, with cuDNN's deterministic algorithms;
 7. profile — a short ``torch.profiler`` window over main-path steps (f32
-             LARS and the large-batch path): the device's busy share, time
-             by kernel, and the hand kernels' own device time in a step;
+             LARS and the large-batch path) fed by the loader: the
+             device's busy share, time by kernel, the loader's H2D copies
+             and the hand kernels' own device time in a step;
 8. serve   — ``repro_torch.launch.serve``'s ``main`` on the card:
              smollm-135m at full width (30 layers, bf16, random weights
              from seed 0), 32 slots of capacity 4096 (a 3.0 GB KV cache),
@@ -73,7 +74,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
              uninterrupted run's; steps/s of the b64 LARS cell with and
              without the per-step statistics and with cuDNN's
              deterministic algorithms on and off; a profile of 50 of its
-             steps (the device's busy share, time by kernel).
+             steps (the device's busy share, time by kernel);
+12. LM training — ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
+             at smollm-135m's packed shape (263144, 512), timed and held
+             against their plain versions as in phase 3;
+             ``repro_torch.launch.train``'s ``main`` with smollm-135m at
+             full width (30 layers, bf16 parameters), 16 x 1024 tokens,
+             for 4 steps each of LARS (one ``norms_flat`` and one
+             ``apply_flat`` launch per step), LAMB (none) and the
+             large-batch LARS path (bf16, int8 momentum, 4 microbatches
+             of 16: one ``norms_flat`` and one ``apply_flat_q8`` per
+             step): steps/s, tokens/s, the allocator's peak, finite
+             losses; a profile of one full-width step of each LARS path
+             fed by the loader (busy share, time by kernel, the H2D
+             copies); reduced smollm in f32, 20 steps of LARS and of LAMB
+             on the card against the CPU; LeNet (LARS, batch 8192) and the
+             reduced LM (LAMB) for 5 steps through ``ShardedLoader`` with
+             prefetch and without, bit-identical; the registered
+             ``lm_smoke`` grid through ``GridRunner`` (8 cells, 1,152
+             steps) with its launches per cell, then killed mid-cell and
+             resumed to equal trajectories and rows.
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -94,7 +114,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SHAPES = [(272, 512), (65536, 512)]   # LeNet's packed buffer; HBM-sized
-GRAPH_CALLS = {272: 100, 65536: 10}   # calls per timed CUDA graph
+GRAPH_CALLS = {272: 100, 65536: 10, 263144: 5}  # calls per timed graph
 MAIN_ROWS = 272
 MAIN_STEPS = 20
 MAIN_ARGS = ["--arch", "lenet-mnist", "--batch", "8192",
@@ -143,6 +163,34 @@ SERVE_CARD_CPU_ATOL = 1e-4
 EXP_GRIDS = ("lars_vs_sgd_smoke", "int8_parity_smoke")
 EXP_KILL_AFTER = 256 + 110
 EXP_PROFILE_STEPS = 50
+
+# phase 12: smollm-135m at full width (a (263144, 512) superbuffer of
+# 272 layer slices) through launch.train, batch 16 x 1024 tokens
+LM_ROWS, LM_SLICES = 263144, 272
+LM_STEPS = 4
+LM_ARGS = ["--arch", "smollm-135m", "--batch", "16", "--seq", "1024",
+           "--steps", str(LM_STEPS), "--lr", "0.01", "--log-every", "0"]
+LM_RUNS = {"lars": ["--optimizer", "lars"],
+           "lamb": ["--optimizer", "lamb"],
+           # the large-batch LARS path: int8 momentum, 4 microbatches of
+           # 16, bf16 compute
+           "lars_int8_bf16_accum4": ["--optimizer", "lars", "--precision",
+                                     "bf16", "--opt-state-dtype", "int8",
+                                     "--accum-steps", "4", "--batch", "64"]}
+# reduced smollm in f32, card against CPU, 20 steps
+LM_CARD_CPU_ARGS = ["--arch", "smollm-135m", "--reduced", "--batch", "8",
+                    "--seq", "64", "--steps", "20", "--lr", "0.01",
+                    "--log-every", "0"]
+# only f32 summation orders differ (cuBLAS against the CPU's GEMMs):
+# measured 2.3e-7 (LARS) and 1.6e-7 (LAMB) relative over the 20 steps on
+# an H100 80GB HBM3 at 700 W; held at 1e-5
+LM_CARD_CPU_RTOL = {"lars": 1e-5, "lamb": 1e-5}
+LOADER_STEPS = 5
+# the registered lm_smoke grid: the kill lands in its second cell
+# (adamw-b16, 256 steps, after lamb-b16's 256) at its step 110, past its
+# step-100 checkpoint
+LM_GRID = "lm_smoke"
+LM_KILL_AFTER = 256 + 110
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -241,70 +289,92 @@ def kernel_phase(lk, bw: float, flops: float) -> tuple[dict, float]:
     """Phase 3: the launch floor, then each kernel against its plain
     version at SHAPES. Returns (rows by kernel, floor ms)."""
     import torch
-    from repro_torch.core import packing
-    dev = torch.device("cuda")
     layout = lenet_layout()
     if layout.buffer_shape != (MAIN_ROWS, 512):
         raise AssertionError(f"LeNet's layout is {layout.buffer_shape}")
     floor = floor_ms(GRAPH_CALLS[MAIN_ROWS])
     log(f"  launch floor (one-element zero_(), {GRAPH_CALLS[MAIN_ROWS]} "
         f"calls per graph): {floor:.5f} ms")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     out = {k: [] for k in KERNELS}
     for rows, lane in SHAPES:
-        n = rows * lane
-        w = torch.randn(rows, lane, generator=gen, device=dev)
-        g = torch.randn(rows, lane, generator=gen, device=dev) * 1e-2
-        m = torch.randn(rows, lane, generator=gen, device=dev) * 1e-3
-        lr = torch.rand(rows // 8, 1, generator=gen, device=dev) * 1e-2
+        for name, row in kernel_rows(lk, rows, lane, gen, bw, flops,
+                                     layout if rows == MAIN_ROWS else None
+                                     ).items():
+            out[name].append(row)
+    log_kernel_rows(out, floor)
+    return out, floor
 
-        wsq, gsq = lk.norms_flat(w, g, block_rows=1)
-        pw, pg = lk.norms_flat_plain(w, g, block_rows=1)
-        torch.cuda.synchronize()
-        err = max((wsq - pw).abs().max().item(), (gsq - pg).abs().max().item())
-        rel = max(((wsq - pw).abs() / pw).max().item(),
-                  ((gsq - pg).abs() / pg).max().item())
-        if not rel <= NORMS_RTOL:
-            raise AssertionError(f"norms_flat {rows}x{lane}: rel err {rel} "
-                                 f"> {NORMS_RTOL}")
-        nbytes = 2 * n * 4 + 2 * rows * 4
-        nops = 4 * n
-        calls = GRAPH_CALLS[rows]
-        vn = lambda x: torch.linalg.vector_norm(x, dim=1)
-        out["norms_flat"].append(_row(
-            rows, lane, err, rel,
-            timings(lambda: lk.norms_flat(w, g, block_rows=1), calls),
-            device_ms(lambda: lk.norms_flat_plain(w, g, block_rows=1),
-                      calls=calls),
-            device_ms(lambda: (vn(w), vn(g)), calls=calls),
-            nbytes, nops, bw, flops))
-        if rows == MAIN_ROWS:
-            # what a LARS step adds to the kernel: the fold of its row
-            # sums into layer slices (one for sum w^2, one for sum g^2)
-            out["norms_flat"][-1]["fold_ms"] = device_ms(
-                lambda: packing.fold_rows(layout, wsq), calls=calls)
 
-        w2, m2 = lk.apply_flat(w, g, m, lr, momentum=0.9, weight_decay=1e-4)
-        pw2, pm2 = lk.apply_flat_plain(w, g, m, lr, momentum=0.9,
-                                       weight_decay=1e-4)
-        torch.cuda.synchronize()
-        err = max((w2 - pw2).abs().max().item(), (m2 - pm2).abs().max().item())
-        if not err <= APPLY_ATOL:
-            raise AssertionError(f"apply_flat {rows}x{lane}: abs err {err} "
-                                 f"> {APPLY_ATOL}")
-        nbytes = 3 * n * 4 + (rows // 8) * 4 + 2 * n * 4
-        nops = 6 * n
-        out["apply_flat"].append(_row(
-            rows, lane, err, 0.0,
-            timings(lambda: lk.apply_flat(w, g, m, lr, momentum=0.9,
-                                          weight_decay=1e-4), calls),
-            device_ms(lambda: lk.apply_flat_plain(w, g, m, lr, momentum=0.9,
-                                                  weight_decay=1e-4),
-                      calls=calls),
-            None, nbytes, nops, bw, flops))
-        out["apply_flat_q8"].append(q8_row(lk, w, g, m, lr, bw, flops))
-        del w, g, m, lr, w2, m2, pw2, pm2
-        torch.cuda.empty_cache()
+def kernel_rows(lk, rows: int, lane: int, gen, bw: float, flops: float,
+                fold_layout=None) -> dict:
+    """norms_flat, apply_flat and apply_flat_q8 at (rows, lane) against
+    their plain versions on seeded buffers, timed; with ``fold_layout``,
+    also the device time of folding norms_flat's row sums into its
+    slices (``fold_ms``). Returns a row by kernel."""
+    import torch
+    from repro_torch.core import packing
+    dev = torch.device("cuda")
+    out = {}
+    n = rows * lane
+    w = torch.randn(rows, lane, generator=gen, device=dev)
+    g = torch.randn(rows, lane, generator=gen, device=dev) * 1e-2
+    m = torch.randn(rows, lane, generator=gen, device=dev) * 1e-3
+    lr = torch.rand(rows // 8, 1, generator=gen, device=dev) * 1e-2
+
+    wsq, gsq = lk.norms_flat(w, g, block_rows=1)
+    pw, pg = lk.norms_flat_plain(w, g, block_rows=1)
+    torch.cuda.synchronize()
+    err = max((wsq - pw).abs().max().item(), (gsq - pg).abs().max().item())
+    rel = max(((wsq - pw).abs() / pw).max().item(),
+              ((gsq - pg).abs() / pg).max().item())
+    if not rel <= NORMS_RTOL:
+        raise AssertionError(f"norms_flat {rows}x{lane}: rel err {rel} "
+                             f"> {NORMS_RTOL}")
+    nbytes = 2 * n * 4 + 2 * rows * 4
+    nops = 4 * n
+    calls = GRAPH_CALLS[rows]
+    vn = lambda x: torch.linalg.vector_norm(x, dim=1)  # noqa: E731
+    out["norms_flat"] = _row(
+        rows, lane, err, rel,
+        timings(lambda: lk.norms_flat(w, g, block_rows=1), calls),
+        device_ms(lambda: lk.norms_flat_plain(w, g, block_rows=1),
+                  calls=calls),
+        device_ms(lambda: (vn(w), vn(g)), calls=calls),
+        nbytes, nops, bw, flops)
+    if fold_layout is not None:
+        # what a LARS step adds to the kernel: the fold of its row sums
+        # into layer slices (one for sum w^2, one for sum g^2)
+        out["norms_flat"]["fold_ms"] = device_ms(
+            lambda: packing.fold_rows(fold_layout, wsq), calls=calls)
+    del wsq, gsq, pw, pg
+
+    w2, m2 = lk.apply_flat(w, g, m, lr, momentum=0.9, weight_decay=1e-4)
+    pw2, pm2 = lk.apply_flat_plain(w, g, m, lr, momentum=0.9,
+                                   weight_decay=1e-4)
+    torch.cuda.synchronize()
+    err = max((w2 - pw2).abs().max().item(), (m2 - pm2).abs().max().item())
+    if not err <= APPLY_ATOL:
+        raise AssertionError(f"apply_flat {rows}x{lane}: abs err {err} "
+                             f"> {APPLY_ATOL}")
+    del w2, m2, pw2, pm2
+    nbytes = 3 * n * 4 + (rows // 8) * 4 + 2 * n * 4
+    nops = 6 * n
+    out["apply_flat"] = _row(
+        rows, lane, err, 0.0,
+        timings(lambda: lk.apply_flat(w, g, m, lr, momentum=0.9,
+                                      weight_decay=1e-4), calls),
+        device_ms(lambda: lk.apply_flat_plain(w, g, m, lr, momentum=0.9,
+                                              weight_decay=1e-4),
+                  calls=calls),
+        None, nbytes, nops, bw, flops)
+    out["apply_flat_q8"] = q8_row(lk, w, g, m, lr, bw, flops)
+    del w, g, m, lr
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_kernel_rows(out: dict, floor: float) -> None:
     for name, rows in out.items():
         for r in rows:
             log(f"  {name:10s} {r['rows']:6d}x{r['lane']}  kernel "
@@ -316,7 +386,6 @@ def kernel_phase(lk, bw: float, flops: float) -> tuple[dict, float]:
                 f"max abs err {r['max_abs_err']:.3g}  rel {r['max_rel_err']:.3g}"
                 + (f"  fold_rows {r['fold_ms']:.5f} ms" if "fold_ms" in r
                    else ""))
-    return out, floor
 
 
 def q8_row(lk, w, g, m, lr, bw: float, flops: float) -> dict:
@@ -430,10 +499,10 @@ def _large_batch_pipeline(device):
 
 def _batches(device, batch: int, n: int) -> list:
     from repro_torch.data import batch_iterator, synthetic_mnist
-    from repro_torch.launch.train import to_device
+    from repro_torch.data import place
     x, y, _, _ = synthetic_mnist(batch, 8)
     it = batch_iterator(x, y, batch=batch, seed=0)
-    return [to_device(next(it), device) for _ in range(n)]
+    return [place(next(it), device) for _ in range(n)]
 
 
 def checkpoint_phase(workdir: str) -> dict:
@@ -502,8 +571,8 @@ def device_ms_by_kernel(prof) -> dict:
 
 def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
     """Phase 7: device busy share and time by kernel over main-path steps
-    at batch 8192 (``path``: "f32" LARS or the "large_batch" path), after
-    two warm-up steps."""
+    at batch 8192 (``path``: "f32" LARS or the "large_batch" path) fed by
+    the loader, as ``launch.train`` feeds them, after two warm-up steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -518,27 +587,31 @@ def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
     else:
         pipe = _large_batch_pipeline(dev)
     state = pipe.init_state(torch.Generator().manual_seed(0), dev)
-    from repro_torch.data import batch_iterator, synthetic_mnist
-    from repro_torch.launch.train import to_device
+    from repro_torch.data import ShardedLoader, batch_iterator, synthetic_mnist
     x, y, _, _ = synthetic_mnist(batch, 8)
-    it = batch_iterator(x, y, batch=batch, seed=0)
-    for _ in range(2):
-        state, _ = pipe(state, to_device(next(it), dev))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = pipe(state, to_device(next(it), dev))
+    loader = ShardedLoader(batch_iterator(x, y, batch=batch, seed=0), dev)
+    try:
+        for _ in range(2):
+            state, _ = pipe(state, next(loader))
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = pipe(state, next(loader))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        loader.close()
     kernels = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
             / steps for k in KERNELS}
+    h2d = sum(ms for n, ms in kernels.items() if "HtoD" in n) / steps
     log(f"  {path}, {steps} steps: wall {wall_ms:.2f} ms, device busy "
-        f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%)" if busy else
+        f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%; the loader's H2D "
+        f"copies {h2d:.4f} ms/step on their side stream)" if busy else
         f"  {path}: device time not measured (the profiler recorded no "
         "CUDA events)")
     for name, ms in top:
@@ -546,6 +619,7 @@ def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
     log(f"  hand kernels, device ms/step: {ours}")
     return {"wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy / steps if busy else None,
+            "h2d_ms_per_step": h2d if busy else None,
             "hand_kernel_device_ms_per_step": ours,
             "top_kernels_ms_per_step": [[n[:90], ms / steps] for n, ms in top]}
 
@@ -817,114 +891,131 @@ def _grid_outputs(out_dir: str, grid) -> tuple[dict, dict]:
     return traj, rows
 
 
-def experiment_phase(workdir: str, lk) -> dict:
-    """Phase 11: the experiment harness on the card. Launch counts are set
-    to 0 just before each grid and read, then set to 0 again, as each of
-    its cells finishes."""
-    import torch
+ROW_METRICS = ("test_acc", "train_acc", "eval_loss", "eval_ppl", "eval_acc")
+
+
+def run_grid_checked(name: str, root: str, lk, need_claims: set) -> dict:
+    """Run a registered grid on the card into ``root/name``: every cell
+    finishes with finite losses and a positive peak, and launches exactly
+    ``_want_launches``; the report carries ``need_claims``. Launch counts
+    are set to 0 just before the grid and read, then set to 0 again, as
+    each of its cells finishes."""
     from repro_torch.experiments import (GridRunner, aggregate,
                                          format_table, get_grid,
                                          read_trajectory)
+    grid = get_grid(name)
+    launches = {}
+
+    def on_row(row):
+        launches[row["cell_id"]] = dict(lk.LAUNCHES)
+        lk.reset_launch_counts()
+
+    lk.reset_launch_counts()
+    t0 = time.perf_counter()
+    manifest = GridRunner(grid, os.path.join(root, name), device="cuda",
+                          log=log).run(on_row=on_row)
+    wall = time.perf_counter() - t0
+    if set(manifest["cells"]) != {c.cell_id for c in grid.cells()}:
+        raise AssertionError(f"{name}: cells {sorted(manifest['cells'])}")
+    cells = {}
+    for c in grid.cells():
+        row = manifest["cells"][c.cell_id]
+        recs = read_trajectory(os.path.join(root, name, c.cell_id,
+                                            "trajectory.jsonl"))
+        losses = [r["loss"] for r in recs]
+        if len(losses) != c.steps or row.get("diverged") or not all(
+                x is not None and math.isfinite(x) for x in losses):
+            raise AssertionError(f"{c.cell_id}: {len(losses)} of "
+                                 f"{c.steps} steps, losses {losses}")
+        if not isinstance(row["peak_bytes"], int) or row["peak_bytes"] <= 0:
+            raise AssertionError(f"{c.cell_id}: peak bytes "
+                                 f"{row['peak_bytes']}")
+        if launches[c.cell_id] != _want_launches(c):
+            raise AssertionError(
+                f"{c.cell_id}: launches {launches[c.cell_id]}, want "
+                f"{_want_launches(c)}")
+        train_s = recs[-1]["wall_s"]    # the cell's training loop
+        cells[c.cell_id] = dict(
+            {k: row[k] for k in ROW_METRICS if k in row},
+            steps=c.steps, train_s=train_s, steps_per_s=c.steps / train_s,
+            cell_wall_s=row["wall_s"], loss=row["loss"],
+            peak_bytes=row["peak_bytes"], launches=launches[c.cell_id])
+        log(f"  {c.cell_id}: {c.steps} steps in {train_s:.3f} s "
+            f"({c.steps / train_s:.1f} steps/s), "
+            + ", ".join(f"{k} {row[k]}" for k in ROW_METRICS if k in row)
+            + f", loss {row['loss']:.4f}, peak {row['peak_bytes']} B, "
+            f"launches {launches[c.cell_id]}")
+    payload = aggregate(grid, manifest)
+    claims = payload["claims"]
+    if not need_claims <= set(claims):
+        raise AssertionError(f"{name}: claims {sorted(claims)}")
+    log(f"  {name}: {len(cells)} cells in {wall:.2f} s\n" +
+        format_table(payload))
+    for key, val in claims.items():
+        log(f"  claim {key}: {val}")
+    return {"wall_s": wall, "cells": cells, "claims": claims}
+
+
+def kill_and_resume(name: str, root: str, kill_after: int) -> bool:
+    """Run grid ``name`` into ``root/killed_<name>``, killed after
+    ``kill_after`` steps (mid-cell, past a checkpoint), resume it, and
+    hold its trajectories and rows (without ``wall_s``) equal to the
+    uninterrupted run's in ``root/name``."""
+    from repro_torch.experiments import GridRunner, get_grid
     from repro_torch.experiments.runner import ABORT_ENV
+    grid = get_grid(name)
+    kdir = os.path.join(root, f"killed_{name}")
+    os.environ[ABORT_ENV] = str(kill_after)
+    killed = False
+    try:
+        GridRunner(grid, kdir, device="cuda", log=log).run()
+    except KeyboardInterrupt:
+        killed = True
+    finally:
+        os.environ.pop(ABORT_ENV, None)
+    ckpt = os.path.join(kdir, grid.cells()[1].cell_id, "state.npz")
+    if not killed or not os.path.exists(ckpt):
+        raise AssertionError(f"the kill after {kill_after} steps did not "
+                             f"land mid-cell ({ckpt})")
+    GridRunner(grid, kdir, device="cuda", log=log).run(resume=True)
+    got = _grid_outputs(kdir, grid)
+    want = _grid_outputs(os.path.join(root, name), grid)
+    differ = [f"{c.cell_id} trajectory" for c in grid.cells()
+              if got[0][c.cell_id] != want[0][c.cell_id]] + [
+        f"{cid} {key}: {row.get(key)} != {want[1][cid].get(key)}"
+        for cid, row in got[1].items()
+        for key in set(row) | set(want[1][cid])
+        if row.get(key) != want[1][cid].get(key)]
+    log(f"  {name} killed after {kill_after} steps and resumed: "
+        f"trajectories and rows {'DIFFERENT' if differ else 'equal'} to "
+        "the uninterrupted run's" + "".join(f"\n    {d}" for d in differ))
+    if differ:
+        raise AssertionError(f"resumed {name} differs from the "
+                             "uninterrupted run")
+    return True
+
+
+def experiment_phase(workdir: str, lk) -> dict:
+    """Phase 11: the experiment harness on the card."""
+    import torch
+    from repro_torch.experiments import GridRunner, get_grid
     t_phase = time.perf_counter()
     root = os.path.join(workdir, "experiments")
     shutil.rmtree(root, ignore_errors=True)
     deterministic = torch.backends.cudnn.deterministic
     out: dict = {}
     try:
+        need = {"C1_comparable_at_small_batch",
+                "C3_lars_ge_sgd_at_largest_batch",
+                "C4_sgd_gen_error_grows_faster"}
         for name in EXP_GRIDS:
-            grid = get_grid(name)
-            launches = {}
-
-            def on_row(row):
-                launches[row["cell_id"]] = dict(lk.LAUNCHES)
-                lk.reset_launch_counts()
-
-            lk.reset_launch_counts()
-            t0 = time.perf_counter()
-            manifest = GridRunner(grid, os.path.join(root, name),
-                                  device="cuda", log=log).run(on_row=on_row)
-            wall = time.perf_counter() - t0
-            if set(manifest["cells"]) != {c.cell_id for c in grid.cells()}:
-                raise AssertionError(
-                    f"{name}: cells {sorted(manifest['cells'])}")
-            cells = {}
-            for c in grid.cells():
-                row = manifest["cells"][c.cell_id]
-                recs = read_trajectory(os.path.join(root, name, c.cell_id,
-                                                    "trajectory.jsonl"))
-                losses = [r["loss"] for r in recs]
-                if len(losses) != c.steps or row.get("diverged") or not all(
-                        x is not None and math.isfinite(x) for x in losses):
-                    raise AssertionError(f"{c.cell_id}: {len(losses)} of "
-                                         f"{c.steps} steps, losses {losses}")
-                if not isinstance(row["peak_bytes"], int) \
-                        or row["peak_bytes"] <= 0:
-                    raise AssertionError(f"{c.cell_id}: peak bytes "
-                                         f"{row['peak_bytes']}")
-                if launches[c.cell_id] != _want_launches(c):
-                    raise AssertionError(
-                        f"{c.cell_id}: launches {launches[c.cell_id]}, want "
-                        f"{_want_launches(c)}")
-                train_s = recs[-1]["wall_s"]    # the cell's training loop
-                cells[c.cell_id] = {
-                    "steps": c.steps, "train_s": train_s,
-                    "steps_per_s": c.steps / train_s, "cell_wall_s":
-                    row["wall_s"], "test_acc": row["test_acc"],
-                    "train_acc": row["train_acc"], "loss": row["loss"],
-                    "peak_bytes": row["peak_bytes"],
-                    "launches": launches[c.cell_id]}
-                log(f"  {c.cell_id}: {c.steps} steps in {train_s:.3f} s "
-                    f"({c.steps / train_s:.1f} steps/s), test acc "
-                    f"{row['test_acc']}, loss {row['loss']:.4f}, peak "
-                    f"{row['peak_bytes']} B, launches {launches[c.cell_id]}")
-            payload = aggregate(grid, manifest)
-            claims = payload["claims"]
-            need = {"C1_comparable_at_small_batch",
-                    "C3_lars_ge_sgd_at_largest_batch",
-                    "C4_sgd_gen_error_grows_faster"}
-            if name == "int8_parity_smoke":
-                need.add("P1_int8_matches_f32")
-            if not need <= set(claims):
-                raise AssertionError(f"{name}: claims {sorted(claims)}")
-            log(f"  {name}: {len(cells)} cells in {wall:.2f} s\n" +
-                format_table(payload))
-            for key, val in claims.items():
-                log(f"  claim {key}: {val}")
-            out[name] = {"wall_s": wall, "cells": cells, "claims": claims}
-
-        # kill mid-cell, past a checkpoint, and resume
+            out[name] = run_grid_checked(
+                name, root, lk, need | ({"P1_int8_matches_f32"}
+                                        if name == "int8_parity_smoke"
+                                        else set()))
+        out["kill_resume_equal"] = kill_and_resume(EXP_GRIDS[0], root,
+                                                   EXP_KILL_AFTER)
         grid = get_grid(EXP_GRIDS[0])
-        kdir = os.path.join(root, "killed")
-        os.environ[ABORT_ENV] = str(EXP_KILL_AFTER)
-        killed = False
-        try:
-            GridRunner(grid, kdir, device="cuda", log=log).run()
-        except KeyboardInterrupt:
-            killed = True
-        finally:
-            os.environ.pop(ABORT_ENV, None)
-        ckpt = os.path.join(kdir, grid.cells()[1].cell_id, "state.npz")
-        if not killed or not os.path.exists(ckpt):
-            raise AssertionError(f"the kill after {EXP_KILL_AFTER} steps "
-                                 f"did not land mid-cell ({ckpt})")
-        GridRunner(grid, kdir, device="cuda", log=log).run(resume=True)
-        got = _grid_outputs(kdir, grid)
-        want = _grid_outputs(os.path.join(root, grid.name), grid)
-        differ = [f"{c.cell_id} trajectory" for c in grid.cells()
-                  if got[0][c.cell_id] != want[0][c.cell_id]] + [
-            f"{cid} {key}: {row.get(key)} != {want[1][cid].get(key)}"
-            for cid, row in got[1].items()
-            for key in set(row) | set(want[1][cid])
-            if row.get(key) != want[1][cid].get(key)]
-        same = not differ
-        log(f"  killed after {EXP_KILL_AFTER} steps and resumed: "
-            f"trajectories and rows {'equal' if same else 'DIFFERENT'} to "
-            "the uninterrupted run's" + "".join(f"\n    {d}" for d in differ))
-        if not same:
-            raise AssertionError("resumed grid differs from the "
-                                 "uninterrupted one")
-        out["kill_resume_equal"] = same
 
         # steps/s of the b64 LARS cell: stats on/off x deterministic on/off,
         # in the order ABCD DCBA
@@ -996,6 +1087,234 @@ def experiment_profile(grid, cell, root: str, steps: int = EXP_PROFILE_STEPS
                                         for n, ms in top]}
 
 
+def smollm_layout():
+    """smollm-135m's packed layout at full width (shapes only)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    from repro_torch.models import build_model
+    model = build_model(get_config("smollm-135m"))
+    params = model.init(torch.Generator().manual_seed(0), "meta")
+    return packing.build_layout(params, model.stacked_marker(params))
+
+
+def lm_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
+    """Phase 12: the three LARS kernels at smollm-135m's packed shape
+    against their plain versions, timed as phase 3 times its rows."""
+    import torch
+    layout = smollm_layout()
+    if (layout.buffer_shape, layout.num_slices) != ((LM_ROWS, 512),
+                                                    LM_SLICES):
+        raise AssertionError(f"smollm-135m's layout is "
+                             f"{layout.buffer_shape}, {layout.num_slices} "
+                             "slices")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = kernel_rows(lk, LM_ROWS, 512, gen, bw, flops, layout)
+    log_kernel_rows({k: [v] for k, v in rows.items()}, floor)
+    return rows
+
+
+def lm_train_runs(train, lk, fdk) -> dict:
+    """Phase 12: ``launch.train.main`` at full width — LARS, LAMB and the
+    large-batch LARS path. Each run's launch counts and the allocator's
+    peak are reset just before it and read just after."""
+    import gc
+    import torch
+    runs = {}
+    for tag, extra in LM_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        lk.reset_launch_counts()
+        fdk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        summary = train.main(LM_ARGS + extra)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(lk.LAUNCHES)
+        losses = summary["losses"]
+        if len(losses) != LM_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{tag}: losses {losses}")
+        if fdk.LAUNCHES["flash_decode"]:
+            raise AssertionError(f"{tag}: training launched flash_decode")
+        lars_steps = LM_STEPS if tag.startswith("lars") else 0
+        int8 = "int8" in tag
+        want = {"norms_flat": lars_steps,
+                "apply_flat": 0 if int8 else lars_steps,
+                "apply_flat_q8": lars_steps if int8 else 0}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, want {want}")
+        runs[tag] = {k: summary[k] for k in (
+            "params", "batch", "seq", "steps", "accum_steps", "precision",
+            "opt_state_dtype", "losses", "train_s", "steps_per_s",
+            "tokens_per_s")}
+        runs[tag].update(launches=counts, peak_bytes=peak - before)
+        log(f"  {tag}: {summary['steps_per_s']:.3f} steps/s  "
+            f"{summary['tokens_per_s']:.0f} tokens/s  peak "
+            f"{(peak - before) / 2**30:.2f} GiB  launches {counts}  losses "
+            + " ".join(f"{x:.4f}" for x in losses))
+    return runs
+
+
+def lm_profile(path: str, steps: int = 1) -> dict:
+    """Phase 12: a ``torch.profiler`` window over one full-width step
+    (``path``: "f32" LARS or the "large_batch" path) fed by the loader,
+    after two warm-up steps: busy share, time by kernel, the hand
+    kernels' and the loader's H2D copies' device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainPipeline
+    cfg = get_config("smollm-135m")
+    if path == "f32":
+        pipe, batch = TrainPipeline(build_model(cfg), lars(0.01), cfg), 16
+    else:
+        pipe = TrainPipeline(build_model(cfg), lars(0.01, slot_dtype="int8"),
+                             cfg, accum_steps=4, precision="bf16")
+        batch = 64
+    state = pipe.init_state(torch.Generator().manual_seed(0), "cuda")
+    loader = ShardedLoader(lm_batches(cfg, batch, 1024), "cuda")
+    try:
+        for _ in range(2):
+            state, _ = pipe(state, next(loader))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = pipe(state, next(loader))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        loader.close()
+    del state, pipe
+    kernels = device_ms_by_kernel(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
+            / steps for k in KERNELS}
+    h2d = sum(ms for n, ms in kernels.items() if "HtoD" in n) / steps
+    log(f"  {path}, {steps} step(s) at full width: wall {wall_ms / steps:.2f}"
+        f" ms/step, device busy {busy / steps:.2f} ms "
+        f"({100 * busy / wall_ms:.1f}%), H2D copies {h2d:.4f} ms"
+        if busy else f"  {path}: device time not measured (the profiler "
+        "recorded no CUDA events)")
+    for name, ms in top:
+        log(f"    {ms / steps:9.4f} ms/step  {name[:90]}")
+    log(f"  hand kernels, device ms/step: {ours}")
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy / steps if busy else None,
+            "h2d_ms_per_step": h2d if busy else None,
+            "hand_kernel_device_ms_per_step": ours,
+            "top_kernels_ms_per_step": [[n[:90], ms / steps]
+                                        for n, ms in top]}
+
+
+def lm_card_vs_cpu(train) -> dict:
+    """Phase 12: reduced smollm in f32, 20 steps of LARS and of LAMB on
+    the CPU (plain versions) and on the card (kernels): the loss
+    trajectories must agree within LM_CARD_CPU_RTOL."""
+    out = {}
+    for opt, rtol in LM_CARD_CPU_RTOL.items():
+        args = LM_CARD_CPU_ARGS + ["--optimizer", opt]
+        cpu = train.main(args + ["--device", "cpu"])["losses"]
+        card = train.main(args + ["--device", "cuda"])["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        log(f"  {opt}: cpu  {[round(x, 6) for x in cpu]}\n  {opt}: card "
+            f"{[round(x, 6) for x in card]}\n  rel diff by step "
+            f"{[float(f'{x:.3g}') for x in rel]}; max {max(rel):.3g} "
+            f"(tolerance {rtol})")
+        if not max(rel) <= rtol:
+            raise AssertionError(f"{opt}: card vs CPU loss rel diff "
+                                 f"{max(rel)}")
+        out[opt] = {"max_rel": max(rel), "rel_by_step": rel}
+    return out
+
+
+def loader_phase() -> dict:
+    """Phase 12: the f32 LeNet path (LARS, batch 8192) and the reduced LM
+    (LAMB) for LOADER_STEPS steps fed by ShardedLoader with prefetch 2
+    and without: losses and final states bit-identical (cuDNN's
+    deterministic algorithms on)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import lamb, lars
+    from repro_torch.data import ShardedLoader, batch_iterator, synthetic_mnist
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainPipeline
+    from repro_torch.treepath import tree_leaves
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for family in ("cnn", "lm"):
+            if family == "cnn":
+                cfg = get_config("lenet-mnist")
+                x, y, _, _ = synthetic_mnist(8192, 8)
+                host = lambda: batch_iterator(x, y, batch=8192,  # noqa: E731
+                                              seed=0)
+                opt = lars(0.01)
+            else:
+                cfg = get_config("smollm-135m").reduced()
+                host = lambda: lm_batches(cfg, 8, 64)  # noqa: E731
+                opt = lamb(0.01)
+            pipe = TrainPipeline(build_model(cfg), opt, cfg)
+            runs = {}
+            for prefetch in (2, 0):
+                state = pipe.init_state(torch.Generator().manual_seed(0),
+                                        "cuda")
+                loader = ShardedLoader(host(), "cuda", prefetch=prefetch)
+                losses = []
+                try:
+                    for _ in range(LOADER_STEPS):
+                        state, m = pipe(state, next(loader))
+                        losses.append(m["loss"])
+                finally:
+                    loader.close()
+                runs[prefetch] = ([float(v) for v in losses], tree_leaves(
+                    state.params) + tree_leaves(state.opt_state.slots))
+            same = runs[2][0] == runs[0][0] and all(
+                torch.equal(a, b) for a, b in zip(runs[2][1], runs[0][1]))
+            log(f"  {cfg.name} {opt.name}, {LOADER_STEPS} steps: prefetch 2 "
+                f"{'bit-identical to' if same else 'DIFFERENT from'} "
+                f"prefetch 0; losses {[round(v, 6) for v in runs[2][0]]}")
+            if not same:
+                raise AssertionError(f"{family}: prefetched trajectory "
+                                     f"{runs[2][0]} != {runs[0][0]}")
+            out[family] = {"bit_identical": same, "losses": runs[2][0]}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def lm_phase(train, lk, fdk, bw: float, flops: float, floor: float,
+             workdir: str) -> dict:
+    """Phase 12: the LM training path on the card."""
+    t_phase = time.perf_counter()
+    out = {"kernel_rows": lm_kernel_rows(lk, bw, flops, floor)}
+    out["runs"] = lm_train_runs(train, lk, fdk)
+    out["profile"] = {path: lm_profile(path)
+                      for path in ("f32", "large_batch")}
+    out["card_vs_cpu"] = lm_card_vs_cpu(train)
+    out["loader"] = loader_phase()
+    root = os.path.join(workdir, "lm_experiments")
+    shutil.rmtree(root, ignore_errors=True)
+    out[LM_GRID] = run_grid_checked(
+        LM_GRID, root, lk, {"L1_comparable_at_small_batch",
+                            "L2_lamb_le_adamw_at_largest_batch",
+                            "L3_lars_le_sgd_at_largest_batch",
+                            "L4_best_layerwise_beats_best_generic_at_largest"})
+    out["kill_resume_equal"] = kill_and_resume(LM_GRID, root, LM_KILL_AFTER)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1052,10 +1371,15 @@ def main() -> int:
     log("== 11. experiments: lars_vs_sgd_smoke and int8_parity_smoke")
     exp = experiment_phase(os.path.join(ROOT, "build"), lk)
 
+    log("== 12. LM training: smollm-135m at full width, lm_smoke")
+    lm = lm_phase(train, lk, fdk, bw, flops, floor,
+                  os.path.join(ROOT, "build"))
+
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
                 "apply_flat": "src/repro/kernels/lars_kernels.py:86",
                 "apply_flat_q8": "src/repro/kernels/lars_kernels.py:139"}
     entries = []
+    grids = dict({g: exp[g] for g in EXP_GRIDS}, **{LM_GRID: lm[LM_GRID]})
     for kname, rows in kern.items():
         main_row = next(r for r in rows if r["rows"] == MAIN_ROWS)
         # the run on the kernel's own main path: f32 LARS for norms_flat
@@ -1080,13 +1404,27 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "device_ms_in_step": in_step["hand_kernel_device_ms_per_step"][
-                kname],
-            "shapes": rows}
+                kname]}
         if kname == "norms_flat":
             entry["fold_ms"] = main_row["fold_ms"]
         entry["launches_by_grid"] = {
-            g: sum(c["launches"][kname] for c in exp[g]["cells"].values())
-            for g in EXP_GRIDS}
+            g: sum(c["launches"][kname] for c in r["cells"].values())
+            for g, r in grids.items()}
+        entry["launches_by_lm_run"] = {t: r["launches"][kname]
+                                       for t, r in lm["runs"].items()}
+        lm_row = lm["kernel_rows"][kname]
+        entry["shapes"] = rows + [lm_row]
+        entry["smollm_row"] = {
+            "rows": LM_ROWS, "ms": lm_row["ms"], "bound_ms":
+            lm_row["bound_ms"], "plain_ms": lm_row["plain_ms"],
+            "library_ms": lm_row["library_ms"],
+            "dispatch_ms": lm_row["dispatch_ms"],
+            "max_abs_err": lm_row["max_abs_err"],
+            "device_ms_in_lm_step": lm["profile"][
+                "large_batch" if int8 else "f32"][
+                "hand_kernel_device_ms_per_step"][kname]}
+        if "fold_ms" in lm_row:
+            entry["smollm_row"]["fold_ms"] = lm_row["fold_ms"]
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
@@ -1113,7 +1451,8 @@ def main() -> int:
     log(json.dumps({"main_path": main_path, "card_vs_cpu_rel": card_cpu,
                     "checkpoint": ckpt, "profile": prof, "serve": served,
                     "serve_card_vs_cpu": serve_cpu,
-                    "serve_profile": serve_prof, "experiments": exp}))
+                    "serve_profile": serve_prof, "experiments": exp,
+                    "lm": lm}))
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -35,10 +35,10 @@ def lars(learning_rate: float | Schedule = 0.01, *, momentum: float = 0.9,
     per-block scales (~4x smaller optimizer state).
     """
 
-    def direction(g, w, slots):
+    def direction(ctx, g, w, slots):
         return g, slots          # Eq. 3 norms the raw gradient
 
-    def trust(w_norm, g_norm):
+    def trust(ctx, w_norm, g_norm):
         return tr.lars_trust_ratio(w_norm, g_norm, eta=trust_coefficient,
                                    weight_decay=weight_decay, eps=eps)
 

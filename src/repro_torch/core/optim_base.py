@@ -4,24 +4,33 @@
 * ``Optimizer.init(params, stacked, master=False) -> OptState``;
   ``Optimizer.update(grads, state, params, stacked=None) ->
   (new_params, new_state)``. The step counter is a host ``int`` in the
-  state, so the learning rate is computed on the host each step.
+  state, so the learning rate and the rule's step scalars (``prepare``)
+  are computed on the host each step.
 * A :class:`LayerwiseRule` factors an optimizer of the trust-ratio family
-  into ``direction`` (the trust-ratio norm operand), ``trust`` (the
-  per-layer ratio; ``None`` for SGD) and ``apply`` (fold the local LR
-  into the weight and slot update). All are elementwise over the whole
+  into ``prepare`` (step-dependent scalars, the ``ctx`` every other
+  function receives), ``direction`` (the trust-ratio norm operand and
+  the slot updates that precede it), ``trust`` (the per-layer ratio;
+  ``None`` for SGD and AdamW) and ``apply`` (fold the local LR into the
+  weight and slot update). All are elementwise over the whole
   superbuffer or per-slice scalars.
 * The engine keeps the weights packed across steps — in the
   ``WEIGHT_SLOT`` buffer, or under the bf16 policy in the f32
   ``MASTER_SLOT`` buffer — and every slot packed beside them; per step it
-  packs only the gradients. A rule with a trust ratio (LARS) runs its two
-  memory-bound passes through its kernel wrappers: exactly one
-  ``norms_flat`` and one ``apply_flat`` (``apply_flat_q8`` for int8
-  slots) launch per step on CUDA buffers, whatever the leaf count, and
-  their plain versions on CPU buffers.
+  packs only the gradients. LARS runs its two memory-bound passes
+  through its kernel wrappers: exactly one ``norms_flat`` and one
+  ``apply_flat`` (``apply_flat_q8`` for int8 slots) launch per step on
+  CUDA buffers, whatever the leaf count, and their plain versions on CPU
+  buffers. A rule with a trust ratio and no kernel wrappers (LAMB) takes
+  the per-slice norms with ``packing.slice_norms`` and runs its
+  ``apply`` with the local LR broadcast per row, as the reference's
+  engine does without Pallas; neither LAMB nor AdamW has a kernel there
+  or here.
+* ``needs_grad_sq`` (the Adam family): the engine hands ``direction``
+  the f32 square of the packed gradient as ``ctx["grad_sq"]``.
 * ``slot_dtype="int8"`` stores every rule slot as int8 codes plus one
   f32 scale per row block (sibling slot ``<name>_scale``). LARS hands
-  the raw codes to its fused kernel; SGD dequantizes, runs its ``apply``
-  and requantizes.
+  the raw codes to its fused kernel; the other rules dequantize on read,
+  run their functions and requantize on write.
 
 Not yet ported: the per-leaf tree engine (``init`` without a marker)
 and ZeRO-sharded layouts.
@@ -74,17 +83,27 @@ class OptState:
 
 @dataclasses.dataclass(frozen=True)
 class LayerwiseRule:
-    """One optimizer of the layer-wise trust-ratio family."""
+    """One optimizer of the layer-wise trust-ratio family. Every function
+    takes the step's ``ctx`` first (``prepare``'s dict, plus
+    ``grad_sq`` for a rule that ``needs_grad_sq``)."""
 
     name: str
     slots: tuple[str, ...]
-    # (g, w, slots) -> (u, slots'): the trust-ratio norm operand.
+    # (ctx, g, w, slots) -> (u, slots'): the trust-ratio norm operand.
     direction: Callable[..., tuple[torch.Tensor, dict]]
-    # (w_norm, u_norm) -> per-layer ratio; None = always 1 (SGD).
-    trust: Optional[Callable[..., torch.Tensor]] = None
-    # Without a trust ratio: (w, g, u, lr, slots) -> (w_new, slots').
+    # (ctx, w, g, u, local_lr, slots) -> (w_new, slots'); local_lr is the
+    # scalar LR, or (rows, 1) per-row LRs under a trust ratio. Rules
+    # whose trust ratio runs through kernel wrappers leave it None.
     apply: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
-    # With a trust ratio, the two memory-bound passes as kernel wrappers:
+    # (ctx, w_norm, u_norm) -> per-layer ratio; None = always 1.
+    trust: Optional[Callable[..., torch.Tensor]] = None
+    # step (host int) -> dict of step-dependent scalars (the ctx).
+    prepare: Optional[Callable[[int], dict]] = None
+    # rank<=1 slices (biases, norm scales) keep trust ratio 1.
+    skip_adaptation_1d: bool = True
+    # True when ``direction`` consumes g^2 as well as g (Adam family).
+    needs_grad_sq: bool = False
+    # The two memory-bound passes as kernel wrappers (LARS):
     # (layout, wbuf, ubuf) -> (w_norm, u_norm) per slice, and
     # (layout, wbuf, gbuf, ubuf, lr_slices, slots) -> (wbuf', slots').
     packed_norms: Optional[Callable[..., tuple]] = None
@@ -94,8 +113,6 @@ class LayerwiseRule:
     # back requantized by the kernel. Only for rules whose ``direction``
     # ignores its slots.
     packed_apply_q8: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
-    # rank<=1 slices (biases) keep trust ratio 1.
-    skip_adaptation_1d: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,39 +133,54 @@ class Optimizer:
 # ------------------------------------------------------------------ engine
 
 def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
-                   lr: float, grads: Pytree | PackedGrads,
+                   lr: float, ctx: dict, grads: Pytree | PackedGrads,
                    slots: dict, wbuf: torch.Tensor, *, master: bool,
                    quant: bool) -> tuple[Pytree, dict]:
     """Flat-packed engine: whole-pytree buffers, per-slice scalars.
 
     ``wbuf`` is the f32 master (``master=True``) or the persistent
     weight buffer. A rule without a trust ratio updates the buffers with
-    its ``apply``. A rule with one takes the per-slice norms and the
-    fused update from its kernel wrappers; the trust ratio and the
-    adaptation mask are computed here. ``quant``: the rule slots are
-    int8 codes + scales — handed raw to ``packed_apply_q8`` where the
-    rule has one, else dequantized on read and requantized on write.
+    its ``apply`` at the scalar LR. A rule with one takes the per-slice
+    norms and the fused update from its kernel wrappers where it has
+    them, else from ``packing.slice_norms`` and its ``apply`` with the
+    local LR broadcast per row; the trust ratio and the adaptation mask
+    are computed here either way. ``quant``: the rule slots are int8
+    codes + scales — handed raw to ``packed_apply_q8`` where the rule
+    has one, else dequantized on read and requantized on write.
     Returns the new params (the storage-dtype view of the new weight
     buffer) and the new slots, including the new weight or master buffer.
     """
     gbuf = grads.buf if isinstance(grads, PackedGrads) \
         else packing.pack(layout, grads)
+    if rule.needs_grad_sq:
+        # the square of the f32 gradient: pack casts to f32 first, so
+        # squaring the packed buffer is the reference's square-then-pack
+        ctx = dict(ctx, grad_sq=torch.square(gbuf))
     q8_kernel = quant and rule.packed_apply_q8 is not None
     if quant and not q8_kernel:
         slots = {k: packing.dequantize_q8(layout, slots[k],
                                           slots[k + SCALE_SUFFIX])
                  for k in rule.slots}
-    u, slots = rule.direction(gbuf, wbuf, dict(slots))
+    u, slots = rule.direction(ctx, gbuf, wbuf, dict(slots))
     if rule.trust is None:
-        wbuf2, new_slots = rule.apply(wbuf, gbuf, u, lr, slots)
+        wbuf2, new_slots = rule.apply(ctx, wbuf, gbuf, u, lr, slots)
     else:
-        w_norm, u_norm = rule.packed_norms(layout, wbuf, u)
-        ratio = rule.trust(w_norm, u_norm)
+        if rule.packed_norms is not None:
+            w_norm, u_norm = rule.packed_norms(layout, wbuf, u)
+        else:
+            w_norm, u_norm = packing.slice_norms(layout, wbuf, u)
+        ratio = rule.trust(ctx, w_norm, u_norm)
         if rule.skip_adaptation_1d:
             ratio = torch.where(packing.adapt_mask(layout, ratio.device),
                                 ratio, torch.ones_like(ratio))
-        apply = rule.packed_apply_q8 if q8_kernel else rule.packed_apply
-        wbuf2, new_slots = apply(layout, wbuf, gbuf, u, lr * ratio, slots)
+        if rule.packed_apply is not None:
+            apply = rule.packed_apply_q8 if q8_kernel else rule.packed_apply
+            wbuf2, new_slots = apply(layout, wbuf, gbuf, u, lr * ratio,
+                                     slots)
+        else:
+            wbuf2, new_slots = rule.apply(
+                ctx, wbuf, gbuf, u, lr * packing.rows_expand(layout, ratio),
+                slots)
     if quant and not q8_kernel:
         for k in rule.slots:
             new_slots[k], new_slots[k + SCALE_SUFFIX] = \
@@ -206,9 +238,10 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
         weights = slots.pop(packing.MASTER_SLOT if master
                             else packing.WEIGHT_SLOT)
         lr = float(lr_fn(state.step))
+        ctx = rule.prepare(state.step) if rule.prepare is not None else {}
         new_params, new_slots = _packed_update(
-            rule, state.layout, lr, grads, slots, weights, master=master,
-            quant=quant)
+            rule, state.layout, lr, ctx, grads, slots, weights,
+            master=master, quant=quant)
         return new_params, OptState(step=state.step + 1, slots=new_slots,
                                     layout=state.layout)
 
@@ -217,6 +250,36 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
 
 
 # ------------------------------------------------------------------ helpers
+
+def adam_moments(b1: float, b2: float, eps: float, weight_decay: float
+                 ) -> tuple[Callable, Callable]:
+    """Shared (prepare, direction) for the Adam family.
+
+    AdamW and LAMB are the same bias-corrected moment update; they differ
+    only in the trust ratio applied afterwards (None vs phi(||w||)/||u||).
+    The bias corrections ``1 - b**t`` are f32, as the reference's
+    ``jnp.power`` gives them (numpy's f32 ``power`` can differ from it
+    by an ulp), and divide as device scalars: PyTorch's CUDA division by
+    a host scalar multiplies by its reciprocal instead.
+    """
+
+    def prepare(step: int) -> dict:
+        t = np.float32(step + 1)
+        one = np.float32(1.0)
+        return {"c1": one - np.power(np.float32(b1), t),
+                "c2": one - np.power(np.float32(b2), t)}
+
+    def direction(ctx, g, w, slots):
+        c1, c2 = (g.new_full((), float(ctx[k])) for k in ("c1", "c2"))
+        mu = b1 * slots["mu"] + (1 - b1) * g
+        gsq = ctx.get("grad_sq")
+        nu = b2 * slots["nu"] + (1 - b2) * (
+            torch.square(g) if gsq is None else gsq)
+        u = (mu / c1) / (torch.sqrt(nu / c2) + eps) + weight_decay * w
+        return u, {"mu": mu, "nu": nu}
+
+    return prepare, direction
+
 
 def as_schedule(lr: float | Schedule) -> Schedule:
     """Promote a constant learning rate to a schedule."""

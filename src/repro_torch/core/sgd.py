@@ -20,10 +20,10 @@ def sgd(learning_rate: float | Schedule = 0.01, *, momentum: float = 0.9,
         weight_decay: float = 1e-4, nesterov: bool = False,
         slot_dtype: str = "f32") -> Optimizer:
 
-    def direction(g, w, slots):
+    def direction(ctx, g, w, slots):
         return g + weight_decay * w, slots
 
-    def apply(w, g, u, lr, slots):
+    def apply(ctx, w, g, u, lr, slots):
         m_new = momentum * slots["momentum"] + u
         step_dir = u + momentum * m_new if nesterov else m_new
         return w - lr * step_dir, {"momentum": m_new}

@@ -1,9 +1,12 @@
-"""Layer-wise trust-ratio math (LARS). Port of
-``repro/core/trust_ratio.py``; the LAMB ratio comes with LAMB.
+"""Layer-wise trust-ratio math (LARS and LAMB). Port of
+``repro/core/trust_ratio.py``.
 
 Paper Eq. (2)/(3):
 
     lambda_l = eta * ||w_l|| / (||grad_l|| + beta * ||w_l||)
+
+LAMB's ratio is ``phi(||w_l||) / ||u_l||`` with ``phi`` a clip to
+``[0, clip_max]`` and ``u_l`` the bias-corrected Adam direction.
 
 Parameters whose effective rank is <= 1 (biases) are not adapted, and
 degenerate norms (zero weights or zero grads) fall back to a trust ratio
@@ -44,6 +47,16 @@ def lars_trust_ratio(w_norm: torch.Tensor, g_norm: torch.Tensor, *,
     denom = g_norm + weight_decay * w_norm
     ratio = eta * w_norm / (denom + eps)
     ok = (w_norm > 0.0) & (g_norm > 0.0)
+    return torch.where(ok, ratio, torch.ones_like(ratio))
+
+
+def lamb_trust_ratio(w_norm: torch.Tensor, u_norm: torch.Tensor, *,
+                     clip_max: float = 10.0, eps: float = 1e-9
+                     ) -> torch.Tensor:
+    """LAMB phi(||w||)/||update|| with phi = clip to [0, clip_max]."""
+    phi = torch.clamp(w_norm, max=clip_max)
+    ratio = phi / (u_norm + eps)
+    ok = (w_norm > 0.0) & (u_norm > 0.0)
     return torch.where(ok, ratio, torch.ones_like(ratio))
 
 

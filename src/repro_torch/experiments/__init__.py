@@ -1,5 +1,5 @@
-"""Paper-reproduction experiment harness of the port (cnn family, one
-device):
+"""Paper-reproduction experiment harness of the port (cnn and lm
+families, one device):
 
 * :mod:`repro_torch.experiments.spec`   — grids as data, deterministic
   per-cell seeding, the named registry (the reference's, verbatim);
@@ -11,8 +11,8 @@ device):
 * :mod:`repro_torch.experiments.report` — accuracy-vs-batch aggregation
   + the study's claim checks (``EXPERIMENTS_torch_<study>.json``).
 
-Not yet ported: the PBT controller and its report block, the lm family,
-mesh/ZeRO cells and the serve-side SLO sweep.
+Not yet ported: the PBT controller and its report block, mesh/ZeRO
+cells and the serve-side SLO sweep.
 """
 
 from repro_torch.experiments.spec import (CellSpec, GridSpec,  # noqa: F401

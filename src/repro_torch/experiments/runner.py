@@ -1,7 +1,15 @@
 """Grid execution: every cell through TrainPipeline, resumable mid-grid.
-Port of ``repro/experiments/runner.py`` for the cnn family (the paper's
-LeNet/MNIST study: shuffled epoch-cycling minibatches from the
-procedural MNIST stand-in, metric = test accuracy) on one device.
+Port of ``repro/experiments/runner.py`` on one device. Two families run
+through the same machinery (dispatch on ``grid.family``):
+
+* ``cnn`` — the paper's LeNet/MNIST study: shuffled epoch-cycling
+  minibatches from the procedural MNIST stand-in, metric = test
+  accuracy;
+* ``lm``  — token-LM cells on a ``reduced()`` smollm config: each cell
+  streams seeded synthetic Markov-corpus batches
+  (:func:`repro_torch.data.token_batches` — deterministic per cell,
+  fast-forwardable), metric = eval perplexity on a fixed held-out token
+  set; each step records its perplexity and tokens/s.
 
 Layout of a run directory (the reference's)::
 
@@ -15,9 +23,10 @@ Resume contract (``run(resume=True)``):
 * completed cells (present in the manifest) are skipped outright;
 * a cell with a ``state.npz`` restores the full TrainState via
   :mod:`repro_torch.checkpoint.npz`, rewinds its JSONL to the
-  checkpointed step, replays the seeded shuffle stream to that step and
-  continues; the completed trajectory is IDENTICAL to an uninterrupted
-  run;
+  checkpointed step, fast-forwards the seeded batch stream to that step
+  — cnn cells replay the shuffle stream, lm cells rng-skip through
+  ``token_batches(start=)`` — and continues; the completed trajectory is
+  IDENTICAL to an uninterrupted run;
 * the manifest's grid fingerprint must match the requested grid, so a
   stale directory cannot silently mix protocols.
 
@@ -33,8 +42,8 @@ same parameters on the CPU and on the card. The reference draws
 tests override this one method to start from the reference's init.
 
 Cells sharing a ``pipeline_key`` reuse one TrainPipeline. Not yet
-ported: the lm family, mesh and ZeRO cells (they raise
-``NotImplementedError``) and the PBT controller.
+ported: mesh and ZeRO cells (they raise ``NotImplementedError``) and the
+PBT controller.
 """
 
 from __future__ import annotations
@@ -51,13 +60,14 @@ import torch
 from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs import get_config
 from repro_torch.core import grad_stats
-from repro_torch.data import batch_iterator, synthetic_mnist
+from repro_torch.data import (TokenTaskConfig, batch_iterator, place,
+                              synthetic_mnist, token_batches,
+                              token_eval_set)
 from repro_torch.experiments.record import (TrajectoryRecorder,
                                             atomic_write_json, load_json,
                                             read_trajectory, to_jsonable,
                                             truncate_trajectory)
 from repro_torch.experiments.spec import CellSpec, GridSpec
-from repro_torch.launch.train import to_device
 from repro_torch.models import build_model
 from repro_torch.train import (TrainPipeline, TrainState,
                                generalization_error, make_eval_step)
@@ -69,21 +79,28 @@ ABORT_ENV = "REPRO_EXPERIMENT_ABORT_AFTER_STEPS"
 
 
 def resolve_config(grid: GridSpec):
-    """The registered config a cnn grid's cells train."""
-    if grid.family == "lm":
-        raise NotImplementedError(
-            f"grid {grid.name!r}: the lm family is not yet ported to "
-            "repro_torch.experiments")
+    """The model config a grid's cells train: the registered config for
+    cnn grids, its ``reduced()`` CPU-scale variant (capped layers / width
+    / vocab from the grid's model fields) for lm grids."""
     if grid.mesh or grid.zero:
         raise NotImplementedError(
             f"grid {grid.name!r}: mesh and zero cells are not yet ported "
             "to repro_torch.experiments")
     cfg = get_config(grid.arch)
-    if cfg.family != "cnn":
+    if grid.family == "cnn":
+        if cfg.family != "cnn":
+            raise ValueError(
+                f"grid {grid.name!r}: family='cnn' needs a CNN arch "
+                f"(got {grid.arch!r}, family {cfg.family!r})")
+        return cfg
+    if cfg.family == "cnn":
         raise ValueError(
-            f"grid {grid.name!r}: family='cnn' needs a CNN arch "
+            f"grid {grid.name!r}: family='lm' needs a token-LM arch "
             f"(got {grid.arch!r}, family {cfg.family!r})")
-    return cfg
+    return cfg.reduced(
+        max_layers=grid.model_layers or 2,
+        max_d_model=grid.model_d_model or 256,
+        max_vocab=grid.vocab_size or 512)
 
 
 class GridRunner:
@@ -112,6 +129,7 @@ class GridRunner:
         self._eval_step = make_eval_step(self.model, self.cfg)
         self._pipelines: dict[tuple, TrainPipeline] = {}
         self._data = None
+        self._eval_tokens = None
         self._steps_done = 0
         abort = os.environ.get(ABORT_ENV)
         self._abort_after = int(abort) if abort else None
@@ -132,20 +150,42 @@ class GridRunner:
                                          seed=self.grid.data_seed)
         return self._data
 
+    def token_task(self) -> TokenTaskConfig:
+        """The grid's shared Markov source (vocab matches the reduced
+        model's; the transition table is a grid-level constant — only
+        the per-cell sampling stream varies with the cell seed)."""
+        return TokenTaskConfig(vocab_size=self.cfg.vocab_size,
+                               seed=self.grid.data_seed)
+
+    def eval_tokens(self) -> np.ndarray:
+        if self._eval_tokens is None:
+            self._eval_tokens = token_eval_set(
+                self.token_task(), n=self.grid.n_test,
+                seq_len=self.grid.seq_len, seed=self.grid.data_seed + 1)
+        return self._eval_tokens
+
     def cell_batches(self, cell: CellSpec, *, start: int = 0):
         """The cell's deterministic batch stream, positioned at ``start``
         (mid-cell resume), each batch on the runner's device."""
-        x_tr, y_tr, _, _ = self.data()
-        it = batch_iterator(x_tr, y_tr, batch=self.eff_batch(cell),
-                            seed=cell.cell_seed())
-        for _ in range(start):
-            next(it)  # replay the shuffle stream
+        if self.grid.family == "cnn":
+            x_tr, y_tr, _, _ = self.data()
+            it = batch_iterator(x_tr, y_tr, batch=self.eff_batch(cell),
+                                seed=cell.cell_seed())
+            for _ in range(start):
+                next(it)  # replay the shuffle stream
+        else:
+            it = ({"tokens": toks} for toks in token_batches(
+                self.token_task(), batch=self.eff_batch(cell),
+                seq_len=cell.seq_len, seed=cell.cell_seed(), start=start))
         for b in it:
-            yield to_device(b, self.device)
+            yield place(b, self.device)
 
     def eff_batch(self, cell: CellSpec) -> int:
-        """Cells cap the batch at the dataset size."""
-        return min(cell.batch, self.grid.n_train)
+        """cnn cells cap the batch at the dataset size; lm streams are
+        synthetic and unbounded."""
+        if self.grid.family == "cnn":
+            return min(cell.batch, self.grid.n_train)
+        return cell.batch
 
     def pipeline(self, cell: CellSpec) -> TrainPipeline:
         key = cell.pipeline_key()
@@ -243,6 +283,8 @@ class GridRunner:
         summary on the host, as the reference's runner does."""
         steps = cell.steps
         until = min(until_step, steps)
+        eff_batch = self.eff_batch(cell)
+        lm = self.grid.family == "lm"
         if checkpoint_at_end is None:
             checkpoint_at_end = bool(self.checkpoint_every)
         pipe = self.pipeline(cell)
@@ -255,16 +297,30 @@ class GridRunner:
             return state, metrics, batch
         recorder = TrajectoryRecorder(traj_path, append=start > 0)
         it = self.cell_batches(cell, start=start)
-        t0 = time.perf_counter()
+        t0 = t_prev = time.perf_counter()
         try:
             for i in range(start, until):
                 batch = next(it)
                 state, metrics = pipe(state, batch)
-                entry = {"step": i, "loss": float(metrics["loss"]),
+                loss = float(metrics["loss"])
+                entry = {"step": i, "loss": loss,
                          "aux_loss": float(metrics["aux_loss"])}
+                if lm:
+                    # a diverged loss propagates ppl=None (+ the
+                    # recorder's diverged flag), not exp(NaN)
+                    entry["ppl"] = (round(math.exp(min(loss, 30.0)), 4)
+                                    if math.isfinite(loss) else loss)
                 if "stats" in metrics:
                     entry["trust"] = grad_stats.summarize(metrics["stats"])
-                entry["wall_s"] = round(time.perf_counter() - t0, 3)
+                t_now = time.perf_counter()
+                if lm:
+                    # throughput telemetry (a timing key: stripped when
+                    # trajectories are compared for determinism)
+                    entry["tokens_per_s"] = round(
+                        eff_batch * cell.seq_len
+                        / max(t_now - t_prev, 1e-9), 1)
+                entry["wall_s"] = round(t_now - t0, 3)
+                t_prev = t_now
                 recorder.record(entry)
                 done = i + 1
                 if (self.checkpoint_every
@@ -291,7 +347,8 @@ class GridRunner:
         ckpt_path = os.path.join(cdir, "state.npz")
         row = dict(cell.to_json())
         row["cell_id"] = cell.cell_id
-        row.update(self._evaluate_cnn(state))
+        row.update(self._evaluate_cnn(state) if self.grid.family == "cnn"
+                   else self._evaluate_lm(state))
         if metrics:
             loss = float(metrics["loss"])
         else:
@@ -339,8 +396,8 @@ class GridRunner:
                    ) -> float:
             total = 0.0
             for i in range(0, len(x), chunk):
-                part = to_device({"x": x[i:i + chunk], "y": y[i:i + chunk]},
-                                 self.device)
+                part = place({"x": x[i:i + chunk], "y": y[i:i + chunk]},
+                             self.device)
                 m = self._eval_step(state.params, part)
                 total += float(m["accuracy"]) * len(part["y"])
             return total / len(x)
@@ -351,6 +408,24 @@ class GridRunner:
                 "test_acc": round(test_acc, 4),
                 "gen_error": round(
                     generalization_error(train_acc, test_acc), 4)}
+
+    def _evaluate_lm(self, state, chunk: int = 64) -> dict:
+        """Held-out next-token loss -> eval perplexity (the LM study's
+        metric column) + next-token accuracy, in chunks of ``chunk``
+        sequences."""
+        toks = self.eval_tokens()
+        loss_sum = acc_sum = 0.0
+        n = len(toks)
+        for i in range(0, n, chunk):
+            part = toks[i:i + chunk]
+            m = self._eval_step(state.params,
+                                place({"tokens": part}, self.device))
+            loss_sum += float(m["loss"]) * len(part)
+            acc_sum += float(m["accuracy"]) * len(part)
+        eval_loss = loss_sum / n
+        return {"eval_loss": round(eval_loss, 4),
+                "eval_ppl": round(math.exp(min(eval_loss, 30.0)), 4),
+                "eval_acc": round(acc_sum / n, 4)}
 
     # -------------------------------------------------------------- grid
 

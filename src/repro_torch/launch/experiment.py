@@ -1,6 +1,6 @@
 """Experiment CLI of the port: run a declarative grid end to end,
-resumably. Port of ``repro/launch/experiment.py`` for cnn grids on one
-device.
+resumably. Port of ``repro/launch/experiment.py`` for the cnn and lm
+grids on one device.
 
 Examples (on the card; ``--device cpu`` runs them on the CPU)::
 
@@ -17,6 +17,13 @@ Examples (on the card; ``--device cpu`` runs them on the CPU)::
   PYTHONPATH=src python -m repro_torch.launch.experiment --grid lars_vs_sgd \\
       --cell lars-b8192-f32-a1-linear-s0
 
+  # the LM study (LARS/LAMB vs SGD/AdamW on reduced smollm), and its
+  # smoke grid with its report beside the full grid's
+  PYTHONPATH=src python -m repro_torch.launch.experiment \\
+      --grid lm_lars_vs_lamb
+  PYTHONPATH=src python -m repro_torch.launch.experiment --grid lm_smoke \\
+      --out EXPERIMENTS_torch_lm_lars_vs_lamb_smoke.json
+
 The run directory (``--out-dir``, default ``runs/torch/<grid>``, apart
 from the reference's ``runs/<grid>`` so neither resumes the other's
 manifest) holds the manifest and one JSONL trajectory per cell; the
@@ -26,7 +33,7 @@ to ``--out`` (default: the grid's ``report_file``,
 ``EXPERIMENTS_torch_<study>.json``) after every invocation, from
 whatever cells have completed so far. The reference's
 ``EXPERIMENTS_<study>.json`` files are never written. The PBT options
-and ``--seq-len`` (lm grids) are not yet ported and raise.
+are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -81,10 +88,11 @@ def main(argv=None) -> int:
                     help="override the grid's train-set size")
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
                     help="override the grid's replicate seeds")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="override an LM grid's training sequence length")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
-    # the reference's lm and PBT options: refused below
-    ap.add_argument("--seq-len", type=int, default=None)
+    # the reference's PBT options: refused below
     ap.add_argument("--pbt", action="store_true")
     ap.add_argument("--population", type=int, default=None)
     ap.add_argument("--exploit-every", type=int, default=None)
@@ -98,8 +106,7 @@ def main(argv=None) -> int:
                   f"optimizers={list(g.optimizers)} "
                   f"batches={list(g.batches)} epochs={g.epochs}")
         return 0
-    for flag, given in (("--seq-len", args.seq_len is not None),
-                        ("--pbt", args.pbt),
+    for flag, given in (("--pbt", args.pbt),
                         ("--population", args.population is not None),
                         ("--exploit-every", args.exploit_every is not None),
                         ("--pbt-seed", args.pbt_seed is not None)):
@@ -116,6 +123,8 @@ def main(argv=None) -> int:
         overrides["n_train"] = args.n_train
     if args.seeds is not None:
         overrides["seeds"] = tuple(args.seeds)
+    if args.seq_len is not None:
+        overrides["seq_len"] = args.seq_len
     grid = get_grid(args.grid, **overrides)
 
     if args.list_cells:

@@ -1,8 +1,12 @@
-"""Training entry point of the port (cnn family, one device): port of
-``repro/launch/train.py``. It runs through the large-batch
+"""Training entry point of the port (one device): port of
+``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
+cnn) or the dense LM smollm-135m (``--reduced``: its CPU-scale variant);
+it runs through the large-batch
 :class:`~repro_torch.train.pipeline.TrainPipeline` — microbatched
 gradient accumulation, the bf16/f32 precision policy — with f32 or int8
-optimizer slots, and saves or resumes the full TrainState as npz.
+optimizer slots, fed by :class:`~repro_torch.data.ShardedLoader` (host
+batches placed on the device two steps ahead), and saves or resumes the
+full TrainState as npz.
 
 Examples (on the card; ``--device cpu`` runs them on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch lenet-mnist \
@@ -12,11 +16,15 @@ Examples (on the card; ``--device cpu`` runs them on the CPU):
       --optimizer lars --opt-state-dtype int8 --accum-steps 8 \
       --precision bf16 --batch 8192 --steps 20 --lr 0.01 \
       --lr-policy linear --base-batch 32 --warmup 5 --checkpoint ckpt/s.npz
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --optimizer lamb --batch 16 --seq 1024 --steps 10 --lr 0.001
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --reduced --steps 10 --batch 8 --seq 32 --device cpu
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
 Options of the JAX entry point that the port does not cover yet (meshes,
-reduced configs, config overrides) raise rather than being ignored.
+config overrides) raise rather than being ignored.
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs import get_config
 from repro_torch.core import get_optimizer, schedules
 from repro_torch.core.scaling import scaled_lr
-from repro_torch.data import batch_iterator, synthetic_mnist
+from repro_torch.data import (ShardedLoader, TokenTaskConfig,
+                              batch_iterator, place, synthetic_mnist,
+                              token_batches)
 from repro_torch.models import build_model
 from repro_torch.train import TrainPipeline, make_eval_step, train_loop
 from repro_torch.treepath import tree_leaves
@@ -48,9 +58,12 @@ def make_lr_schedule(args) -> schedules.Schedule:
         scaled_lr(args.lr, args.base_batch, args.batch, args.lr_policy))
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def lm_batches(cfg, batch: int, seq: int, seed: int = 0):
+    """Host-side numpy token batches (device placement is the loader's
+    job): the Markov source over ``min(V, 512)`` tokens."""
+    task = TokenTaskConfig(vocab_size=min(cfg.vocab_size, 512), seed=seed)
+    for toks in token_batches(task, batch=batch, seq_len=seq, seed=seed):
+        yield {"tokens": np.asarray(toks[:, :seq], np.int32)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -80,6 +93,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--precision", default="f32", choices=("f32", "bf16"),
                     help="bf16: bf16 compute + f32 master weights")
     ap.add_argument("--mesh", default=None)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM training sequence length")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--checkpoint", default=None,
@@ -95,7 +110,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def _check_ported(args) -> None:
     unported = {
-        "--reduced": args.reduced,
         f"--mesh {args.mesh}": args.mesh is not None,
         "--set": bool(args.set),
     }
@@ -120,10 +134,8 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch)
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not yet "
-            "ported to repro_torch.launch.train")
+    if args.reduced:
+        cfg = cfg.reduced()
     model = build_model(cfg)
     opt = get_optimizer(args.optimizer, learning_rate=make_lr_schedule(args),
                         slot_dtype=args.opt_state_dtype)
@@ -143,19 +155,28 @@ def main(argv=None) -> dict:
           f"accum={args.accum_steps} precision={args.precision} "
           f"opt_state_dtype={args.opt_state_dtype}")
 
-    # size the procedural dataset to the global batch: batch_iterator's
-    # epoch wrap can only cover a shortfall of one dataset
-    x_tr, y_tr, x_te, y_te = synthetic_mnist(max(8192, args.batch))
-    batches = (to_device(b, device) for b in batch_iterator(
-        x_tr, y_tr, batch=args.batch, seed=args.seed))
-    eval_batches = [to_device({"x": x_te[i:i + 256], "y": y_te[i:i + 256]},
+    if cfg.family == "cnn":
+        # size the procedural dataset to the global batch: batch_iterator's
+        # epoch wrap can only cover a shortfall of one dataset
+        x_tr, y_tr, x_te, y_te = synthetic_mnist(max(8192, args.batch))
+        host_batches = batch_iterator(x_tr, y_tr, batch=args.batch,
+                                      seed=args.seed)
+        eval_batches = [place({"x": x_te[i:i + 256], "y": y_te[i:i + 256]},
                               device) for i in range(0, len(x_te), 256)]
-
-    state, hist = train_loop(pipeline, state, batches, args.steps,
-                             log_every=args.log_every,
-                             eval_fn=make_eval_step(model, cfg),
-                             eval_batches=eval_batches)
-    run, ev = hist[-2], hist[-1]
+    else:
+        host_batches = lm_batches(cfg, args.batch, args.seq, args.seed)
+        eval_batches = None
+    batches = ShardedLoader(host_batches, device)
+    try:
+        state, hist = train_loop(pipeline, state, batches, args.steps,
+                                 log_every=args.log_every,
+                                 eval_fn=make_eval_step(model, cfg)
+                                 if eval_batches else None,
+                                 eval_batches=eval_batches)
+    finally:
+        batches.close()
+    run = next(h for h in hist if "losses" in h)
+    eval_acc = hist[-1].get("eval_accuracy")
     dt = run["train_s"]
     summary = {"arch": cfg.name, "optimizer": opt.name,
                "device": str(device), "params": n_params,
@@ -167,11 +188,17 @@ def main(argv=None) -> dict:
                "losses": run["losses"], "train_s": dt,
                "steps_per_s": args.steps / dt,
                "examples_per_s": args.steps * args.batch / dt,
-               "eval_accuracy": ev["eval_accuracy"]}
+               "eval_accuracy": eval_acc}
+    if cfg.family != "cnn":
+        summary["seq"] = args.seq
+        summary["tokens_per_s"] = args.steps * args.batch * args.seq / dt
     print(f"done: {args.steps} steps in {dt:.1f}s "
           f"({summary['steps_per_s']:.2f} steps/s, "
-          f"{summary['examples_per_s']:.0f} examples/s)")
-    print(f"eval accuracy: {ev['eval_accuracy']:.4f}")
+          f"{summary['examples_per_s']:.0f} examples/s"
+          + (f", {summary['tokens_per_s']:.0f} tokens/s"
+             if "tokens_per_s" in summary else "") + ")")
+    if eval_acc is not None:
+        print(f"eval accuracy: {eval_acc:.4f}")
     if args.checkpoint:
         save_train_state(args.checkpoint, state)
         print(f"full TrainState checkpoint -> {args.checkpoint}")

@@ -8,12 +8,15 @@ PLACE (the reference returns a new array): :func:`_insert_at` is an
 index write of one row per sequence, so a decode step never copies the
 cache.
 
-Prefill runs :func:`attention_core`, the reference's algorithm (it is
-jnp there, not Pallas): f32 scores, an online softmax over KV chunks,
-the causal mask. Decode runs the hand-written ``flash_decode`` kernel
-through :func:`repro_torch.kernels.ops.flash_decode` (its plain version
-on CPU tensors); the reference's other decode path, its jnp core,
-computes the same function and is not ported.
+Training (:func:`attention_block`) and prefill run
+:func:`attention_core`, the reference's algorithm (it is jnp there, not
+Pallas): f32 scores, an online softmax over KV chunks, the causal mask;
+autograd differentiates it as written. The reference's query chunking
+(``attn_q_chunk``) and its custom-VJP flash attention (``flash_vjp``)
+are not yet ported and raise. Decode runs the hand-written
+``flash_decode`` kernel through :func:`repro_torch.kernels.ops.flash_decode`
+(its plain version on CPU tensors); the reference's other decode path,
+its jnp core, computes the same function and is not ported.
 
 Attention features that smollm does not use (``qkv_bias``, ``qk_norm``,
 ``sliding_window`` rings, ``attn_logit_softcap``) and MLA raise
@@ -110,6 +113,22 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]    # (B,Hkv,G,Sq,Dv)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def attention_block(cfg, p: dict, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention sub-block for training, projections
+    included: x (B, S, d) -> (B, S, d)."""
+    for name, value in (("attn_q_chunk", cfg.attn_q_chunk),
+                        ("flash_vjp", cfg.flash_vjp)):
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r} is not yet ported to repro_torch")
+    B, S, _ = x.shape
+    H, _, hd = cfg.attn_dims
+    q, k, v = qkv_project(cfg, p, x, positions)
+    out = attention_core(q, k, v, q_positions=positions)
+    return out.reshape(B, S, H * hd) @ p["wo"]
 
 
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,

@@ -1,12 +1,18 @@
 """Decoder-only language model, dense family: port of the dense branch of
-``repro/models/lm.py`` — init, the decode cache, one-token decode,
-(length-masked) prefill and slot admission into a persistent cache.
+``repro/models/lm.py`` — init, the training forward, the decode cache,
+one-token decode, (length-masked) prefill and slot admission into a
+persistent cache.
 
 Params are nested dicts in the reference's leaf layouts: per-layer
 leaves stacked on a leading ``(L, ...)`` axis under ``"layers"``,
 ``(in, out)`` dense weights, an ``(V, d)`` embedding (tied to the
 unembedding when the config says so), f32 norm scales. The layer loop
-is a Python loop over ``L`` views of the stacked leaves.
+is a Python loop over ``L`` views of the stacked leaves. In training
+(:meth:`forward`) ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` of its scan body does: only the residual stream
+between layers is kept for the backward pass. The reference's two-level
+remat (``remat_block``) is not yet ported and raises.
 
 The decode cache is ``{"pos": (B,) int32, "k", "v": (L, B, S, Hkv, hd)}``
 as the reference's. Where the reference returns new arrays (and donates
@@ -26,6 +32,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
@@ -88,9 +95,51 @@ class LanguageModel:
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm, then the matmul in the params' dtype, then f32."""
         x = L.apply_norm(self.cfg, x, params["final_norm"])
-        w = (params["embed"].T if self.cfg.tie_embeddings
-             else params["unembed"])
-        return (x @ w).float()
+        return (x @ self.unembed_matrix(params)).float()
+
+    def unembed_matrix(self, params) -> torch.Tensor:
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["unembed"])
+
+    # ----------------------------------------------------------------- train
+
+    def _layer_train(self, params_l, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, params_l["ln1"])
+        x = x + A.attention_block(cfg, params_l["attn"], h, positions)
+        h = L.apply_norm(cfg, x, params_l["ln2"])
+        return x + mlp_block(cfg, params_l["mlp"], h)
+
+    def forward(self, params, tokens: torch.Tensor, *,
+                return_hidden: bool = False
+                ) -> tuple[torch.Tensor, dict]:
+        """Train/eval forward. tokens (B, S) int.
+
+        Returns (logits (B, S, V) f32, {"aux_loss": 0 (f32)}) — or the
+        final-norm hidden states (B, S, d) when ``return_hidden``. The
+        reference wraps each layer's carry in an optimization barrier,
+        an XLA layout workaround that is the identity in value and in
+        gradient; it has no counterpart here.
+        """
+        cfg = self.cfg
+        if cfg.remat_block:
+            raise NotImplementedError(
+                f"remat_block={cfg.remat_block} (two-level remat) is not "
+                "yet ported to repro_torch")
+        x = self.embed_tokens(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.num_layers):
+            params_l = _index(params["layers"], i)
+            if cfg.remat:
+                x = checkpoint(self._layer_train, params_l, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._layer_train(params_l, x, positions)
+        aux = {"aux_loss": torch.zeros((), device=x.device)}
+        if return_hidden:
+            return L.apply_norm(cfg, x, params["final_norm"]), aux
+        return self.logits(params, x), aux
 
     # ----------------------------------------------------------------- cache
 

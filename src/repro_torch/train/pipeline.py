@@ -19,7 +19,7 @@ is that execution layer:
   optimizer keeps f32 master weights in the packed superbuffer
   (:data:`repro_torch.core.packing.MASTER_SLOT`) and gradients
   accumulate in f32. Batch float leaves are cast to bf16 inside the
-  step. The policy itself (:class:`Precision`) lives in
+  step; integer leaves (LM tokens) pass through. The policy itself (:class:`Precision`) lives in
   :mod:`repro_torch.train.state`.
 * **Statistics hook** — ``stats_fn(params, grads, stacked)`` (e.g.
   :func:`repro_torch.core.grad_stats.stats_hook`) runs on the pre-update
@@ -33,7 +33,7 @@ Typical use::
 
     pipe = TrainPipeline(model, opt, cfg, accum_steps=8, precision="bf16")
     state = pipe.init_state(torch.Generator().manual_seed(0), "cuda")
-    for batch in batches:
+    for batch in ShardedLoader(host_batches, "cuda"):
         state, metrics = pipe(state, batch)
 """
 
@@ -85,13 +85,18 @@ class TrainPipeline:
         """Peak device memory of one step on ``batch``'s device, in bytes;
         ``None`` on the CPU.
 
-        This is the CUDA caching allocator's peak, not XLA's compile-time
-        memory analysis (the reference's ``compiled_peak_bytes``), so the
+        It is read from the CUDA caching allocator, not from XLA's
+        compile-time memory analysis (the reference's ``compiled_peak_bytes``), so the
         two packages' numbers do not compare. It is taken over the
         pipeline's second step on the card (the first may allocate
-        cuBLAS's one-time workspace): ``max_memory_allocated`` after
-        ``reset_peak_memory_stats``, less what was allocated when the
-        step began, plus the step's inputs (state and batch). Cached per
+        cuBLAS's one-time workspace): the peak of the bytes the step's
+        tensors requested from the caching allocator (its
+        ``requested_bytes`` statistics) after ``reset_peak_memory_stats``,
+        less what was requested when the step began, plus the step's
+        inputs (state and batch). Requested bytes, not the allocator's
+        blocks: a cached block it hands out unsplit counts whole, so
+        ``max_memory_allocated`` depends on what the pool held before the
+        step, and a resumed run would read another peak. Cached per
         pipeline; where fewer than two steps have run on the card, steps
         of a fresh state (seed 0) on ``batch`` measure it.
         """
@@ -122,11 +127,12 @@ class TrainPipeline:
         gc.disable()
         try:
             torch.cuda.synchronize(dev)
-            before = torch.cuda.memory_allocated(dev)
+            before = torch.cuda.memory_stats(dev)[
+                "requested_bytes.all.current"]
             torch.cuda.reset_peak_memory_stats(dev)
             out = self._step(state, batch)
             torch.cuda.synchronize(dev)
-            peak = torch.cuda.max_memory_allocated(dev)
+            peak = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"]
         finally:
             if gc_enabled:
                 gc.enable()

@@ -1,9 +1,14 @@
-"""Train/eval step factories (port of ``repro/train/step.py``, cnn
-family). A step is an eager function (TrainState, batch) -> (TrainState,
-metrics): autograd for the gradients, then the optimizer update. The
-metrics stay on the device; reading them is the caller's choice.
+"""Train/eval step factories (port of ``repro/train/step.py``, the cnn
+and dense LM families). A step is an eager function (TrainState, batch)
+-> (TrainState, metrics): autograd for the gradients, then the optimizer
+update. The metrics stay on the device; reading them is the caller's
+choice.
 
   cnn      {"x": images (B,28,28,1), "y": labels (B,)}
+  lm       {"tokens": (B, S)}              loss: predict [1:] from [:-1]
+
+The chunked LM loss (``loss_chunk > 0``) and the vlm and encdec
+families are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.train.losses import classification_loss
+from repro_torch.train.losses import classification_loss, lm_loss
 from repro_torch.train.metrics import accuracy
 from repro_torch.train.state import TrainState
 from repro_torch.treepath import (tree_flatten_with_path, tree_leaves,
@@ -22,12 +27,20 @@ Pytree = Any
 
 
 def _forward_and_loss(model, cfg, params, batch):
-    """(loss, (logits, aux)) for the cnn family."""
-    if cfg.family != "cnn":
+    """(loss, (logits, aux)) for the cnn and dense LM families."""
+    if cfg.family == "cnn":
+        logits, aux = model.forward(params, batch["x"])
+        return classification_loss(logits, batch["y"]), (logits, aux)
+    if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
-    logits, aux = model.forward(params, batch["x"])
-    return classification_loss(logits, batch["y"]), (logits, aux)
+    if cfg.loss_chunk:
+        raise NotImplementedError(
+            f"loss_chunk={cfg.loss_chunk} (the chunked LM loss) is not yet "
+            "ported to repro_torch")
+    logits, aux = model.forward(params, batch["tokens"])
+    loss = lm_loss(logits, batch["tokens"])
+    return loss + aux["aux_loss"], (logits, aux)
 
 
 def value_and_grad(model, cfg, params: Pytree, batch
@@ -67,8 +80,10 @@ def make_train_step(model, optimizer, cfg=None) -> Callable:
 
 
 def make_eval_step(model, cfg=None) -> Callable:
-    """(params, batch) -> metrics {loss, accuracy}; the cnn family scores
-    the class head directly against the labels."""
+    """(params, batch) -> metrics {loss, accuracy}. The cnn family scores
+    the class head directly against the labels; the LM's logit at
+    position t predicts the token at t+1, so ``logits[:, :-1]`` is scored
+    against ``tokens[:, 1:]``."""
     cfg = cfg if cfg is not None else model.cfg
 
     @torch.no_grad()
@@ -80,6 +95,10 @@ def make_eval_step(model, cfg=None) -> Callable:
         batch = {k: v.to(dt) if v.is_floating_point() else v
                  for k, v in batch.items()}
         loss, (logits, _) = _forward_and_loss(model, cfg, params, batch)
-        return {"loss": loss, "accuracy": accuracy(logits, batch["y"])}
+        if cfg.family == "cnn":
+            acc = accuracy(logits, batch["y"])
+        else:
+            acc = accuracy(logits[:, :-1], batch["tokens"][:, 1:])
+        return {"loss": loss, "accuracy": acc}
 
     return step

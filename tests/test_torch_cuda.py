@@ -588,3 +588,90 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda):
                     for t in feed]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- the LM training path
+
+from repro_torch.core import lamb  # noqa: E402
+from repro_torch.data import ShardedLoader, TokenTaskConfig, token_batches  # noqa: E402
+from repro_torch.train.step import value_and_grad  # noqa: E402
+from repro_torch.treepath import tree_leaves  # noqa: E402
+
+SMOLLM_ROWS = 263144          # smollm-135m's packed (rows, 512) buffer
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_sharded_loader_places_through_pinned_memory(cuda, prefetch):
+    """Each batch arrives on the card equal to its host array; the pinned
+    host buffers stay held until their copies' events complete, and
+    close() leaves none in flight."""
+    host = [{"tokens": np.arange(4096, dtype=np.int32).reshape(4, 1024) + i,
+             "x": np.full((8, 3), i, np.float32)} for i in range(6)]
+    loader = ShardedLoader(iter(host), cuda, prefetch=prefetch)
+    got = []
+    for _ in range(6):
+        b = next(loader)
+        assert all(t.is_cuda for t in b.values())
+        for event, pinned in loader._inflight:
+            assert all(p.is_pinned() for p in pinned.values())
+        got.append({k: v.cpu().numpy() for k, v in b.items()})
+    with pytest.raises(StopIteration):
+        next(loader)
+    loader.close()
+    assert not loader._inflight
+    for a, b in zip(got, host):
+        assert all(np.array_equal(a[k], b[k]) for k in b)
+
+
+def test_lm_steps_launch_lars_kernels_and_no_lamb_kernel(cuda):
+    """Reduced smollm on the card: a LARS step is one norms_flat and one
+    apply_flat launch, a LAMB step none; losses finite; remat on and off
+    give identical gradients on the card too."""
+    import dataclasses
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg)
+    toks = next(token_batches(TokenTaskConfig(vocab_size=cfg.vocab_size),
+                              batch=4, seq_len=64))
+    batch = {"tokens": torch.from_numpy(toks).to(cuda)}
+    for opt, want in ((lars(0.01), 1), (lamb(0.01), 0)):
+        pipe = TrainPipeline(model, opt, cfg)
+        state = pipe.init_state(torch.Generator().manual_seed(0), cuda)
+        lk.reset_launch_counts()
+        for _ in range(2):
+            state, metrics = pipe(state, batch)
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES == {"norms_flat": 2 * want,
+                               "apply_flat": 2 * want, "apply_flat_q8": 0}
+        assert torch.isfinite(metrics["loss"])
+    grads = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        _, g, _ = value_and_grad(build_model(c), c, state.params, batch)
+        grads[remat] = tree_leaves(g)
+    assert all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+
+
+@pytest.mark.parametrize("kernel", ["norms_flat", "apply_flat",
+                                    "apply_flat_q8"])
+def test_lars_kernels_at_smollm_rows_match_plain(cuda, kernel):
+    """At smollm-135m's (263144, 512) — 131,572 to 263,144 CTAs: no grid
+    dimension or index overflows — each kernel agrees with its plain
+    version (norms rtol 1e-5, the applies bit for bit)."""
+    w, g, m, lr = _buffers(SMOLLM_ROWS, torch.float32, cuda, seed=3)
+    if kernel == "norms_flat":
+        got = lk.norms_flat(w, g, block_rows=1)
+        want = lk.norms_flat_plain(w, g, block_rows=1)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=NORMS_RTOL, atol=0)
+        return
+    kw = dict(momentum=0.9, weight_decay=1e-4)
+    if kernel == "apply_flat":
+        got = lk.apply_flat(w, g, m, lr, **kw)
+        want = lk.apply_flat_plain(w, g, m, lr, **kw)
+    else:
+        q, s = packing.quantize_blocks_q8(m.view(SMOLLM_ROWS // 8, -1))
+        q = q.view(SMOLLM_ROWS, 512)
+        got = lk.apply_flat_q8(w, g, q, s, lr, **kw)
+        want = lk.apply_flat_q8_plain(w, g, q, s, lr, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

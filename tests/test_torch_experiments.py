@@ -26,6 +26,15 @@ Tolerances, each measured on the CPU:
     losses <= 2.1e-7 relative over the b32 cells' 16 steps (held at
     1e-5), trust summaries <= 1.6e-6 (held at 1e-5), and train/test
     accuracies equal; accuracies are held within one example.
+  * lm runner: ``lm_smoke`` cut to LM_TINY (lamb and lars at b16, one
+    epoch of 64 sequences: 4 steps each) from the reference's initial
+    parameters. Measured: losses <= 2.6e-7 relative (held at 1e-5),
+    per-step perplexities <= 1.2e-6 (held at 1e-5), trust summaries
+    <= 3.6e-6 (held at 1e-4, the bound the same grid needs with all four
+    optimizers at b16 and b128: adamw's summaries drift 3.6e-5); eval
+    loss and perplexity equal to their 4 rounded decimals but for one
+    ulp of the rounding (held at 1e-4 absolute and 1e-5 relative), eval
+    accuracies equal (held within one token).
 """
 
 import dataclasses
@@ -66,6 +75,7 @@ from repro_torch.experiments.runner import ABORT_ENV
 from repro_torch.launch import experiment as cli
 from repro_torch.models import build_model
 from repro_torch.train import TrainPipeline, train_state_from_params
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,6 +88,9 @@ BF16_SUMMARY_RTOL = {"trust_min": 1e-5, "trust_max": 1e-5,
                      "g_norm_global": 1e-3}
 RUNNER_LOSS_RTOL = 1e-5
 RUNNER_TRUST_RTOL = 1e-5
+LM_TRUST_RTOL = 1e-4
+LM_TINY = dict(epochs=1, n_train=64, n_test=32, batches=(16,),
+               optimizers=("lamb", "lars"))
 
 TINY = dict(name="tiny_test_grid", batches=(32, 128), epochs=2, n_train=256,
             n_test=64)
@@ -374,6 +387,70 @@ def test_runner_matches_the_reference_runner(tmp_path):
                               ["claims"])
 
 
+def test_lm_runner_matches_the_reference_runner(tmp_path,
+                                                one_torch_thread):
+    from repro.experiments import read_trajectory as ref_read
+    grid = get_grid("lm_smoke", **LM_TINY)
+    ref_grid = ref_spec.get_grid("lm_smoke", **LM_TINY)
+    ref_runner = RefRunner(ref_grid, str(tmp_path / "ref"), log=None,
+                           record_memory=False)
+    ref_manifest = ref_runner.run()
+    runner = _FromReferenceInit(ref_runner, grid, str(tmp_path / "port"),
+                                log=None, device="cpu")
+    assert runner.cfg == get_config("smollm-135m").reduced(
+        max_layers=2, max_d_model=128, max_vocab=256)
+    manifest = runner.run()
+    ref_traj = _trajectories(tmp_path / "ref", ref_grid, ref_read)
+    traj = _trajectories(tmp_path / "port", grid)
+    assert len(grid.cells()) == 2
+    for cell in grid.cells():
+        cid = cell.cell_id
+        assert len(traj[cid]) == len(ref_traj[cid]) == cell.steps == 4
+        for got, want in zip(traj[cid], ref_traj[cid]):
+            assert set(got) == set(want) == {"step", "loss", "aux_loss",
+                                             "ppl", "trust"}
+            for key in ("loss", "ppl"):
+                assert abs(got[key] - want[key]) <= \
+                    RUNNER_LOSS_RTOL * abs(want[key]), (cid, key)
+            for key, v in want["trust"].items():
+                assert abs(got["trust"][key] - v) <= \
+                    LM_TRUST_RTOL * abs(v), (cid, got["step"], key)
+        row, ref_row = manifest["cells"][cid], ref_manifest["cells"][cid]
+        assert set(row) == set(ref_row) | {"peak_bytes"}
+        same = set(ref_row) - {"wall_s", "loss", "eval_loss", "eval_ppl",
+                               "eval_acc", "trust_final", "layer_stats"}
+        assert {k: row[k] for k in same} == {k: ref_row[k] for k in same}
+        assert abs(row["eval_loss"] - ref_row["eval_loss"]) <= 1e-4
+        assert abs(row["eval_ppl"] - ref_row["eval_ppl"]) <= \
+            1e-5 * ref_row["eval_ppl"]
+        assert abs(row["eval_acc"] - ref_row["eval_acc"]) <= \
+            1 / (grid.n_test * grid.seq_len) + 1e-4
+    claims = aggregate(grid, manifest)["claims"]
+    assert set(claims) == set(ref_aggregate(ref_grid, ref_manifest)
+                              ["claims"])
+
+
+def test_interrupted_lm_run_resumes_byte_identical(tmp_path,
+                                                   one_torch_thread):
+    grid = get_grid("lm_smoke", **dict(LM_TINY, batches=(16, 32)))
+    ref_manifest = _run(tmp_path / "ref", grid)
+    os.environ[ABORT_ENV] = "7"        # lamb-b16's 4 steps, then lars's 3
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            _run(tmp_path / "int", grid, checkpoint_every=2)
+    finally:
+        os.environ.pop(ABORT_ENV, None)
+    assert (tmp_path / "int" / grid.cells()[1].cell_id / "state.npz").exists()
+    manifest = _run(tmp_path / "int", grid, resume=True, checkpoint_every=2)
+    assert _trajectories(tmp_path / "int", grid) == \
+        _trajectories(tmp_path / "ref", grid)
+    for cid, row in manifest["cells"].items():
+        assert {k: v for k, v in row.items() if k != "wall_s"} == \
+            {k: v for k, v in ref_manifest["cells"][cid].items()
+             if k != "wall_s"}
+        assert math.isfinite(row["eval_ppl"])
+
+
 def _run(out_dir, grid, resume=False, **kw):
     return GridRunner(grid, str(out_dir), log=None, device="cpu",
                       **kw).run(resume=resume)
@@ -416,11 +493,14 @@ def test_interrupted_run_resumes_byte_identical(tmp_path, variant):
         assert math.isfinite(row["loss"]) and "layer_stats" in row
 
 
-@pytest.mark.parametrize("name", ["lm_smoke", "lm_lars_vs_lamb",
-                                  "zero_smoke"])
-def test_unported_grids_raise(tmp_path, name):
+@pytest.mark.parametrize("name,changes", [
+    ("lm_smoke", {"arch": "qwen3-14b"}),
+    ("lm_lars_vs_lamb", {"mesh": "1x1"}),
+    ("zero_smoke", {})])
+def test_unported_grids_raise(tmp_path, name, changes):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        GridRunner(get_grid(name), str(tmp_path), log=None, device="cpu")
+        GridRunner(get_grid(name, **changes), str(tmp_path), log=None,
+                   device="cpu")
 
 
 def test_runner_runs_on_cuda_unless_asked_otherwise(tmp_path):
@@ -477,7 +557,8 @@ def test_cli_runs_on_cuda_unless_asked_otherwise(tmp_path):
 
 @pytest.mark.parametrize("extra", [["--pbt"], ["--population", "4"],
                                    ["--exploit-every", "4"],
-                                   ["--pbt-seed", "1"], ["--seq-len", "16"]])
+                                   ["--pbt-seed", "1"],
+                                   ["--grid", "zero_smoke"]])
 def test_cli_refuses_unported_options(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(CLI_TINY + extra)

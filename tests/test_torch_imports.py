@@ -34,7 +34,11 @@ def test_the_scan_sees_the_port():
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/core/grad_stats.py",
             "src/repro_torch/experiments/runner.py",
-            "src/repro_torch/launch/experiment.py"} <= names
+            "src/repro_torch/launch/experiment.py",
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/data/loader.py",
+            "src/repro_torch/core/lamb.py",
+            "src/repro_torch/core/adamw.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -49,7 +53,9 @@ def test_the_scan_sees_the_port():
     "repro_torch.core.grad_stats", "repro_torch.experiments",
     "repro_torch.experiments.spec", "repro_torch.experiments.record",
     "repro_torch.experiments.report", "repro_torch.experiments.runner",
-    "repro_torch.launch.experiment"])
+    "repro_torch.launch.experiment", "repro_torch.data.tokens",
+    "repro_torch.data.loader", "repro_torch.core.lamb",
+    "repro_torch.core.adamw", "repro_torch.launch.train"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""

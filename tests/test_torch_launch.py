@@ -1,6 +1,8 @@
 """The port's entry point, ``repro_torch.launch.train``, end to end on
-the CPU; its refusal of what it does not cover; and its LR recipe
-against the JAX entry point's (rtol 1e-6: the same f32 schedule)."""
+the CPU (LeNet, and the reduced smollm with LAMB, AdamW and the
+large-batch LARS path); its refusal of what it does not cover; and its
+LR recipe against the JAX entry point's (rtol 1e-6: the same f32
+schedule)."""
 
 import argparse
 import math
@@ -12,6 +14,7 @@ import torch
 
 from repro.launch.train import make_lr_schedule as ref_make_lr_schedule
 from repro_torch.launch import train
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = ["--arch", "lenet-mnist", "--device", "cpu", "--log-every", "0"]
 
@@ -34,11 +37,28 @@ def test_main_runs_on_cuda_unless_asked_otherwise():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--reduced"], ["--mesh", "1x1"], ["--set", "num_layers=3"],
-    ["--optimizer", "lamb"], ["--arch", "smollm-135m"]])
+    ["--arch", "qwen3-14b", "--reduced"], ["--mesh", "1x1"],
+    ["--set", "num_layers=3"], ["--arch", "falcon-mamba-7b"],
+    ["--arch", "deepseek-v2-236b"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(CPU + ["--steps", "1"] + extra)
+
+
+@pytest.mark.parametrize("optimizer,extra", [
+    ("lamb", []), ("adamw", []),
+    ("lars", ["--opt-state-dtype", "int8", "--accum-steps", "2",
+              "--precision", "bf16"])])
+def test_main_trains_the_reduced_lm_on_the_cpu(optimizer, extra,
+                                                one_torch_thread):
+    out = train.main(["--arch", "smollm-135m", "--reduced", "--device",
+                      "cpu", "--log-every", "0", "--steps", "2", "--batch",
+                      "4", "--seq", "16", "--optimizer", optimizer] + extra)
+    assert out["arch"] == "smollm-135m-reduced" and out["optimizer"] == \
+        optimizer
+    assert len(out["losses"]) == 2 and all(map(math.isfinite, out["losses"]))
+    assert out["eval_accuracy"] is None and out["seq"] == 16
+    assert out["tokens_per_s"] == pytest.approx(out["steps_per_s"] * 64)
 
 
 def test_large_batch_flags_checkpoint_and_resume(tmp_path):

@@ -185,7 +185,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="slot_dtype"):
         sgd(0.1, slot_dtype="int4")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_optimizer("lamb")
+        get_optimizer("lamb", learning_rate=0.1).init(tp)
 
 
 def test_use_kernels_true_raises_on_cpu_buffers():
