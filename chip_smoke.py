@@ -93,7 +93,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
              prefetch and without, bit-identical; the registered
              ``lm_smoke`` grid through ``GridRunner`` (8 cells, 1,152
              steps) with its launches per cell, then killed mid-cell and
-             resumed to equal trajectories and rows.
+             resumed to equal trajectories and rows;
+13. lean LM — the memory-lean path (``flash_vjp``, ``attn_q_chunk``,
+             ``loss_chunk``, ``remat_block``, set through ``--set``):
+             first ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
+             at qwen3-14b's packed shape (4329072, 512), on fresh buffers,
+             timed beside their HBM bound and held against their plain
+             versions (run on row chunks) on every row, the rows past
+             element 2^31 reported apart; ``launch.train.main`` with
+             smollm-135m at phase 12's 16 x 1024 and LARS, each knob alone
+             and all four together (one ``norms_flat`` and one
+             ``apply_flat`` per step; steps/s, tokens/s, the allocator's
+             peak), and a profile of one step with all four;
+             qwen3-14b at full width and 2 layers (``--set
+             num_layers=2``), 4 x 4096 tokens through ``flash_vjp``,
+             ``attn_q_chunk=2048`` and ``loss_chunk=1024``: 3 steps of f32
+             LARS (one ``norms_flat`` and one ``apply_flat`` per step) and
+             3 of the large-batch path (bf16, int8 momentum, 2
+             microbatches: one ``norms_flat`` and one ``apply_flat_q8``),
+             finite losses, tokens/s and the peak; from one shared init, a
+             profiled step of each and the stock path against the lean
+             path at batch 1 (loss trajectories within STOCK_LEAN_RTOL,
+             both peaks); reduced qwen3 in f32 with all four knobs, 20
+             LARS steps on the card against the CPU, and its decode, 16
+             teacher-forced steps, card against CPU.
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -191,6 +214,51 @@ LOADER_STEPS = 5
 # step-100 checkpoint
 LM_GRID = "lm_smoke"
 LM_KILL_AFTER = 256 + 110
+
+# phase 13: the memory-lean LM path. smollm-135m at phase 12's 16 x 1024
+# with LARS, each knob alone and then all four, through --set
+LEAN_RUNS = {
+    "flash_vjp": ["flash_vjp=true"],
+    "flash_vjp_q512": ["flash_vjp=true", "attn_q_chunk=512"],
+    "loss_chunk": ["loss_chunk=1024"],
+    "remat_block": ["remat_block=5"],
+    "all_four": ["flash_vjp=true", "attn_q_chunk=512", "loss_chunk=1024",
+                 "remat_block=5"]}
+# qwen3-14b at full width, depth cut to 2 layers (2,216,453,632
+# parameters; a (4329072, 512) superbuffer of 25 slices), train_4k's
+# sequence length, through the reference's hillclimb settings
+QWEN = ["--arch", "qwen3-14b", "--set", "num_layers=2"]
+QWEN_LEAN = ["flash_vjp=true", "attn_q_chunk=2048", "loss_chunk=1024"]
+QWEN_ROWS, QWEN_SLICES = 4329072, 25
+QWEN_STEPS = 3
+QWEN_ARGS = QWEN + [a for v in QWEN_LEAN for a in ("--set", v)] + [
+    "--batch", "4", "--seq", "4096", "--steps", str(QWEN_STEPS),
+    "--lr", "0.01", "--log-every", "0"]
+QWEN_RUNS = {"lars": ["--optimizer", "lars"],
+             # the large-batch LARS path: int8 momentum, bf16 compute,
+             # 2 microbatches of 2
+             "lars_int8_bf16_accum2": ["--optimizer", "lars", "--precision",
+                                       "bf16", "--opt-state-dtype", "int8",
+                                       "--accum-steps", "2"]}
+# the first superbuffer row past element 2^31, and the rows of a chunk
+# the plain versions run on (their temporaries would not fit at full size)
+PAST_2_31 = 2 ** 31 // 512
+PLAIN_CHUNK = 1 << 20
+# stock against lean, batch 1 at the longest of 4096/2048/1024 that the
+# stock path fits (tools/lean_probe.py: 4096, at a 64.85 GiB peak). The
+# same function in bf16 activations, the score products summed in
+# another order: tools/lean_probe.py measured the 3-step loss
+# trajectories within 1.2e-5 relative at b1 x 4096 (2.3e-5 at 1024) on
+# an H100 80GB HBM3 at 700 W; held at 1e-4
+STOCK_LEAN = (1, 4096)
+STOCK_LEAN_RTOL = 1e-4
+# reduced qwen3-14b in f32 with the four knobs: 20 LARS steps, card
+# against CPU, at phase 12's gate
+QWEN_CARD_CPU_ARGS = ["--arch", "qwen3-14b", "--reduced", "--batch", "8",
+                      "--seq", "64", "--steps", "20", "--lr", "0.01",
+                      "--log-every", "0", "--optimizer", "lars",
+                      "--set", "flash_vjp=true", "--set", "attn_q_chunk=16",
+                      "--set", "loss_chunk=16", "--set", "remat_block=2"]
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -758,22 +826,23 @@ def serve_phase(serve, fdk, lk) -> dict:
     return dict({k: rep[k] for k in keys}, launches=launches)
 
 
-def _reduced_lm(device):
+def _reduced_lm(device, arch: str = "smollm-135m"):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config("smollm-135m").reduced()
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     return cfg, model, model.init(torch.Generator().manual_seed(0), device)
 
 
-def serve_card_vs_cpu_phase(fdk) -> dict:
-    """Phase 9: reduced smollm (f32) on the CPU (plain) and the card."""
+def serve_card_vs_cpu_phase(fdk, arch: str = "smollm-135m") -> dict:
+    """Phase 9 (and 13, for qwen3-14b): a reduced LM (f32) on the CPU
+    (plain) and the card."""
     import numpy as np
     import torch
     from repro_torch.serve import ServeEngine
     from repro_torch.treepath import tree_map
-    cfg, model, params = _reduced_lm("cpu")
+    cfg, model, params = _reduced_lm("cpu", arch)
     card = tree_map(lambda t: t.cuda(), params)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 24)))
@@ -1087,13 +1156,13 @@ def experiment_profile(grid, cell, root: str, steps: int = EXP_PROFILE_STEPS
                                         for n, ms in top]}
 
 
-def smollm_layout():
-    """smollm-135m's packed layout at full width (shapes only)."""
+def lm_layout(cfg):
+    """An LM's packed layout at ``cfg``'s size (shapes only: a meta
+    init)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import packing
     from repro_torch.models import build_model
-    model = build_model(get_config("smollm-135m"))
+    model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "meta")
     return packing.build_layout(params, model.stacked_marker(params))
 
@@ -1102,7 +1171,8 @@ def lm_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
     """Phase 12: the three LARS kernels at smollm-135m's packed shape
     against their plain versions, timed as phase 3 times its rows."""
     import torch
-    layout = smollm_layout()
+    from repro_torch.configs import get_config
+    layout = lm_layout(get_config("smollm-135m"))
     if (layout.buffer_shape, layout.num_slices) != ((LM_ROWS, 512),
                                                     LM_SLICES):
         raise AssertionError(f"smollm-135m's layout is "
@@ -1114,53 +1184,63 @@ def lm_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
     return rows
 
 
-def lm_train_runs(train, lk, fdk) -> dict:
-    """Phase 12: ``launch.train.main`` at full width — LARS, LAMB and the
-    large-batch LARS path. Each run's launch counts and the allocator's
-    peak are reset just before it and read just after."""
+def lm_train_runs(train, lk, fdk, base_args=LM_ARGS, runs=LM_RUNS,
+                  steps=LM_STEPS) -> dict:
+    """``launch.train.main`` at full width, one run per entry of ``runs``
+    (phase 12: LARS, LAMB and the large-batch LARS path; phase 13: the
+    lean knobs and qwen3-14b). Each run's launch counts and the
+    allocator's peak are reset just before it and read just after."""
     import gc
     import torch
-    runs = {}
-    for tag, extra in LM_RUNS.items():
+    out = {}
+    for tag, extra in runs.items():
         gc.collect()
         torch.cuda.empty_cache()
         lk.reset_launch_counts()
         fdk.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
-        summary = train.main(LM_ARGS + extra)
+        args = base_args + extra
+        summary = train.main(args)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         counts = dict(lk.LAUNCHES)
         losses = summary["losses"]
-        if len(losses) != LM_STEPS or not all(map(math.isfinite, losses)):
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{tag}: losses {losses}")
         if fdk.LAUNCHES["flash_decode"]:
             raise AssertionError(f"{tag}: training launched flash_decode")
-        lars_steps = LM_STEPS if tag.startswith("lars") else 0
-        int8 = "int8" in tag
+        lars_steps = steps if args[args.index("--optimizer") + 1] == "lars" \
+            else 0
+        int8 = "int8" in args
         want = {"norms_flat": lars_steps,
                 "apply_flat": 0 if int8 else lars_steps,
                 "apply_flat_q8": lars_steps if int8 else 0}
         if counts != want:
             raise AssertionError(f"{tag}: launches {counts}, want {want}")
-        runs[tag] = {k: summary[k] for k in (
-            "params", "batch", "seq", "steps", "accum_steps", "precision",
-            "opt_state_dtype", "losses", "train_s", "steps_per_s",
-            "tokens_per_s")}
-        runs[tag].update(launches=counts, peak_bytes=peak - before)
+        out[tag] = {k: summary[k] for k in (
+            "arch", "params", "batch", "seq", "steps", "accum_steps",
+            "precision", "opt_state_dtype", "losses", "train_s",
+            "steps_per_s", "tokens_per_s")}
+        out[tag].update(launches=counts, peak_bytes=peak - before,
+                        set=[v for k, v in zip(args, args[1:])
+                             if k == "--set"])
         log(f"  {tag}: {summary['steps_per_s']:.3f} steps/s  "
             f"{summary['tokens_per_s']:.0f} tokens/s  peak "
             f"{(peak - before) / 2**30:.2f} GiB  launches {counts}  losses "
             + " ".join(f"{x:.4f}" for x in losses))
-    return runs
+    return out
 
 
-def lm_profile(path: str, steps: int = 1) -> dict:
-    """Phase 12: a ``torch.profiler`` window over one full-width step
-    (``path``: "f32" LARS or the "large_batch" path) fed by the loader,
-    after two warm-up steps: busy share, time by kernel, the hand
-    kernels' and the loader's H2D copies' device time."""
+def lm_profile(path: str, steps: int = 1, *, cfg=None, batch: int = 0,
+               seq: int = 1024, accum: int = 4, params=None) -> dict:
+    """Phases 12, 13: a ``torch.profiler`` window over one full-width step
+    (``path``: "f32" LARS or the "large_batch" path: int8 momentum, bf16,
+    ``accum`` microbatches) of ``cfg`` (smollm-135m by default; batch 16,
+    or 64 on the large-batch path) fed by the loader, after two warm-up
+    steps, from ``params`` when given (else a seed-0 init): busy share,
+    time by kernel, the hand kernels' and the loader's H2D copies' device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -1168,16 +1248,20 @@ def lm_profile(path: str, steps: int = 1) -> dict:
     from repro_torch.data import ShardedLoader
     from repro_torch.launch.train import lm_batches
     from repro_torch.models import build_model
-    from repro_torch.train import TrainPipeline
-    cfg = get_config("smollm-135m")
+    from repro_torch.train import TrainPipeline, train_state_from_params
+    cfg = cfg or get_config("smollm-135m")
     if path == "f32":
-        pipe, batch = TrainPipeline(build_model(cfg), lars(0.01), cfg), 16
+        pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg)
+        batch = batch or 16
     else:
         pipe = TrainPipeline(build_model(cfg), lars(0.01, slot_dtype="int8"),
-                             cfg, accum_steps=4, precision="bf16")
-        batch = 64
-    state = pipe.init_state(torch.Generator().manual_seed(0), "cuda")
-    loader = ShardedLoader(lm_batches(cfg, batch, 1024), "cuda")
+                             cfg, accum_steps=accum, precision="bf16")
+        batch = batch or 16 * accum
+    state = (pipe.init_state(torch.Generator().manual_seed(0), "cuda")
+             if params is None else
+             train_state_from_params(pipe.model, pipe.optimizer, params,
+                                     precision=pipe.precision))
+    loader = ShardedLoader(lm_batches(cfg, batch, seq), "cuda")
     try:
         for _ in range(2):
             state, _ = pipe(state, next(loader))
@@ -1198,7 +1282,8 @@ def lm_profile(path: str, steps: int = 1) -> dict:
     ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
             / steps for k in KERNELS}
     h2d = sum(ms for n, ms in kernels.items() if "HtoD" in n) / steps
-    log(f"  {path}, {steps} step(s) at full width: wall {wall_ms / steps:.2f}"
+    log(f"  {cfg.name} {path}, {steps} step(s) of {batch} x {seq}: wall "
+        f"{wall_ms / steps:.2f}"
         f" ms/step, device busy {busy / steps:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%), H2D copies {h2d:.4f} ms"
         if busy else f"  {path}: device time not measured (the profiler "
@@ -1206,7 +1291,8 @@ def lm_profile(path: str, steps: int = 1) -> dict:
     for name, ms in top:
         log(f"    {ms / steps:9.4f} ms/step  {name[:90]}")
     log(f"  hand kernels, device ms/step: {ours}")
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+    return {"arch": cfg.name, "batch": batch, "seq": seq, "steps": steps,
+            "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy / steps if busy else None,
             "h2d_ms_per_step": h2d if busy else None,
             "hand_kernel_device_ms_per_step": ours,
@@ -1315,6 +1401,267 @@ def lm_phase(train, lk, fdk, bw: float, flops: float, floor: float,
     return out
 
 
+def qwen_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
+    """Phase 13: the three LARS kernels at qwen3's (4329072, 512), where
+    element indices pass 2^31, on fresh buffers before any model is
+    built. Each is held against its plain version on EVERY row — the
+    plain versions run on chunks of PLAIN_CHUNK rows, whose temporaries
+    fit beside the buffers — and the rows past element 2^31 are reported
+    apart. The kernel and the library call are timed from a CUDA graph
+    of one call, the chunked plain version by CUDA events."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import packing
+    layout = lm_layout(dataclasses.replace(get_config("qwen3-14b"),
+                                           num_layers=2))
+    R = QWEN_ROWS
+    if (layout.buffer_shape, layout.num_slices) != ((R, 512), QWEN_SLICES):
+        raise AssertionError(f"qwen3-14b's layout is {layout.buffer_shape}, "
+                             f"{layout.num_slices} slices")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = torch.device("cuda")
+    n = R * 512
+    w = torch.randn(R, 512, generator=gen, device=dev)
+    g = torch.randn(R, 512, generator=gen, device=dev) * 1e-2
+    m = torch.randn(R, 512, generator=gen, device=dev) * 1e-3
+    lr = torch.rand(R // 8, 1, generator=gen, device=dev) * 1e-2
+    chunks = [(a, min(a + PLAIN_CHUNK, R)) for a in range(0, R, PLAIN_CHUNK)]
+    kw = dict(momentum=0.9, weight_decay=1e-4)
+
+    def plain_ms(fn) -> float:
+        """One pass of a plain version over every chunk, by CUDA events
+        (its temporaries are freed chunk by chunk, which a graph's
+        private pool would not do)."""
+        return dispatch_ms(lambda: [fn(a, b) for a, b in chunks],
+                           warmup=1, reps=5)
+
+    def timed(fn) -> tuple[float, float]:
+        ms = device_ms(fn, calls=1, warmup=1, reps=10)
+        torch.cuda.empty_cache()
+        dispatch = dispatch_ms(fn, warmup=1, reps=5)
+        torch.cuda.empty_cache()
+        return ms, dispatch
+
+    def errs(pairs) -> tuple[float, float]:
+        """(max over all rows, max over the rows past element 2^31)."""
+        every = past = 0.0
+        for a, b, d in pairs:
+            every = max(every, d.max().item())
+            if b > PAST_2_31:
+                past = max(past, d[max(PAST_2_31 - a, 0):].max().item())
+        return every, past
+
+    out = {}
+    wsq, gsq = lk.norms_flat(w, g, block_rows=1)
+    rel, err = [], 0.0
+    for a, b in chunks:
+        pw, pg = lk.norms_flat_plain(w[a:b], g[a:b], block_rows=1)
+        rel.append((a, b, torch.maximum((wsq[a:b] - pw).abs() / pw,
+                                        (gsq[a:b] - pg).abs() / pg)))
+        err = max(err, (wsq[a:b] - pw).abs().max().item(),
+                  (gsq[a:b] - pg).abs().max().item())
+    rel_all, rel_past = errs(rel)
+    if not rel_all <= NORMS_RTOL:
+        raise AssertionError(f"norms_flat at {R} rows: rel err {rel_all}")
+    fold = device_ms(lambda: packing.fold_rows(layout, wsq), calls=1)
+    del wsq, gsq, rel
+    vn = lambda x: torch.linalg.vector_norm(x, dim=1)  # noqa: E731
+    out["norms_flat"] = _row(
+        R, 512, err, rel_all, timed(lambda: lk.norms_flat(w, g, block_rows=1)),
+        plain_ms(lambda a, b: lk.norms_flat_plain(w[a:b], g[a:b],
+                                                  block_rows=1)),
+        device_ms(lambda: (vn(w), vn(g)), calls=1),
+        2 * n * 4 + 2 * R * 4, 4 * n, bw, flops)
+    out["norms_flat"].update(fold_ms=fold, max_rel_err_past_2_31=rel_past)
+
+    w2, m2 = lk.apply_flat(w, g, m, lr, **kw)
+    diff = []
+    for a, b in chunks:
+        pw2, pm2 = lk.apply_flat_plain(w[a:b], g[a:b], m[a:b],
+                                       lr[a // 8:b // 8], **kw)
+        diff.append((a, b, torch.maximum((w2[a:b] - pw2).abs(),
+                                         (m2[a:b] - pm2).abs()).amax(1)))
+    err, err_past = errs(diff)
+    if not err <= APPLY_ATOL:
+        raise AssertionError(f"apply_flat at {R} rows: abs err {err}")
+    del w2, m2, diff, pw2, pm2
+    out["apply_flat"] = _row(
+        R, 512, err, 0.0, timed(lambda: lk.apply_flat(w, g, m, lr, **kw)),
+        plain_ms(lambda a, b: lk.apply_flat_plain(
+            w[a:b], g[a:b], m[a:b], lr[a // 8:b // 8], **kw)),
+        None, 3 * n * 4 + (R // 8) * 4 + 2 * n * 4, 6 * n, bw, flops)
+    out["apply_flat"]["max_abs_err_past_2_31"] = err_past
+
+    q = torch.empty(R, 512, dtype=torch.int8, device=dev)
+    s = torch.empty(R // 8, 1, device=dev)
+    for a, b in chunks:
+        qa, sa = packing.quantize_blocks_q8(m[a:b].view(-1, 8 * 512))
+        q[a:b], s[a // 8:b // 8] = qa.view(-1, 512), sa
+    del m, qa, sa
+    torch.cuda.empty_cache()
+    got = lk.apply_flat_q8(w, g, q, s, lr, **kw)
+    diff = []
+    for a, b in chunks:
+        want = lk.apply_flat_q8_plain(w[a:b], g[a:b], q[a:b],
+                                      s[a // 8:b // 8], lr[a // 8:b // 8],
+                                      **kw)
+        d = torch.maximum((got[0][a:b] - want[0]).abs(),
+                          (got[1][a:b].float() - want[1].float()).abs())
+        d = torch.maximum(d.amax(1).view(-1, 8).amax(1),
+                          (got[2][a // 8:b // 8] - want[2]).abs()[:, 0])
+        diff.append((a, b, d.repeat_interleave(8)))
+    err, err_past = errs(diff)
+    if not err <= APPLY_Q8_ATOL:
+        raise AssertionError(f"apply_flat_q8 at {R} rows: abs err {err} "
+                             "(w', q', scale')")
+    del got, want, diff, d
+    out["apply_flat_q8"] = _row(
+        R, 512, err, 0.0,
+        timed(lambda: lk.apply_flat_q8(w, g, q, s, lr, **kw)),
+        plain_ms(lambda a, b: lk.apply_flat_q8_plain(
+            w[a:b], g[a:b], q[a:b], s[a // 8:b // 8], lr[a // 8:b // 8],
+            **kw)),
+        None, 14 * n + 12 * (R // 8), 12 * n, bw, flops)
+    out["apply_flat_q8"]["max_abs_err_past_2_31"] = err_past
+    del w, g, q, s, lr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {R} rows ({n:,} elements; rows from {PAST_2_31} lie past "
+        f"element 2^31):")
+    log_kernel_rows({k: [v] for k, v in out.items()}, floor)
+    log(f"  past element 2^31: norms rel err "
+        f"{out['norms_flat']['max_rel_err_past_2_31']:.3g}, apply abs err "
+        f"{out['apply_flat']['max_abs_err_past_2_31']}, q8 abs err "
+        f"{out['apply_flat_q8']['max_abs_err_past_2_31']}")
+    return out
+
+
+def lm_run(cfg, params, batch: int, seq: int, steps: int) -> dict:
+    """``steps`` f32 LARS steps of ``cfg`` from ``params`` (shared, not
+    written) on the Markov token source: losses, each step's host ms
+    (ending in a sync) and the allocator's peak over the run, less what
+    was allocated before it."""
+    import gc
+    import torch
+    from repro_torch.core import lars
+    from repro_torch.data import ShardedLoader
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainPipeline, train_state_from_params
+    pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    loader = ShardedLoader(lm_batches(cfg, batch, seq), "cuda")
+    try:
+        state = train_state_from_params(pipe.model, pipe.optimizer, params)
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = pipe(state, next(loader))
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del state, metrics
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        loader.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": batch, "seq": seq, "losses": losses, "step_ms": ms,
+            "peak_bytes": peak}
+
+
+def qwen_session(lk) -> dict:
+    """Phase 13: one seed-0 init of qwen3-14b (2 layers, bf16) on the card,
+    shared by a profiled step of each LARS path at 4 x 4096 through the
+    lean knobs and by the stock-against-lean comparison at STOCK_LEAN."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    stock = dataclasses.replace(get_config("qwen3-14b"), num_layers=2)
+    lean = dataclasses.replace(stock, flash_vjp=True, attn_q_chunk=2048,
+                               loss_chunk=1024)
+    t0 = time.perf_counter()
+    params = build_model(stock).init(torch.Generator().manual_seed(0),
+                                     "cuda")
+    out = {"init_s": time.perf_counter() - t0}
+    log(f"  qwen3-14b init (2 layers, seed 0) {out['init_s']:.1f} s")
+    out["profile"] = {
+        "f32": lm_profile("f32", cfg=lean, batch=4, seq=4096, params=params),
+        "large_batch": lm_profile("large_batch", cfg=lean, batch=4,
+                                  seq=4096, accum=2, params=params)}
+    batch, seq = STOCK_LEAN
+    lk.reset_launch_counts()
+    runs = {tag: lm_run(cfg, params, batch, seq, QWEN_STEPS)
+            for tag, cfg in (("stock", stock), ("lean", lean))}
+    if lk.LAUNCHES != {"norms_flat": 2 * QWEN_STEPS,
+                       "apply_flat": 2 * QWEN_STEPS, "apply_flat_q8": 0}:
+        raise AssertionError(f"stock and lean runs: launches {lk.LAUNCHES}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["lean"]["losses"],
+                                               runs["stock"]["losses"])]
+    for tag, r in runs.items():
+        log(f"  {tag} b{batch} x {seq}: peak {r['peak_bytes'] / 2**30:.2f} "
+            f"GiB  step ms {[round(x, 1) for x in r['step_ms']]}  losses "
+            f"{[round(x, 6) for x in r['losses']]}")
+    log(f"  lean vs stock loss rel diff by step "
+        f"{[float(f'{x:.3g}') for x in rel]} (tolerance {STOCK_LEAN_RTOL})")
+    if not all(map(math.isfinite, runs["stock"]["losses"]
+                   + runs["lean"]["losses"])) or not max(rel) <= \
+            STOCK_LEAN_RTOL:
+        raise AssertionError(f"stock vs lean: {runs}")
+    out["stock_vs_lean"] = dict(runs, rel_by_step=rel)
+    del params
+    return out
+
+
+def qwen_card_vs_cpu(train, fdk) -> dict:
+    """Phase 13: reduced qwen3-14b in f32 through the four knobs, 20 LARS
+    steps on the CPU (plain versions) and on the card (kernels), within
+    phase 12's gate; and its decode, 16 teacher-forced steps, card
+    (flash_decode) against CPU, as phase 9 holds smollm's."""
+    cpu = train.main(QWEN_CARD_CPU_ARGS + ["--device", "cpu"])["losses"]
+    card = train.main(QWEN_CARD_CPU_ARGS + ["--device", "cuda"])["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    rtol = LM_CARD_CPU_RTOL["lars"]
+    log(f"  train cpu  {[round(x, 6) for x in cpu]}\n  train card "
+        f"{[round(x, 6) for x in card]}\n  rel diff by step "
+        f"{[float(f'{x:.3g}') for x in rel]}; max {max(rel):.3g} "
+        f"(tolerance {rtol})")
+    if not max(rel) <= rtol:
+        raise AssertionError(f"qwen3 card vs CPU loss rel diff {max(rel)}")
+    return {"train": {"max_rel": max(rel), "rel_by_step": rel},
+            "decode": serve_card_vs_cpu_phase(fdk, "qwen3-14b")}
+
+
+def lean_phase(train, lk, fdk, bw: float, flops: float, floor: float
+               ) -> dict:
+    """Phase 13: the memory-lean LM path on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.overrides import apply_overrides
+    t_phase = time.perf_counter()
+    out = {"qwen_kernel_rows": qwen_kernel_rows(lk, bw, flops, floor)}
+    sets = lambda vs: [a for v in vs for a in ("--set", v)]  # noqa: E731
+    out["smollm_runs"] = lm_train_runs(
+        train, lk, fdk, LM_ARGS + ["--optimizer", "lars"],
+        {tag: sets(vs) for tag, vs in LEAN_RUNS.items()})
+    out["smollm_profile"] = lm_profile("f32", cfg=apply_overrides(
+        get_config("smollm-135m"), LEAN_RUNS["all_four"]))
+    out["qwen_runs"] = lm_train_runs(train, lk, fdk, QWEN_ARGS, QWEN_RUNS,
+                                     QWEN_STEPS)
+    out["qwen_session"] = qwen_session(lk)
+    out["card_vs_cpu"] = qwen_card_vs_cpu(train, fdk)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1375,6 +1722,10 @@ def main() -> int:
     lm = lm_phase(train, lk, fdk, bw, flops, floor,
                   os.path.join(ROOT, "build"))
 
+    log("== 13. the memory-lean LM path: smollm-135m's knobs, qwen3-14b "
+        "at full width")
+    lean = lean_phase(train, lk, fdk, bw, flops, floor)
+
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
                 "apply_flat": "src/repro/kernels/lars_kernels.py:86",
                 "apply_flat_q8": "src/repro/kernels/lars_kernels.py:139"}
@@ -1425,6 +1776,21 @@ def main() -> int:
                 "hand_kernel_device_ms_per_step"][kname]}
         if "fold_ms" in lm_row:
             entry["smollm_row"]["fold_ms"] = lm_row["fold_ms"]
+        entry["launches_by_lean_run"] = {
+            t: r["launches"][kname] for t, r in lean["smollm_runs"].items()}
+        entry["launches_by_lean_run"].update(
+            {"qwen3_" + t: r["launches"][kname]
+             for t, r in lean["qwen_runs"].items()})
+        q_row = lean["qwen_kernel_rows"][kname]
+        entry["shapes"].append(q_row)
+        entry["qwen3_row"] = dict(
+            {k: v for k, v in q_row.items() if k.startswith("max_")},
+            rows=QWEN_ROWS, ms=q_row["ms"], bound_ms=q_row["bound_ms"],
+            plain_ms=q_row["plain_ms"], library_ms=q_row["library_ms"],
+            dispatch_ms=q_row["dispatch_ms"],
+            device_ms_in_qwen3_step=lean["qwen_session"]["profile"][
+                "large_batch" if int8 else "f32"][
+                "hand_kernel_device_ms_per_step"][kname])
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
@@ -1452,7 +1818,7 @@ def main() -> int:
                     "checkpoint": ckpt, "profile": prof, "serve": served,
                     "serve_card_vs_cpu": serve_cpu,
                     "serve_profile": serve_prof, "experiments": exp,
-                    "lm": lm}))
+                    "lm": lm, "lean": lean}))
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

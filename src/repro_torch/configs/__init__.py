@@ -4,15 +4,19 @@ that asking for one says it is not yet ported rather than unknown.
 """
 
 from repro_torch.configs.base import ModelConfig, param_count  # noqa: F401
-from repro_torch.configs import lenet_mnist, smollm_135m
+from repro_torch.configs.shapes import (SHAPES, TRAIN_4K,  # noqa: F401
+                                        PREFILL_32K, DECODE_32K, LONG_500K,
+                                        LONG_CONTEXT_WINDOW, InputShape)
+from repro_torch.configs import (lenet_mnist, minitron_8b, qwen2_72b,
+                                 qwen3_14b, smollm_135m)
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (lenet_mnist, smollm_135m)}
+    m.CONFIG.name: m.CONFIG for m in (lenet_mnist, smollm_135m, qwen3_14b,
+                                      qwen2_72b, minitron_8b)}
 
 # registered in repro.configs, not yet in the port
 NOT_YET_PORTED = ("whisper-base", "deepseek-v2-236b", "zamba2-7b",
-                  "minitron-8b", "falcon-mamba-7b",
-                  "qwen3-14b", "qwen2-72b", "paligemma-3b",
+                  "falcon-mamba-7b", "paligemma-3b",
                   "granite-moe-3b-a800m")
 
 
@@ -24,3 +28,9 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> InputShape:
+    if name not in SHAPES:
+        raise ValueError(f"unknown shape {name!r}; have {sorted(SHAPES)}")
+    return SHAPES[name]

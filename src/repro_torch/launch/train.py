@@ -1,7 +1,11 @@
 """Training entry point of the port (one device): port of
 ``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
-cnn) or the dense LM smollm-135m (``--reduced``: its CPU-scale variant);
-it runs through the large-batch
+cnn) or a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b
+(``--reduced``: the CPU-scale variant) —, and ``--set FIELD=VALUE``
+overrides config fields after ``--reduced``, as the reference does: the
+memory-lean LM path (``flash_vjp=true``, ``attn_q_chunk``,
+``loss_chunk``, ``remat_block``) and a cut depth (``num_layers=2``) are
+set so. It runs through the large-batch
 :class:`~repro_torch.train.pipeline.TrainPipeline` — microbatched
 gradient accumulation, the bf16/f32 precision policy — with f32 or int8
 optimizer slots, fed by :class:`~repro_torch.data.ShardedLoader` (host
@@ -20,11 +24,14 @@ Examples (on the card; ``--device cpu`` runs them on the CPU):
       --optimizer lamb --batch 16 --seq 1024 --steps 10 --lr 0.001
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       --reduced --steps 10 --batch 8 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
+      --set num_layers=2 --set flash_vjp=true --set attn_q_chunk=2048 \
+      --set loss_chunk=1024 --batch 4 --seq 4096 --steps 3
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
-Options of the JAX entry point that the port does not cover yet (meshes,
-config overrides) raise rather than being ignored.
+``--mesh``, which the port does not cover yet, raises rather than being
+ignored.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from repro_torch.core.scaling import scaled_lr
 from repro_torch.data import (ShardedLoader, TokenTaskConfig,
                               batch_iterator, place, synthetic_mnist,
                               token_batches)
+from repro_torch.launch.overrides import apply_overrides
 from repro_torch.models import build_model
 from repro_torch.train import TrainPipeline, make_eval_step, train_loop
 from repro_torch.treepath import tree_leaves
@@ -102,21 +110,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", default=None,
                     help="restore a TrainState checkpoint before training")
     ap.add_argument("--set", action="append", default=[],
-                    metavar="FIELD=VALUE")
+                    metavar="FIELD=VALUE",
+                    help="config override, e.g. --set remat_block=8")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
     return ap.parse_args(argv)
 
 
 def _check_ported(args) -> None:
-    unported = {
-        f"--mesh {args.mesh}": args.mesh is not None,
-        "--set": bool(args.set),
-    }
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to repro_torch.launch.train")
+    if args.mesh is not None:
+        raise NotImplementedError(
+            f"--mesh {args.mesh} is not yet ported to "
+            "repro_torch.launch.train")
 
 
 def main(argv=None) -> dict:
@@ -136,6 +141,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    cfg = apply_overrides(cfg, args.set)
     model = build_model(cfg)
     opt = get_optimizer(args.optimizer, learning_rate=make_lr_schedule(args),
                         slot_dtype=args.opt_state_dtype)
@@ -167,8 +173,14 @@ def main(argv=None) -> dict:
         host_batches = lm_batches(cfg, args.batch, args.seq, args.seed)
         eval_batches = None
     batches = ShardedLoader(host_batches, device)
+    # hand train_loop the only reference to the first state: it drops
+    # each state once the next exists, and a name held here would keep
+    # the first alive through the run (22 GB of weights and slots at
+    # qwen3-14b's full width)
+    first = [state]
+    del state
     try:
-        state, hist = train_loop(pipeline, state, batches, args.steps,
+        state, hist = train_loop(pipeline, first.pop(), batches, args.steps,
                                  log_every=args.log_every,
                                  eval_fn=make_eval_step(model, cfg)
                                  if eval_batches else None,

@@ -1,6 +1,6 @@
 """GQA/MHA/MQA attention of the dense family: projections, the
-blockwise online-softmax core for prefill, and one-token decode over a
-persistent KV cache. Port of ``repro/models/attention.py``.
+blockwise online-softmax core for training and prefill, and one-token
+decode over a persistent KV cache. Port of ``repro/models/attention.py``.
 
 Layouts as the reference's: q (B, S, H, D), k/v (B, S, Hkv, D), a
 layer's decode cache (B, S_buf, Hkv, D). The port updates the cache IN
@@ -8,18 +8,22 @@ PLACE (the reference returns a new array): :func:`_insert_at` is an
 index write of one row per sequence, so a decode step never copies the
 cache.
 
-Training (:func:`attention_block`) and prefill run
-:func:`attention_core`, the reference's algorithm (it is jnp there, not
-Pallas): f32 scores, an online softmax over KV chunks, the causal mask;
-autograd differentiates it as written. The reference's query chunking
-(``attn_q_chunk``) and its custom-VJP flash attention (``flash_vjp``)
-are not yet ported and raise. Decode runs the hand-written
-``flash_decode`` kernel through :func:`repro_torch.kernels.ops.flash_decode`
-(its plain version on CPU tensors); the reference's other decode path,
-its jnp core, computes the same function and is not ported.
+The projections carry qwen2's f32 QKV biases (``qkv_bias``) and qwen3's
+rmsnorm of q and k over the head dim before the rotation (``qk_norm``),
+so training, prefill and decode all get them. Training
+(:func:`attention_block`) and prefill run :func:`attention_core`, the
+reference's algorithm (it is jnp there, not Pallas): f32 scores, an
+online softmax over KV chunks, the causal mask; autograd differentiates
+it as written. As in the reference, ``attn_q_chunk`` loops it over query
+blocks and ``flash_vjp`` hands each block to
+:func:`repro_torch.models.flash_attn.flash_attention`, whose backward
+pass recomputes the scores instead of saving them. Decode runs the
+hand-written ``flash_decode`` kernel through
+:func:`repro_torch.kernels.ops.flash_decode` (its plain version on CPU
+tensors); the reference's other decode path, its jnp core, computes the
+same function and is not ported.
 
-Attention features that smollm does not use (``qkv_bias``, ``qk_norm``,
-``sliding_window`` rings, ``attn_logit_softcap``) and MLA raise
+``sliding_window`` rings, ``attn_logit_softcap`` and MLA raise
 ``NotImplementedError``.
 """
 
@@ -29,14 +33,14 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models.flash_attn import flash_attention
 
 NEG_INF = -1.0e30
 
 
 def check_supported(cfg) -> None:
     """Raise on attention features the port does not cover yet."""
-    unported = {"qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
-                "sliding_window": cfg.sliding_window,
+    unported = {"sliding_window": cfg.sliding_window,
                 "use_mla": cfg.use_mla}
     for name, value in unported.items():
         if value:
@@ -54,21 +58,41 @@ def check_supported(cfg) -> None:
 def init_attention(gen: torch.Generator, cfg, d: int, dtype: torch.dtype,
                    device) -> dict:
     H, Hkv, hd = cfg.attn_dims
-    return {"wq": L.dense_init(gen, d, H * hd, dtype, device),
-            "wk": L.dense_init(gen, d, Hkv * hd, dtype, device),
-            "wv": L.dense_init(gen, d, Hkv * hd, dtype, device),
-            "wo": L.dense_init(gen, H * hd, d, dtype, device)}
+    p = {"wq": L.dense_init(gen, d, H * hd, dtype, device),
+         "wk": L.dense_init(gen, d, Hkv * hd, dtype, device),
+         "wv": L.dense_init(gen, d, Hkv * hd, dtype, device),
+         "wo": L.dense_init(gen, H * hd, d, dtype, device)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(H * hd, device=device)
+        p["bk"] = torch.zeros(Hkv * hd, device=device)
+        p["bv"] = torch.zeros(Hkv * hd, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, device=device)
+        p["k_norm"] = torch.ones(hd, device=device)
+    return p
 
 
 def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                 rope: bool = True):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), rotated."""
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd): the f32 biases
+    added in the activation dtype, q and k normed over the head dim, then
+    rotated."""
     check_supported(cfg)
     H, Hkv, hd = cfg.attn_dims
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if rope and cfg.use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -76,7 +100,8 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_positions: torch.Tensor, kv_chunk: int = 1024
+                   q_positions: torch.Tensor, kv_chunk: int = 1024,
+                   q_chunk: int = 0, flash_vjp: bool = False
                    ) -> torch.Tensor:
     """Causal online-softmax attention over KV chunks of ``kv_chunk`` keys.
 
@@ -85,8 +110,27 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at or before its position. Returns (B, Sq, H, D) in q.dtype; scores,
     softmax and accumulation in f32. The last chunk may be short (the
     reference pads it and masks the pad: the same function).
+
+    ``q_chunk`` > 0 also loops over query blocks of that many rows when
+    it divides Sq (and is smaller), which bounds the live (q_chunk,
+    kv_chunk) score tile; ``flash_vjp`` computes each block with
+    :func:`~repro_torch.models.flash_attn.flash_attention`, which saves
+    no score tensor for the backward pass. Both as the reference.
     """
     B, Sq, H, D = q.shape
+    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+        if q_positions.ndim == 1:
+            q_positions = q_positions[None].expand(B, Sq)
+        return torch.cat([
+            attention_core(q[:, i:i + q_chunk], k, v,
+                           q_positions=q_positions[:, i:i + q_chunk],
+                           kv_chunk=kv_chunk, flash_vjp=flash_vjp)
+            for i in range(0, Sq, q_chunk)], dim=1)
+    if flash_vjp:
+        # the causal mask, no window, prefix, softcap or kv_len
+        return flash_attention(q, k, v, q_positions,
+                               (True, 0, None, D ** -0.5, 0.0, None),
+                               kv_chunk)
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     scale = D ** -0.5
@@ -119,15 +163,11 @@ def attention_block(cfg, p: dict, x: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
     """Causal self-attention sub-block for training, projections
     included: x (B, S, d) -> (B, S, d)."""
-    for name, value in (("attn_q_chunk", cfg.attn_q_chunk),
-                        ("flash_vjp", cfg.flash_vjp)):
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not yet ported to repro_torch")
     B, S, _ = x.shape
     H, _, hd = cfg.attn_dims
     q, k, v = qkv_project(cfg, p, x, positions)
-    out = attention_core(q, k, v, q_positions=positions)
+    out = attention_core(q, k, v, q_positions=positions,
+                         q_chunk=cfg.attn_q_chunk, flash_vjp=cfg.flash_vjp)
     return out.reshape(B, S, H * hd) @ p["wo"]
 
 

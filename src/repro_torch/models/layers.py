@@ -6,7 +6,9 @@ weights, ``(d,)`` f32 norm scales).
 The initializers draw from an explicit ``torch.Generator`` (a CPU
 generator) in f32 and then cast and move, so one seed gives the same
 weights on every device, at the reference's distributions (not its
-bits: ``jax.random`` cannot be reproduced).
+bits: ``jax.random`` cannot be reproduced). On the meta device they draw
+nothing: a meta init gives the shapes and dtypes of a full-size model
+at no cost.
 """
 
 from __future__ import annotations
@@ -21,14 +23,19 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype, device, *, scale: float = 1.0
                ) -> torch.Tensor:
     """Fan-in normal init: std = scale / sqrt(d_in)."""
-    std = scale / (d_in ** 0.5)
-    w = torch.randn(d_in, d_out, generator=gen) * std
-    return w.to(device=device, dtype=dtype)
+    return _normal(gen, (d_in, d_out), scale / (d_in ** 0.5), dtype, device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype, device) -> torch.Tensor:
-    w = torch.randn(vocab, d, generator=gen) * 0.02
+    return _normal(gen, (vocab, d), 0.02, dtype, device)
+
+
+def _normal(gen: torch.Generator, shape: tuple, std: float,
+            dtype: torch.dtype, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    w = torch.randn(shape, generator=gen) * std
     return w.to(device=device, dtype=dtype)
 
 

@@ -11,8 +11,13 @@ is a Python loop over ``L`` views of the stacked leaves. In training
 (:meth:`forward`) ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), as the reference's
 ``jax.checkpoint`` of its scan body does: only the residual stream
-between layers is kept for the backward pass. The reference's two-level
-remat (``remat_block``) is not yet ported and raises.
+between layers is kept for the backward pass. ``remat_block = b``
+(dividing the layer count) nests that in a second level, as the
+reference's two-level remat: an outer checkpoint over each block of b
+layers keeps only the L/b block inputs, and the inner per-layer
+checkpoints keep b more while one block's backward runs. Where b does
+not divide the layer count the flat per-layer remat runs, as in the
+reference.
 
 The decode cache is ``{"pos": (B,) int32, "k", "v": (L, B, S, Hkv, hd)}``
 as the reference's. Where the reference returns new arrays (and donates
@@ -111,6 +116,18 @@ class LanguageModel:
         h = L.apply_norm(cfg, x, params_l["ln2"])
         return x + mlp_block(cfg, params_l["mlp"], h)
 
+    def _block_train(self, layers, x: torch.Tensor, positions: torch.Tensor,
+                     idx: range) -> torch.Tensor:
+        """Layers ``idx`` in order, each checkpointed when ``cfg.remat``."""
+        for i in idx:
+            params_l = _index(layers, i)
+            if self.cfg.remat:
+                x = checkpoint(self._layer_train, params_l, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._layer_train(params_l, x, positions)
+        return x
+
     def forward(self, params, tokens: torch.Tensor, *,
                 return_hidden: bool = False
                 ) -> tuple[torch.Tensor, dict]:
@@ -123,19 +140,17 @@ class LanguageModel:
         gradient; it has no counterpart here.
         """
         cfg = self.cfg
-        if cfg.remat_block:
-            raise NotImplementedError(
-                f"remat_block={cfg.remat_block} (two-level remat) is not "
-                "yet ported to repro_torch")
         x = self.embed_tokens(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
-        for i in range(cfg.num_layers):
-            params_l = _index(params["layers"], i)
-            if cfg.remat:
-                x = checkpoint(self._layer_train, params_l, x, positions,
+        blk = cfg.remat_block
+        if cfg.remat and blk and cfg.num_layers % blk == 0:
+            for i in range(0, cfg.num_layers, blk):
+                x = checkpoint(self._block_train, params["layers"], x,
+                               positions, range(i, i + blk),
                                use_reentrant=False)
-            else:
-                x = self._layer_train(params_l, x, positions)
+        else:
+            x = self._block_train(params["layers"], x, positions,
+                                  range(cfg.num_layers))
         aux = {"aux_loss": torch.zeros((), device=x.device)}
         if return_hidden:
             return L.apply_norm(cfg, x, params["final_norm"]), aux
@@ -221,7 +236,9 @@ class LanguageModel:
             params_l = _index(params["layers"], i)
             h = L.apply_norm(cfg, x, params_l["ln1"])
             q, k, v = A.qkv_project(cfg, params_l["attn"], h, positions)
-            out = A.attention_core(q, k, v, q_positions=positions)
+            out = A.attention_core(q, k, v, q_positions=positions,
+                                   q_chunk=cfg.attn_q_chunk,
+                                   flash_vjp=cfg.flash_vjp)
             x = x + out.reshape(B, S, H * hd) @ params_l["attn"]["wo"]
             h = L.apply_norm(cfg, x, params_l["ln2"])
             x = x + mlp_block(cfg, params_l["mlp"], h)

@@ -7,17 +7,21 @@ choice.
   cnn      {"x": images (B,28,28,1), "y": labels (B,)}
   lm       {"tokens": (B, S)}              loss: predict [1:] from [:-1]
 
-The chunked LM loss (``loss_chunk > 0``) and the vlm and encdec
+With ``loss_chunk > 0`` the LM's loss runs chunked over the sequence
+(:func:`~repro_torch.train.losses.chunked_lm_loss`) and the step returns
+no logits; evaluation always takes the whole logits. The vlm and encdec
 families are not yet ported and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.train.losses import classification_loss, lm_loss
+from repro_torch.train.losses import (chunked_lm_loss, classification_loss,
+                                      lm_loss)
 from repro_torch.train.metrics import accuracy
 from repro_torch.train.state import TrainState
 from repro_torch.treepath import (tree_flatten_with_path, tree_leaves,
@@ -27,7 +31,8 @@ Pytree = Any
 
 
 def _forward_and_loss(model, cfg, params, batch):
-    """(loss, (logits, aux)) for the cnn and dense LM families."""
+    """(loss, (logits, aux)) for the cnn and dense LM families; logits
+    are None on the chunked-loss path."""
     if cfg.family == "cnn":
         logits, aux = model.forward(params, batch["x"])
         return classification_loss(logits, batch["y"]), (logits, aux)
@@ -35,9 +40,11 @@ def _forward_and_loss(model, cfg, params, batch):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     if cfg.loss_chunk:
-        raise NotImplementedError(
-            f"loss_chunk={cfg.loss_chunk} (the chunked LM loss) is not yet "
-            "ported to repro_torch")
+        hidden, aux = model.forward(params, batch["tokens"],
+                                    return_hidden=True)
+        loss = chunked_lm_loss(hidden, model.unembed_matrix(params),
+                               batch["tokens"], chunk=cfg.loss_chunk)
+        return loss + aux["aux_loss"], (None, aux)
     logits, aux = model.forward(params, batch["tokens"])
     loss = lm_loss(logits, batch["tokens"])
     return loss + aux["aux_loss"], (logits, aux)
@@ -83,8 +90,11 @@ def make_eval_step(model, cfg=None) -> Callable:
     """(params, batch) -> metrics {loss, accuracy}. The cnn family scores
     the class head directly against the labels; the LM's logit at
     position t predicts the token at t+1, so ``logits[:, :-1]`` is scored
-    against ``tokens[:, 1:]``."""
+    against ``tokens[:, 1:]``. Evaluation takes the whole logits even
+    where training runs the chunked loss."""
     cfg = cfg if cfg is not None else model.cfg
+    if cfg.loss_chunk:
+        cfg = dataclasses.replace(cfg, loss_chunk=0)
 
     @torch.no_grad()
     def step(params, batch) -> dict:

@@ -675,3 +675,91 @@ def test_lars_kernels_at_smollm_rows_match_plain(cuda, kernel):
         want = lk.apply_flat_q8_plain(w, g, q, s, lr, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ the memory-lean LM path
+
+from repro_torch.models.flash_attn import (  # noqa: E402
+    _mm_f32, flash_attention)
+
+# flash_attention, card against CPU: f32 differs only in the order of f32
+# sums (cuBLAS against the CPU's products); bf16 operands reach cuBLAS as
+# bf16 (products exact in f32, f32 accumulation) and the bf16 outputs and
+# gradients round the f32 results, which may then fall one bf16 ulp
+# apart (2^-7 relative; atol for entries near zero, at 2^-7 of the
+# largest entry's magnitude scale 1)
+FLASH_CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+                  torch.bfloat16: dict(rtol=2 ** -7, atol=2 ** -7)}
+
+
+@pytest.mark.parametrize("K", [64, 4096])
+def test_out_dtype_bf16_products_accumulate_in_f32(cuda, K):
+    """The score products: bf16 operands with an f32 result through
+    cuBLAS. Every product of two bf16 values is exact in f32, so with f32
+    accumulation the result is the f32 product of their f32 values up to
+    summation order: within 1e-5 of the largest entry (bf16 accumulation
+    would be off by ~2^-8 of it)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(8, 256, K, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(8, K, 192, generator=g, device=cuda).to(torch.bfloat16)
+    got = _mm_f32(a, b)
+    want = torch.bmm(a.float(), b.float())
+    assert got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [dict(), dict(window=64, kv_len=200),
+                                  dict(softcap=30.0, prefix_len=48)])
+def test_flash_attention_on_the_card_matches_the_cpu(cuda, dtype, case):
+    """Values and gradients of flash_attention (GQA G = 4, a padded last
+    KV chunk) on the card against the CPU, the same inputs."""
+    gen = torch.Generator().manual_seed(1)
+    B, S, H, Hkv, D = 2, 250, 8, 2, 64
+    q, k, v = (torch.randn(B, S, h, D, generator=gen)
+               for h in (H, Hkv, Hkv))
+    do = torch.randn(B, S, H, D, generator=gen)
+    kw = dict(causal=True, window=0, prefix_len=None, softcap=0.0,
+              kv_len=None)
+    kw.update(case)
+    cfgt = (kw["causal"], kw["window"], kw["prefix_len"], D ** -0.5,
+            kw["softcap"], kw["kv_len"])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xs = [x.to(dev, dtype).requires_grad_() for x in (q, k, v)]
+        o = flash_attention(*xs, torch.arange(S, device=dev), cfgt, 64)
+        grads = torch.autograd.grad(o, xs, do.to(dev, dtype))
+        out[dev] = [t.detach().float().cpu() for t in (o,) + grads]
+    tol = FLASH_CARD_TOL[dtype]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), out["cuda"],
+                          out["cpu"]):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=tol["rtol"],
+                                   atol=tol["atol"] * scale, msg=name)
+
+
+def test_lean_lm_gradients_on_the_card_match_the_cpu(cuda):
+    """Reduced qwen3 in f32 with flash_vjp, attn_q_chunk, loss_chunk and
+    remat_block all set: the loss and every gradient leaf on the card
+    within 1e-5 (of the leaf's largest entry) of the CPU's, and equal to
+    the stock path's on the card within the same."""
+    import dataclasses
+    lean = dict(flash_vjp=True, attn_q_chunk=32, loss_chunk=16,
+                remat_block=2)
+    cfg = dataclasses.replace(get_config("qwen3-14b").reduced(), **lean)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    runs = {}
+    for tag, c, dev in (("cpu", cfg, "cpu"), ("cuda", cfg, "cuda"),
+                        ("stock", get_config("qwen3-14b").reduced(),
+                         "cuda")):
+        p = tree_map(lambda t: t.to(dev), params)
+        loss, g, _ = value_and_grad(build_model(c), c, p,
+                                    {"tokens": toks.to(dev)})
+        runs[tag] = [loss.cpu()] + [x.cpu() for x in tree_leaves(g)]
+    for other in ("cuda", "stock"):
+        for a, b in zip(runs[other], runs["cpu"]):
+            assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)

@@ -38,7 +38,11 @@ def test_the_scan_sees_the_port():
             "src/repro_torch/data/tokens.py",
             "src/repro_torch/data/loader.py",
             "src/repro_torch/core/lamb.py",
-            "src/repro_torch/core/adamw.py"} <= names
+            "src/repro_torch/core/adamw.py",
+            "src/repro_torch/models/flash_attn.py",
+            "src/repro_torch/launch/overrides.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/configs/qwen3_14b.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -55,7 +59,10 @@ def test_the_scan_sees_the_port():
     "repro_torch.experiments.report", "repro_torch.experiments.runner",
     "repro_torch.launch.experiment", "repro_torch.data.tokens",
     "repro_torch.data.loader", "repro_torch.core.lamb",
-    "repro_torch.core.adamw", "repro_torch.launch.train"])
+    "repro_torch.core.adamw", "repro_torch.launch.train",
+    "repro_torch.models.flash_attn", "repro_torch.launch.overrides",
+    "repro_torch.configs.shapes", "repro_torch.configs.qwen3_14b",
+    "repro_torch.configs.qwen2_72b", "repro_torch.configs.minitron_8b"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""

@@ -1,8 +1,9 @@
 """The port's entry point, ``repro_torch.launch.train``, end to end on
-the CPU (LeNet, and the reduced smollm with LAMB, AdamW and the
-large-batch LARS path); its refusal of what it does not cover; and its
-LR recipe against the JAX entry point's (rtol 1e-6: the same f32
-schedule)."""
+the CPU (LeNet, the reduced smollm with LAMB, AdamW and the large-batch
+LARS path, and the reduced qwen3 through the memory-lean path that
+``--set`` turns on); its refusal of what it does not cover; its
+``--set`` parser; and its LR recipe against the JAX entry point's (rtol
+1e-6: the same f32 schedule)."""
 
 import argparse
 import math
@@ -13,7 +14,10 @@ import pytest
 import torch
 
 from repro.launch.train import make_lr_schedule as ref_make_lr_schedule
+from repro_torch.configs import get_config
 from repro_torch.launch import train
+from repro_torch.launch.overrides import (apply_overrides, parse_overrides,
+                                          parse_val)
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = ["--arch", "lenet-mnist", "--device", "cpu", "--log-every", "0"]
@@ -37,10 +41,14 @@ def test_main_runs_on_cuda_unless_asked_otherwise():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--arch", "qwen3-14b", "--reduced"], ["--mesh", "1x1"],
-    ["--set", "num_layers=3"], ["--arch", "falcon-mamba-7b"],
-    ["--arch", "deepseek-v2-236b"]])
+    ["--arch", "qwen3-14b", "--reduced", "--set", "sliding_window=8"],
+    ["--mesh", "1x1"],
+    ["--arch", "smollm-135m", "--reduced", "--set",
+     "attn_logit_softcap=30.0"],
+    ["--arch", "falcon-mamba-7b"], ["--arch", "deepseek-v2-236b"]])
 def test_unported_options_raise(extra):
+    """--mesh, the archs of unported families, and config features set
+    through --set that the port does not cover yet."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(CPU + ["--steps", "1"] + extra)
 
@@ -59,6 +67,41 @@ def test_main_trains_the_reduced_lm_on_the_cpu(optimizer, extra,
     assert len(out["losses"]) == 2 and all(map(math.isfinite, out["losses"]))
     assert out["eval_accuracy"] is None and out["seq"] == 16
     assert out["tokens_per_s"] == pytest.approx(out["steps_per_s"] * 64)
+
+
+# the same f32 function as the stock path, sums in another order:
+# measured 1.4e-7 relative over the two steps
+LEAN_RTOL = 1e-6
+
+
+def test_main_trains_reduced_qwen3_through_the_lean_path(one_torch_thread):
+    """All four knobs through --set, applied after --reduced: the losses
+    of the stock path, and remat_block=2 nests the two layers' remat."""
+    flags = ["--arch", "qwen3-14b", "--reduced", "--device", "cpu",
+             "--log-every", "0", "--steps", "2", "--batch", "4", "--seq",
+             "16", "--optimizer", "lars"]
+    lean = ["--set", "flash_vjp=true", "--set", "attn_q_chunk=8",
+            "--set", "loss_chunk=4", "--set", "remat_block=2"]
+    out = train.main(flags + lean)
+    stock = train.main(flags)
+    assert out["arch"] == "qwen3-14b-reduced"
+    assert all(map(math.isfinite, out["losses"]))
+    np.testing.assert_allclose(out["losses"], stock["losses"],
+                               rtol=LEAN_RTOL)
+
+
+def test_shared_set_parser():
+    """The reference's cases (tests/test_pipeline.py) against the port's
+    parser."""
+    assert parse_val("true") is True and parse_val("False") is False
+    assert parse_val("8") == 8 and parse_val("0.5") == 0.5
+    assert parse_val("cosine") == "cosine"
+    assert parse_overrides(["a=1", "b=x=y"]) == {"a": 1, "b": "x=y"}
+    with pytest.raises(ValueError, match="FIELD=VALUE"):
+        parse_overrides(["oops"])
+    cfg = get_config("smollm-135m")
+    assert apply_overrides(cfg, ["remat_block=8"]).remat_block == 8
+    assert apply_overrides(cfg, []) is cfg
 
 
 def test_large_batch_flags_checkpoint_and_resume(tmp_path):

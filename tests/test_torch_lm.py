@@ -429,9 +429,12 @@ def test_bf16_prefill_prefill_at_and_decode_match_reference(variant):
 # -------------------------------------------------------- what is refused
 
 @pytest.mark.parametrize("change", [
-    {"qkv_bias": True}, {"qk_norm": True}, {"sliding_window": 64},
+    {"use_mla": True}, {"family": "hybrid"}, {"sliding_window": 64},
     {"attn_logit_softcap": 30.0}, {"family": "moe"}])
 def test_unported_features_raise(change):
+    """What the port still refuses (``qkv_bias`` and ``qk_norm`` are
+    ported: tests/test_torch_lm_lean.py holds them against the
+    reference)."""
     cfg = dataclasses.replace(get_config("smollm-135m").reduced(), **change)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg)

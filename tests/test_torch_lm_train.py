@@ -143,10 +143,13 @@ def test_forward_returns_hidden_and_refuses_unported_configs():
     logits = (hidden @ MODEL.unembed_matrix(params)).float()
     torch.testing.assert_close(logits, MODEL.forward(params, toks)[0],
                                rtol=0, atol=0)
-    for field, value in (("remat_block", 2), ("attn_q_chunk", 16),
-                         ("flash_vjp", True), ("loss_chunk", 16)):
-        model = build_model(dataclasses.replace(CFG, **{field: value}))
+    # the memory-lean knobs (remat_block, attn_q_chunk, flash_vjp,
+    # loss_chunk) are ported: tests/test_torch_lm_lean.py holds them
+    # against the reference. What is still refused:
+    for field, value in (("sliding_window", 16), ("attn_logit_softcap", 30.0),
+                         ("use_mla", True), ("family", "moe")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
+            model = build_model(dataclasses.replace(CFG, **{field: value}))
             value_and_grad(model, model.cfg, params, {"tokens": toks})
 
 

@@ -336,7 +336,7 @@ def test_launch_serve_runs_reduced_on_the_cpu(capsys):
 @pytest.mark.parametrize("extra", [
     ["--mesh", "2x1"], ["--scenario", "bursty"], ["--slos", "0:1"],
     ["--session", "2"], ["--prefill-chunk", "8"], ["--prefix-entries", "4"],
-    ["--set", "num_layers=1"], ["--arch", "qwen3-14b"]])
+    ["--set", "num_layers=1"], ["--arch", "zamba2-7b"]])
 def test_launch_serve_refuses_unported_options(extra):
     args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
