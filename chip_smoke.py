@@ -116,7 +116,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
              path at batch 1 (loss trajectories within STOCK_LEAN_RTOL,
              both peaks); reduced qwen3 in f32 with all four knobs, 20
              LARS steps on the card against the CPU, and its decode, 16
-             teacher-forced steps, card against CPU.
+             teacher-forced steps, card against CPU;
+14. MoE   — granite-moe-3b-a800m (40 experts, top-8): ``norms_flat``,
+             ``apply_flat`` and ``apply_flat_q8`` at the packed shape of
+             its 16-layer superbuffer (rows from the layout), timed and
+             held on every row as in phase 13, and ``flash_decode`` at its
+             decode shape (B 32, S 4096, Hkv 8, G 3, D 64, bf16) timed as
+             in phase 3; ``launch.train.main`` at full width, 16 of its 32
+             layers (``--set num_layers=16``), 4 x 4096 tokens through
+             phase 13's lean knobs, 3 steps each of f32 LARS and the
+             large-batch path (one ``norms_flat`` and one ``apply_flat``
+             or ``apply_flat_q8`` per step; finite losses, aux losses
+             finite and nonzero; steps/s, tokens/s, the peak); from the
+             same seed-0 init, the share of dropped slots at layer 0 for
+             the first batch and a profiled f32 LARS step;
+             ``launch.serve.main`` at full width and depth (32 layers,
+             bf16), phase 8's 64 requests over 32 slots of capacity 4096:
+             32 ``flash_decode`` launches per decode tick, none in
+             admission, finite logits; reduced granite that drops slots
+             (8 experts, top-2, capacity factor 0.5) in f32: 20 LARS
+             steps card against CPU within 1e-5, 16 teacher-forced decode
+             steps within 1e-4, greedy tokens identical.
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -259,6 +279,34 @@ QWEN_CARD_CPU_ARGS = ["--arch", "qwen3-14b", "--reduced", "--batch", "8",
                       "--log-every", "0", "--optimizer", "lars",
                       "--set", "flash_vjp=true", "--set", "attn_q_chunk=16",
                       "--set", "loss_chunk=16", "--set", "remat_block=2"]
+
+# phase 14: the MoE family. granite-moe-3b-a800m (the reference's config
+# verbatim) at full width, depth cut to 16 of its 32 layers
+# (1,687,097,856 parameters; f32 LARS at 32 would not fit the card),
+# 4 x 4096 tokens a step through phase 13's lean knobs: f32 LARS and the
+# large-batch path, as qwen3's runs
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_LAYERS = 16
+GRANITE_STEPS = 3
+GRANITE_ARGS = ["--arch", GRANITE, "--set", f"num_layers={GRANITE_LAYERS}"] \
+    + [a for v in QWEN_LEAN for a in ("--set", v)] + [
+    "--batch", "4", "--seq", "4096", "--steps", str(GRANITE_STEPS),
+    "--lr", "0.01", "--log-every", "0"]
+# served at full width and depth (32 layers, bf16): 32 slots of capacity
+# 4096 (an 8.6 GB KV cache), phase 8's traffic
+GRANITE_SERVE_ARGS = ["--arch", GRANITE] + SERVE_ARGS[2:]
+# flash_decode at granite's decode shape
+GRANITE_FD = (32, 4096, 8, 3, 64, "drawn")
+# reduced granite that drops slots (8 experts, top-2, capacity factor
+# 0.5; the reduced config routes top-4 of 4 and never drops), f32: 20
+# LARS steps card against CPU at phase 12's gate, its decode at phase 9's
+GRANITE_DROP = {"num_experts": 8, "experts_per_token": 2,
+                "capacity_factor": 0.5}
+GRANITE_CARD_CPU_ARGS = [
+    "--arch", GRANITE, "--reduced", "--batch", "8", "--seq", "64",
+    "--steps", "20", "--lr", "0.01", "--log-every", "0", "--optimizer",
+    "lars"] + [a for k, v in GRANITE_DROP.items()
+               for a in ("--set", f"{k}={v}")]
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -735,7 +783,6 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
     """Phase 3, flash_decode: f32 and bf16 at D 64 and 128 with zero-length
     rows, then the timed bf16 rows at FD_SHAPES."""
     import torch
-    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(0)
     for D, Hkv, G in ((64, 3, 3), (128, 8, 5)):
         for name, dt in (("float32", torch.float32),
@@ -745,69 +792,78 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
             err, rel = _fd_err(fdk, q, k, v, lens, name)
             log(f"  flash_decode {name} D={D} G={G}: max abs err {err:.3g} "
                 f"(rel {rel:.3g}); lengths 0, 1, S+7 included")
-    rows = []
-    for B, S, Hkv, G, D, lengths in FD_SHAPES:
-        q, k, v, lens = fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16,
-                                  gen)
-        err, rel = _fd_err(fdk, q, k, v, lens, "bfloat16")
-        scale = D ** -0.5
-        valid = int(lens.clamp(max=S).sum())
-        # K and V over the valid rows, q read and out written once, lengths
-        nbytes = valid * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + B * 4
-        # per valid key and query head: D multiply-adds for the score and
-        # D for the value product, plus the exp
-        nops = valid * Hkv * G * (4 * D + 1)
-        calls = FD_CALLS[S]
-        qs = q.reshape(B, Hkv * G, 1, D)
-        kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-        mask = (torch.arange(S, device=q.device)[None, :]
-                < lens[:, None])[:, None, None, :]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
-                                                  scale=scale,
-                                                  enable_gqa=True)
-        plan = fdk.plan(q, k)
-        row = _row(B, S, err, rel, timings(
-            lambda: fdk.flash_decode(q, k, v, lens, scale=scale), calls),
-            device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens,
-                                                     scale=scale),
-                      calls=max(1, calls // 5)),
-            device_ms(sdpa, calls=calls), nbytes, nops, bw, flops)
-        del row["rows"], row["lane"]
-        row.update(shape={"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
-                          "dtype": "bfloat16", "lengths": lengths,
-                          "valid_rows": valid},
-                   splits=plan.splits, keys_per_split=plan.keys_per_split,
-                   ctas=B * Hkv * plan.splits)
-        log(f"  flash_decode B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 "
-            f"({lengths} lengths, {valid} valid rows; {plan.splits} splits "
-            f"of {plan.keys_per_split} keys, {row['ctas']} CTAs): kernel "
-            f"{row['ms']:.5f} ms (dispatch {row['dispatch_ms']:.4f})  plain "
-            f"{row['plain_ms']:.5f} ms  SDPA {row['library_ms']:.5f} ms  "
-            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  max abs "
-            f"err {err:.3g}")
-        rows.append(row)
-        del q, k, v, lens, kt, vt, mask, qs
-        torch.cuda.empty_cache()
-    return rows
+    return [fd_timed_row(fdk, shape, gen, bw, flops) for shape in FD_SHAPES]
 
 
-def serve_phase(serve, fdk, lk) -> dict:
-    """Phase 8: the serve entry point at full width. Every launch count is
-    set to 0 just before it and read just after."""
+def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float) -> dict:
+    """flash_decode in bf16 at ``shape`` (B, S, Hkv, G, D, lengths):
+    held against its plain version, then timed beside the plain version,
+    masked SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+    B, S, Hkv, G, D, lengths = shape
+    q, k, v, lens = fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16, gen)
+    err, rel = _fd_err(fdk, q, k, v, lens, "bfloat16")
+    scale = D ** -0.5
+    valid = int(lens.clamp(max=S).sum())
+    # K and V over the valid rows, q read and out written once, lengths
+    nbytes = valid * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + B * 4
+    # per valid key and query head: D multiply-adds for the score and
+    # D for the value product, plus the exp
+    nops = valid * Hkv * G * (4 * D + 1)
+    calls = FD_CALLS[S]
+    qs = q.reshape(B, Hkv * G, 1, D)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+    plan = fdk.plan(q, k)
+    row = _row(B, S, err, rel, timings(
+        lambda: fdk.flash_decode(q, k, v, lens, scale=scale), calls),
+        device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens, scale=scale),
+                  calls=max(1, calls // 5)),
+        device_ms(sdpa, calls=calls), nbytes, nops, bw, flops)
+    del row["rows"], row["lane"]
+    row.update(shape={"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
+                      "dtype": "bfloat16", "lengths": lengths,
+                      "valid_rows": valid},
+               splits=plan.splits, keys_per_split=plan.keys_per_split,
+               ctas=B * Hkv * plan.splits)
+    log(f"  flash_decode B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 "
+        f"({lengths} lengths, {valid} valid rows; {plan.splits} splits "
+        f"of {plan.keys_per_split} keys, {row['ctas']} CTAs): kernel "
+        f"{row['ms']:.5f} ms (dispatch {row['dispatch_ms']:.4f})  plain "
+        f"{row['plain_ms']:.5f} ms  SDPA {row['library_ms']:.5f} ms  "
+        f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  max abs "
+        f"err {err:.3g}")
+    del q, k, v, lens, kt, vt, mask, qs
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_phase(serve, fdk, lk, args=SERVE_ARGS) -> dict:
+    """Phase 8 (and 14, for granite): the serve entry point at full width.
+    Every launch count is set to 0 just before it and read just after."""
     import torch
     lk.reset_launch_counts()
     fdk.reset_launch_counts()
-    rep = serve.main(SERVE_ARGS)
+    rep = serve.main(args)
     torch.cuda.synchronize()
     launches = dict(fdk.LAUNCHES)
     lars = dict(lk.LAUNCHES)
     ticks = rep["decode_steps"]
     want = rep["num_layers"] * ticks
     log(f"  {rep['requests']} requests, {rep['tokens']} tokens, "
-        f"{rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks, "
-        f"{rep['admit_calls']} admissions; flash_decode launches "
+        f"{rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks "
+        f"({1e3 * rep['wall_s'] / max(ticks, 1):.2f} ms of wall time per "
+        f"tick, admissions included), {rep['admit_calls']} admissions; "
+        f"TTFT p50/p99 {1e3 * rep['ttft_p50_s']:.1f}/"
+        f"{1e3 * rep['ttft_p99_s']:.1f} ms, latency p50/p99 "
+        f"{1e3 * rep['latency_p50_s']:.1f}/{1e3 * rep['latency_p99_s']:.1f}"
+        f" ms; flash_decode launches "
         f"{launches['flash_decode']} (want {want}); LARS kernels {lars}; "
         f"logits finite {rep['logits_finite']}")
     if launches["flash_decode"] != want or ticks == 0:
@@ -823,26 +879,29 @@ def serve_phase(serve, fdk, lk) -> dict:
             "latency_mean_s", "latency_p50_s", "latency_p90_s",
             "latency_p99_s", "ttft_mean_s", "ttft_p50_s", "ttft_p90_s",
             "ttft_p99_s", "decode_steps", "admit_calls", "logits_finite")
-    return dict({k: rep[k] for k in keys}, launches=launches)
+    return dict({k: rep[k] for k in keys}, launches=launches,
+                tick_wall_ms=1e3 * rep["wall_s"] / ticks)
 
 
-def _reduced_lm(device, arch: str = "smollm-135m"):
+def _reduced_lm(device, arch: str = "smollm-135m", changes=()):
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **dict(changes))
     model = build_model(cfg)
     return cfg, model, model.init(torch.Generator().manual_seed(0), device)
 
 
-def serve_card_vs_cpu_phase(fdk, arch: str = "smollm-135m") -> dict:
-    """Phase 9 (and 13, for qwen3-14b): a reduced LM (f32) on the CPU
-    (plain) and the card."""
+def serve_card_vs_cpu_phase(fdk, arch: str = "smollm-135m",
+                            changes=()) -> dict:
+    """Phase 9 (and 13, for qwen3-14b; 14, for granite with ``changes``):
+    a reduced LM (f32) on the CPU (plain) and the card."""
     import numpy as np
     import torch
     from repro_torch.serve import ServeEngine
     from repro_torch.treepath import tree_map
-    cfg, model, params = _reduced_lm("cpu", arch)
+    cfg, model, params = _reduced_lm("cpu", arch, changes)
     card = tree_map(lambda t: t.cuda(), params)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 24)))
@@ -1220,7 +1279,8 @@ def lm_train_runs(train, lk, fdk, base_args=LM_ARGS, runs=LM_RUNS,
             raise AssertionError(f"{tag}: launches {counts}, want {want}")
         out[tag] = {k: summary[k] for k in (
             "arch", "params", "batch", "seq", "steps", "accum_steps",
-            "precision", "opt_state_dtype", "losses", "train_s",
+            "precision", "opt_state_dtype", "losses", "aux_losses",
+            "train_s",
             "steps_per_s", "tokens_per_s")}
         out[tag].update(launches=counts, peak_bytes=peak - before,
                         set=[v for k, v in zip(args, args[1:])
@@ -1403,26 +1463,34 @@ def lm_phase(train, lk, fdk, bw: float, flops: float, floor: float,
 
 def qwen_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
     """Phase 13: the three LARS kernels at qwen3's (4329072, 512), where
-    element indices pass 2^31, on fresh buffers before any model is
-    built. Each is held against its plain version on EVERY row — the
-    plain versions run on chunks of PLAIN_CHUNK rows, whose temporaries
-    fit beside the buffers — and the rows past element 2^31 are reported
-    apart. The kernel and the library call are timed from a CUDA graph
-    of one call, the chunked plain version by CUDA events."""
+    element indices pass 2^31, as :func:`large_kernel_rows` runs them."""
     import dataclasses
-    import gc
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import packing
     layout = lm_layout(dataclasses.replace(get_config("qwen3-14b"),
                                            num_layers=2))
-    R = QWEN_ROWS
-    if (layout.buffer_shape, layout.num_slices) != ((R, 512), QWEN_SLICES):
+    if (layout.buffer_shape, layout.num_slices) != ((QWEN_ROWS, 512),
+                                                    QWEN_SLICES):
         raise AssertionError(f"qwen3-14b's layout is {layout.buffer_shape}, "
                              f"{layout.num_slices} slices")
+    return large_kernel_rows(lk, layout, 2, bw, flops, floor)
+
+
+def large_kernel_rows(lk, layout, seed: int, bw: float, flops: float,
+                      floor: float) -> dict:
+    """The three LARS kernels at a large ``layout``'s rows, on fresh
+    buffers drawn from ``seed`` before any model is built. Each is held
+    against its plain version on EVERY row — the plain versions run on
+    chunks of PLAIN_CHUNK rows, whose temporaries fit beside the
+    buffers — and the rows past element 2^31, if any, are reported
+    apart. The kernel and the library call are timed from a CUDA graph
+    of one call, the chunked plain version by CUDA events."""
+    import gc
+    import torch
+    from repro_torch.core import packing
+    R = layout.buffer_shape[0]
     gc.collect()
     torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
     n = R * 512
     w = torch.randn(R, 512, generator=gen, device=dev)
@@ -1530,13 +1598,15 @@ def qwen_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
     del w, g, q, s, lr
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  {R} rows ({n:,} elements; rows from {PAST_2_31} lie past "
-        f"element 2^31):")
+    log(f"  {R} rows, {layout.num_slices} slices ({n:,} elements"
+        + (f"; rows from {PAST_2_31} lie past element 2^31):" if R >
+           PAST_2_31 else "):"))
     log_kernel_rows({k: [v] for k, v in out.items()}, floor)
-    log(f"  past element 2^31: norms rel err "
-        f"{out['norms_flat']['max_rel_err_past_2_31']:.3g}, apply abs err "
-        f"{out['apply_flat']['max_abs_err_past_2_31']}, q8 abs err "
-        f"{out['apply_flat_q8']['max_abs_err_past_2_31']}")
+    if R > PAST_2_31:
+        log(f"  past element 2^31: norms rel err "
+            f"{out['norms_flat']['max_rel_err_past_2_31']:.3g}, apply abs "
+            f"err {out['apply_flat']['max_abs_err_past_2_31']}, q8 abs err "
+            f"{out['apply_flat_q8']['max_abs_err_past_2_31']}")
     return out
 
 
@@ -1662,6 +1732,158 @@ def lean_phase(train, lk, fdk, bw: float, flops: float, floor: float
     return out
 
 
+def granite_cfg():
+    """granite-moe-3b-a800m as GRANITE_ARGS sets it: GRANITE_LAYERS
+    layers, phase 13's lean knobs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.overrides import apply_overrides
+    return apply_overrides(dataclasses.replace(
+        get_config(GRANITE), num_layers=GRANITE_LAYERS), QWEN_LEAN)
+
+
+def layer0_dropped_frac(model, params, tokens) -> float:
+    """The share of dropped slots in layer 0's MoE block (its
+    ``dropped_frac``) for ``tokens``."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import moe_block
+    from repro_torch.treepath import tree_map
+    cfg = model.cfg
+    p = tree_map(lambda t: t[0], params["layers"])
+    with torch.no_grad():
+        x = model.embed_tokens(params, tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = x + A.attention_block(cfg, p["attn"],
+                                  L.apply_norm(cfg, x, p["ln1"]), positions)
+        _, aux = moe_block(cfg, p["moe"], L.apply_norm(cfg, x, p["ln2"]))
+    return float(aux["dropped_frac"])
+
+
+def layer_split_ms(model, params, tokens) -> dict:
+    """Layer 0's attention block and MoE block, each forward and backward
+    (gradients to its input and its weights) at ``tokens``' shape: ms per
+    call by CUDA events around eager calls (dispatch_ms), which at these
+    shapes is the device's time."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import moe_block
+    from repro_torch.treepath import tree_leaves, tree_map
+    cfg = model.cfg
+    p = tree_map(lambda t: t[0].detach().requires_grad_(
+        t.is_floating_point()), params["layers"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    with torch.no_grad():
+        x = model.embed_tokens(params, tokens)
+        h1 = L.apply_norm(cfg, x, p["ln1"])
+        x = x + A.attention_block(cfg, p["attn"], h1, positions)
+        h2 = L.apply_norm(cfg, x, p["ln2"])
+    h1, h2 = h1.requires_grad_(True), h2.requires_grad_(True)
+
+    def attention():
+        out = A.attention_block(cfg, p["attn"], h1, positions)
+        torch.autograd.grad(out.float().square().mean(),
+                            [h1] + tree_leaves(p["attn"]))
+
+    def moe():
+        out, aux = moe_block(cfg, p["moe"], h2)
+        torch.autograd.grad(out.float().square().mean() + aux["aux_loss"],
+                            [h2] + tree_leaves(p["moe"]))
+    return {"attention": dispatch_ms(attention, warmup=2, reps=5),
+            "moe": dispatch_ms(moe, warmup=2, reps=5)}
+
+
+def granite_session() -> dict:
+    """Phase 14: the seed-0 init ``launch.train`` draws for granite at
+    GRANITE_LAYERS layers, on the card: the share of dropped slots at
+    layer 0 for the first batch it feeds, then a profiled f32 LARS step
+    at 4 x 4096 through the lean knobs."""
+    import torch
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import build_model
+    cfg = granite_cfg()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    out = {"init_s": time.perf_counter() - t0}
+    tokens = torch.from_numpy(next(lm_batches(cfg, 4, 4096))["tokens"])
+    out["layer0_dropped_frac"] = layer0_dropped_frac(model, params,
+                                                     tokens.cuda())
+    log(f"  granite init ({GRANITE_LAYERS} layers, seed 0) "
+        f"{out['init_s']:.1f} s; layer 0 drops "
+        f"{out['layer0_dropped_frac']:.4f} of its slots on the first "
+        f"4 x 4096 batch")
+    out["layer0_fwd_bwd_ms"] = layer_split_ms(model, params, tokens.cuda())
+    log(f"  layer 0 forward + backward at 4 x 4096 (events, eager): "
+        f"attention {out['layer0_fwd_bwd_ms']['attention']:.2f} ms, MoE "
+        f"block {out['layer0_fwd_bwd_ms']['moe']:.2f} ms")
+    out["profile"] = lm_profile("f32", cfg=cfg, batch=4, seq=4096,
+                                params=params)
+    del params
+    return out
+
+
+def granite_card_vs_cpu(train, fdk) -> dict:
+    """Phase 14: reduced granite that drops slots, in f32: 20 LARS steps
+    on the CPU (plain versions) and on the card (kernels), within phase
+    12's gate, aux losses finite and nonzero; its decode, 16
+    teacher-forced steps, card against CPU, as phase 9 holds smollm's."""
+    import torch
+    from repro_torch.launch.train import lm_batches
+    cfg, model, params = _reduced_lm("cpu", GRANITE, GRANITE_DROP)
+    batch = next(lm_batches(cfg, 8, 64))["tokens"]
+    drop = layer0_dropped_frac(model, params, torch.from_numpy(batch))
+    if not drop > 0:
+        raise AssertionError(f"reduced granite {GRANITE_DROP} drops no slot")
+    runs = {dev: train.main(GRANITE_CARD_CPU_ARGS + ["--device", dev])
+            for dev in ("cpu", "cuda")}
+    cpu, card = runs["cpu"]["losses"], runs["cuda"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    aux = runs["cpu"]["aux_losses"] + runs["cuda"]["aux_losses"]
+    rtol = LM_CARD_CPU_RTOL["lars"]
+    log(f"  reduced granite {GRANITE_DROP}: layer 0 drops {drop:.4f} of "
+        f"its slots on the first batch\n  train cpu  "
+        f"{[round(x, 6) for x in cpu]}\n  train card "
+        f"{[round(x, 6) for x in card]}\n  rel diff by step "
+        f"{[float(f'{x:.3g}') for x in rel]}; max {max(rel):.3g} "
+        f"(tolerance {rtol}); aux losses {min(aux):.4g}..{max(aux):.4g}")
+    if not max(rel) <= rtol:
+        raise AssertionError(f"granite card vs CPU loss rel diff {max(rel)}")
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"granite aux losses {aux}")
+    return {"layer0_dropped_frac": drop,
+            "train": {"max_rel": max(rel), "rel_by_step": rel},
+            "decode": serve_card_vs_cpu_phase(fdk, GRANITE, GRANITE_DROP)}
+
+
+def granite_phase(train, serve, lk, fdk, bw: float, flops: float,
+                  floor: float) -> dict:
+    """Phase 14: the MoE family (granite-moe-3b-a800m) on the card."""
+    import torch
+    t_phase = time.perf_counter()
+    layout = lm_layout(granite_cfg())
+    out = {"rows": layout.buffer_shape[0], "slices": layout.num_slices,
+           "kernel_rows": large_kernel_rows(lk, layout, 3, bw, flops,
+                                            floor)}
+    out["flash_decode_row"] = fd_timed_row(
+        fdk, GRANITE_FD, torch.Generator(device="cuda").manual_seed(3), bw,
+        flops)
+    out["runs"] = lm_train_runs(train, lk, fdk, GRANITE_ARGS, QWEN_RUNS,
+                                GRANITE_STEPS)
+    for tag, r in out["runs"].items():
+        log(f"  {tag}: aux losses {r['aux_losses']}")
+        if not all(math.isfinite(a) and a > 0 for a in r["aux_losses"]):
+            raise AssertionError(f"{tag}: aux losses {r['aux_losses']}")
+    out["session"] = granite_session()
+    out["serve"] = serve_phase(serve, fdk, lk, GRANITE_SERVE_ARGS)
+    out["card_vs_cpu"] = granite_card_vs_cpu(train, fdk)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1725,6 +1947,10 @@ def main() -> int:
     log("== 13. the memory-lean LM path: smollm-135m's knobs, qwen3-14b "
         "at full width")
     lean = lean_phase(train, lk, fdk, bw, flops, floor)
+
+    log(f"== 14. the MoE family: {GRANITE} trained at full width and "
+        f"{GRANITE_LAYERS} layers, served at full width and depth")
+    granite = granite_phase(train, serve, lk, fdk, bw, flops, floor)
 
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
                 "apply_flat": "src/repro/kernels/lars_kernels.py:86",
@@ -1791,6 +2017,18 @@ def main() -> int:
             device_ms_in_qwen3_step=lean["qwen_session"]["profile"][
                 "large_batch" if int8 else "f32"][
                 "hand_kernel_device_ms_per_step"][kname])
+        g_row = granite["kernel_rows"][kname]
+        entry["shapes"].append(g_row)
+        entry["granite_row"] = dict(
+            rows=granite["rows"], ms=g_row["ms"], bound_ms=g_row["bound_ms"],
+            plain_ms=g_row["plain_ms"], library_ms=g_row["library_ms"],
+            dispatch_ms=g_row["dispatch_ms"],
+            max_abs_err=g_row["max_abs_err"])
+        if not int8:
+            entry["granite_row"]["device_ms_in_granite_step"] = granite[
+                "session"]["profile"]["hand_kernel_device_ms_per_step"][kname]
+        entry["launches_by_granite_run"] = {
+            t: r["launches"][kname] for t, r in granite["runs"].items()}
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
@@ -1810,7 +2048,14 @@ def main() -> int:
         "bound_by": serve_row["bound_by"],
         "library_ms": serve_row["library_ms"],
         "device_ms_in_tick": serve_prof["flash_decode_ms_per_tick"],
-        "shapes": fd_rows})
+        "granite_row": {k: granite["flash_decode_row"][k] for k in (
+            "shape", "ms", "bound_ms", "plain_ms", "library_ms",
+            "dispatch_ms", "max_abs_err", "splits")},
+        "granite_serve_launches": granite["serve"]["launches"][
+            "flash_decode"],
+        "granite_serve_launches_per_tick": granite["serve"]["launches"][
+            "flash_decode"] / granite["serve"]["decode_steps"],
+        "shapes": fd_rows + [granite["flash_decode_row"]]})
     main_path = {tag: {k: r[k] for k in ("steps_per_s", "examples_per_s",
                                         "eval_accuracy", "train_s")}
                  for tag, r in runs.items()}
@@ -1818,7 +2063,7 @@ def main() -> int:
                     "checkpoint": ckpt, "profile": prof, "serve": served,
                     "serve_card_vs_cpu": serve_cpu,
                     "serve_profile": serve_prof, "experiments": exp,
-                    "lm": lm, "lean": lean}))
+                    "lm": lm, "lean": lean, "granite": granite}))
     log(smi)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

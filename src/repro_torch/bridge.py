@@ -101,7 +101,7 @@ def lm_params_to_torch(params: Pytree, model,
 
 def cache_to_torch(cache: dict, device: torch.device | str = "cpu"
                    ) -> dict:
-    """A dense LM's decode cache (``pos`` (B,) int32, ``k``/``v``
+    """A dense or MoE LM's decode cache (``pos`` (B,) int32, ``k``/``v``
     (L, B, S, Hkv, hd)) from the reference, as tensors on ``device``."""
     if set(cache) != {"pos", "k", "v"}:
         raise ValueError(f"expected a dense decode cache (pos, k, v), got "

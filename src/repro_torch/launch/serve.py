@@ -14,6 +14,8 @@ Examples (on the card; ``--device cpu`` runs on the CPU)::
         --prompt-max 2048 --new-min 32 --new-max 256 --arrival-every 1
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --reduced --device cpu --sampler top_k:40:0.8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --reduced --device cpu
 
 Weights are random, drawn from ``--seed`` (the port's own init at the
 reference's distributions). The reference's mesh, scenario, SLO,

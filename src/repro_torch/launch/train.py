@@ -1,11 +1,11 @@
 """Training entry point of the port (one device): port of
 ``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
-cnn) or a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b
-(``--reduced``: the CPU-scale variant) —, and ``--set FIELD=VALUE``
-overrides config fields after ``--reduced``, as the reference does: the
-memory-lean LM path (``flash_vjp=true``, ``attn_q_chunk``,
-``loss_chunk``, ``remat_block``) and a cut depth (``num_layers=2``) are
-set so. It runs through the large-batch
+cnn), a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b — or
+the MoE LM granite-moe-3b-a800m (``--reduced``: the CPU-scale variant),
+and ``--set FIELD=VALUE`` overrides config fields after ``--reduced``,
+as the reference does: the memory-lean LM path (``flash_vjp=true``,
+``attn_q_chunk``, ``loss_chunk``, ``remat_block``) and a cut depth
+(``num_layers=2``) are set so. It runs through the large-batch
 :class:`~repro_torch.train.pipeline.TrainPipeline` — microbatched
 gradient accumulation, the bf16/f32 precision policy — with f32 or int8
 optimizer slots, fed by :class:`~repro_torch.data.ShardedLoader` (host
@@ -27,6 +27,9 @@ Examples (on the card; ``--device cpu`` runs them on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
       --set num_layers=2 --set flash_vjp=true --set attn_q_chunk=2048 \
       --set loss_chunk=1024 --batch 4 --seq 4096 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite-moe-3b-a800m --reduced --steps 5 --batch 8 --seq 32 \
+      --device cpu
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
@@ -197,7 +200,8 @@ def main(argv=None) -> dict:
                "precision": args.precision,
                "opt_state_dtype": args.opt_state_dtype,
                "resumed_from_step": resumed_from,
-               "losses": run["losses"], "train_s": dt,
+               "losses": run["losses"], "aux_losses": run["aux_losses"],
+               "train_s": dt,
                "steps_per_s": args.steps / dt,
                "examples_per_s": args.steps * args.batch / dt,
                "eval_accuracy": eval_acc}

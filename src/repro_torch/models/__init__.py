@@ -1,6 +1,6 @@
 """Model zoo of the port: plain functions over nested-dict params in the
-JAX package's leaf layouts. The cnn family (LeNet) and the dense LM
-family (serving: prefill and decode) are ported so far."""
+JAX package's leaf layouts. The cnn family (LeNet) and the dense and
+MoE LM families (training, prefill and decode) are ported so far."""
 
 from repro_torch.models.lenet import LeNet  # noqa: F401
 from repro_torch.models.lm import LanguageModel  # noqa: F401
@@ -8,10 +8,11 @@ from repro_torch.models.lm import LanguageModel  # noqa: F401
 
 def build_model(cfg):
     """Config -> model object (LeNet: init/forward/stacked_marker; the
-    dense LM: init/prefill/prefill_at/decode_step/init_cache)."""
+    dense and MoE LMs: init/forward/prefill/prefill_at/decode_step/
+    init_cache)."""
     if cfg.family == "cnn":
         return LeNet(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return LanguageModel(cfg)
     raise NotImplementedError(
         f"model family {cfg.family!r} is not yet ported to repro_torch")

@@ -1,4 +1,4 @@
-"""GQA/MHA/MQA attention of the dense family: projections, the
+"""GQA/MHA/MQA attention of the dense and MoE families: projections, the
 blockwise online-softmax core for training and prefill, and one-token
 decode over a persistent KV cache. Port of ``repro/models/attention.py``.
 

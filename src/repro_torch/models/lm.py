@@ -1,7 +1,7 @@
-"""Decoder-only language model, dense family: port of the dense branch of
-``repro/models/lm.py`` — init, the training forward, the decode cache,
-one-token decode, (length-masked) prefill and slot admission into a
-persistent cache.
+"""Decoder-only language model, dense and MoE families: port of those
+branches of ``repro/models/lm.py`` — init, the training forward, the
+decode cache, one-token decode, (length-masked) prefill and slot
+admission into a persistent cache.
 
 Params are nested dicts in the reference's leaf layouts: per-layer
 leaves stacked on a leading ``(L, ...)`` axis under ``"layers"``,
@@ -19,6 +19,14 @@ checkpoints keep b more while one block's backward runs. Where b does
 not divide the layer count the flat per-layer remat runs, as in the
 reference.
 
+The MoE family swaps each layer's MLP for
+:func:`~repro_torch.models.moe.moe_block`. In training its load-balance
+loss is carried with the residual stream through every layer (and every
+checkpoint) and summed in layer order, as the reference's scan carry
+does; decode and prefill discard it. Routing couples the tokens of one
+call through the experts' capacity, so decode routes the whole slot
+batch and prefill the whole padded prompt buffer, as the reference.
+
 The decode cache is ``{"pos": (B,) int32, "k", "v": (L, B, S, Hkv, hd)}``
 as the reference's. Where the reference returns new arrays (and donates
 the old ones to XLA), the port writes in place: :meth:`decode_step`
@@ -26,7 +34,7 @@ writes one K/V row per sequence and layer and advances ``pos``;
 :meth:`prefill_at` writes the admitted slots' prompt rows and ``pos``.
 Both return the cache they were given.
 
-Other families (moe, ssm, hybrid, vlm) and the attention features of
+Other families (ssm, hybrid, vlm) and the attention features of
 :func:`repro_torch.models.attention.check_supported` raise
 ``NotImplementedError``.
 """
@@ -43,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
 
 Pytree = Any
@@ -52,10 +61,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class LanguageModel:
     def __init__(self, cfg):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not yet ported to "
-                "repro_torch (the LM port covers the dense family)")
+                "repro_torch (the LM port covers the dense and moe "
+                "families)")
         A.check_supported(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
@@ -64,10 +74,14 @@ class LanguageModel:
 
     def _init_layer(self, gen: torch.Generator, device) -> dict:
         cfg, d, dt = self.cfg, self.cfg.d_model, self.dtype
-        return {"ln1": L.init_norm(cfg, d, device),
-                "ln2": L.init_norm(cfg, d, device),
-                "attn": A.init_attention(gen, cfg, d, dt, device),
-                "mlp": init_mlp(gen, cfg, d, cfg.d_ff, dt, device)}
+        p = {"ln1": L.init_norm(cfg, d, device),
+             "ln2": L.init_norm(cfg, d, device),
+             "attn": A.init_attention(gen, cfg, d, dt, device)}
+        if cfg.family == "moe":
+            p["moe"] = init_moe(gen, cfg, d, dt, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, d, cfg.d_ff, dt, device)
+        return p
 
     def init(self, generator: torch.Generator, device) -> Pytree:
         """Random params at the reference's distributions (fan-in normal
@@ -108,50 +122,67 @@ class LanguageModel:
 
     # ----------------------------------------------------------------- train
 
-    def _layer_train(self, params_l, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, params_l, h: torch.Tensor
+             ) -> tuple[torch.Tensor, Optional[dict]]:
+        """The layer's MLP, or its MoE block with the block's aux."""
+        if self.cfg.family == "moe":
+            return moe_block(self.cfg, params_l["moe"], h)
+        return mlp_block(self.cfg, params_l["mlp"], h), None
+
+    def _layer_train(self, params_l, x: torch.Tensor, aux: torch.Tensor,
+                     positions: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One layer on the carry (x, aux): aux gains the MoE block's
+        load-balance loss."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
         x = x + A.attention_block(cfg, params_l["attn"], h, positions)
         h = L.apply_norm(cfg, x, params_l["ln2"])
-        return x + mlp_block(cfg, params_l["mlp"], h)
+        y, moe_aux = self._ffn(params_l, h)
+        if moe_aux is not None:
+            aux = aux + moe_aux["aux_loss"]
+        return x + y, aux
 
-    def _block_train(self, layers, x: torch.Tensor, positions: torch.Tensor,
-                     idx: range) -> torch.Tensor:
-        """Layers ``idx`` in order, each checkpointed when ``cfg.remat``."""
+    def _block_train(self, layers, x: torch.Tensor, aux: torch.Tensor,
+                     positions: torch.Tensor, idx: range
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layers ``idx`` in order on the carry (x, aux), each
+        checkpointed when ``cfg.remat``."""
         for i in idx:
             params_l = _index(layers, i)
             if self.cfg.remat:
-                x = checkpoint(self._layer_train, params_l, x, positions,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._layer_train, params_l, x, aux,
+                                    positions, use_reentrant=False)
             else:
-                x = self._layer_train(params_l, x, positions)
-        return x
+                x, aux = self._layer_train(params_l, x, aux, positions)
+        return x, aux
 
     def forward(self, params, tokens: torch.Tensor, *,
                 return_hidden: bool = False
                 ) -> tuple[torch.Tensor, dict]:
         """Train/eval forward. tokens (B, S) int.
 
-        Returns (logits (B, S, V) f32, {"aux_loss": 0 (f32)}) — or the
-        final-norm hidden states (B, S, d) when ``return_hidden``. The
-        reference wraps each layer's carry in an optimization barrier,
-        an XLA layout workaround that is the identity in value and in
-        gradient; it has no counterpart here.
+        Returns (logits (B, S, V) f32, {"aux_loss": f32 scalar: the MoE
+        blocks' load-balance losses summed over the layers, 0 for the
+        dense family}) — or the final-norm hidden states (B, S, d) when
+        ``return_hidden``. The reference wraps each layer's carry in an
+        optimization barrier, an XLA layout workaround that is the
+        identity in value and in gradient; it has no counterpart here.
         """
         cfg = self.cfg
         x = self.embed_tokens(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), device=x.device)
         blk = cfg.remat_block
         if cfg.remat and blk and cfg.num_layers % blk == 0:
             for i in range(0, cfg.num_layers, blk):
-                x = checkpoint(self._block_train, params["layers"], x,
-                               positions, range(i, i + blk),
-                               use_reentrant=False)
+                x, aux = checkpoint(self._block_train, params["layers"], x,
+                                    aux, positions, range(i, i + blk),
+                                    use_reentrant=False)
         else:
-            x = self._block_train(params["layers"], x, positions,
-                                  range(cfg.num_layers))
-        aux = {"aux_loss": torch.zeros((), device=x.device)}
+            x, aux = self._block_train(params["layers"], x, aux, positions,
+                                       range(cfg.num_layers))
+        aux = {"aux_loss": aux}
         if return_hidden:
             return L.apply_norm(cfg, x, params["final_norm"]), aux
         return self.logits(params, x), aux
@@ -181,7 +212,7 @@ class LanguageModel:
                                        cache_v, pos)
         x = x + out
         h = L.apply_norm(cfg, x, params_l["ln2"])
-        return x + mlp_block(cfg, params_l["mlp"], h)
+        return x + self._ffn(params_l, h)[0]
 
     @torch.no_grad()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor, *,
@@ -241,7 +272,7 @@ class LanguageModel:
                                    flash_vjp=cfg.flash_vjp)
             x = x + out.reshape(B, S, H * hd) @ params_l["attn"]["wo"]
             h = L.apply_norm(cfg, x, params_l["ln2"])
-            x = x + mlp_block(cfg, params_l["mlp"], h)
+            x = x + self._ffn(params_l, h)[0]
             ks.append(k)
             vs.append(v)
         logits = self._last_valid_logits(params, x, lengths)

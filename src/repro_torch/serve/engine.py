@@ -37,7 +37,7 @@ from repro_torch.serve.sampling import SamplerConfig
 from repro_torch.serve.scheduler import (FinishedRequest, Request,
                                          RequestScheduler)
 
-SERVE_FAMILIES = ("dense",)
+SERVE_FAMILIES = ("dense", "moe")
 
 
 def make_prefill_step(model) -> Callable:

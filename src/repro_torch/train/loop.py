@@ -21,17 +21,19 @@ def train_loop(step_fn: Callable, state, batches: Iterator,
     """Run ``num_steps`` steps. Returns (final state, history).
 
     ``history`` holds one entry per logged step, then
-    ``{"losses": [...], "train_s": t}`` (every step's loss, and the wall
-    time of the steps up to the device finishing them), then the eval
-    entry when ``eval_fn`` is given.
+    ``{"losses": [...], "aux_losses": [...], "train_s": t}`` (every
+    step's loss and auxiliary loss, and the wall time of the steps up to
+    the device finishing them), then the eval entry when ``eval_fn`` is
+    given.
     """
     history: list[dict] = []
-    losses = []
+    losses, aux_losses = [], []
     t0 = time.perf_counter()
     for i in range(num_steps):
         batch = next(batches)
         state, metrics = step_fn(state, batch)
         losses.append(metrics["loss"])
+        aux_losses.append(metrics["aux_loss"])
         if log_every and (i % log_every == 0 or i == num_steps - 1):
             m = {k: float(v) for k, v in metrics.items()}
             m["wall_s"] = time.perf_counter() - t0
@@ -41,6 +43,8 @@ def train_loop(step_fn: Callable, state, batches: Iterator,
     if losses and losses[0].is_cuda:       # wait for the last update too
         torch.cuda.synchronize(losses[0].device)
     history.append({"losses": torch.stack(losses).tolist() if losses else [],
+                    "aux_losses": (torch.stack(aux_losses).tolist()
+                                   if aux_losses else []),
                     "train_s": time.perf_counter() - t0})
     if eval_fn is not None and eval_batches:
         accs, ev_losses = [], []

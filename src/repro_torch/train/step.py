@@ -1,16 +1,17 @@
 """Train/eval step factories (port of ``repro/train/step.py``, the cnn
-and dense LM families). A step is an eager function (TrainState, batch)
--> (TrainState, metrics): autograd for the gradients, then the optimizer
-update. The metrics stay on the device; reading them is the caller's
-choice.
+family and the dense and MoE LM families). A step is an eager function
+(TrainState, batch) -> (TrainState, metrics): autograd for the
+gradients, then the optimizer update. The metrics stay on the device;
+reading them is the caller's choice.
 
   cnn      {"x": images (B,28,28,1), "y": labels (B,)}
   lm       {"tokens": (B, S)}              loss: predict [1:] from [:-1]
 
 With ``loss_chunk > 0`` the LM's loss runs chunked over the sequence
 (:func:`~repro_torch.train.losses.chunked_lm_loss`) and the step returns
-no logits; evaluation always takes the whole logits. The vlm and encdec
-families are not yet ported and raise.
+no logits; evaluation always takes the whole logits. The MoE family's
+loss adds its load-balance ``aux_loss``. The other families are not yet
+ported and raise.
 """
 
 from __future__ import annotations
@@ -31,12 +32,12 @@ Pytree = Any
 
 
 def _forward_and_loss(model, cfg, params, batch):
-    """(loss, (logits, aux)) for the cnn and dense LM families; logits
-    are None on the chunked-loss path."""
+    """(loss, (logits, aux)) for the cnn family and the dense and MoE LM
+    families; logits are None on the chunked-loss path."""
     if cfg.family == "cnn":
         logits, aux = model.forward(params, batch["x"])
         return classification_loss(logits, batch["y"]), (logits, aux)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     if cfg.loss_chunk:
@@ -53,13 +54,14 @@ def _forward_and_loss(model, cfg, params, batch):
 def value_and_grad(model, cfg, params: Pytree, batch
                    ) -> tuple[torch.Tensor, Pytree, tuple]:
     """(loss, grads, (logits, aux)): the loss and its gradient with
-    respect to every leaf of ``params``."""
+    respect to every leaf of ``params``; the aux values detached."""
     leaves, treedef = tree_flatten_with_path(params)
     leaves = [leaf.detach().requires_grad_(True) for _, leaf in leaves]
-    loss, out = _forward_and_loss(model, cfg,
-                                  tree_unflatten(treedef, leaves), batch)
+    loss, (logits, aux) = _forward_and_loss(
+        model, cfg, tree_unflatten(treedef, leaves), batch)
     grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(treedef, grads), out
+    return (loss.detach(), tree_unflatten(treedef, grads),
+            (logits, {k: v.detach() for k, v in aux.items()}))
 
 
 def apply_update(model, optimizer, state: TrainState, grads, loss,

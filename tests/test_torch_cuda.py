@@ -763,3 +763,90 @@ def test_lean_lm_gradients_on_the_card_match_the_cpu(cuda):
     for other in ("cuda", "stock"):
         for a, b in zip(runs[other], runs["cpu"]):
             assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+
+
+# ------------------------------------------------------------ the MoE family
+
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.train import train_state_from_params  # noqa: E402
+
+# reduced granite that drops slots (the reduced config routes top-4 of 4)
+GRANITE_DROP = dict(num_experts=8, experts_per_token=2, capacity_factor=0.5)
+# card against CPU: only the products' summation orders differ (f32), or
+# their bf16 roundings, as tests/test_torch_moe.py bounds the CPU port
+# against the reference (one or two bf16 ulps)
+MOE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+           torch.bfloat16: dict(rtol=2 ** -5, atol=2 ** -5)}
+
+
+def _granite(**changes):
+    import dataclasses
+    return dataclasses.replace(
+        get_config("granite-moe-3b-a800m").reduced(), **GRANITE_DROP,
+        **changes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, dtype, groups):
+    """The MoE block of reduced granite, dropping slots: the same share of
+    dropped slots on the card and the CPU, outputs and aux loss within
+    MOE_TOL and 1e-6, f32 gradients within 1e-5 of each leaf's largest
+    entry; the card's forward is the same bits on every run (the combine
+    gathers each token's slots, no atomic add)."""
+    cfg = _granite(moe_groups=groups, num_shared_experts=1)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, cfg.d_model,
+                     dtype, "cpu")
+    x = torch.randn(4, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    runs = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        pd = tree_map(lambda t: t.detach().to(dev).requires_grad_(
+            dtype == torch.float32), p)
+        xd = x.detach().to(dev).requires_grad_(dtype == torch.float32)
+        out, aux = moe.moe_block(cfg, pd, xd)
+        grads = []
+        if dtype == torch.float32:
+            grads = torch.autograd.grad(out.square().sum() + aux["aux_loss"],
+                                        [xd] + tree_leaves(pd))
+        run = [out.detach().cpu(), aux["aux_loss"].detach().cpu(),
+               aux["dropped_frac"].cpu()] + [g.cpu() for g in grads]
+        if dev in runs:
+            assert torch.equal(run[0], runs[dev][0])
+        runs[dev] = run
+    (out, aux, drop), (cout, caux, cdrop) = runs["cuda"][:3], runs["cpu"][:3]
+    assert float(drop) == float(cdrop) > 0
+    torch.testing.assert_close(out, cout, **MOE_TOL[dtype])
+    torch.testing.assert_close(aux, caux, rtol=1e-6, atol=0)
+    for a, b in zip(runs["cuda"][3:], runs["cpu"][3:]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_granite_lars_step_on_the_card_matches_the_cpu(cuda):
+    """One LARS step of reduced granite (dropping slots, f32): one
+    norms_flat and one apply_flat launch on the card; the loss, the aux
+    loss and the updated weights within 1e-5 of the CPU's."""
+    cfg = _granite()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = next(token_batches(TokenTaskConfig(vocab_size=cfg.vocab_size),
+                              batch=8, seq_len=64))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = lars(0.05, momentum=0.9, weight_decay=1e-4)
+        state = train_state_from_params(
+            model, opt, tree_map(lambda t: t.to(dev), params))
+        lk.reset_launch_counts()
+        state, metrics = TrainPipeline(model, opt, cfg)(
+            state, {"tokens": torch.from_numpy(toks).to(dev)})
+        out[dev] = (metrics, tree_leaves(state.params))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert lk.LAUNCHES == {"norms_flat": 1, "apply_flat": 1,
+                                   "apply_flat_q8": 0}
+    (m, w), (cm, cw) = out["cuda"], out["cpu"]
+    for key in ("loss", "aux_loss"):
+        torch.testing.assert_close(m[key].cpu(), cm[key], rtol=1e-5, atol=0)
+    assert float(cm["aux_loss"]) > 0
+    for a, b in zip(w, cw):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()

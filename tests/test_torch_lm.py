@@ -430,7 +430,7 @@ def test_bf16_prefill_prefill_at_and_decode_match_reference(variant):
 
 @pytest.mark.parametrize("change", [
     {"use_mla": True}, {"family": "hybrid"}, {"sliding_window": 64},
-    {"attn_logit_softcap": 30.0}, {"family": "moe"}])
+    {"attn_logit_softcap": 30.0}, {"family": "ssm"}])
 def test_unported_features_raise(change):
     """What the port still refuses (``qkv_bias`` and ``qk_norm`` are
     ported: tests/test_torch_lm_lean.py holds them against the

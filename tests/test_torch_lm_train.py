@@ -147,7 +147,7 @@ def test_forward_returns_hidden_and_refuses_unported_configs():
     # loss_chunk) are ported: tests/test_torch_lm_lean.py holds them
     # against the reference. What is still refused:
     for field, value in (("sliding_window", 16), ("attn_logit_softcap", 30.0),
-                         ("use_mla", True), ("family", "moe")):
+                         ("use_mla", True), ("family", "ssm")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             model = build_model(dataclasses.replace(CFG, **{field: value}))
             value_and_grad(model, model.cfg, params, {"tokens": toks})
