@@ -101,11 +101,13 @@ def lm_params_to_torch(params: Pytree, model,
 
 def cache_to_torch(cache: dict, device: torch.device | str = "cpu"
                    ) -> dict:
-    """A dense or MoE LM's decode cache (``pos`` (B,) int32, ``k``/``v``
-    (L, B, S, Hkv, hd)) from the reference, as tensors on ``device``."""
-    if set(cache) != {"pos", "k", "v"}:
-        raise ValueError(f"expected a dense decode cache (pos, k, v), got "
-                         f"{sorted(cache)}")
+    """A dense or MoE LM's decode cache (``pos`` (B,) int32, and
+    ``k``/``v`` (L, B, S, Hkv, hd) or MLA's ``ckv`` (L, B, S, r) and
+    ``krope`` (L, B, S, rope)) from the reference, as tensors on
+    ``device``."""
+    if set(cache) not in ({"pos", "k", "v"}, {"pos", "ckv", "krope"}):
+        raise ValueError(f"expected a K/V (pos, k, v) or latent (pos, ckv, "
+                         f"krope) decode cache, got {sorted(cache)}")
     out = {k: tensor_from_numpy(v, device) for k, v in cache.items()}
     out["pos"] = out["pos"].to(torch.int32)
     return out

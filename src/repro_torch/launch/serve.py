@@ -16,10 +16,14 @@ Examples (on the card; ``--device cpu`` runs on the CPU)::
         --reduced --device cpu --sampler top_k:40:0.8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --set num_layers=2 --slots 32 \
+        --capacity 4096
 
 Weights are random, drawn from ``--seed`` (the port's own init at the
-reference's distributions). The reference's mesh, scenario, SLO,
-session, chunked-prefill, prefix-store and config-override options are
+reference's distributions). ``--set FIELD=VALUE`` overrides a config
+field after ``--reduced``, as in the reference. The reference's mesh,
+scenario, SLO, session, chunked-prefill and prefix-store options are
 not yet ported and raise.
 """
 
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.launch.overrides import apply_overrides
 from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine, parse_sampler
 
@@ -112,6 +117,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="FIELD=VALUE",
+                    help="config override, e.g. --set num_layers=2")
     # the reference's options for paths the port does not cover yet
     ap.add_argument("--mesh", default="none")
     ap.add_argument("--scenario", default="")
@@ -120,8 +128,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--prefix-entries", type=int, default=0)
     ap.add_argument("--min-slots", type=int, default=0)
-    ap.add_argument("--set", action="append", default=[],
-                    metavar="FIELD=VALUE")
     return ap.parse_args(argv)
 
 
@@ -131,7 +137,7 @@ def _check_ported(args) -> None:
                 "--session": bool(args.session),
                 "--prefill-chunk": bool(args.prefill_chunk),
                 "--prefix-entries": bool(args.prefix_entries),
-                "--min-slots": bool(args.min_slots), "--set": bool(args.set)}
+                "--min-slots": bool(args.min_slots)}
     for flag, given in unported.items():
         if given:
             raise NotImplementedError(
@@ -152,6 +158,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    cfg = apply_overrides(cfg, args.set)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(args.seed), device)
     engine = ServeEngine(model, params, cfg, slots=args.slots,
@@ -165,6 +172,7 @@ def main(argv=None) -> dict:
     rep = serve_traffic(engine, traffic)
     rep.update(arch=cfg.name, device=str(device), slots=args.slots,
                capacity=args.capacity, num_layers=cfg.num_layers,
+               use_mla=cfg.use_mla,
                flash_decode_launches=fd.LAUNCHES["flash_decode"] - launches0,
                logits_finite=engine.logits_finite)
 
@@ -184,8 +192,9 @@ def main(argv=None) -> dict:
           f"{rep['ttft_p99_s']*1e3:.0f} ms")
     print(f"  decode ticks {rep['decode_steps']}, admissions "
           f"{rep['admit_calls']} — flash_decode kernel launches "
-          f"{rep['flash_decode_launches']} ({cfg.num_layers} per tick on "
-          f"the card, 0 on the CPU); logits finite: {rep['logits_finite']}")
+          f"{rep['flash_decode_launches']} ("
+          f"{0 if cfg.use_mla else cfg.num_layers} per tick on the card, 0 "
+          f"on the CPU); logits finite: {rep['logits_finite']}")
     for f in rep["finished"][:8]:
         print(f"    req {f.request.rid:3d}: prompt {f.request.prompt_len:3d} "
               f"-> {f.tokens.size:3d} tok, latency "

@@ -1,6 +1,7 @@
 """Model zoo of the port: plain functions over nested-dict params in the
 JAX package's leaf layouts. The cnn family (LeNet) and the dense and
-MoE LM families (training, prefill and decode) are ported so far."""
+MoE LM families, with GQA or MLA attention (training, prefill and
+decode), are ported so far."""
 
 from repro_torch.models.lenet import LeNet  # noqa: F401
 from repro_torch.models.lm import LanguageModel  # noqa: F401

@@ -11,20 +11,24 @@ cache.
 The projections carry qwen2's f32 QKV biases (``qkv_bias``) and qwen3's
 rmsnorm of q and k over the head dim before the rotation (``qk_norm``),
 so training, prefill and decode all get them. Training
-(:func:`attention_block`) and prefill run :func:`attention_core`, the
-reference's algorithm (it is jnp there, not Pallas): f32 scores, an
-online softmax over KV chunks, the causal mask; autograd differentiates
-it as written. As in the reference, ``attn_q_chunk`` loops it over query
-blocks and ``flash_vjp`` hands each block to
-:func:`repro_torch.models.flash_attn.flash_attention`, whose backward
-pass recomputes the scores instead of saving them. Decode runs the
-hand-written ``flash_decode`` kernel through
+(:func:`attention_block`, and MLA's expanded block) and prefill run
+:func:`attention_core`, the reference's algorithm (it is jnp there, not
+Pallas): f32 scores, scaled and soft-capped, then masked, an online
+softmax over KV chunks; autograd differentiates it as written. Its mask
+is :func:`repro_torch.models.flash_attn.block_mask`, the port's one mask
+model: causal, with an optional sliding window. As in the reference,
+``attn_q_chunk`` loops it over query blocks and ``flash_vjp`` hands each
+block to :func:`repro_torch.models.flash_attn.flash_attention`, whose
+backward pass recomputes the scores instead of saving them. Decode runs
+the hand-written ``flash_decode`` kernel through
 :func:`repro_torch.kernels.ops.flash_decode` (its plain version on CPU
 tensors); the reference's other decode path, its jnp core, computes the
 same function and is not ported.
 
-``sliding_window`` rings, ``attn_logit_softcap`` and MLA raise
-``NotImplementedError``.
+Training takes ``sliding_window`` and ``attn_logit_softcap``; decode,
+prefill and serving refuse both (:func:`check_decode_supported`). The
+mask model's encoder (``causal=False``), prefix-LM (``prefix_len``) and
+``kv_len`` options wait for the families that use them.
 """
 
 from __future__ import annotations
@@ -33,26 +37,28 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.models.flash_attn import flash_attention
+from repro_torch.models.flash_attn import block_mask, flash_attention
 
 NEG_INF = -1.0e30
 
 
-def check_supported(cfg) -> None:
-    """Raise on attention features the port does not cover yet."""
-    unported = {"sliding_window": cfg.sliding_window,
-                "use_mla": cfg.use_mla}
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not yet ported to repro_torch")
+def check_decode_supported(cfg) -> None:
+    """Raise on what decode, prefill and serving do not cover yet (they
+    take MLA; training takes all three)."""
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"sliding_window={cfg.sliding_window} is not yet ported to "
+            "repro_torch's decode and serving (a window decodes from a "
+            "ring cache, which comes with chunked prefill); training "
+            "takes it")
     if cfg.attn_logit_softcap:
         # the reference applies the cap on its jnp path but drops it on
         # its flash-decode path; the port refuses rather than pick one
         raise NotImplementedError(
             f"attn_logit_softcap={cfg.attn_logit_softcap} is not yet "
-            "ported to repro_torch (the reference's flash-decode path "
-            "ignores it while its jnp path applies it)")
+            "ported to repro_torch's decode (the reference's flash-decode "
+            "path ignores it while its jnp path applies it); training "
+            "takes it")
 
 
 def init_attention(gen: torch.Generator, cfg, d: int, dtype: torch.dtype,
@@ -77,7 +83,6 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd): the f32 biases
     added in the activation dtype, q and k normed over the head dim, then
     rotated."""
-    check_supported(cfg)
     H, Hkv, hd = cfg.attn_dims
     B, S, _ = x.shape
     q = x @ p["wq"]
@@ -100,40 +105,48 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_positions: torch.Tensor, kv_chunk: int = 1024,
-                   q_chunk: int = 0, flash_vjp: bool = False
-                   ) -> torch.Tensor:
+                   q_positions: torch.Tensor, window: int = 0,
+                   kv_chunk: int = 1024, scale: float | None = None,
+                   softcap: float = 0.0, q_chunk: int = 0,
+                   flash_vjp: bool = False) -> torch.Tensor:
     """Causal online-softmax attention over KV chunks of ``kv_chunk`` keys.
 
-    q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D). q_positions: (Sq,) or
-    (B, Sq); keys sit at positions 0..Sk-1 and a query attends the keys
-    at or before its position. Returns (B, Sq, H, D) in q.dtype; scores,
-    softmax and accumulation in f32. The last chunk may be short (the
-    reference pads it and masks the pad: the same function).
+    q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v: (B, Sk, Hkv, Dv), Dv may
+    differ from D (MLA). q_positions: (Sq,) or (B, Sq); keys sit at
+    positions 0..Sk-1 and a query at qp attends the keys kp <= qp, and
+    with a ``window`` > 0 only those with kp > qp - window. The scores
+    are scaled by ``scale`` (default D ** -0.5), then capped to
+    ``softcap * tanh(s / softcap)`` when ``softcap`` > 0, then masked, as
+    the reference. Returns (B, Sq, H, Dv) in q.dtype; scores, softmax
+    and accumulation in f32. The last chunk may be short (the reference
+    pads it and masks the pad: the same function).
 
     ``q_chunk`` > 0 also loops over query blocks of that many rows when
     it divides Sq (and is smaller), which bounds the live (q_chunk,
     kv_chunk) score tile; ``flash_vjp`` computes each block with
     :func:`~repro_torch.models.flash_attn.flash_attention`, which saves
     no score tensor for the backward pass. Both as the reference.
+    Neither path skips a KV chunk that lies wholly outside the window;
+    the reference's scan does not either.
     """
     B, Sq, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
     if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
         if q_positions.ndim == 1:
             q_positions = q_positions[None].expand(B, Sq)
         return torch.cat([
             attention_core(q[:, i:i + q_chunk], k, v,
                            q_positions=q_positions[:, i:i + q_chunk],
-                           kv_chunk=kv_chunk, flash_vjp=flash_vjp)
+                           window=window, kv_chunk=kv_chunk, scale=scale,
+                           softcap=softcap, flash_vjp=flash_vjp)
             for i in range(0, Sq, q_chunk)], dim=1)
+    # the mask model's (causal, window, prefix_len, scale, softcap, kv_len)
+    cfgt = (True, window, None, scale, softcap, None)
     if flash_vjp:
-        # the causal mask, no window, prefix, softcap or kv_len
-        return flash_attention(q, k, v, q_positions,
-                               (True, 0, None, D ** -0.5, 0.0, None),
-                               kv_chunk)
+        return flash_attention(q, k, v, q_positions, cfgt, kv_chunk)
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
-    scale = D ** -0.5
     kc = min(kv_chunk, Sk)
     if q_positions.ndim == 1:
         q_positions = q_positions[None].expand(B, Sq)
@@ -146,7 +159,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vb = v[:, c0:c0 + kc].float()
         kp = torch.arange(c0, c0 + kb.shape[1], device=q.device)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
-        mask = kp[None, None, :] <= q_positions[..., :, None]   # (B,Sq,kc)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = block_mask(q_positions, kp, cfgt)            # (B,Sq,kc)
         s = torch.where(mask[:, None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
@@ -162,11 +177,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_block(cfg, p: dict, x: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
     """Causal self-attention sub-block for training, projections
-    included: x (B, S, d) -> (B, S, d)."""
+    included, with the config's sliding window and logit softcap:
+    x (B, S, d) -> (B, S, d)."""
     B, S, _ = x.shape
     H, _, hd = cfg.attn_dims
     q, k, v = qkv_project(cfg, p, x, positions)
     out = attention_core(q, k, v, q_positions=positions,
+                         window=cfg.sliding_window,
+                         softcap=cfg.attn_logit_softcap,
                          q_chunk=cfg.attn_q_chunk, flash_vjp=cfg.flash_vjp)
     return out.reshape(B, S, H * hd) @ p["wo"]
 
@@ -185,6 +203,7 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     writes at min(pos, S_buf - 1) and attends min(pos + 1, S_buf) rows —
     the same function, and no write out of bounds on the card.
     """
+    check_decode_supported(cfg)
     B = x.shape[0]
     H, Hkv, hd = cfg.attn_dims
     S_buf = cache_k.shape[1]
@@ -200,7 +219,7 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
 def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
                ) -> torch.Tensor:
-    """cache (B,S,h,d), new (B,1,h,d), pos (B,): write row
+    """cache (B,S,...), new (B,1,...), pos (B,): write row
     min(pos[b], S-1) of each sequence, in place; returns ``cache``."""
     S = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)

@@ -54,7 +54,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
-def _mask(qp: torch.Tensor, kp: torch.Tensor, cfgt) -> torch.Tensor:
+def block_mask(qp: torch.Tensor, kp: torch.Tensor, cfgt) -> torch.Tensor:
     """(B, Sq, kc) bool: qp (B, Sq) query positions, kp (kc,) keys'."""
     causal, window, prefix_len, _, _, kv_len = cfgt
     qp = qp[..., :, None]
@@ -85,7 +85,7 @@ def _scores(qh, kb, qpos, kp, cfgt, dims):
     if softcap:
         cap_t = torch.tanh(s / softcap)
         s = softcap * cap_t
-    ok = _mask(qpos, kp, cfgt)
+    ok = block_mask(qpos, kp, cfgt)
     s = torch.where(ok[:, None, None], s, NEG_INF)
     return s, cap_t
 

@@ -1,7 +1,7 @@
-"""Decoder-only language model, dense and MoE families: port of those
-branches of ``repro/models/lm.py`` — init, the training forward, the
-decode cache, one-token decode, (length-masked) prefill and slot
-admission into a persistent cache.
+"""Decoder-only language model, dense and MoE families (with GQA or MLA
+attention): port of those branches of ``repro/models/lm.py`` — init,
+the training forward, the decode cache, one-token decode,
+(length-masked) prefill and slot admission into a persistent cache.
 
 Params are nested dicts in the reference's leaf layouts: per-layer
 leaves stacked on a leading ``(L, ...)`` axis under ``"layers"``,
@@ -27,16 +27,22 @@ does; decode and prefill discard it. Routing couples the tokens of one
 call through the experts' capacity, so decode routes the whole slot
 batch and prefill the whole padded prompt buffer, as the reference.
 
-The decode cache is ``{"pos": (B,) int32, "k", "v": (L, B, S, Hkv, hd)}``
-as the reference's. Where the reference returns new arrays (and donates
-the old ones to XLA), the port writes in place: :meth:`decode_step`
-writes one K/V row per sequence and layer and advances ``pos``;
-:meth:`prefill_at` writes the admitted slots' prompt rows and ``pos``.
-Both return the cache they were given.
+With ``use_mla`` each layer's attention is
+:mod:`repro_torch.models.mla`'s: the expanded block in training and
+prefill, the absorbed decode over a latent cache.
 
-Other families (ssm, hybrid, vlm) and the attention features of
-:func:`repro_torch.models.attention.check_supported` raise
-``NotImplementedError``.
+The decode cache is the reference's: ``{"pos": (B,) int32, "k", "v":
+(L, B, S, Hkv, hd)}``, or with MLA ``{"pos", "ckv": (L, B, S, r),
+"krope": (L, B, S, rope)}``. Where the reference returns new arrays
+(and donates the old ones to XLA), the port writes in place:
+:meth:`decode_step` writes one row per sequence and layer of each cache
+leaf and advances ``pos``; :meth:`prefill_at` writes the admitted
+slots' prompt rows and ``pos``. Both return the cache they were given.
+
+Other families (ssm, hybrid, encdec, vlm) raise
+``NotImplementedError``, and so do decode, prefill and serving with the
+attention features of
+:func:`repro_torch.models.attention.check_decode_supported`.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
@@ -66,7 +73,6 @@ class LanguageModel:
                 f"model family {cfg.family!r} is not yet ported to "
                 "repro_torch (the LM port covers the dense and moe "
                 "families)")
-        A.check_supported(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
 
@@ -74,9 +80,10 @@ class LanguageModel:
 
     def _init_layer(self, gen: torch.Generator, device) -> dict:
         cfg, d, dt = self.cfg, self.cfg.d_model, self.dtype
+        init_attn = MLA.init_mla if cfg.use_mla else A.init_attention
         p = {"ln1": L.init_norm(cfg, d, device),
              "ln2": L.init_norm(cfg, d, device),
-             "attn": A.init_attention(gen, cfg, d, dt, device)}
+             "attn": init_attn(gen, cfg, d, dt, device)}
         if cfg.family == "moe":
             p["moe"] = init_moe(gen, cfg, d, dt, device)
         else:
@@ -122,6 +129,14 @@ class LanguageModel:
 
     # ----------------------------------------------------------------- train
 
+    def attention_block(self, params_attn, h: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+        """The layer's attention sub-block for training and prefill: MLA's
+        expanded block or the GQA block."""
+        if self.cfg.use_mla:
+            return MLA.mla_block(self.cfg, params_attn, h, positions)
+        return A.attention_block(self.cfg, params_attn, h, positions)
+
     def _ffn(self, params_l, h: torch.Tensor
              ) -> tuple[torch.Tensor, Optional[dict]]:
         """The layer's MLP, or its MoE block with the block's aux."""
@@ -136,7 +151,7 @@ class LanguageModel:
         load-balance loss."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
-        x = x + A.attention_block(cfg, params_l["attn"], h, positions)
+        x = x + self.attention_block(params_l["attn"], h, positions)
         h = L.apply_norm(cfg, x, params_l["ln2"])
         y, moe_aux = self._ffn(params_l, h)
         if moe_aux is not None:
@@ -189,27 +204,41 @@ class LanguageModel:
 
     # ----------------------------------------------------------------- cache
 
-    def init_cache(self, batch: int, seq_len: int, *, device=None) -> dict:
+    def _cache_shapes(self, batch: int, seq_len: int) -> dict:
+        """The decode cache's leaves other than ``pos``: MLA's latent and
+        rope-key caches, else K and V."""
         cfg = self.cfg
-        dt = self.dtype
+        lead = (cfg.num_layers, batch, seq_len)
+        if cfg.use_mla:
+            return {"ckv": lead + (cfg.kv_lora_rank,),
+                    "krope": lead + (cfg.qk_rope_dim,)}
         _, Hkv, hd = cfg.attn_dims
-        shape = (cfg.num_layers, batch, seq_len, Hkv, hd)
-        return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
-                "k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        return {"k": lead + (Hkv, hd), "v": lead + (Hkv, hd)}
+
+    def init_cache(self, batch: int, seq_len: int, *, device=None) -> dict:
+        A.check_decode_supported(self.cfg)
+        cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+        for name, shape in self._cache_shapes(batch, seq_len).items():
+            cache[name] = torch.zeros(shape, dtype=self.dtype, device=device)
+        return cache
 
     def cache_capacity(self, cache: dict) -> int:
-        """Token capacity of a decode cache."""
-        return cache["k"].shape[2]
+        """Token capacity of a decode cache (its leaves are (L, B, S, ...))."""
+        return next(v for k, v in cache.items() if k != "pos").shape[2]
 
     # ---------------------------------------------------------------- decode
 
-    def _layer_decode(self, params_l, x, cache_k, cache_v, pos):
-        """One layer, one token; writes this layer's cache rows."""
+    def _layer_decode(self, params_l, x, cache_l: dict, pos):
+        """One layer, one token; writes this layer's cache rows
+        (``cache_l``: the layer's views of the cache leaves)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
-        out, _, _ = A.decode_attention(cfg, params_l["attn"], h, cache_k,
-                                       cache_v, pos)
+        if cfg.use_mla:
+            out, _, _ = MLA.mla_decode(cfg, params_l["attn"], h,
+                                       cache_l["ckv"], cache_l["krope"], pos)
+        else:
+            out, _, _ = A.decode_attention(cfg, params_l["attn"], h,
+                                           cache_l["k"], cache_l["v"], pos)
         x = x + out
         h = L.apply_norm(cfg, x, params_l["ln2"])
         return x + self._ffn(params_l, h)[0]
@@ -219,22 +248,25 @@ class LanguageModel:
                     use_flash: bool | str = "auto"
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> (logits (B, 1, V) f32, the cache, updated in
-        place: one K/V row per sequence and layer, and ``pos + 1``).
+        place: one row per sequence and layer of each cache leaf, and
+        ``pos + 1``).
 
-        Attention runs through the ``flash_decode`` wrapper: one kernel
-        launch per layer on CUDA tensors, its plain version on CPU
-        tensors. ``use_flash`` only checks that placement, as LARS's
-        ``use_kernels`` does: ``"auto"`` takes either, ``True`` needs
-        CUDA tensors, ``False`` CPU tensors.
+        GQA attention runs through the ``flash_decode`` wrapper: one
+        kernel launch per layer on CUDA tensors, its plain version on CPU
+        tensors. MLA's absorbed decode is torch ops, as the reference's
+        is jnp: it launches no kernel. ``use_flash`` only checks the
+        placement, as LARS's ``use_kernels`` does: ``"auto"`` takes
+        either, ``True`` needs CUDA tensors, ``False`` CPU tensors.
         """
-        kops.check_use_kernels(use_flash, cache["k"].device,
-                               option="use_flash")
-        x = self.embed_tokens(params, tokens)
         pos = cache["pos"]
+        kops.check_use_kernels(use_flash, pos.device, option="use_flash")
+        x = self.embed_tokens(params, tokens)
         layers = params["layers"]
+        leaves = [name for name in cache if name != "pos"]
         for i in range(self.cfg.num_layers):
             params_l = _index(layers, i)
-            x = self._layer_decode(params_l, x, cache["k"][i], cache["v"][i],
+            x = self._layer_decode(params_l, x,
+                                   {name: cache[name][i] for name in leaves},
                                    pos)
         pos.add_(1)
         return self.logits(params, x), cache
@@ -253,35 +285,45 @@ class LanguageModel:
         right-padded token batch: logits come from each row's last valid
         position and the cache ``pos`` is set to ``lengths``. Causality
         makes the padded forward exact for valid positions; pad-position
-        KV entries are never read back (decode masks kv_len = pos + 1).
+        cache entries are never read back (decode masks kv_len = pos + 1).
+        With MLA the cache takes each layer's latents (c_kv and the roped
+        shared key) and the attention runs expanded, as the reference.
         Returns (last-valid-token logits (B, V) f32, cache).
         """
         cfg = self.cfg
+        A.check_decode_supported(cfg)
         x = self.embed_tokens(params, tokens)
         B, S, _ = x.shape
         H, _, hd = cfg.attn_dims
         positions = torch.arange(S, device=x.device)
         cap = cache_len or S
-        ks, vs = [], []
+        rows = {name: [] for name in self._cache_shapes(B, cap)}
         for i in range(cfg.num_layers):
             params_l = _index(params["layers"], i)
+            p = params_l["attn"]
             h = L.apply_norm(cfg, x, params_l["ln1"])
-            q, k, v = A.qkv_project(cfg, params_l["attn"], h, positions)
-            out = A.attention_core(q, k, v, q_positions=positions,
-                                   q_chunk=cfg.attn_q_chunk,
-                                   flash_vjp=cfg.flash_vjp)
-            x = x + out.reshape(B, S, H * hd) @ params_l["attn"]["wo"]
+            if cfg.use_mla:
+                ckv, krope = MLA._latents(cfg, p, h, positions)
+                x = x + MLA.mla_block(cfg, p, h, positions)
+                rows["ckv"].append(ckv)
+                rows["krope"].append(krope[:, :, 0])
+            else:
+                q, k, v = A.qkv_project(cfg, p, h, positions)
+                out = A.attention_core(q, k, v, q_positions=positions,
+                                       q_chunk=cfg.attn_q_chunk,
+                                       flash_vjp=cfg.flash_vjp)
+                x = x + out.reshape(B, S, H * hd) @ p["wo"]
+                rows["k"].append(k)
+                rows["v"].append(v)
             h = L.apply_norm(cfg, x, params_l["ln2"])
             x = x + self._ffn(params_l, h)[0]
-            ks.append(k)
-            vs.append(v)
         logits = self._last_valid_logits(params, x, lengths)
         # a copy: decode_step advances pos in place
         pos = (torch.full((B,), S, dtype=torch.int32, device=x.device)
                if lengths is None else lengths.to(torch.int32, copy=True))
-        cache = {"pos": pos,
-                 "k": _fit(torch.stack(ks).to(self.dtype), cap, dim=2),
-                 "v": _fit(torch.stack(vs).to(self.dtype), cap, dim=2)}
+        cache = {"pos": pos}
+        for name, ts in rows.items():
+            cache[name] = _fit(torch.stack(ts).to(self.dtype), cap, dim=2)
         return logits, cache
 
     def _last_valid_logits(self, params, x: torch.Tensor,
@@ -308,9 +350,10 @@ class LanguageModel:
         right-padded prompts; slots (n,) slot ids; lengths (n,) true
         prompt lengths (None = all S). Returns (last-valid-token logits
         (n, V), the cache): the admitted slots' ``pos`` and their first
-        S K/V rows are written in place, every other slot's state is
-        untouched. Rows at S and past keep what they held: decode writes
-        row ``pos`` before it attends to it, so they are never read.
+        S rows of each cache leaf are written in place, every other
+        slot's state is untouched. Rows at S and past keep what they
+        held: decode writes row ``pos`` before it attends to it, so they
+        are never read.
         """
         S = tokens.shape[1]
         cap = self.cache_capacity(cache)
@@ -320,8 +363,9 @@ class LanguageModel:
         logits, small = self.prefill(params, tokens, lengths=lengths)
         slots = slots.to(device=cache["pos"].device, dtype=torch.long)
         cache["pos"].index_copy_(0, slots, small["pos"])
-        for name in ("k", "v"):                # (L, B, cap, ...)
-            cache[name][:, slots, :S] = small[name]
+        for name in small:                     # (L, B, cap, ...)
+            if name != "pos":
+                cache[name][:, slots, :S] = small[name]
         return logits, cache
 
 

@@ -2,7 +2,7 @@
 
 The continuous-batching engine decodes a FIXED device-resident batch of
 ``slots`` sequences; requests are admitted into free slots (prefill
-copies their KV state into the slot's rows — see
+copies their K/V or latent state into the slot's rows — see
 ``LanguageModel.prefill_at``) and retired on EOS/max-tokens, at which
 point the slot is simply marked free. Cache contents never round-trip
 through the host: the tensors live on the device for the engine's
@@ -22,8 +22,8 @@ from typing import Optional
 class SlotCache:
     """Fixed (slots, capacity) device cache + free-slot accounting.
 
-    ``capacity`` bounds prompt_len + max_new_tokens per request (KV
-    buffers are (L, slots, capacity, ...)). A ``mesh`` is not yet
+    ``capacity`` bounds prompt_len + max_new_tokens per request (the
+    cache leaves are (L, slots, capacity, ...)). A ``mesh`` is not yet
     ported.
     """
 

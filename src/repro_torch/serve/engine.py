@@ -4,10 +4,12 @@ port of the FIFO, unchunked path of ``repro/serve/engine.py``.
 
 ServeEngine contract (the decode hot path):
   * ONE decode step per emitted token for the whole slot batch. The
-    reference jits it and donates the cache; here the KV cache is a
-    persistent device tensor that the step writes in place (one K/V row
-    per slot and layer), so it is never copied per token. On the card,
-    attention runs as one ``flash_decode`` kernel launch per layer;
+    reference jits it and donates the cache; here the decode cache (K/V,
+    or MLA's latents) is a set of persistent device tensors that the
+    step writes in place (one row per slot, layer and leaf), so it is
+    never copied per token. On the card, GQA attention runs as one
+    ``flash_decode`` kernel launch per layer; MLA's absorbed decode is
+    torch ops, as the reference's is jnp;
   * sampling (greedy/temperature/top-k/top-p, per-request keys) runs on
     the device in that step, so only (slots, 1) int32 tokens are copied
     to the host, once per tick;
@@ -69,7 +71,7 @@ class ServeEngine:
     each ``step()`` admits whatever fits into free slots and decodes
     ONE token for every resident sequence.
 
-    The engine runs on the params' device; decode attention is the
+    The engine runs on the params' device; GQA decode attention is the
     ``flash_decode`` kernel on the card and its plain version on the
     CPU. ``use_flash`` checks that placement (``None``/``"auto"``: either;
     ``True``: the card; ``False``: the CPU).

@@ -850,3 +850,106 @@ def test_granite_lars_step_on_the_card_matches_the_cpu(cuda):
     assert float(cm["aux_loss"]) > 0
     for a, b in zip(w, cw):
         assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+# ------------------------------------------- MLA, sliding windows, softcap
+
+from repro_torch.models import attention as A  # noqa: E402
+
+
+def _deepseek(**changes):
+    """Reduced deepseek-v2-236b in f32 with a nonzero query rank (the
+    full width's q_down / q_norm / q_up path)."""
+    import dataclasses
+    return dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                               q_lora_rank=48, **changes)
+
+
+def test_mla_decode_on_the_card_matches_the_cpu(cuda):
+    """Reduced deepseek: prefill into the latent cache, then 8
+    teacher-forced decode steps (one slot past capacity at the end), card
+    against CPU: logits within 1e-4 (f32 products, TF32 off), the caches
+    within 1e-5, and no flash_decode launch (the absorbed decode is torch
+    ops)."""
+    cfg = _deepseek()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(2), "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 12)))
+    lens = torch.tensor([12, 4, 9], dtype=torch.int32)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 3, 1)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        fdk.reset_launch_counts()
+        _, cache = model.prefill(p, toks.to(dev), cache_len=16,
+                                 lengths=lens.to(dev))
+        logits = [model.decode_step(p, cache, t.to(dev))[0].cpu()
+                  for t in feed]
+        out[dev] = (logits, {k: v.cpu() for k, v in cache.items()})
+        assert fdk.LAUNCHES["flash_decode"] == 0
+    assert out["cuda"][1]["pos"].tolist() == [20, 12, 17]
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for name in ("ckv", "krope"):
+        torch.testing.assert_close(out["cuda"][1][name], out["cpu"][1][name],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_mla_lars_step_on_the_card_matches_the_cpu(cuda):
+    """One LARS step of reduced deepseek (f32): one norms_flat and one
+    apply_flat launch on the card; the loss and the updated weights
+    within 1e-5 of the CPU's."""
+    cfg = _deepseek()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = next(token_batches(TokenTaskConfig(vocab_size=cfg.vocab_size),
+                              batch=4, seq_len=32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = lars(0.05, momentum=0.9, weight_decay=1e-4)
+        state = train_state_from_params(
+            model, opt, tree_map(lambda t: t.to(dev), params))
+        lk.reset_launch_counts()
+        state, metrics = TrainPipeline(model, opt, cfg)(
+            state, {"tokens": torch.from_numpy(toks).to(dev)})
+        out[dev] = (metrics, tree_leaves(state.params))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert lk.LAUNCHES == {"norms_flat": 1, "apply_flat": 1,
+                                   "apply_flat_q8": 0}
+    (m, w), (cm, cw) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(m["loss"].cpu(), cm["loss"], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(w, cw):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [dict(window=48), dict(softcap=30.0),
+                                  dict(window=48, softcap=20.0, scale=0.1)])
+def test_windowed_stock_core_matches_flash_attention_on_the_card(
+        cuda, dtype, case):
+    """The stock attention_core with a window, the softcap and a custom
+    scale (autograd through f32 scores) against flash_attention (the
+    flash_vjp path: bf16 tensor-core score products, recomputed in the
+    backward pass) on the card, values and gradients; D 192 and Dv 128,
+    MLA's shapes, and query blocks whose first KV chunks the window
+    masks wholly."""
+    gen = torch.Generator().manual_seed(4)
+    B, S, H, D, Dv = 2, 256, 4, 192, 128
+    q, k = (torch.randn(B, S, H, D, generator=gen) for _ in range(2))
+    v = torch.randn(B, S, H, Dv, generator=gen)
+    do = torch.randn(B, S, H, Dv, generator=gen)
+    out = {}
+    for fv in (False, True):
+        xs = [x.to(cuda, dtype).requires_grad_() for x in (q, k, v)]
+        o = A.attention_core(*xs, q_positions=torch.arange(S, device=cuda),
+                             kv_chunk=32, q_chunk=64, flash_vjp=fv, **case)
+        grads = torch.autograd.grad(o, xs, do.to(cuda, dtype))
+        out[fv] = [t.detach().float().cpu() for t in (o,) + grads]
+    tol = FLASH_CARD_TOL[dtype]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), out[True], out[False]):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=tol["rtol"],
+                                   atol=tol["atol"] * scale, msg=name)

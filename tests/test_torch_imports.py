@@ -44,7 +44,9 @@ def test_the_scan_sees_the_port():
             "src/repro_torch/configs/shapes.py",
             "src/repro_torch/configs/qwen3_14b.py",
             "src/repro_torch/models/moe.py",
-            "src/repro_torch/configs/granite_moe_3b_a800m.py"} <= names
+            "src/repro_torch/configs/granite_moe_3b_a800m.py",
+            "src/repro_torch/models/mla.py",
+            "src/repro_torch/configs/deepseek_v2_236b.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -65,7 +67,8 @@ def test_the_scan_sees_the_port():
     "repro_torch.models.flash_attn", "repro_torch.launch.overrides",
     "repro_torch.configs.shapes", "repro_torch.configs.qwen3_14b",
     "repro_torch.configs.qwen2_72b", "repro_torch.configs.minitron_8b",
-    "repro_torch.models.moe", "repro_torch.configs.granite_moe_3b_a800m"])
+    "repro_torch.models.moe", "repro_torch.configs.granite_moe_3b_a800m",
+    "repro_torch.models.mla", "repro_torch.configs.deepseek_v2_236b"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""

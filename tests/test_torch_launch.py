@@ -41,14 +41,12 @@ def test_main_runs_on_cuda_unless_asked_otherwise():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--arch", "qwen3-14b", "--reduced", "--set", "sliding_window=8"],
-    ["--mesh", "1x1"],
-    ["--arch", "smollm-135m", "--reduced", "--set",
-     "attn_logit_softcap=30.0"],
-    ["--arch", "falcon-mamba-7b"], ["--arch", "deepseek-v2-236b"]])
+    ["--arch", "zamba2-7b"], ["--mesh", "1x1"], ["--arch", "whisper-base"],
+    ["--arch", "falcon-mamba-7b"], ["--arch", "paligemma-3b"]])
 def test_unported_options_raise(extra):
-    """--mesh, the archs of unported families, and config features set
-    through --set that the port does not cover yet."""
+    """--mesh and the archs of unported families (ssm, hybrid, encdec,
+    vlm). Training takes sliding windows, the softcap and MLA
+    (tests/test_torch_attention_masks.py, tests/test_torch_mla.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(CPU + ["--steps", "1"] + extra)
 

@@ -33,6 +33,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.serve import ServeEngine
+from repro_torch.train.step import value_and_grad
 from repro_torch.treepath import tree_leaves
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -429,15 +431,40 @@ def test_bf16_prefill_prefill_at_and_decode_match_reference(variant):
 # -------------------------------------------------------- what is refused
 
 @pytest.mark.parametrize("change", [
-    {"use_mla": True}, {"family": "hybrid"}, {"sliding_window": 64},
-    {"attn_logit_softcap": 30.0}, {"family": "ssm"}])
+    {"family": "encdec"}, {"family": "hybrid"}, {"sliding_window": 64},
+    {"attn_logit_softcap": 30.0}, {"family": "ssm"}, {"family": "vlm"},
+    {"sliding_window": 64, "use_mla": True},
+    {"attn_logit_softcap": 30.0, "use_mla": True}])
 def test_unported_features_raise(change):
-    """What the port still refuses (``qkv_bias`` and ``qk_norm`` are
-    ported: tests/test_torch_lm_lean.py holds them against the
-    reference)."""
-    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg)
+    """What the port still refuses: the unported families when the model
+    is built, and a sliding window or the logit softcap (with GQA or MLA)
+    wherever a decode cache is made (``init_cache``, ``prefill``, the
+    serving engine). Training takes both with GQA
+    (tests/test_torch_attention_masks.py) and MLA everywhere
+    (tests/test_torch_mla.py), but not MLA with either: the reference's
+    ``mla_block`` ignores both, and the port refuses them instead."""
+    base = get_config("deepseek-v2-236b" if change.get("use_mla")
+                      else "smollm-135m").reduced()
+    cfg = dataclasses.replace(base, **change)
+    if "family" in change:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            build_model(cfg)
+        return
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tok = torch.zeros(1, 4, dtype=torch.int32)
+    for call in (lambda: model.init_cache(1, 8),
+                 lambda: model.prefill(params, tok),
+                 lambda: ServeEngine(model, params, cfg, slots=1,
+                                     capacity=8)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            call()
+    if cfg.use_mla:
+        with pytest.raises(NotImplementedError, match="ignores both"):
+            value_and_grad(model, cfg, params, {"tokens": tok})
+        return
+    loss, _, _ = value_and_grad(model, cfg, params, {"tokens": tok})
+    assert torch.isfinite(loss)
 
 
 def test_softcap_is_refused_on_the_kernel_path():
