@@ -119,20 +119,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
              teacher-forced steps, card against CPU;
 14. MoE   — granite-moe-3b-a800m (40 experts, top-8): ``norms_flat``,
              ``apply_flat`` and ``apply_flat_q8`` at the packed shape of
-             its 16-layer superbuffer (rows from the layout), timed and
+             its 8-layer superbuffer (rows from the layout), timed and
              held on every row as in phase 13, and ``flash_decode`` at its
              decode shape (B 32, S 4096, Hkv 8, G 3, D 64, bf16) timed as
-             in phase 3; ``launch.train.main`` at full width, 16 of its 32
-             layers (``--set num_layers=16``), 4 x 4096 tokens through
+             in phase 3; ``launch.train.main`` at full width, 8 of its 32
+             layers (``--set num_layers=8``), 4 x 4096 tokens through
              phase 13's lean knobs, 3 steps each of f32 LARS and the
              large-batch path (one ``norms_flat`` and one ``apply_flat``
              or ``apply_flat_q8`` per step; finite losses, aux losses
              finite and nonzero; steps/s, tokens/s, the peak); from the
              same seed-0 init, the share of dropped slots at layer 0 for
              the first batch and a profiled f32 LARS step;
-             ``launch.serve.main`` at full width and depth (32 layers,
-             bf16), phase 8's 64 requests over 32 slots of capacity 4096:
-             32 ``flash_decode`` launches per decode tick, none in
+             ``launch.serve.main`` at full width and the same 8 layers
+             (bf16), phase 8's 64 requests over 32 slots of capacity 4096:
+             8 ``flash_decode`` launches per decode tick, none in
              admission, finite logits; reduced granite that drops slots
              (8 experts, top-2, capacity factor 0.5) in f32: 20 LARS
              steps card against CPU within 1e-5, 16 teacher-forced decode
@@ -148,7 +148,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              same seed-0 init, layer 0's dropped share, its MLA attention
              and MoE block timed apart (forward and backward, CUDA
              events) and a profiled f32 LARS step; ``launch.serve.main``
-             with all 160 experts at 2 layers (bf16), phase 8's traffic:
+             with all 160 experts at 1 layer (bf16), phase 8's traffic:
              no ``flash_decode`` launch (the absorbed decode is torch
              ops), every request finished, finite logits, the decode
              ticks' dropped share and the latent cache's bytes beside an
@@ -160,7 +160,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
              LARS steps through the stock core and 4 through
              ``flash_vjp`` (launches gated, tokens/s beside phase 12's),
              and reduced qwen3 with both, 20 LARS steps card against CPU
-             within 1e-5.
+             within 1e-5;
+16. SSM and hybrid — ``norms_flat``, ``apply_flat`` and
+             ``apply_flat_q8`` at the packed shapes of falcon-mamba-7b's
+             16-layer and zamba2-7b's 24-layer superbuffers (both past
+             element 2^31), on fresh buffers, held on every row and timed
+             as in phase 13, and ``flash_decode`` at zamba2's decode shape
+             (B 32, S 4096, Hkv 32, G 1, D 112, bf16) timed as in phase 3;
+             then for each model at full width and that depth (``--set
+             num_layers=16`` / ``24``), 4 x 4096 tokens through phase 13's
+             lean knobs: 3 steps each of f32 LARS and the large-batch path
+             through ``launch.train.main`` (one ``norms_flat`` and one
+             ``apply_flat`` or ``apply_flat_q8`` per step; finite losses;
+             tokens/s, the peak); on the f32 run's state after its steps
+             (one init shared), layer 0's Mamba block (and zamba2's shared
+             block) timed apart, forward and backward, and one more f32
+             LARS step profiled; ``launch.serve.main``
+             at the same depth with phase 8's traffic (falcon-mamba: no
+             ``flash_decode`` launch; zamba2: 4 a tick, one per
+             application of its shared block, none in admission; every
+             request finished, finite logits), the recurrent cache's bytes
+             beside a K/V cache's of the same depth; the reduced configs in
+             f32 (zamba2 at 3 layers): 20 LARS steps card against CPU
+             within 1e-5, 16 teacher-forced decode steps within 1e-4,
+             greedy tokens identical. The phases' wall times are printed
+             at the end.
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -305,20 +329,23 @@ QWEN_CARD_CPU_ARGS = ["--arch", "qwen3-14b", "--reduced", "--batch", "8",
                       "--set", "loss_chunk=16", "--set", "remat_block=2"]
 
 # phase 14: the MoE family. granite-moe-3b-a800m (the reference's config
-# verbatim) at full width, depth cut to 16 of its 32 layers
-# (1,687,097,856 parameters; f32 LARS at 32 would not fit the card),
-# 4 x 4096 tokens a step through phase 13's lean knobs: f32 LARS and the
-# large-batch path, as qwen3's runs
+# verbatim) at full width, depth cut to 8 of its 32 layers (881,299,968
+# parameters; f32 LARS at 32 would not fit the card, and 16 ran until the
+# script needed the time for phase 16), 4 x 4096 tokens a step through
+# phase 13's lean knobs: f32 LARS and the large-batch path, as qwen3's
+# runs
 GRANITE = "granite-moe-3b-a800m"
-GRANITE_LAYERS = 16
+GRANITE_LAYERS = 8
 GRANITE_STEPS = 3
 GRANITE_ARGS = ["--arch", GRANITE, "--set", f"num_layers={GRANITE_LAYERS}"] \
     + [a for v in QWEN_LEAN for a in ("--set", v)] + [
     "--batch", "4", "--seq", "4096", "--steps", str(GRANITE_STEPS),
     "--lr", "0.01", "--log-every", "0"]
-# served at full width and depth (32 layers, bf16): 32 slots of capacity
-# 4096 (an 8.6 GB KV cache), phase 8's traffic
-GRANITE_SERVE_ARGS = ["--arch", GRANITE] + SERVE_ARGS[2:]
+# served at the same cut (bf16; full depth until the script needed the
+# time for phase 16): 32 slots of capacity 4096 (a 2.1 GB KV cache),
+# phase 8's traffic
+GRANITE_SERVE_ARGS = ["--arch", GRANITE, "--set",
+                      f"num_layers={GRANITE_LAYERS}"] + SERVE_ARGS[2:]
 # flash_decode at granite's decode shape
 GRANITE_FD = (32, 4096, 8, 3, 64, "drawn")
 # reduced granite that drops slots (8 experts, top-2, capacity factor
@@ -349,10 +376,12 @@ DEEPSEEK_ARGS = ["--arch", DEEPSEEK] + [
     a for v in DEEPSEEK_CUT + DEEPSEEK_LEAN for a in ("--set", v)] + [
     "--batch", str(DEEPSEEK_BATCH), "--seq", "4096", "--steps",
     str(DEEPSEEK_STEPS), "--lr", "0.01", "--log-every", "0"]
-# served at every width with all 160 experts, 2 of 60 layers
-# (8,992,784,384 parameters, bf16), phase 8's traffic over a latent cache
-DEEPSEEK_SERVE_ARGS = ["--arch", DEEPSEEK, "--set", "num_layers=2"] \
-    + SERVE_ARGS[2:]
+# served at every width with all 160 experts, 1 of 60 layers
+# (5,020,680,192 parameters, bf16; cut from 2 to keep the script within its
+# time limit), phase 8's traffic over a latent cache
+DEEPSEEK_SERVE_LAYERS = 1
+DEEPSEEK_SERVE_ARGS = ["--arch", DEEPSEEK, "--set",
+                       f"num_layers={DEEPSEEK_SERVE_LAYERS}"] + SERVE_ARGS[2:]
 # reduced deepseek in f32 with a nonzero query rank (the full width's
 # q_down / q_norm / q_up path; the reduced preset sets 0): 20 LARS steps
 # card against CPU at phase 12's gate, its decode at phase 9's
@@ -373,6 +402,48 @@ MASK_CARD_CPU_ARGS = [
     "--arch", "qwen3-14b", "--reduced", "--batch", "8", "--seq", "64",
     "--steps", "20", "--lr", "0.01", "--log-every", "0", "--optimizer",
     "lars", "--set", "sliding_window=16", "--set", "attn_logit_softcap=50.0"]
+
+# phase 16: the SSM and hybrid families (the reference's configs verbatim)
+# at full width, trained at a cut depth, 4 x 4096 tokens a step through
+# phase 13's lean knobs (the loss chunked; in zamba2's shared block
+# flash_vjp and query chunks): f32 LARS and the large-batch path, as
+# qwen3's runs. falcon-mamba-7b at 16 of its 64 layers (2,217,345,024
+# parameters), zamba2-7b at 24 of its 81 (2,305,934,592; the shared block
+# after layers 0, 6, 12 and 18). Both are served at the same cut with
+# phase 8's traffic.
+FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-7b"
+SSM_LAYERS = {FALCON: 16, ZAMBA: 24}
+SSM_STEPS = 3
+
+
+def ssm_args(arch: str) -> list:
+    return ["--arch", arch, "--set", f"num_layers={SSM_LAYERS[arch]}"] + [
+        a for v in QWEN_LEAN for a in ("--set", v)] + [
+        "--batch", "4", "--seq", "4096", "--steps", str(SSM_STEPS),
+        "--lr", "0.01", "--log-every", "0"]
+
+
+def ssm_serve_args(arch: str) -> list:
+    return ["--arch", arch, "--set", f"num_layers={SSM_LAYERS[arch]}"] \
+        + SERVE_ARGS[2:]
+
+
+# flash_decode at zamba2's shared block's decode shape: MHA (G = 1) at
+# head dim 112, 32 slots of capacity 4096
+ZAMBA_FD = (32, 4096, 32, 1, 112, "drawn")
+# the reduced configs in f32 (zamba2 at 3 layers: its shared block runs
+# after layers 0 and 2, each with its own K/V cache): 20 LARS steps card
+# against CPU at phase 12's gate, the decode at phase 9's
+SSM_REDUCED = {FALCON: {}, ZAMBA: {"num_layers": 3}}
+
+
+def ssm_card_cpu_args(arch: str) -> list:
+    return ["--arch", arch, "--reduced", "--batch", "8", "--seq", "64",
+            "--steps", "20", "--lr", "0.01", "--log-every", "0",
+            "--optimizer", "lars"] + [
+        a for k, v in SSM_REDUCED[arch].items()
+        for a in ("--set", f"{k}={v}")]
+
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -912,9 +983,10 @@ def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float) -> dict:
 
 def serve_phase(serve, fdk, lk, args=SERVE_ARGS) -> dict:
     """Phase 8 (and 14, for granite; 15, for deepseek, whose absorbed MLA
-    decode launches no ``flash_decode``): the serve entry point at full
-    width. Every launch count is set to 0 just before it and read just
-    after."""
+    decode launches no ``flash_decode``; 16, for falcon-mamba, which
+    launches none, and zamba2, one per application of its shared block):
+    the serve entry point at full width. Every launch count is set to 0
+    just before it and read just after."""
     import torch
     lk.reset_launch_counts()
     fdk.reset_launch_counts()
@@ -923,7 +995,7 @@ def serve_phase(serve, fdk, lk, args=SERVE_ARGS) -> dict:
     launches = dict(fdk.LAUNCHES)
     lars = dict(lk.LAUNCHES)
     ticks = rep["decode_steps"]
-    want = (0 if rep["use_mla"] else rep["num_layers"]) * ticks
+    want = rep["flash_decode_per_tick"] * ticks
     log(f"  {rep['requests']} requests, {rep['tokens']} tokens, "
         f"{rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks "
         f"({1e3 * rep['wall_s'] / max(ticks, 1):.2f} ms of wall time per "
@@ -936,7 +1008,8 @@ def serve_phase(serve, fdk, lk, args=SERVE_ARGS) -> dict:
         f"logits finite {rep['logits_finite']}")
     if launches["flash_decode"] != want or ticks == 0:
         raise AssertionError(f"serve: {launches} flash_decode launches for "
-                             f"{ticks} ticks of {rep['num_layers']} layers")
+                             f"{ticks} ticks of {rep['num_layers']} layers, "
+                             f"want {want}")
     if any(lars.values()):
         raise AssertionError(f"serve launched LARS kernels: {lars}")
     if rep["requests"] != 64 or not rep["logits_finite"]:
@@ -964,8 +1037,9 @@ def _reduced_lm(device, arch: str = "smollm-135m", changes=()):
 def serve_card_vs_cpu_phase(fdk, arch: str = "smollm-135m",
                             changes=()) -> dict:
     """Phase 9 (and 13, for qwen3-14b; 14, for granite with ``changes``;
-    15, for deepseek, whose decode launches no ``flash_decode``): a
-    reduced LM (f32) on the CPU (plain) and the card."""
+    15, for deepseek, whose decode launches no ``flash_decode``; 16, for
+    falcon-mamba and zamba2): a reduced LM (f32) on the CPU (plain) and
+    the card."""
     import numpy as np
     import torch
     from repro_torch.serve import ServeEngine
@@ -985,8 +1059,8 @@ def serve_card_vs_cpu_phase(fdk, arch: str = "smollm-135m",
             raise AssertionError("prefill launched flash_decode")
         logits[dev] = torch.stack([model.decode_step(p, cache, t.to(dev))[0]
                                    .cpu() for t in feed])
-        want = cfg.num_layers * len(feed) \
-            if dev == "cuda" and not cfg.use_mla else 0
+        want = model.flash_decode_per_step() * len(feed) \
+            if dev == "cuda" else 0
         if fdk.LAUNCHES["flash_decode"] != want:
             raise AssertionError(f"{dev}: {fdk.LAUNCHES} launches, want "
                                  f"{want}")
@@ -1378,7 +1452,6 @@ def lm_profile(path: str, steps: int = 1, *, cfg=None, batch: int = 0,
     time by kernel, the hand kernels' and the loader's H2D copies' device
     time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.core import lars
     from repro_torch.data import ShardedLoader
@@ -1401,39 +1474,51 @@ def lm_profile(path: str, steps: int = 1, *, cfg=None, batch: int = 0,
     try:
         for _ in range(2):
             state, _ = pipe(state, next(loader))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                state, _ = pipe(state, next(loader))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        out, state = profile_steps(pipe, state, loader, steps,
+                                   f"{cfg.name} {path}, {steps} step(s) of "
+                                   f"{batch} x {seq}")
     finally:
         loader.close()
     del state, pipe
+    return dict({"arch": cfg.name, "batch": batch, "seq": seq}, **out)
+
+
+def profile_steps(pipe, state, batches, steps: int, label: str
+                  ) -> tuple[dict, object]:
+    """A ``torch.profiler`` window over ``steps`` steps of ``pipe`` from
+    ``state`` on ``batches`` (an iterator): busy share, time by kernel,
+    the hand kernels' and the loader's H2D copies' device time. Returns
+    (the numbers, the state after the steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = pipe(state, next(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
             / steps for k in KERNELS}
     h2d = sum(ms for n, ms in kernels.items() if "HtoD" in n) / steps
-    log(f"  {cfg.name} {path}, {steps} step(s) of {batch} x {seq}: wall "
-        f"{wall_ms / steps:.2f}"
+    log(f"  {label}: wall {wall_ms / steps:.2f}"
         f" ms/step, device busy {busy / steps:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%), H2D copies {h2d:.4f} ms"
-        if busy else f"  {path}: device time not measured (the profiler "
+        if busy else f"  {label}: device time not measured (the profiler "
         "recorded no CUDA events)")
     for name, ms in top:
         log(f"    {ms / steps:9.4f} ms/step  {name[:90]}")
     log(f"  hand kernels, device ms/step: {ours}")
-    return {"arch": cfg.name, "batch": batch, "seq": seq, "steps": steps,
-            "wall_ms_per_step": wall_ms / steps,
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy / steps if busy else None,
             "h2d_ms_per_step": h2d if busy else None,
             "hand_kernel_device_ms_per_step": ours,
             "top_kernels_ms_per_step": [[n[:90], ms / steps]
-                                        for n, ms in top]}
+                                        for n, ms in top]}, state
 
 
 def train_card_vs_cpu(train, args, label: str,
@@ -1956,8 +2041,9 @@ def deepseek_cfg(cut=DEEPSEEK_CUT + DEEPSEEK_LEAN):
 
 def deepseek_serve(serve, fdk, lk) -> dict:
     """Phase 15: ``launch.serve`` on deepseek at every width, all 160
-    experts, 2 layers (phase 8's traffic): no ``flash_decode`` launch in
-    the run; the share of slots the decode ticks' MoE blocks drop (each
+    experts, DEEPSEEK_SERVE_LAYERS layers (phase 8's traffic): no
+    ``flash_decode`` launch in the run; the share of slots the decode
+    ticks' MoE blocks drop (each
     tick routes all 32 slots: capacity round(6 * 32 / 160 * 1.25) = 2 an
     expert); the latent cache's bytes beside an expanded K/V cache's."""
     import torch
@@ -1978,7 +2064,7 @@ def deepseek_serve(serve, fdk, lk) -> dict:
     finally:
         lm_module.moe_block = inner
     out["decode_dropped_frac"] = float(torch.stack(drops).mean())
-    cfg = deepseek_cfg(["num_layers=2"])
+    cfg = deepseek_cfg([f"num_layers={DEEPSEEK_SERVE_LAYERS}"])
     cache = build_model(cfg).init_cache(32, 4096, device="meta")
     out["latent_cache_bytes"] = sum(t.numel() * t.element_size()
                                     for k, t in cache.items() if k != "pos")
@@ -2037,8 +2123,175 @@ def mla_phase(train, serve, lk, fdk, bw: float, flops: float, floor: float,
     return out
 
 
+def ssm_cfg(arch: str):
+    """falcon-mamba-7b or zamba2-7b as ``ssm_args`` sets it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.overrides import apply_overrides
+    return apply_overrides(get_config(arch),
+                           [f"num_layers={SSM_LAYERS[arch]}"] + QWEN_LEAN)
+
+
+def ssm_split_ms(model, params, tokens) -> dict:
+    """Layer 0's Mamba block and, in the hybrid, the shared attention +
+    MLP block after it, each forward and backward (gradients to its
+    input and its weights) at ``tokens``' shape: ms per call by CUDA
+    events around eager calls (dispatch_ms), which at these shapes is
+    the device's time. The Mamba block streams its chunks through their
+    checkpoints, as in training."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.treepath import tree_leaves, tree_map
+    cfg = model.cfg
+    p = tree_map(lambda t: t[0].detach().requires_grad_(True),
+                 params["layers"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    with torch.no_grad():
+        x = model.embed_tokens(params, tokens)
+        h = L.apply_norm(cfg, x, p["ln1"])
+        x = x + model._ssm_forward(p["ssm"], h)[0]
+    h = h.requires_grad_(True)
+
+    def mamba():
+        out = model._ssm_forward(p["ssm"], h)[0]
+        torch.autograd.grad(out.float().square().mean(),
+                            [h] + tree_leaves(p["ssm"]))
+    out = {"mamba": dispatch_ms(mamba, warmup=1, reps=3)}
+    if cfg.family == "hybrid":
+        shared = tree_map(lambda t: t.detach().requires_grad_(True),
+                          params["shared"])
+        x = x.requires_grad_(True)
+
+        def shared_block():
+            y = model._shared_block(shared, x, positions)
+            torch.autograd.grad(y.float().square().mean(),
+                                [x] + tree_leaves(shared))
+        out["shared_block"] = dispatch_ms(shared_block, warmup=1, reps=3)
+    return out
+
+
+def ssm_train_runs(train, lk, fdk, arch: str) -> tuple[dict, dict]:
+    """Phase 16: :func:`lm_train_runs` for ``arch`` (3 steps each of f32
+    LARS and the large-batch path through ``launch.train.main``), the f32
+    run's init shared with the session: after that run's steps, on its
+    state, layer 0's Mamba block (and zamba2's shared block) timed apart,
+    forward and backward, on the next 4 x 4096 batch, then one more f32
+    LARS step profiled. The session's kernel launches are not the run's:
+    the launch counts are restored after it. Returns (the runs, the
+    session)."""
+    import torch
+    inner = train.train_loop
+    session = {}
+
+    def loop(pipeline, state, batches, steps, *, log_every=0, eval_fn=None,
+             eval_batches=None):
+        # hand train_loop the only reference to the first state, as
+        # launch.train does: a name held here would keep it through the
+        # run (an f32 momentum and bf16 weights, ~13 GB at these sizes)
+        first = [state]
+        del state
+        state, hist = inner(pipeline, first.pop(), batches, steps,
+                            log_every=log_every, eval_fn=eval_fn,
+                            eval_batches=eval_batches)
+        if pipeline.precision.name == "f32" and not session:
+            counts = dict(lk.LAUNCHES)
+            batch = next(batches)
+            session["layer0_fwd_bwd_ms"] = ssm_split_ms(
+                pipeline.model, state.params, batch["tokens"])
+            log(f"  {arch}, after the f32 run's {steps} steps, forward + "
+                f"backward at 4 x 4096 (events, eager): " + ", ".join(
+                    f"{k} {v:.2f} ms"
+                    for k, v in session["layer0_fwd_bwd_ms"].items()))
+            session["profile"], state = profile_steps(
+                pipeline, state, batches, 1,
+                f"{arch} f32, 1 step of 4 x 4096")
+            torch.cuda.synchronize()
+            lk.LAUNCHES.update(counts)
+        return state, hist
+
+    train.train_loop = loop
+    try:
+        runs = lm_train_runs(train, lk, fdk, ssm_args(arch), QWEN_RUNS,
+                             SSM_STEPS)
+    finally:
+        train.train_loop = inner
+    return runs, session
+
+
+def ssm_serve(serve, fdk, lk, arch: str) -> dict:
+    """Phase 16: ``launch.serve`` at ``arch``'s cut (phase 8's traffic):
+    the launches per tick (falcon-mamba none, zamba2 one per application
+    of its shared block: 4) gated by :func:`serve_phase`; the recurrent
+    cache's bytes (bf16 conv states, f32 recurrent states, zamba2's
+    shared-block K/V) beside a K/V cache of the same depth (K and V of
+    width d_model in every layer, bf16)."""
+    from repro_torch.models import build_model
+    out = serve_phase(serve, fdk, lk, ssm_serve_args(arch))
+    want = {FALCON: 0, ZAMBA: 4}[arch]
+    if out["launches"]["flash_decode"] != want * out["decode_steps"]:
+        raise AssertionError(f"{arch}: {out['launches']} in "
+                             f"{out['decode_steps']} ticks, want {want} a "
+                             "tick")
+    cfg = ssm_cfg(arch)
+    cache = build_model(cfg).init_cache(32, 4096, device="meta")
+    out["cache_bytes"] = {k: t.numel() * t.element_size()
+                          for k, t in cache.items() if k != "pos"}
+    out["kv_cache_same_depth_bytes"] = (2 * cfg.num_layers * 32 * 4096
+                                        * cfg.d_model * 2)
+    log(f"  {arch}: {want} flash_decode launches a tick; cache "
+        f"{sum(out['cache_bytes'].values()):,} B {out['cache_bytes']} "
+        f"against a K/V cache of the same depth's "
+        f"{out['kv_cache_same_depth_bytes']:,} B")
+    return out
+
+
+def ssm_phase(train, serve, lk, fdk, bw: float, flops: float,
+              floor: float) -> dict:
+    """Phase 16: the SSM (falcon-mamba-7b) and hybrid (zamba2-7b) families
+    trained and served on the card."""
+    import torch
+    t_phase = time.perf_counter()
+    out = {}
+    for seed, arch in ((5, FALCON), (6, ZAMBA)):
+        layout = lm_layout(ssm_cfg(arch))
+        out[arch] = {"rows": layout.buffer_shape[0],
+                     "slices": layout.num_slices,
+                     "kernel_rows": large_kernel_rows(lk, layout, seed, bw,
+                                                      flops, floor)}
+    out["flash_decode_row"] = fd_timed_row(
+        fdk, ZAMBA_FD, torch.Generator(device="cuda").manual_seed(6), bw,
+        flops)
+    for arch in (FALCON, ZAMBA):
+        o = out[arch]
+        t0 = time.perf_counter()
+        o["runs"], o["session"] = ssm_train_runs(train, lk, fdk, arch)
+        o["serve"] = ssm_serve(serve, fdk, lk, arch)
+        # the reduced config in f32: training and its decode (16
+        # teacher-forced steps, the engine's greedy tokens)
+        o["card_vs_cpu"] = {
+            "train": train_card_vs_cpu(train, ssm_card_cpu_args(arch),
+                                       f"reduced {arch}"),
+            "decode": serve_card_vs_cpu_phase(fdk, arch,
+                                              SSM_REDUCED[arch])}
+        o["wall_s"] = time.perf_counter() - t0
+        log(f"  {arch} wall time {o['wall_s']:.1f} s")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 16 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    # the large steps (zamba2's f32 LARS at 24 layers) fit the card only
+    # without the allocator's fragmentation (set before CUDA starts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    stamps = []
+
+    def phase(title: str) -> None:
+        """Log a phase's title and note when it began."""
+        stamps.append((title.split(".")[0].lstrip("= "),
+                       time.perf_counter()))
+        log(title)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2049,7 +2302,7 @@ def main() -> int:
     from repro_torch.kernels import lars_kernels as lk
     from repro_torch.launch import serve, train
 
-    log("== 1. device")
+    phase("== 1. device")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2061,56 +2314,66 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("== 2. build")
+    phase("== 2. build")
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
 
-    log("== 3. kernels against their plain versions")
+    phase("== 3. kernels against their plain versions")
     kern, floor = kernel_phase(lk, bw, flops)
     fd_rows = flash_decode_phase(fdk, bw, flops)
 
-    log("== 4. main path: lenet-mnist, batch 8192, 20 steps")
+    phase("== 4. main path: lenet-mnist, batch 8192, 20 steps")
     runs = main_phase(train, lk, fdk)
 
-    log("== 5. card against CPU: 5 LARS steps at batch 32")
+    phase("== 5. card against CPU: 5 LARS steps at batch 32")
     card_cpu = card_vs_cpu_phase(train)
 
-    log("== 6. checkpoint: 10 + 10 steps against 20, large-batch path")
+    phase("== 6. checkpoint: 10 + 10 steps against 20, large-batch path")
     ckpt = checkpoint_phase(os.path.join(ROOT, "build"))
 
-    log("== 7. profile of main-path steps")
+    phase("== 7. profile of main-path steps")
     prof = {path: profile_phase(path) for path in ("f32", "large_batch")}
 
-    log("== 8. serve: smollm-135m at full width, 32 slots, 64 requests")
+    phase("== 8. serve: smollm-135m at full width, 32 slots, 64 requests")
     served = serve_phase(serve, fdk, lk)
 
-    log("== 9. serve, card against CPU: reduced smollm in f32")
+    phase("== 9. serve, card against CPU: reduced smollm in f32")
     serve_cpu = serve_card_vs_cpu_phase(fdk)
 
-    log("== 10. serve profile: 5 decode ticks at full width")
+    phase("== 10. serve profile: 5 decode ticks at full width")
     serve_prof = serve_profile_phase(fdk)
 
-    log("== 11. experiments: lars_vs_sgd_smoke and int8_parity_smoke")
+    phase("== 11. experiments: lars_vs_sgd_smoke and int8_parity_smoke")
     exp = experiment_phase(os.path.join(ROOT, "build"), lk)
 
-    log("== 12. LM training: smollm-135m at full width, lm_smoke")
+    phase("== 12. LM training: smollm-135m at full width, lm_smoke")
     lm = lm_phase(train, lk, fdk, bw, flops, floor,
                   os.path.join(ROOT, "build"))
 
-    log("== 13. the memory-lean LM path: smollm-135m's knobs, qwen3-14b "
-        "at full width")
+    phase("== 13. the memory-lean LM path: smollm-135m's knobs, qwen3-14b "
+          "at full width")
     lean = lean_phase(train, lk, fdk, bw, flops, floor)
 
-    log(f"== 14. the MoE family: {GRANITE} trained at full width and "
-        f"{GRANITE_LAYERS} layers, served at full width and depth")
+    phase(f"== 14. the MoE family: {GRANITE} trained at full width and "
+          f"{GRANITE_LAYERS} layers, trained and served")
     granite = granite_phase(train, serve, lk, fdk, bw, flops, floor)
 
-    log(f"== 15. MLA and masks: {DEEPSEEK} trained at every width, 2 "
-        f"layers and 16 routed experts, served with all 160; sliding "
-        f"windows and the softcap in training")
+    phase(f"== 15. MLA and masks: {DEEPSEEK} trained at every width, 2 "
+          f"layers and 16 routed experts, served with all 160 at "
+          f"{DEEPSEEK_SERVE_LAYERS}; sliding windows and the softcap in "
+          f"training")
     mla = mla_phase(train, serve, lk, fdk, bw, flops, floor,
                     lm["runs"]["lars"]["tokens_per_s"])
+
+    phase(f"== 16. the SSM and hybrid families: {FALCON} trained and "
+          f"served at full width and {SSM_LAYERS[FALCON]} layers, {ZAMBA} "
+          f"at {SSM_LAYERS[ZAMBA]}")
+    ssm = ssm_phase(train, serve, lk, fdk, bw, flops, floor)
+    stamps.append(("end", time.perf_counter()))
+    phase_s = {a[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
+    log("phase wall times, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in
+                                            phase_s.items()))
 
     replaces = {"norms_flat": "src/repro/kernels/lars_kernels.py:49",
                 "apply_flat": "src/repro/kernels/lars_kernels.py:86",
@@ -2203,6 +2466,22 @@ def main() -> int:
             t: r["launches"][kname] for t, r in mla["runs"].items()}
         entry["launches_by_mask_run"] = {
             t: r["launches"][kname] for t, r in mla["masks"]["runs"].items()}
+        for arch, tag in ((FALCON, "falcon"), (ZAMBA, "zamba2")):
+            s_row = ssm[arch]["kernel_rows"][kname]
+            entry["shapes"].append(s_row)
+            entry[f"{tag}_row"] = dict(
+                {k: v for k, v in s_row.items() if k.startswith("max_")},
+                rows=ssm[arch]["rows"], ms=s_row["ms"],
+                bound_ms=s_row["bound_ms"], plain_ms=s_row["plain_ms"],
+                library_ms=s_row["library_ms"],
+                dispatch_ms=s_row["dispatch_ms"])
+            if not int8:
+                entry[f"{tag}_row"][f"device_ms_in_{tag}_step"] = ssm[arch][
+                    "session"]["profile"]["hand_kernel_device_ms_per_step"][
+                    kname]
+            entry[f"launches_by_{tag}_run"] = {
+                t: r["launches"][kname]
+                for t, r in ssm[arch]["runs"].items()}
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
@@ -2231,7 +2510,18 @@ def main() -> int:
             "flash_decode"] / granite["serve"]["decode_steps"],
         # MLA's absorbed decode is torch ops, as the reference's is jnp
         "deepseek_serve_launches": mla["serve"]["launches"]["flash_decode"],
-        "shapes": fd_rows + [granite["flash_decode_row"]]})
+        "zamba2_row": {k: ssm["flash_decode_row"][k] for k in (
+            "shape", "ms", "bound_ms", "plain_ms", "library_ms",
+            "dispatch_ms", "max_abs_err", "splits")},
+        "zamba2_serve_launches": ssm[ZAMBA]["serve"]["launches"][
+            "flash_decode"],
+        "zamba2_serve_launches_per_tick": ssm[ZAMBA]["serve"]["launches"][
+            "flash_decode"] / ssm[ZAMBA]["serve"]["decode_steps"],
+        # Mamba layers are torch ops, as the reference's are jnp
+        "falcon_serve_launches": ssm[FALCON]["serve"]["launches"][
+            "flash_decode"],
+        "shapes": fd_rows + [granite["flash_decode_row"],
+                             ssm["flash_decode_row"]]})
     main_path = {tag: {k: r[k] for k in ("steps_per_s", "examples_per_s",
                                         "eval_accuracy", "train_s")}
                  for tag, r in runs.items()}
@@ -2240,7 +2530,7 @@ def main() -> int:
                     "serve_card_vs_cpu": serve_cpu,
                     "serve_profile": serve_prof, "experiments": exp,
                     "lm": lm, "lean": lean, "granite": granite,
-                    "mla": mla}))
+                    "mla": mla, "ssm": ssm, "phase_wall_s": phase_s}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": entries}))

@@ -1,5 +1,6 @@
-"""Carry params, packed optimizer states and LM decode caches between
-the JAX package and the port, as numpy arrays.
+"""Carry params, packed optimizer states and LM decode caches (K/V,
+latent, or SSM and hybrid recurrent states) between the JAX package and
+the port, as numpy arrays.
 
 The caller turns the JAX side into numpy (``jax.device_get`` /
 ``np.asarray``) and back; this module only sees numpy, so the port stays
@@ -99,15 +100,21 @@ def lm_params_to_torch(params: Pytree, model,
     return got
 
 
+CACHE_LEAVES = ({"pos", "k", "v"}, {"pos", "ckv", "krope"},
+                {"pos", "conv", "h"}, {"pos", "conv", "h", "attn_k", "attn_v"})
+
+
 def cache_to_torch(cache: dict, device: torch.device | str = "cpu"
                    ) -> dict:
-    """A dense or MoE LM's decode cache (``pos`` (B,) int32, and
-    ``k``/``v`` (L, B, S, Hkv, hd) or MLA's ``ckv`` (L, B, S, r) and
-    ``krope`` (L, B, S, rope)) from the reference, as tensors on
-    ``device``."""
-    if set(cache) not in ({"pos", "k", "v"}, {"pos", "ckv", "krope"}):
-        raise ValueError(f"expected a K/V (pos, k, v) or latent (pos, ckv, "
-                         f"krope) decode cache, got {sorted(cache)}")
+    """An LM's decode cache from the reference, as tensors on ``device``:
+    ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, Hkv, hd), MLA's ``ckv``
+    (L, B, S, r) and ``krope`` (L, B, S, rope), the SSM family's
+    ``conv`` (L, B, K-1, C) and f32 ``h``, or the hybrid's ``conv``,
+    ``h`` and ``attn_k``/``attn_v`` (A, B, S, Hkv, hd)."""
+    if set(cache) not in CACHE_LEAVES:
+        raise ValueError(f"expected a decode cache with the leaves of one "
+                         f"of {[sorted(c) for c in CACHE_LEAVES]}, got "
+                         f"{sorted(cache)}")
     out = {k: tensor_from_numpy(v, device) for k, v in cache.items()}
     out["pos"] = out["pos"].to(torch.int32)
     return out

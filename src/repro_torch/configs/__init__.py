@@ -7,19 +7,20 @@ from repro_torch.configs.base import ModelConfig, param_count  # noqa: F401
 from repro_torch.configs.shapes import (SHAPES, TRAIN_4K,  # noqa: F401
                                         PREFILL_32K, DECODE_32K, LONG_500K,
                                         LONG_CONTEXT_WINDOW, InputShape)
-from repro_torch.configs import (deepseek_v2_236b, granite_moe_3b_a800m,
-                                 lenet_mnist, minitron_8b, qwen2_72b,
-                                 qwen3_14b, smollm_135m)
+from repro_torch.configs import (deepseek_v2_236b, falcon_mamba_7b,
+                                 granite_moe_3b_a800m, lenet_mnist,
+                                 minitron_8b, qwen2_72b, qwen3_14b,
+                                 smollm_135m, zamba2_7b)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG for m in (lenet_mnist, smollm_135m, qwen3_14b,
                                       qwen2_72b, minitron_8b,
                                       granite_moe_3b_a800m,
-                                      deepseek_v2_236b)}
+                                      deepseek_v2_236b, falcon_mamba_7b,
+                                      zamba2_7b)}
 
 # registered in repro.configs, not yet in the port
-NOT_YET_PORTED = ("whisper-base", "zamba2-7b", "falcon-mamba-7b",
-                  "paligemma-3b")
+NOT_YET_PORTED = ("whisper-base", "paligemma-3b")
 
 
 def get_config(name: str) -> ModelConfig:

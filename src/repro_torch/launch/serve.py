@@ -19,6 +19,8 @@ Examples (on the card; ``--device cpu`` runs on the CPU)::
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-236b --set num_layers=2 --slots 32 \
         --capacity 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-7b --reduced --device cpu
 
 Weights are random, drawn from ``--seed`` (the port's own init at the
 reference's distributions). ``--set FIELD=VALUE`` overrides a config
@@ -173,6 +175,7 @@ def main(argv=None) -> dict:
     rep.update(arch=cfg.name, device=str(device), slots=args.slots,
                capacity=args.capacity, num_layers=cfg.num_layers,
                use_mla=cfg.use_mla,
+               flash_decode_per_tick=model.flash_decode_per_step(),
                flash_decode_launches=fd.LAUNCHES["flash_decode"] - launches0,
                logits_finite=engine.logits_finite)
 
@@ -193,7 +196,7 @@ def main(argv=None) -> dict:
     print(f"  decode ticks {rep['decode_steps']}, admissions "
           f"{rep['admit_calls']} — flash_decode kernel launches "
           f"{rep['flash_decode_launches']} ("
-          f"{0 if cfg.use_mla else cfg.num_layers} per tick on the card, 0 "
+          f"{rep['flash_decode_per_tick']} per tick on the card, 0 "
           f"on the CPU); logits finite: {rep['logits_finite']}")
     for f in rep["finished"][:8]:
         print(f"    req {f.request.rid:3d}: prompt {f.request.prompt_len:3d} "

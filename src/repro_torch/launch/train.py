@@ -1,7 +1,9 @@
 """Training entry point of the port (one device): port of
 ``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
-cnn), a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b — or
-the MoE LM granite-moe-3b-a800m (``--reduced``: the CPU-scale variant),
+cnn), a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b —,
+an MoE LM — granite-moe-3b-a800m, deepseek-v2-236b (MLA) —, the SSM LM
+falcon-mamba-7b or the hybrid zamba2-7b (``--reduced``: the CPU-scale
+variant),
 and ``--set FIELD=VALUE`` overrides config fields after ``--reduced``,
 as the reference does: the memory-lean LM path (``flash_vjp=true``,
 ``attn_q_chunk``, ``loss_chunk``, ``remat_block``) and a cut depth
@@ -30,6 +32,8 @@ Examples (on the card; ``--device cpu`` runs them on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch granite-moe-3b-a800m --reduced --steps 5 --batch 8 --seq 32 \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+      --set num_layers=24 --batch 4 --seq 4096 --steps 3
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.

@@ -35,8 +35,11 @@ def _normal(gen: torch.Generator, shape: tuple, std: float,
             dtype: torch.dtype, device) -> torch.Tensor:
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    w = torch.randn(shape, generator=gen) * std
-    return w.to(device=device, dtype=dtype)
+    # scaled in place and cast on the device (the same round to nearest
+    # even as on the host): the same values as drawing, scaling and
+    # casting on the host, with less host work per element
+    w = torch.randn(shape, generator=gen).mul_(std)
+    return w.to(device).to(dtype)
 
 
 # ----------------------------------------------------------------- norms

@@ -1,7 +1,8 @@
-"""Decoder-only language model, dense and MoE families (with GQA or MLA
-attention): port of those branches of ``repro/models/lm.py`` — init,
-the training forward, the decode cache, one-token decode,
-(length-masked) prefill and slot admission into a persistent cache.
+"""Decoder-only language model, the dense, MoE, SSM and hybrid families
+(with GQA or MLA attention): port of those branches of
+``repro/models/lm.py`` — init, the training forward, the decode cache,
+one-token decode, (length-masked) prefill and slot admission into a
+persistent cache.
 
 Params are nested dicts in the reference's leaf layouts: per-layer
 leaves stacked on a leading ``(L, ...)`` axis under ``"layers"``,
@@ -31,18 +32,34 @@ With ``use_mla`` each layer's attention is
 :mod:`repro_torch.models.mla`'s: the expanded block in training and
 prefill, the absorbed decode over a latent cache.
 
-The decode cache is the reference's: ``{"pos": (B,) int32, "k", "v":
-(L, B, S, Hkv, hd)}``, or with MLA ``{"pos", "ckv": (L, B, S, r),
-"krope": (L, B, S, rope)}``. Where the reference returns new arrays
-(and donates the old ones to XLA), the port writes in place:
-:meth:`decode_step` writes one row per sequence and layer of each cache
-leaf and advances ``pos``; :meth:`prefill_at` writes the admitted
-slots' prompt rows and ``pos``. Both return the cache they were given.
+The SSM family (falcon-mamba-7b) is a stack of ``x + mamba1(norm(x))``
+layers (:mod:`repro_torch.models.ssm`); the hybrid (zamba2-7b) stacks
+Mamba-2 layers and, after every ``attn_every``-th one, applies ONE
+shared attention + MLP block (``params["shared"]``, the same weights at
+every application; a Python ``if`` where the reference has
+``lax.cond``), so the shared block's gradient is the sum over its
+applications.
 
-Other families (ssm, hybrid, encdec, vlm) raise
-``NotImplementedError``, and so do decode, prefill and serving with the
-attention features of
-:func:`repro_torch.models.attention.check_decode_supported`.
+The decode cache is the reference's: ``{"pos": (B,) int32, "k", "v":
+(L, B, S, Hkv, hd)}``; with MLA ``{"pos", "ckv": (L, B, S, r),
+"krope": (L, B, S, rope)}``; for the SSM family ``{"pos", "conv":
+(L, B, K-1, C), "h": (L, B, d_inner, N) f32}``, and for the hybrid
+``{"pos", "conv", "h": (L, B, heads, hd, N) f32, "attn_k", "attn_v":
+(A, B, S, Hkv, hd)}``, one K/V cache per application of the shared
+block (A = ceil(L / attn_every)). Where the reference returns new
+arrays (and donates the old ones to XLA), the port writes in place:
+:meth:`decode_step` writes one row per sequence and layer of each K/V
+or latent leaf, each Mamba layer's new conv and recurrent state, and
+advances ``pos``; :meth:`prefill_at` writes the admitted slots' prompt
+rows, their whole recurrent state and ``pos``. Both return the cache
+they were given.
+
+Other families (encdec, vlm) raise ``NotImplementedError``, and so do
+decode, prefill and serving with the attention features of
+:func:`repro_torch.models.attention.check_decode_supported` (on every
+family that has attention). A hybrid prompt longer than its shared
+block's cache needs the reference's ring alignment, which is not
+ported, and raises too.
 """
 
 from __future__ import annotations
@@ -57,6 +74,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
+from repro_torch.models import ssm as SSM
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
@@ -64,22 +82,52 @@ from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
 Pytree = Any
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+RECURRENT = ("ssm", "hybrid")
+# cache leaves without a sequence axis: a slot's whole recurrent state
+STATE_LEAVES = ("conv", "h")
 
 
 class LanguageModel:
     def __init__(self, cfg):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not yet ported to "
-                "repro_torch (the LM port covers the dense and moe "
-                "families)")
+                f"repro_torch (the LM port covers {', '.join(FAMILIES)})")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
+        self.recurrent = cfg.family in RECURRENT
+
+    def _ssm_forward(self, p, x, **kw):
+        fwd = (SSM.mamba1_forward if self.cfg.family == "ssm"
+               else SSM.mamba2_forward)
+        return fwd(self.cfg, p, x, **kw)
+
+    def _shared_applications(self) -> int:
+        """How often the hybrid's shared block runs: ceil(L / attn_every)."""
+        every = self.cfg.attn_every
+        return -(-self.cfg.num_layers // every) if every else 0
+
+    def _applies_shared(self, i: int) -> bool:
+        """Whether the hybrid's shared block follows layer ``i``."""
+        every = self.cfg.attn_every
+        return self.cfg.family == "hybrid" and bool(every) and i % every == 0
+
+    def _check_decode(self) -> None:
+        """Decode, prefill and serving refuse what
+        ``check_decode_supported`` refuses, where there is attention."""
+        if self.cfg.family != "ssm":
+            A.check_decode_supported(self.cfg)
 
     # ------------------------------------------------------------------ init
 
     def _init_layer(self, gen: torch.Generator, device) -> dict:
         cfg, d, dt = self.cfg, self.cfg.d_model, self.dtype
+        if self.recurrent:
+            init_ssm = (SSM.init_mamba1 if cfg.family == "ssm"
+                        else SSM.init_mamba2)
+            return {"ln1": L.init_norm(cfg, d, device),
+                    "ssm": init_ssm(gen, cfg, dt, device)}
         init_attn = MLA.init_mla if cfg.use_mla else A.init_attention
         p = {"ln1": L.init_norm(cfg, d, device),
              "ln2": L.init_norm(cfg, d, device),
@@ -94,7 +142,9 @@ class LanguageModel:
         """Random params at the reference's distributions (fan-in normal
         dense weights, embedding std 0.02, norms at one), drawn from
         ``generator`` (a CPU generator) in a fixed order and moved to
-        ``device``: one seed gives the same weights on every device."""
+        ``device``: one seed gives the same weights on every device. The
+        hybrid's shared block is drawn last, as the reference orders its
+        keys."""
         cfg, d, dt = self.cfg, self.cfg.d_model, self.dtype
         embed = L.embed_init(generator, cfg.vocab_size, d, dt, device)
         layers = [self._init_layer(generator, device)
@@ -105,6 +155,12 @@ class LanguageModel:
         if not cfg.tie_embeddings:
             params["unembed"] = L.dense_init(generator, d, cfg.vocab_size,
                                              dt, device)
+        if cfg.family == "hybrid":
+            params["shared"] = {
+                "ln1": L.init_norm(cfg, d, device),
+                "attn": A.init_attention(generator, cfg, d, dt, device),
+                "ln2": L.init_norm(cfg, d, device),
+                "mlp": init_mlp(generator, cfg, d, cfg.d_ff, dt, device)}
         return params
 
     def stacked_marker(self, params: Pytree) -> Pytree:
@@ -144,13 +200,28 @@ class LanguageModel:
             return moe_block(self.cfg, params_l["moe"], h)
         return mlp_block(self.cfg, params_l["mlp"], h), None
 
+    def _shared_block(self, shared, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """The hybrid's shared attention + MLP block, in training."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, shared["ln1"])
+        x = x + A.attention_block(cfg, shared["attn"], h, positions)
+        h = L.apply_norm(cfg, x, shared["ln2"])
+        return x + mlp_block(cfg, shared["mlp"], h)
+
     def _layer_train(self, params_l, x: torch.Tensor, aux: torch.Tensor,
-                     positions: torch.Tensor
+                     positions: torch.Tensor, shared=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """One layer on the carry (x, aux): aux gains the MoE block's
-        load-balance loss."""
+        load-balance loss. A Mamba layer is ``x + ssm(norm(x))``, then
+        the hybrid's shared block where ``shared`` is given."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
+        if self.recurrent:
+            x = x + self._ssm_forward(params_l["ssm"], h)[0]
+            if shared is not None:
+                x = self._shared_block(shared, x, positions)
+            return x, aux
         x = x + self.attention_block(params_l["attn"], h, positions)
         h = L.apply_norm(cfg, x, params_l["ln2"])
         y, moe_aux = self._ffn(params_l, h)
@@ -158,18 +229,20 @@ class LanguageModel:
             aux = aux + moe_aux["aux_loss"]
         return x + y, aux
 
-    def _block_train(self, layers, x: torch.Tensor, aux: torch.Tensor,
-                     positions: torch.Tensor, idx: range
+    def _block_train(self, layers, shared, x: torch.Tensor,
+                     aux: torch.Tensor, positions: torch.Tensor, idx: range
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Layers ``idx`` in order on the carry (x, aux), each
-        checkpointed when ``cfg.remat``."""
+        checkpointed when ``cfg.remat``; ``shared``: the hybrid's shared
+        block, applied after the layers :meth:`_applies_shared` names."""
         for i in idx:
-            params_l = _index(layers, i)
+            args = (_index(layers, i), x, aux, positions,
+                    shared if self._applies_shared(i) else None)
             if self.cfg.remat:
-                x, aux = checkpoint(self._layer_train, params_l, x, aux,
-                                    positions, use_reentrant=False)
+                x, aux = checkpoint(self._layer_train, *args,
+                                    use_reentrant=False)
             else:
-                x, aux = self._layer_train(params_l, x, aux, positions)
+                x, aux = self._layer_train(*args)
         return x, aux
 
     def forward(self, params, tokens: torch.Tensor, *,
@@ -189,14 +262,15 @@ class LanguageModel:
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), device=x.device)
         blk = cfg.remat_block
+        shared = params.get("shared")
         if cfg.remat and blk and cfg.num_layers % blk == 0:
             for i in range(0, cfg.num_layers, blk):
-                x, aux = checkpoint(self._block_train, params["layers"], x,
-                                    aux, positions, range(i, i + blk),
-                                    use_reentrant=False)
+                x, aux = checkpoint(self._block_train, params["layers"],
+                                    shared, x, aux, positions,
+                                    range(i, i + blk), use_reentrant=False)
         else:
-            x, aux = self._block_train(params["layers"], x, aux, positions,
-                                       range(cfg.num_layers))
+            x, aux = self._block_train(params["layers"], shared, x, aux,
+                                       positions, range(cfg.num_layers))
         aux = {"aux_loss": aux}
         if return_hidden:
             return L.apply_norm(cfg, x, params["final_norm"]), aux
@@ -205,34 +279,68 @@ class LanguageModel:
     # ----------------------------------------------------------------- cache
 
     def _cache_shapes(self, batch: int, seq_len: int) -> dict:
-        """The decode cache's leaves other than ``pos``: MLA's latent and
-        rope-key caches, else K and V."""
-        cfg = self.cfg
-        lead = (cfg.num_layers, batch, seq_len)
-        if cfg.use_mla:
-            return {"ckv": lead + (cfg.kv_lora_rank,),
-                    "krope": lead + (cfg.qk_rope_dim,)}
+        """The decode cache's leaves other than ``pos``: {name: (shape,
+        dtype)}. MLA's latent and rope-key caches; the SSM family's conv
+        and recurrent states; the hybrid's states and one K/V cache per
+        shared-block application; else K and V."""
+        cfg, dt, f32 = self.cfg, self.dtype, torch.float32
+        L_, K = cfg.num_layers, cfg.ssm_conv
+        lead = (L_, batch, seq_len)
         _, Hkv, hd = cfg.attn_dims
-        return {"k": lead + (Hkv, hd), "v": lead + (Hkv, hd)}
+        if cfg.family == "ssm":
+            din = cfg.ssm_d_inner
+            return {"conv": ((L_, batch, K - 1, din), dt),
+                    "h": ((L_, batch, din, cfg.ssm_state), f32)}
+        if cfg.family == "hybrid":
+            din, N, shd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim
+            kv = ((self._shared_applications(), batch, seq_len, Hkv, hd), dt)
+            return {"conv": ((L_, batch, K - 1,
+                              din + 2 * cfg.ssm_groups * N), dt),
+                    "h": ((L_, batch, din // shd, shd, N), f32),
+                    "attn_k": kv, "attn_v": kv}
+        if cfg.use_mla:
+            return {"ckv": (lead + (cfg.kv_lora_rank,), dt),
+                    "krope": (lead + (cfg.qk_rope_dim,), dt)}
+        return {"k": (lead + (Hkv, hd), dt), "v": (lead + (Hkv, hd), dt)}
 
     def init_cache(self, batch: int, seq_len: int, *, device=None) -> dict:
-        A.check_decode_supported(self.cfg)
+        self._check_decode()
         cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
-        for name, shape in self._cache_shapes(batch, seq_len).items():
-            cache[name] = torch.zeros(shape, dtype=self.dtype, device=device)
+        for name, (shape, dt) in self._cache_shapes(batch, seq_len).items():
+            cache[name] = torch.zeros(shape, dtype=dt, device=device)
         return cache
 
-    def cache_capacity(self, cache: dict) -> int:
-        """Token capacity of a decode cache (its leaves are (L, B, S, ...))."""
-        return next(v for k, v in cache.items() if k != "pos").shape[2]
+    def flash_decode_per_step(self) -> int:
+        """``flash_decode`` launches one :meth:`decode_step` makes on the
+        card: one per GQA layer, or per application of the hybrid's
+        shared block; none for MLA or Mamba layers."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return self._shared_applications()
+        return 0 if cfg.family == "ssm" or cfg.use_mla else cfg.num_layers
+
+    def cache_capacity(self, cache: dict) -> Optional[int]:
+        """Token capacity of a decode cache, looked up by leaf name as
+        the reference does: None for a pure-SSM cache, whose state does
+        not grow with the sequence."""
+        for name in ("k", "ckv", "attn_k"):
+            if name in cache:
+                return cache[name].shape[2]
+        return None
 
     # ---------------------------------------------------------------- decode
 
     def _layer_decode(self, params_l, x, cache_l: dict, pos):
-        """One layer, one token; writes this layer's cache rows
-        (``cache_l``: the layer's views of the cache leaves)."""
+        """One layer, one token; writes this layer's cache rows, or its
+        new conv and recurrent state (``cache_l``: the layer's views of
+        the cache leaves)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
+        if self.recurrent:
+            y, st = self._ssm_forward(params_l["ssm"], h, state=cache_l)
+            for name in STATE_LEAVES:
+                cache_l[name].copy_(st[name])
+            return x + y
         if cfg.use_mla:
             out, _, _ = MLA.mla_decode(cfg, params_l["attn"], h,
                                        cache_l["ckv"], cache_l["krope"], pos)
@@ -243,35 +351,70 @@ class LanguageModel:
         h = L.apply_norm(cfg, x, params_l["ln2"])
         return x + self._ffn(params_l, h)[0]
 
+    def _shared_decode(self, shared, x, cache_k, cache_v, pos):
+        """The hybrid's shared block, one token, over one application's
+        K/V cache (written in place)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, shared["ln1"])
+        out, _, _ = A.decode_attention(cfg, shared["attn"], h, cache_k,
+                                       cache_v, pos)
+        x = x + out
+        h = L.apply_norm(cfg, x, shared["ln2"])
+        return x + mlp_block(cfg, shared["mlp"], h)
+
     @torch.no_grad()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor, *,
                     use_flash: bool | str = "auto"
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> (logits (B, 1, V) f32, the cache, updated in
-        place: one row per sequence and layer of each cache leaf, and
+        place: one row per sequence and layer of each K/V or latent
+        leaf, each Mamba layer's conv and recurrent state, and
         ``pos + 1``).
 
-        GQA attention runs through the ``flash_decode`` wrapper: one
-        kernel launch per layer on CUDA tensors, its plain version on CPU
-        tensors. MLA's absorbed decode is torch ops, as the reference's
-        is jnp: it launches no kernel. ``use_flash`` only checks the
-        placement, as LARS's ``use_kernels`` does: ``"auto"`` takes
-        either, ``True`` needs CUDA tensors, ``False`` CPU tensors.
+        GQA attention (the dense and MoE layers, the hybrid's shared
+        block) runs through the ``flash_decode`` wrapper: one kernel
+        launch per layer or shared-block application on CUDA tensors,
+        its plain version on CPU tensors. The hybrid's shared block at
+        layer i reads and writes K/V cache ``i // attn_every``. MLA's
+        absorbed decode and the Mamba layers are torch ops, as the
+        reference's are jnp: they launch no kernel. ``use_flash`` only
+        checks the placement, as LARS's ``use_kernels`` does:
+        ``"auto"`` takes either, ``True`` needs CUDA tensors, ``False``
+        CPU tensors.
         """
         pos = cache["pos"]
         kops.check_use_kernels(use_flash, pos.device, option="use_flash")
         x = self.embed_tokens(params, tokens)
         layers = params["layers"]
-        leaves = [name for name in cache if name != "pos"]
+        leaves = [name for name in cache
+                  if name not in ("pos", "attn_k", "attn_v")]
         for i in range(self.cfg.num_layers):
-            params_l = _index(layers, i)
-            x = self._layer_decode(params_l, x,
+            x = self._layer_decode(_index(layers, i), x,
                                    {name: cache[name][i] for name in leaves},
                                    pos)
+            if self._applies_shared(i):
+                a = i // self.cfg.attn_every
+                x = self._shared_decode(params["shared"], x,
+                                        cache["attn_k"][a],
+                                        cache["attn_v"][a], pos)
         pos.add_(1)
         return self.logits(params, x), cache
 
     # --------------------------------------------------------------- prefill
+
+    def _attention_prefill(self, p, h: torch.Tensor, positions: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """A GQA attention sub-block over the whole prompt: (out (B, S,
+        d), k, v (B, S, Hkv, hd)) for the cache."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        H, _, hd = cfg.attn_dims
+        q, k, v = A.qkv_project(cfg, p, h, positions)
+        out = A.attention_core(q, k, v, q_positions=positions,
+                               q_chunk=cfg.attn_q_chunk,
+                               flash_vjp=cfg.flash_vjp)
+        return out.reshape(B, S, H * hd) @ p["wo"], k, v
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, *,
@@ -288,43 +431,100 @@ class LanguageModel:
         cache entries are never read back (decode masks kv_len = pos + 1).
         With MLA the cache takes each layer's latents (c_kv and the roped
         shared key) and the attention runs expanded, as the reference.
-        Returns (last-valid-token logits (B, V) f32, cache).
+        The SSM and hybrid families carry their recurrent state through
+        the prompt (:meth:`_prefill_recurrent`). Returns
+        (last-valid-token logits (B, V) f32, cache).
         """
         cfg = self.cfg
-        A.check_decode_supported(cfg)
+        self._check_decode()
         x = self.embed_tokens(params, tokens)
         B, S, _ = x.shape
-        H, _, hd = cfg.attn_dims
         positions = torch.arange(S, device=x.device)
         cap = cache_len or S
-        rows = {name: [] for name in self._cache_shapes(B, cap)}
+        if self.recurrent:
+            logits, cache = self._prefill_recurrent(params, x, positions,
+                                                    cap, lengths)
+        else:
+            rows = {name: [] for name in self._cache_shapes(B, cap)}
+            for i in range(cfg.num_layers):
+                params_l = _index(params["layers"], i)
+                p = params_l["attn"]
+                h = L.apply_norm(cfg, x, params_l["ln1"])
+                if cfg.use_mla:
+                    ckv, krope = MLA._latents(cfg, p, h, positions)
+                    x = x + MLA.mla_block(cfg, p, h, positions)
+                    rows["ckv"].append(ckv)
+                    rows["krope"].append(krope[:, :, 0])
+                else:
+                    out, k, v = self._attention_prefill(p, h, positions)
+                    x = x + out
+                    rows["k"].append(k)
+                    rows["v"].append(v)
+                h = L.apply_norm(cfg, x, params_l["ln2"])
+                x = x + self._ffn(params_l, h)[0]
+            logits = self._last_valid_logits(params, x, lengths)
+            cache = {name: _fit(torch.stack(ts).to(self.dtype), cap, dim=2)
+                     for name, ts in rows.items()}
+        # a copy: decode_step advances pos in place
+        cache["pos"] = (torch.full((B,), S, dtype=torch.int32,
+                                   device=x.device)
+                        if lengths is None
+                        else lengths.to(torch.int32, copy=True))
+        return logits, cache
+
+    def _prefill_recurrent(self, params, x: torch.Tensor,
+                           positions: torch.Tensor, cap: int,
+                           lengths: Optional[torch.Tensor]
+                           ) -> tuple[torch.Tensor, dict]:
+        """The SSM and hybrid prefill: each layer's full-sequence pass
+        from a zero state, masked by ``lengths`` (pad steps are identity
+        steps, so the state is each row's after its last true token),
+        keeping its conv and recurrent state; at each application of the
+        hybrid's shared block, its full-length K and V. Returns (logits,
+        the cache without ``pos``).
+
+        The reference aligns the shared block's K/V to a ring where a
+        window is set or the prompt is longer than the cache. No
+        registered hybrid sets a window (and decode refuses one), and a
+        prompt longer than the cache raises here: the ring is not
+        ported, so the layout is linear, rows 0..S-1 holding positions
+        0..S-1. The rows past S are zeros where the reference repeats
+        row S-1; decode never reads them.
+        """
+        cfg = self.cfg
+        B, S, _ = x.shape
+        if cfg.family == "hybrid" and S > cap:
+            raise NotImplementedError(
+                f"a {S}-token prompt into a hybrid cache of capacity {cap} "
+                "needs the reference's ring alignment, which is not yet "
+                "ported to repro_torch")
+        shapes = self._cache_shapes(B, cap)
+        zero = {name: torch.zeros(shapes[name][0][1:], dtype=shapes[name][1],
+                                  device=x.device) for name in STATE_LEAVES}
+        rows = {name: [] for name in shapes}
         for i in range(cfg.num_layers):
             params_l = _index(params["layers"], i)
-            p = params_l["attn"]
             h = L.apply_norm(cfg, x, params_l["ln1"])
-            if cfg.use_mla:
-                ckv, krope = MLA._latents(cfg, p, h, positions)
-                x = x + MLA.mla_block(cfg, p, h, positions)
-                rows["ckv"].append(ckv)
-                rows["krope"].append(krope[:, :, 0])
-            else:
-                q, k, v = A.qkv_project(cfg, p, h, positions)
-                out = A.attention_core(q, k, v, q_positions=positions,
-                                       q_chunk=cfg.attn_q_chunk,
-                                       flash_vjp=cfg.flash_vjp)
-                x = x + out.reshape(B, S, H * hd) @ p["wo"]
-                rows["k"].append(k)
-                rows["v"].append(v)
-            h = L.apply_norm(cfg, x, params_l["ln2"])
-            x = x + self._ffn(params_l, h)[0]
-        logits = self._last_valid_logits(params, x, lengths)
-        # a copy: decode_step advances pos in place
-        pos = (torch.full((B,), S, dtype=torch.int32, device=x.device)
-               if lengths is None else lengths.to(torch.int32, copy=True))
-        cache = {"pos": pos}
+            y, st = self._ssm_forward(params_l["ssm"], h, state=zero,
+                                      lengths=lengths)
+            x = x + y
+            for name in STATE_LEAVES:
+                rows[name].append(st[name])
+            if self._applies_shared(i):
+                shared = params["shared"]
+                h = L.apply_norm(cfg, x, shared["ln1"])
+                out, k, v = self._attention_prefill(shared["attn"], h,
+                                                    positions)
+                x = x + out
+                h = L.apply_norm(cfg, x, shared["ln2"])
+                x = x + mlp_block(cfg, shared["mlp"], h)
+                rows["attn_k"].append(k)
+                rows["attn_v"].append(v)
+        cache = {}
         for name, ts in rows.items():
-            cache[name] = _fit(torch.stack(ts).to(self.dtype), cap, dim=2)
-        return logits, cache
+            t = torch.stack(ts).to(shapes[name][1])
+            cache[name] = t if name in STATE_LEAVES else _fit(t, cap, dim=2)
+        return self._last_valid_logits(params, x, lengths), cache
 
     def _last_valid_logits(self, params, x: torch.Tensor,
                            lengths: Optional[torch.Tensor]) -> torch.Tensor:
@@ -349,23 +549,29 @@ class LanguageModel:
         cache: a live decode cache for ALL slots; tokens (n, S)
         right-padded prompts; slots (n,) slot ids; lengths (n,) true
         prompt lengths (None = all S). Returns (last-valid-token logits
-        (n, V), the cache): the admitted slots' ``pos`` and their first
-        S rows of each cache leaf are written in place, every other
-        slot's state is untouched. Rows at S and past keep what they
-        held: decode writes row ``pos`` before it attends to it, so they
-        are never read.
+        (n, V), the cache), written in place by each leaf's layout: the
+        admitted slots' ``pos``; their first S rows of each leaf with a
+        sequence axis; their whole ``conv`` and ``h`` (no sequence
+        axis), so an admitted slot's recurrent state is exactly the
+        prefill's, whatever the slot held before. Every other slot's
+        state is untouched. Rows at S and past keep what they held:
+        decode writes row ``pos`` before it attends to it, so they are
+        never read. The prompt is bounded only by a cache that has a
+        capacity (a pure-SSM cache has none).
         """
         S = tokens.shape[1]
         cap = self.cache_capacity(cache)
-        if S > cap:
+        if cap is not None and S > cap:
             raise ValueError(f"prompt buffer {S} exceeds "
                              f"cache capacity {cap}")
         logits, small = self.prefill(params, tokens, lengths=lengths)
         slots = slots.to(device=cache["pos"].device, dtype=torch.long)
         cache["pos"].index_copy_(0, slots, small["pos"])
-        for name in small:                     # (L, B, cap, ...)
-            if name != "pos":
-                cache[name][:, slots, :S] = small[name]
+        for name, new in small.items():
+            if name in STATE_LEAVES:           # (L, B, ...)
+                cache[name][:, slots] = new
+            elif name != "pos":                # (L or A, B, cap, ...)
+                cache[name][:, slots, :S] = new
         return logits, cache
 
 

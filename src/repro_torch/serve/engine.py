@@ -5,18 +5,21 @@ port of the FIFO, unchunked path of ``repro/serve/engine.py``.
 ServeEngine contract (the decode hot path):
   * ONE decode step per emitted token for the whole slot batch. The
     reference jits it and donates the cache; here the decode cache (K/V,
-    or MLA's latents) is a set of persistent device tensors that the
-    step writes in place (one row per slot, layer and leaf), so it is
-    never copied per token. On the card, GQA attention runs as one
-    ``flash_decode`` kernel launch per layer; MLA's absorbed decode is
-    torch ops, as the reference's is jnp;
+    MLA's latents, or the SSM and hybrid families' conv and recurrent
+    states beside the hybrid's shared-block K/V) is a set of persistent
+    device tensors that the step writes in place (one row per slot,
+    layer and leaf; one state per slot and Mamba layer), so it is never
+    copied per token. On the card, GQA attention runs as one
+    ``flash_decode`` kernel launch per layer (per application of the
+    hybrid's shared block); MLA's absorbed decode and the Mamba layers
+    are torch ops, as the reference's are jnp;
   * sampling (greedy/temperature/top-k/top-p, per-request keys) runs on
     the device in that step, so only (slots, 1) int32 tokens are copied
     to the host, once per tick;
   * admission is ``prefill_at``: a batch of new requests is prefilled
-    and its prompt rows written into free slots in place while
-    resident slots keep theirs — the NEXT decode step serves old and
-    new together.
+    and its prompt rows (and recurrent states) written into free slots
+    in place while resident slots keep theirs — the NEXT decode step
+    serves old and new together.
 
 The reference's SLO priority scheduling (``slos``), chunked prefill
 (``prefill_chunk``), the prefix store (``prefix_entries``), meshes and
@@ -39,7 +42,7 @@ from repro_torch.serve.sampling import SamplerConfig
 from repro_torch.serve.scheduler import (FinishedRequest, Request,
                                          RequestScheduler)
 
-SERVE_FAMILIES = ("dense", "moe")
+SERVE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def make_prefill_step(model) -> Callable:

@@ -1,6 +1,6 @@
 """Training runtime of the port: TrainState, step factories, the
 large-batch TrainPipeline, losses/metrics and the host-side loop (cnn
-and the dense and MoE LM families)."""
+and the dense, MoE, SSM and hybrid LM families)."""
 
 from repro_torch.train.state import (TrainState,  # noqa: F401
                                      create_train_state,

@@ -1,5 +1,5 @@
 """Train/eval step factories (port of ``repro/train/step.py``, the cnn
-family and the dense and MoE LM families). A step is an eager function
+family and the dense, MoE, SSM and hybrid LM families). A step is an eager function
 (TrainState, batch) -> (TrainState, metrics): autograd for the
 gradients, then the optimizer update. The metrics stay on the device;
 reading them is the caller's choice.
@@ -10,8 +10,8 @@ reading them is the caller's choice.
 With ``loss_chunk > 0`` the LM's loss runs chunked over the sequence
 (:func:`~repro_torch.train.losses.chunked_lm_loss`) and the step returns
 no logits; evaluation always takes the whole logits. The MoE family's
-loss adds its load-balance ``aux_loss``. The other families are not yet
-ported and raise.
+loss adds its load-balance ``aux_loss`` (0 for the other LM families).
+The encdec and vlm families are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models.lm import FAMILIES as LM_FAMILIES
 from repro_torch.train.losses import (chunked_lm_loss, classification_loss,
                                       lm_loss)
 from repro_torch.train.metrics import accuracy
@@ -32,12 +33,12 @@ Pytree = Any
 
 
 def _forward_and_loss(model, cfg, params, batch):
-    """(loss, (logits, aux)) for the cnn family and the dense and MoE LM
-    families; logits are None on the chunked-loss path."""
+    """(loss, (logits, aux)) for the cnn family and the LM families of
+    ``LM_FAMILIES``; logits are None on the chunked-loss path."""
     if cfg.family == "cnn":
         logits, aux = model.forward(params, batch["x"])
         return classification_loss(logits, batch["y"]), (logits, aux)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch")
     if cfg.loss_chunk:

@@ -397,9 +397,10 @@ from repro_torch.treepath import tree_map  # noqa: E402
 FD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
 # (B, S, Hkv, G, D): smollm's G = 3 at D 64, qwen3's G = 5 at D 128,
-# MQA with G = 8, G = 1, and the reduced smollm's D = 72
+# MQA with G = 8, G = 1, the reduced smollm's D = 72, and zamba2's shared
+# block: MHA (G = 1) at D 112, one row of length 0
 FD_SHAPES = [(4, 1000, 3, 3, 64), (2, 700, 8, 5, 128), (3, 129, 1, 8, 64),
-             (2, 300, 2, 1, 128), (2, 50, 1, 4, 72)]
+             (2, 300, 2, 1, 128), (2, 50, 1, 4, 72), (3, 600, 4, 1, 112)]
 
 
 def _fd_inputs(B, S, Hkv, G, D, dtype, device, seed=0):
@@ -953,3 +954,102 @@ def test_windowed_stock_core_matches_flash_attention_on_the_card(
         scale = b.abs().max().item()
         torch.testing.assert_close(a, b, rtol=tol["rtol"],
                                    atol=tol["atol"] * scale, msg=name)
+
+
+# --------------------------------------------------- the SSM and hybrid LMs
+
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+
+
+def _ssm(arch):
+    """Reduced falcon-mamba or zamba2 (3 layers: the shared block runs
+    after layers 0 and 2) in f32."""
+    import dataclasses
+    return dataclasses.replace(get_config(arch).reduced(), num_layers=3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_gives_the_same_weights_on_the_card_and_the_cpu(cuda, dtype):
+    """One seed, one set of weights: the normals are drawn on the host
+    and cast on the device, and the card's cast to bf16 rounds as the
+    host's does (reduced zamba2: uniforms, normals, the shared block)."""
+    import dataclasses
+    cfg = dataclasses.replace(_ssm("zamba2-7b"), dtype=dtype)
+    model = build_model(cfg)
+    cpu, card = (model.init(torch.Generator().manual_seed(4), dev)
+                 for dev in ("cpu", cuda))
+    for a, b in zip(tree_leaves(cpu), tree_leaves(card)):
+        assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_lars_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One LARS step of a reduced SSM or hybrid LM (f32, TF32 off): one
+    norms_flat and one apply_flat launch on the card; the loss and the
+    updated weights within 1e-5 of the CPU's (summation orders differ:
+    cuBLAS, and the scan's and the SSD's sums)."""
+    cfg = _ssm(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = next(token_batches(TokenTaskConfig(vocab_size=cfg.vocab_size),
+                              batch=4, seq_len=80))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = lars(0.05, momentum=0.9, weight_decay=1e-4)
+        state = train_state_from_params(
+            model, opt, tree_map(lambda t: t.to(dev), params))
+        lk.reset_launch_counts()
+        state, metrics = TrainPipeline(model, opt, cfg)(
+            state, {"tokens": torch.from_numpy(toks).to(dev)})
+        out[dev] = (metrics, tree_leaves(state.params))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert lk.LAUNCHES == {"norms_flat": 1, "apply_flat": 1,
+                                   "apply_flat_q8": 0}
+    (m, w), (cm, cw) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(m["loss"].cpu(), cm["loss"], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(w, cw):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced SSM or hybrid LM: a lengths-masked prefill, then 8
+    teacher-forced decode steps, card against CPU: logits within 1e-4,
+    the recurrent states and K/V within 1e-5; flash_decode launches once
+    per application of the hybrid's shared block a step (2 here), never
+    for Mamba layers or in prefill."""
+    cfg = _ssm(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(2), "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 70)))
+    lens = torch.tensor([70, 4, 33], dtype=torch.int32)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 3, 1)))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        fdk.reset_launch_counts()
+        _, cache = model.prefill(p, toks.to(dev), cache_len=96,
+                                 lengths=lens.to(dev))
+        assert fdk.LAUNCHES["flash_decode"] == 0
+        logits = [model.decode_step(p, cache, t.to(dev))[0].cpu()
+                  for t in feed]
+        out[dev] = (logits, {k: v.cpu() for k, v in cache.items()})
+        want = 8 * model.flash_decode_per_step() if dev == "cuda" else 0
+        assert fdk.LAUNCHES["flash_decode"] == want
+    assert model.flash_decode_per_step() == (2 if arch == "zamba2-7b"
+                                             else 0)
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    pos = out["cpu"][1]["pos"]
+    assert pos.tolist() == [78, 12, 41]
+    for name, b in out["cpu"][1].items():
+        a = out["cuda"][1][name]
+        if name in ("attn_k", "attn_v"):
+            for r, n in enumerate(pos.tolist()):
+                torch.testing.assert_close(a[:, r, :n], b[:, r, :n],
+                                           rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -42,6 +42,6 @@ def test_lenet_config_matches_reference():
 
 def test_other_archs_are_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("zamba2-7b")
+        get_config("whisper-base")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")

@@ -494,7 +494,7 @@ def test_interrupted_run_resumes_byte_identical(tmp_path, variant):
 
 
 @pytest.mark.parametrize("name,changes", [
-    ("lm_smoke", {"arch": "falcon-mamba-7b"}),
+    ("lm_smoke", {"arch": "paligemma-3b"}),
     ("lm_lars_vs_lamb", {"mesh": "1x1"}),
     ("zero_smoke", {})])
 def test_unported_grids_raise(tmp_path, name, changes):

@@ -41,12 +41,15 @@ def test_main_runs_on_cuda_unless_asked_otherwise():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--arch", "zamba2-7b"], ["--mesh", "1x1"], ["--arch", "whisper-base"],
-    ["--arch", "falcon-mamba-7b"], ["--arch", "paligemma-3b"]])
+    ["--mesh", "2x1"], ["--mesh", "1x1"], ["--arch", "whisper-base"],
+    ["--arch", "smollm-135m", "--set", "family=encdec"],
+    ["--arch", "paligemma-3b"]])
 def test_unported_options_raise(extra):
-    """--mesh and the archs of unported families (ssm, hybrid, encdec,
-    vlm). Training takes sliding windows, the softcap and MLA
-    (tests/test_torch_attention_masks.py, tests/test_torch_mla.py)."""
+    """--mesh and the archs of unported families (encdec, vlm). Training
+    takes sliding windows, the softcap, MLA and the SSM and hybrid
+    families (tests/test_torch_attention_masks.py,
+    tests/test_torch_mla.py, tests/test_torch_ssm.py,
+    tests/test_torch_hybrid.py)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(CPU + ["--steps", "1"] + extra)
 

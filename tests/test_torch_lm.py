@@ -431,21 +431,24 @@ def test_bf16_prefill_prefill_at_and_decode_match_reference(variant):
 # -------------------------------------------------------- what is refused
 
 @pytest.mark.parametrize("change", [
-    {"family": "encdec"}, {"family": "hybrid"}, {"sliding_window": 64},
-    {"attn_logit_softcap": 30.0}, {"family": "ssm"}, {"family": "vlm"},
+    {"family": "encdec"}, {"arch": "zamba2-7b", "sliding_window": 64},
+    {"sliding_window": 64}, {"attn_logit_softcap": 30.0},
+    {"arch": "zamba2-7b", "attn_logit_softcap": 30.0}, {"family": "vlm"},
     {"sliding_window": 64, "use_mla": True},
     {"attn_logit_softcap": 30.0, "use_mla": True}])
 def test_unported_features_raise(change):
     """What the port still refuses: the unported families when the model
-    is built, and a sliding window or the logit softcap (with GQA or MLA)
-    wherever a decode cache is made (``init_cache``, ``prefill``, the
-    serving engine). Training takes both with GQA
+    is built, and a sliding window or the logit softcap (with GQA, MLA or
+    the hybrid's shared block) wherever a decode cache is made
+    (``init_cache``, ``prefill``, the serving engine). Training takes both
+    with GQA and in the hybrid's shared block
     (tests/test_torch_attention_masks.py) and MLA everywhere
     (tests/test_torch_mla.py), but not MLA with either: the reference's
     ``mla_block`` ignores both, and the port refuses them instead."""
-    base = get_config("deepseek-v2-236b" if change.get("use_mla")
-                      else "smollm-135m").reduced()
-    cfg = dataclasses.replace(base, **change)
+    change = dict(change)
+    arch = change.pop("arch", "deepseek-v2-236b" if change.get("use_mla")
+                      else "smollm-135m")
+    cfg = dataclasses.replace(get_config(arch).reduced(), **change)
     if "family" in change:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             build_model(cfg)
@@ -453,11 +456,14 @@ def test_unported_features_raise(change):
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     tok = torch.zeros(1, 4, dtype=torch.int32)
+    # a window raises with its reason: decode would need the ring cache
+    reason = "not yet ported" + (".*ring cache" if cfg.sliding_window
+                                 else "")
     for call in (lambda: model.init_cache(1, 8),
                  lambda: model.prefill(params, tok),
                  lambda: ServeEngine(model, params, cfg, slots=1,
                                      capacity=8)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(NotImplementedError, match=reason):
             call()
     if cfg.use_mla:
         with pytest.raises(NotImplementedError, match="ignores both"):

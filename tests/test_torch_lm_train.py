@@ -146,9 +146,11 @@ def test_forward_returns_hidden_and_refuses_unported_configs():
     # the memory-lean knobs (remat_block, attn_q_chunk, flash_vjp,
     # loss_chunk) are ported: tests/test_torch_lm_lean.py holds them
     # against the reference; sliding windows, the softcap and MLA train
-    # (tests/test_torch_attention_masks.py, tests/test_torch_mla.py).
-    # What is still refused: the families not yet ported.
-    for family in ("ssm", "hybrid", "encdec", "vlm"):
+    # (tests/test_torch_attention_masks.py, tests/test_torch_mla.py), and
+    # so do the ssm and hybrid families (tests/test_torch_ssm.py,
+    # tests/test_torch_hybrid.py). What is still refused: the families
+    # not yet ported.
+    for family in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             model = build_model(dataclasses.replace(CFG, family=family))
             value_and_grad(model, model.cfg, params, {"tokens": toks})

@@ -101,6 +101,6 @@ def test_init_shapes_scale_and_determinism():
 
 def test_only_the_cnn_family_is_ported():
     import dataclasses
-    cfg = dataclasses.replace(get_config("lenet-mnist"), family="ssm")
+    cfg = dataclasses.replace(get_config("lenet-mnist"), family="encdec")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(cfg)

@@ -336,7 +336,7 @@ def test_launch_serve_runs_reduced_on_the_cpu(capsys):
 @pytest.mark.parametrize("extra", [
     ["--mesh", "2x1"], ["--scenario", "bursty"], ["--slos", "0:1"],
     ["--session", "2"], ["--prefill-chunk", "8"], ["--prefix-entries", "4"],
-    ["--set", "sliding_window=8"], ["--arch", "zamba2-7b"],
+    ["--set", "sliding_window=8"], ["--arch", "paligemma-3b"],
     ["--set", "attn_logit_softcap=30.0"], ["--arch", "whisper-base"]])
 def test_launch_serve_refuses_unported_options(extra):
     """The reference's options the port does not cover yet, a sliding
