@@ -163,12 +163,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              within 1e-5;
 16. SSM and hybrid — ``norms_flat``, ``apply_flat`` and
              ``apply_flat_q8`` at the packed shapes of falcon-mamba-7b's
-             16-layer and zamba2-7b's 24-layer superbuffers (both past
-             element 2^31), on fresh buffers, held on every row and timed
+             8-layer and zamba2-7b's 12-layer superbuffers, on fresh
+             buffers, held on every row and timed
              as in phase 13, and ``flash_decode`` at zamba2's decode shape
              (B 32, S 4096, Hkv 32, G 1, D 112, bf16) timed as in phase 3;
              then for each model at full width and that depth (``--set
-             num_layers=16`` / ``24``), 4 x 4096 tokens through phase 13's
+             num_layers=8`` / ``12``), 4 x 4096 tokens through phase 13's
              lean knobs: 3 steps each of f32 LARS and the large-batch path
              through ``launch.train.main`` (one ``norms_flat`` and one
              ``apply_flat`` or ``apply_flat_q8`` per step; finite losses;
@@ -177,14 +177,48 @@ Phases, in order; any failure ends the run with a non-zero exit:
              block) timed apart, forward and backward, and one more f32
              LARS step profiled; ``launch.serve.main``
              at the same depth with phase 8's traffic (falcon-mamba: no
-             ``flash_decode`` launch; zamba2: 4 a tick, one per
+             ``flash_decode`` launch; zamba2: 2 a tick, one per
              application of its shared block, none in admission; every
              request finished, finite logits), the recurrent cache's bytes
              beside a K/V cache's of the same depth; the reduced configs in
              f32 (zamba2 at 3 layers): 20 LARS steps card against CPU
              within 1e-5, 16 teacher-forced decode steps within 1e-4,
+             greedy tokens identical;
+17. encdec and vlm — ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
+             at paligemma-3b's packed shape (4899880, 512), past element
+             2^31, held on every row and timed as in phase 13;
+             ``flash_decode``'s D 256 instance (paligemma's MQA, G 8) at
+             its serve shape (B 32, S 448) and at decode_32k's length (B
+             8, S 32768), lengths 0, 1, S and past S among the rows, and
+             at whisper's cross-attention decode (B 32, S 1500, Hkv 8, G
+             1, D 64), timed as in phase 3, the D 256 instance in f32 held
+             too, and ptxas's registers and spills of the D 256
+             instances; then whisper-base whole (64 clips of 1,500 stub
+             frames and 448 decoder tokens, ``flash_vjp``) and
+             paligemma-3b at full width and all 18 layers (4 x 4096 text
+             tokens behind 256 seeded normal image embeddings, where the
+             reference's zero stub overflows the gradient at this depth,
+             through ``flash_vjp``,
+             ``attn_q_chunk=1088`` and ``loss_chunk=1024``): 3 steps each
+             of f32 LARS and the large-batch path through
+             ``launch.train.main`` (one ``norms_flat`` and one
+             ``apply_flat`` or ``apply_flat_q8`` per step; tokens/s,
+             whisper's frames/s, the peak) and a profiled f32 step;
+             ``DecodeEngine`` at the same width and depth (bf16): 32
+             requests (whisper: 4 prompt tokens over 1,500 seeded frames;
+             paligemma: 64 behind 256 seeded image embeddings), 128 new
+             tokens: 12 (whisper: self- and cross-attention) or 18
+             ``flash_decode`` launches a tick, none in prefill, tick ms,
+             tokens/s; reduced whisper, reduced paligemma and reduced
+             paligemma at 8 heads on 1 kv head of 256 (the D 256 instance)
+             in f32: 20 LARS steps card against CPU within 1e-5, 16
+             teacher-forced decode steps within 1e-4, ``DecodeEngine``'s
              greedy tokens identical. The phases' wall times are printed
              at the end.
+
+From phase 13 on, a model's seeded init is drawn on the host once per
+phase and shared by its training runs, sessions and serving
+(``shared_inits``: the same values as a fresh init).
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -193,6 +227,7 @@ kernels, each with the launch floor as ``floor_ms``) and, last,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -235,7 +270,7 @@ CKPT_STEPS = 10
 # flash_decode: (B, S, Hkv, G, D, lengths) timed in bf16 — the serve
 # path's shape (lengths drawn in 1..S) and decode_32k's D = 128 GQA shape
 FD_SHAPES = [(32, 4096, 3, 3, 64, "drawn"), (8, 32768, 8, 5, 128, "full")]
-FD_CALLS = {4096: 20, 32768: 5}       # calls per timed CUDA graph
+FD_CALLS = {448: 50, 1500: 20, 4096: 20, 32768: 5}   # calls per timed graph
 # the kernel sums in another order than its plain version (an online
 # rescale per tile of keys, a merge of warps and of splits): f32 agrees to a few ulp of values of order
 # one; bf16 outputs round the same f32 result, so one bf16 ulp (2^-7
@@ -407,12 +442,13 @@ MASK_CARD_CPU_ARGS = [
 # at full width, trained at a cut depth, 4 x 4096 tokens a step through
 # phase 13's lean knobs (the loss chunked; in zamba2's shared block
 # flash_vjp and query chunks): f32 LARS and the large-batch path, as
-# qwen3's runs. falcon-mamba-7b at 16 of its 64 layers (2,217,345,024
-# parameters), zamba2-7b at 24 of its 81 (2,305,934,592; the shared block
-# after layers 0, 6, 12 and 18). Both are served at the same cut with
-# phase 8's traffic.
+# qwen3's runs. falcon-mamba-7b at 8 of its 64 layers (1,375,010,816
+# parameters), zamba2-7b at 12 of its 81 (1,370,415,744; the shared block
+# after layers 0 and 6). Both are served at the same cut with phase 8's
+# traffic. Both trained at 16 and 24 layers too (PERF.md); the cut keeps
+# the script within its time limit beside phase 17.
 FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-7b"
-SSM_LAYERS = {FALCON: 16, ZAMBA: 24}
+SSM_LAYERS = {FALCON: 8, ZAMBA: 12}
 SSM_STEPS = 3
 
 
@@ -443,6 +479,58 @@ def ssm_card_cpu_args(arch: str) -> list:
             "--optimizer", "lars"] + [
         a for k, v in SSM_REDUCED[arch].items()
         for a in ("--set", f"{k}={v}")]
+
+
+# phase 17: the encdec and vlm families (the reference's configs verbatim).
+# whisper-base whole (70,595,072 parameters): 64 clips a batch, each 1,500
+# stub frames and 448 decoder tokens (Whisper's text context), through
+# flash_vjp; f32 LARS and the large-batch path, as qwen3's runs
+WHISPER, PALIGEMMA = "whisper-base", "paligemma-3b"
+FAMILY_STEPS = 3
+WHISPER_ARGS = ["--arch", WHISPER, "--set", "flash_vjp=true", "--batch",
+                "64", "--seq", "448", "--steps", str(FAMILY_STEPS), "--lr",
+                "0.01", "--log-every", "0"]
+# paligemma-3b at full width and all 18 layers (2,508,587,008
+# parameters), 4 x 4,096 text tokens behind its 256 image tokens (4,352
+# positions a row) through flash_vjp, query chunks of 1,088 (a divisor of
+# 4,352) and loss_chunk=1024; f32 LARS and the large-batch path. Its image
+# stub is seeded unit normals where launch.train feeds the reference's
+# zeros: a zero prefix stays zero through every layer, rmsnorm's gradient
+# there is 1 / sqrt(eps), and it compounds through the prefix's
+# attention until the gradient overflows from 16 layers on, in the
+# reference as in the port (tests/test_torch_vlm.py)
+PALI_LAYERS = 18
+PALI_LEAN = ["flash_vjp=true", "attn_q_chunk=1088", "loss_chunk=1024"]
+PALI_ARGS = ["--arch", PALIGEMMA, "--set", f"num_layers={PALI_LAYERS}"] + [
+    a for v in PALI_LEAN for a in ("--set", v)] + [
+    "--batch", "4", "--seq", "4096", "--steps", str(FAMILY_STEPS),
+    "--lr", "0.01", "--log-every", "0"]
+# served by DecodeEngine at the same depth (bf16, the same seed-0 init):
+# (requests, prompt tokens, new tokens); whisper's clips carry 1,500 stub
+# frames, paligemma's prompts 256 image tokens (so its cache holds 448)
+WHISPER_SERVE = (32, 4, 128)
+PALI_SERVE = (32, 64, 128)
+# flash_decode at paligemma's decode (MQA, G 8, D 256: the new instance)
+# at its serve shape and at decode_32k's length, lengths 0, 1, S and past
+# S among the rows; at whisper's cross-attention decode (G 1, D 64, every
+# one of the 1,500 encoder rows)
+PALI_FD = [(32, 448, 1, 8, 256, "edges"), (8, 32768, 1, 8, 256, "edges")]
+WHISPER_FD = (32, 1500, 8, 1, 64, "full")
+# the reduced configs in f32, and reduced paligemma at the full width's
+# attention (8 heads on 1 kv head of 256: the D 256 instance against the
+# CPU): 20 LARS steps card against CPU at phase 12's gate, the decode at
+# phase 9's
+FAMILY_REDUCED = {"whisper": (WHISPER, {}), "paligemma": (PALIGEMMA, {}),
+                  "paligemma_d256": (PALIGEMMA, {"num_heads": 8,
+                                                 "num_kv_heads": 1,
+                                                 "head_dim": 256})}
+
+
+def family_card_cpu_args(arch: str, changes: dict) -> list:
+    return ["--arch", arch, "--reduced", "--batch", "8", "--seq", "64",
+            "--steps", "20", "--lr", "0.01", "--log-every", "0",
+            "--optimizer", "lars"] + [
+        a for k, v in changes.items() for a in ("--set", f"{k}={v}")]
 
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
@@ -524,6 +612,45 @@ def floor_ms(calls: int) -> float:
 def timings(fn, calls: int) -> tuple[float, float]:
     """(device ms per call from a CUDA graph, dispatch ms per call)."""
     return device_ms(fn, calls=calls), dispatch_ms(fn)
+
+
+@contextlib.contextmanager
+def shared_inits():
+    """Within the block, each model's seeded init is drawn on the host
+    once: a later init for the card of the same param shapes from a
+    generator in the same state moves the kept host copy there. The
+    values are those of a fresh init (the init draws on the host, and the
+    card's casts round as the host's do), so a phase's training runs,
+    sessions and serving of one model share one draw of its normals
+    (16-19 s per 2.2 B parameters). Inits for the CPU or the meta device
+    draw as before."""
+    import torch
+    from repro_torch.models import EncDecModel, LanguageModel
+    from repro_torch.treepath import tree_flatten_with_path, tree_map
+    memo: dict = {}
+    saved = {cls: cls.init for cls in (LanguageModel, EncDecModel)}
+
+    def wrap(inner):
+        def init(self, generator, device):
+            if torch.device(device).type != "cuda":
+                return inner(self, generator, device)
+            shapes = tuple((path, tuple(t.shape), t.dtype) for path, t in
+                           tree_flatten_with_path(inner(
+                               self, torch.Generator(), "meta"))[0])
+            key = (shapes, generator.get_state().numpy().tobytes())
+            if key not in memo:
+                memo[key] = inner(self, generator, "cpu")
+            return tree_map(lambda t: t.to(device), memo[key])
+        return init
+
+    for cls, fn in saved.items():
+        cls.init = wrap(fn)
+    try:
+        yield
+    finally:
+        for cls, fn in saved.items():
+            cls.init = fn
+        memo.clear()
 
 
 def lenet_layout():
@@ -879,15 +1006,18 @@ def profile_phase(path: str, batch: int = 8192, steps: int = 5) -> dict:
 
 def fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen):
     """q, k, v and lengths on the card for flash_decode, drawn from
-    ``gen``; ``lengths`` is "drawn" (1..S), "full" (S) or a list."""
+    ``gen``; ``lengths`` is "drawn" (1..S), "full" (S), "edges" (0, 1, S
+    and S + 7 in the first rows, the rest drawn) or a list."""
     import torch
     dev = torch.device("cuda")
     q = torch.randn(B, Hkv, G, D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
-    if lengths == "drawn":
+    if lengths in ("drawn", "edges"):
         lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
                              dtype=torch.int32)
+        if lengths == "edges":
+            lens[:4] = torch.tensor([0, 1, S, S + 7], device=dev)
     elif lengths == "full":
         lens = torch.full((B,), S, dtype=torch.int32, device=dev)
     else:
@@ -2169,15 +2299,15 @@ def ssm_split_ms(model, params, tokens) -> dict:
     return out
 
 
-def ssm_train_runs(train, lk, fdk, arch: str) -> tuple[dict, dict]:
-    """Phase 16: :func:`lm_train_runs` for ``arch`` (3 steps each of f32
-    LARS and the large-batch path through ``launch.train.main``), the f32
-    run's init shared with the session: after that run's steps, on its
-    state, layer 0's Mamba block (and zamba2's shared block) timed apart,
-    forward and backward, on the next 4 x 4096 batch, then one more f32
-    LARS step profiled. The session's kernel launches are not the run's:
-    the launch counts are restored after it. Returns (the runs, the
-    session)."""
+def train_runs_with_session(train, lk, fdk, args: list, steps: int,
+                            session_fn) -> tuple[dict, dict]:
+    """Phases 16, 17: :func:`lm_train_runs` for ``args`` (``steps`` steps
+    each of f32 LARS and the large-batch path through
+    ``launch.train.main``), the f32 run's init shared with a session: after
+    that run's steps, ``session_fn(pipeline, state, batches, session)``
+    fills ``session`` and returns the state after its own steps. The
+    session's kernel launches are not the run's: the launch counts are
+    restored after it. Returns (the runs, the session)."""
     import torch
     inner = train.train_loop
     session = {}
@@ -2194,44 +2324,56 @@ def ssm_train_runs(train, lk, fdk, arch: str) -> tuple[dict, dict]:
                             eval_batches=eval_batches)
         if pipeline.precision.name == "f32" and not session:
             counts = dict(lk.LAUNCHES)
-            batch = next(batches)
-            session["layer0_fwd_bwd_ms"] = ssm_split_ms(
-                pipeline.model, state.params, batch["tokens"])
-            log(f"  {arch}, after the f32 run's {steps} steps, forward + "
-                f"backward at 4 x 4096 (events, eager): " + ", ".join(
-                    f"{k} {v:.2f} ms"
-                    for k, v in session["layer0_fwd_bwd_ms"].items()))
-            session["profile"], state = profile_steps(
-                pipeline, state, batches, 1,
-                f"{arch} f32, 1 step of 4 x 4096")
+            state = session_fn(pipeline, state, batches, session)
             torch.cuda.synchronize()
             lk.LAUNCHES.update(counts)
         return state, hist
 
     train.train_loop = loop
     try:
-        runs = lm_train_runs(train, lk, fdk, ssm_args(arch), QWEN_RUNS,
-                             SSM_STEPS)
+        runs = lm_train_runs(train, lk, fdk, args, QWEN_RUNS, steps)
     finally:
         train.train_loop = inner
     return runs, session
 
 
+def ssm_train_runs(train, lk, fdk, arch: str) -> tuple[dict, dict]:
+    """Phase 16: ``arch``'s runs, and on the f32 run's state after its
+    steps layer 0's Mamba block (and zamba2's shared block) timed apart,
+    forward and backward, on the next 4 x 4096 batch, then one more f32
+    LARS step profiled."""
+    def session_fn(pipeline, state, batches, session):
+        batch = next(batches)
+        session["layer0_fwd_bwd_ms"] = ssm_split_ms(
+            pipeline.model, state.params, batch["tokens"])
+        log(f"  {arch}, after the f32 run's {SSM_STEPS} steps, forward + "
+            f"backward at 4 x 4096 (events, eager): " + ", ".join(
+                f"{k} {v:.2f} ms"
+                for k, v in session["layer0_fwd_bwd_ms"].items()))
+        session["profile"], state = profile_steps(
+            pipeline, state, batches, 1, f"{arch} f32, 1 step of 4 x 4096")
+        return state
+
+    return train_runs_with_session(train, lk, fdk, ssm_args(arch),
+                                   SSM_STEPS, session_fn)
+
+
 def ssm_serve(serve, fdk, lk, arch: str) -> dict:
     """Phase 16: ``launch.serve`` at ``arch``'s cut (phase 8's traffic):
     the launches per tick (falcon-mamba none, zamba2 one per application
-    of its shared block: 4) gated by :func:`serve_phase`; the recurrent
+    of its shared block: 2) gated by :func:`serve_phase`; the recurrent
     cache's bytes (bf16 conv states, f32 recurrent states, zamba2's
     shared-block K/V) beside a K/V cache of the same depth (K and V of
     width d_model in every layer, bf16)."""
     from repro_torch.models import build_model
     out = serve_phase(serve, fdk, lk, ssm_serve_args(arch))
-    want = {FALCON: 0, ZAMBA: 4}[arch]
+    cfg = ssm_cfg(arch)
+    # one launch per application of the hybrid's shared block
+    want = -(-cfg.num_layers // cfg.attn_every) if arch == ZAMBA else 0
     if out["launches"]["flash_decode"] != want * out["decode_steps"]:
         raise AssertionError(f"{arch}: {out['launches']} in "
                              f"{out['decode_steps']} ticks, want {want} a "
                              "tick")
-    cfg = ssm_cfg(arch)
     cache = build_model(cfg).init_cache(32, 4096, device="meta")
     out["cache_bytes"] = {k: t.numel() * t.element_size()
                           for k, t in cache.items() if k != "pos"}
@@ -2279,6 +2421,273 @@ def ssm_phase(train, serve, lk, fdk, bw: float, flops: float,
     return out
 
 
+def family_cfg(arch: str):
+    """whisper-base whole, or paligemma-3b as PALI_ARGS sets it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.overrides import apply_overrides
+    if arch == WHISPER:
+        return apply_overrides(get_config(WHISPER), ["flash_vjp=true"])
+    return apply_overrides(get_config(PALIGEMMA),
+                           [f"num_layers={PALI_LAYERS}"] + PALI_LEAN)
+
+
+def stub_input(cfg) -> tuple[str, int]:
+    """The family's stub input in a batch, and its length."""
+    if cfg.family == "encdec":
+        return "frames", cfg.encoder_seq
+    return "image_embeddings", cfg.num_image_tokens
+
+
+def family_train_runs(train, lk, fdk, arch: str) -> tuple[dict, dict]:
+    """Phase 17: ``arch``'s runs (3 steps each of f32 LARS and the
+    large-batch path), and one more f32 LARS step profiled on the f32
+    run's state."""
+    args = WHISPER_ARGS if arch == WHISPER else PALI_ARGS
+    zero_stub = train.lm_batches
+
+    def noise_stub(cfg, batch, seq, seed=0):
+        """The loader's batches with seeded unit-normal image embeddings
+        in place of the zeros."""
+        import numpy as np
+        rng = np.random.default_rng(seed + 1)
+        for b in zero_stub(cfg, batch, seq, seed):
+            img = b["image_embeddings"]
+            b["image_embeddings"] = rng.standard_normal(img.shape,
+                                                        dtype=np.float32)
+            yield b
+
+    def session_fn(pipeline, state, batches, session):
+        session["profile"], state = profile_steps(
+            pipeline, state, batches, 1,
+            f"{arch} f32, 1 step of {args[args.index('--batch') + 1]} x "
+            f"{args[args.index('--seq') + 1]} tokens")
+        return state
+
+    if arch == PALIGEMMA:
+        train.lm_batches = noise_stub
+    try:
+        runs, session = train_runs_with_session(train, lk, fdk, args,
+                                                FAMILY_STEPS, session_fn)
+    finally:
+        train.lm_batches = zero_stub
+    if arch == WHISPER:         # and the encoder's stub frames a second
+        enc = family_cfg(WHISPER).encoder_seq
+        for r in runs.values():
+            r["frames_per_s"] = r["tokens_per_s"] / r["seq"] * enc
+            log(f"  {r['opt_state_dtype']} LARS: {r['frames_per_s']:.0f} "
+                f"frames/s beside {r['tokens_per_s']:.0f} decoder tokens/s")
+    return runs, session
+
+
+def decode_engine_serve(fdk, lk, arch: str) -> dict:
+    """Phase 17: ``DecodeEngine`` at ``arch``'s training width and depth
+    (bf16, the seed-0 init the training runs drew): one static batch of
+    WHISPER_SERVE / PALI_SERVE (requests, prompt tokens, new tokens) with
+    seeded stub frames or image embeddings. A prefill alone launches no
+    ``flash_decode``; then a timed prefill and the timed ``generate``
+    (prefill and one decode tick per new token but the first): its
+    launches, 2 a layer a tick for whisper (self- and cross-attention), 1
+    for paligemma; tick ms (generate's time less the prefill's, per
+    tick), tokens/s, finite prefill logits and tokens in the vocabulary;
+    then a ``torch.profiler`` window over 5 decode ticks after a fresh
+    prefill and 2 warm-up ticks: the device's busy share and
+    ``flash_decode``'s device time in a tick. Every launch count is set
+    to 0 just before and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serve import DecodeEngine
+    cfg = dataclasses.replace(family_cfg(arch), flash_vjp=False,
+                              attn_q_chunk=0, loss_chunk=0)
+    B, S, new = WHISPER_SERVE if arch == WHISPER else PALI_SERVE
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    engine = DecodeEngine(model, params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    name, n = stub_input(cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             name: torch.randn(B, n, cfg.d_model, generator=gen,
+                               device="cuda") * 0.5}
+    cap = S + new + (n if cfg.family == "vlm" else 0)
+    lk.reset_launch_counts()
+    fdk.reset_launch_counts()
+    for _ in range(2):                  # the second one timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine._prefill(params, batch, cache_len=cap)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        del cache
+    if fdk.LAUNCHES["flash_decode"] or any(lk.LAUNCHES.values()) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill: {fdk.LAUNCHES}, "
+                             f"{lk.LAUNCHES}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    fdk.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = engine.generate(batch, max_new_tokens=new, cache_len=cap)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = fdk.LAUNCHES["flash_decode"]
+    ticks = new - 1
+    per_tick = model.flash_decode_per_step()
+    want = {WHISPER: 2 * cfg.num_layers, PALIGEMMA: cfg.num_layers}[arch]
+    out = {"requests": B, "prompt_tokens": S, "new_tokens": new,
+           "cache_len": cap, "num_layers": cfg.num_layers,
+           "prefill_ms": 1e3 * prefill_s, "wall_s": wall_s,
+           "ticks": ticks, "tick_ms": 1e3 * (wall_s - prefill_s) / ticks,
+           "tok_per_s": B * new / wall_s,
+           "launches": {"flash_decode": launches},
+           "flash_decode_per_tick": launches / ticks}
+    log(f"  {arch} DecodeEngine: {B} requests of {S} prompt tokens"
+        + (f" behind {n} image tokens" if cfg.family == "vlm" else
+           f" over {n} stub frames") + f", {new} new tokens (cache "
+        f"{cap}): prefill {out['prefill_ms']:.1f} ms, {ticks} ticks of "
+        f"{out['tick_ms']:.2f} ms, {out['tok_per_s']:.1f} tok/s; "
+        f"flash_decode launches {launches} ({launches / ticks:g} a tick, "
+        f"want {want}; none in prefill)")
+    if per_tick != want or launches != want * ticks:
+        raise AssertionError(f"{arch}: {launches} flash_decode launches in "
+                             f"{ticks} ticks, want {want} a tick")
+    if tuple(toks.shape) != (B, new) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: tokens {tuple(toks.shape)} out of "
+                             "range")
+    logits, cache = engine._prefill(params, batch, cache_len=cap)
+    tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+
+    def decode_ticks(n):
+        nonlocal logits, cache, tok
+        for _ in range(n):
+            logits, cache = engine._step(params, cache, tok)
+            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    decode_ticks(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_ticks(5)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    kernels = device_ms_by_kernel(prof)
+    busy = sum(kernels.values()) / 5
+    fd_ms = sum(ms for k, ms in kernels.items() if "flash_decode" in k) / 5
+    out["profile"] = {"wall_ms_per_tick": wall_ms,
+                      "device_busy_ms_per_tick": busy if busy else None,
+                      "flash_decode_ms_per_tick": fd_ms if busy else None}
+    log(f"  {arch}, a profile of 5 decode ticks: wall {wall_ms:.3f} ms a "
+        f"tick, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"flash_decode {fd_ms:.4f} ms a tick" if busy else
+        f"  {arch}: device time not measured (the profiler recorded no "
+        "CUDA events)")
+    del engine, params, batch, logits, toks, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_decode_card_vs_cpu(fdk, arch: str, changes: dict) -> dict:
+    """Phase 17: a reduced encdec or vlm model in f32 on the CPU (plain
+    versions) and on the card (kernels): prefill (no ``flash_decode``
+    launch), 16 teacher-forced decode steps with their launches, logits
+    within SERVE_CARD_CPU_ATOL; ``DecodeEngine``'s greedy tokens
+    identical on both."""
+    import torch
+    from repro_torch.serve import DecodeEngine
+    from repro_torch.treepath import tree_map
+    cfg, model, params = _reduced_lm("cpu", arch, tuple(changes.items()))
+    card = tree_map(lambda t: t.cuda(), params)
+    g = torch.Generator().manual_seed(0)
+    name, n = stub_input(cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 24),
+                                     generator=g, dtype=torch.int32),
+             name: torch.randn(4, n, cfg.d_model, generator=g) * 0.5}
+    feed = torch.randint(0, cfg.vocab_size, (16, 4, 1), generator=g,
+                         dtype=torch.int32)
+    cap = 48 + (n if cfg.family == "vlm" else 0)
+    logits, greedy = {}, {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        fdk.reset_launch_counts()
+        _, cache = model.prefill(p, batch["tokens"].to(dev), cache_len=cap,
+                                 **{name: batch[name].to(dev)})
+        if fdk.LAUNCHES["flash_decode"]:
+            raise AssertionError("prefill launched flash_decode")
+        logits[dev] = torch.stack([model.decode_step(p, cache, t.to(dev))[0]
+                                   .cpu() for t in feed])
+        want = model.flash_decode_per_step() * len(feed) \
+            if dev == "cuda" else 0
+        if fdk.LAUNCHES["flash_decode"] != want:
+            raise AssertionError(f"{dev}: {fdk.LAUNCHES} launches, want "
+                                 f"{want}")
+        greedy[dev] = DecodeEngine(model, p, cfg).generate(
+            batch, max_new_tokens=12, cache_len=cap).cpu().tolist()
+    diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    same = greedy["cpu"] == greedy["cuda"]
+    log(f"  reduced {arch} {changes or ''}: 16 teacher-forced decode "
+        f"steps: max abs logits diff {diff:.3g} (tolerance "
+        f"{SERVE_CARD_CPU_ATOL});"
+        f" DecodeEngine's greedy tokens of 4 requests "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not diff <= SERVE_CARD_CPU_ATOL or not same:
+        raise AssertionError(f"{arch} card vs CPU: diff {diff}, greedy "
+                             f"{greedy}")
+    return {"max_abs_logits_diff": diff, "greedy_identical": same}
+
+
+def fd_wide_f32_check(fdk) -> dict:
+    """Phase 17: the D 256 instance in f32 against its plain version at
+    (8, 4096, 1, 8, 256), lengths 0, 1, S and past S among the rows."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, lens = fd_inputs(8, 4096, 1, 8, 256, "edges", torch.float32,
+                              gen)
+    err, rel = _fd_err(fdk, q, k, v, lens, "float32")
+    log(f"  flash_decode float32 D=256 G=8: max abs err {err:.3g} (rel "
+        f"{rel:.3g}); lengths 0, 1, S, S+7 included")
+    return {"shape": {"B": 8, "S": 4096, "Hkv": 1, "G": 8, "D": 256,
+                      "dtype": "float32"}, "max_abs_err": err,
+            "max_rel_err": rel}
+
+
+def family_phase(train, lk, fdk, bw: float, flops: float,
+                 floor: float) -> dict:
+    """Phase 17: the encdec (whisper-base) and vlm (paligemma-3b) families
+    trained and served on the card."""
+    import torch
+    from repro_torch.kernels import build
+    t_phase = time.perf_counter()
+    layout = lm_layout(family_cfg(PALIGEMMA))
+    out = {PALIGEMMA: {"rows": layout.buffer_shape[0],
+                       "slices": layout.num_slices,
+                       "kernel_rows": large_kernel_rows(lk, layout, 7, bw,
+                                                        flops, floor)},
+           WHISPER: {}}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out["flash_decode_rows"] = [fd_timed_row(fdk, shape, gen, bw, flops)
+                                for shape in PALI_FD + [WHISPER_FD]]
+    out["flash_decode_f32"] = fd_wide_f32_check(fdk)
+    out["ptxas"] = {k: v for k, v in build.ptxas_usage(
+        "flash_decode").items() if k.endswith("<256>")}
+    log(f"  ptxas, the D 256 instances: {out['ptxas']}")
+    for arch in (WHISPER, PALIGEMMA):
+        o = out[arch]
+        t0 = time.perf_counter()
+        o["runs"], o["session"] = family_train_runs(train, lk, fdk, arch)
+        o["serve"] = decode_engine_serve(fdk, lk, arch)
+        o["wall_s"] = time.perf_counter() - t0
+        log(f"  {arch} wall time {o['wall_s']:.1f} s")
+    out["card_vs_cpu"] = {
+        tag: {"train": train_card_vs_cpu(
+            train, family_card_cpu_args(arch, changes), f"reduced {tag}"),
+              "decode": family_decode_card_vs_cpu(fdk, arch, changes)}
+        for tag, (arch, changes) in FAMILY_REDUCED.items()}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 17 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the large steps (zamba2's f32 LARS at 24 layers) fit the card only
@@ -2318,6 +2727,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for src in sorted(libs):
+        for kname, use in build.ptxas_usage(src).items():
+            log(f"  ptxas {kname}: {use}")
 
     phase("== 3. kernels against their plain versions")
     kern, floor = kernel_phase(lk, bw, flops)
@@ -2351,25 +2763,37 @@ def main() -> int:
     lm = lm_phase(train, lk, fdk, bw, flops, floor,
                   os.path.join(ROOT, "build"))
 
+    # from here on a model's runs, sessions and serving in one phase share
+    # one host draw of its init
     phase("== 13. the memory-lean LM path: smollm-135m's knobs, qwen3-14b "
           "at full width")
-    lean = lean_phase(train, lk, fdk, bw, flops, floor)
+    with shared_inits():
+        lean = lean_phase(train, lk, fdk, bw, flops, floor)
 
     phase(f"== 14. the MoE family: {GRANITE} trained at full width and "
           f"{GRANITE_LAYERS} layers, trained and served")
-    granite = granite_phase(train, serve, lk, fdk, bw, flops, floor)
+    with shared_inits():
+        granite = granite_phase(train, serve, lk, fdk, bw, flops, floor)
 
     phase(f"== 15. MLA and masks: {DEEPSEEK} trained at every width, 2 "
           f"layers and 16 routed experts, served with all 160 at "
           f"{DEEPSEEK_SERVE_LAYERS}; sliding windows and the softcap in "
           f"training")
-    mla = mla_phase(train, serve, lk, fdk, bw, flops, floor,
-                    lm["runs"]["lars"]["tokens_per_s"])
+    with shared_inits():
+        mla = mla_phase(train, serve, lk, fdk, bw, flops, floor,
+                        lm["runs"]["lars"]["tokens_per_s"])
 
     phase(f"== 16. the SSM and hybrid families: {FALCON} trained and "
           f"served at full width and {SSM_LAYERS[FALCON]} layers, {ZAMBA} "
           f"at {SSM_LAYERS[ZAMBA]}")
-    ssm = ssm_phase(train, serve, lk, fdk, bw, flops, floor)
+    with shared_inits():
+        ssm = ssm_phase(train, serve, lk, fdk, bw, flops, floor)
+
+    phase(f"== 17. the encdec and vlm families: {WHISPER} whole, "
+          f"{PALIGEMMA} at full width and {PALI_LAYERS} layers, trained "
+          f"and served by DecodeEngine")
+    with shared_inits():
+        fam = family_phase(train, lk, fdk, bw, flops, floor)
     stamps.append(("end", time.perf_counter()))
     phase_s = {a[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
     log("phase wall times, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in
@@ -2482,6 +2906,22 @@ def main() -> int:
             entry[f"launches_by_{tag}_run"] = {
                 t: r["launches"][kname]
                 for t, r in ssm[arch]["runs"].items()}
+        p_row = fam[PALIGEMMA]["kernel_rows"][kname]
+        entry["shapes"].append(p_row)
+        entry["paligemma_row"] = dict(
+            {k: v for k, v in p_row.items() if k.startswith("max_")},
+            rows=fam[PALIGEMMA]["rows"], ms=p_row["ms"],
+            bound_ms=p_row["bound_ms"], plain_ms=p_row["plain_ms"],
+            library_ms=p_row["library_ms"],
+            dispatch_ms=p_row["dispatch_ms"])
+        if not int8:
+            entry["paligemma_row"]["device_ms_in_paligemma_step"] = fam[
+                PALIGEMMA]["session"]["profile"][
+                "hand_kernel_device_ms_per_step"][kname]
+        for arch, tag in ((WHISPER, "whisper"), (PALIGEMMA, "paligemma")):
+            entry[f"launches_by_{tag}_run"] = {
+                t: r["launches"][kname]
+                for t, r in fam[arch]["runs"].items()}
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     ticks = served["decode_steps"]
@@ -2520,8 +2960,31 @@ def main() -> int:
         # Mamba layers are torch ops, as the reference's are jnp
         "falcon_serve_launches": ssm[FALCON]["serve"]["launches"][
             "flash_decode"],
+        # the D 256 instance (paligemma: serve shape, decode_32k's
+        # length) and whisper's cross-attention decode
+        "paligemma_rows": [{k: r[k] for k in (
+            "shape", "ms", "bound_ms", "plain_ms", "library_ms",
+            "dispatch_ms", "max_abs_err", "splits", "ctas")}
+            for r in fam["flash_decode_rows"][:2]],
+        "whisper_row": {k: fam["flash_decode_rows"][2][k] for k in (
+            "shape", "ms", "bound_ms", "plain_ms", "library_ms",
+            "dispatch_ms", "max_abs_err", "splits", "ctas")},
+        "d256_f32": fam["flash_decode_f32"],
+        "ptxas_d256": fam["ptxas"],
+        "paligemma_serve_launches": fam[PALIGEMMA]["serve"]["launches"][
+            "flash_decode"],
+        "paligemma_serve_launches_per_tick": fam[PALIGEMMA]["serve"][
+            "flash_decode_per_tick"],
+        "whisper_serve_launches": fam[WHISPER]["serve"]["launches"][
+            "flash_decode"],
+        "whisper_serve_launches_per_tick": fam[WHISPER]["serve"][
+            "flash_decode_per_tick"],
+        "device_ms_in_tick_by_model": {
+            arch: fam[arch]["serve"]["profile"]["flash_decode_ms_per_tick"]
+            for arch in (WHISPER, PALIGEMMA)},
         "shapes": fd_rows + [granite["flash_decode_row"],
-                             ssm["flash_decode_row"]]})
+                             ssm["flash_decode_row"]]
+        + fam["flash_decode_rows"]})
     main_path = {tag: {k: r[k] for k in ("steps_per_s", "examples_per_s",
                                         "eval_accuracy", "train_s")}
                  for tag, r in runs.items()}
@@ -2530,7 +2993,8 @@ def main() -> int:
                     "serve_card_vs_cpu": serve_cpu,
                     "serve_profile": serve_prof, "experiments": exp,
                     "lm": lm, "lean": lean, "granite": granite,
-                    "mla": mla, "ssm": ssm, "phase_wall_s": phase_s}))
+                    "mla": mla, "ssm": ssm, "families": fam,
+                    "phase_wall_s": phase_s}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": entries}))

@@ -1,6 +1,7 @@
-"""Carry params, packed optimizer states and LM decode caches (K/V,
-latent, or SSM and hybrid recurrent states) between the JAX package and
-the port, as numpy arrays.
+"""Carry params, packed optimizer states and decode caches (K/V, the
+encoder-decoder's K/V with its cross-attention K/V, latent, or SSM and
+hybrid recurrent states) between the JAX package and the port, as numpy
+arrays.
 
 The caller turns the JAX side into numpy (``jax.device_get`` /
 ``np.asarray``) and back; this module only sees numpy, so the port stays
@@ -79,9 +80,9 @@ def opt_state_to_numpy(state: OptState) -> tuple[int, dict]:
 
 def lm_params_to_torch(params: Pytree, model,
                        device: torch.device | str = "cpu") -> Pytree:
-    """An LM's params (the reference's nested dict of numpy arrays:
-    stacked ``(L, ...)`` layer leaves, ``(in, out)`` dense weights) as
-    the port's tree on ``device``. Every leaf's path and shape is
+    """An LM's or an encoder-decoder's params (the reference's nested
+    dict of numpy arrays: stacked ``(L, ...)`` layer leaves, ``(in,
+    out)`` dense weights) as the port's tree on ``device``. Every leaf's path and shape is
     checked against the port's own ``model.init`` (drawn on the meta
     device, so nothing is computed)."""
     got = params_to_torch(params, device)
@@ -100,14 +101,16 @@ def lm_params_to_torch(params: Pytree, model,
     return got
 
 
-CACHE_LEAVES = ({"pos", "k", "v"}, {"pos", "ckv", "krope"},
-                {"pos", "conv", "h"}, {"pos", "conv", "h", "attn_k", "attn_v"})
+CACHE_LEAVES = ({"pos", "k", "v"}, {"pos", "k", "v", "xk", "xv"},
+                {"pos", "ckv", "krope"}, {"pos", "conv", "h"},
+                {"pos", "conv", "h", "attn_k", "attn_v"})
 
 
 def cache_to_torch(cache: dict, device: torch.device | str = "cpu"
                    ) -> dict:
-    """An LM's decode cache from the reference, as tensors on ``device``:
-    ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, Hkv, hd), MLA's ``ckv``
+    """A decode cache from the reference, as tensors on ``device``:
+    ``pos`` (B,) int32 and ``k``/``v`` (L, B, S, Hkv, hd) (and the
+    encoder-decoder's ``xk``/``xv`` (L, B, S_enc, Hkv, hd)), MLA's ``ckv``
     (L, B, S, r) and ``krope`` (L, B, S, rope), the SSM family's
     ``conv`` (L, B, K-1, C) and f32 ``h``, or the hybrid's ``conv``,
     ``h`` and ``attn_k``/``attn_v`` (A, B, S, Hkv, hd)."""

@@ -97,6 +97,14 @@ def resolve_config(grid: GridSpec):
         raise ValueError(
             f"grid {grid.name!r}: family='lm' needs a token-LM arch "
             f"(got {grid.arch!r}, family {cfg.family!r})")
+    if cfg.family in ("encdec", "vlm"):
+        # the reference's runner feeds these too, and fails at the first
+        # step: a forward of either family needs its stub input
+        raise ValueError(
+            f"grid {grid.name!r}: an lm grid feeds token batches only, and "
+            f"the {cfg.family} family ({grid.arch!r}) also needs its stub "
+            "frames or image embeddings, which the reference's runner "
+            "does not feed either")
     return cfg.reduced(
         max_layers=grid.model_layers or 2,
         max_d_model=grid.model_d_model or 256,

@@ -56,8 +56,11 @@
 //     ticket to 0. No float atomics: two calls give the same bits.
 //   * f32 inside; scores in base 2 (scale * log2 e, then exp2f); positions
 //     past the length get a score of -1e30 and a probability of exactly 0.
-//     The head dim is a template bound (64 or 128); a smaller D (a multiple
-//     of 8) runs in the next bound up.
+//     The head dim is a template bound (64, 128 or 256); a smaller D (a
+//     multiple of 8) runs in the next bound up. At 256 the bf16 kernel's
+//     rings take 192 KB of shared memory (3 stages x K and V x 16 keys x
+//     512 B x 4 warps): one CTA is resident per SM, and the host's split
+//     plan aims at fewer, longer CTAs there.
 //
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() of its launch (or the error of
@@ -720,7 +723,10 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   if (D <= 64)
     return launch_dmax<T, 64>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
                               scale, splits, keys_per_split, st);
-  return launch_dmax<T, 128>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+  if (D <= 128)
+    return launch_dmax<T, 128>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                               scale, splits, keys_per_split, st);
+  return launch_dmax<T, 256>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
                              scale, splits, keys_per_split, st);
 }
 
@@ -730,7 +736,7 @@ extern "C" {
 
 // q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); lengths: (B,) int32; out: like q;
 // ws: f32 (B * Hkv, splits, G, D + 2); tickets: >= B * Hkv int32, all 0 on
-// entry and on return. 1 <= G <= 8, D % 8 == 0 and D <= 128; q, k, v on a
+// entry and on return. 1 <= G <= 8, D % 8 == 0 and D <= 256; q, k, v on a
 // 16-byte boundary. Split s reads keys [s * keys_per_split, (s + 1) *
 // keys_per_split); splits * keys_per_split >= S.
 int flash_decode_f32(const void* q, const void* k, const void* v,

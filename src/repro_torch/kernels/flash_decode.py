@@ -34,16 +34,20 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.lars_kernels import _on_cpu, _raise_on
 
 MAX_GROUP = 8         # query heads per kv head
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 # The kernel's CTA (csrc/flash_decode.cu) has 4 warps, each streaming
 # tiles of at most 16 keys: a split of a multiple of 64 keys is a whole
 # number of the CTA's rounds of tiles.
 SPLIT_ROUND = 64
-# split_plan aims at this many CTAs per SM (2 to 4 waves: 2 to 4 CTAs are
-# resident per SM), and gives a split no fewer keys than
-# MIN_KEYS_PER_SPLIT.
+# split_plan aims at CTAS_PER_SM CTAs per SM (2 to 4 waves: 2 to 4 CTAs
+# are resident per SM at D <= 128), and gives a split no fewer keys than
+# MIN_KEYS_PER_SPLIT. Past D 128 the bf16 kernel's 192 KB of shared
+# memory leaves one CTA resident per SM, and an SM whose CTA ends has no
+# copy in flight until the next CTA has issued its first tiles: there
+# the plan aims at WIDE_CTAS_PER_SM, two waves of longer CTAs.
 CTAS_PER_SM = 8
+WIDE_CTAS_PER_SM = 2
 MIN_KEYS_PER_SPLIT = 256
 
 # kernel launches since the last reset_launch_counts()
@@ -66,18 +70,23 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def ctas_per_sm(D: int) -> int:
+    """The CTAs per SM that :func:`split_plan` aims at for head dim D."""
+    return CTAS_PER_SM if D <= 128 else WIDE_CTAS_PER_SM
+
+
 def split_plan(B: int, S: int, Hkv: int, G: int, D: int,
                sm_count: int) -> SplitPlan:
     """How the kernel splits the keys: from the shapes and the SM count
     only, never from the lengths (reading them would cost a sync).
 
-    About CTAS_PER_SM * sm_count CTAs over B * Hkv pairs, no split under
-    MIN_KEYS_PER_SPLIT keys, and a multiple of SPLIT_ROUND keys per
+    About ``ctas_per_sm(D) * sm_count`` CTAs over B * Hkv pairs, no split
+    under MIN_KEYS_PER_SPLIT keys, and a multiple of SPLIT_ROUND keys per
     split. The workspace holds each split's running max, denominator and
     (G, D) accumulator.
     """
     pairs = B * Hkv
-    want = _cdiv(CTAS_PER_SM * sm_count, max(pairs, 1))
+    want = _cdiv(ctas_per_sm(D) * sm_count, max(pairs, 1))
     splits = max(1, min(want, _cdiv(S, MIN_KEYS_PER_SPLIT)))
     keys = _cdiv(_cdiv(max(S, 1), splits), SPLIT_ROUND) * SPLIT_ROUND
     splits = max(1, _cdiv(S, keys))
@@ -177,7 +186,7 @@ def _check(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lengths: torch.Tensor) -> None:
     """What the kernel takes: contiguous f32 or bf16 q4/k/v of one dtype
     on 16-byte boundaries, int32 lengths, 1 <= G <= 8, D a multiple of 8
-    up to 128 (its loads are 16 B wide)."""
+    up to 256 (its loads are 16 B wide)."""
     if q4.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"expected q4 (B, Hkv, G, D) and k, v (B, S, Hkv, "
                          f"D), got {tuple(q4.shape)}, {tuple(k.shape)}, "

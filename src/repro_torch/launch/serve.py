@@ -26,7 +26,9 @@ Weights are random, drawn from ``--seed`` (the port's own init at the
 reference's distributions). ``--set FIELD=VALUE`` overrides a config
 field after ``--reduced``, as in the reference. The reference's mesh,
 scenario, SLO, session, chunked-prefill and prefix-store options are
-not yet ported and raise.
+not yet ported and raise. As in the reference, the encdec and vlm
+archs (whisper-base, paligemma-3b) raise too: ``ServeEngine`` does not
+serve their families (:class:`repro_torch.serve.DecodeEngine` does).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 ``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
 cnn), a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b —,
 an MoE LM — granite-moe-3b-a800m, deepseek-v2-236b (MLA) —, the SSM LM
-falcon-mamba-7b or the hybrid zamba2-7b (``--reduced``: the CPU-scale
-variant),
+falcon-mamba-7b, the hybrid zamba2-7b, the encoder-decoder whisper-base
+or the vlm paligemma-3b (``--reduced``: the CPU-scale variant; the last
+two train on zero stub frames or image embeddings, as the reference),
 and ``--set FIELD=VALUE`` overrides config fields after ``--reduced``,
 as the reference does: the memory-lean LM path (``flash_vjp=true``,
 ``attn_q_chunk``, ``loss_chunk``, ``remat_block``) and a cut depth
@@ -34,6 +35,10 @@ Examples (on the card; ``--device cpu`` runs them on the CPU):
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
       --set num_layers=24 --batch 4 --seq 4096 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+      --set flash_vjp=true --batch 64 --seq 448 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
+      --reduced --steps 5 --batch 4 --seq 32 --device cpu
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
@@ -75,10 +80,20 @@ def make_lr_schedule(args) -> schedules.Schedule:
 
 def lm_batches(cfg, batch: int, seq: int, seed: int = 0):
     """Host-side numpy token batches (device placement is the loader's
-    job): the Markov source over ``min(V, 512)`` tokens."""
+    job): the Markov source over ``min(V, 512)`` tokens; with zero f32
+    stub ``frames`` (B, encoder_seq, d) for the encdec family and zero
+    ``image_embeddings`` (B, num_image_tokens, d) for vlm, as the
+    reference."""
     task = TokenTaskConfig(vocab_size=min(cfg.vocab_size, 512), seed=seed)
     for toks in token_batches(task, batch=batch, seq_len=seq, seed=seed):
-        yield {"tokens": np.asarray(toks[:, :seq], np.int32)}
+        b = {"tokens": np.asarray(toks[:, :seq], np.int32)}
+        if cfg.family == "encdec":
+            b["frames"] = np.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                   np.float32)
+        if cfg.family == "vlm":
+            b["image_embeddings"] = np.zeros(
+                (batch, cfg.num_image_tokens, cfg.d_model), np.float32)
+        yield b
 
 
 def parse_args(argv=None) -> argparse.Namespace:

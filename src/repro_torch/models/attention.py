@@ -16,7 +16,10 @@ so training, prefill and decode all get them. Training
 Pallas): f32 scores, scaled and soft-capped, then masked, an online
 softmax over KV chunks; autograd differentiates it as written. Its mask
 is :func:`repro_torch.models.flash_attn.block_mask`, the port's one mask
-model: causal, with an optional sliding window. As in the reference,
+model: causal or bidirectional (``causal=False``, the encoder and
+cross-attention of the encdec family), with a bidirectional prefix
+(``prefix_len``, the vlm family's image tokens) and an optional sliding
+window. As in the reference,
 ``attn_q_chunk`` loops it over query blocks and ``flash_vjp`` hands each
 block to :func:`repro_torch.models.flash_attn.flash_attention`, whose
 backward pass recomputes the scores instead of saving them. Decode runs
@@ -27,8 +30,9 @@ same function and is not ported.
 
 Training takes ``sliding_window`` and ``attn_logit_softcap``; decode,
 prefill and serving refuse both (:func:`check_decode_supported`). The
-mask model's encoder (``causal=False``), prefix-LM (``prefix_len``) and
-``kv_len`` options wait for the families that use them.
+mask model's ``kv_len`` option waits for chunked prefill, which uses it.
+Decode drops ``prefix_len``, as the reference does: a decoded token sits
+after any prefix, so its mask is the causal one.
 """
 
 from __future__ import annotations
@@ -105,16 +109,19 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_positions: torch.Tensor, window: int = 0,
+                   q_positions: torch.Tensor, causal: bool = True,
+                   window: int = 0, prefix_len: int | None = None,
                    kv_chunk: int = 1024, scale: float | None = None,
                    softcap: float = 0.0, q_chunk: int = 0,
                    flash_vjp: bool = False) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks of ``kv_chunk`` keys.
+    """Online-softmax attention over KV chunks of ``kv_chunk`` keys.
 
     q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v: (B, Sk, Hkv, Dv), Dv may
     differ from D (MLA). q_positions: (Sq,) or (B, Sq); keys sit at
-    positions 0..Sk-1 and a query at qp attends the keys kp <= qp, and
-    with a ``window`` > 0 only those with kp > qp - window. The scores
+    positions 0..Sk-1 and a query at qp attends the keys kp <= qp
+    (``causal``; every key without it), the keys kp < prefix_len too
+    when qp < ``prefix_len`` (a bidirectional prefix), and with a
+    ``window`` > 0 only those with kp > qp - window. The scores
     are scaled by ``scale`` (default D ** -0.5), then capped to
     ``softcap * tanh(s / softcap)`` when ``softcap`` > 0, then masked, as
     the reference. Returns (B, Sq, H, Dv) in q.dtype; scores, softmax
@@ -138,11 +145,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.cat([
             attention_core(q[:, i:i + q_chunk], k, v,
                            q_positions=q_positions[:, i:i + q_chunk],
-                           window=window, kv_chunk=kv_chunk, scale=scale,
-                           softcap=softcap, flash_vjp=flash_vjp)
+                           causal=causal, window=window,
+                           prefix_len=prefix_len, kv_chunk=kv_chunk,
+                           scale=scale, softcap=softcap, flash_vjp=flash_vjp)
             for i in range(0, Sq, q_chunk)], dim=1)
     # the mask model's (causal, window, prefix_len, scale, softcap, kv_len)
-    cfgt = (True, window, None, scale, softcap, None)
+    cfgt = (causal, window, prefix_len, scale, softcap, None)
     if flash_vjp:
         return flash_attention(q, k, v, q_positions, cfgt, kv_chunk)
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -174,16 +182,20 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
-def attention_block(cfg, p: dict, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention sub-block for training, projections
-    included, with the config's sliding window and logit softcap:
-    x (B, S, d) -> (B, S, d)."""
+def attention_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    *, causal: bool = True, prefix_len: int | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Self-attention sub-block for training and prefill, projections
+    included, with the config's logit softcap and its sliding window
+    (``window`` overrides it): x (B, S, d) -> (B, S, d). ``causal=False``
+    is the encoder's; ``prefix_len`` makes the first positions a
+    bidirectional prefix."""
     B, S, _ = x.shape
     H, _, hd = cfg.attn_dims
     q, k, v = qkv_project(cfg, p, x, positions)
-    out = attention_core(q, k, v, q_positions=positions,
-                         window=cfg.sliding_window,
+    out = attention_core(q, k, v, q_positions=positions, causal=causal,
+                         window=cfg.sliding_window if window is None
+                         else window, prefix_len=prefix_len,
                          softcap=cfg.attn_logit_softcap,
                          q_chunk=cfg.attn_q_chunk, flash_vjp=cfg.flash_vjp)
     return out.reshape(B, S, H * hd) @ p["wo"]

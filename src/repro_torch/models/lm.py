@@ -1,8 +1,7 @@
-"""Decoder-only language model, the dense, MoE, SSM and hybrid families
-(with GQA or MLA attention): port of those branches of
-``repro/models/lm.py`` — init, the training forward, the decode cache,
-one-token decode, (length-masked) prefill and slot admission into a
-persistent cache.
+"""Decoder-only language model, the dense, MoE, SSM, hybrid and vlm
+families (with GQA or MLA attention): port of ``repro/models/lm.py`` —
+init, the training forward, the decode cache, one-token decode,
+(length-masked) prefill and slot admission into a persistent cache.
 
 Params are nested dicts in the reference's leaf layouts: per-layer
 leaves stacked on a leading ``(L, ...)`` axis under ``"layers"``,
@@ -40,6 +39,15 @@ every application; a Python ``if`` where the reference has
 ``lax.cond``), so the shared block's gradient is the sum over its
 applications.
 
+The vlm family (paligemma-3b) is the dense stack fed the stub
+frontend's image patch embeddings (B, n_img, d) ahead of the text
+tokens, as a bidirectional prefix: the attention's mask lets a position
+inside the prefix see the whole prefix (``prefix_len``), the rest is
+causal. The forward returns logits over the whole sequence (the loss
+slices the prefix off); prefill takes the image embeddings too, and its
+cache ``pos`` counts the image tokens. Decode is the dense family's: a
+decoded token sits after the prefix.
+
 The decode cache is the reference's: ``{"pos": (B,) int32, "k", "v":
 (L, B, S, Hkv, hd)}``; with MLA ``{"pos", "ckv": (L, B, S, r),
 "krope": (L, B, S, rope)}``; for the SSM family ``{"pos", "conv":
@@ -54,12 +62,12 @@ advances ``pos``; :meth:`prefill_at` writes the admitted slots' prompt
 rows, their whole recurrent state and ``pos``. Both return the cache
 they were given.
 
-Other families (encdec, vlm) raise ``NotImplementedError``, and so do
-decode, prefill and serving with the attention features of
-:func:`repro_torch.models.attention.check_decode_supported` (on every
-family that has attention). A hybrid prompt longer than its shared
-block's cache needs the reference's ring alignment, which is not
-ported, and raises too.
+The encdec family is :mod:`repro_torch.models.encdec`'s. Decode,
+prefill and serving with the attention features of
+:func:`repro_torch.models.attention.check_decode_supported` raise
+``NotImplementedError`` (on every family that has attention). A hybrid
+prompt longer than its shared block's cache needs the reference's ring
+alignment, which is not ported, and raises too.
 """
 
 from __future__ import annotations
@@ -82,7 +90,7 @@ from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
 Pytree = Any
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 RECURRENT = ("ssm", "hybrid")
 # cache leaves without a sequence axis: a slot's whole recurrent state
 STATE_LEAVES = ("conv", "h")
@@ -91,9 +99,8 @@ STATE_LEAVES = ("conv", "h")
 class LanguageModel:
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not yet ported to "
-                f"repro_torch (the LM port covers {', '.join(FAMILIES)})")
+            raise ValueError(f"unknown model family {cfg.family!r} (the LM "
+                             f"covers {', '.join(FAMILIES)})")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
         self.recurrent = cfg.family in RECURRENT
@@ -186,12 +193,15 @@ class LanguageModel:
     # ----------------------------------------------------------------- train
 
     def attention_block(self, params_attn, h: torch.Tensor,
-                        positions: torch.Tensor) -> torch.Tensor:
-        """The layer's attention sub-block for training and prefill: MLA's
-        expanded block or the GQA block."""
+                        positions: torch.Tensor,
+                        prefix_len: Optional[int] = None) -> torch.Tensor:
+        """The layer's attention sub-block for training: MLA's expanded
+        block or the GQA block, with the vlm family's bidirectional
+        prefix of ``prefix_len`` positions."""
         if self.cfg.use_mla:
             return MLA.mla_block(self.cfg, params_attn, h, positions)
-        return A.attention_block(self.cfg, params_attn, h, positions)
+        return A.attention_block(self.cfg, params_attn, h, positions,
+                                 prefix_len=prefix_len)
 
     def _ffn(self, params_l, h: torch.Tensor
              ) -> tuple[torch.Tensor, Optional[dict]]:
@@ -210,7 +220,8 @@ class LanguageModel:
         return x + mlp_block(cfg, shared["mlp"], h)
 
     def _layer_train(self, params_l, x: torch.Tensor, aux: torch.Tensor,
-                     positions: torch.Tensor, shared=None
+                     positions: torch.Tensor, shared=None,
+                     prefix_len: Optional[int] = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """One layer on the carry (x, aux): aux gains the MoE block's
         load-balance loss. A Mamba layer is ``x + ssm(norm(x))``, then
@@ -222,7 +233,8 @@ class LanguageModel:
             if shared is not None:
                 x = self._shared_block(shared, x, positions)
             return x, aux
-        x = x + self.attention_block(params_l["attn"], h, positions)
+        x = x + self.attention_block(params_l["attn"], h, positions,
+                                     prefix_len)
         h = L.apply_norm(cfg, x, params_l["ln2"])
         y, moe_aux = self._ffn(params_l, h)
         if moe_aux is not None:
@@ -230,14 +242,15 @@ class LanguageModel:
         return x + y, aux
 
     def _block_train(self, layers, shared, x: torch.Tensor,
-                     aux: torch.Tensor, positions: torch.Tensor, idx: range
+                     aux: torch.Tensor, positions: torch.Tensor, idx: range,
+                     prefix_len: Optional[int] = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Layers ``idx`` in order on the carry (x, aux), each
         checkpointed when ``cfg.remat``; ``shared``: the hybrid's shared
         block, applied after the layers :meth:`_applies_shared` names."""
         for i in idx:
             args = (_index(layers, i), x, aux, positions,
-                    shared if self._applies_shared(i) else None)
+                    shared if self._applies_shared(i) else None, prefix_len)
             if self.cfg.remat:
                 x, aux = checkpoint(self._layer_train, *args,
                                     use_reentrant=False)
@@ -246,9 +259,12 @@ class LanguageModel:
         return x, aux
 
     def forward(self, params, tokens: torch.Tensor, *,
+                image_embeddings: Optional[torch.Tensor] = None,
                 return_hidden: bool = False
                 ) -> tuple[torch.Tensor, dict]:
-        """Train/eval forward. tokens (B, S) int.
+        """Train/eval forward. tokens (B, S_text) int; for the vlm family
+        ``image_embeddings`` (B, n_img, d), prepended as a bidirectional
+        prefix, so S = n_img + S_text.
 
         Returns (logits (B, S, V) f32, {"aux_loss": f32 scalar: the MoE
         blocks' load-balance losses summed over the layers, 0 for the
@@ -258,7 +274,7 @@ class LanguageModel:
         identity in value and in gradient; it has no counterpart here.
         """
         cfg = self.cfg
-        x = self.embed_tokens(params, tokens)
+        x, prefix_len = self._embed_inputs(params, tokens, image_embeddings)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), device=x.device)
         blk = cfg.remat_block
@@ -267,14 +283,31 @@ class LanguageModel:
             for i in range(0, cfg.num_layers, blk):
                 x, aux = checkpoint(self._block_train, params["layers"],
                                     shared, x, aux, positions,
-                                    range(i, i + blk), use_reentrant=False)
+                                    range(i, i + blk), prefix_len,
+                                    use_reentrant=False)
         else:
             x, aux = self._block_train(params["layers"], shared, x, aux,
-                                       positions, range(cfg.num_layers))
+                                       positions, range(cfg.num_layers),
+                                       prefix_len)
         aux = {"aux_loss": aux}
         if return_hidden:
             return L.apply_norm(cfg, x, params["final_norm"]), aux
         return self.logits(params, x), aux
+
+    def _embed_inputs(self, params, tokens: torch.Tensor,
+                      image_embeddings: Optional[torch.Tensor]
+                      ) -> tuple[torch.Tensor, Optional[int]]:
+        """The embedded tokens, behind the image embeddings for the vlm
+        family; and the bidirectional prefix's length (None but for
+        vlm)."""
+        x = self.embed_tokens(params, tokens)
+        if self.cfg.family != "vlm":
+            return x, None
+        if image_embeddings is None:
+            raise ValueError("the vlm family needs its image embeddings "
+                             "(the stub frontend's patch embeddings)")
+        return (torch.cat([image_embeddings.to(x.dtype), x], dim=1),
+                image_embeddings.shape[1])
 
     # ----------------------------------------------------------------- cache
 
@@ -402,7 +435,8 @@ class LanguageModel:
 
     # --------------------------------------------------------------- prefill
 
-    def _attention_prefill(self, p, h: torch.Tensor, positions: torch.Tensor
+    def _attention_prefill(self, p, h: torch.Tensor, positions: torch.Tensor,
+                           prefix_len: Optional[int] = None
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
         """A GQA attention sub-block over the whole prompt: (out (B, S,
@@ -412,17 +446,22 @@ class LanguageModel:
         H, _, hd = cfg.attn_dims
         q, k, v = A.qkv_project(cfg, p, h, positions)
         out = A.attention_core(q, k, v, q_positions=positions,
+                               prefix_len=prefix_len,
                                q_chunk=cfg.attn_q_chunk,
                                flash_vjp=cfg.flash_vjp)
         return out.reshape(B, S, H * hd) @ p["wo"], k, v
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, *,
+                image_embeddings: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None,
                 lengths: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, dict]:
         """Run the full prompt, building a decode cache of capacity
-        ``cache_len`` (default: the prompt length).
+        ``cache_len`` (default: the prompt length). The vlm family's
+        prompt is its ``image_embeddings`` and then its tokens, the
+        image a bidirectional prefix; its cache ``pos`` counts both, and
+        it takes no ``lengths``, as the reference's.
 
         ``lengths`` (B,) int32 marks per-row true prompt lengths of a
         right-padded token batch: logits come from each row's last valid
@@ -437,7 +476,10 @@ class LanguageModel:
         """
         cfg = self.cfg
         self._check_decode()
-        x = self.embed_tokens(params, tokens)
+        if cfg.family == "vlm" and lengths is not None:
+            raise ValueError("the vlm family's prefill takes no lengths, as "
+                             "the reference's")
+        x, prefix_len = self._embed_inputs(params, tokens, image_embeddings)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)
         cap = cache_len or S
@@ -456,7 +498,8 @@ class LanguageModel:
                     rows["ckv"].append(ckv)
                     rows["krope"].append(krope[:, :, 0])
                 else:
-                    out, k, v = self._attention_prefill(p, h, positions)
+                    out, k, v = self._attention_prefill(p, h, positions,
+                                                        prefix_len)
                     x = x + out
                     rows["k"].append(k)
                     rows["v"].append(v)
@@ -559,6 +602,12 @@ class LanguageModel:
         never read. The prompt is bounded only by a cache that has a
         capacity (a pure-SSM cache has none).
         """
+        if self.cfg.family == "vlm":
+            raise ValueError("prefill_at admits text prompts into slots; the "
+                             "vlm family's prompt carries its image "
+                             "embeddings, and the reference's slot "
+                             "admission does not serve vlm (use "
+                             "DecodeEngine)")
         S = tokens.shape[1]
         cap = self.cache_capacity(cache)
         if cap is not None and S > cap:

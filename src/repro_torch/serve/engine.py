@@ -1,6 +1,7 @@
 """The continuous-batching :class:`ServeEngine` (slot cache + FIFO
-scheduler + on-device sampling) and the prefill/serve step factories:
-port of the FIFO, unchunked path of ``repro/serve/engine.py``.
+scheduler + on-device sampling), the static-batch :class:`DecodeEngine`
+and the prefill/serve step factories: port of the FIFO, unchunked path
+of ``repro/serve/engine.py``.
 
 ServeEngine contract (the decode hot path):
   * ONE decode step per emitted token for the whole slot batch. The
@@ -21,10 +22,13 @@ ServeEngine contract (the decode hot path):
     in place while resident slots keep theirs — the NEXT decode step
     serves old and new together.
 
-The reference's SLO priority scheduling (``slos``), chunked prefill
-(``prefill_chunk``), the prefix store (``prefix_entries``), meshes and
-slot autoscaling (``min_slots``) are not yet ported and raise, as does
-its static-batch ``DecodeEngine``.
+``ServeEngine`` serves the families of ``SERVE_FAMILIES``, as the
+reference's: the encdec and vlm families' prompts carry frames or image
+embeddings, which slot admission does not take, so they are served by
+:class:`DecodeEngine`. The reference's SLO priority scheduling
+(``slos``), chunked prefill (``prefill_chunk``), the prefix store
+(``prefix_entries``), meshes and slot autoscaling (``min_slots``) are
+not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -48,11 +52,20 @@ SERVE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 def make_prefill_step(model) -> Callable:
     """(params, batch) -> (last-token logits (B, V), cache).
 
-    batch: {"tokens"}. ``cache_len`` fixes the decode-cache capacity
-    (defaults to the prompt length).
+    batch: {"tokens"} (+"frames" encdec, +"image_embeddings" vlm).
+    ``cache_len`` fixes the decode-cache capacity (defaults to the prompt
+    length).
     """
+    family = model.cfg.family
+
     def step(params, batch, *, cache_len: Optional[int] = None):
-        return model.prefill(params, batch["tokens"], cache_len=cache_len)
+        kw = {}
+        if family == "encdec":
+            kw["frames"] = batch["frames"]
+        if family == "vlm":
+            kw["image_embeddings"] = batch["image_embeddings"]
+        return model.prefill(params, batch["tokens"], cache_len=cache_len,
+                             **kw)
 
     return step
 
@@ -64,6 +77,45 @@ def make_serve_step(model) -> Callable:
         return model.decode_step(params, cache, tokens)
 
     return step
+
+
+class DecodeEngine:
+    """Static-batch greedy decoding: one prefill of a fixed batch, then
+    one decode step per token for a fixed number of tokens, every
+    sequence in its lane until the last token. The reference keeps it as
+    the serving benchmark's baseline and as the way to serve the encdec
+    and vlm families.
+
+    It runs on the params' device: GQA decode attention is the
+    ``flash_decode`` kernel on the card, its plain version on the CPU.
+    The batch's tensors are moved there.
+    """
+
+    def __init__(self, model, params, cfg=None):
+        self.model = model
+        self.cfg = cfg if cfg is not None else model.cfg
+        self.params = params
+        self.device = params["embed"].device
+        self._prefill = make_prefill_step(model)
+        self._step = make_serve_step(model)
+
+    def generate(self, batch, *, max_new_tokens: int,
+                 cache_len: Optional[int] = None) -> torch.Tensor:
+        """Greedy tokens (B, max_new_tokens) int32 on the params' device.
+        The cache's capacity defaults to the text prompt's length plus
+        ``max_new_tokens``, as the reference's; a vlm caller passes
+        ``cache_len`` to make room for the image prefix too."""
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        B, S = batch["tokens"].shape
+        cap = cache_len or (S + max_new_tokens)
+        logits, cache = self._prefill(self.params, batch, cache_len=cap)
+        tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits, cache = self._step(self.params, cache, tok)
+            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1)
 
 
 class ServeEngine:
@@ -90,9 +142,8 @@ class ServeEngine:
         self.model = model
         self.cfg = cfg if cfg is not None else model.cfg
         if self.cfg.family not in SERVE_FAMILIES:
-            raise NotImplementedError(
-                f"serving the {self.cfg.family!r} family is not yet ported "
-                f"to repro_torch (have {SERVE_FAMILIES})")
+            raise ValueError(f"ServeEngine covers {SERVE_FAMILIES}, got "
+                             f"{self.cfg.family!r}")
         unported = {"slos": slos is not None, "prefill_chunk":
                     prefill_chunk is not None, "prefix_entries":
                     prefix_entries > 0, "mesh": mesh is not None,

@@ -1,17 +1,19 @@
-"""Train/eval step factories (port of ``repro/train/step.py``, the cnn
-family and the dense, MoE, SSM and hybrid LM families). A step is an eager function
-(TrainState, batch) -> (TrainState, metrics): autograd for the
-gradients, then the optimizer update. The metrics stay on the device;
-reading them is the caller's choice.
+"""Train/eval step factories for every model family (port of
+``repro/train/step.py``). A step is an eager function (TrainState,
+batch) -> (TrainState, metrics): autograd for the gradients, then the
+optimizer update. The metrics stay on the device; reading them is the
+caller's choice. The batch's contents follow the family:
 
   cnn      {"x": images (B,28,28,1), "y": labels (B,)}
   lm       {"tokens": (B, S)}              loss: predict [1:] from [:-1]
+  vlm      {"tokens", "image_embeddings"}  prefix-LM loss mask
+  encdec   {"tokens", "frames"}            teacher-forced decoder loss
 
 With ``loss_chunk > 0`` the LM's loss runs chunked over the sequence
 (:func:`~repro_torch.train.losses.chunked_lm_loss`) and the step returns
-no logits; evaluation always takes the whole logits. The MoE family's
-loss adds its load-balance ``aux_loss`` (0 for the other LM families).
-The encdec and vlm families are not yet ported and raise.
+no logits; evaluation always takes the whole logits. The encdec family
+always takes the whole logits, as the reference. The MoE family's loss
+adds its load-balance ``aux_loss`` (0 for the other families).
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models.lm import FAMILIES as LM_FAMILIES
 from repro_torch.train.losses import (chunked_lm_loss, classification_loss,
                                       lm_loss)
 from repro_torch.train.metrics import accuracy
@@ -33,14 +34,33 @@ Pytree = Any
 
 
 def _forward_and_loss(model, cfg, params, batch):
-    """(loss, (logits, aux)) for the cnn family and the LM families of
-    ``LM_FAMILIES``; logits are None on the chunked-loss path."""
+    """(loss, (logits, aux)) for any family; logits are None on the
+    chunked-loss path. The vlm family's logits come back without the
+    image prefix, so they line up with the text tokens."""
     if cfg.family == "cnn":
         logits, aux = model.forward(params, batch["x"])
         return classification_loss(logits, batch["y"]), (logits, aux)
-    if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported to repro_torch")
+    if cfg.family == "encdec":
+        logits, aux = model.forward(params, batch["tokens"],
+                                    frames=batch["frames"])
+        loss = lm_loss(logits, batch["tokens"])
+        return loss + aux["aux_loss"], (logits, aux)
+    if cfg.family == "vlm":
+        img = batch["image_embeddings"]
+        n_img = img.shape[1]
+        if cfg.loss_chunk:
+            hidden, aux = model.forward(params, batch["tokens"],
+                                        image_embeddings=img,
+                                        return_hidden=True)
+            loss = chunked_lm_loss(hidden[:, n_img:],
+                                   model.unembed_matrix(params),
+                                   batch["tokens"], chunk=cfg.loss_chunk)
+            return loss + aux["aux_loss"], (None, aux)
+        logits, aux = model.forward(params, batch["tokens"],
+                                    image_embeddings=img)
+        text_logits = logits[:, n_img:]
+        loss = lm_loss(text_logits, batch["tokens"])
+        return loss + aux["aux_loss"], (text_logits, aux)
     if cfg.loss_chunk:
         hidden, aux = model.forward(params, batch["tokens"],
                                     return_hidden=True)
@@ -93,8 +113,9 @@ def make_eval_step(model, cfg=None) -> Callable:
     """(params, batch) -> metrics {loss, accuracy}. The cnn family scores
     the class head directly against the labels; the LM's logit at
     position t predicts the token at t+1, so ``logits[:, :-1]`` is scored
-    against ``tokens[:, 1:]``. Evaluation takes the whole logits even
-    where training runs the chunked loss."""
+    against ``tokens[:, 1:]`` (the vlm family's logits come without the
+    image prefix, so the same shift holds). Evaluation takes the whole
+    logits even where training runs the chunked loss."""
     cfg = cfg if cfg is not None else model.cfg
     if cfg.loss_chunk:
         cfg = dataclasses.replace(cfg, loss_chunk=0)

@@ -1,8 +1,9 @@
-"""The training side of sliding windows and the logit softcap: the
-port's ``attention_core`` (stock, and through ``flash_vjp``) with
-``window``, ``softcap`` and a custom ``scale`` on the CPU against the
-reference's ``attention_core``, forward and gradients, on the same
-seeded numpy inputs; then reduced qwen3-14b's loss and gradients with
+"""The training side of sliding windows and the logit softcap, and the
+encoder's and prefix-LM masks: the port's ``attention_core`` (stock, and
+through ``flash_vjp``) with ``window``, ``softcap``, a custom ``scale``,
+``causal=False`` and ``prefix_len`` on the CPU against the reference's
+``attention_core``, forward and gradients, on the same seeded numpy
+inputs; then reduced qwen3-14b's loss and gradients with
 ``sliding_window`` and ``attn_logit_softcap`` set.
 
 At kv_chunk 4, q_chunk 8 and window 5 the query block at positions
@@ -11,7 +12,7 @@ case covers a wholly masked chunk.
 
 Tolerances, each measured here:
   * f32: outputs within 4.2e-7 (values up to 2.0), gradients within
-    3.2e-7 of each gradient's largest entry; held at rtol/atol 1e-5 and
+    4.4e-7 of each gradient's largest entry; held at rtol/atol 1e-5 and
     1e-5 of the largest entry.
   * bf16 inputs: outputs equal bit for bit; gradients within 5.4e-4 of
     the largest entry (one bf16 ulp where the f32 sums of the two round
@@ -49,7 +50,11 @@ BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 LOSS_RTOL = 1e-6
 S = 24
 CASES = {"window": dict(window=5), "softcap": dict(softcap=2.0),
-         "all_three": dict(window=5, softcap=1.5, scale=0.5)}
+         "all_three": dict(window=5, softcap=1.5, scale=0.5),
+         # the encoder's and the cross-attention's mask, and the vlm's
+         # bidirectional prefix (which reaches past the first query block)
+         "encoder": dict(causal=False), "prefix": dict(prefix_len=11),
+         "prefix_window": dict(prefix_len=11, window=5)}
 
 
 def _inputs(B=2, H=4, Hkv=2, D=8, Dv=8, seed=0):

@@ -397,10 +397,12 @@ from repro_torch.treepath import tree_map  # noqa: E402
 FD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
 # (B, S, Hkv, G, D): smollm's G = 3 at D 64, qwen3's G = 5 at D 128,
-# MQA with G = 8, G = 1, the reduced smollm's D = 72, and zamba2's shared
-# block: MHA (G = 1) at D 112, one row of length 0
+# MQA with G = 8, G = 1, the reduced smollm's D = 72, zamba2's shared
+# block: MHA (G = 1) at D 112, one row of length 0; paligemma's MQA at
+# G = 8, D 256, and D 136 in the 256 instance
 FD_SHAPES = [(4, 1000, 3, 3, 64), (2, 700, 8, 5, 128), (3, 129, 1, 8, 64),
-             (2, 300, 2, 1, 128), (2, 50, 1, 4, 72), (3, 600, 4, 1, 112)]
+             (2, 300, 2, 1, 128), (2, 50, 1, 4, 72), (3, 600, 4, 1, 112),
+             (4, 448, 1, 8, 256), (3, 130, 1, 8, 136)]
 
 
 def _fd_inputs(B, S, Hkv, G, D, dtype, device, seed=0):
@@ -447,7 +449,7 @@ def test_flash_decode_zero_length_rows_give_zeros(cuda, dtype):
 
 
 @pytest.mark.parametrize("bad", ["misaligned", "strided", "dtype", "lengths",
-                                 "group", "head_dim", "device"])
+                                 "group", "head_dim", "device", "wide"])
 def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, lengths = _fd_inputs(2, 64, 2, 3, 64, torch.bfloat16, cuda)
     if bad == "misaligned":
@@ -463,6 +465,9 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda, bad):
         q = torch.zeros(2, 2, 9, 64, dtype=q.dtype, device=cuda)
     elif bad == "head_dim":
         q, k, v = (x[..., :60].contiguous() for x in (q, k, v))
+    elif bad == "wide":                 # past the kernel's D 256
+        q, k, v = (torch.cat([x] * 5, dim=3)[..., :264].contiguous()
+                   for x in (q, k, v))
     else:
         lengths = lengths.cpu()
     before = fdk.LAUNCHES["flash_decode"]
@@ -484,7 +489,7 @@ def _fd_check(q, k, v, lengths, scale=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_decode_split_boundaries(cuda, dtype, D):
     """Lengths at every split boundary and one either side of it, with
     many splits per (b, kv head)."""
@@ -1053,3 +1058,95 @@ def test_ssm_decode_on_the_card_matches_the_cpu(cuda, arch):
                                            rtol=1e-5, atol=1e-5)
         else:
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- the encdec and vlm families
+
+from repro_torch.serve import DecodeEngine  # noqa: E402
+
+# reduced whisper-base, reduced paligemma, and reduced paligemma at the
+# full width's attention (8 query heads on 1 kv head of 256: the D 256
+# instance of flash_decode)
+FAMILY_CASES = {"whisper": ("whisper-base", {}),
+                "paligemma": ("paligemma-3b", {}),
+                "paligemma_d256": ("paligemma-3b", dict(
+                    num_heads=8, num_kv_heads=1, head_dim=256))}
+
+
+def _family(case):
+    import dataclasses
+    arch, changes = FAMILY_CASES[case]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    return cfg, build_model(cfg)
+
+
+def _family_batch(cfg, B, S, seed):
+    g = torch.Generator().manual_seed(seed)
+    name, n = (("frames", cfg.encoder_seq) if cfg.family == "encdec"
+               else ("image_embeddings", cfg.num_image_tokens))
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                    dtype=torch.int32),
+            name: torch.randn(B, n, cfg.d_model, generator=g) * 0.5}
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+def test_family_lars_step_on_the_card_matches_the_cpu(cuda, case):
+    """One LARS step of reduced whisper or paligemma (f32, TF32 off): one
+    norms_flat and one apply_flat launch on the card; the loss and the
+    updated weights within 1e-5 of the CPU's (cuBLAS sums in another
+    order)."""
+    cfg, model = _family(case)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = _family_batch(cfg, 4, 24, 1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = lars(0.05, momentum=0.9, weight_decay=1e-4)
+        state = train_state_from_params(
+            model, opt, tree_map(lambda t: t.to(dev), params))
+        lk.reset_launch_counts()
+        state, metrics = TrainPipeline(model, opt, cfg)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (metrics, tree_leaves(state.params))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert lk.LAUNCHES == {"norms_flat": 1, "apply_flat": 1,
+                                   "apply_flat_q8": 0}
+    (m, w), (cm, cw) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(m["loss"].cpu(), cm["loss"], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(w, cw):
+        assert (a.cpu() - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_CASES))
+def test_family_decode_on_the_card_matches_the_cpu(cuda, case):
+    """Prefill, then 8 teacher-forced decode steps, card against CPU:
+    logits within 1e-4; ``flash_decode`` launches twice a layer a step
+    for whisper (self- and cross-attention), once for paligemma, never in
+    prefill; ``DecodeEngine``'s greedy tokens identical on both."""
+    cfg, model = _family(case)
+    params = model.init(torch.Generator().manual_seed(2), "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    batch = _family_batch(cfg, 3, 10, 3)
+    stub = next(k for k in batch if k != "tokens")
+    feed = torch.randint(0, cfg.vocab_size, (8, 3, 1), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    cap = 32 + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+    per_step = 2 * cfg.num_layers if cfg.family == "encdec" \
+        else cfg.num_layers
+    assert model.flash_decode_per_step() == per_step
+    out, greedy = {}, {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        fdk.reset_launch_counts()
+        _, cache = model.prefill(p, batch["tokens"].to(dev),
+                                 cache_len=cap, **{stub: batch[stub].to(dev)})
+        assert fdk.LAUNCHES["flash_decode"] == 0
+        out[dev] = [model.decode_step(p, cache, t.to(dev))[0].cpu()
+                    for t in feed]
+        assert fdk.LAUNCHES["flash_decode"] == (8 * per_step if dev == "cuda"
+                                                else 0)
+        greedy[dev] = DecodeEngine(model, p, cfg).generate(
+            batch, max_new_tokens=12, cache_len=cap).cpu()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert torch.equal(greedy["cuda"], greedy["cpu"])

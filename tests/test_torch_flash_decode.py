@@ -3,14 +3,16 @@
 and ``kernels.ops.flash_decode`` (on CPU tensors the wrapper runs the
 kernel's plain version) against the reference's ``ops.flash_decode``
 with the Pallas kernel in interpret mode, as tests/test_kernels.py runs
-it, at that file's shapes (MHA, GQA, MQA, G = 5, S < block) in f32 and
-bf16, plus lengths 0, 1, S and past S. The CUDA kernel is held against
-the plain version on the card in tests/test_torch_cuda.py.
+it, at that file's shapes (MHA, GQA, MQA, G = 5, S < block) and
+paligemma's (MQA at G 8, D 256) in f32 and bf16, plus lengths 0, 1, S
+and past S. The CUDA kernel is held against the plain version on the
+card in tests/test_torch_cuda.py.
 
-Tolerances (measured here: f32 <= 6e-7 absolute against both): f32 atol
-and rtol 1e-5 — the same f32 function, summed in another order. bf16:
-both sides compute in f32 and round the output to bf16 once, so an
-output may differ by one bf16 ulp: rtol 2^-7, atol 1e-6.
+Tolerances (measured here: f32 <= 6e-7 absolute against both at D <=
+128, 9.6e-7 at D 256): f32 atol and rtol 1e-5 — the same f32 function,
+summed in another order. bf16: both sides compute in f32 and round the
+output to bf16 once, so an output may differ by one bf16 ulp: rtol
+2^-7, atol 1e-6.
 """
 
 import jax.numpy as jnp
@@ -32,7 +34,8 @@ SHAPES = [(2, 8, 8, 256, 64, 128),    # MHA
           (2, 8, 2, 256, 64, 128),    # GQA
           (1, 8, 1, 512, 128, 256),   # MQA
           (3, 10, 2, 384, 64, 128),   # G = 5
-          (1, 4, 4, 100, 64, 512)]    # S < block
+          (1, 4, 4, 100, 64, 512),    # S < block
+          (2, 8, 1, 320, 256, 128)]   # paligemma's MQA: G 8 at D 256
 
 
 def _inputs(B, H, Hkv, S, D, dtype, lengths=None, seed=3):
@@ -186,7 +189,8 @@ def test_split_plain_at_the_plans_split(dtype):
 
 
 # (B, S, Hkv, G, D, dtype, SMs): the serve shape, decode_32k, many pairs,
-# a short cache, an empty one, and odd sizes
+# a short cache, an empty one, odd sizes, and paligemma's D 256 at its
+# serve shape and at decode_32k's length
 PLAN_SHAPES = [(32, 4096, 3, 3, 64, torch.bfloat16, 132),
                (8, 32768, 8, 5, 128, torch.bfloat16, 132),
                (40, 1024, 8, 5, 128, torch.bfloat16, 132),
@@ -194,15 +198,17 @@ PLAN_SHAPES = [(32, 4096, 3, 3, 64, torch.bfloat16, 132),
                (2, 100, 1, 1, 8, torch.float32, 132),
                (1, 0, 2, 3, 64, torch.float32, 132),
                (3, 524288, 1, 8, 128, torch.float32, 114),
-               (5, 4099, 3, 4, 72, torch.bfloat16, 78)]
+               (5, 4099, 3, 4, 72, torch.bfloat16, 78),
+               (32, 448, 1, 8, 256, torch.bfloat16, 132),
+               (8, 32768, 1, 8, 256, torch.bfloat16, 132)]
 
 
 @pytest.mark.parametrize("B,S,Hkv,G,D,dtype,sms", PLAN_SHAPES)
 def test_split_plan_covers_every_key_once(B, S, Hkv, G, D, dtype, sms):
     """Every key of the cache lies in exactly one split, every split
     holds keys, the splits are whole rounds of the CTA's tiles, the grid
-    aims at CTAS_PER_SM CTAs per SM, and the workspace is small against
-    the K/V bytes the pairs read."""
+    aims at ``ctas_per_sm(D)`` CTAs per SM, and the workspace is small
+    against the K/V bytes the pairs read."""
     splits, kps, ws = fd.split_plan(B, S, Hkv, G, D, sms)
     pairs = B * Hkv
     assert splits >= 1 and kps % fd.SPLIT_ROUND == 0
@@ -212,10 +218,11 @@ def test_split_plan_covers_every_key_once(B, S, Hkv, G, D, dtype, sms):
         cover[s * kps:(s + 1) * kps] += 1
     assert (cover == 1).all()
     assert kps >= min(fd.MIN_KEYS_PER_SPLIT, S) or splits == 1
-    if pairs >= fd.CTAS_PER_SM * sms:
+    per_sm = fd.ctas_per_sm(D)
+    if pairs >= per_sm * sms:
         assert splits == 1
     else:
-        assert pairs * splits <= 2 * fd.CTAS_PER_SM * sms
+        assert pairs * splits <= 2 * per_sm * sms
     assert ws == (pairs, splits, G, D + 2)
     kv_bytes = 2 * pairs * S * D * torch.finfo(dtype).bits // 8
     if S >= fd.MIN_KEYS_PER_SPLIT:
@@ -229,3 +236,55 @@ def test_split_plan_reads_shapes_not_lengths():
     assert list(inspect.signature(fd.split_plan).parameters) == [
         "B", "S", "Hkv", "G", "D", "sm_count"]
     assert list(inspect.signature(fd.plan).parameters) == ["q4", "k"]
+
+
+# ------------------------------------------------------- head dim 256
+
+def test_wide_heads_plan_two_waves():
+    """At D 256 one CTA of the bf16 kernel is resident per SM: the plan
+    aims at WIDE_CTAS_PER_SM per SM there (decode_32k's length: 32
+    splits of 1,024 keys over 8 pairs, 256 CTAs on 132 SMs), at
+    CTAS_PER_SM up to D 128."""
+    assert [fd.ctas_per_sm(D) for D in (64, 128, 136, 256)] == \
+        [fd.CTAS_PER_SM] * 2 + [fd.WIDE_CTAS_PER_SM] * 2
+    assert fd.split_plan(8, 32768, 1, 8, 256, 132)[:2] == (32, 1024)
+    assert fd.split_plan(8, 32768, 1, 8, 128, 132)[:2] == (128, 256)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_head_dim_256_matches_the_reference(dtype):
+    """paligemma's decode (Hkv 1, G 8, D 256): the plain version and the
+    kernel's split model at the plan's split against the reference's
+    Pallas kernel (interpret) and oracle, lengths 0, 1, S and past S and
+    the split boundaries."""
+    B, Hkv, G, S, D = 8, 1, 8, 2048, 256
+    splits, kps, _ = fd.split_plan(B, S, Hkv, G, D, 132)
+    assert splits > 1
+    lengths = [0, 1, S, S + 9, kps - 1, kps, kps + 1, S - 1]
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _inputs(B, Hkv * G, Hkv, S, D,
+                                                 dtype, lengths=lengths)
+    want = ref_ops.flash_decode(jq, jk, jv, jl, block_size=512,
+                                interpret=True)
+    got = ops.flash_decode(tq, tk, tv, tl)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got, want, dtype)
+    _close(got, ref_ref.flash_decode(jq, jk, jv, jl), dtype)
+    split = fd.flash_decode_split_plain(tq.reshape(B, Hkv, G, D), tk, tv,
+                                        tl, scale=D ** -0.5, splits=splits,
+                                        keys_per_split=kps)
+    _close(split.reshape(B, Hkv * G, D), want, dtype)
+
+
+def test_the_wrapper_takes_head_dims_up_to_256():
+    """The kernel's bound: D a multiple of 8 up to 256 (D 264 raises)."""
+    def args(D):
+        return (torch.zeros(2, 1, 8, D, dtype=torch.bfloat16),
+                torch.zeros(2, 16, 1, D, dtype=torch.bfloat16),
+                torch.zeros(2, 16, 1, D, dtype=torch.bfloat16),
+                torch.ones(2, dtype=torch.int32))
+    assert fd.MAX_HEAD_DIM == 256
+    for D in (8, 136, 256):
+        fd._check(*args(D))
+    for D in (264, 252):
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            fd._check(*args(D))

@@ -49,7 +49,10 @@ def test_the_scan_sees_the_port():
             "src/repro_torch/configs/deepseek_v2_236b.py",
             "src/repro_torch/models/ssm.py",
             "src/repro_torch/configs/falcon_mamba_7b.py",
-            "src/repro_torch/configs/zamba2_7b.py"} <= names
+            "src/repro_torch/configs/zamba2_7b.py",
+            "src/repro_torch/models/encdec.py",
+            "src/repro_torch/configs/whisper_base.py",
+            "src/repro_torch/configs/paligemma_3b.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -73,7 +76,9 @@ def test_the_scan_sees_the_port():
     "repro_torch.models.moe", "repro_torch.configs.granite_moe_3b_a800m",
     "repro_torch.models.mla", "repro_torch.configs.deepseek_v2_236b",
     "repro_torch.models.ssm", "repro_torch.configs.falcon_mamba_7b",
-    "repro_torch.configs.zamba2_7b", "repro_torch.bridge"])
+    "repro_torch.configs.zamba2_7b", "repro_torch.bridge",
+    "repro_torch.models.encdec", "repro_torch.configs.whisper_base",
+    "repro_torch.configs.paligemma_3b", "repro_torch.kernels.build"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""

@@ -198,6 +198,39 @@ def test_build_is_keyed_by_source_and_flags(monkeypatch):
     assert build.library_path("lars_kernels") != path
 
 
+# ptxas's report as nvcc 12.8 prints it (-Xptxas -v), two kernels of
+# flash_decode.cu: one template instance, in an anonymous namespace whose
+# mangled name holds digits that also read as a length
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__bafb2253_15_flash_decode_cu_9e09dc2223flash_decode_mma_kernelILi256EEEvPK13__nv_bfloat16S3_S3_PKiPS1_PfPiiiiifii' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__bafb2253_15_flash_decode_cu_9e09dc2223flash_decode_mma_kernelILi256EEEvPK13__nv_bfloat16S3_S3_PKiPS1_PfPiiiiifii
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 252 registers, used 1 barriers, 128 bytes smem, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__e7c1b482_15_lars_kernels_cu_3e626b5417norms_flat_kernelEPKfS1_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__e7c1b482_15_lars_kernels_cu_3e626b5417norms_flat_kernelEPKfS1_Pfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 28 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_the_builds_report(monkeypatch, tmp_path):
+    """The build keeps nvcc's output beside the library; ``ptxas_usage``
+    reads each kernel's registers, spills and shared memory from it, by
+    kernel and template argument."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    assert "-v" in build.NVCC_FLAGS[build.NVCC_FLAGS.index("-Xptxas"):]
+    build.library_path("flash_decode").with_suffix(".log").write_text(
+        PTXAS_LOG)
+    assert build.ptxas_usage("flash_decode") == build.parse_ptxas(
+        PTXAS_LOG) == {
+        "flash_decode_mma_kernel<256>": dict(
+            stack=8, spill_stores=12, spill_loads=16, registers=252,
+            smem=128),
+        "norms_flat_kernel": dict(stack=0, spill_stores=0, spill_loads=0,
+                                  registers=28, smem=0)}
+
+
 def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)

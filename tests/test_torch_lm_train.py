@@ -148,11 +148,12 @@ def test_forward_returns_hidden_and_refuses_unported_configs():
     # against the reference; sliding windows, the softcap and MLA train
     # (tests/test_torch_attention_masks.py, tests/test_torch_mla.py), and
     # so do the ssm and hybrid families (tests/test_torch_ssm.py,
-    # tests/test_torch_hybrid.py). What is still refused: the families
-    # not yet ported.
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            model = build_model(dataclasses.replace(CFG, family=family))
+    # tests/test_torch_hybrid.py), and so do the encdec and vlm families
+    # (tests/test_torch_encdec.py, tests/test_torch_vlm.py). What their
+    # step refuses, as the reference's: a batch without their stub input.
+    for family, stub in (("encdec", "frames"), ("vlm", "image_embeddings")):
+        model = build_model(dataclasses.replace(CFG, family=family))
+        with pytest.raises(KeyError, match=stub):
             value_and_grad(model, model.cfg, params, {"tokens": toks})
 
 

@@ -100,7 +100,14 @@ def test_init_shapes_scale_and_determinism():
 
 
 def test_only_the_cnn_family_is_ported():
+    """Every family is ported now: ``build_model`` dispatches on the
+    family as the reference's does (cnn, encdec, else the LM), and the LM
+    refuses a family it does not know."""
     import dataclasses
+    from repro_torch.models import EncDecModel, LanguageModel
     cfg = dataclasses.replace(get_config("lenet-mnist"), family="encdec")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg)
+    assert isinstance(build_model(cfg), EncDecModel)
+    assert isinstance(build_model(dataclasses.replace(cfg, family="vlm")),
+                      LanguageModel)
+    with pytest.raises(ValueError, match="unknown model family 'rnn'"):
+        build_model(dataclasses.replace(cfg, family="rnn"))

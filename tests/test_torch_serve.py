@@ -339,11 +339,16 @@ def test_launch_serve_runs_reduced_on_the_cpu(capsys):
     ["--set", "sliding_window=8"], ["--arch", "paligemma-3b"],
     ["--set", "attn_logit_softcap=30.0"], ["--arch", "whisper-base"]])
 def test_launch_serve_refuses_unported_options(extra):
-    """The reference's options the port does not cover yet, a sliding
+    """The reference's options the port does not cover yet and a sliding
     window or the softcap set through ``--set`` (serving refuses both;
-    ``--set`` itself works: tests/test_torch_mla.py), and the archs of
-    unported families."""
+    ``--set`` itself works: tests/test_torch_mla.py) raise "not yet
+    ported"; the vlm and encdec archs raise the reference's own refusal:
+    its ``ServeEngine`` does not serve their families."""
     args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
+    if "--arch" in extra:
+        with pytest.raises(ValueError, match="ServeEngine covers"):
+            launch_serve.main(args + extra)
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         launch_serve.main(args + extra)
 

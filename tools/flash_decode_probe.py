@@ -5,8 +5,8 @@ and a compute-only variant of its own source on one CUDA card.
     python3 tools/flash_decode_probe.py [--dtype bfloat16|float32]
 
 Each variant is ``src/repro_torch/kernels/csrc/flash_decode.cu`` with one
-text edit, built by ``nvcc -Xptxas -v`` into ``build/probe/`` (one ``nvcc``
-per variant, all started together):
+text edit, built with the port's flags (``-Xptxas -v`` among them) into
+``build/probe/`` (one ``nvcc`` per variant, all started together):
 
 - ``base``: the source as it is;
 - ``copy_only``: each warp waits for every tile of its ring and drops it:
@@ -64,8 +64,8 @@ def build() -> dict[str, tuple[str, str]]:
         with open(cu, "w") as f:
             f.write(variant(name, src))
         so = os.path.join(OUT, f"{name}.so")
-        cmd = [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-               cu]
+        # NVCC_FLAGS carry -Xptxas -v: the log holds ptxas's report
+        cmd = [kbuild.nvcc(), *kbuild.NVCC_FLAGS, "-o", so, cu]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True))
@@ -76,20 +76,6 @@ def build() -> dict[str, tuple[str, str]]:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
         built[name] = (so, log)
     return built
-
-
-def ptxas_summary(log: str) -> list[str]:
-    """'kernel<D>: N registers, S B spilled' per compiled kernel."""
-    rows = []
-    for block in log.split("Compiling entry function")[1:]:
-        kernel = re.search(r"flash_decode_(\w+?)_kernelILi(\d+)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if kernel and regs:
-            rows.append(f"{kernel.group(1)}<{kernel.group(2)}>: "
-                        f"{regs.group(1)} registers, "
-                        f"{spill.group(1) if spill else '?'} B spilled")
-    return rows
 
 
 def main(argv=None) -> int:
@@ -104,6 +90,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import chip_smoke as cs
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_decode as fdk
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,7 +107,7 @@ def main(argv=None) -> int:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fns[name] = fn
-        print(f"{name}: {'; '.join(ptxas_summary(log))}", flush=True)
+        print(f"{name}: {kbuild.parse_ptxas(log)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     tickets = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
