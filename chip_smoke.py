@@ -187,13 +187,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
 17. encdec and vlm — ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
              at paligemma-3b's packed shape (4899880, 512), past element
              2^31, held on every row and timed as in phase 13;
-             ``flash_decode``'s D 256 instance (paligemma's MQA, G 8) at
-             its serve shape (B 32, S 448) and at decode_32k's length (B
-             8, S 32768), lengths 0, 1, S and past S among the rows, and
-             at whisper's cross-attention decode (B 32, S 1500, Hkv 8, G
-             1, D 64), timed as in phase 3, the D 256 instance in f32 held
-             too, and ptxas's registers and spills of the D 256
-             instances; then whisper-base whole (64 clips of 1,500 stub
+             ``flash_decode``'s wide kernel (bf16 past D 128:
+             paligemma's MQA, G 8, D 256) at its serve shape (B 32, S
+             448) and at decode_32k's length (B 8, S 32768), lengths 0,
+             1, S and past S among the rows, and at whisper's
+             cross-attention decode (B 32, S 1500, Hkv 8, G 1, D 64),
+             timed as in phase 3, the D 256 instance in f32 held too,
+             NaN rows past each length kept out of every bf16 instance's
+             output (D 64, 128, 256: the same bits as finite rows), and
+             ptxas's registers and spills of the D 256 instances (the
+             wide kernel's spill-free, or the phase fails); then
+             whisper-base whole (64 clips of 1,500 stub
              frames and 448 decoder tokens, ``flash_vjp``) and
              paligemma-3b at full width and all 18 layers (4 x 4096 text
              tokens behind 256 seeded normal image embeddings, where the
@@ -510,7 +514,7 @@ PALI_ARGS = ["--arch", PALIGEMMA, "--set", f"num_layers={PALI_LAYERS}"] + [
 # frames, paligemma's prompts 256 image tokens (so its cache holds 448)
 WHISPER_SERVE = (32, 4, 128)
 PALI_SERVE = (32, 64, 128)
-# flash_decode at paligemma's decode (MQA, G 8, D 256: the new instance)
+# flash_decode at paligemma's decode (MQA, G 8, D 256: the wide kernel)
 # at its serve shape and at decode_32k's length, lengths 0, 1, S and past
 # S among the rows; at whisper's cross-attention decode (G 1, D 64, every
 # one of the 1,500 encoder rows)
@@ -2651,6 +2655,37 @@ def fd_wide_f32_check(fdk) -> dict:
             "max_rel_err": rel}
 
 
+def fd_poison_check(fdk) -> dict:
+    """Phase 17: for each bf16 instance (D 64, 128 and the wide kernel at
+    256), K and V rows past each length filled with NaN give the same
+    output bits as finite rows (lengths 0, 1, inside a tile, on a tile,
+    on a split boundary, S)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    B, S = 8, 1024
+    out = {}
+    for D in (64, 128, 256):
+        q, k, v, _ = fd_inputs(B, S, 1, 8, D, "full", torch.bfloat16, gen)
+        kps = fdk.plan(q, k).keys_per_split
+        lens = torch.tensor([0, 1, 17, 16, kps, kps + 5, S - 3, S],
+                            dtype=torch.int32, device=q.device)
+        past = (torch.arange(S, device=q.device)[None, :]
+                >= lens[:, None].long())[:, :, None, None]
+        nan = torch.tensor(float("nan"), dtype=k.dtype, device=q.device)
+        clean = fdk.flash_decode(q, k, v, lens, scale=D ** -0.5)
+        poisoned = fdk.flash_decode(q, torch.where(past, nan, k),
+                                    torch.where(past, nan, v), lens,
+                                    scale=D ** -0.5)
+        torch.cuda.synchronize()
+        if not torch.equal(clean, poisoned):
+            raise AssertionError(f"flash_decode D={D}: NaN rows past the "
+                                 "length reach the output")
+        out[D] = True
+    log(f"  flash_decode bf16 D 64, 128, 256: NaN rows past each length "
+        f"give the same bits as finite rows")
+    return out
+
+
 def family_phase(train, lk, fdk, bw: float, flops: float,
                  floor: float) -> dict:
     """Phase 17: the encdec (whisper-base) and vlm (paligemma-3b) families
@@ -2668,9 +2703,13 @@ def family_phase(train, lk, fdk, bw: float, flops: float,
     out["flash_decode_rows"] = [fd_timed_row(fdk, shape, gen, bw, flops)
                                 for shape in PALI_FD + [WHISPER_FD]]
     out["flash_decode_f32"] = fd_wide_f32_check(fdk)
+    out["flash_decode_poison"] = fd_poison_check(fdk)
     out["ptxas"] = {k: v for k, v in build.ptxas_usage(
         "flash_decode").items() if k.endswith("<256>")}
     log(f"  ptxas, the D 256 instances: {out['ptxas']}")
+    wide = out["ptxas"].get("flash_decode_wide_kernel<256>")
+    if wide is None or wide.get("spill_stores") or wide.get("spill_loads"):
+        raise AssertionError(f"flash_decode's wide kernel: ptxas {wide}")
     for arch in (WHISPER, PALIGEMMA):
         o = out[arch]
         t0 = time.perf_counter()
@@ -2970,6 +3009,7 @@ def main() -> int:
             "shape", "ms", "bound_ms", "plain_ms", "library_ms",
             "dispatch_ms", "max_abs_err", "splits", "ctas")},
         "d256_f32": fam["flash_decode_f32"],
+        "nan_past_length_identical": fam["flash_decode_poison"],
         "ptxas_d256": fam["ptxas"],
         "paligemma_serve_launches": fam[PALIGEMMA]["serve"]["launches"][
             "flash_decode"],

@@ -57,10 +57,37 @@
 //   * f32 inside; scores in base 2 (scale * log2 e, then exp2f); positions
 //     past the length get a score of -1e30 and a probability of exactly 0.
 //     The head dim is a template bound (64, 128 or 256); a smaller D (a
-//     multiple of 8) runs in the next bound up. At 256 the bf16 kernel's
-//     rings take 192 KB of shared memory (3 stages x K and V x 16 keys x
-//     512 B x 4 warps): one CTA is resident per SM, and the host's split
-//     plan aims at fewer, longer CTAs there.
+//     multiple of 8) runs in the next bound up.
+//   * bf16 past D 128 (paligemma's MQA: G 8, D 256) runs a kernel of its
+//     own, flash_decode_wide_kernel. At D 256 the one above would hold
+//     192 KB of rings (one 4-warp CTA an SM), pad G to the MMA's 16 rows,
+//     issue an accumulator's three value MMAs back to back, and merge the
+//     splits one L2 round trip at a time. The wide kernel instead:
+//     - puts the keys on the MMA's M rows, so no row is padding: scores
+//       S^T = K Q^T (K by ldmatrix as A; Q^T by ldmatrix from the query
+//       rows in shared memory as B; four independent chains over d),
+//       values O^T += V^T P^T (V^T by ldmatrix.trans as A); P's f32 values
+//       again as three bf16 terms, moved from the score's C layout to B
+//       fragments by movmatrix.trans. 4 MMAs per key instead of 8, issued
+//       in groups after their ldmatrix, so that no MMA waits on the one
+//       before it; max and sum over the 8 lanes of a head; a tile whose
+//       maxima did not move skips the rescale.
+//     - copy warps apart from the math: 4 copy warps, each with a fixed
+//       share of a 12-stage ring (16 keys of K and V a stage, rows padded
+//       to 2 DMAX + 16 bytes so ldmatrix's 8 rows hit distinct banks).
+//       Lane c copies 16-byte chunk c of every K and V row of a tile by
+//       cp.async, zero-filling rows past the valid keys and the chunk past
+//       D that the last k-step reads, and arrives on the stage's mbarrier
+//       when its copies land (cp.async.mbarrier.arrive); 8 consumer warps
+//       take the tiles in turn and hand each stage back on a second
+//       mbarrier. No consumer register holds a copy's address, and one
+//       warp's copies (~20 B a cycle) no longer cap the CTA's stream.
+//       207 KB a CTA: one CTA an SM, 12 warps.
+//     - the host's plan aims at one CTA an SM with splits of 128 keys or
+//       more (one tile for each consumer warp). The last CTA of a pair
+//       reads every split's (m, l) while the first splits' accumulators
+//       are on their way to shared memory by cp.async, and sums them in
+//       split order; the ticket is an acq_rel atomic, with no full fence.
 //
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() of its launch (or the error of
@@ -131,6 +158,54 @@ __device__ __forceinline__ void mma_rows8(float* c, uint32_t a0, uint32_t a2,
         "f"(0.0f));
   (void)d2;
   (void)d3;
+}
+
+// c += A B, a full m16n8k16 (bf16 in, f32 accumulate)
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The warp's 8 x 8 b16 matrix, one 32-bit fragment a lane, transposed.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Arrive on `bar` once every cp.async this thread has issued has landed
+// (the barrier's count includes this arrival).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
@@ -465,6 +540,431 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   finish<bf16, DMAX>(red, out, ws, tickets, sp, splits, G, D);
 }
 
+// ------------------------------------------ bf16 past D 128: the wide kernel
+
+template <int DMAX>
+struct WideCfg {
+  static constexpr int kConsumers = 8;                   // warps on the tiles
+  static constexpr int kProducers = 4;                   // copy warps
+  static constexpr int kThreads = 32 * (kConsumers + kProducers);
+  static constexpr int kStages = 12;
+  static constexpr int kKeys = 16;                       // the MMA's M rows
+  static constexpr int kPitch = DMAX * 2 + 16;           // bytes per row
+  static constexpr int kTile = kKeys * kPitch;           // K (or V)
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kSteps = DMAX / 16;               // k-steps, m-tiles
+  static constexpr int kGroup = 8;                       // value ldmatrix
+  static constexpr int kChains = 4;                      // score chains
+  static constexpr int kMerge = kConsumers * 32;         // merging threads
+  static constexpr int kCols = DMAX / kMerge;            // d's each, per head
+  static constexpr int kMaxSplits = 512;
+  static constexpr int kQ = kMaxG * kPitch;            // the query rows
+  static constexpr int kSmem = kRing + kQ + 2 * kStages * 8;  // + mbarriers
+  // after the loop the ring and the query rows hold the warps'
+  // accumulators (rows of kRedPitch floats: the stores hit distinct
+  // banks), then the split merge's (m, l) of every split and as many
+  // splits' accumulators as fit
+  static constexpr int kRedPitch = DMAX + 4;
+  static constexpr int kFree = (kRing + kQ) / 4;
+  static_assert(DMAX / 8 == 32, "one 16-byte chunk of a row per copy lane");
+  static_assert(kStages % kProducers == 0, "a stage's tiles: one copy warp");
+  static_assert(kSteps % kGroup == 0 && kSteps % kChains == 0, "");
+  static_assert(kCols * kMerge == DMAX, "");
+  static_assert(kConsumers * kMaxG * kRedPitch <= kFree &&
+                kMaxSplits * kMaxG * 2 + kMaxG * DMAX * 4 <= kFree,
+                "room to merge");
+  static_assert(kSmem + 1024 <= 232448, "one CTA an SM");
+};
+
+// After the loop: fl[warp][g][0..DMAX) holds each consumer warp's
+// accumulator, wml[warp][g] its (m, l). Merge the warps; with one valid
+// split store the output, else write the split's state to the workspace,
+// and the last CTA of the pair merges the splits in split order: it reads
+// every split's (m, l) while the first splits' accumulators are on their
+// way to shared memory (cp.async, as many splits a round trip as the ring
+// holds), takes each head's weights and denominator, and sums. A thread
+// owns d = tid + kMerge c of every head.
+template <int DMAX>
+__device__ __forceinline__ void wide_finish(float* fl, const float* wml,
+                                            bf16* out, float* ws,
+                                            int* tickets, const Split& sp,
+                                            int splits, int G, int D) {
+  using C = WideCfg<DMAX>;
+  __shared__ int last_ticket;
+  __shared__ float wf[C::kConsumers][kMaxG];   // the warps' weights
+  __shared__ float den_s[kMaxG];
+  constexpr int kP = C::kRedPitch;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gd = G * D;
+  const bool single = sp.nvalid == 1;
+  // the workspace, in the (B * Hkv, splits, G, D + 2) floats the host
+  // allots: every split's (G, D) accumulator first (16-byte aligned for
+  // the merge's copies), then every split's (m, l) per head
+  const float* acc_p = ws + (long long)sp.pair * splits * gd;       // [split][G D]
+  float* ml_p = ws + (long long)gridDim.x * splits * gd +
+                (long long)sp.pair * splits * G * 2;                // [split][g][2]
+  if (tid < G) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < C::kConsumers; ++i) mx = fmaxf(mx, wml[(i * kMaxG + tid) * 2]);
+    float den = 0.0f;
+#pragma unroll
+    for (int i = 0; i < C::kConsumers; ++i) {
+      const float f = exp2f(wml[(i * kMaxG + tid) * 2] - mx);
+      wf[i][tid] = f;
+      den += wml[(i * kMaxG + tid) * 2 + 1] * f;
+    }
+    den_s[tid] = den;
+    if (!single) {
+      float* ml = ml_p + (blockIdx.y * G + tid) * 2;
+      ml[0] = mx;
+      ml[1] = den;
+    }
+  }
+  __syncthreads();
+  bf16* ob = out + (long long)sp.pair * gd;
+  float* wacc = ws + ((long long)sp.pair * splits + blockIdx.y) * gd;
+  if (tid < C::kMerge) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < G) {
+#pragma unroll
+        for (int c = 0; c < C::kCols; ++c) {
+          const int d = tid + c * C::kMerge;
+          if (d < D) {
+            float a = 0.0f;
+#pragma unroll
+            for (int i = 0; i < C::kConsumers; ++i)
+              a += fl[(i * kMaxG + g) * kP + d] * wf[i][g];
+            if (single)
+              ob[g * D + d] = __float2bfloat16(a / fmaxf(den_s[g], 1e-30f));
+            else
+              wacc[g * D + d] = a;
+          }
+        }
+      }
+    }
+  }
+  if (single) return;
+
+  // the ticket, with release (this split's state) and acquire (the other
+  // splits') semantics at the GPU's scope; the barriers order the CTA's
+  // other threads around thread 0's atomic
+  __syncthreads();
+  if (tid == 0) {
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(tickets + sp.pair) : "memory");
+    last_ticket = prev == sp.nvalid - 1;
+  }
+  __syncthreads();
+  if (!last_ticket) return;
+  float* mls = fl + C::kFree - sp.nvalid * G * 2;   // [split][g][2]: weight, l
+  const int chunk = (C::kFree - sp.nvalid * G * 2) / gd;
+  const uint32_t stage = smem_addr(fl);
+  auto fetch = [&](int s0) {              // splits s0 .. s0 + chunk - 1
+    const int n = min(chunk, sp.nvalid - s0);
+    const float* src = acc_p + (long long)s0 * gd;
+    for (int u = tid; u < n * gd / 4; u += C::kThreads)
+      cp_async16(stage + 16 * u, src + 4 * u, 16);
+    cp_async_commit();
+  };
+  fetch(0);
+  for (int i = tid; i < sp.nvalid * G * 2; i += C::kThreads) mls[i] = __ldcg(ml_p + i);
+  __syncthreads();
+  for (int g = warp; g < G; g += C::kThreads / 32) {
+    float mx = kNegInf;
+    for (int s = lane; s < sp.nvalid; s += 32) mx = fmaxf(mx, mls[(s * G + g) * 2]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    float den = 0.0f;
+    for (int s = lane; s < sp.nvalid; s += 32) {
+      float* e = mls + (s * G + g) * 2;
+      const float f = exp2f(e[0] - mx);
+      e[0] = f;
+      den += e[1] * f;
+    }
+    den = warp_sum(den);
+    if (lane == 0) den_s[g] = den;
+  }
+  float a[kMaxG][C::kCols];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int c = 0; c < C::kCols; ++c) a[g][c] = 0.0f;
+  for (int s0 = 0; s0 < sp.nvalid; s0 += chunk) {
+    if (s0) {
+      __syncthreads();                    // the last chunk is read
+      fetch(s0);
+    }
+    cp_async_wait<0>();
+    __syncthreads();                      // the chunk and the weights
+    const int n = min(chunk, sp.nvalid - s0);
+    if (tid < C::kMerge) {
+      for (int s = 0; s < n; ++s) {       // split order: the same bits
+        const float* f = mls + (s0 + s) * G * 2;
+        const float* x = fl + s * gd + tid;
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+          for (int c = 0; c < C::kCols; ++c)
+            if (g < G && tid + c * C::kMerge < D)
+              a[g][c] += x[g * D + c * C::kMerge] * f[g * 2];
+      }
+    }
+  }
+  if (tid < C::kMerge) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+      for (int c = 0; c < C::kCols; ++c) {
+        const int d = tid + c * C::kMerge;
+        if (g < G && d < D)
+          ob[g * D + d] = __float2bfloat16(a[g][c] / fmaxf(den_s[g], 1e-30f));
+      }
+  }
+  if (tid == 0) tickets[sp.pair] = 0;     // ready for the next call
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(WideCfg<DMAX>::kThreads, 1)
+flash_decode_wide_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const int* __restrict__ lengths,
+                         bf16* __restrict__ out, float* __restrict__ ws,
+                         int* __restrict__ tickets, int S, int Hkv, int G,
+                         int D, float scale, int splits,
+                         int keys_per_split) {
+  using C = WideCfg<DMAX>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float wml[C::kConsumers * kMaxG * 2];   // each warp's (m, l)
+  Split sp;
+  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp)) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t qs = ring + C::kRing;                // the query rows
+  const uint32_t full = qs + C::kQ;                   // a stage has landed
+  const uint32_t empty = full + 8 * C::kStages;       // ... has been read
+  const int nkeys = sp.k1 - sp.k0;
+  const int ntiles = (nkeys + C::kKeys - 1) / C::kKeys;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full + 8 * s, 32);        // a copy warp's lanes
+      mbar_init(empty + 8 * s, 1);        // the consumer warp
+    }
+    mbar_fence_init();
+  }
+  if (warp < C::kConsumers) {
+    // the query rows to shared memory (rows past G and the chunk past D
+    // that the last k-step reads are zero-filled), read back by ldmatrix
+    // as the score's B fragments: no register holds them between tiles
+    const bf16* qb = q + (long long)sp.pair * G * D;
+    for (int i = threadIdx.x; i < kMaxG * DMAX / 8; i += C::kConsumers * 32) {
+      const int g = i / (DMAX / 8), c = i % (DMAX / 8);
+      const bool ok = g < G && c < D / 8;
+      cp_async16(qs + g * C::kPitch + c * 16, qb + (ok ? g * D + c * 8 : 0),
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+  __syncthreads();
+
+  if (warp >= C::kConsumers) {
+    // copy warp p takes tiles p, p + kProducers, ... (one warp issues a
+    // row's 16-byte chunks at ~20 B a cycle: one would cap the CTA's
+    // stream). Lane c copies chunk c of each of the tile's 16 K and 16 V
+    // rows; rows past the valid keys and the chunk past D that the last
+    // k-step reads (D % 16 == 8) are zero-filled. Each lane arrives on
+    // the stage's barrier when its copies have landed.
+    const long long row_stride = (long long)Hkv * D;
+    const int c = lane;
+    const bool live = c < (D + 15) / 16 * 2;
+    const bool data = c < D / 8;
+    const long long base = ((long long)sp.b * S + sp.k0) * row_stride +
+                           (long long)sp.h * D;
+    const bf16* kb = k + base;
+    const bf16* vb = v + base;
+    const uint32_t dst = ring + c * 16;
+    for (int t = warp - C::kConsumers; t < ntiles; t += C::kProducers) {
+      const int st = t % C::kStages;
+      if (t >= C::kStages) mbar_wait(empty + 8 * st, (t / C::kStages - 1) & 1);
+      const int rows = min(C::kKeys, nkeys - t * C::kKeys);
+      if (live) {
+        const uint32_t sdst = dst + st * C::kStage;
+        const long long t0 = (long long)t * C::kKeys * row_stride + c * 8;
+#pragma unroll
+        for (int r = 0; r < C::kKeys; ++r) {
+          const bool ok = data && r < rows;
+          const long long off = ok ? t0 + r * row_stride : 0;   // row 0 is valid memory
+          cp_async16(sdst + r * C::kPitch, kb + off, ok ? 16 : 0);
+          cp_async16(sdst + C::kTile + r * C::kPitch, vb + off, ok ? 16 : 0);
+        }
+      }
+      cp_async_arrive(full + 8 * st);
+    }
+  }
+
+  const int gr = lane >> 2;               // fragment row
+  const int tq = lane & 3;                // fragment column pair
+  float m[2] = {kNegInf, kNegInf};        // heads 2 tq, 2 tq + 1
+  float l[2] = {0.0f, 0.0f};              // ... over this lane's keys
+  float acc[C::kSteps][4];                // O^T: dims 16 mt + gr (+ 8)
+#pragma unroll
+  for (int mt = 0; mt < C::kSteps; ++mt)
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+  if (warp < C::kConsumers) {
+    cp_async_wait<0>();                   // this thread's query chunks
+    asm volatile("bar.sync 1, %0;\n" :: "n"(C::kConsumers * 32) : "memory");
+    const float qscale = scale * kLog2e;
+    // ldmatrix's row addresses: matrix j = lane / 8, row lane % 8. K (A of
+    // the score: keys x dims): keys 8 (j & 1) + row, dims + 8 (j >> 1). V
+    // (A of the value, V^T: dims x keys, by .trans): keys 8 (j >> 1) +
+    // row, dims + 8 (j & 1).
+    const int lrow = lane & 7, lmat = lane >> 3;
+    // Q^T (B of the score: dims x heads) from the query rows: matrix j is
+    // head row lrow, dims + 8 j; an x4 holds two k-steps' (b0, b1)
+    const uint32_t qoff = qs + lrow * C::kPitch + lmat * 16;
+    const uint32_t koff = (lrow + 8 * (lmat & 1)) * C::kPitch + (lmat >> 1) * 16;
+    const uint32_t voff = C::kTile + (lrow + 8 * (lmat >> 1)) * C::kPitch +
+                          (lmat & 1) * 16;
+
+    for (int t = warp; t < ntiles; t += C::kConsumers) {
+      const int st = t % C::kStages;
+      // a parity wait tells two phases apart, not three: the stage's last
+      // tile (t - kStages) is another warp's, and its full phase may still
+      // be open when this one's is done. Wait until that tile was read
+      // (then this tile's phase is the full barrier's open or last one).
+      if (t >= C::kStages) mbar_wait(empty + 8 * st, (t / C::kStages - 1) & 1);
+      mbar_wait(full + 8 * st, (t / C::kStages) & 1);
+      const uint32_t base = ring + st * C::kStage;
+      const int rows = nkeys - t * C::kKeys;   // valid keys: all if >= 16
+
+      // scores S^T = K Q^T: keys gr, gr + 8 (rows) x heads 2 tq (+1); a
+      // group's ldmatrix first, then its MMAs, one per chain
+      float sc[C::kChains][4];
+#pragma unroll
+      for (int i = 0; i < C::kChains; ++i)
+        sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < C::kSteps; k0 += C::kChains) {
+        if (16 * k0 < D) {
+          uint32_t a[C::kChains][4], b[C::kChains][2];
+#pragma unroll
+          for (int i = 0; i < C::kChains; i += 2) {
+            uint32_t x[4];
+            ldmatrix_x4(qoff + (k0 + i) * 32, x);
+            b[i][0] = x[0];
+            b[i][1] = x[1];
+            b[i + 1][0] = x[2];
+            b[i + 1][1] = x[3];
+          }
+#pragma unroll
+          for (int i = 0; i < C::kChains; ++i)
+            if (16 * (k0 + i) < D) ldmatrix_x4(base + koff + (k0 + i) * 32, a[i]);
+#pragma unroll
+          for (int i = 0; i < C::kChains; ++i)
+            if (16 * (k0 + i) < D) mma16816(sc[i], a[i], b[i][0], b[i][1]);
+        }
+      }
+      float s[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] = ((sc[0][e] + sc[1][e]) + (sc[2][e] + sc[3][e])) * qscale;
+        if (gr + 8 * (e >> 1) >= rows) s[e] = kNegInf;
+      }
+      float alpha[2], p[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {       // head 2 tq + j: 8 lanes, 16 keys
+        float mx = fmaxf(s[j], s[j + 2]);
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 16));
+        const float m_new = fmaxf(m[j], mx);
+        alpha[j] = exp2f(m[j] - m_new);
+        m[j] = m_new;
+        p[j] = exp2f(s[j] - m_new);
+        p[j + 2] = exp2f(s[j + 2] - m_new);
+        l[j] = l[j] * alpha[j] + (p[j] + p[j + 2]);
+      }
+      if (__any_sync(kFull, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+        for (int mt = 0; mt < C::kSteps; ++mt) {
+          acc[mt][0] *= alpha[0];
+          acc[mt][1] *= alpha[1];
+          acc[mt][2] *= alpha[0];
+          acc[mt][3] *= alpha[1];
+        }
+      }
+
+      // P^T as the value's B fragments: the score's C fragments of keys
+      // 0-7 and 8-15 (row = key, columns = heads), each term transposed
+      uint32_t ph[2], pm[2], pl[2];
+      split3(p[0], p[1], &ph[0], &pm[0], &pl[0]);
+      split3(p[2], p[3], &ph[1], &pm[1], &pl[1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ph[i] = movmatrix_trans(ph[i]);
+        pm[i] = movmatrix_trans(pm[i]);
+        pl[i] = movmatrix_trans(pl[i]);
+      }
+      // O^T += V^T P^T: a group's ldmatrix first, then its MMAs term by
+      // term, so that an accumulator's three MMAs are kGroup apart. V rows
+      // past the valid keys were zero-filled: 0 x p, never 0 x NaN.
+#pragma unroll
+      for (int m0 = 0; m0 < C::kSteps; m0 += C::kGroup) {
+        if (16 * m0 < D) {
+          uint32_t a[C::kGroup][4];
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i)
+            if (16 * (m0 + i) < D) ldmatrix_x4_trans(base + voff + (m0 + i) * 32, a[i]);
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i)
+            if (16 * (m0 + i) < D) mma16816(acc[m0 + i], a[i], pl[0], pl[1]);
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i)
+            if (16 * (m0 + i) < D) mma16816(acc[m0 + i], a[i], pm[0], pm[1]);
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i)
+            if (16 * (m0 + i) < D) mma16816(acc[m0 + i], a[i], ph[0], ph[1]);
+        }
+      }
+      __syncwarp();                       // every lane has read the stage
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+  }
+  __syncthreads();                        // the ring is read and idle
+
+  float* fl = reinterpret_cast<float*>(smem);
+  if (warp < C::kConsumers) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j] += __shfl_xor_sync(kFull, l[j], 4);
+      l[j] += __shfl_xor_sync(kFull, l[j], 8);
+      l[j] += __shfl_xor_sync(kFull, l[j], 16);
+      const int g = 2 * tq + j;
+      if (g < G) {
+        float* r = fl + (warp * kMaxG + g) * C::kRedPitch;
+#pragma unroll
+        for (int mt = 0; mt < C::kSteps; ++mt) {
+          const int d = 16 * mt + gr;
+          if (d < D) r[d] = acc[mt][j];
+          if (d + 8 < D) r[d + 8] = acc[mt][j + 2];
+        }
+        if (gr == 0) {
+          wml[(warp * kMaxG + g) * 2] = m[j];
+          wml[(warp * kMaxG + g) * 2 + 1] = l[j];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  wide_finish<DMAX>(fl, wml, out, ws, tickets, sp, splits, G, D);
+}
+
 // --------------------------------------------------------- f32: CUDA cores
 
 template <int DMAX>
@@ -706,6 +1206,24 @@ int launch_dmax(const T* q, const T* k, const T* v, const int* lengths, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 past D 128: the wide kernel, one CTA an SM.
+int launch_wide(const bf16* q, const bf16* k, const bf16* v,
+                const int* lengths, bf16* out, float* ws, int* tickets, int B,
+                int S, int Hkv, int G, int D, float scale, int splits,
+                int keys_per_split, cudaStream_t st) {
+  using C = WideCfg<256>;
+  static bool done[kMaxDevices] = {};
+  if (splits > C::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(flash_decode_wide_kernel<256>, C::kSmem,
+                                     done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_wide_kernel<256><<<dim3(B * Hkv, splits), C::kThreads,
+                                  C::kSmem, st>>>(
+      q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, splits,
+      keys_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* ws, void* tickets, int B, int S, int Hkv, int G,
@@ -726,8 +1244,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   if (D <= 128)
     return launch_dmax<T, 128>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
                                scale, splits, keys_per_split, st);
-  return launch_dmax<T, 256>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                             scale, splits, keys_per_split, st);
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_wide(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D, scale,
+                       splits, keys_per_split, st);
+  else
+    return launch_dmax<T, 256>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                               scale, splits, keys_per_split, st);
 }
 
 }  // namespace
@@ -735,10 +1257,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 extern "C" {
 
 // q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); lengths: (B,) int32; out: like q;
-// ws: f32 (B * Hkv, splits, G, D + 2); tickets: >= B * Hkv int32, all 0 on
+// ws: f32 (B * Hkv, splits, G, D + 2) (the wide kernel lays its floats out
+// its own way); tickets: >= B * Hkv int32, all 0 on
 // entry and on return. 1 <= G <= 8, D % 8 == 0 and D <= 256; q, k, v on a
 // 16-byte boundary. Split s reads keys [s * keys_per_split, (s + 1) *
-// keys_per_split); splits * keys_per_split >= S.
+// keys_per_split); splits * keys_per_split >= S; in bf16 past D 128 at
+// most WideCfg<256>::kMaxSplits splits.
 int flash_decode_f32(const void* q, const void* k, const void* v,
                      const void* lengths, void* out, void* ws, void* tickets,
                      int B, int S, int Hkv, int G, int D, float scale,

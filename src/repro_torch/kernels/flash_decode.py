@@ -42,13 +42,21 @@ MAX_HEAD_DIM = 256
 SPLIT_ROUND = 64
 # split_plan aims at CTAS_PER_SM CTAs per SM (2 to 4 waves: 2 to 4 CTAs
 # are resident per SM at D <= 128), and gives a split no fewer keys than
-# MIN_KEYS_PER_SPLIT. Past D 128 the bf16 kernel's 192 KB of shared
-# memory leaves one CTA resident per SM, and an SM whose CTA ends has no
-# copy in flight until the next CTA has issued its first tiles: there
-# the plan aims at WIDE_CTAS_PER_SM, two waves of longer CTAs.
+# MIN_KEYS_PER_SPLIT. Past D 128 bf16 runs the wide kernel: 8 warps take
+# the 16-key tiles that 4 copy warps bring into a 12-stage ring (207 KB
+# of shared memory, one CTA an SM), so a split of 128 keys is one tile
+# for each of them. There the plan aims at WIDE_CTAS_PER_SM, one CTA an
+# SM: measured on an H100, more and shorter splits lost more to the
+# merge of the splits (read by one CTA a pair, after the rest) than they
+# gained in balance (tools/flash_decode_probe.py --shapes d256). At
+# paligemma's serve shape (B 32, S 448): 4 splits of 128 keys, 128 CTAs.
 CTAS_PER_SM = 8
-WIDE_CTAS_PER_SM = 2
+WIDE_CTAS_PER_SM = 1
 MIN_KEYS_PER_SPLIT = 256
+WIDE_MIN_KEYS_PER_SPLIT = 128
+# the wide kernel's split merge keeps every split's (m, l) in shared
+# memory: at most this many splits
+WIDE_MAX_SPLITS = 512
 
 # kernel launches since the last reset_launch_counts()
 LAUNCHES = {"flash_decode": 0}
@@ -75,19 +83,26 @@ def ctas_per_sm(D: int) -> int:
     return CTAS_PER_SM if D <= 128 else WIDE_CTAS_PER_SM
 
 
+def min_keys_per_split(D: int) -> int:
+    """The fewest keys :func:`split_plan` gives a split at head dim D."""
+    return MIN_KEYS_PER_SPLIT if D <= 128 else WIDE_MIN_KEYS_PER_SPLIT
+
+
 def split_plan(B: int, S: int, Hkv: int, G: int, D: int,
                sm_count: int) -> SplitPlan:
     """How the kernel splits the keys: from the shapes and the SM count
     only, never from the lengths (reading them would cost a sync).
 
     About ``ctas_per_sm(D) * sm_count`` CTAs over B * Hkv pairs, no split
-    under MIN_KEYS_PER_SPLIT keys, and a multiple of SPLIT_ROUND keys per
-    split. The workspace holds each split's running max, denominator and
-    (G, D) accumulator.
+    under ``min_keys_per_split(D)`` keys, and a multiple of SPLIT_ROUND
+    keys per split. The workspace holds each split's running max,
+    denominator and (G, D) accumulator.
     """
     pairs = B * Hkv
     want = _cdiv(ctas_per_sm(D) * sm_count, max(pairs, 1))
-    splits = max(1, min(want, _cdiv(S, MIN_KEYS_PER_SPLIT)))
+    splits = max(1, min(want, _cdiv(S, min_keys_per_split(D))))
+    if D > 128:
+        splits = min(splits, WIDE_MAX_SPLITS)
     keys = _cdiv(_cdiv(max(S, 1), splits), SPLIT_ROUND) * SPLIT_ROUND
     splits = max(1, _cdiv(S, keys))
     return SplitPlan(splits, keys, (pairs, splits, G, D + 2))

@@ -399,10 +399,14 @@ FD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # (B, S, Hkv, G, D): smollm's G = 3 at D 64, qwen3's G = 5 at D 128,
 # MQA with G = 8, G = 1, the reduced smollm's D = 72, zamba2's shared
 # block: MHA (G = 1) at D 112, one row of length 0; paligemma's MQA at
-# G = 8, D 256, and D 136 in the 256 instance
+# G = 8, D 256, and D 136 in the 256 instance; in bf16 past D 128 the
+# wide kernel: paligemma's serve shape and decode_32k's length
+# (chip_smoke.PALI_FD), and D 136 and 200
 FD_SHAPES = [(4, 1000, 3, 3, 64), (2, 700, 8, 5, 128), (3, 129, 1, 8, 64),
              (2, 300, 2, 1, 128), (2, 50, 1, 4, 72), (3, 600, 4, 1, 112),
-             (4, 448, 1, 8, 256), (3, 130, 1, 8, 136)]
+             (4, 448, 1, 8, 256), (3, 130, 1, 8, 136), (32, 448, 1, 8, 256),
+             (8, 32768, 1, 8, 256), (6, 1000, 1, 8, 136),
+             (5, 700, 2, 5, 200)]
 
 
 def _fd_inputs(B, S, Hkv, G, D, dtype, device, seed=0):
@@ -416,6 +420,8 @@ def _fd_inputs(B, S, Hkv, G, D, dtype, device, seed=0):
     lengths[-1] = 0 if B > 2 else S + 7
     if B > 3:
         lengths[1] = 1
+    if B > 4:
+        lengths[2] = S + 7
     return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
             lengths.to(device))
 
@@ -489,17 +495,17 @@ def _fd_check(q, k, v, lengths, scale=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 136, 256])
 def test_flash_decode_split_boundaries(cuda, dtype, D):
     """Lengths at every split boundary and one either side of it, with
-    many splits per (b, kv head)."""
-    B, S, Hkv, G = 12, 2048, 1, 3
+    many splits per (b, kv head), and at the 16-key tiles of a split."""
+    B, S, Hkv, G = 16, 2048, 1, 3
     q, k, v, _ = _fd_inputs(B, S, Hkv, G, D, dtype, cuda, seed=4)
     plan = fdk.plan(q, k)
     assert plan.splits >= 4
     kps = plan.keys_per_split
     lens = [kps - 1, kps, kps + 1, 2 * kps - 1, 2 * kps, 2 * kps + 1,
-            S - 1, S, S + 7, 1, 0, 3 * kps]
+            S - 1, S, S + 7, 1, 0, 3 * kps, 15, 16, 17, kps + 16]
     _fd_check(q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda))
 
 
@@ -526,15 +532,17 @@ def test_flash_decode_many_pairs_few_splits(cuda):
     _fd_check(q, k, v, lengths)
 
 
+@pytest.mark.parametrize("shape", [(4, 8192, 2, 5, 128), (4, 8192, 1, 8, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_repeat_calls_are_bit_identical(cuda, dtype):
+def test_flash_decode_repeat_calls_are_bit_identical(cuda, dtype, shape):
     """The splits merge in a fixed order with no float atomics."""
-    q, k, v, lengths = _fd_inputs(4, 8192, 2, 5, 128, dtype, cuda, seed=8)
+    q, k, v, lengths = _fd_inputs(*shape, dtype, cuda, seed=8)
     assert fdk.plan(q, k).splits > 1
     first = _fd_check(q, k, v, lengths)
     for _ in range(3):
-        assert torch.equal(fdk.flash_decode(q, k, v, lengths, scale=128 ** -0.5),
-                           first)
+        assert torch.equal(fdk.flash_decode(q, k, v, lengths,
+                                            scale=shape[-1] ** -0.5), first)
 
 
 def test_flash_decode_tickets_reused_across_shapes_and_dtypes(cuda):
@@ -547,6 +555,29 @@ def test_flash_decode_tickets_reused_across_shapes_and_dtypes(cuda):
             q, k, v, lengths = _fd_inputs(*shape, dtype, cuda, seed=10 + i)
             _fd_check(q, k, v, lengths)
             assert not bool(fdk._TICKETS[q.device].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_decode_nan_past_the_length_never_reaches_the_output(
+        cuda, dtype, D):
+    """K and V rows past each length filled with NaN give the same output
+    bits as finite rows: every instance's copies zero-fill the V rows
+    past the length and the scores there are -1e30 by index, so no NaN
+    reaches the value product (0 x NaN would be NaN). Lengths end inside
+    a tile, on a tile and on a split boundary."""
+    B, S, Hkv, G = 8, 1024, 1, 8
+    q, k, v, _ = _fd_inputs(B, S, Hkv, G, D, dtype, cuda, seed=14)
+    kps = fdk.plan(q, k).keys_per_split
+    lens = torch.tensor([0, 1, 17, 16, kps, kps + 5, S - 3, S],
+                        dtype=torch.int32, device=cuda)
+    clean = _fd_check(q, k, v, lens)
+    past = (torch.arange(S, device=cuda)[None, :]
+            >= lens[:, None].long())[:, :, None, None]
+    nan = torch.tensor(float("nan"), dtype=dtype, device=cuda)
+    kp, vp = torch.where(past, nan, k), torch.where(past, nan, v)
+    assert torch.equal(fdk.flash_decode(q, kp, vp, lens, scale=D ** -0.5),
+                       clean)
 
 
 def _lm(device, **changes):

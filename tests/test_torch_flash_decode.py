@@ -208,7 +208,9 @@ def test_split_plan_covers_every_key_once(B, S, Hkv, G, D, dtype, sms):
     """Every key of the cache lies in exactly one split, every split
     holds keys, the splits are whole rounds of the CTA's tiles, the grid
     aims at ``ctas_per_sm(D)`` CTAs per SM, and the workspace is small
-    against the K/V bytes the pairs read."""
+    against the K/V bytes the pairs read: under 1/16 of them at D <= 128
+    (splits of 256 keys or more), under 1/8 past D 128 (splits of 128
+    keys: one tile of 16 for each of the wide kernel's 8 warps)."""
     splits, kps, ws = fd.split_plan(B, S, Hkv, G, D, sms)
     pairs = B * Hkv
     assert splits >= 1 and kps % fd.SPLIT_ROUND == 0
@@ -217,7 +219,7 @@ def test_split_plan_covers_every_key_once(B, S, Hkv, G, D, dtype, sms):
     for s in range(splits):
         cover[s * kps:(s + 1) * kps] += 1
     assert (cover == 1).all()
-    assert kps >= min(fd.MIN_KEYS_PER_SPLIT, S) or splits == 1
+    assert kps >= min(fd.min_keys_per_split(D), S) or splits == 1
     per_sm = fd.ctas_per_sm(D)
     if pairs >= per_sm * sms:
         assert splits == 1
@@ -225,8 +227,8 @@ def test_split_plan_covers_every_key_once(B, S, Hkv, G, D, dtype, sms):
         assert pairs * splits <= 2 * per_sm * sms
     assert ws == (pairs, splits, G, D + 2)
     kv_bytes = 2 * pairs * S * D * torch.finfo(dtype).bits // 8
-    if S >= fd.MIN_KEYS_PER_SPLIT:
-        assert 4 * np.prod(ws) * 16 <= kv_bytes
+    if S >= fd.min_keys_per_split(D):
+        assert 4 * np.prod(ws) * fd.min_keys_per_split(D) // 16 <= kv_bytes
 
 
 def test_split_plan_reads_shapes_not_lengths():
@@ -241,14 +243,68 @@ def test_split_plan_reads_shapes_not_lengths():
 # ------------------------------------------------------- head dim 256
 
 def test_wide_heads_plan_two_waves():
-    """At D 256 one CTA of the bf16 kernel is resident per SM: the plan
-    aims at WIDE_CTAS_PER_SM per SM there (decode_32k's length: 32
-    splits of 1,024 keys over 8 pairs, 256 CTAs on 132 SMs), at
-    CTAS_PER_SM up to D 128."""
+    """Past D 128 the bf16 path runs the wide kernel, one CTA resident
+    per SM: the plan aims at WIDE_CTAS_PER_SM per SM there with splits
+    down to 128 keys, at CTAS_PER_SM up to D 128. paligemma's serve
+    shape: 4 splits of 128 keys, 128 CTAs on 132 SMs; decode_32k's
+    length: 17 splits of 1,984 keys over 8 pairs, 136 CTAs."""
     assert [fd.ctas_per_sm(D) for D in (64, 128, 136, 256)] == \
         [fd.CTAS_PER_SM] * 2 + [fd.WIDE_CTAS_PER_SM] * 2
-    assert fd.split_plan(8, 32768, 1, 8, 256, 132)[:2] == (32, 1024)
+    assert [fd.min_keys_per_split(D) for D in (64, 128, 136, 256)] == \
+        [fd.MIN_KEYS_PER_SPLIT] * 2 + [fd.WIDE_MIN_KEYS_PER_SPLIT] * 2
+    assert fd.split_plan(32, 448, 1, 8, 256, 132)[:2] == (4, 128)
+    assert fd.split_plan(8, 32768, 1, 8, 256, 132)[:2] == (17, 1984)
     assert fd.split_plan(8, 32768, 1, 8, 128, 132)[:2] == (128, 256)
+
+
+# (B, S, Hkv, G, D, SMs) -> (splits, keys per split): the wide plan at
+# paligemma's serve shape, decode_32k's length, the reduced model's
+# 8 x 64 tokens, D 136 and 200, a card of 114 SMs, many pairs, and one
+# pair over a long cache (WIDE_MAX_SPLITS)
+WIDE_PLANS = [((32, 448, 1, 8, 256, 132), (4, 128)),
+              ((8, 32768, 1, 8, 256, 132), (17, 1984)),
+              ((8, 64, 1, 8, 256, 132), (1, 64)),
+              ((3, 130, 1, 8, 136, 132), (2, 128)),
+              ((5, 700, 2, 5, 200, 132), (6, 128)),
+              ((8, 32768, 1, 8, 256, 114), (15, 2240)),
+              ((64, 4096, 1, 8, 256, 132), (3, 1408)),
+              ((1, 1 << 20, 1, 8, 256, 132), (132, 8000))]
+
+
+@pytest.mark.parametrize("shape,want", WIDE_PLANS)
+def test_wide_split_plan_numbers(shape, want):
+    """The wide plan's splits and keys per split, and its CTAs: one per
+    SM or more where the cache has the keys for them."""
+    splits, kps, ws = fd.split_plan(*shape)
+    assert (splits, kps) == want
+    B, S, Hkv, G, D, sms = shape
+    assert ws == (B * Hkv, splits, G, D + 2)
+    assert splits <= fd.WIDE_MAX_SPLITS
+    if S >= fd.WIDE_MIN_KEYS_PER_SPLIT * sms // (B * Hkv):
+        assert B * Hkv * splits >= sms
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_head_dim_256_at_the_serve_length_matches_the_reference(dtype):
+    """paligemma's serve length (S 448; Hkv 1, G 8, D 256): the kernel's
+    split model under the wide plan (4 splits of 128 keys) against the
+    reference's Pallas kernel (interpret) and oracle. Lengths stay <= S:
+    the reference pads this cache to its 512-key block and a length past
+    S would attend the pad (ROADMAP queue 3)."""
+    B, Hkv, G, S, D = 4, 1, 8, 448, 256
+    splits, kps, _ = fd.split_plan(B, S, Hkv, G, D, 132)
+    assert (splits, kps) == (4, 128)
+    lengths = [1, kps + 1, 3 * kps - 1, S]
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _inputs(B, Hkv * G, Hkv, S, D,
+                                                 dtype, lengths=lengths)
+    want = ref_ops.flash_decode(jq, jk, jv, jl, block_size=512,
+                                interpret=True)
+    split = fd.flash_decode_split_plain(tq.reshape(B, Hkv, G, D), tk, tv,
+                                        tl, scale=D ** -0.5, splits=splits,
+                                        keys_per_split=kps)
+    _close(split.reshape(B, Hkv * G, D), want, dtype)
+    _close(split.reshape(B, Hkv * G, D), ref_ref.flash_decode(jq, jk, jv, jl),
+           dtype)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

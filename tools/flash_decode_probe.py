@@ -3,22 +3,27 @@
 and a compute-only variant of its own source on one CUDA card.
 
     python3 tools/flash_decode_probe.py [--dtype bfloat16|float32]
+        [--shapes fd|d256] [--keys-per-split N ...]
 
-Each variant is ``src/repro_torch/kernels/csrc/flash_decode.cu`` with one
-text edit, built with the port's flags (``-Xptxas -v`` among them) into
+Each variant is ``src/repro_torch/kernels/csrc/flash_decode.cu`` with
+text edits, built with the port's flags (``-Xptxas -v`` among them) into
 ``build/probe/`` (one ``nvcc`` per variant, all started together):
 
 - ``base``: the source as it is;
-- ``copy_only``: each warp waits for every tile of its ring and drops it:
-  the copy pipeline alone (the output is wrong);
-- ``compute_only``: no copy is issued: the arithmetic on whatever the
-  rings hold (the output is wrong).
+- ``copy_only``: each warp waits for every tile of its ring and drops it
+  (the wide kernel's consumer warps hand each stage straight back to the
+  copy warps): the copy pipeline alone (the output is wrong);
+- ``compute_only``: no copy is issued (the wide kernel's copy warps still
+  arrive on each stage): the arithmetic on whatever the rings hold (the
+  output is wrong).
 
 It prints each kernel's registers and spills from ``ptxas``, then each
-variant's device time at ``chip_smoke.py``'s FD_SHAPES (the same input
-maker and the same CUDA-graph timing) beside the HBM bound. It raises if
-an edit no longer matches the source. It imports no JAX. Without a card
-it exits with 1.
+variant's device time at ``chip_smoke.py``'s FD_SHAPES (``--shapes
+d256``: its PALI_FD, paligemma's MQA at head dim 256) with the same
+input maker and the same CUDA-graph timing, beside the HBM bound: at the
+split plan's keys per split and at each ``--keys-per-split`` given. It
+raises if an edit no longer matches the source. It imports no JAX.
+Without a card it exits with 1.
 """
 
 from __future__ import annotations
@@ -37,19 +42,32 @@ OUT = os.path.join(ROOT, "build", "probe")
 VARIANTS = ("base", "copy_only", "compute_only")
 # the first statement after a tile has landed, in each kernel's loop
 TILE_READY = "\n    const int t0 = sp.k0 + (warp + i * kWarps) * C::kKeys;\n"
+# ... and in the wide kernel's (bf16 past D 128), whose consumer warps
+# hand each stage back to the copy warps on its empty barrier
+WIDE_TILE_READY = "\n      const uint32_t base = ring + st * C::kStage;\n"
+WIDE_RELEASE = ("\n      if (t >= 0) {\n        __syncwarp();\n"
+                "        if (lane == 0) mbar_arrive(empty + 8 * st);\n"
+                "        continue;\n      }")
+EDITS = {
+    "copy_only": [
+        lambda s: s.replace(TILE_READY, TILE_READY + "    if (i >= 0) {\n"
+                            "      __syncwarp();\n      continue;\n    }\n"),
+        lambda s: s.replace(WIDE_TILE_READY, WIDE_RELEASE + WIDE_TILE_READY)],
+    "compute_only": [
+        lambda s: re.sub(r"cp_async16\(st \+[^;]*;", "", s),
+        # the wide kernel's copy warps still arrive on each stage
+        lambda s: re.sub(r"cp_async16\(sdst \+[^;]*;", "", s)],
+}
 
 
 def variant(name: str, src: str) -> str:
-    if name == "base":
-        return src
-    if name == "copy_only":
-        out = src.replace(TILE_READY, TILE_READY + "    if (i >= 0) {\n"
-                          "      __syncwarp();\n      continue;\n    }\n")
-    else:
-        out = re.sub(r"cp_async16\(st \+[^;]*;", "", src)
-    if out == src:
-        raise RuntimeError(f"variant {name!r} edits nothing: the source "
-                           "changed under it")
+    out = src
+    for edit in EDITS.get(name, []):
+        edited = edit(out)
+        if edited == out:
+            raise RuntimeError(f"variant {name!r}: an edit matches nothing: "
+                               "the source changed under it")
+        out = edited
     return out
 
 
@@ -82,6 +100,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
+    ap.add_argument("--shapes", default="fd", choices=["fd", "d256"],
+                    help="chip_smoke.FD_SHAPES or chip_smoke.PALI_FD")
+    ap.add_argument("--keys-per-split", type=int, nargs="*", default=[],
+                    help="also time each variant at these splits")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -111,34 +133,42 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     tickets = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
-    for B, S, Hkv, G, D, lengths in cs.FD_SHAPES:
+    shapes = cs.FD_SHAPES if args.shapes == "fd" else cs.PALI_FD
+    for B, S, Hkv, G, D, lengths in shapes:
         q, k, v, lens = cs.fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen)
         scale = D ** -0.5
-        splits, keys, ws_shape = fdk.plan(q, k)
-        ws = torch.empty(ws_shape, dtype=torch.float32, device="cuda")
         want = fdk.flash_decode_plain(q, k, v, lens, scale=scale).float()
         valid = int(lens.clamp(max=S).sum())
         size = q.element_size()
         nbytes = valid * Hkv * D * 2 * size + 2 * q.numel() * size + B * 4
         print(f"B={B} S={S} Hkv={Hkv} G={G} D={D} {args.dtype} ({lengths} "
-              f"lengths, {valid} valid rows): {splits} splits of {keys} "
-              f"keys; HBM bound {nbytes / bw * 1e3:.5f} ms", flush=True)
-        for name, fn in fns.items():
-            out = torch.empty_like(q)
-
-            def call(fn=fn, out=out):
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                         tickets.data_ptr(), B, S, Hkv, G, D, scale, splits,
-                         keys, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"{name}: cudaError {err}")
-            call()
-            torch.cuda.synchronize()
-            err = (out.float() - want).abs().max().item()
-            ms = cs.device_ms(call, calls=cs.FD_CALLS[S])
-            print(f"  {name:14s} {ms:.5f} ms  max abs err {err:.3g}",
+              f"lengths, {valid} valid rows); HBM bound "
+              f"{nbytes / bw * 1e3:.5f} ms", flush=True)
+        plan = fdk.plan(q, k)
+        for keys in [plan.keys_per_split] + args.keys_per_split:
+            splits = -(-S // keys)
+            ws = torch.empty((B * Hkv, splits, G, D + 2),
+                             dtype=torch.float32, device="cuda")
+            print(f" {splits} splits of {keys} keys, {B * Hkv * splits} "
+                  f"CTAs{' (the plan)' if keys == plan.keys_per_split else ''}",
                   flush=True)
+            for name, fn in fns.items():
+                out = torch.empty_like(q)
+
+                def call(fn=fn, out=out, ws=ws, splits=splits, keys=keys):
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                             tickets.data_ptr(), B, S, Hkv, G, D, scale,
+                             splits, keys,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: cudaError {err}")
+                call()
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs().max().item()
+                ms = cs.device_ms(call, calls=cs.FD_CALLS[S])
+                print(f"  {name:14s} {ms:.5f} ms  max abs err {err:.3g}",
+                      flush=True)
         del q, k, v, lens, ws
         torch.cuda.empty_cache()
     return 0
