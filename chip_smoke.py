@@ -217,8 +217,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
              paligemma at 8 heads on 1 kv head of 256 (the D 256 instance)
              in f32: 20 LARS steps card against CPU within 1e-5, 16
              teacher-forced decode steps within 1e-4, ``DecodeEngine``'s
-             greedy tokens identical. The phases' wall times are printed
-             at the end.
+             greedy tokens identical;
+18. tree engine and PBT — ``launch.train.main`` on markerless (tree)
+             optimizer states, LeNet at phase 4's batch 8192 and 20 steps:
+             f32 LARS, SGD, LAMB, AdamW and the large-batch LARS path
+             (bf16, f32 master tree, int8 momentum, 8 microbatches
+             unfused): no ``norms_flat``/``apply_flat``/``apply_flat_q8``
+             launch, finite losses, steps/s beside phase 4's; 20 f32 LARS
+             steps from one init on a tree and a packed state at a flat
+             LR of 0.01 (params within 2e-5 / 1e-5, losses within 1e-5;
+             the packed run one ``norms_flat`` and one ``apply_flat`` a
+             step) and on phase 4's schedule (logged), each pair timed;
+             smollm-135m whole at 16 x 1024 on tree states (f32 LARS and
+             the large-batch path at 4 microbatches of 4: tokens/s and
+             peak beside a packed run of each in turn and phase 12's), a
+             profiled f32
+             step on each engine with its optimizer update's kernels
+             (count, device ms) and host ms; reduced smollm in f32, 20 tree-state LARS steps card
+             against CPU within 1e-5; ``launch.experiment --grid pbt_smoke
+             --pbt --population 4 --exploit-every 4`` into ``build/pbt/``:
+             every member finished, killed or early-stopped, finished
+             members with finite losses, one ``norms_flat`` and one
+             ``apply_flat`` per LARS step of every segment and none per
+             SGD step, the report's ``pbt`` block (claims logged); the
+             same run killed mid-round and resumed: ``pbt.json`` and every
+             trajectory identical. The phases' wall times are printed at
+             the end.
 
 From phase 13 on, a model's seeded init is drawn on the host once per
 phase and shared by its training runs, sessions and serving
@@ -535,6 +559,49 @@ def family_card_cpu_args(arch: str, changes: dict) -> list:
             "--steps", "20", "--lr", "0.01", "--log-every", "0",
             "--optimizer", "lars"] + [
         a for k, v in changes.items() for a in ("--set", f"{k}={v}")]
+
+
+# phase 18: the per-leaf tree engine (markerless optimizer states) and
+# the PBT controller. LeNet at phase 4's batch, steps and schedule through
+# launch.train on tree states; the Adam family at its own flat LR (phase
+# 4's linear scaling to batch 8192 would take AdamW's to 2.56)
+TREE_RUNS = {"lars": ["--optimizer", "lars"],
+             "sgd": ["--optimizer", "sgd"],
+             "lamb": ["--optimizer", "lamb", "--lr", "0.001",
+                      "--lr-policy", "none"],
+             "adamw": ["--optimizer", "adamw", "--lr", "0.001",
+                       "--lr-policy", "none"],
+             "lars_int8_bf16_accum8": LARGE_BATCH}
+# each tree run beside phase 4's packed run of the same path
+TREE_PACKED_TWIN = {"lars": "lars_warm", "sgd": "sgd",
+                    "lars_int8_bf16_accum8": "lars_int8_bf16_accum8"}
+# tree against packed from one init, 20 f32 LARS steps at a flat LR of
+# 0.01: the reference's packed-against-tree class for the params
+# (tests/test_core_optim.py); the losses see the same forward on params
+# that differ by the per-layer norms' summation order only. On phase 4's
+# schedule (warmup to 2.56) the trajectory amplifies any such difference
+# (phase 4's two identical packed LARS runs, nondeterministic cuDNN, end
+# 7.8e-4 apart in the loss): that run is logged, not gated
+TREE_PACKED_RTOL, TREE_PACKED_ATOL = 2e-5, 1e-5
+TREE_LOSS_RTOL = 1e-5
+TREE_PACKED_LR = 0.01
+# smollm-135m on tree states: phase 12's f32 LARS run, and its
+# large-batch path at 4 microbatches of 4 (phase 12 runs 4 of 16), each
+# beside a packed run of the same in turn
+TREE_LM_RUNS = {"lars": LM_RUNS["lars"],
+                "lars_int8_bf16_accum4": ["--optimizer", "lars",
+                                          "--precision", "bf16",
+                                          "--opt-state-dtype", "int8",
+                                          "--accum-steps", "4",
+                                          "--batch", "16"]}
+# the record_function range phase 18's profiles put around the update
+UPDATE_RANGE = "optimizer.update"
+# launch.experiment --pbt on the registered pbt_smoke grid (8 members of
+# 16 LeNet steps at b1024, rounds of 4 steps); the kill lands in round 1
+# (32 steps in round 0), in its fourth member's second step
+PBT_ARGS = ["--grid", "pbt_smoke", "--pbt", "--population", "4",
+            "--exploit-every", "4"]
+PBT_KILL_AFTER = 32 + 3 * 4 + 2
 
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
@@ -1522,12 +1589,14 @@ def lm_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
 
 
 def lm_train_runs(train, lk, fdk, base_args=LM_ARGS, runs=LM_RUNS,
-                  steps=LM_STEPS, aux: bool = False) -> dict:
+                  steps=LM_STEPS, aux: bool = False,
+                  tree: bool = False) -> dict:
     """``launch.train.main`` at full width, one run per entry of ``runs``
     (phase 12: LARS, LAMB and the large-batch LARS path; phase 13: the
     lean knobs and qwen3-14b; phases 14, 15: an MoE, whose aux losses
-    ``aux`` gates finite and nonzero). Each run's launch counts and the
-    allocator's peak are reset just before it and read just after."""
+    ``aux`` gates finite and nonzero; phase 18: ``tree`` states, which
+    launch no LARS kernel). Each run's launch counts and the allocator's
+    peak are reset just before it and read just after."""
     import gc
     import torch
     out = {}
@@ -1549,7 +1618,7 @@ def lm_train_runs(train, lk, fdk, base_args=LM_ARGS, runs=LM_RUNS,
         if fdk.LAUNCHES["flash_decode"]:
             raise AssertionError(f"{tag}: training launched flash_decode")
         lars_steps = steps if args[args.index("--optimizer") + 1] == "lars" \
-            else 0
+            and not tree else 0
         int8 = "int8" in args
         want = {"norms_flat": lars_steps,
                 "apply_flat": 0 if int8 else lars_steps,
@@ -1577,14 +1646,18 @@ def lm_train_runs(train, lk, fdk, base_args=LM_ARGS, runs=LM_RUNS,
 
 
 def lm_profile(path: str, steps: int = 1, *, cfg=None, batch: int = 0,
-               seq: int = 1024, accum: int = 4, params=None) -> dict:
+               seq: int = 1024, accum: int = 4, params=None,
+               packed: bool = True, annotate_update: bool = False) -> dict:
     """Phases 12, 13: a ``torch.profiler`` window over one full-width step
     (``path``: "f32" LARS or the "large_batch" path: int8 momentum, bf16,
     ``accum`` microbatches) of ``cfg`` (smollm-135m by default; batch 16,
     or 64 on the large-batch path) fed by the loader, after two warm-up
-    steps, from ``params`` when given (else a seed-0 init): busy share,
-    time by kernel, the hand kernels' and the loader's H2D copies' device
-    time."""
+    steps, from ``params`` when given (else a seed-0 init), on a packed
+    state (or a tree state, ``packed=False``): busy share, time by kernel,
+    the hand kernels' and the loader's H2D copies' device time; with
+    ``annotate_update`` also the optimizer update's own kernels (phase
+    18)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import lars
@@ -1594,35 +1667,50 @@ def lm_profile(path: str, steps: int = 1, *, cfg=None, batch: int = 0,
     from repro_torch.train import TrainPipeline, train_state_from_params
     cfg = cfg or get_config("smollm-135m")
     if path == "f32":
-        pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg)
+        pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg,
+                             packed=packed)
         batch = batch or 16
     else:
         pipe = TrainPipeline(build_model(cfg), lars(0.01, slot_dtype="int8"),
-                             cfg, accum_steps=accum, precision="bf16")
+                             cfg, accum_steps=accum, precision="bf16",
+                             packed=packed)
         batch = batch or 16 * accum
+    if annotate_update:
+        inner = pipe.optimizer.update
+
+        def update(*args, **kw):
+            with torch.profiler.record_function(UPDATE_RANGE):
+                return inner(*args, **kw)
+
+        pipe.optimizer = dataclasses.replace(pipe.optimizer, update=update)
     state = (pipe.init_state(torch.Generator().manual_seed(0), "cuda")
              if params is None else
              train_state_from_params(pipe.model, pipe.optimizer, params,
-                                     precision=pipe.precision))
+                                     precision=pipe.precision,
+                                     packed=packed))
     loader = ShardedLoader(lm_batches(cfg, batch, seq), "cuda")
     try:
         for _ in range(2):
             state, _ = pipe(state, next(loader))
-        out, state = profile_steps(pipe, state, loader, steps,
-                                   f"{cfg.name} {path}, {steps} step(s) of "
-                                   f"{batch} x {seq}")
+        out, state = profile_steps(
+            pipe, state, loader, steps,
+            f"{cfg.name} {path}{'' if packed else ' (tree state)'}, "
+            f"{steps} step(s) of {batch} x {seq}",
+            annotated=UPDATE_RANGE if annotate_update else None)
     finally:
         loader.close()
     del state, pipe
     return dict({"arch": cfg.name, "batch": batch, "seq": seq}, **out)
 
 
-def profile_steps(pipe, state, batches, steps: int, label: str
-                  ) -> tuple[dict, object]:
+def profile_steps(pipe, state, batches, steps: int, label: str,
+                  annotated: str = None) -> tuple[dict, object]:
     """A ``torch.profiler`` window over ``steps`` steps of ``pipe`` from
     ``state`` on ``batches`` (an iterator): busy share, time by kernel,
-    the hand kernels' and the loader's H2D copies' device time. Returns
-    (the numbers, the state after the steps)."""
+    the hand kernels' and the loader's H2D copies' device time; with
+    ``annotated``, the name of a ``record_function`` range in the step,
+    the kernels launched inside it (count and device ms a step) and its
+    host ms. Returns (the numbers, the state after the steps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1634,11 +1722,22 @@ def profile_steps(pipe, state, batches, steps: int, label: str
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_ms_by_kernel(prof)
+    kernels.pop(annotated, None)           # the range's own device span
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     ours = {k: sum(ms for n, ms in kernels.items() if f"{k}_kernel" in n)
             / steps for k in KERNELS}
     h2d = sum(ms for n, ms in kernels.items() if "HtoD" in n) / steps
+    extra = {}
+    if annotated:
+        ranges = [ev for ev in prof.events() if ev.name == annotated
+                  and ev.device_type == torch.autograd.DeviceType.CPU]
+        launched = [k for ev in ranges for k in _kernels_under(ev)]
+        extra = {"update_kernels": len(launched) / steps,
+                 "update_device_ms": sum(k.duration for k in launched)
+                 / 1e3 / steps,
+                 "update_host_ms": sum(ev.time_range.elapsed_us()
+                                       for ev in ranges) / 1e3 / steps}
     log(f"  {label}: wall {wall_ms / steps:.2f}"
         f" ms/step, device busy {busy / steps:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%), H2D copies {h2d:.4f} ms"
@@ -1647,12 +1746,24 @@ def profile_steps(pipe, state, batches, steps: int, label: str
     for name, ms in top:
         log(f"    {ms / steps:9.4f} ms/step  {name[:90]}")
     log(f"  hand kernels, device ms/step: {ours}")
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "device_busy_ms_per_step": busy / steps if busy else None,
-            "h2d_ms_per_step": h2d if busy else None,
-            "hand_kernel_device_ms_per_step": ours,
-            "top_kernels_ms_per_step": [[n[:90], ms / steps]
-                                        for n, ms in top]}, state
+    if extra:
+        log(f"  its optimizer update: {extra['update_kernels']:.0f} device "
+            f"kernels, {extra['update_device_ms']:.3f} ms of device time, "
+            f"host {extra['update_host_ms']:.2f} ms (under the profiler)")
+    return dict({"steps": steps, "wall_ms_per_step": wall_ms / steps,
+                 "device_busy_ms_per_step": busy / steps if busy else None,
+                 "h2d_ms_per_step": h2d if busy else None,
+                 "hand_kernel_device_ms_per_step": ours,
+                 "top_kernels_ms_per_step": [[n[:90], ms / steps]
+                                             for n, ms in top]},
+                **extra), state
+
+
+def _kernels_under(ev) -> list:
+    """The device kernels launched by a profiler CPU event and every op
+    under it."""
+    return list(ev.kernels) + [k for child in ev.cpu_children
+                               for k in _kernels_under(child)]
 
 
 def train_card_vs_cpu(train, args, label: str,
@@ -2727,6 +2838,310 @@ def family_phase(train, lk, fdk, bw: float, flops: float,
     return out
 
 
+@contextlib.contextmanager
+def tree_states(train):
+    """Within the block ``launch.train`` builds its pipelines with
+    ``packed=False``: markerless (tree) optimizer states."""
+    inner = train.TrainPipeline
+
+    def pipeline(*args, **kw):
+        return inner(*args, packed=False, **kw)
+
+    train.TrainPipeline = pipeline
+    try:
+        yield
+    finally:
+        train.TrainPipeline = inner
+
+
+def tree_lenet_runs(train, lk, fdk, packed_runs: dict) -> dict:
+    """Phase 18 (a): ``launch.train.main`` on tree states, LeNet at phase
+    4's batch 8192 and 20 steps: f32 LARS, SGD, LAMB, AdamW and the
+    large-batch LARS path (bf16, f32 master tree, int8 momentum, 8
+    microbatches unfused). No LARS kernel launches; finite losses;
+    steps/s beside phase 4's packed run of the same path."""
+    out = {}
+    zero = {k: 0 for k in KERNELS}
+    for tag, extra in TREE_RUNS.items():
+        lk.reset_launch_counts()
+        fdk.reset_launch_counts()
+        with tree_states(train):
+            summary = train.main(MAIN_ARGS + extra)
+        counts = dict(lk.LAUNCHES)
+        losses = summary["losses"]
+        if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"tree {tag}: losses {losses}")
+        if counts != zero or fdk.LAUNCHES["flash_decode"]:
+            raise AssertionError(f"tree {tag}: launches {counts}")
+        twin = packed_runs.get(TREE_PACKED_TWIN.get(tag))
+        out[tag] = {"steps_per_s": summary["steps_per_s"],
+                    "train_s": summary["train_s"], "losses": losses,
+                    "eval_accuracy": summary["eval_accuracy"],
+                    "launches": counts,
+                    "packed_steps_per_s": twin["steps_per_s"] if twin
+                    else None}
+        log(f"  tree {tag}: {summary['steps_per_s']:.3f} steps/s"
+            + (f" (phase 4 packed: {twin['steps_per_s']:.3f})" if twin
+               else "") + f"  eval accuracy {summary['eval_accuracy']:.4f}"
+            f"  launches {counts}  losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}")
+    return out
+
+
+def tree_against_packed(lk, schedule: str) -> dict:
+    """Phase 18 (a): 20 f32 LARS steps at batch 8192 from one init, on a
+    packed and on a tree state (cuDNN's deterministic algorithms on), at
+    a flat LR of TREE_PACKED_LR (``schedule="flat"``: the params within
+    TREE_PACKED_RTOL / ATOL and the losses within TREE_LOSS_RTOL, gated)
+    or on phase 4's schedule (``"phase4"``: logged). The packed run
+    launches one ``norms_flat`` and one ``apply_flat`` a step, the tree
+    run none. The two runs are timed (steps/s, each ending in a sync),
+    packed first on the flat LR and tree first on phase 4's schedule."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_optimizer
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainPipeline, train_state_from_params
+    from repro_torch.treepath import tree_leaves
+    dev = torch.device("cuda")
+    cfg = get_config("lenet-mnist")
+    model = build_model(cfg)
+    opt = get_optimizer("lars", learning_rate=TREE_PACKED_LR
+                        if schedule == "flat" else train.make_lr_schedule(
+                            train.parse_args(MAIN_ARGS)))
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    batches = _batches(dev, 8192, MAIN_STEPS)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for packed in ((True, False) if schedule == "flat"
+                       else (False, True)):
+            pipe = TrainPipeline(model, opt, cfg, packed=packed)
+            state = train_state_from_params(model, opt, params,
+                                            packed=packed)
+            lk.reset_launch_counts()
+            losses = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches:
+                state, m = pipe(state, b)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            rate = len(batches) / (time.perf_counter() - t0)
+            runs[packed] = ([float(x) for x in losses],
+                            tree_leaves(state.params), dict(lk.LAUNCHES),
+                            rate)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = {True: {"norms_flat": MAIN_STEPS, "apply_flat": MAIN_STEPS,
+                   "apply_flat_q8": 0},
+            False: {k: 0 for k in KERNELS}}
+    for packed, (_, _, counts, _) in runs.items():
+        if counts != want[packed]:
+            raise AssertionError(f"packed={packed}: launches {counts}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[False][0],
+                                                  runs[True][0]))
+    excess = max(float(torch.max(torch.abs(a - b) - TREE_PACKED_RTOL
+                                 * torch.abs(b))) for a, b in
+                 zip(runs[False][1], runs[True][1]))
+    diff = max(float(torch.max(torch.abs(a - b))) for a, b in
+               zip(runs[False][1], runs[True][1]))
+    gated = schedule == "flat"
+    log(f"  tree against packed, {MAIN_STEPS} f32 LARS steps from one "
+        f"init, {schedule} LR: losses within {rel:.3g} relative, params "
+        f"within {diff:.3g} absolute" + (
+            f" (tolerances: losses {TREE_LOSS_RTOL}, params rtol "
+            f"{TREE_PACKED_RTOL} atol {TREE_PACKED_ATOL})" if gated
+            else " (logged)") + f"; launches packed {runs[True][2]}, "
+        f"tree {runs[False][2]}; steps/s packed {runs[True][3]:.2f}, tree "
+        f"{runs[False][3]:.2f}")
+    if gated and (not rel <= TREE_LOSS_RTOL
+                  or not excess <= TREE_PACKED_ATOL):
+        raise AssertionError(f"tree against packed: loss rel {rel}, param "
+                             f"excess {excess}")
+    return {"loss_max_rel": rel, "param_max_abs": diff,
+            "launches": {("packed" if k else "tree"): v[2]
+                         for k, v in runs.items()},
+            "steps_per_s": {("packed" if k else "tree"): v[3]
+                            for k, v in runs.items()}}
+
+
+def tree_lm_phase(train, lk, fdk, packed_runs: dict) -> dict:
+    """Phase 18 (b): smollm-135m whole at 16 x 1024 on tree states: f32
+    LARS and the large-batch path (4 microbatches of 4), each beside a
+    packed run of the same in turns (tree first for f32, packed first
+    for the large-batch path) and beside phase 12's figures (tokens/s and
+    peak; phase 12's large-batch run is 4 microbatches of 16);
+    a profiled f32 step on each engine with the optimizer's update
+    annotated (its device kernels, their count and device ms, its host
+    ms)."""
+    import gc
+    import torch
+    runs, twins = {}, {}
+    for (tag, args), order in zip(TREE_LM_RUNS.items(),
+                                  ((True, False), (False, True))):
+        for tree in order:
+            with (tree_states(train) if tree else contextlib.nullcontext()):
+                got = lm_train_runs(train, lk, fdk, LM_ARGS, {tag: args},
+                                    tree=tree)[tag]
+            (runs if tree else twins)[tag] = got
+    for tag, r in runs.items():
+        p, t = packed_runs[tag], twins[tag]
+        r.update(packed_tokens_per_s=p["tokens_per_s"],
+                 packed_peak_bytes=p["peak_bytes"], twin=t)
+        log(f"  tree {tag}: {r['tokens_per_s']:.0f} tokens/s against "
+            f"{t['tokens_per_s']:.0f} packed in turn "
+            f"({r['tokens_per_s'] / t['tokens_per_s']:.3f}x) and phase "
+            f"12's {p['tokens_per_s']:.0f} (batch {p['batch']}); peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB against "
+            f"{t['peak_bytes'] / 2**30:.2f} GiB (phase 12: "
+            f"{p['peak_bytes'] / 2**30:.2f} GiB)")
+    out = {"runs": runs, "profile": {}}
+    for packed in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["profile"]["packed" if packed else "tree"] = lm_profile(
+            "f32", packed=packed, annotate_update=True)
+    return out
+
+
+def pbt_run(experiment, lk, out_dir: str, report: str,
+            kill_after: int = 0) -> dict:
+    """``launch.experiment.main`` with PBT_ARGS into ``out_dir``; with
+    ``kill_after`` it is killed after that many steps (it must return
+    130) and resumed. Every segment's launches are held to
+    ``_want_launches``'s per step; returns the segments' counts."""
+    from repro_torch.experiments import GridRunner
+    from repro_torch.experiments.runner import ABORT_ENV
+    inner = GridRunner.run_cell_segment
+    segments = []
+
+    def counted(self, cell, state, *, start, until_step, **kw):
+        before = dict(lk.LAUNCHES)
+        out = inner(self, cell, state, start=start, until_step=until_step,
+                    **kw)
+        ran = max(0, min(until_step, cell.steps) - start)
+        got = {k: lk.LAUNCHES[k] - before[k] for k in before}
+        want = {k: ran * v // cell.steps
+                for k, v in _want_launches(cell).items()}
+        if got != want:
+            raise AssertionError(f"{cell.cell_id} steps {start}..{start + ran}"
+                                 f": launches {got}, want {want}")
+        segments.append((cell.cell_id, ran, got))
+        return out
+
+    args = PBT_ARGS + ["--out-dir", out_dir, "--out", report]
+    GridRunner.run_cell_segment = counted
+    try:
+        if kill_after:
+            os.environ[ABORT_ENV] = str(kill_after)
+            try:
+                rc = experiment.main(args)
+            finally:
+                os.environ.pop(ABORT_ENV, None)
+            if rc != 130:
+                raise AssertionError(f"the kill after {kill_after} steps "
+                                     f"returned {rc}")
+            args = args + ["--resume"]
+        rc = experiment.main(args)
+    finally:
+        GridRunner.run_cell_segment = inner
+    if rc != 0:
+        raise AssertionError(f"launch.experiment --pbt returned {rc}")
+    return {"segments": len(segments),
+            "steps": sum(n for _, n, _ in segments),
+            "launches": {k: sum(c[k] for _, _, c in segments)
+                         for k in KERNELS}}
+
+
+def pbt_phase(workdir: str, lk) -> dict:
+    """Phase 18 (d): ``launch.experiment --pbt`` on the registered
+    pbt_smoke grid on the card, into a fresh directory under ``build/``:
+    every member finished, killed or early-stopped by the protocol, every
+    finished member with finite losses, each LARS segment one
+    ``norms_flat`` and one ``apply_flat`` a step and each SGD segment
+    none; the report's ``pbt`` block (claims logged, not gated); then the
+    same run killed mid-round and resumed: its ``pbt.json`` and every
+    lineage's trajectory (without timing keys) identical."""
+    from repro_torch.experiments import cell_from_json, read_trajectory
+    from repro_torch.experiments.record import load_json
+    from repro_torch.launch import experiment
+    root = os.path.join(workdir, "pbt")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    t0 = time.perf_counter()
+    runs = {"run": pbt_run(experiment, lk, os.path.join(root, "run"),
+                           os.path.join(root, "report.json"))}
+    out["wall_s"] = time.perf_counter() - t0
+    st = load_json(os.path.join(root, "run", "pbt.json"))
+    for lin, m in sorted(st["members"].items()):
+        if m["status"] not in ("done", "killed", "early_stopped"):
+            raise AssertionError(f"{lin}: status {m['status']}")
+        losses = [r["loss"] for r in read_trajectory(os.path.join(
+            root, "run", lin, "trajectory.jsonl")) if "event" not in r]
+        if m["status"] == "done" and not all(
+                x is not None and math.isfinite(x) for x in losses):
+            raise AssertionError(f"{lin}: losses {losses}")
+        cell = cell_from_json(m["cell"])
+        log(f"  {lin}: {m['status']} at step {m['step']} (generation "
+            f"{cell.generation}, lr {cell.cell_base_lr:.4g}, trust "
+            f"{cell.cell_trust_coef:.4g})"
+            + (f", {m['reason']}" if m.get("reason") else ""))
+    section = load_json(os.path.join(root, "report.json"))["pbt"]
+    log(f"  pbt: {runs['run']['segments']} segments, "
+        f"{runs['run']['steps']} steps in {out['wall_s']:.2f} s; events "
+        f"{section['events']}; launches {runs['run']['launches']}")
+    for key, val in section["claims"].items():
+        log(f"  claim pbt.{key}: {val}")
+    t0 = time.perf_counter()
+    runs["killed"] = pbt_run(experiment, lk, os.path.join(root, "killed"),
+                             os.path.join(root, "killed.json"),
+                             PBT_KILL_AFTER)
+    out["killed_wall_s"] = time.perf_counter() - t0
+
+    def read(name):
+        with open(os.path.join(root, name, "pbt.json"), "rb") as f:
+            return f.read()
+
+    differ = ([] if read("killed") == read("run") else ["pbt.json"]) + [
+        lin for lin in sorted(st["members"])
+        if read_trajectory(os.path.join(root, "killed", lin,
+                                        "trajectory.jsonl"),
+                           strip_timing=True)
+        != read_trajectory(os.path.join(root, "run", lin,
+                                        "trajectory.jsonl"),
+                           strip_timing=True)]
+    verdict = f"DIFFERENT: {differ}" if differ else "identical"
+    log(f"  pbt killed after {PBT_KILL_AFTER} steps and resumed: pbt.json "
+        f"and trajectories {verdict} to the uninterrupted run's")
+    if differ:
+        raise AssertionError(f"resumed pbt run differs: {differ}")
+    log("  pbt block: " + json.dumps(section))
+    out.update(runs=runs, events=section["events"],
+               claims=section["claims"], resume_identical=True)
+    return out
+
+
+def tree_phase(train, lk, fdk, phase4: dict, phase12: dict,
+               workdir: str) -> dict:
+    """Phase 18: the tree engine and the PBT controller on the card."""
+    t_phase = time.perf_counter()
+    out = {"lenet": tree_lenet_runs(train, lk, fdk, phase4)}
+    out["lenet_against_packed"] = {s: tree_against_packed(lk, s)
+                                   for s in ("flat", "phase4")}
+    out["smollm"] = tree_lm_phase(train, lk, fdk, phase12)
+    with tree_states(train):
+        out["card_vs_cpu"] = train_card_vs_cpu(
+            train, LM_CARD_CPU_ARGS + ["--optimizer", "lars"], "tree lars",
+            LM_CARD_CPU_RTOL["lars"])
+    out["pbt"] = pbt_phase(workdir, lk)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the large steps (zamba2's f32 LARS at 24 layers) fit the card only
@@ -2833,6 +3248,12 @@ def main() -> int:
           f"and served by DecodeEngine")
     with shared_inits():
         fam = family_phase(train, lk, fdk, bw, flops, floor)
+
+    phase("== 18. the tree engine and PBT: tree-state LeNet and "
+          "smollm-135m, launch.experiment --pbt on pbt_smoke")
+    with shared_inits():
+        tree = tree_phase(train, lk, fdk, runs, lm["runs"],
+                          os.path.join(ROOT, "build"))
     stamps.append(("end", time.perf_counter()))
     phase_s = {a[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
     log("phase wall times, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in
@@ -3034,7 +3455,7 @@ def main() -> int:
                     "serve_profile": serve_prof, "experiments": exp,
                     "lm": lm, "lean": lean, "granite": granite,
                     "mla": mla, "ssm": ssm, "families": fam,
-                    "phase_wall_s": phase_s}))
+                    "tree": tree, "phase_wall_s": phase_s}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": entries}))

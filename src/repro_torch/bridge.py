@@ -8,7 +8,9 @@ The caller turns the JAX side into numpy (``jax.device_get`` /
 free of JAX. Params are nested dicts in the reference's leaf layouts
 (HWIO convs, ``(in, out)`` dense weights). Packed slot buffers have the
 same ``(rows, 512)`` layout in both packages — f32, bf16-policy master,
-and int8 states alike — so an optimizer state carries across mid-run.
+and int8 states alike — and tree-layout slots the same trees (f32 leaves
+or int8 codes, per-leaf scales, the f32 master tree), so an optimizer
+state carries across mid-run.
 
 bfloat16 arrays (``ml_dtypes.bfloat16`` on the JAX side) arrive through
 float32, which holds every bfloat16 value exactly; they leave as
@@ -17,7 +19,7 @@ float32 arrays.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -55,14 +57,26 @@ def params_to_numpy(params: Pytree) -> Pytree:
     return tree_map(tensor_to_numpy, params)
 
 
-def opt_state_to_torch(step: int, slots: dict, layout: PackedLayout,
+def opt_state_to_torch(step: int, slots: dict,
+                       layout: Optional[PackedLayout],
                        device: torch.device | str = "cpu") -> OptState:
-    """A packed state from the reference's step and slot buffers. The
-    slot names are the reference's (``WEIGHT_SLOT`` or ``MASTER_SLOT``,
-    the rule slots, and a ``<slot>_scale`` beside each int8 code slot);
-    ``layout`` is the port's layout of the same params. Code slots stay
-    int8 and scale slots are ``(num_blocks, 1)`` f32; every other slot
-    is a ``buffer_shape`` buffer."""
+    """An optimizer state from the reference's step and slots. The slot
+    names are the reference's (``WEIGHT_SLOT`` or ``MASTER_SLOT``, the
+    rule slots, and a ``<slot>_scale`` beside each int8 code slot).
+
+    ``layout`` is the port's layout of the same params for a packed
+    state: code slots stay int8, scale slots are ``(num_blocks, 1)`` f32
+    and every other slot is a ``buffer_shape`` buffer. ``None`` takes a
+    tree state: every slot is a nested dict of arrays with the same leaf
+    paths (int8 codes stay int8)."""
+    if layout is None:
+        out = {k: tree_map(lambda a: tensor_from_numpy(a, device), v)
+               for k, v in slots.items()}
+        paths = {k: tree_flatten_with_path(v)[1] for k, v in out.items()}
+        if len(set(paths.values())) > 1:
+            raise ValueError(f"the slot trees {sorted(out)} differ in "
+                             "their leaf paths")
+        return OptState(step=int(step), slots=out)
     out = {k: tensor_from_numpy(v, device) for k, v in slots.items()}
     for k, v in out.items():
         want = (layout.num_blocks, 1) if k.endswith(SCALE_SUFFIX) \
@@ -74,7 +88,8 @@ def opt_state_to_torch(step: int, slots: dict, layout: PackedLayout,
 
 
 def opt_state_to_numpy(state: OptState) -> tuple[int, dict]:
-    return state.step, {k: tensor_to_numpy(v)
+    """(step, slots as numpy): buffers, or nested dicts for a tree state."""
+    return state.step, {k: tree_map(tensor_to_numpy, v)
                         for k, v in state.slots.items()}
 
 

@@ -2,18 +2,21 @@
 layouts).
 
 ``save_train_state`` / ``restore_train_state`` round-trip the FULL
-:class:`~repro_torch.train.state.TrainState` — params, every packed
-optimizer slot (momentum, int8 codes and their scales, the packed weight
-or f32 master buffer) and the step counter — so large-batch runs resume
-mid-schedule. The packed ``layout`` is not stored: the caller's freshly
-initialized template state supplies it, and the restore checks the
-stored arrays against the template.
+:class:`~repro_torch.train.state.TrainState` — params, every optimizer
+slot (momentum, int8 codes and their scales, the packed weight or f32
+master buffer, or on a tree state the slot trees) and the step counter —
+so large-batch runs resume mid-schedule. The packed ``layout`` is not
+stored: the caller's freshly initialized template state supplies it, and
+the restore checks the stored arrays against the template.
 
 The file is the JAX package's, key for key. Keys are the "/"-joined
 paths that ``jax.tree_util`` gives a ``TrainState`` there — attribute
-names carry a leading dot, dict keys do not::
+names carry a leading dot, dict keys do not. A packed slot is one
+buffer, a tree slot one key per leaf::
 
     .params/conv1/w   .opt_state/.step   .opt_state/.slots/momentum
+    .opt_state/.slots/momentum/conv1/w
+    .opt_state/.slots/momentum_scale/conv1/w
 
 so a state saved by either package restores into the other. bfloat16
 leaves are stored as float32 (npz cannot hold them; every bfloat16 value
@@ -44,13 +47,21 @@ def _npz(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
+def _slot_key(name: str, path: tuple) -> str:
+    """The key of one slot leaf: the slot's name, then the leaf's path
+    inside a slot tree (none for a packed buffer)."""
+    return SLOTS + "/".join((name,) + tuple(path))
+
+
 def _flatten(state: TrainState) -> dict[str, Any]:
-    """npz key -> tensor (or the step as an int32 scalar)."""
+    """npz key -> tensor (or the step as an int32 scalar), in the
+    reference's order: params, step, then slots and their leaves sorted."""
     flat = {PARAMS + path_str(p): leaf
             for p, leaf in tree_flatten_with_path(state.params)[0]}
     flat[STEP] = np.asarray(state.opt_state.step, np.int32)
-    flat.update({SLOTS + k: v
-                 for k, v in sorted(state.opt_state.slots.items())})
+    for k, v in sorted(state.opt_state.slots.items()):
+        flat.update({_slot_key(k, p): leaf
+                     for p, leaf in tree_flatten_with_path(v)[0]})
     return flat
 
 
@@ -114,7 +125,11 @@ def restore_train_state(path: str, template: TrainState) -> TrainState:
     treedef = tree_flatten_with_path(template.params)[1]
     params = tree_unflatten(treedef, [out[PARAMS + path_str(p)]
                                       for p in treedef])
-    slots = {k: out[SLOTS + k] for k in template.opt_state.slots}
+    slots = {}
+    for k, v in template.opt_state.slots.items():
+        slot_def = tree_flatten_with_path(v)[1]
+        slots[k] = tree_unflatten(slot_def, [out[_slot_key(k, p)]
+                                             for p in slot_def])
     return TrainState(params=params, opt_state=OptState(
         step=int(out[STEP]), slots=slots,
         layout=template.opt_state.layout))

@@ -1,7 +1,8 @@
 """Core contribution: layer-wise adaptive-rate optimizers (LARS — the
 paper's technique; SGD — its baseline; LAMB — its stated future work;
 AdamW — LAMB's non-layer-wise baseline), LR schedules and large-batch
-scaling policies, on the flat-packed substrate."""
+scaling policies, on the flat-packed substrate and the per-leaf tree
+engine."""
 
 from repro_torch.core.optim_base import (LayerwiseRule, Optimizer,  # noqa: F401
                                          OptState, PackedGrads,

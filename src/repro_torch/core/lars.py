@@ -10,7 +10,9 @@ ONE joint ||w||,||g|| pass (``norms_flat``) and ONE fused
 momentum+decay+apply pass (``apply_flat``, or ``apply_flat_q8`` when the
 momentum is stored as int8) over the whole superbuffer: two kernel
 launches per step on the card, whatever the leaf count, and the kernels'
-plain versions on the CPU.
+plain versions on the CPU. A tree-layout state (``init(params)``) runs
+the rule's ``apply`` per leaf in torch ops and launches no kernel, as
+the reference's tree engine runs jnp.
 """
 
 from __future__ import annotations
@@ -30,13 +32,20 @@ def lars(learning_rate: float | Schedule = 0.01, *, momentum: float = 0.9,
     ``use_kernels`` names where the buffers must lie: ``"auto"``
     (default) takes either, ``True`` CUDA buffers (the kernels) and
     ``False`` CPU buffers (the plain versions). Any other placement
-    raises; the kernel wrappers choose by the buffers' device.
+    raises; the kernel wrappers choose by the buffers' device. Tree
+    states have no kernel path: ``True`` refuses them.
     ``slot_dtype="int8"`` stores the momentum as int8 codes + f32
     per-block scales (~4x smaller optimizer state).
     """
 
     def direction(ctx, g, w, slots):
         return g, slots          # Eq. 3 norms the raw gradient
+
+    def apply(ctx, w, g, u, local_lr, slots):
+        # the tree engine's update; the packed engine takes the kernels
+        m_new = momentum * slots["momentum"] + local_lr * (
+            g + weight_decay * w)
+        return w - m_new, {"momentum": m_new}
 
     def trust(ctx, w_norm, g_norm):
         return tr.lars_trust_ratio(w_norm, g_norm, eta=trust_coefficient,
@@ -65,12 +74,13 @@ def lars(learning_rate: float | Schedule = 0.01, *, momentum: float = 0.9,
         return wbuf2, {"momentum": q2, "momentum_scale": s2}
 
     rule = LayerwiseRule(name="lars", slots=("momentum",),
-                         direction=direction, trust=trust,
+                         direction=direction, apply=apply, trust=trust,
                          packed_norms=packed_norms,
                          packed_apply=packed_apply,
                          packed_apply_q8=packed_apply_q8,
                          skip_adaptation_1d=skip_adaptation_1d)
     return make_optimizer(rule, learning_rate, slot_dtype=slot_dtype,
+                          use_kernels=use_kernels,
                           hyperparams=dict(learning_rate=learning_rate,
                                            momentum=momentum,
                                            weight_decay=weight_decay,

@@ -1,7 +1,7 @@
 """Shared layer-wise optimizer substrate (port of
-``repro/core/optim_base.py``: the flat-packed engine).
+``repro/core/optim_base.py``: both engines).
 
-* ``Optimizer.init(params, stacked, master=False) -> OptState``;
+* ``Optimizer.init(params, stacked=None, master=False) -> OptState``;
   ``Optimizer.update(grads, state, params, stacked=None) ->
   (new_params, new_state)``. The step counter is a host ``int`` in the
   state, so the learning rate and the rule's step scalars (``prepare``)
@@ -11,29 +11,40 @@
   function receives), ``direction`` (the trust-ratio norm operand and
   the slot updates that precede it), ``trust`` (the per-layer ratio;
   ``None`` for SGD and AdamW) and ``apply`` (fold the local LR into the
-  weight and slot update). All are elementwise over the whole
-  superbuffer or per-slice scalars.
-* The engine keeps the weights packed across steps — in the
-  ``WEIGHT_SLOT`` buffer, or under the bf16 policy in the f32
-  ``MASTER_SLOT`` buffer — and every slot packed beside them; per step it
-  packs only the gradients. LARS runs its two memory-bound passes
-  through its kernel wrappers: exactly one ``norms_flat`` and one
-  ``apply_flat`` (``apply_flat_q8`` for int8 slots) launch per step on
-  CUDA buffers, whatever the leaf count, and their plain versions on CPU
-  buffers. A rule with a trust ratio and no kernel wrappers (LAMB) takes
-  the per-slice norms with ``packing.slice_norms`` and runs its
-  ``apply`` with the local LR broadcast per row, as the reference's
-  engine does without Pallas; neither LAMB nor AdamW has a kernel there
-  or here.
-* ``needs_grad_sq`` (the Adam family): the engine hands ``direction``
-  the f32 square of the packed gradient as ``ctx["grad_sq"]``.
-* ``slot_dtype="int8"`` stores every rule slot as int8 codes plus one
-  f32 scale per row block (sibling slot ``<name>_scale``). LARS hands
-  the raw codes to its fused kernel; the other rules dequantize on read,
-  run their functions and requantize on write.
+  weight and slot update). All are elementwise over a leaf or the whole
+  superbuffer, or per-layer scalars, so one rule runs on two engines.
+* The **tree engine** (``init(params)`` without a marker): every slot
+  is a tree mirroring the params leaf for leaf, and ``update`` runs the
+  rule per leaf in torch ops on the leaves' device, with per-leaf norms
+  (per leading index for the leaves ``update``'s marker calls stacked).
+  The bf16 policy's f32 master copy is an f32 tree in ``MASTER_SLOT``.
+  It has no kernel path, as the reference's has none: a tree-state step
+  launches no ``norms_flat``, ``apply_flat`` or ``apply_flat_q8``, and a
+  rule built with ``use_kernels=True`` refuses tree states.
+* The **packed engine** (``init(params, stacked=marker)``) keeps the
+  weights packed across steps — in the ``WEIGHT_SLOT`` buffer, or under
+  the bf16 policy in the f32 ``MASTER_SLOT`` buffer — and every slot
+  packed beside them; per step it packs only the gradients. LARS runs
+  its two memory-bound passes through its kernel wrappers: exactly one
+  ``norms_flat`` and one ``apply_flat`` (``apply_flat_q8`` for int8
+  slots) launch per step on CUDA buffers, whatever the leaf count, and
+  their plain versions on CPU buffers. A rule with a trust ratio and no
+  kernel wrappers (LAMB) takes the per-slice norms with
+  ``packing.slice_norms`` and runs its ``apply`` with the local LR
+  broadcast per row, as the reference's engine does without Pallas;
+  neither LAMB nor AdamW has a kernel there or here.
+* ``needs_grad_sq`` (the Adam family): the packed engine hands
+  ``direction`` the f32 square of the packed gradient as
+  ``ctx["grad_sq"]``; the tree engine squares each leaf's gradient in
+  ``direction``, as the reference's does.
+* ``slot_dtype="int8"`` stores every rule slot as int8 codes plus f32
+  scales (sibling slot ``<name>_scale``): one per row block on the
+  packed engine, one per leading index of each leaf on the tree engine
+  (``packing.quantize_leaf_q8``). Packed LARS hands the raw codes to its
+  fused kernel; everywhere else the engine dequantizes on read, runs the
+  rule and requantizes on write.
 
-Not yet ported: the per-leaf tree engine (``init`` without a marker)
-and ZeRO-sharded layouts.
+Not yet ported: ZeRO-sharded layouts.
 """
 
 from __future__ import annotations
@@ -45,8 +56,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core import trust_ratio as tr
 from repro_torch.core.schedules import Schedule
-from repro_torch.treepath import tree_map
+from repro_torch.treepath import (flatten_up_to, tree_flatten_with_path,
+                                  tree_map, tree_unflatten)
 
 Pytree = Any
 
@@ -71,14 +84,16 @@ class PackedGrads(NamedTuple):
 
 @dataclasses.dataclass
 class OptState:
-    """Step counter + packed slot buffers. Each slot is a (rows, lane)
-    superbuffer (f32, or int8 codes with a (num_blocks, 1) f32 scale
-    slot beside it); ``layout`` is the static
-    :class:`~repro_torch.core.packing.PackedLayout`."""
+    """Step counter + slots. Tree layout (``layout is None``): each slot
+    is a tree mirroring the params (f32, or int8 codes with a
+    ``quantize_leaf_q8`` scale tree beside them). Packed layout: each
+    slot is a (rows, lane) superbuffer (f32, or int8 codes with a
+    (num_blocks, 1) f32 scale slot beside it), and ``layout`` is the
+    static :class:`~repro_torch.core.packing.PackedLayout`."""
 
     step: int
-    slots: dict[str, torch.Tensor]
-    layout: packing.PackedLayout
+    slots: dict[str, Any]
+    layout: Optional[packing.PackedLayout] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +107,9 @@ class LayerwiseRule:
     # (ctx, g, w, slots) -> (u, slots'): the trust-ratio norm operand.
     direction: Callable[..., tuple[torch.Tensor, dict]]
     # (ctx, w, g, u, local_lr, slots) -> (w_new, slots'); local_lr is the
-    # scalar LR, or (rows, 1) per-row LRs under a trust ratio. Rules
-    # whose trust ratio runs through kernel wrappers leave it None.
+    # scalar LR, or under a trust ratio the per-row LRs (packed engine)
+    # or the per-layer LR broadcast against the leaf (tree engine). The
+    # packed engine takes ``packed_apply`` instead where a rule has it.
     apply: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
     # (ctx, w_norm, u_norm) -> per-layer ratio; None = always 1.
     trust: Optional[Callable[..., torch.Tensor]] = None
@@ -130,7 +146,52 @@ class Optimizer:
         return f"Optimizer({self.name}, {hp})"
 
 
-# ------------------------------------------------------------------ engine
+# ------------------------------------------------------------------ engines
+
+def _tree_update(rule: LayerwiseRule, lr: float, ctx: dict, grads: Pytree,
+                 slots: dict, params: Pytree, stacked_full: Pytree,
+                 master: Optional[Pytree] = None) -> tuple[Pytree, dict]:
+    """Per-leaf engine: ``direction``, the trust ratio from the leaf's
+    norms (per leading index where ``stacked_full`` marks the leaf;
+    rank <= 1 leaves keep the scalar LR under ``skip_adaptation_1d``),
+    then ``apply``, all in f32 torch ops on the leaf's device.
+
+    ``master``: the f32 master tree of the bf16 policy. The update then
+    reads and writes it, the new params are it cast down to each leaf's
+    dtype, and the new master rides back in the slot dict.
+    """
+    n_rule = len(rule.slots)
+    extras = [slots[k] for k in rule.slots]
+    if master is not None:
+        extras.append(master)
+
+    def leaf(g, w, s, *extra):
+        sl = dict(zip(rule.slots, extra[:n_rule]))
+        gf = g.float()
+        wf = extra[n_rule] if master is not None else w.float()
+        u, sl = rule.direction(ctx, gf, wf, sl)
+        local_lr = lr
+        if rule.trust is not None and not (
+                rule.skip_adaptation_1d and tr.effective_rank(w, s) <= 1):
+            w_norm, u_norm = tr.layer_norms(wf, u, s)
+            ratio = rule.trust(ctx, w_norm, u_norm)
+            local_lr = lr * tr.broadcast_ratio(ratio, wf, s)
+        w_new, sl = rule.apply(ctx, wf, gf, u, local_lr, sl)
+        return (w_new.to(w.dtype), [sl[k] for k in rule.slots], w_new)
+
+    leaves, treedef = tree_flatten_with_path(params)
+    others = [flatten_up_to(treedef, t) for t in [grads, stacked_full]
+              + extras]
+    outs = [leaf(others[0][i], w, others[1][i], *(o[i] for o in others[2:]))
+            for i, (_, w) in enumerate(leaves)]
+    new_params = tree_unflatten(treedef, [o[0] for o in outs])
+    new_slots = {k: tree_unflatten(treedef, [o[1][j] for o in outs])
+                 for j, k in enumerate(rule.slots)}
+    if master is not None:
+        new_slots[packing.MASTER_SLOT] = tree_unflatten(
+            treedef, [o[2] for o in outs])
+    return new_params, new_slots
+
 
 def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
                    lr: float, ctx: dict, grads: Pytree | PackedGrads,
@@ -193,14 +254,13 @@ def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
     return packing.unpack(layout, wbuf2), new_slots
 
 
-def _not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
-
-
 def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
-                   slot_dtype: str = "f32",
+                   slot_dtype: str = "f32", use_kernels: bool | str = "auto",
                    hyperparams: Optional[dict] = None) -> Optimizer:
-    """Build an :class:`Optimizer` from a rule."""
+    """Build an :class:`Optimizer` from a rule. ``use_kernels`` is the
+    rule's kernel option (LARS's): ``True`` refuses tree-layout states,
+    which have no kernel path, as the reference's ``use_pallas=True``
+    refuses them."""
     lr_fn = as_schedule(learning_rate)
     if slot_dtype not in SLOT_DTYPES:
         raise ValueError(f"unknown slot_dtype {slot_dtype!r}; "
@@ -210,8 +270,7 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
     def init(params: Pytree, stacked: Optional[Pytree] = None,
              master: bool = False) -> OptState:
         if stacked is None:
-            raise _not_yet_ported(
-                "the per-leaf tree engine (init without a stacked marker)")
+            return OptState(step=0, slots=_tree_slots(params, master))
         layout = packing.build_layout(params, normalize_stacked(params,
                                                                 stacked))
         weights = packing.pack(layout, params)
@@ -228,25 +287,76 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
             weights
         return OptState(step=0, slots=slots, layout=layout)
 
+    def _tree_slots(params: Pytree, master: bool) -> dict:
+        """Slot trees: f32 zeros per leaf, or their int8 codes (0) and
+        unit scales, and an f32 copy of the params as the master."""
+        slots = {}
+        for k in rule.slots:
+            zeros = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            if quant:
+                slots[k], slots[k + SCALE_SUFFIX] = _split_pairs(
+                    tree_map(packing.quantize_leaf_q8, zeros))
+            else:
+                slots[k] = zeros
+        if master:
+            slots[packing.MASTER_SLOT] = tree_map(
+                lambda p: p.to(torch.float32, copy=True), params)
+        return slots
+
     def update(grads: Pytree | PackedGrads, state: OptState, params: Pytree,
                stacked: Optional[Pytree] = None
                ) -> tuple[Pytree, OptState]:
-        if stacked is not None:
-            packing.check_marker(state.layout, params, stacked)
         slots = dict(state.slots)
-        master = packing.MASTER_SLOT in slots
-        weights = slots.pop(packing.MASTER_SLOT if master
-                            else packing.WEIGHT_SLOT)
         lr = float(lr_fn(state.step))
         ctx = rule.prepare(state.step) if rule.prepare is not None else {}
-        new_params, new_slots = _packed_update(
-            rule, state.layout, lr, ctx, grads, slots, weights,
-            master=master, quant=quant)
+        if state.layout is None:
+            new_params, new_slots = tree_update(grads, slots, params,
+                                                stacked, lr, ctx)
+        else:
+            if stacked is not None:
+                packing.check_marker(state.layout, params, stacked)
+            master = packing.MASTER_SLOT in slots
+            weights = slots.pop(packing.MASTER_SLOT if master
+                                else packing.WEIGHT_SLOT)
+            new_params, new_slots = _packed_update(
+                rule, state.layout, lr, ctx, grads, slots, weights,
+                master=master, quant=quant)
         return new_params, OptState(step=state.step + 1, slots=new_slots,
                                     layout=state.layout)
 
+    def tree_update(grads, slots, params, stacked, lr, ctx):
+        if use_kernels is True:
+            raise ValueError(
+                f"{rule.name}(use_kernels=True) requires the flat-packed "
+                "layout: build the state with init(params, stacked="
+                "marker). Tree-layout states (init(params)) run the "
+                "per-leaf torch path only.")
+        if isinstance(grads, PackedGrads):
+            raise ValueError(
+                "PackedGrads requires the flat-packed layout; tree-"
+                "layout states take param-shaped gradient pytrees")
+        master = slots.pop(packing.MASTER_SLOT, None)
+        if quant:
+            slots = {k: tree_map(packing.dequantize_leaf_q8, slots[k],
+                                 slots[k + SCALE_SUFFIX])
+                     for k in rule.slots}
+        new_params, new_slots = _tree_update(
+            rule, lr, ctx, grads, slots, params,
+            normalize_stacked(params, stacked), master=master)
+        if quant:
+            for k in rule.slots:
+                new_slots[k], new_slots[k + SCALE_SUFFIX] = _split_pairs(
+                    tree_map(packing.quantize_leaf_q8, new_slots[k]))
+        return new_params, new_slots
+
     return Optimizer(name=rule.name, init=init, update=update,
                      hyperparams=dict(hyperparams or {}))
+
+
+def _split_pairs(packs: Pytree) -> tuple[Pytree, Pytree]:
+    """Tree of (a, b) tuples -> (tree of a, tree of b)."""
+    return (tree_map(lambda t: t[0], packs), tree_map(lambda t: t[1], packs))
 
 
 # ------------------------------------------------------------------ helpers
@@ -289,6 +399,8 @@ def as_schedule(lr: float | Schedule) -> Schedule:
     return lambda step: value
 
 
-def normalize_stacked(params: Pytree, stacked: Pytree) -> Pytree:
-    """Return a full bool tree mirroring params."""
+def normalize_stacked(params: Pytree, stacked: Optional[Pytree]) -> Pytree:
+    """Return a full bool tree mirroring params (all False for None)."""
+    if stacked is None:
+        return tree_map(lambda p: False, params)
     return tree_map(lambda p, s: bool(s), params, stacked)

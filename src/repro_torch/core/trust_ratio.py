@@ -36,8 +36,14 @@ def layer_norms(w: torch.Tensor, g: torch.Tensor, stacked: bool
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(||w||, ||g||) per layer, computed in f32; shape () or (L,)."""
     axes = reduction_axes(w, stacked)
-    return (torch.sqrt(torch.sum(torch.square(w.float()), dim=axes)),
-            torch.sqrt(torch.sum(torch.square(g.float()), dim=axes)))
+
+    def norm(x):
+        sq = torch.square(x.float())
+        # a sum over no axis is the identity, as jnp.sum(axis=()) is (a
+        # stacked (L,) leaf); torch.sum(dim=()) would sum every axis
+        return torch.sqrt(torch.sum(sq, dim=axes) if axes else sq)
+
+    return norm(w), norm(g)
 
 
 def lars_trust_ratio(w_norm: torch.Tensor, g_norm: torch.Tensor, *,

@@ -2,8 +2,8 @@
 table + claim checks, written as the grid's report file
 (``EXPERIMENTS_torch_<study>.json``). Port of
 ``repro/experiments/report.py``: the same tables and claims from the
-same rows. The PBT block (``pbt_section``, ``write_pbt_report``) waits
-for the population controller.
+same rows, and the PBT block (``pbt_section``, ``write_pbt_report``)
+from the population controller's manifest.
 
 CNN grids mirror the paper's Figures 2-4: final test accuracy, train
 accuracy and generalization error per (optimizer, global batch),
@@ -30,11 +30,13 @@ layer-wise-vs-generic claim checks at matched batch:
 
 from __future__ import annotations
 
+import os
 import statistics
 from typing import Optional
 
-from repro_torch.experiments.record import atomic_write_json, load_json
-from repro_torch.experiments.spec import GridSpec
+from repro_torch.experiments.record import (atomic_write_json, load_json,
+                                            read_trajectory)
+from repro_torch.experiments.spec import GridSpec, cell_from_json
 
 
 def _mean(vals: list) -> Optional[float]:
@@ -247,6 +249,127 @@ def write_report(path: str, grid: GridSpec, manifest: dict,
         # key — a static-grid rerun refreshes the grid section without
         # discarding it
         payload["pbt"] = existing["pbt"]
+    atomic_write_json(path, payload)
+    return payload
+
+
+# -------------------------------------------------------- PBT reporting
+
+# "Tuned SGD closes the gap" bar: the same comparability tolerance the
+# static grid's C1 uses for the small-batch sanity check.
+PBT_GAP_ATOL = 0.05
+
+
+def pbt_section(grid: GridSpec, pbt: dict,
+                out_dir: Optional[str] = None) -> dict:
+    """PBT controller manifest -> the report's ``pbt`` block: per-member
+    outcome + hyperparameter schedule (the init/exploit event chain),
+    per-group best member with its loss curve and final tuned hypers,
+    and the tuned-gap claims (does the TUNED generic optimizer close the
+    large-batch gap the static grid shows?)."""
+    _, columns, headline, lower_better = FAMILY_METRICS[grid.family]
+    members_out: dict = {}
+    by_group: dict = {}
+    counts = {"exploit": 0, "kill": 0, "early_stop": 0}
+    for lineage in sorted(pbt["members"]):
+        m = pbt["members"][lineage]
+        cell = cell_from_json(m["cell"])
+        row = m.get("row") or {}
+        # the lineage's hyperparameter schedule: every point where its
+        # effective (base_lr, trust_coef) changed, lineage-tagged
+        schedule = [{"round": e.get("round"), "step": e.get("step"),
+                     "event": e["event"], "from": e.get("from"),
+                     "generation": e.get("generation", 0),
+                     "base_lr": e.get("base_lr"),
+                     "trust_coef": e.get("trust_coef")}
+                    for e in m.get("events", ())
+                    if e["event"] in ("init", "exploit")]
+        for e in m.get("events", ()):
+            if e["event"] in counts:
+                counts[e["event"]] += 1
+        entry = {"cell_id": cell.cell_id, "status": m["status"],
+                 "reason": m.get("reason"), "steps": m.get("step", 0),
+                 "generation": cell.generation,
+                 "base_lr": cell.cell_base_lr,
+                 "trust_coef": cell.cell_trust_coef,
+                 "schedule": schedule}
+        for col in ("loss",) + columns:
+            if col in row:
+                entry[col] = row[col]
+        members_out[lineage] = entry
+        by_group.setdefault((cell.optimizer, cell.batch),
+                            []).append((lineage, m, cell))
+
+    groups_out: dict = {}
+    for (opt, batch), group in sorted(by_group.items()):
+        done = [(lin, m, c) for lin, m, c in group
+                if m["status"] == "done"
+                and (m.get("row") or {}).get(headline) is not None]
+        g = {"members": len(group), "finished": len(done),
+             "killed": sum(m["status"] == "killed" for _, m, _ in group),
+             "early_stopped": sum(m["status"] == "early_stopped"
+                                  for _, m, _ in group)}
+        if done:
+            pick = min if lower_better else max
+            lin, m, cell = pick(done, key=lambda t: t[1]["row"][headline])
+            best = {"lineage": lin, "cell_id": cell.cell_id,
+                    "generation": cell.generation,
+                    "base_lr": cell.cell_base_lr,
+                    "trust_coef": cell.cell_trust_coef,
+                    headline: m["row"][headline]}
+            if out_dir is not None:
+                traj = os.path.join(out_dir, lin, "trajectory.jsonl")
+                if os.path.exists(traj):
+                    best["loss_curve"] = [
+                        r.get("loss") for r in read_trajectory(traj)
+                        if "event" not in r]
+            g["best"] = best
+        groups_out[f"{opt}-b{batch}"] = g
+
+    # the controller's trust-coefficient map at run end (which eta each
+    # trust-ratio lineage converged to — the paper's sensitive knob)
+    trust_map = {lin: cell.cell_trust_coef
+                 for group in by_group.values()
+                 for lin, _m, cell in group
+                 if cell.optimizer in ("lars", "lamb")}
+
+    claims: dict = {}
+    for batch in sorted({b for (_, b) in by_group}):
+        lars = (groups_out.get(f"lars-b{batch}") or {}).get("best")
+        sgd = (groups_out.get(f"sgd-b{batch}") or {}).get("best")
+        if not (lars and sgd):
+            continue
+        gap = round(lars[headline] - sgd[headline], 4)
+        if lower_better:
+            gap = -gap
+        claims[f"b{batch}_best_lars_{headline}"] = lars[headline]
+        claims[f"b{batch}_best_tuned_sgd_{headline}"] = sgd[headline]
+        claims[f"b{batch}_gap"] = gap
+        claims[f"P1_tuned_sgd_closes_gap_b{batch}"] = bool(
+            gap <= PBT_GAP_ATOL)
+    return {"protocol": pbt.get("controller", {}),
+            "rounds": pbt.get("round", 0),
+            "events": counts, "members": members_out,
+            "groups": groups_out, "final_trust_coef": trust_map,
+            "claims": claims}
+
+
+def write_pbt_report(path: str, grid: GridSpec, pbt: dict,
+                     out_dir: Optional[str] = None,
+                     backend: Optional[str] = None,
+                     device: Optional[str] = None) -> dict:
+    """Merge the PBT block into the study's report file UNDER its own
+    ``pbt`` key (the static grid's tables and claims in the same file
+    stay untouched). ``backend`` and ``device`` as in
+    :func:`write_report`, inside the block."""
+    section = pbt_section(grid, pbt, out_dir=out_dir)
+    if backend is not None:
+        section["backend"] = backend
+    if device is not None:
+        section["device"] = device
+    existing = load_json(path)
+    payload = existing if isinstance(existing, dict) else {}
+    payload["pbt"] = section
     atomic_write_json(path, payload)
     return payload
 

@@ -41,9 +41,11 @@ same parameters on the CPU and on the card. The reference draws
 ``jax.random.key(cell_seed)``, which torch cannot reproduce; the parity
 tests override this one method to start from the reference's init.
 
-Cells sharing a ``pipeline_key`` reuse one TrainPipeline. Not yet
-ported: mesh and ZeRO cells (they raise ``NotImplementedError``) and the
-PBT controller.
+Cells sharing a ``pipeline_key`` reuse one TrainPipeline. The cell
+functions take a ``dir_name`` that overrides the cell's directory: a PBT
+lineage (:mod:`repro_torch.experiments.controller`) keeps one directory
+across generations. Not yet ported: mesh and ZeRO cells (they raise
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -148,8 +150,13 @@ class GridRunner:
     def manifest_path(self) -> str:
         return os.path.join(self.out_dir, "manifest.json")
 
-    def cell_dir(self, cell: CellSpec) -> str:
-        return os.path.join(self.out_dir, cell.cell_id)
+    def cell_dir(self, cell: CellSpec, dir_name: Optional[str] = None
+                 ) -> str:
+        """A cell's run directory. ``dir_name`` overrides the default
+        cell_id key: a PBT lineage keeps ONE directory (its
+        ``lineage_root``) across mutations even though its cell_id grows
+        a generation suffix."""
+        return os.path.join(self.out_dir, dir_name or cell.cell_id)
 
     def data(self):
         if self._data is None:
@@ -206,7 +213,7 @@ class GridRunner:
             self._pipelines[key] = TrainPipeline(
                 self.model, cell.build_optimizer(), self.cfg,
                 accum_steps=cell.accum_steps, precision=cell.precision,
-                stats_fn=stats_fn)
+                donate=False, stats_fn=stats_fn)
         return self._pipelines[key]
 
     def init_state(self, cell: CellSpec, pipe: TrainPipeline) -> TrainState:
@@ -239,7 +246,8 @@ class GridRunner:
 
     # ------------------------------------------------------------- cells
 
-    def open_cell(self, cell: CellSpec, *, resume: bool = False) -> tuple:
+    def open_cell(self, cell: CellSpec, *, resume: bool = False,
+                  dir_name: Optional[str] = None) -> tuple:
         """Initialize-or-restore a cell: returns ``(state, start)``.
 
         With ``resume`` and a ``state.npz`` present, the full TrainState
@@ -255,7 +263,7 @@ class GridRunner:
                 f"divisible by accum_steps={cell.accum_steps}")
         pipe = self.pipeline(cell)
         state = self.init_state(cell, pipe)
-        cdir = self.cell_dir(cell)
+        cdir = self.cell_dir(cell, dir_name)
         traj_path = os.path.join(cdir, "trajectory.jsonl")
         ckpt_path = os.path.join(cdir, "state.npz")
         start = 0
@@ -276,16 +284,20 @@ class GridRunner:
 
     def run_cell_segment(self, cell: CellSpec, state, *, start: int,
                          until_step: int,
+                         dir_name: Optional[str] = None,
                          checkpoint_at_end: Optional[bool] = None
                          ) -> tuple:
         """Advance one cell from ``start`` to ``min(until_step, steps)``,
         streaming trajectory records; returns ``(state, metrics, batch)``
         (the last step's — both empty when no step ran, i.e.
-        ``start >= until_step``). A checkpoint is saved every
+        ``start >= until_step``). This is the engine under
+        :meth:`run_cell` (one segment to completion) and the PBT
+        controller (round-robin slices). A checkpoint is saved every
         ``checkpoint_every`` steps and at the segment's end
         (``checkpoint_at_end``, default on whenever periodic
-        checkpointing is on), so a kill during finalization resumes at
-        ``start == steps`` instead of redoing the cell.
+        checkpointing is on), so a controller can clone the boundary
+        state and a kill during finalization resumes at ``start ==
+        steps`` instead of redoing the cell.
 
         Each step reads its loss, aux loss and (with stats) the trust
         summary on the host, as the reference's runner does."""
@@ -296,7 +308,7 @@ class GridRunner:
         if checkpoint_at_end is None:
             checkpoint_at_end = bool(self.checkpoint_every)
         pipe = self.pipeline(cell)
-        cdir = self.cell_dir(cell)
+        cdir = self.cell_dir(cell, dir_name)
         traj_path = os.path.join(cdir, "trajectory.jsonl")
         ckpt_path = os.path.join(cdir, "state.npz")
         batch: dict = {}
@@ -341,6 +353,7 @@ class GridRunner:
         return state, metrics, batch
 
     def finalize_cell(self, cell: CellSpec, state, metrics, batch, *,
+                      dir_name: Optional[str] = None,
                       wall_s: float = 0.0,
                       keep_checkpoint: bool = False) -> dict:
         """Evaluate a completed cell and build its summary row.
@@ -351,7 +364,7 @@ class GridRunner:
         is recomputed from the restored state (evaluation) plus the last
         trajectory record (final loss / trust summary)."""
         pipe = self.pipeline(cell)
-        cdir = self.cell_dir(cell)
+        cdir = self.cell_dir(cell, dir_name)
         ckpt_path = os.path.join(cdir, "state.npz")
         row = dict(cell.to_json())
         row["cell_id"] = cell.cell_id

@@ -24,6 +24,12 @@ Examples (on the card; ``--device cpu`` runs them on the CPU)::
   PYTHONPATH=src python -m repro_torch.launch.experiment --grid lm_smoke \\
       --out EXPERIMENTS_torch_lm_lars_vs_lamb_smoke.json
 
+  # the grid as a PBT population (experiments/controller): the seeds
+  # axis becomes member slots, base_lr/trust_coef are tuned mid-run by
+  # exploit/explore; the pbt block merges into the study's report file
+  PYTHONPATH=src python -m repro_torch.launch.experiment --grid pbt_smoke \\
+      --pbt --population 4 --exploit-every 4
+
 The run directory (``--out-dir``, default ``runs/torch/<grid>``, apart
 from the reference's ``runs/<grid>`` so neither resumes the other's
 manifest) holds the manifest and one JSONL trajectory per cell; the
@@ -31,9 +37,10 @@ aggregated report (accuracy-vs-batch table + claim checks, with the
 backend and, on the card, nvidia-smi's name and power limit) is written
 to ``--out`` (default: the grid's ``report_file``,
 ``EXPERIMENTS_torch_<study>.json``) after every invocation, from
-whatever cells have completed so far. The reference's
-``EXPERIMENTS_<study>.json`` files are never written. The PBT options
-are not yet ported and raise.
+whatever cells have completed so far; under ``--pbt`` the population's
+block goes under the report's ``pbt`` key (with the card's line in its
+``device`` field) and its claims print as ``claim pbt.<name>`` lines.
+The reference's ``EXPERIMENTS_<study>.json`` files are never written.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import os
 import subprocess
 import sys
 
-from repro_torch.experiments import (GRIDS, GridRunner, format_table,
-                                     get_grid, write_report)
+from repro_torch.experiments import (GRIDS, GridRunner,
+                                     PopulationController, format_table,
+                                     get_grid, write_pbt_report,
+                                     write_report)
 from repro_torch.experiments.record import load_json
 
 
@@ -92,11 +101,18 @@ def main(argv=None) -> int:
                     help="override an LM grid's training sequence length")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
-    # the reference's PBT options: refused below
-    ap.add_argument("--pbt", action="store_true")
-    ap.add_argument("--population", type=int, default=None)
-    ap.add_argument("--exploit-every", type=int, default=None)
-    ap.add_argument("--pbt-seed", type=int, default=None)
+    ap.add_argument("--pbt", action="store_true",
+                    help="run the grid as a PBT population: the seeds "
+                    "axis becomes member slots and the controller tunes "
+                    "base_lr/trust_coef mid-run via exploit/explore")
+    ap.add_argument("--population", type=int, default=None,
+                    help="PBT members per (optimizer, batch) group "
+                    "(sets the grid's seeds axis to 0..N-1)")
+    ap.add_argument("--exploit-every", type=int, default=4,
+                    help="PBT round length in optimizer steps")
+    ap.add_argument("--pbt-seed", type=int, default=0,
+                    help="controller rng seed (init jitter + "
+                    "exploit/explore perturbations)")
     args = ap.parse_args(argv)
 
     if args.list_grids:
@@ -106,17 +122,14 @@ def main(argv=None) -> int:
                   f"optimizers={list(g.optimizers)} "
                   f"batches={list(g.batches)} epochs={g.epochs}")
         return 0
-    for flag, given in (("--pbt", args.pbt),
-                        ("--population", args.population is not None),
-                        ("--exploit-every", args.exploit_every is not None),
-                        ("--pbt-seed", args.pbt_seed is not None)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to repro_torch.launch.experiment")
     if not args.grid:
         ap.error("--grid is required (or --list-grids)")
 
     overrides = {}
+    if args.population is not None:
+        if not args.pbt:
+            ap.error("--population requires --pbt")
+        overrides["seeds"] = tuple(range(args.population))
     if args.epochs is not None:
         overrides["epochs"] = args.epochs
     if args.n_train is not None:
@@ -140,8 +153,11 @@ def main(argv=None) -> int:
     backend = runner.device.type
     device = device_line(runner.device.index or 0) \
         if backend == "cuda" else None
-    print(f"# grid {grid.name}: {len(grid.cells())} cells -> {out_dir} "
-          f"(backend={backend}" + (f"; {device}" if device else "") + ")",
+    on = f"(backend={backend}" + (f"; {device}" if device else "") + ")"
+    if args.pbt:
+        return _run_pbt(runner, args, grid, out_dir, out, backend, device,
+                        on)
+    print(f"# grid {grid.name}: {len(grid.cells())} cells -> {out_dir} {on}",
           flush=True)
     interrupted = False
     try:
@@ -158,6 +174,42 @@ def main(argv=None) -> int:
     print(format_table(payload))
     for key, val in payload["claims"].items():
         print(f"claim {key}: {val}")
+    return 130 if interrupted else 0
+
+
+def _run_pbt(runner, args, grid, out_dir: str, out: str, backend: str,
+             device, on: str) -> int:
+    """``--pbt``: the grid's cells as a population through
+    :class:`PopulationController`; the block merges into ``out``."""
+    ctl = PopulationController(runner, exploit_every=args.exploit_every,
+                               seed=args.pbt_seed)
+    print(f"# pbt {grid.name}: {len(grid.cells())} members -> {out_dir} "
+          f"{on}", flush=True)
+    interrupted = False
+    try:
+        pbt = ctl.run(resume=args.resume)
+    except KeyboardInterrupt:
+        pbt = load_json(ctl.manifest_path)
+        interrupted = True
+        print("interrupted — rerun with --resume to continue", flush=True)
+    payload = write_pbt_report(out, grid, pbt, out_dir=out_dir,
+                               backend=backend, device=device)
+    section = payload["pbt"]
+    done = sum(m["status"] == "done" for m in section["members"].values())
+    print(f"# pbt report ({done}/{len(section['members'])} members "
+          f"finished, {section['events']['exploit']} exploits, "
+          f"{section['events']['kill']} kills, "
+          f"{section['events']['early_stop']} early-stops) -> {out}")
+    for name, g in section["groups"].items():
+        best = g.get("best")
+        if best:
+            metric = next(v for k, v in best.items()
+                          if k.endswith(("test_acc", "eval_ppl")))
+            print(f"  {name}: best {best['cell_id']} "
+                  f"(lr {best['base_lr']:.4g}, trust "
+                  f"{best['trust_coef']:.4g}) -> {metric}")
+    for key, val in section["claims"].items():
+        print(f"claim pbt.{key}: {val}")
     return 130 if interrupted else 0
 
 

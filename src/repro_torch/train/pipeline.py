@@ -9,25 +9,38 @@ is that execution layer:
 
 * **Accumulation** — the global batch ``(B, ...)`` is split into
   ``accum_steps`` microbatches of ``B / accum_steps``, run one after the
-  other in an eager loop. Microbatch gradients are summed in f32 directly
-  into the packed ``(rows, lane)`` buffer (the reference's fused update)
-  and the optimizer update, hence the LARS trust ratio, runs once per
-  global batch on the mean gradient. With ``accum_steps=1`` the step is
-  :func:`repro_torch.train.step.make_train_step`'s.
+  other in an eager loop, and the optimizer update, hence the LARS trust
+  ratio, runs once per global batch on the mean gradient. On a packed
+  state the microbatch gradients are summed in f32 directly into the
+  packed ``(rows, lane)`` buffer (the reference's fused update,
+  ``fuse_update="auto"`` or ``True``); unfused (``fuse_update=False``,
+  and always on a tree state) they are summed into an f32 tree, scaled
+  by ``1/k`` and handed to the update as a tree. With ``accum_steps=1``
+  the step is :func:`repro_torch.train.step.make_train_step`'s.
+* **Layout** — ``packed=True`` (default) builds states on the flat-packed
+  substrate and hands the update the model's stacked marker;
+  ``packed=False`` builds per-leaf tree states (the tree engine) and, as
+  the reference's pipeline, hands the update no marker, so each leaf's
+  trust ratio is taken over the whole leaf.
 * **Precision policy** — ``"f32"`` leaves every dtype alone; ``"bf16"``
   stores params and runs forward/backward in bfloat16 while the
-  optimizer keeps f32 master weights in the packed superbuffer
-  (:data:`repro_torch.core.packing.MASTER_SLOT`) and gradients
-  accumulate in f32. Batch float leaves are cast to bf16 inside the
-  step; integer leaves (LM tokens) pass through. The policy itself (:class:`Precision`) lives in
-  :mod:`repro_torch.train.state`.
+  optimizer keeps f32 master weights in the packed superbuffer, or an
+  f32 tree on a tree state (:data:`repro_torch.core.packing.MASTER_SLOT`),
+  and gradients accumulate in f32. Batch float leaves are cast to bf16
+  inside the step; integer leaves (LM tokens) pass through. The policy
+  itself (:class:`Precision`) lives in :mod:`repro_torch.train.state`.
 * **Statistics hook** — ``stats_fn(params, grads, stacked)`` (e.g.
   :func:`repro_torch.core.grad_stats.stats_hook`) runs on the pre-update
   params and the mean gradient of the global batch; its table rides back
   on the device under ``metrics["stats"]``.
 
-Not yet ported: meshes, ZeRO-sharded optimizer states, and unfused
-(tree) accumulation, which the reference keeps for those.
+``donate`` is taken as the reference takes it. The reference donates the
+state to its jitted step (``donate=True``) or keeps the caller's state
+alive (``False``); the port's eager step never frees or overwrites the
+caller's state, which is what ``False`` promises and ``True`` permits,
+so both run the same step.
+
+Not yet ported: meshes and ZeRO-sharded optimizer states.
 
 Typical use::
 
@@ -50,27 +63,34 @@ from repro_torch.train.state import (PRECISIONS, Precision,  # noqa: F401
                                      TrainState, cast_floats,
                                      create_train_state, get_precision)
 from repro_torch.train.step import apply_update, value_and_grad
-from repro_torch.treepath import tree_leaves
+from repro_torch.treepath import tree_leaves, tree_map
 
 
 class TrainPipeline:
     """Train step: accumulate over microbatches, update once."""
 
     def __init__(self, model, optimizer, cfg=None, *, accum_steps: int = 1,
-                 precision: str | Precision = "f32",
-                 fuse_update: bool | str = "auto", mesh=None,
-                 zero: bool = False, stats_fn: Optional[Callable] = None):
-        if mesh is not None or zero or fuse_update not in (True, "auto"):
+                 precision: str | Precision = "f32", mesh=None,
+                 donate: bool = True, packed: bool = True,
+                 fuse_update: bool | str = "auto", zero: bool = False,
+                 stats_fn: Optional[Callable] = None):
+        if mesh is not None or zero:
             raise NotImplementedError(
-                "TrainPipeline's mesh, zero and unfused (fuse_update="
-                "False) accumulation are not yet ported to repro_torch")
+                "TrainPipeline's mesh and zero are not yet ported to "
+                "repro_torch")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if fuse_update not in (True, False, "auto"):
+            raise ValueError(f"fuse_update must be True/False/'auto', "
+                             f"got {fuse_update!r}")
         self.model = model
         self.optimizer = optimizer
         self.cfg = cfg if cfg is not None else model.cfg
         self.accum_steps = accum_steps
         self.precision = get_precision(precision)
+        self.donate = donate
+        self.packed = packed
+        self.fuse_update = fuse_update
         self.stats_fn = stats_fn
         self._peak_bytes: Optional[int] = None
         self._card_steps = 0
@@ -79,7 +99,8 @@ class TrainPipeline:
                    device: torch.device | str) -> TrainState:
         """Fresh TrainState on ``device`` from ``model.init``."""
         return create_train_state(self.model, self.optimizer, generator,
-                                  device=device, precision=self.precision)
+                                  device=device, packed=self.packed,
+                                  precision=self.precision)
 
     def peak_bytes(self, batch) -> Optional[int]:
         """Peak device memory of one step on ``batch``'s device, in bytes;
@@ -147,6 +168,17 @@ class TrainPipeline:
     def _step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
         model, cfg, k = self.model, self.cfg, self.accum_steps
         batch = cast_floats(batch, self.precision.compute_dtype)
+        layout = state.opt_state.layout
+        can_fuse = k > 1 and layout is not None
+        if self.fuse_update is True and not can_fuse:
+            raise ValueError(
+                "fuse_update=True needs accum_steps > 1, a flat-packed "
+                "opt state, and no mesh or a pure data-parallel mesh "
+                "(model axis size 1); use fuse_update='auto' to fall "
+                "back silently")
+        fuse = can_fuse and self.fuse_update is not False
+        stacked = model.stacked_marker(state.params) if self.packed \
+            else None
         if k == 1:
             # make_train_step's step
             loss, grads, (_, aux) = value_and_grad(model, cfg, state.params,
@@ -158,18 +190,26 @@ class TrainPipeline:
             if b % k:
                 raise ValueError(f"global batch {b} not divisible by "
                                  f"accum_steps={k}")
-            layout = state.opt_state.layout
-            gsum = torch.zeros(layout.buffer_shape, dtype=torch.float32,
-                               device=first.device)
+            if fuse:
+                gsum = torch.zeros(layout.buffer_shape, dtype=torch.float32,
+                                   device=first.device)
+            else:
+                gsum = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device),
+                    state.params)
             lsum = asum = torch.zeros((), dtype=torch.float32,
                                       device=first.device)
             for i in range(k):
                 mb = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
                 loss, g, (_, aux) = value_and_grad(model, cfg, state.params,
                                                    mb)
-                # pack casts to f32 before the add: the sum is in f32 even
-                # when the gradients are bf16
-                gsum = gsum + packing.pack(layout, g)
+                if fuse:
+                    # pack casts to f32 before the add: the sum is in f32
+                    # even when the gradients are bf16, and each element
+                    # sees the tree carry's chain of f32 additions
+                    gsum = gsum + packing.pack(layout, g)
+                else:
+                    gsum = tree_map(lambda a, gi: a + gi.float(), gsum, g)
                 lsum = lsum + loss
                 asum = asum + aux["aux_loss"]
             # equal-size microbatches + mean losses: the mean of the
@@ -177,19 +217,19 @@ class TrainPipeline:
             # the (single) LARS trust ratio matches one step on the whole
             # global batch
             inv = 1.0 / k
-            grads = PackedGrads(gsum * inv)
+            grads = PackedGrads(gsum * inv) if fuse \
+                else tree_map(lambda g: g * inv, gsum)
             loss, aux_loss = lsum * inv, asum * inv
         stats = None
         if self.stats_fn is not None:
             # taken before the update, on the params the update starts
             # from, as the reference's step reads them
-            stat_grads = packing.unpack(state.opt_state.layout, grads.buf,
+            stat_grads = packing.unpack(layout, grads.buf,
                                         dtype=torch.float32) \
                 if isinstance(grads, PackedGrads) else grads
-            stats = self.stats_fn(state.params, stat_grads,
-                                  model.stacked_marker(state.params))
-        state, metrics = apply_update(model, self.optimizer, state, grads,
-                                      loss, aux_loss)
+            stats = self.stats_fn(state.params, stat_grads, stacked)
+        state, metrics = apply_update(self.optimizer, state, grads, loss,
+                                      aux_loss, stacked)
         if stats is not None:
             metrics["stats"] = stats
         return state, metrics

@@ -85,13 +85,14 @@ def value_and_grad(model, cfg, params: Pytree, batch
             (logits, {k: v.detach() for k, v in aux.items()}))
 
 
-def apply_update(model, optimizer, state: TrainState, grads, loss,
-                 aux_loss) -> tuple[TrainState, dict]:
+def apply_update(optimizer, state: TrainState, grads, loss, aux_loss,
+                 stacked) -> tuple[TrainState, dict]:
     """One optimizer update from the step's gradients (a tree, or
-    ``PackedGrads``), and the step's metrics."""
+    ``PackedGrads``), and the step's metrics. ``stacked`` is the marker
+    the update gets (``None``: none, as the reference's
+    ``TrainPipeline(packed=False)`` passes)."""
     new_params, new_opt = optimizer.update(
-        grads, state.opt_state, state.params,
-        stacked=model.stacked_marker(state.params))
+        grads, state.opt_state, state.params, stacked=stacked)
     metrics = {"loss": loss, "aux_loss": aux_loss, "step": new_opt.step}
     return TrainState(new_params, new_opt), metrics
 
@@ -103,8 +104,8 @@ def make_train_step(model, optimizer, cfg=None) -> Callable:
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss, grads, (_, aux) = value_and_grad(model, cfg, state.params,
                                                batch)
-        return apply_update(model, optimizer, state, grads, loss,
-                            aux["aux_loss"])
+        return apply_update(optimizer, state, grads, loss, aux["aux_loss"],
+                            model.stacked_marker(state.params))
 
     return step
 

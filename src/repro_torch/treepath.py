@@ -61,6 +61,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Pytree:
     leaves = list(leaves)
     if len(leaves) != len(treedef):
         raise ValueError(f"{len(leaves)} leaves for {len(treedef)} paths")
+    if treedef == ((),):
+        return leaves[0]            # the tree is a single leaf
     root: dict = {}
     for path, leaf in zip(treedef, leaves):
         node = root

@@ -1181,3 +1181,62 @@ def test_family_decode_on_the_card_matches_the_cpu(cuda, case):
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     assert torch.equal(greedy["cuda"], greedy["cpu"])
+
+
+# the tree engine (a markerless optimizer state): one step on the card
+# against the same step on the CPU. cuDNN's convolutions sum in another
+# order than the CPU's (chip_smoke.py's phase 5 holds LeNet's losses to
+# 1e-4 over 5 steps): the loss and params within 1e-5 after one step;
+# with int8 slots a momentum code may round the other way (one code step
+# of the largest scale, as tests/test_torch_checkpoint.py holds): 1e-4.
+TREE_CASES = {"lars": ("lars", "f32", 1e-5), "lamb": ("lamb", "f32", 1e-5),
+              "lars_int8": ("lars", "int8", 1e-4)}
+
+
+@pytest.mark.parametrize("case", sorted(TREE_CASES))
+def test_tree_state_step_on_the_card_matches_the_cpu(cuda, case):
+    from repro_torch.core import get_optimizer
+    from repro_torch.data import batch_iterator, synthetic_mnist
+    from repro_torch.treepath import tree_leaves
+    name, slot_dtype, atol = TREE_CASES[case]
+    cfg = get_config("lenet-mnist")
+    model = build_model(cfg)
+    opt = get_optimizer(name, learning_rate=0.05, slot_dtype=slot_dtype)
+    x, y, _, _ = synthetic_mnist(256, 8, seed=0)
+    batch = next(batch_iterator(x, y, batch=64, seed=0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = TrainPipeline(model, opt, cfg, accum_steps=2, packed=False)
+        state = pipe.init_state(torch.Generator().manual_seed(0), dev)
+        before = dict(lk.LAUNCHES)
+        state, m = pipe(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES == before            # no LARS kernel on a tree
+        assert state.opt_state.layout is None
+        out[dev] = (float(m["loss"]), [t.cpu() for t in tree_leaves(
+            state.params) + tree_leaves(state.opt_state.slots)
+            if t.is_floating_point()])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("slot_dtype", ["f32", "int8"])
+def test_markerless_state_built_on_the_card_stays_there(cuda, slot_dtype):
+    from repro_torch.treepath import tree_leaves, tree_map
+    model = build_model(get_config("lenet-mnist"))
+    params = model.init(torch.Generator().manual_seed(1), cuda)
+    opt = lars(0.1, slot_dtype=slot_dtype)
+    state = opt.init(params, master=True)
+    assert state.layout is None
+    assert all(t.is_cuda for t in tree_leaves(state.slots))
+    grads = tree_map(torch.ones_like, params)
+    before = dict(lk.LAUNCHES)
+    new, state = opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == before
+    assert all(t.is_cuda for t in tree_leaves(new) + tree_leaves(
+        state.slots))
+    with pytest.raises(ValueError, match="flat-packed"):
+        lars(0.1, use_kernels=True).update(grads, state, params)

@@ -182,7 +182,9 @@ def test_report_matches_the_reference(case):
                                   "EXPERIMENTS_torch_lars_vs_sgd_smoke.json"])
 def test_committed_port_reports_aggregate_from_their_rows(path):
     """The committed card reports are what ``aggregate`` makes of their own
-    rows under the grid they name, and name the card they ran on."""
+    rows under the grid they name, and name the card they ran on. A PBT
+    block beside them (``write_pbt_report``; the population's own
+    manifest, not these rows) names its card too."""
     with open(os.path.join(ROOT, path)) as f:
         report = json.load(f)
     fp = report["grid"]
@@ -193,10 +195,16 @@ def test_committed_port_reports_aggregate_from_their_rows(path):
     assert grid.fingerprint() == fp and grid.report_file == path
     manifest = {"cells": {row["cell_id"]: row for row in report["rows"]}}
     want = {k: v for k, v in report.items() if k not in ("backend",
-                                                         "device")}
+                                                         "device", "pbt")}
     assert aggregate(grid, manifest) == want
     assert report["completed_cells"] == report["total_cells"]
     assert report["backend"] == "cuda" and "H100" in report["device"]
+    if "pbt" in report:
+        pbt = report["pbt"]
+        assert pbt["backend"] == "cuda" and "H100" in pbt["device"]
+        assert get_grid("pbt_smoke").report_file == path
+        assert all(m["status"] in ("done", "killed", "early_stopped")
+                   for m in pbt["members"].values())
 
 
 def test_write_report_keeps_pbt_and_records_the_device(tmp_path):
@@ -563,10 +571,9 @@ def test_cli_runs_on_cuda_unless_asked_otherwise(tmp_path):
                   str(tmp_path / "r"), "--out", str(tmp_path / "r.json")])
 
 
-@pytest.mark.parametrize("extra", [["--pbt"], ["--population", "4"],
-                                   ["--exploit-every", "4"],
-                                   ["--pbt-seed", "1"],
-                                   ["--grid", "zero_smoke"]])
+# the PBT flags are ported (tests/test_torch_pbt.py); mesh/zero grids
+# are not
+@pytest.mark.parametrize("extra", [["--grid", "zero_smoke"]])
 def test_cli_refuses_unported_options(extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(CLI_TINY + extra)

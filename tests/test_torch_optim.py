@@ -178,14 +178,15 @@ def test_state_carries_across_mid_run():
 
 
 def test_unported_options_raise():
+    """An unknown slot dtype is refused; ``init`` without a marker builds
+    a tree-layout state (tests/test_torch_tree_engine.py holds it)."""
     params, marker = _zoo()
     tp = bridge.params_to_torch(params)
-    with pytest.raises(NotImplementedError, match="tree engine"):
-        lars(0.1).init(tp)
     with pytest.raises(ValueError, match="slot_dtype"):
         sgd(0.1, slot_dtype="int4")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_optimizer("lamb", learning_rate=0.1).init(tp)
+    for state in (lars(0.1).init(tp),
+                  get_optimizer("lamb", learning_rate=0.1).init(tp)):
+        assert state.layout is None and state.step == 0
 
 
 def test_use_kernels_true_raises_on_cpu_buffers():
