@@ -25,8 +25,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
              every length 32768), with each shape's split count and CTA
              count (the kernel splits the keys), its library call one
              ``F.scaled_dot_product_attention(..., enable_gqa=True)`` with
-             the length mask; and ``flash_decode`` in f32 and bf16 at D 64
-             and 128 with a zero-length row (which must give zeros);
+             the length mask; ``flash_decode`` in f32 and bf16 at D 64
+             and 128 with a zero-length row (which must give zeros); and
+             its capped instances (the logit softcap, 30) in f32 and bf16
+             at D 64, 128 and 256 against their plain version, with
+             zero-length rows and NaN rows past each length kept out of
+             the output, and timed at the serve shape beside its library
+             call, one compiled ``flex_attention`` with the cap as its
+             ``score_mod`` and the lengths as its block mask;
 4. main    — ``repro_torch.launch.train``'s ``main`` on the card,
              lenet-mnist at batch 8192 for 20 steps: with LARS (exactly
              one ``norms_flat`` and one ``apply_flat`` launch per step),
@@ -51,11 +57,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
              64 requests with prompts of 256-2048 tokens and 32-256 new
              tokens, a Poisson arrival every tick: exactly 30
              ``flash_decode`` launches per decode tick and no LARS kernel,
-             every request finished with finite logits;
-9. serve card vs CPU — reduced smollm in f32: 16 teacher-forced decode
-             steps, card (kernel) against CPU (plain version), logits
-             within 1e-4; the engine's greedy tokens identical on both;
-             no ``flash_decode`` launch during prefill;
+             every request finished with finite logits, the allocator's
+             peak kept for phase 19;
+9. serve card vs CPU — reduced smollm in f32, as configured, with a
+             window of 16 (prompts up to 30 tokens: a ring) and with the
+             softcap (30): 16 teacher-forced decode steps, card (kernel)
+             against CPU (plain version), logits within 1e-4; the
+             engine's greedy tokens identical on both; no
+             ``flash_decode`` launch during prefill;
 10. serve profile — full-width smollm, 32 busy slots: admission launches
              no ``flash_decode``; a ``torch.profiler`` window over 5
              decode ticks: busy share, top device ops, ``flash_decode``'s
@@ -73,7 +82,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
              and resumed gives trajectories and rows equal to the
              uninterrupted run's; steps/s of the b64 LARS cell with and
              without the per-step statistics and with cuDNN's
-             deterministic algorithms on and off; a profile of 50 of its
+             deterministic algorithms on and off (64 steps a run, ABCD
+             DCBA); a profile of 50 of its
              steps (the device's busy share, time by kernel);
 12. LM training — ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
              at smollm-135m's packed shape (263144, 512), timed and held
@@ -92,8 +102,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              reduced LM (LAMB) for 5 steps through ``ShardedLoader`` with
              prefetch and without, bit-identical; the registered
              ``lm_smoke`` grid through ``GridRunner`` (8 cells, 1,152
-             steps) with its launches per cell, then killed mid-cell and
-             resumed to equal trajectories and rows;
+             steps) with its launches per cell, then its first two cells
+             run again, killed mid-cell in the second and resumed to
+             equal trajectories and rows;
 13. lean LM — the memory-lean path (``flash_vjp``, ``attn_q_chunk``,
              ``loss_chunk``, ``remat_block``, set through ``--set``):
              first ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
@@ -119,20 +130,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
              teacher-forced steps, card against CPU;
 14. MoE   — granite-moe-3b-a800m (40 experts, top-8): ``norms_flat``,
              ``apply_flat`` and ``apply_flat_q8`` at the packed shape of
-             its 8-layer superbuffer (rows from the layout), timed and
+             its 2-layer superbuffer (rows from the layout), timed and
              held on every row as in phase 13, and ``flash_decode`` at its
              decode shape (B 32, S 4096, Hkv 8, G 3, D 64, bf16) timed as
-             in phase 3; ``launch.train.main`` at full width, 8 of its 32
-             layers (``--set num_layers=8``), 4 x 4096 tokens through
+             in phase 3; ``launch.train.main`` at full width, 2 of its 32
+             layers (``--set num_layers=2``), 4 x 4096 tokens through
              phase 13's lean knobs, 3 steps each of f32 LARS and the
              large-batch path (one ``norms_flat`` and one ``apply_flat``
              or ``apply_flat_q8`` per step; finite losses, aux losses
              finite and nonzero; steps/s, tokens/s, the peak); from the
              same seed-0 init, the share of dropped slots at layer 0 for
              the first batch and a profiled f32 LARS step;
-             ``launch.serve.main`` at full width and the same 8 layers
+             ``launch.serve.main`` at full width and the same 2 layers
              (bf16), phase 8's 64 requests over 32 slots of capacity 4096:
-             8 ``flash_decode`` launches per decode tick, none in
+             2 ``flash_decode`` launches per decode tick, none in
              admission, finite logits; reduced granite that drops slots
              (8 experts, top-2, capacity factor 0.5) in f32: 20 LARS
              steps card against CPU within 1e-5, 16 teacher-forced decode
@@ -163,12 +174,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              within 1e-5;
 16. SSM and hybrid — ``norms_flat``, ``apply_flat`` and
              ``apply_flat_q8`` at the packed shapes of falcon-mamba-7b's
-             8-layer and zamba2-7b's 12-layer superbuffers, on fresh
+             2-layer and zamba2-7b's 7-layer superbuffers, on fresh
              buffers, held on every row and timed
              as in phase 13, and ``flash_decode`` at zamba2's decode shape
              (B 32, S 4096, Hkv 32, G 1, D 112, bf16) timed as in phase 3;
              then for each model at full width and that depth (``--set
-             num_layers=8`` / ``12``), 4 x 4096 tokens through phase 13's
+             num_layers=2`` / ``7``), 4 x 4096 tokens through phase 13's
              lean knobs: 3 steps each of f32 LARS and the large-batch path
              through ``launch.train.main`` (one ``norms_flat`` and one
              ``apply_flat`` or ``apply_flat_q8`` per step; finite losses;
@@ -199,9 +210,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              wide kernel's spill-free, or the phase fails); then
              whisper-base whole (64 clips of 1,500 stub
              frames and 448 decoder tokens, ``flash_vjp``) and
-             paligemma-3b at full width and all 18 layers (4 x 4096 text
-             tokens behind 256 seeded normal image embeddings, where the
-             reference's zero stub overflows the gradient at this depth,
+             paligemma-3b at full width and 5 of its 18 layers (4 x 4096
+             text tokens behind 256 seeded normal image embeddings, where
+             the reference's zero stub overflows the gradient from 16,
              through ``flash_vjp``,
              ``attn_q_chunk=1088`` and ``loss_chunk=1024``): 3 steps each
              of f32 LARS and the large-batch path through
@@ -211,7 +222,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``DecodeEngine`` at the same width and depth (bf16): 32
              requests (whisper: 4 prompt tokens over 1,500 seeded frames;
              paligemma: 64 behind 256 seeded image embeddings), 128 new
-             tokens: 12 (whisper: self- and cross-attention) or 18
+             tokens: 12 (whisper: self- and cross-attention) or 5
              ``flash_decode`` launches a tick, none in prefill, tick ms,
              tokens/s; reduced whisper, reduced paligemma and reduced
              paligemma at 8 heads on 1 kv head of 256 (the D 256 instance)
@@ -241,8 +252,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
              ``apply_flat`` per LARS step of every segment and none per
              SGD step, the report's ``pbt`` block (claims logged); the
              same run killed mid-round and resumed: ``pbt.json`` and every
-             trajectory identical. The phases' wall times are printed at
-             the end.
+             trajectory identical;
+19. serve stack — ``launch.serve.main`` with smollm-135m at full width
+             (30 layers, bf16), 32 slots of 4096, ``--prefill-chunk 512
+             --prefix-entries 16 --slos 0:0.5:30,1:5:120 --min-slots 8
+             --reserve-slots 1``: a session run (8 sessions, 2 turns over
+             a 1,024-token system prompt) and the report's ``bursty_32``
+             scenario (31 tier-1 requests holding every slot but the
+             reserved one, and 4 pairs of tier-0 ones, over a 9 s
+             window), both through phase 8's gates:
+             every request finished with finite logits, one
+             ``decode_step`` call a decode tick with exactly 30
+             ``flash_decode`` launches and none in chunk admission,
+             restore or snapshot, prefix hits on the session run,
+             preemptions under the burst, the allocator's peak at most
+             phase 8's plus the prefix store's bytes plus 1 GiB; tokens/s,
+             TTFT and latency p50/p99 by tier, tick ms and occupancy beside
+             phase 8's; a sliding window of 256 rows served at full width
+             (prompts longer than it: a ring; 30 launches a tick); each
+             serve family reduced in f32 (qwen3-14b, deepseek-v2-236b,
+             falcon-mamba-7b, zamba2-7b) through the chunked engine with
+             the prefix store and forced preemptions, on the CPU and the
+             card: greedy tokens identical, chunked equal to monolithic
+             on the card (a preempted stream equal to its uninterrupted
+             run); ``launch.serve_experiment --grid serve_slo_smoke``
+             into ``build/serve_grid/``, gated on its decode contract,
+             its claims A1–A3 logged. The phases' wall times are printed
+             at the end.
 
 From phase 13 on, a model's seeded init is drawn on the host once per
 phase and shared by its training runs, sessions and serving
@@ -304,12 +340,20 @@ FD_CALLS = {448: 50, 1500: 20, 4096: 20, 32768: 5}   # calls per timed graph
 # one; bf16 outputs round the same f32 result, so one bf16 ulp (2^-7
 # relative) may separate them
 FD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-6)}
+# the logit softcap at decode: the capped instances held at FD_TOL at
+# D 64, 128 and 256 (G 3, 5 and 8), and timed at the serve shape
+SOFTCAP = 30.0
+FD_CAP_SHAPES = [(64, 3, 3), (128, 8, 5), (256, 1, 8)]
 SERVE_ARGS = ["--arch", "smollm-135m", "--slots", "32", "--capacity", "4096",
               "--requests", "64", "--prompt-min", "256", "--prompt-max",
               "2048", "--new-min", "32", "--new-max", "256",
               "--arrival-every", "1", "--seed", "0"]
 # reduced smollm, card vs CPU: only f32 summation orders differ
 SERVE_CARD_CPU_ATOL = 1e-4
+# phase 9 also serves reduced smollm in f32 with a window of 16 (prompts
+# up to 30 tokens: a ring) and with the softcap
+SERVE_MASKS = {"window": {"sliding_window": 16},
+               "softcap": {"attn_logit_softcap": SOFTCAP}}
 
 # phase 11: the registered grids it runs; the kill lands in the smoke
 # grid's second cell (lars-b64, 256 steps, after sgd-b64's 256) at its
@@ -317,6 +361,9 @@ SERVE_CARD_CPU_ATOL = 1e-4
 EXP_GRIDS = ("lars_vs_sgd_smoke", "int8_parity_smoke")
 EXP_KILL_AFTER = 256 + 110
 EXP_PROFILE_STEPS = 50
+# steps of each timed run of the b64 LARS cell (stats and deterministic
+# on and off, ABCD DCBA)
+EXP_TIMING_STEPS = 64
 
 # phase 12: smollm-135m at full width (a (263144, 512) superbuffer of
 # 272 layer slices) through launch.train, batch 16 x 1024 tokens
@@ -340,9 +387,10 @@ LM_CARD_CPU_ARGS = ["--arch", "smollm-135m", "--reduced", "--batch", "8",
 # an H100 80GB HBM3 at 700 W; held at 1e-5
 LM_CARD_CPU_RTOL = {"lars": 1e-5, "lamb": 1e-5}
 LOADER_STEPS = 5
-# the registered lm_smoke grid: the kill lands in its second cell
-# (adamw-b16, 256 steps, after lamb-b16's 256) at its step 110, past its
-# step-100 checkpoint
+# the registered lm_smoke grid: the killed run holds its first two cells
+# only (phase 11 kills and resumes a whole grid); the kill lands in the
+# second (adamw-b16, 256 steps, after lamb-b16's 256) at its step 110,
+# past its step-100 checkpoint
 LM_GRID = "lm_smoke"
 LM_KILL_AFTER = 256 + 110
 
@@ -392,20 +440,21 @@ QWEN_CARD_CPU_ARGS = ["--arch", "qwen3-14b", "--reduced", "--batch", "8",
                       "--set", "loss_chunk=16", "--set", "remat_block=2"]
 
 # phase 14: the MoE family. granite-moe-3b-a800m (the reference's config
-# verbatim) at full width, depth cut to 8 of its 32 layers (881,299,968
-# parameters; f32 LARS at 32 would not fit the card, and 16 ran until the
-# script needed the time for phase 16), 4 x 4096 tokens a step through
+# verbatim) at full width, depth cut to 2 of its 32 layers (f32 LARS at
+# 32 would not fit the card; 16 ran until the script needed the time for
+# phase 16, 8 and then 4 until it needed it for phase 19), 4 x 4096
+# tokens a step through
 # phase 13's lean knobs: f32 LARS and the large-batch path, as qwen3's
 # runs
 GRANITE = "granite-moe-3b-a800m"
-GRANITE_LAYERS = 8
+GRANITE_LAYERS = 2
 GRANITE_STEPS = 3
 GRANITE_ARGS = ["--arch", GRANITE, "--set", f"num_layers={GRANITE_LAYERS}"] \
     + [a for v in QWEN_LEAN for a in ("--set", v)] + [
     "--batch", "4", "--seq", "4096", "--steps", str(GRANITE_STEPS),
     "--lr", "0.01", "--log-every", "0"]
 # served at the same cut (bf16; full depth until the script needed the
-# time for phase 16): 32 slots of capacity 4096 (a 2.1 GB KV cache),
+# time for phase 16): 32 slots of capacity 4096,
 # phase 8's traffic
 GRANITE_SERVE_ARGS = ["--arch", GRANITE, "--set",
                       f"num_layers={GRANITE_LAYERS}"] + SERVE_ARGS[2:]
@@ -470,13 +519,13 @@ MASK_CARD_CPU_ARGS = [
 # at full width, trained at a cut depth, 4 x 4096 tokens a step through
 # phase 13's lean knobs (the loss chunked; in zamba2's shared block
 # flash_vjp and query chunks): f32 LARS and the large-batch path, as
-# qwen3's runs. falcon-mamba-7b at 8 of its 64 layers (1,375,010,816
-# parameters), zamba2-7b at 12 of its 81 (1,370,415,744; the shared block
-# after layers 0 and 6). Both are served at the same cut with phase 8's
-# traffic. Both trained at 16 and 24 layers too (PERF.md); the cut keeps
-# the script within its time limit beside phase 17.
+# qwen3's runs. falcon-mamba-7b at 2 of its 64 layers, zamba2-7b at 7 of
+# its 81 (the shared block after layers 0 and 6: still two applications).
+# Both are served at the same cut with phase 8's traffic. Both trained at
+# 16 and 24 layers, and at 8 and 12, too (PERF.md); the cut keeps the
+# script within its time limit beside phases 17 and 19.
 FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-7b"
-SSM_LAYERS = {FALCON: 8, ZAMBA: 12}
+SSM_LAYERS = {FALCON: 2, ZAMBA: 7}
 SSM_STEPS = 3
 
 
@@ -518,8 +567,10 @@ FAMILY_STEPS = 3
 WHISPER_ARGS = ["--arch", WHISPER, "--set", "flash_vjp=true", "--batch",
                 "64", "--seq", "448", "--steps", str(FAMILY_STEPS), "--lr",
                 "0.01", "--log-every", "0"]
-# paligemma-3b at full width and all 18 layers (2,508,587,008
-# parameters), 4 x 4,096 text tokens behind its 256 image tokens (4,352
+# paligemma-3b at full width and 5 of its 18 layers (all 18, then 9,
+# until the script needed the time for phase 19), 4 x 4,096 text tokens
+# behind its
+# 256 image tokens (4,352
 # positions a row) through flash_vjp, query chunks of 1,088 (a divisor of
 # 4,352) and loss_chunk=1024; f32 LARS and the large-batch path. Its image
 # stub is seeded unit normals where launch.train feeds the reference's
@@ -527,7 +578,7 @@ WHISPER_ARGS = ["--arch", WHISPER, "--set", "flash_vjp=true", "--batch",
 # there is 1 / sqrt(eps), and it compounds through the prefix's
 # attention until the gradient overflows from 16 layers on, in the
 # reference as in the port (tests/test_torch_vlm.py)
-PALI_LAYERS = 18
+PALI_LAYERS = 5
 PALI_LEAN = ["flash_vjp=true", "attn_q_chunk=1088", "loss_chunk=1024"]
 PALI_ARGS = ["--arch", PALIGEMMA, "--set", f"num_layers={PALI_LAYERS}"] + [
     a for v in PALI_LEAN for a in ("--set", v)] + [
@@ -602,6 +653,48 @@ UPDATE_RANGE = "optimizer.update"
 PBT_ARGS = ["--grid", "pbt_smoke", "--pbt", "--population", "4",
             "--exploit-every", "4"]
 PBT_KILL_AFTER = 32 + 3 * 4 + 2
+
+
+# phase 19: the serve stack. smollm-135m at full width through
+# launch.serve with chunked prefill (chunks of 512), a 16-entry prefix
+# store, two SLO tiers (tier 0: TTFT 0.5 s, latency 30 s; tier 1: 5 s,
+# 120 s), slot autoscaling from 8 and one slot reserved for tier 0, over
+# 32 slots of 4096: a session run (8 sessions, 2 turns over a 1,024-token
+# system prompt: the second turn hits the first's retirement snapshots)
+# and the report's bursty_32 shape, sized so that preemption does not
+# hang on the host's speed: its tier-1 burst (31 requests of 512 prompt
+# tokens and 128 new ones: every slot but the reserved one) arrives over
+# the first 1.4 s of a 9 s window, slot autoscaling admits it one
+# request a tick, and it holds the slots for 128 ticks more; of the 4
+# pairs of tier-0 requests the last three land at 22.5, 45 and 67.5 %
+# (2.0, 4.05 and 6.1 s). A pair that finds every slot held waits past
+# 0.25 s (half its TTFT budget) and preempts. On the card it preempted
+# 5, 10, 14 and 17 times (ticks of 57-90 ms), where 2 pairs preempted
+# 1-5 times and the shapes tried before once or never.
+STACK_PREFIX_ENTRIES = 16
+STACK_ARGS = ["--arch", "smollm-135m", "--slots", "32", "--capacity",
+              "4096", "--prefill-chunk", "512", "--prefix-entries",
+              str(STACK_PREFIX_ENTRIES), "--slos", "0:0.5:30,1:5:120",
+              "--min-slots", "8", "--reserve-slots", "1", "--seed", "0"]
+STACK_SESSIONS, STACK_TURNS = 8, 2
+STACK_SESSION = ["--session", str(STACK_SESSIONS), "--turns",
+                 str(STACK_TURNS), "--shared-prefix", "1024",
+                 "--prompt-min", "64", "--prompt-max", "512", "--new-min",
+                 "16", "--new-max", "48"]
+STACK_BURSTY = ["--scenario", "bursty_32", "--time-scale", "9.0"]
+STACK_BURSTY_REQUESTS = 39
+# a sliding window of 256 rows at full width, prompts longer than it
+STACK_WINDOW_REQUESTS = 16
+STACK_WINDOW_ARGS = SERVE_ARGS + [
+    "--set", "sliding_window=256", "--requests", str(STACK_WINDOW_REQUESTS),
+    "--prompt-min", "300", "--prompt-max", "1200", "--new-min", "16",
+    "--new-max", "64"]
+# each serve family reduced in f32 through the chunked engine, card
+# against CPU (zamba2 at 3 layers: its shared block after 0 and 2); tier
+# 0's TTFT budget puts it at risk at once, so it preempts
+STACK_FAMILIES = {"qwen3-14b": {}, DEEPSEEK: {}, FALCON: {},
+                  ZAMBA: {"num_layers": 3}}
+STACK_SLOS = {0: (1e-6, 10.0), 1: (10.0, 60.0)}
 
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
@@ -1096,19 +1189,23 @@ def fd_inputs(B, S, Hkv, G, D, lengths, dtype, gen):
     return q, k, v, lens
 
 
-def _fd_err(fdk, q, k, v, lens, dtype_name) -> tuple[float, float]:
-    """(max abs err, max rel err) of the kernel against its plain
-    version; raises beyond FD_TOL."""
+def _fd_err(fdk, q, k, v, lens, dtype_name, softcap: float = 0.0
+            ) -> tuple[float, float]:
+    """(max abs err, max rel err) of the kernel (with ``softcap``, its
+    capped instance) against its plain version; raises beyond FD_TOL."""
     import torch
     scale = q.shape[-1] ** -0.5
-    got = fdk.flash_decode(q, k, v, lens, scale=scale).float()
-    want = fdk.flash_decode_plain(q, k, v, lens, scale=scale).float()
+    got = fdk.flash_decode(q, k, v, lens, scale=scale,
+                           softcap=softcap).float()
+    want = fdk.flash_decode_plain(q, k, v, lens, scale=scale,
+                                  softcap=softcap).float()
     torch.cuda.synchronize()
     rtol, atol = FD_TOL[dtype_name]
     err = (got - want).abs()
     if not bool((err <= atol + rtol * want.abs()).all()):
         raise AssertionError(f"flash_decode {tuple(q.shape)} S "
-                             f"{k.shape[1]} {dtype_name}: max abs err "
+                             f"{k.shape[1]} {dtype_name} softcap "
+                             f"{softcap}: max abs err "
                              f"{err.max().item()} beyond rtol {rtol} atol "
                              f"{atol}")
     zero = (lens == 0).nonzero().flatten()
@@ -1119,7 +1216,10 @@ def _fd_err(fdk, q, k, v, lens, dtype_name) -> tuple[float, float]:
 
 def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
     """Phase 3, flash_decode: f32 and bf16 at D 64 and 128 with zero-length
-    rows, then the timed bf16 rows at FD_SHAPES."""
+    rows, the capped instances (SOFTCAP) at D 64, 128 and 256 in f32 and
+    bf16 with zero-length rows and NaN rows past each length, then the
+    timed bf16 rows at FD_SHAPES and the capped one at the serve
+    shape."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     for D, Hkv, G in ((64, 3, 3), (128, 8, 5)):
@@ -1130,25 +1230,84 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
             err, rel = _fd_err(fdk, q, k, v, lens, name)
             log(f"  flash_decode {name} D={D} G={G}: max abs err {err:.3g} "
                 f"(rel {rel:.3g}); lengths 0, 1, S+7 included")
-    return [fd_timed_row(fdk, shape, gen, bw, flops) for shape in FD_SHAPES]
+    capped = []
+    # its own draws: the timed rows below see the draws they saw before
+    # the capped instances existed
+    gen_cap = torch.Generator(device="cuda").manual_seed(1)
+    for D, Hkv, G in FD_CAP_SHAPES:
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v, lens = fd_inputs(8, 4096, Hkv, G, D, "drawn", dt,
+                                      gen_cap)
+            lens[0], lens[1], lens[2] = 0, 1, 4096 + 7
+            # scores of order the cap, so that it bites
+            q = (q.float() * (SOFTCAP * D ** 0.5 / 8)).to(dt)
+            err, rel = _fd_err(fdk, q, k, v, lens, name, SOFTCAP)
+            capped.append({"D": D, "G": G, "dtype": name,
+                           "max_abs_err": err, "max_rel_err": rel})
+            log(f"  flash_decode softcap {SOFTCAP} {name} D={D} G={G}: "
+                f"max abs err {err:.3g} (rel {rel:.3g}); lengths 0, 1, "
+                f"S+7 included")
+    poison = fd_poison_check(fdk, softcap=SOFTCAP)
+    serve_draws = gen.get_state()
+    rows = [fd_timed_row(fdk, shape, gen, bw, flops) for shape in FD_SHAPES]
+    # the capped kernel on the serve row's very inputs
+    gen.set_state(serve_draws)
+    rows.append(fd_timed_row(fdk, FD_SHAPES[0], gen, bw, flops,
+                             softcap=SOFTCAP))
+    rows[-1].update(capped_checks=capped, nan_past_length_identical=poison)
+    return rows
 
 
-def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float) -> dict:
+def flex_decode(q, k, v, lens, scale: float, softcap: float):
+    """A zero-argument call of PyTorch's compiled ``flex_attention``
+    computing the capped, length-masked GQA decode of ``flash_decode(q,
+    k, v, lens, softcap=softcap)``: the cap as its ``score_mod`` (applied
+    to the scaled score, as the kernel applies it), ``j < lens[b]`` as
+    its block mask, ``enable_gqa``; returns (B, Hkv, G, D)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    qf = q.reshape(B, Hkv * G, 1, D)
+    kf = k.permute(0, 2, 1, 3).contiguous()
+    vf = v.permute(0, 2, 1, 3).contiguous()
+    lens = lens.clamp(max=S)
+
+    def keep(b, h, q_idx, kv_idx):
+        return kv_idx < lens[b]
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(keep, B, None, 1, S, device=q.device)
+    fn = torch.compile(flex_attention)
+    return lambda: fn(qf, kf, vf, score_mod=cap, block_mask=mask,
+                      scale=scale, enable_gqa=True).reshape(B, Hkv, G, D)
+
+
+def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float,
+                 softcap: float = 0.0) -> dict:
     """flash_decode in bf16 at ``shape`` (B, S, Hkv, G, D, lengths):
     held against its plain version, then timed beside the plain version,
-    masked SDPA and its bound."""
+    the library call and its bound. The library call is masked SDPA;
+    with ``softcap`` (the capped instance; SDPA takes no cap) it is a
+    compiled ``flex_attention`` (:func:`flex_decode`), held against the
+    plain version too (logged), and the bound counts a tanh with the exp
+    of each score."""
     import torch
     import torch.nn.functional as F
     B, S, Hkv, G, D, lengths = shape
     q, k, v, lens = fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16, gen)
-    err, rel = _fd_err(fdk, q, k, v, lens, "bfloat16")
+    err, rel = _fd_err(fdk, q, k, v, lens, "bfloat16", softcap)
     scale = D ** -0.5
     valid = int(lens.clamp(max=S).sum())
     # K and V over the valid rows, q read and out written once, lengths
     nbytes = valid * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + B * 4
     # per valid key and query head: D multiply-adds for the score and
-    # D for the value product, plus the exp
-    nops = valid * Hkv * G * (4 * D + 1)
+    # D for the value product, plus the exp (and the cap's tanh)
+    nops = valid * Hkv * G * (4 * D + (2 if softcap else 1))
     calls = FD_CALLS[S]
     qs = q.reshape(B, Hkv * G, 1, D)
     kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
@@ -1158,71 +1317,162 @@ def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float) -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
                                               scale=scale, enable_gqa=True)
+    lib_extra = {}
+    if softcap:
+        import torch._inductor.config as inductor_config
+        inductor_config.compile_threads = 1     # no worker processes
+        t0 = time.perf_counter()
+        library = flex_decode(q, k, v, lens, scale, softcap)
+        want = fdk.flash_decode_plain(q, k, v, lens, scale=scale,
+                                      softcap=softcap).float()
+        lib_err = (library().float() - want).abs().max().item()
+        torch.cuda.synchronize()
+        lib_extra = {"library": "flex_attention (compiled)",
+                     "library_max_abs_err": lib_err,
+                     "library_compile_s": time.perf_counter() - t0}
+    else:
+        library = sdpa
     plan = fdk.plan(q, k)
     row = _row(B, S, err, rel, timings(
-        lambda: fdk.flash_decode(q, k, v, lens, scale=scale), calls),
-        device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens, scale=scale),
+        lambda: fdk.flash_decode(q, k, v, lens, scale=scale,
+                                 softcap=softcap), calls),
+        device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens, scale=scale,
+                                                 softcap=softcap),
                   calls=max(1, calls // 5)),
-        device_ms(sdpa, calls=calls), nbytes, nops, bw, flops)
+        device_ms(library, calls=calls), nbytes, nops, bw, flops)
     del row["rows"], row["lane"]
     row.update(shape={"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
                       "dtype": "bfloat16", "lengths": lengths,
-                      "valid_rows": valid},
+                      "valid_rows": valid, "softcap": softcap},
                splits=plan.splits, keys_per_split=plan.keys_per_split,
-               ctas=B * Hkv * plan.splits)
+               ctas=B * Hkv * plan.splits, **lib_extra)
+    lib = (f"flex_attention {row['library_ms']:.5f} ms (max abs err "
+           f"{lib_extra['library_max_abs_err']:.3g} against the plain "
+           f"version; compiled in {lib_extra['library_compile_s']:.1f} s)"
+           if softcap else f"SDPA {row['library_ms']:.5f} ms")
     log(f"  flash_decode B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 "
-        f"({lengths} lengths, {valid} valid rows; {plan.splits} splits "
-        f"of {plan.keys_per_split} keys, {row['ctas']} CTAs): kernel "
-        f"{row['ms']:.5f} ms (dispatch {row['dispatch_ms']:.4f})  plain "
-        f"{row['plain_ms']:.5f} ms  SDPA {row['library_ms']:.5f} ms  "
-        f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  max abs "
+        f"softcap {softcap} ({lengths} lengths, {valid} valid rows; "
+        f"{plan.splits} splits of {plan.keys_per_split} keys, "
+        f"{row['ctas']} CTAs): kernel {row['ms']:.5f} ms (dispatch "
+        f"{row['dispatch_ms']:.4f})  plain {row['plain_ms']:.5f} ms  {lib}"
+        f"  bound {row['bound_ms']:.5f} ms ({row['bound_by']})  max abs "
         f"err {err:.3g}")
-    del q, k, v, lens, kt, vt, mask, qs
+    del q, k, v, lens, kt, vt, mask, qs, library
     torch.cuda.empty_cache()
     return row
 
 
-def serve_phase(serve, fdk, lk, args=SERVE_ARGS) -> dict:
+def serve_phase(serve, fdk, lk, args=SERVE_ARGS, requests: int = 64,
+                phase8=None, label: str = "") -> dict:
     """Phase 8 (and 14, for granite; 15, for deepseek, whose absorbed MLA
     decode launches no ``flash_decode``; 16, for falcon-mamba, which
-    launches none, and zamba2, one per application of its shared block):
-    the serve entry point at full width. Every launch count is set to 0
-    just before it and read just after."""
+    launches none, and zamba2, one per application of its shared block;
+    19, the serve stack's runs): the serve entry point at full width.
+    Every launch count is set to 0 just before it and read just after.
+    Gated: every request finished with finite logits; one ``decode_step``
+    call a decode tick with exactly ``flash_decode_per_tick`` launches
+    each and none outside the ticks (chunk admission, restores and
+    snapshots included: the engine counts them); no LARS kernel. The
+    allocator's peak above what was allocated before the call is kept
+    (``peak_bytes``); given ``phase8`` (phase 19) it is held to at most
+    phase 8's peak plus the prefix store's bytes plus 1 GiB (a masked
+    decode or chunk call that copied the cache would pass it), and the
+    tick, occupancy, TTFT and latency (by tier) are logged beside phase
+    8's."""
     import torch
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     lk.reset_launch_counts()
     fdk.reset_launch_counts()
+    t0 = time.perf_counter()
     rep = serve.main(args)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
     launches = dict(fdk.LAUNCHES)
     lars = dict(lk.LAUNCHES)
+    st, per = rep["stats"], rep["flash_decode_per_tick"]
     ticks = rep["decode_steps"]
-    want = rep["flash_decode_per_tick"] * ticks
-    log(f"  {rep['requests']} requests, {rep['tokens']} tokens, "
-        f"{rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks "
-        f"({1e3 * rep['wall_s'] / max(ticks, 1):.2f} ms of wall time per "
-        f"tick, admissions included), {rep['admit_calls']} admissions; "
-        f"TTFT p50/p99 {1e3 * rep['ttft_p50_s']:.1f}/"
-        f"{1e3 * rep['ttft_p99_s']:.1f} ms, latency p50/p99 "
-        f"{1e3 * rep['latency_p50_s']:.1f}/{1e3 * rep['latency_p99_s']:.1f}"
-        f" ms; flash_decode launches "
-        f"{launches['flash_decode']} (want {want}); LARS kernels {lars}; "
-        f"logits finite {rep['logits_finite']}")
-    if launches["flash_decode"] != want or ticks == 0:
-        raise AssertionError(f"serve: {launches} flash_decode launches for "
-                             f"{ticks} ticks of {rep['num_layers']} layers, "
-                             f"want {want}")
-    if any(lars.values()):
-        raise AssertionError(f"serve launched LARS kernels: {lars}")
-    if rep["requests"] != 64 or not rep["logits_finite"]:
-        raise AssertionError(f"serve: {rep['requests']} of 64 requests "
-                             f"finished, logits finite "
-                             f"{rep['logits_finite']}")
+    want = per * ticks
+    tick_ms = 1e3 * rep["wall_s"] / max(ticks, 1)
     keys = ("requests", "tokens", "wall_s", "tok_per_s", "occupancy",
             "latency_mean_s", "latency_p50_s", "latency_p90_s",
             "latency_p99_s", "ttft_mean_s", "ttft_p50_s", "ttft_p90_s",
             "ttft_p99_s", "decode_steps", "admit_calls", "logits_finite")
-    return dict({k: rep[k] for k in keys}, launches=launches,
-                tick_wall_ms=1e3 * rep["wall_s"] / ticks)
+    out = dict({k: rep[k] for k in keys}, launches=launches,
+               tick_wall_ms=tick_ms, peak_bytes=peak, stats=st,
+               flash_decode_per_tick=per, call_wall_s=wall)
+    if phase8 is None:
+        log(f"  {rep['requests']} requests, {rep['tokens']} tokens, "
+            f"{rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks "
+            f"({tick_ms:.2f} ms of wall time per tick, admissions "
+            f"included), {rep['admit_calls']} admissions; TTFT p50/p99 "
+            f"{1e3 * rep['ttft_p50_s']:.1f}/{1e3 * rep['ttft_p99_s']:.1f} "
+            f"ms, latency p50/p99 {1e3 * rep['latency_p50_s']:.1f}/"
+            f"{1e3 * rep['latency_p99_s']:.1f} ms; flash_decode launches "
+            f"{launches['flash_decode']} (want {want}); LARS kernels {lars}"
+            f"; logits finite {rep['logits_finite']}; peak "
+            f"{peak / 2 ** 30:.3f} GiB")
+    else:
+        entries = int(args[args.index("--prefix-entries") + 1]) \
+            if "--prefix-entries" in args else 0
+        store = stack_store_bytes(entries)
+        bound = phase8["peak_bytes"] + store + 2 ** 30
+        by_tier = {cls: {"ttft_p50_s": r["ttft"]["p50"],
+                         "ttft_p99_s": r["ttft"]["p99"],
+                         "latency_p50_s": r["latency"]["p50"],
+                         "latency_p99_s": r["latency"]["p99"],
+                         "requests": r["requests"]}
+                   for cls, r in rep.get("by_class", {}).items()}
+        out.update(by_tier=by_tier, prefix=rep.get("prefix"),
+                   peak_bound_bytes=bound, store_bytes=store)
+        log(f"  {label}: {rep['requests']} requests, {rep['tokens']} "
+            f"tokens, {rep['tok_per_s']:.1f} tok/s, {ticks} decode ticks "
+            f"({tick_ms:.2f} ms of wall time per tick, chunks included; "
+            f"phase 8: {phase8['tick_wall_ms']:.2f}), occupancy "
+            f"{rep['occupancy']:.3f} (phase 8: {phase8['occupancy']:.3f}); "
+            f"TTFT p50/p99 {1e3 * rep['ttft_p50_s']:.1f}/"
+            f"{1e3 * rep['ttft_p99_s']:.1f} ms (phase 8: "
+            f"{1e3 * phase8['ttft_p50_s']:.1f}/"
+            f"{1e3 * phase8['ttft_p99_s']:.1f}), latency p50/p99 "
+            f"{1e3 * rep['latency_p50_s']:.1f}/"
+            f"{1e3 * rep['latency_p99_s']:.1f} ms")
+        for tier, r in by_tier.items():
+            log(f"    {tier}: TTFT p50/p99 {r['ttft_p50_s']}/"
+                f"{r['ttft_p99_s']} s, latency p50/p99 "
+                f"{r['latency_p50_s']}/{r['latency_p99_s']} s")
+        log(f"    {st['decode_calls']} decode_step calls, flash_decode "
+            f"{st['flash_decode_launches']} in the ticks (want {per} x "
+            f"{ticks}), {st['flash_decode_outside_ticks']} outside; chunks "
+            f"{st['chunk_calls']}, restores {st['restore_calls']}, "
+            f"snapshots {st['snap_calls']}, prefix hits "
+            f"{st['prefix_hits']} ({st['prefix_hit_tokens']} tokens), "
+            f"preemptions {st['preemptions']}; peak {peak / 2 ** 30:.3f} "
+            f"GiB (bound {bound / 2 ** 30:.3f}: phase 8's "
+            f"{phase8['peak_bytes'] / 2 ** 30:.3f} + store "
+            f"{store / 2 ** 30:.3f} + 1); LARS kernels {lars}; logits "
+            f"finite {rep['logits_finite']}; call {wall:.1f} s")
+    bad = []
+    if rep["requests"] != requests or not rep["logits_finite"]:
+        bad.append(f"{rep['requests']} of {requests} requests finished, "
+                   f"logits finite {rep['logits_finite']}")
+    # a scenario's warm pass (before the engine's counts are reset) adds
+    # its own ticks' launches to the wrapper's count
+    warm = "--scenario" in args
+    if ticks == 0 or st["decode_calls"] != ticks \
+            or st["flash_decode_launches"] != want \
+            or st["flash_decode_outside_ticks"] \
+            or launches["flash_decode"] != rep["flash_decode_launches"] \
+            or (not warm and launches["flash_decode"] != want):
+        bad.append(f"{launches} flash_decode launches for {ticks} ticks of "
+                   f"{rep['num_layers']} layers, want {want}; {st}")
+    if any(lars.values()):
+        bad.append(f"LARS kernels launched: {lars}")
+    if phase8 is not None and peak > out["peak_bound_bytes"]:
+        bad.append(f"peak {peak} B above {out['peak_bound_bytes']} B")
+    if bad:
+        raise AssertionError(f"serve {label or args[1]}: " + "; ".join(bad))
+    return out
 
 
 def _reduced_lm(device, arch: str = "smollm-135m", changes=()):
@@ -1351,16 +1601,17 @@ def _want_launches(cell) -> dict:
             "apply_flat_q8": lars_steps if int8 else 0}
 
 
-def _grid_outputs(out_dir: str, grid) -> tuple[dict, dict]:
-    """(trajectories without timing keys, manifest rows without wall_s)."""
+def _grid_outputs(out_dir: str, grid, ids) -> tuple[dict, dict]:
+    """(trajectories without timing keys, manifest rows without wall_s)
+    of the cells ``ids``."""
     from repro_torch.experiments import read_trajectory
     from repro_torch.experiments.record import load_json
-    traj = {c.cell_id: read_trajectory(
-        os.path.join(out_dir, c.cell_id, "trajectory.jsonl"),
-        strip_timing=True) for c in grid.cells()}
+    traj = {cid: read_trajectory(
+        os.path.join(out_dir, cid, "trajectory.jsonl"), strip_timing=True)
+        for cid in ids}
     rows = {cid: {k: v for k, v in row.items() if k != "wall_s"}
             for cid, row in load_json(os.path.join(
-                out_dir, "manifest.json"))["cells"].items()}
+                out_dir, "manifest.json"))["cells"].items() if cid in ids}
     return traj, rows
 
 
@@ -1429,39 +1680,48 @@ def run_grid_checked(name: str, root: str, lk, need_claims: set) -> dict:
     return {"wall_s": wall, "cells": cells, "claims": claims}
 
 
-def kill_and_resume(name: str, root: str, kill_after: int) -> bool:
+def kill_and_resume(name: str, root: str, kill_after: int,
+                    cells: int = 0) -> bool:
     """Run grid ``name`` into ``root/killed_<name>``, killed after
-    ``kill_after`` steps (mid-cell, past a checkpoint), resume it, and
-    hold its trajectories and rows (without ``wall_s``) equal to the
-    uninterrupted run's in ``root/name``."""
+    ``kill_after`` steps (mid-cell, past a checkpoint, in the second
+    cell), resume it, and hold its trajectories and rows (without
+    ``wall_s``) equal to the uninterrupted run's in ``root/name``. With
+    ``cells`` only the grid's first ``cells`` cells run (the runner's
+    ``cell_ids``): the first finished before the kill and skipped on
+    resume, the second resumed from its checkpoint."""
     from repro_torch.experiments import GridRunner, get_grid
     from repro_torch.experiments.runner import ABORT_ENV
     grid = get_grid(name)
+    ids = [c.cell_id for c in grid.cells()][:cells or None]
     kdir = os.path.join(root, f"killed_{name}")
     os.environ[ABORT_ENV] = str(kill_after)
     killed = False
     try:
-        GridRunner(grid, kdir, device="cuda", log=log).run()
+        GridRunner(grid, kdir, device="cuda", log=log).run(cell_ids=ids)
     except KeyboardInterrupt:
         killed = True
     finally:
         os.environ.pop(ABORT_ENV, None)
-    ckpt = os.path.join(kdir, grid.cells()[1].cell_id, "state.npz")
+    ckpt = os.path.join(kdir, ids[1], "state.npz")
     if not killed or not os.path.exists(ckpt):
         raise AssertionError(f"the kill after {kill_after} steps did not "
                              f"land mid-cell ({ckpt})")
-    GridRunner(grid, kdir, device="cuda", log=log).run(resume=True)
-    got = _grid_outputs(kdir, grid)
-    want = _grid_outputs(os.path.join(root, name), grid)
-    differ = [f"{c.cell_id} trajectory" for c in grid.cells()
-              if got[0][c.cell_id] != want[0][c.cell_id]] + [
+    GridRunner(grid, kdir, device="cuda", log=log).run(resume=True,
+                                                       cell_ids=ids)
+    got = _grid_outputs(kdir, grid, ids)
+    want = _grid_outputs(os.path.join(root, name), grid, ids)
+    differ = [f"{cid} trajectory" for cid in ids
+              if got[0][cid] != want[0][cid]] + [
         f"{cid} {key}: {row.get(key)} != {want[1][cid].get(key)}"
         for cid, row in got[1].items()
         for key in set(row) | set(want[1][cid])
         if row.get(key) != want[1][cid].get(key)]
-    log(f"  {name} killed after {kill_after} steps and resumed: "
-        f"trajectories and rows {'DIFFERENT' if differ else 'equal'} to "
-        "the uninterrupted run's" + "".join(f"\n    {d}" for d in differ))
+    if set(got[1]) != set(ids):
+        differ.append(f"rows {sorted(got[1])}, want {ids}")
+    log(f"  {name} ({len(ids)} cells) killed after {kill_after} steps and "
+        f"resumed: trajectories and rows "
+        f"{'DIFFERENT' if differ else 'equal'} to the uninterrupted run's"
+        + "".join(f"\n    {d}" for d in differ))
     if differ:
         raise AssertionError(f"resumed {name} differs from the "
                              "uninterrupted run")
@@ -1504,16 +1764,16 @@ def experiment_phase(workdir: str, lk) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             runner.run_cell_segment(cell, state, start=0,
-                                    until_step=cell.steps)
+                                    until_step=EXP_TIMING_STEPS)
             torch.cuda.synchronize()
             key = (f"stats_{'on' if stats else 'off'}_"
                    f"deterministic_{'on' if det else 'off'}")
             rates.setdefault(key, []).append(
-                cell.steps / (time.perf_counter() - t0))
+                EXP_TIMING_STEPS / (time.perf_counter() - t0))
         for key, r in rates.items():
             log(f"  {cell.cell_id} {key}: "
                 + " / ".join(f"{x:.2f}" for x in r) + " steps/s")
-        out["timing"] = {"cell": cell.cell_id, "steps": cell.steps,
+        out["timing"] = {"cell": cell.cell_id, "steps": EXP_TIMING_STEPS,
                          "steps_per_s": rates}
         out["profile"] = experiment_profile(grid, cell, root)
     finally:
@@ -1877,7 +2137,8 @@ def lm_phase(train, lk, fdk, bw: float, flops: float, floor: float,
                             "L2_lamb_le_adamw_at_largest_batch",
                             "L3_lars_le_sgd_at_largest_batch",
                             "L4_best_layerwise_beats_best_generic_at_largest"})
-    out["kill_resume_equal"] = kill_and_resume(LM_GRID, root, LM_KILL_AFTER)
+    out["kill_resume_equal"] = kill_and_resume(LM_GRID, root, LM_KILL_AFTER,
+                                               cells=2)
     out["phase_wall_s"] = time.perf_counter() - t_phase
     log(f"  phase 12 wall time {out['phase_wall_s']:.1f} s")
     return out
@@ -2766,11 +3027,11 @@ def fd_wide_f32_check(fdk) -> dict:
             "max_rel_err": rel}
 
 
-def fd_poison_check(fdk) -> dict:
-    """Phase 17: for each bf16 instance (D 64, 128 and the wide kernel at
-    256), K and V rows past each length filled with NaN give the same
-    output bits as finite rows (lengths 0, 1, inside a tile, on a tile,
-    on a split boundary, S)."""
+def fd_poison_check(fdk, softcap: float = 0.0) -> dict:
+    """Phase 17 (and 3, for the capped instances): for each bf16 instance
+    (D 64, 128 and the wide kernel at 256), K and V rows past each length
+    filled with NaN give the same output bits as finite rows (lengths 0,
+    1, inside a tile, on a tile, on a split boundary, S)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(10)
     B, S = 8, 1024
@@ -2783,17 +3044,22 @@ def fd_poison_check(fdk) -> dict:
         past = (torch.arange(S, device=q.device)[None, :]
                 >= lens[:, None].long())[:, :, None, None]
         nan = torch.tensor(float("nan"), dtype=k.dtype, device=q.device)
-        clean = fdk.flash_decode(q, k, v, lens, scale=D ** -0.5)
+        clean = fdk.flash_decode(q, k, v, lens, scale=D ** -0.5,
+                                 softcap=softcap)
         poisoned = fdk.flash_decode(q, torch.where(past, nan, k),
                                     torch.where(past, nan, v), lens,
-                                    scale=D ** -0.5)
+                                    scale=D ** -0.5, softcap=softcap)
         torch.cuda.synchronize()
         if not torch.equal(clean, poisoned):
-            raise AssertionError(f"flash_decode D={D}: NaN rows past the "
-                                 "length reach the output")
+            raise AssertionError(f"flash_decode D={D} softcap {softcap}: "
+                                 "NaN rows past the length reach the "
+                                 "output")
+        if not torch.equal(clean[0], torch.zeros_like(clean[0])):
+            raise AssertionError(f"flash_decode D={D} softcap {softcap}: "
+                                 "a zero-length row is not zero")
         out[D] = True
-    log(f"  flash_decode bf16 D 64, 128, 256: NaN rows past each length "
-        f"give the same bits as finite rows")
+    log(f"  flash_decode bf16 D 64, 128, 256, softcap {softcap}: NaN rows "
+        f"past each length give the same bits as finite rows")
     return out
 
 
@@ -3142,12 +3408,161 @@ def tree_phase(train, lk, fdk, phase4: dict, phase12: dict,
     return out
 
 
+# ------------------------------------------------------ phase 19: serve stack
+
+def stack_store_bytes(entries: int = STACK_PREFIX_ENTRIES) -> int:
+    """Bytes of full-width smollm's prefix store: ``entries`` slot rows
+    of its decode cache at capacity 4096."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cache = build_model(get_config("smollm-135m")).init_cache(
+        entries, 4096, device="meta")
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def serve_stack_family(fdk, arch: str, changes: dict) -> dict:
+    """Phase 19 (b): a reduced serve family in f32 through the chunked
+    engine with the prefix store and SLO tiers, on the CPU (plain
+    version) and on the card (kernel): two tier-1 requests fill both
+    slots, then tier-0 arrivals force preemptions. Gated: the card's
+    greedy tokens equal the CPU's; on the card the chunked run equals a
+    monolithic FIFO run of the same requests (so every preempted
+    request's stream equals its uninterrupted run); preemptions >= 1;
+    flash_decode only in the ticks, ``flash_decode_per_step()`` a tick."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.scheduler import TierSLO
+    from repro_torch.treepath import tree_map
+    cfg, model, params = _reduced_lm("cpu", arch, changes)
+    card = tree_map(lambda t: t.cuda(), params)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab_size, (16,))
+    reqs = [(rng.integers(1, cfg.vocab_size, (13,)), 12, 1),
+            (np.concatenate([shared, rng.integers(1, cfg.vocab_size, (9,))]),
+             12, 1)] + [
+        (np.concatenate([shared, rng.integers(1, cfg.vocab_size, (n,))]),
+         6, 0) for n in (4, 7)] + [
+        (rng.integers(1, cfg.vocab_size, (n,)), 6, 0) for n in (5, 21)]
+    slos = {t: TierSLO(*v) for t, v in STACK_SLOS.items()}
+
+    def chunked(p, dev):
+        eng = ServeEngine(model, p, cfg, slots=2, capacity=64, seed=7,
+                          prefill_chunk=5, prefix_entries=8,
+                          prefix_min_tokens=4, slos=slos)
+        fdk.reset_launch_counts()
+        rids = [eng.submit(t, n, tier=tier) for t, n, tier in reqs[:2]]
+        for _ in range(8):
+            eng.step()
+        rids += [eng.submit(t, n, tier=tier) for t, n, tier in reqs[2:]]
+        got = {f.request.rid: f.tokens.tolist() for f in eng.run([])}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return ([got[r] for r in rids], dict(eng.stats),
+                fdk.LAUNCHES["flash_decode"], eng.logits_finite)
+
+    cpu, cpu_st, _, _ = chunked(params, "cpu")
+    gpu, st, launches, finite = chunked(card, "cuda")
+    mono = ServeEngine(model, card, cfg, slots=2, capacity=64, seed=7)
+    rids = [mono.submit(t, n) for t, n, _ in reqs]
+    got = {f.request.rid: f.tokens.tolist() for f in mono.run([])}
+    mono_toks = [got[r] for r in rids]
+    want = model.flash_decode_per_step() * st["decode_steps"]
+    out = {"greedy_identical_card_cpu": gpu == cpu,
+           "chunked_equals_monolithic": gpu == mono_toks,
+           "preemptions": st["preemptions"], "cpu_preemptions":
+           cpu_st["preemptions"], "prefix_hits": st["prefix_hits"],
+           "restore_calls": st["restore_calls"],
+           "decode_steps": st["decode_steps"],
+           "decode_calls": st["decode_calls"],
+           "flash_decode_launches": launches, "want_launches": want,
+           "outside_ticks": st["flash_decode_outside_ticks"],
+           "logits_finite": finite}
+    log(f"  reduced {arch}{' ' + str(changes) if changes else ''} (f32): "
+        f"greedy tokens card vs CPU "
+        f"{'identical' if out['greedy_identical_card_cpu'] else 'DIFFERENT'}"
+        f", chunked vs monolithic on the card "
+        f"{'identical' if out['chunked_equals_monolithic'] else 'DIFFERENT'}"
+        f"; {st['preemptions']} preemptions (CPU {cpu_st['preemptions']}), "
+        f"{st['prefix_hits']} prefix hits, {st['restore_calls']} restores; "
+        f"flash_decode {launches} (want {want}), "
+        f"{st['flash_decode_outside_ticks']} outside the ticks")
+    if not (out["greedy_identical_card_cpu"]
+            and out["chunked_equals_monolithic"] and st["preemptions"] >= 1
+            and launches == want and st["decode_calls"] == st["decode_steps"]
+            and not st["flash_decode_outside_ticks"] and finite):
+        raise AssertionError(f"serve stack {arch}: {out}; card {gpu}, CPU "
+                             f"{cpu}, monolithic {mono_toks}")
+    return out
+
+
+def serve_grid_run(workdir: str) -> dict:
+    """Phase 19 (d): ``launch.serve_experiment --grid serve_slo_smoke``
+    on the card into ``build/serve_grid/``. Gated on the decode contract
+    (exit code 0); A1–A3 are logged as they come out."""
+    from repro_torch.launch import serve_experiment
+    out_dir = os.path.join(workdir, "serve_grid")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "EXPERIMENTS_torch_serve.json")
+    t0 = time.perf_counter()
+    rc = serve_experiment.main(["--grid", "serve_slo_smoke", "--out", path])
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        payload = json.load(f)["serve_slo"]
+    claims = payload["claims"]
+    for name, value in claims.items():
+        log(f"  claim serve_slo.{name}: {value}")
+    log(f"  serve_slo_smoke: {len(payload['cells'])} cells in {wall:.1f} s, "
+        f"exit {rc}")
+    if rc != 0 or not claims["contract_one_decode_trace_per_cell"]:
+        raise AssertionError(f"serve grid: exit {rc}, claims {claims}")
+    return {"claims": claims, "wall_s": wall, "report": path,
+            "cells": {cid: {k: r[k] for k in (
+                "tok_per_s", "occupancy", "preemptions", "decode_steps",
+                "decode_calls", "flash_decode_launches",
+                "flash_decode_outside_ticks")}
+                for cid, r in payload["cells"].items()}}
+
+
+def serve_stack_phase(serve, fdk, lk, phase8: dict, workdir: str) -> dict:
+    """Phase 19: the serve stack on the card (SLO tiers and preemption,
+    chunked prefill with ring caches, the prefix store, the scenario
+    library and the serve SLO grid)."""
+    t_phase = time.perf_counter()
+    out = {"session": serve_phase(
+        serve, fdk, lk, STACK_ARGS + STACK_SESSION,
+        STACK_SESSIONS * STACK_TURNS, phase8, "session")}
+    if out["session"]["stats"]["prefix_hits"] < 1:
+        raise AssertionError("serve stack session: no prefix hit")
+    out["bursty"] = serve_phase(serve, fdk, lk, STACK_ARGS + STACK_BURSTY,
+                                STACK_BURSTY_REQUESTS, phase8, "bursty")
+    if out["bursty"]["stats"]["preemptions"] < 1:
+        raise AssertionError("serve stack bursty: no preemption")
+    log("  a window served at full width (a ring of 256 rows, prompts "
+        "longer than it):")
+    out["window"] = serve_phase(serve, fdk, lk, STACK_WINDOW_ARGS,
+                                requests=STACK_WINDOW_REQUESTS)
+    out["families"] = {arch: serve_stack_family(fdk, arch, changes)
+                       for arch, changes in STACK_FAMILIES.items()}
+    out["grid"] = serve_grid_run(workdir)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 19 wall time {out['phase_wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the large steps (zamba2's f32 LARS at 24 layers) fit the card only
     # without the allocator's fragmentation (set before CUDA starts)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    # phase 3's flex_attention compiles through inductor and Triton: keep
+    # their caches in the checkout's build directory
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(ROOT, "build", "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          os.path.join(ROOT, "build", "triton"))
     stamps = []
 
     def phase(title: str) -> None:
@@ -3204,8 +3619,12 @@ def main() -> int:
     phase("== 8. serve: smollm-135m at full width, 32 slots, 64 requests")
     served = serve_phase(serve, fdk, lk)
 
-    phase("== 9. serve, card against CPU: reduced smollm in f32")
-    serve_cpu = serve_card_vs_cpu_phase(fdk)
+    phase("== 9. serve, card against CPU: reduced smollm in f32, plain, "
+          "with a window and with the softcap")
+    serve_cpu = {"plain": serve_card_vs_cpu_phase(fdk)}
+    for mask, changes in SERVE_MASKS.items():
+        log(f"  {mask} {changes}:")
+        serve_cpu[mask] = serve_card_vs_cpu_phase(fdk, "smollm-135m", changes)
 
     phase("== 10. serve profile: 5 decode ticks at full width")
     serve_prof = serve_profile_phase(fdk)
@@ -3254,6 +3673,13 @@ def main() -> int:
     with shared_inits():
         tree = tree_phase(train, lk, fdk, runs, lm["runs"],
                           os.path.join(ROOT, "build"))
+
+    phase("== 19. the serve stack: smollm-135m at full width with SLO "
+          "tiers, chunked prefill and the prefix store (a session run, the "
+          "bursty scenario, a window); each serve family reduced, card "
+          "against CPU; the serve SLO grid")
+    stack = serve_stack_phase(serve, fdk, lk, served,
+                              os.path.join(ROOT, "build"))
     stamps.append(("end", time.perf_counter()))
     phase_s = {a[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
     log("phase wall times, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in
@@ -3384,6 +3810,7 @@ def main() -> int:
                 for t, r in fam[arch]["runs"].items()}
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
+    cap_row = fd_rows[-1]                   # the same, capped
     ticks = served["decode_steps"]
     entries.append({
         "name": "flash_decode", "route": "cuda",
@@ -3401,6 +3828,21 @@ def main() -> int:
         "bound_by": serve_row["bound_by"],
         "library_ms": serve_row["library_ms"],
         "device_ms_in_tick": serve_prof["flash_decode_ms_per_tick"],
+        "softcap_row": {k: cap_row[k] for k in (
+            "shape", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "library", "library_max_abs_err", "library_compile_s",
+            "dispatch_ms", "max_abs_err", "splits", "capped_checks",
+            "nan_past_length_identical")},
+        "ptxas": {k: v for k, v in build.ptxas_usage("flash_decode").items()},
+        "launches_by_serve_stack_run": {
+            run: {"launches": stack[run]["stats"]["flash_decode_launches"],
+                  "decode_ticks": stack[run]["stats"]["decode_steps"],
+                  "outside_ticks": stack[run]["stats"][
+                      "flash_decode_outside_ticks"]}
+            for run in ("session", "bursty")},
+        "window_serve_launches": stack["window"]["launches"]["flash_decode"],
+        "window_serve_launches_per_tick": stack["window"]["launches"][
+            "flash_decode"] / stack["window"]["decode_steps"],
         "granite_row": {k: granite["flash_decode_row"][k] for k in (
             "shape", "ms", "bound_ms", "plain_ms", "library_ms",
             "dispatch_ms", "max_abs_err", "splits")},
@@ -3455,7 +3897,8 @@ def main() -> int:
                     "serve_profile": serve_prof, "experiments": exp,
                     "lm": lm, "lean": lean, "granite": granite,
                     "mla": mla, "ssm": ssm, "families": fam,
-                    "tree": tree, "phase_wall_s": phase_s}))
+                    "tree": tree, "serve_stack": stack,
+                    "phase_wall_s": phase_s}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": entries}))

@@ -13,9 +13,12 @@ families, one device):
   the PBT block;
 * :mod:`repro_torch.experiments.controller` — population-based training
   over a grid's cells (kill, early-stop, exploit/explore), resumable
-  through its ``pbt.json`` manifest.
+  through its ``pbt.json`` manifest;
+* :mod:`repro_torch.experiments.serve_grid` — the serve-side SLO sweep
+  (scenario x scheduler x slots x sampler ->
+  ``EXPERIMENTS_torch_serve.json``).
 
-Not yet ported: mesh/ZeRO cells and the serve-side SLO sweep.
+Not yet ported: mesh/ZeRO cells.
 """
 
 from repro_torch.experiments.spec import (CellSpec, GridSpec,  # noqa: F401
@@ -28,3 +31,6 @@ from repro_torch.experiments.report import (aggregate,  # noqa: F401
                                             write_pbt_report, write_report)
 from repro_torch.experiments.controller import (  # noqa: F401
     PopulationController)
+from repro_torch.experiments.serve_grid import (  # noqa: F401
+    SERVE_GRIDS, ServeCellSpec, ServeGridSpec, get_serve_grid,
+    run_serve_grid)

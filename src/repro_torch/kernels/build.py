@@ -86,17 +86,21 @@ def build_all(names=None) -> dict[str, Path]:
 def _kernel_label(mangled: str) -> str | None:
     """``flash_decode_mma_kernel<256>`` for the Itanium-mangled name of
     a ``..._kernel`` (a length-prefixed identifier, then its template's
-    int argument, if any); None for any other function. Where digits
-    inside a namespace's name also read as a length, the shortest
-    identifier is the kernel's own."""
+    int argument, if any); a second, bool template argument that is true
+    (``flash_decode``'s softcap flag) gives ``<256,softcap>``. None for
+    any other function. Where digits inside a namespace's name also read
+    as a length, the shortest identifier is the kernel's own."""
     found = []
     for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
         for k in range(len(m.group())):           # the prefix's digits
             n = int(m.group()[k:])
             ident = mangled[m.end():m.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                t = re.match(r"ILi(\d+)E", mangled[m.end() + n:])
-                found.append(ident + (f"<{t.group(1)}>" if t else ""))
+                t = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                             mangled[m.end() + n:])
+                args = "" if not t else t.group(1) + (
+                    ",softcap" if t.group(2) == "1" else "")
+                found.append(ident + (f"<{args}>" if t else ""))
     return min(found, key=len) if found else None
 
 

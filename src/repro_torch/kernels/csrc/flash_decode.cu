@@ -5,6 +5,7 @@
 //   flash_decode_grouped (_decode_kernel) -> flash_decode_{f32,bf16}
 //
 // out[b, h, g, :] = softmax_j(scale * q[b, h, g, :] . k[b, j, h, :]) v[b, j, h, :]
+// (with a logit softcap c > 0, each scaled score s is c * tanh(s / c) first)
 // over the valid positions j < min(lengths[b], S), for the G query heads
 // that share kv head h. Inputs: q (B, Hkv, G, D), k and v (B, S, Hkv, D),
 // lengths (B,) int32, all contiguous, in f32 or bf16; the output is
@@ -56,6 +57,10 @@
 //     ticket to 0. No float atomics: two calls give the same bits.
 //   * f32 inside; scores in base 2 (scale * log2 e, then exp2f); positions
 //     past the length get a score of -1e30 and a probability of exactly 0.
+//     The softcap is a template flag of each kernel (CAP): the capped
+//     instances take the score in natural units, cap it with tanhf, then
+//     go to base 2; softcap 0 launches the uncapped ones, which compute
+//     what they computed before the flag existed.
 //     The head dim is a template bound (64, 128 or 256); a smaller D (a
 //     multiple of 8) runs in the next bound up.
 //   * bf16 past D 128 (paligemma's MQA: G 8, D 256) runs a kernel of its
@@ -226,6 +231,19 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t* hi,
   *lo = pack_bf16(xr - xm, yr - ym);
 }
 
+// A score x taken to base 2 for exp2f: x * qscale. With the logit softcap
+// (CAP) the natural score is capped first, cap * tanh(s / cap), then taken
+// to base 2: cap_in folds the natural scale into 1 / cap, cap_out is
+// cap * log2 e.
+template <bool CAP>
+__device__ __forceinline__ float capped(float x, float qscale, float cap_in,
+                                        float cap_out) {
+  if constexpr (CAP)
+    return cap_out * tanhf(x * cap_in);
+  else
+    return x * qscale;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -377,14 +395,14 @@ struct MmaCfg {
                 "the warps' merge fits over the rings");
 };
 
-template <int DMAX>
+template <int DMAX, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const int* __restrict__ lengths, bf16* __restrict__ out,
                         float* __restrict__ ws, int* __restrict__ tickets,
-                        int S, int Hkv, int G, int D, float scale, int splits,
-                        int keys_per_split) {
+                        int S, int Hkv, int G, int D, float scale,
+                        float softcap, int splits, int keys_per_split) {
   using C = MmaCfg<DMAX>;
   extern __shared__ __align__(128) unsigned char smem[];
   Split sp;
@@ -440,6 +458,8 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < C::kStages - 1; ++i) issue(i);
 
   const float qscale = scale * kLog2e;
+  const float cap_in = CAP ? scale / softcap : 0.0f;
+  const float cap_out = CAP ? softcap * kLog2e : 0.0f;
   float m = kNegInf, l = 0.0f;            // row gr; l over this lane's keys
   float acc[C::kNB][2];                   // row gr, columns 8 nb + 2 tq (+1)
 #pragma unroll
@@ -474,7 +494,8 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = t0 + (e >> 1) * 8 + 2 * tq + (e & 1);
-      s[e] = key < sp.k1 ? sc[e >> 1][e & 1] * qscale : kNegInf;
+      s[e] = key < sp.k1 ? capped<CAP>(sc[e >> 1][e & 1], qscale, cap_in, cap_out)
+                         : kNegInf;
       mx = fmaxf(mx, s[e]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
@@ -728,7 +749,7 @@ __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
   if (tid == 0) tickets[sp.pair] = 0;     // ready for the next call
 }
 
-template <int DMAX>
+template <int DMAX, bool CAP>
 __global__ void __launch_bounds__(WideCfg<DMAX>::kThreads, 1)
 flash_decode_wide_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -736,7 +757,7 @@ flash_decode_wide_kernel(const bf16* __restrict__ q,
                          const int* __restrict__ lengths,
                          bf16* __restrict__ out, float* __restrict__ ws,
                          int* __restrict__ tickets, int S, int Hkv, int G,
-                         int D, float scale, int splits,
+                         int D, float scale, float softcap, int splits,
                          int keys_per_split) {
   using C = WideCfg<DMAX>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -820,6 +841,8 @@ flash_decode_wide_kernel(const bf16* __restrict__ q,
     cp_async_wait<0>();                   // this thread's query chunks
     asm volatile("bar.sync 1, %0;\n" :: "n"(C::kConsumers * 32) : "memory");
     const float qscale = scale * kLog2e;
+    const float cap_in = CAP ? scale / softcap : 0.0f;
+    const float cap_out = CAP ? softcap * kLog2e : 0.0f;
     // ldmatrix's row addresses: matrix j = lane / 8, row lane % 8. K (A of
     // the score: keys x dims): keys 8 (j & 1) + row, dims + 8 (j >> 1). V
     // (A of the value, V^T: dims x keys, by .trans): keys 8 (j >> 1) +
@@ -873,7 +896,8 @@ flash_decode_wide_kernel(const bf16* __restrict__ q,
       float s[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[e] = ((sc[0][e] + sc[1][e]) + (sc[2][e] + sc[3][e])) * qscale;
+        s[e] = capped<CAP>((sc[0][e] + sc[1][e]) + (sc[2][e] + sc[3][e]),
+                           qscale, cap_in, cap_out);
         if (gr + 8 * (e >> 1) >= rows) s[e] = kNegInf;
       }
       float alpha[2], p[4];
@@ -997,14 +1021,14 @@ __device__ __forceinline__ int swz(int r) {
   return (r % C::kSwzRows) * C::kLK;
 }
 
-template <int DMAX>
+template <int DMAX, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v,
                          const int* __restrict__ lengths, float* __restrict__ out,
                          float* __restrict__ ws, int* __restrict__ tickets,
-                         int S, int Hkv, int G, int D, float scale, int splits,
-                         int keys_per_split) {
+                         int S, int Hkv, int G, int D, float scale,
+                         float softcap, int splits, int keys_per_split) {
   using C = SimtCfg<DMAX>;
   extern __shared__ __align__(128) unsigned char smem[];
   Split sp;
@@ -1021,7 +1045,11 @@ flash_decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
   const uint32_t ring_s = smem_addr(ring);
   float* q_s = reinterpret_cast<float*>(smem + kWarps * C::kWarpRing);
   const float* qb = q + (long long)sp.pair * G * D;
-  const float qscale = scale * kLog2e;
+  // the query rows pre-scaled: to base 2, or only by scale when the cap
+  // takes the score in natural units
+  const float qscale = CAP ? scale : scale * kLog2e;
+  const float cap_in = CAP ? 1.0f / softcap : 0.0f;
+  const float cap_out = CAP ? softcap * kLog2e : 0.0f;
   for (int i = tid; i < kMaxG * DMAX; i += kThreads) {
     const int g = i / DMAX, d = i - g * DMAX;
     q_s[i] = (g < G && d < D) ? qb[g * D + d] * qscale : 0.0f;
@@ -1106,7 +1134,7 @@ flash_decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
         float x = s[g];
 #pragma unroll
         for (int o = C::kLK / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-        x = valid ? x : kNegInf;
+        x = valid ? capped<CAP>(x, 1.0f, cap_in, cap_out) : kNegInf;
         float mx = x;
 #pragma unroll
         for (int o = 16; o >= C::kLK; o >>= 1)
@@ -1181,55 +1209,82 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
   return err;
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool CAP>
 int launch_dmax(const T* q, const T* k, const T* v, const int* lengths, T* out,
                 float* ws, int* tickets, int B, int S, int Hkv, int G, int D,
-                float scale, int splits, int keys_per_split, cudaStream_t st) {
+                float scale, float softcap, int splits, int keys_per_split,
+                cudaStream_t st) {
   static bool done[kMaxDevices] = {};
   const dim3 grid(B * Hkv, splits);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = MmaCfg<DMAX>::kSmem;
-    err = allow_smem(flash_decode_mma_kernel<DMAX>, smem, done);
+    err = allow_smem(flash_decode_mma_kernel<DMAX, CAP>, smem, done);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_decode_mma_kernel<DMAX><<<grid, kThreads, smem, st>>>(
-        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, splits,
-        keys_per_split);
+    flash_decode_mma_kernel<DMAX, CAP><<<grid, kThreads, smem, st>>>(
+        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, softcap,
+        splits, keys_per_split);
   } else {
     constexpr int smem = SimtCfg<DMAX>::kSmem;
-    err = allow_smem(flash_decode_simt_kernel<DMAX>, smem, done);
+    err = allow_smem(flash_decode_simt_kernel<DMAX, CAP>, smem, done);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_decode_simt_kernel<DMAX><<<grid, kThreads, smem, st>>>(
-        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, splits,
-        keys_per_split);
+    flash_decode_simt_kernel<DMAX, CAP><<<grid, kThreads, smem, st>>>(
+        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, softcap,
+        splits, keys_per_split);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 past D 128: the wide kernel, one CTA an SM.
+template <bool CAP>
 int launch_wide(const bf16* q, const bf16* k, const bf16* v,
                 const int* lengths, bf16* out, float* ws, int* tickets, int B,
-                int S, int Hkv, int G, int D, float scale, int splits,
-                int keys_per_split, cudaStream_t st) {
+                int S, int Hkv, int G, int D, float scale, float softcap,
+                int splits, int keys_per_split, cudaStream_t st) {
   using C = WideCfg<256>;
   static bool done[kMaxDevices] = {};
   if (splits > C::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(flash_decode_wide_kernel<256>, C::kSmem,
-                                     done);
+  const cudaError_t err = allow_smem(flash_decode_wide_kernel<256, CAP>,
+                                     C::kSmem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_wide_kernel<256><<<dim3(B * Hkv, splits), C::kThreads,
-                                  C::kSmem, st>>>(
-      q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, splits,
-      keys_per_split);
+  flash_decode_wide_kernel<256, CAP><<<dim3(B * Hkv, splits), C::kThreads,
+                                       C::kSmem, st>>>(
+      q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, softcap,
+      splits, keys_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool CAP>
+int launch_capped(const T* qp, const T* kp, const T* vp, const int* lp, T* op,
+                  float* wp, int* tp, int B, int S, int Hkv, int G, int D,
+                  float scale, float softcap, int splits, int keys_per_split,
+                  cudaStream_t st) {
+  if (D <= 64)
+    return launch_dmax<T, 64, CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G,
+                                   D, scale, softcap, splits, keys_per_split,
+                                   st);
+  if (D <= 128)
+    return launch_dmax<T, 128, CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G,
+                                    D, scale, softcap, splits, keys_per_split,
+                                    st);
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_wide<CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                            scale, softcap, splits, keys_per_split, st);
+  else
+    return launch_dmax<T, 256, CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G,
+                                    D, scale, softcap, splits, keys_per_split,
+                                    st);
+}
+
+// softcap > 0 launches the capped instances; 0 the uncapped ones.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* ws, void* tickets, int B, int S, int Hkv, int G,
-           int D, float scale, int splits, int keys_per_split, void* stream) {
+           int D, float scale, float softcap, int splits, int keys_per_split,
+           void* stream) {
   if (B <= 0 || Hkv <= 0) return 0;
-  if (splits < 1 || keys_per_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || keys_per_split < 1 || !(softcap >= 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -1238,18 +1293,11 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   T* op = static_cast<T*>(out);
   float* wp = static_cast<float*>(ws);
   int* tp = static_cast<int*>(tickets);
-  if (D <= 64)
-    return launch_dmax<T, 64>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                              scale, splits, keys_per_split, st);
-  if (D <= 128)
-    return launch_dmax<T, 128>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                               scale, splits, keys_per_split, st);
-  if constexpr (std::is_same<T, bf16>::value)
-    return launch_wide(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D, scale,
-                       splits, keys_per_split, st);
-  else
-    return launch_dmax<T, 256>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                               scale, splits, keys_per_split, st);
+  if (softcap > 0.0f)
+    return launch_capped<T, true>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                                  scale, softcap, splits, keys_per_split, st);
+  return launch_capped<T, false>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                                 scale, softcap, splits, keys_per_split, st);
 }
 
 }  // namespace
@@ -1262,21 +1310,24 @@ extern "C" {
 // entry and on return. 1 <= G <= 8, D % 8 == 0 and D <= 256; q, k, v on a
 // 16-byte boundary. Split s reads keys [s * keys_per_split, (s + 1) *
 // keys_per_split); splits * keys_per_split >= S; in bf16 past D 128 at
-// most WideCfg<256>::kMaxSplits splits.
+// most WideCfg<256>::kMaxSplits splits. softcap > 0 caps each scaled score
+// s to softcap * tanh(s / softcap) before the softmax; 0 leaves it.
 int flash_decode_f32(const void* q, const void* k, const void* v,
                      const void* lengths, void* out, void* ws, void* tickets,
                      int B, int S, int Hkv, int G, int D, float scale,
-                     int splits, int keys_per_split, void* stream) {
+                     float softcap, int splits, int keys_per_split,
+                     void* stream) {
   return launch<float>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
-                       scale, splits, keys_per_split, stream);
+                       scale, softcap, splits, keys_per_split, stream);
 }
 
 int flash_decode_bf16(const void* q, const void* k, const void* v,
                       const void* lengths, void* out, void* ws, void* tickets,
                       int B, int S, int Hkv, int G, int D, float scale,
-                      int splits, int keys_per_split, void* stream) {
+                      float softcap, int splits, int keys_per_split,
+                      void* stream) {
   return launch<bf16>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
-                      scale, splits, keys_per_split, stream);
+                      scale, softcap, splits, keys_per_split, stream);
 }
 
 }  // extern "C"

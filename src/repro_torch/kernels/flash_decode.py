@@ -5,6 +5,10 @@ Port of ``repro/kernels/flash_decode.py`` (``flash_decode_grouped``):
 q4 (B, Hkv, G, D), k/v (B, S, Hkv, D), lengths (B,) int32 -> the
 attention output (B, Hkv, G, D) in q4's dtype, an online softmax in f32
 over the positions ``j < lengths[b]``; a row of length 0 gives zeros.
+``softcap`` > 0 caps each scaled score s to softcap * tanh(s / softcap)
+before the softmax, as training does (the reference's kernel takes no
+cap); the kernel then launches its capped instances, and 0 the ones
+without the cap.
 The kernel reads only the ``min(lengths[b], S)`` valid rows of each
 sequence, takes any S, and needs no padding of the cache.
 
@@ -140,27 +144,27 @@ def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype`` (builds on first use)."""
     fn = getattr(build.load("flash_decode"), f"flash_decode_{_SUFFIX[dtype]}")
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _I, _I, _P]
+                   ctypes.c_float, ctypes.c_float, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_decode_plain(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       lengths: torch.Tensor, *, scale: float
-                       ) -> torch.Tensor:
+                       lengths: torch.Tensor, *, scale: float,
+                       softcap: float = 0.0) -> torch.Tensor:
     """The kernel's function in plain PyTorch (``kernels.ref``): f32
-    scores over the whole cache, masked, a guarded softmax."""
+    scores over the whole cache, capped, masked, a guarded softmax."""
     B, Hkv, G, D = q4.shape
     out = ref.flash_decode(q4.reshape(B, Hkv * G, D), k, v, lengths,
-                           scale=scale)
+                           scale=scale, softcap=softcap)
     return out.reshape(B, Hkv, G, D)
 
 
 def flash_decode_split_plain(q4: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, lengths: torch.Tensor, *,
                              scale: float, splits: int,
-                             keys_per_split: int | None = None
-                             ) -> torch.Tensor:
+                             keys_per_split: int | None = None,
+                             softcap: float = 0.0) -> torch.Tensor:
     """The kernel's decomposition in plain PyTorch, for the tests: split
     s reduces keys [s * kps, (s + 1) * kps) (``kps`` defaults to
     ceil(S / splits)) to a running max m, denominator l and accumulator,
@@ -180,6 +184,8 @@ def flash_decode_split_plain(q4: torch.Tensor, k: torch.Tensor,
         if lo >= hi:
             break
         sc = torch.einsum("bhgd,bshd->bhgs", qf, kf[:, lo:hi])
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
         valid = torch.arange(lo, hi, device=dev)[None, None, None, :] < n
         sc = torch.where(valid, sc, -torch.inf)
         m = torch.amax(sc, dim=-1, keepdim=True)
@@ -230,7 +236,8 @@ def _check(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+                 lengths: torch.Tensor, *, scale: float,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Decode attention of the G query heads of each kv head against a
     KV cache with per-sequence valid lengths. Returns a fresh
     (B, Hkv, G, D) tensor in q4.dtype.
@@ -240,9 +247,12 @@ def flash_decode(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from a buffer cached per device, zeroed once when made, which the
     kernel leaves zero. The cached tickets assume calls on one stream at
     a time: two calls running concurrently on one device would share
-    them."""
+    them. ``softcap`` > 0 launches the capped instances."""
+    if softcap < 0 or softcap != softcap:
+        raise ValueError(f"flash_decode takes a softcap >= 0, got {softcap}")
     if _on_cpu(q4, k, v, lengths):
-        return flash_decode_plain(q4, k, v, lengths, scale=scale)
+        return flash_decode_plain(q4, k, v, lengths, scale=scale,
+                                  softcap=softcap)
     _check(q4, k, v, lengths)
     B, Hkv, G, D = q4.shape
     splits, keys, ws_shape = plan(q4, k)
@@ -255,6 +265,7 @@ def flash_decode(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _raise_on(fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(),
                      lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
                      tickets.data_ptr(), B, k.shape[1], Hkv, G, D,
-                     float(scale), splits, keys, stream), "flash_decode")
+                     float(scale), float(softcap), splits, keys, stream),
+                  "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out

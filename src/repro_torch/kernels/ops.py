@@ -85,10 +85,12 @@ def lars_apply_packed_q8(layout: packing.PackedLayout, wbuf: torch.Tensor,
 # ------------------------------------------------------------ flash decode
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *, scale: float | None = None
-                 ) -> torch.Tensor:
+                 lengths: torch.Tensor, *, scale: float | None = None,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Single-token decode attention. q (B, H, D); k/v (B, S, Hkv, D);
-    lengths (B,) int. Returns (B, H, D) in q.dtype. ONE launch.
+    lengths (B,) int. Returns (B, H, D) in q.dtype. ONE launch. With
+    ``softcap`` > 0 each scaled score s is softcap * tanh(s / softcap)
+    (the reference's kernel path takes no cap; its jnp path does).
 
     The reference pads the whole cache to its block size whenever S is
     not a multiple of it; the kernel takes any S and reads only the
@@ -101,5 +103,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     out4 = fd.flash_decode(q.reshape(B, Hkv, H // Hkv, D), k, v,
-                           lengths.to(torch.int32), scale=scale)
+                           lengths.to(torch.int32), scale=scale,
+                           softcap=softcap)
     return out4.reshape(B, H, D)

@@ -33,14 +33,16 @@ def lars_apply(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *, scale: float | None = None
-                 ) -> torch.Tensor:
+                 lengths: torch.Tensor, *, scale: float | None = None,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Single-token decode attention with per-sequence valid lengths.
 
     q: (B, H, D); k/v: (B, S, Hkv, D); lengths: (B,) int — positions
     >= length are masked (a length past S masks nothing, a length of 0
-    everything: that row gives zeros). GQA: H = G * Hkv. Returns
-    (B, H, D) in q.dtype; scores and softmax in f32.
+    everything: that row gives zeros). GQA: H = G * Hkv. With
+    ``softcap`` > 0 each scaled score s becomes softcap * tanh(s /
+    softcap) before the mask, as in training. Returns (B, H, D) in
+    q.dtype; scores and softmax in f32.
     """
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -49,6 +51,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (D ** 0.5)
     qf = q.float().reshape(B, Hkv, G, D)
     scores = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) * scale
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     mask = pos < lengths.to(q.device)[:, None, None, None]
     p = _softmax(torch.where(mask, scores, -torch.inf))

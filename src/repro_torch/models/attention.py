@@ -6,7 +6,9 @@ Layouts as the reference's: q (B, S, H, D), k/v (B, S, Hkv, D), a
 layer's decode cache (B, S_buf, Hkv, D). The port updates the cache IN
 PLACE (the reference returns a new array): :func:`_insert_at` is an
 index write of one row per sequence, so a decode step never copies the
-cache.
+cache, and a chunk of a resumed prefill (:func:`chunk_attention`)
+writes only its valid positions (:func:`_insert_span`,
+:func:`_ring_update`).
 
 The projections carry qwen2's f32 QKV biases (``qkv_bias``) and qwen3's
 rmsnorm of q and k over the head dim before the rotation (``qk_norm``),
@@ -28,15 +30,20 @@ the hand-written ``flash_decode`` kernel through
 tensors); the reference's other decode path, its jnp core, computes the
 same function and is not ported.
 
-Training takes ``sliding_window`` and ``attn_logit_softcap``; decode,
-prefill and serving refuse both (:func:`check_decode_supported`). The
-mask model's ``kv_len`` option waits for chunked prefill, which uses it.
+A sliding window decodes from a RING cache of ``window`` rows, as the
+reference's: the key of absolute position p (roped at p) sits in row
+p % window, and decode attends every written row (``kv_len = min(pos +
+1, S_buf)``). The logit softcap applies at decode as in training and in
+the reference's jnp decode: each scaled score s becomes cap * tanh(s /
+cap) before the softmax, inside the ``flash_decode`` kernel. (The
+reference's kernel path drops the cap; that difference is its own.)
 Decode drops ``prefix_len``, as the reference does: a decoded token sits
 after any prefix, so its mask is the causal one.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
@@ -47,22 +54,24 @@ NEG_INF = -1.0e30
 
 
 def check_decode_supported(cfg) -> None:
-    """Raise on what decode, prefill and serving do not cover yet (they
-    take MLA; training takes all three)."""
-    if cfg.sliding_window:
+    """Raise on what decode, prefill and serving refuse: MLA with a
+    sliding window or the logit softcap. The reference's ``mla_block``
+    and ``mla_decode`` ignore both, so the port refuses such a config
+    rather than serve it as if neither were set (training refuses it
+    too)."""
+    if cfg.use_mla and (cfg.sliding_window or cfg.attn_logit_softcap):
         raise NotImplementedError(
-            f"sliding_window={cfg.sliding_window} is not yet ported to "
-            "repro_torch's decode and serving (a window decodes from a "
-            "ring cache, which comes with chunked prefill); training "
-            "takes it")
-    if cfg.attn_logit_softcap:
-        # the reference applies the cap on its jnp path but drops it on
-        # its flash-decode path; the port refuses rather than pick one
-        raise NotImplementedError(
+            f"MLA with sliding_window={cfg.sliding_window} or "
             f"attn_logit_softcap={cfg.attn_logit_softcap} is not yet "
-            "ported to repro_torch's decode (the reference's flash-decode "
-            "path ignores it while its jnp path applies it); training "
-            "takes it")
+            "ported to repro_torch: the reference's MLA ignores both (its "
+            "latent cache keeps no window's ring cache), so the port "
+            "refuses them rather than serve without them")
+
+
+def ring_windowed(cfg, S_buf: int) -> bool:
+    """Whether a cache of ``S_buf`` rows is a sliding window's ring (the
+    key of position p in row p % S_buf), as the reference decides it."""
+    return bool(cfg.sliding_window) and cfg.sliding_window <= S_buf
 
 
 def init_attention(gen: torch.Generator, cfg, d: int, dtype: torch.dtype,
@@ -111,6 +120,7 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_positions: torch.Tensor, causal: bool = True,
                    window: int = 0, prefix_len: int | None = None,
+                   kv_len=None, kv_positions: torch.Tensor | None = None,
                    kv_chunk: int = 1024, scale: float | None = None,
                    softcap: float = 0.0, q_chunk: int = 0,
                    flash_vjp: bool = False) -> torch.Tensor:
@@ -127,6 +137,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the reference. Returns (B, Sq, H, Dv) in q.dtype; scores, softmax
     and accumulation in f32. The last chunk may be short (the reference
     pads it and masks the pad: the same function).
+
+    ``kv_len`` (an int, or a (B,) tensor per row) masks the keys at
+    positions >= it; ``kv_positions`` (B, Sk) gives each row's keys
+    their own absolute positions (a ring cache ahead of a chunk's keys,
+    the chunked prefill's windowed path). Both are the reference's; with
+    either as a tensor ``flash_vjp`` is not taken, as in the reference.
 
     ``q_chunk`` > 0 also loops over query blocks of that many rows when
     it divides Sq (and is smaller), which bounds the live (q_chunk,
@@ -146,12 +162,13 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             attention_core(q[:, i:i + q_chunk], k, v,
                            q_positions=q_positions[:, i:i + q_chunk],
                            causal=causal, window=window,
-                           prefix_len=prefix_len, kv_chunk=kv_chunk,
+                           prefix_len=prefix_len, kv_len=kv_len,
+                           kv_positions=kv_positions, kv_chunk=kv_chunk,
                            scale=scale, softcap=softcap, flash_vjp=flash_vjp)
             for i in range(0, Sq, q_chunk)], dim=1)
     # the mask model's (causal, window, prefix_len, scale, softcap, kv_len)
-    cfgt = (causal, window, prefix_len, scale, softcap, None)
-    if flash_vjp:
+    cfgt = (causal, window, prefix_len, scale, softcap, kv_len)
+    if flash_vjp and not torch.is_tensor(kv_len) and kv_positions is None:
         return flash_attention(q, k, v, q_positions, cfgt, kv_chunk)
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
@@ -165,7 +182,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for c0 in range(0, Sk, kc):
         kb = k[:, c0:c0 + kc].float()
         vb = v[:, c0:c0 + kc].float()
-        kp = torch.arange(c0, c0 + kb.shape[1], device=q.device)
+        kp = (torch.arange(c0, c0 + kb.shape[1], device=q.device)
+              if kv_positions is None else kv_positions[:, c0:c0 + kc])
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
@@ -202,39 +220,202 @@ def attention_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: torch.Tensor):
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     live: torch.Tensor | None = None):
     """One-token decode: x (B,1,d), a layer's cache (B,S_buf,Hkv,hd),
     pos (B,) int32 absolute position. Writes the new K/V row into the
     cache in place and attends it through ``flash_decode`` (ONE kernel
-    launch on CUDA tensors, the plain version on CPU tensors); returns
-    (out (B,1,d), cache_k, cache_v).
+    launch on CUDA tensors, the plain version on CPU tensors), with the
+    config's logit softcap; returns (out (B,1,d), cache_k, cache_v).
 
-    A free or retired slot keeps decoding, so its ``pos`` passes the
-    capacity. The reference's ``dynamic_update_slice`` clamps that
-    write to row S_buf - 1 and its masks then take every row; the port
-    writes at min(pos, S_buf - 1) and attends min(pos + 1, S_buf) rows —
-    the same function, and no write out of bounds on the card.
+    A windowed ring (:func:`ring_windowed`) takes the row at pos % S_buf
+    and attends min(pos + 1, S_buf) rows. A linear cache: a free or
+    retired slot keeps decoding, so its ``pos`` passes the capacity. The
+    reference's ``dynamic_update_slice`` clamps that write to row S_buf
+    - 1 and its masks then take every row; the port writes at min(pos,
+    S_buf - 1) and attends min(pos + 1, S_buf) rows — the same function,
+    and no write out of bounds on the card.
+
+    ``live`` (B,) bool drops the K/V writes of the rows it masks off
+    (their output is computed and meant to be discarded): the masked
+    live decode of chunked admission.
     """
     check_decode_supported(cfg)
     B = x.shape[0]
     H, Hkv, hd = cfg.attn_dims
     S_buf = cache_k.shape[1]
     q, k_new, v_new = qkv_project(cfg, p, x, pos[:, None])
-    _insert_at(cache_k, k_new, pos)
-    _insert_at(cache_v, v_new, pos)
+    row = pos % S_buf if ring_windowed(cfg, S_buf) else pos
+    _insert_at(cache_k, k_new, row, live)
+    _insert_at(cache_v, v_new, row, live)
     kv_len = torch.clamp(pos + 1, max=S_buf).to(torch.int32)
     out = kops.flash_decode(q[:, 0], cache_k, cache_v, kv_len,
-                            scale=hd ** -0.5)
+                            scale=hd ** -0.5,
+                            softcap=float(cfg.attn_logit_softcap or 0.0))
     out = out.reshape(B, 1, H * hd) @ p["wo"]
     return out, cache_k, cache_v
 
 
-def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
-               ) -> torch.Tensor:
+def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+               live: torch.Tensor | None = None) -> torch.Tensor:
     """cache (B,S,...), new (B,1,...), pos (B,): write row
-    min(pos[b], S-1) of each sequence, in place; returns ``cache``."""
+    min(pos[b], S-1) of each sequence, in place; returns ``cache``. Where
+    ``live`` (B,) bool is False the row keeps its value (it is read and
+    written back: the write's shape does not depend on the mask)."""
     S = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, torch.clamp(pos, max=S - 1).long()] = new[:, 0].to(
-        cache.dtype)
+    idx = torch.clamp(pos, max=S - 1).long()
+    val = new[:, 0].to(cache.dtype)
+    if live is not None:
+        keep = live.reshape((-1,) + (1,) * (val.ndim - 1))
+        val = torch.where(keep, val, cache[rows, idx])
+    cache[rows, idx] = val
     return cache
+
+
+# ----------------------------------------------------------- chunk resume
+
+def span_index(start, lengths, S_buf: int, ring: bool, device
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where a chunk's valid positions go: (b, i, row) long tensors on
+    ``device`` for chunk position i of row b (absolute position
+    start[b] + i, i < lengths[b]) stored at cache row ``row``. A linear
+    cache keeps position p at row p and drops positions past its
+    capacity, as the reference's ``mode="drop"`` scatter; a ring keeps
+    the newest ``S_buf`` positions of the chunk at p % S_buf, as the
+    reference's :func:`_ring_update`. Pad positions (i >= lengths[b])
+    are never written. ``start`` and ``lengths`` are host values (a CPU
+    tensor or an array): the index is built on the host."""
+    start = np.asarray(torch.as_tensor(start).cpu(), np.int64).reshape(-1)
+    lengths = np.asarray(torch.as_tensor(lengths).cpu(),
+                         np.int64).reshape(-1)
+    lo = np.zeros_like(lengths)
+    if ring:
+        lo = np.maximum(0, lengths - S_buf)
+    counts = lengths - lo
+    b = np.repeat(np.arange(len(lengths)), counts)
+    i = np.concatenate([np.arange(a, z) for a, z in zip(lo, lengths)]
+                       or [np.zeros(0, np.int64)]).astype(np.int64)
+    p = start[b] + i
+    if ring:
+        row = p % S_buf
+    else:
+        keep = p < S_buf
+        b, i, row = b[keep], i[keep], p[keep]
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                 for t in (b, i, row))
+
+
+def _write_span(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+                index) -> torch.Tensor:
+    """cache[rows[b], row] = new[b, i] for :func:`span_index`'s (b, i,
+    row), in place."""
+    b, i, row = index
+    cache[rows[b], row] = new[b, i].to(cache.dtype)
+    return cache
+
+
+def _insert_span(cache: torch.Tensor, new: torch.Tensor, start, lengths,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Write ``new`` (n, C, ...) at positions [start[b], start[b] +
+    lengths[b]) of a linear cache's rows ``rows`` (default 0..n-1), in
+    place. Positions past the capacity are dropped, not clamped (as the
+    reference's): clamping would shift the write window backward over
+    real entries. The reference also writes the pad positions past
+    ``lengths``; nothing reads them (every read is masked at start +
+    lengths, and decode writes a row before it reads it), so the port
+    leaves them."""
+    rows = _rows(cache, new, rows)
+    return _write_span(cache, new, rows, span_index(
+        start, lengths, cache.shape[1], False, cache.device))
+
+
+def _ring_update(ring: torch.Tensor, chunk: torch.Tensor, start, lengths,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter a prefill chunk into a windowed ring, per row, in place:
+    ring (B, cap, ...); chunk (n, C, ...) holds absolute positions
+    start[b] + i, of which only i < lengths[b] are valid. Ring slot j of
+    row ``rows[b]`` takes the NEWEST valid position p with p % cap == j
+    and keeps its old value otherwise — pad positions never clobber
+    resident entries (as the reference's)."""
+    rows = _rows(ring, chunk, rows)
+    return _write_span(ring, chunk, rows, span_index(
+        start, lengths, ring.shape[1], True, ring.device))
+
+
+def _rows(cache: torch.Tensor, new: torch.Tensor, rows) -> torch.Tensor:
+    if rows is None:
+        return torch.arange(new.shape[0], device=cache.device)
+    return rows.to(device=cache.device, dtype=torch.long)
+
+
+def ring_positions(start: torch.Tensor, qpos: torch.Tensor, S_buf: int
+                   ) -> torch.Tensor:
+    """(n, S_buf) absolute position of each ring slot's occupant before a
+    chunk resumed at ``start``: slot j holds the newest p < start with p
+    % S_buf == j; a slot not yet written gets the position after the
+    chunk's last query, so the causal mask removes it."""
+    j = torch.arange(S_buf, device=qpos.device)[None, :]
+    start = start.to(qpos.device, torch.int64)[:, None]
+    occ = j + S_buf * torch.div(start - 1 - j, S_buf, rounding_mode="floor")
+    return torch.where(occ < 0, qpos[:, -1:].to(torch.int64) + 1, occ)
+
+
+def chunk_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, qpos: torch.Tensor, start,
+                    lengths, rows: torch.Tensor | None = None, *,
+                    kv_chunk: int = 512, index: dict | None = None):
+    """Resume-prefill attention for a C-token chunk against a live slot
+    cache, in place. x (n, C, d); the layer's resident cache (B, S_buf,
+    Hkv, hd); ``rows`` (n,) the chunk rows' slots (default 0..n-1); qpos
+    (n, C) absolute positions start[b] + i (on the device); ``start``
+    and ``lengths`` (n,) host values, the valid tokens per row (0: the
+    row is left as it is). Returns (out (n, C, d), cache_k, cache_v).
+
+    Linear caches: the chunk's K/V is written first, then the queries
+    attend the rows' cache under the causal mask and ``kv_len = start +
+    lengths`` — only the first max(start + lengths) rows are read, and
+    stale entries of a retired occupant are never read. Windowed rings:
+    the queries attend [the resident ring || the chunk's K/V] BEFORE the
+    ring is rewritten (writing first would lose ring positions that the
+    chunk's early queries still need), each ring slot at its occupant's
+    absolute position (:func:`ring_positions`). As the reference's; the
+    port reads only the chunk rows' slots (``cache[rows]``) and writes
+    only their valid positions. ``index`` memoizes :func:`span_index`
+    across the layers of one chunk call."""
+    n, C, _ = x.shape
+    H, Hkv, hd = cfg.attn_dims
+    S_buf = cache_k.shape[1]
+    ring = ring_windowed(cfg, S_buf)
+    rows = _rows(cache_k, x, rows)
+    key = (S_buf, ring)
+    if index is None:
+        index = {}
+    if key not in index:
+        index[key] = span_index(start, lengths, S_buf, ring, x.device)
+    start_d = torch.as_tensor(start).to(x.device, torch.int32)
+    kv_len = start_d + torch.as_tensor(lengths).to(x.device, torch.int32)
+    q, k_new, v_new = qkv_project(cfg, p, x, qpos)
+    cap = float(cfg.attn_logit_softcap or 0.0)
+    if ring:
+        occ = ring_positions(start_d, qpos, S_buf)
+        kv_k = torch.cat([cache_k[rows], k_new.to(cache_k.dtype)], 1)
+        kv_v = torch.cat([cache_v[rows], v_new.to(cache_v.dtype)], 1)
+        kvp = torch.cat([occ, qpos.to(torch.int64)], dim=1)
+        out = attention_core(q, kv_k, kv_v, q_positions=qpos,
+                             kv_positions=kvp, causal=True,
+                             window=cfg.sliding_window, kv_len=kv_len,
+                             kv_chunk=S_buf + C, softcap=cap)
+        _write_span(cache_k, k_new, rows, index[key])
+        _write_span(cache_v, v_new, rows, index[key])
+    else:
+        _write_span(cache_k, k_new, rows, index[key])
+        _write_span(cache_v, v_new, rows, index[key])
+        kmax = int((np.asarray(torch.as_tensor(start).cpu())
+                    + np.asarray(torch.as_tensor(lengths).cpu())).max())
+        kmax = max(1, min(kmax, S_buf))
+        out = attention_core(q, cache_k[rows, :kmax], cache_v[rows, :kmax],
+                             q_positions=qpos, causal=True, kv_len=kv_len,
+                             kv_chunk=kv_chunk, softcap=cap)
+    out = out.reshape(n, C, H * hd) @ p["wo"]
+    return out, cache_k, cache_v

@@ -55,10 +55,14 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def block_mask(qp: torch.Tensor, kp: torch.Tensor, cfgt) -> torch.Tensor:
-    """(B, Sq, kc) bool: qp (B, Sq) query positions, kp (kc,) keys'."""
+    """(B, Sq, kc) bool: qp (B, Sq) query positions, kp (kc,) keys' or
+    (B, kc) per row (the keys of a ring cache, whose positions depend on
+    each row's progress). ``kv_len`` in ``cfgt`` is a count of valid keys
+    (keys at positions >= it are masked): an int, or a (B,) tensor per
+    row."""
     causal, window, prefix_len, _, _, kv_len = cfgt
     qp = qp[..., :, None]
-    kp_b = kp[None, :]
+    kp_b = kp[:, None, :] if kp.ndim > 1 else kp[None, :]
     if causal:
         ok = kp_b <= qp
         if prefix_len is not None:
@@ -69,6 +73,8 @@ def block_mask(qp: torch.Tensor, kp: torch.Tensor, cfgt) -> torch.Tensor:
     if window:
         ok = ok & (kp_b > qp - window)
     if kv_len is not None:
+        if torch.is_tensor(kv_len) and kv_len.ndim:
+            kv_len = kv_len[:, None, None]
         ok = ok & (kp_b < kv_len)
     return ok
 

@@ -49,7 +49,8 @@ cache ``pos`` counts the image tokens. Decode is the dense family's: a
 decoded token sits after the prefix.
 
 The decode cache is the reference's: ``{"pos": (B,) int32, "k", "v":
-(L, B, S, Hkv, hd)}``; with MLA ``{"pos", "ckv": (L, B, S, r),
+(L, B, S, Hkv, hd)}`` (with a sliding window S = min(capacity, window):
+a ring, position p in row p % S); with MLA ``{"pos", "ckv": (L, B, S, r),
 "krope": (L, B, S, rope)}``; for the SSM family ``{"pos", "conv":
 (L, B, K-1, C), "h": (L, B, d_inner, N) f32}``, and for the hybrid
 ``{"pos", "conv", "h": (L, B, heads, hd, N) f32, "attn_k", "attn_v":
@@ -58,16 +59,21 @@ block (A = ceil(L / attn_every)). Where the reference returns new
 arrays (and donates the old ones to XLA), the port writes in place:
 :meth:`decode_step` writes one row per sequence and layer of each K/V
 or latent leaf, each Mamba layer's new conv and recurrent state, and
-advances ``pos``; :meth:`prefill_at` writes the admitted slots' prompt
-rows, their whole recurrent state and ``pos``. Both return the cache
-they were given.
+advances ``pos`` (with ``live``, only for the rows it keeps: the masked
+live decode of chunked admission); :meth:`prefill_at` writes the
+admitted slots' prompt rows, their whole recurrent state and ``pos``;
+:meth:`prefill_chunk_at` resumes a prefill one chunk at a time inside
+the resident cache, writing each chunk's valid positions and reading
+only the chunk rows' slots. All return the cache they were given.
 
-The encdec family is :mod:`repro_torch.models.encdec`'s. Decode,
-prefill and serving with the attention features of
-:func:`repro_torch.models.attention.check_decode_supported` raise
-``NotImplementedError`` (on every family that has attention). A hybrid
-prompt longer than its shared block's cache needs the reference's ring
-alignment, which is not ported, and raises too.
+A prompt longer than a ring (a window's, or the hybrid's shared block's
+cache) is aligned as the reference aligns it: each ring row holds the
+newest position that maps to it, per row of a right-padded batch
+(:func:`_ring_gather`).
+
+The encdec family is :mod:`repro_torch.models.encdec`'s. MLA with a
+window or the softcap raises ``NotImplementedError`` wherever a decode
+cache is made (:func:`repro_torch.models.attention.check_decode_supported`).
 """
 
 from __future__ import annotations
@@ -122,9 +128,15 @@ class LanguageModel:
 
     def _check_decode(self) -> None:
         """Decode, prefill and serving refuse what
-        ``check_decode_supported`` refuses, where there is attention."""
-        if self.cfg.family != "ssm":
-            A.check_decode_supported(self.cfg)
+        ``check_decode_supported`` refuses (MLA with a window or the
+        softcap)."""
+        A.check_decode_supported(self.cfg)
+
+    def _kv_len(self, seq_len: int) -> int:
+        """Rows of an attention K/V cache of capacity ``seq_len``: the
+        window where one is set (a ring), as the reference's."""
+        win = self.cfg.sliding_window
+        return min(seq_len, win) if win else seq_len
 
     # ------------------------------------------------------------------ init
 
@@ -320,13 +332,14 @@ class LanguageModel:
         L_, K = cfg.num_layers, cfg.ssm_conv
         lead = (L_, batch, seq_len)
         _, Hkv, hd = cfg.attn_dims
+        s_kv = self._kv_len(seq_len)
         if cfg.family == "ssm":
             din = cfg.ssm_d_inner
             return {"conv": ((L_, batch, K - 1, din), dt),
                     "h": ((L_, batch, din, cfg.ssm_state), f32)}
         if cfg.family == "hybrid":
             din, N, shd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim
-            kv = ((self._shared_applications(), batch, seq_len, Hkv, hd), dt)
+            kv = ((self._shared_applications(), batch, s_kv, Hkv, hd), dt)
             return {"conv": ((L_, batch, K - 1,
                               din + 2 * cfg.ssm_groups * N), dt),
                     "h": ((L_, batch, din // shd, shd, N), f32),
@@ -334,7 +347,8 @@ class LanguageModel:
         if cfg.use_mla:
             return {"ckv": (lead + (cfg.kv_lora_rank,), dt),
                     "krope": (lead + (cfg.qk_rope_dim,), dt)}
-        return {"k": (lead + (Hkv, hd), dt), "v": (lead + (Hkv, hd), dt)}
+        kv = (L_, batch, s_kv, Hkv, hd)
+        return {"k": (kv, dt), "v": (kv, dt)}
 
     def init_cache(self, batch: int, seq_len: int, *, device=None) -> dict:
         self._check_decode()
@@ -363,41 +377,49 @@ class LanguageModel:
 
     # ---------------------------------------------------------------- decode
 
-    def _layer_decode(self, params_l, x, cache_l: dict, pos):
+    def _layer_decode(self, params_l, x, cache_l: dict, pos, live=None):
         """One layer, one token; writes this layer's cache rows, or its
         new conv and recurrent state (``cache_l``: the layer's views of
-        the cache leaves)."""
+        the cache leaves), for the rows ``live`` keeps (all without
+        it)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
         if self.recurrent:
             y, st = self._ssm_forward(params_l["ssm"], h, state=cache_l)
             for name in STATE_LEAVES:
-                cache_l[name].copy_(st[name])
+                new = st[name]
+                if live is not None:
+                    keep = live.reshape((-1,) + (1,) * (new.ndim - 1))
+                    new = torch.where(keep, new, cache_l[name])
+                cache_l[name].copy_(new)
             return x + y
         if cfg.use_mla:
             out, _, _ = MLA.mla_decode(cfg, params_l["attn"], h,
-                                       cache_l["ckv"], cache_l["krope"], pos)
+                                       cache_l["ckv"], cache_l["krope"], pos,
+                                       live)
         else:
             out, _, _ = A.decode_attention(cfg, params_l["attn"], h,
-                                           cache_l["k"], cache_l["v"], pos)
+                                           cache_l["k"], cache_l["v"], pos,
+                                           live)
         x = x + out
         h = L.apply_norm(cfg, x, params_l["ln2"])
         return x + self._ffn(params_l, h)[0]
 
-    def _shared_decode(self, shared, x, cache_k, cache_v, pos):
+    def _shared_decode(self, shared, x, cache_k, cache_v, pos, live=None):
         """The hybrid's shared block, one token, over one application's
         K/V cache (written in place)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, shared["ln1"])
         out, _, _ = A.decode_attention(cfg, shared["attn"], h, cache_k,
-                                       cache_v, pos)
+                                       cache_v, pos, live)
         x = x + out
         h = L.apply_norm(cfg, x, shared["ln2"])
         return x + mlp_block(cfg, shared["mlp"], h)
 
     @torch.no_grad()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor, *,
-                    use_flash: bool | str = "auto"
+                    use_flash: bool | str = "auto",
+                    live: Optional[torch.Tensor] = None
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> (logits (B, 1, V) f32, the cache, updated in
         place: one row per sequence and layer of each K/V or latent
@@ -414,6 +436,14 @@ class LanguageModel:
         checks the placement, as LARS's ``use_kernels`` does:
         ``"auto"`` takes either, ``True`` needs CUDA tensors, ``False``
         CPU tensors.
+
+        ``live`` (B,) bool on the cache's device is the masked live
+        decode: every row is computed (the shapes do not depend on the
+        mask), but the rows it masks off keep their cache — no K/V or
+        latent write, no state update, no ``pos`` advance — and their
+        logits are to be discarded. The reference selects old against
+        new over every leaf (free under XLA's donation); the port drops
+        the writes instead, so no cache leaf is copied.
         """
         pos = cache["pos"]
         kops.check_use_kernels(use_flash, pos.device, option="use_flash")
@@ -424,13 +454,13 @@ class LanguageModel:
         for i in range(self.cfg.num_layers):
             x = self._layer_decode(_index(layers, i), x,
                                    {name: cache[name][i] for name in leaves},
-                                   pos)
+                                   pos, live)
             if self._applies_shared(i):
                 a = i // self.cfg.attn_every
                 x = self._shared_decode(params["shared"], x,
                                         cache["attn_k"][a],
-                                        cache["attn_v"][a], pos)
-        pos.add_(1)
+                                        cache["attn_v"][a], pos, live)
+        pos.add_(1 if live is None else live.to(pos.dtype))
         return self.logits(params, x), cache
 
     # --------------------------------------------------------------- prefill
@@ -439,14 +469,19 @@ class LanguageModel:
                            prefix_len: Optional[int] = None
                            ) -> tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-        """A GQA attention sub-block over the whole prompt: (out (B, S,
-        d), k, v (B, S, Hkv, hd)) for the cache."""
+        """A GQA attention sub-block over the whole prompt, with the
+        config's window and softcap: (out (B, S, d), k, v (B, S, Hkv,
+        hd)) for the cache. The reference's hybrid prefill leaves the
+        softcap out of its shared block (its training, decode and chunked
+        prefill apply it); the port applies it here too."""
         cfg = self.cfg
         B, S, _ = h.shape
         H, _, hd = cfg.attn_dims
         q, k, v = A.qkv_project(cfg, p, h, positions)
         out = A.attention_core(q, k, v, q_positions=positions,
+                               window=cfg.sliding_window,
                                prefix_len=prefix_len,
+                               softcap=cfg.attn_logit_softcap,
                                q_chunk=cfg.attn_q_chunk,
                                flash_vjp=cfg.flash_vjp)
         return out.reshape(B, S, H * hd) @ p["wo"], k, v
@@ -468,6 +503,8 @@ class LanguageModel:
         position and the cache ``pos`` is set to ``lengths``. Causality
         makes the padded forward exact for valid positions; pad-position
         cache entries are never read back (decode masks kv_len = pos + 1).
+        A windowed K/V cache is a ring (:func:`_align`): with ``lengths``
+        each row keeps its own newest positions.
         With MLA the cache takes each layer's latents (c_kv and the roped
         shared key) and the attention runs expanded, as the reference.
         The SSM and hybrid families carry their recurrent state through
@@ -506,8 +543,14 @@ class LanguageModel:
                 h = L.apply_norm(cfg, x, params_l["ln2"])
                 x = x + self._ffn(params_l, h)[0]
             logits = self._last_valid_logits(params, x, lengths)
-            cache = {name: _fit(torch.stack(ts).to(self.dtype), cap, dim=2)
-                     for name, ts in rows.items()}
+            shapes = self._cache_shapes(B, cap)
+            windowed = not cfg.use_mla and A.ring_windowed(
+                cfg, shapes["k"][0][2])
+            cache = {name: _align(
+                torch.stack(ts).to(self.dtype), shapes[name][0][2], lengths,
+                gather=windowed and lengths is not None,
+                roll=bool(cfg.sliding_window))
+                for name, ts in rows.items()}
         # a copy: decode_step advances pos in place
         cache["pos"] = (torch.full((B,), S, dtype=torch.int32,
                                    device=x.device)
@@ -526,21 +569,14 @@ class LanguageModel:
         hybrid's shared block, its full-length K and V. Returns (logits,
         the cache without ``pos``).
 
-        The reference aligns the shared block's K/V to a ring where a
-        window is set or the prompt is longer than the cache. No
-        registered hybrid sets a window (and decode refuses one), and a
-        prompt longer than the cache raises here: the ring is not
-        ported, so the layout is linear, rows 0..S-1 holding positions
-        0..S-1. The rows past S are zeros where the reference repeats
-        row S-1; decode never reads them.
+        The shared block's K/V is aligned as the reference aligns it
+        (:func:`_align`): with ``lengths``, each row's ring of the newest
+        positions (rows past a short row's length repeat a row that is
+        never read); without, the last ``S_buf`` positions rolled to
+        their ring rows when the prompt is longer than the cache.
         """
         cfg = self.cfg
         B, S, _ = x.shape
-        if cfg.family == "hybrid" and S > cap:
-            raise NotImplementedError(
-                f"a {S}-token prompt into a hybrid cache of capacity {cap} "
-                "needs the reference's ring alignment, which is not yet "
-                "ported to repro_torch")
         shapes = self._cache_shapes(B, cap)
         zero = {name: torch.zeros(shapes[name][0][1:], dtype=shapes[name][1],
                                   device=x.device) for name in STATE_LEAVES}
@@ -566,7 +602,9 @@ class LanguageModel:
         cache = {}
         for name, ts in rows.items():
             t = torch.stack(ts).to(shapes[name][1])
-            cache[name] = t if name in STATE_LEAVES else _fit(t, cap, dim=2)
+            cache[name] = t if name in STATE_LEAVES else _align(
+                t, shapes[name][0][2], lengths, gather=lengths is not None,
+                roll=True)
         return self._last_valid_logits(params, x, lengths), cache
 
     def _last_valid_logits(self, params, x: torch.Tensor,
@@ -599,8 +637,10 @@ class LanguageModel:
         prefill's, whatever the slot held before. Every other slot's
         state is untouched. Rows at S and past keep what they held:
         decode writes row ``pos`` before it attends to it, so they are
-        never read. The prompt is bounded only by a cache that has a
-        capacity (a pure-SSM cache has none).
+        never read. A linear cache bounds the prompt by its capacity (a
+        pure-SSM cache has none); a ring (a sliding window's) admits a
+        longer prompt and keeps each row's newest window, as the
+        reference's.
         """
         if self.cfg.family == "vlm":
             raise ValueError("prefill_at admits text prompts into slots; the "
@@ -610,18 +650,123 @@ class LanguageModel:
                              "DecodeEngine)")
         S = tokens.shape[1]
         cap = self.cache_capacity(cache)
-        if cap is not None and S > cap:
+        ring = cap is not None and A.ring_windowed(self.cfg, cap)
+        if cap is not None and not ring and S > cap:
             raise ValueError(f"prompt buffer {S} exceeds "
                              f"cache capacity {cap}")
-        logits, small = self.prefill(params, tokens, lengths=lengths)
+        logits, small = self.prefill(
+            params, tokens, cache_len=None if cap is None else min(S, cap),
+            lengths=lengths)
         slots = slots.to(device=cache["pos"].device, dtype=torch.long)
         cache["pos"].index_copy_(0, slots, small["pos"])
         for name, new in small.items():
             if name in STATE_LEAVES:           # (L, B, ...)
                 cache[name][:, slots] = new
-            elif name != "pos":                # (L or A, B, cap, ...)
-                cache[name][:, slots, :S] = new
+            elif name != "pos":                # (L or A, B, S_buf, ...)
+                cache[name][:, slots, :new.shape[2]] = new
         return logits, cache
+
+    @torch.no_grad()
+    def prefill_chunk_at(self, params, cache: dict, tokens: torch.Tensor,
+                         slots: Optional[torch.Tensor], *, start,
+                         chunk_lengths) -> tuple[torch.Tensor, dict]:
+        """Resume prefill for a C-token chunk directly inside a
+        persistent slot cache (chunked admission, a suffix after a
+        prefix-store restore), in place.
+
+        tokens (n, C) right-padded chunk tokens; slots (n,) slot ids, or
+        None for rows 0..n-1; ``start`` (n,) resume positions (tokens[i,
+        0] is absolute position start[i] of its prompt: 0 for a cold
+        chunk, the prefix length after a restore, or a prior chunk
+        boundary); ``chunk_lengths`` (n,) valid tokens in this chunk, 0
+        marking an INACTIVE row, whose slot is left as it is. ``start``
+        and ``chunk_lengths`` are read on the host (the writes' index is
+        built there): pass CPU tensors or arrays to avoid a sync.
+
+        Per layer, only the chunk rows' slots are read, and only each
+        active row's valid positions are written (K/V rows, a ring's
+        newest, latents); an active row's SSM state is carried in (zeros
+        for a cold chunk: the slot may hold a retired occupant's) and
+        written back, and ``pos`` becomes start + chunk_lengths. The
+        reference gathers the rows' whole caches, runs the chunk and
+        scatters them back merged; the port never copies a slot's cache.
+
+        Returns (logits (n, V) of each row's last valid chunk token — a
+        row with 0 valid tokens gives its first position's, to be
+        discarded — and the cache).
+        """
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            raise ValueError("the vlm family has no chunked prefill, as the "
+                             "reference's")
+        self._check_decode()
+        dev = cache["pos"].device
+        start_h = torch.as_tensor(start).cpu().to(torch.int64)
+        len_h = torch.as_tensor(chunk_lengths).cpu().to(torch.int64)
+        n, C = tokens.shape
+        rows = (torch.arange(n, device=dev) if slots is None
+                else torch.as_tensor(slots).to(dev, torch.long))
+        start_d, len_d = start_h.to(dev), len_h.to(dev)
+        qpos = start_d[:, None] + torch.arange(C, device=dev)[None, :]
+        act_d = torch.nonzero(len_h > 0).flatten().to(dev)
+        act_rows = rows[act_d]
+        fresh = start_d == 0
+        index: dict = {}                       # span writes, per layout
+        x = self.embed_tokens(params, torch.as_tensor(tokens).to(dev))
+        layers = params["layers"]
+        for i in range(cfg.num_layers):
+            params_l = _index(layers, i)
+            h = L.apply_norm(cfg, x, params_l["ln1"])
+            if self.recurrent:
+                state = {}
+                for name in STATE_LEAVES:
+                    st = cache[name][i][rows]
+                    state[name] = st.masked_fill(
+                        fresh.reshape((-1,) + (1,) * (st.ndim - 1)), 0)
+                y, st = self._ssm_forward(params_l["ssm"], h, state=state,
+                                          lengths=len_d)
+                x = x + y
+                for name in STATE_LEAVES:
+                    cache[name][i][act_rows] = st[name][act_d].to(
+                        cache[name].dtype)
+                if self._applies_shared(i):
+                    a = i // cfg.attn_every
+                    x = self._shared_chunk(params["shared"], x,
+                                           cache["attn_k"][a],
+                                           cache["attn_v"][a], qpos, start_h,
+                                           len_h, rows, index)
+                continue
+            if cfg.use_mla:
+                out, _, _ = MLA.mla_chunk(cfg, params_l["attn"], h,
+                                          cache["ckv"][i], cache["krope"][i],
+                                          qpos, start_h, len_h, rows,
+                                          index=index)
+            else:
+                out, _, _ = A.chunk_attention(cfg, params_l["attn"], h,
+                                              cache["k"][i], cache["v"][i],
+                                              qpos, start_h, len_h, rows,
+                                              index=index)
+            x = x + out
+            h = L.apply_norm(cfg, x, params_l["ln2"])
+            x = x + self._ffn(params_l, h)[0]
+        cache["pos"][act_rows] = (start_d + len_d)[act_d].to(torch.int32)
+        logits = self._last_valid_logits(params, x,
+                                         torch.clamp(len_d, min=1))
+        return logits, cache
+
+    def _shared_chunk(self, shared, x, cache_k, cache_v, qpos, start,
+                      lengths, rows, index):
+        """The hybrid's shared block over one chunk, against one
+        application's K/V cache (written in place)."""
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, shared["ln1"])
+        out, _, _ = A.chunk_attention(cfg, shared["attn"], h, cache_k,
+                                      cache_v, qpos, start, lengths, rows,
+                                      index=index)
+        x = x + out
+        h = L.apply_norm(cfg, x, shared["ln2"])
+        return x + mlp_block(cfg, shared["mlp"], h)
+
 
 
 def _index(tree: Pytree, i: int) -> Pytree:
@@ -637,7 +782,44 @@ def _stack(trees: list) -> Pytree:
     return torch.stack(trees)
 
 
+def _ring_gather(kv: torch.Tensor, lengths: torch.Tensor, cap: int
+                 ) -> torch.Tensor:
+    """Per-row ring alignment of full-length stacked K/V: kv (L, B, S,
+    ...) holds positions 0..S-1 of a right-padded batch whose true
+    lengths are ``lengths`` (B,). Returns (L, B, cap, ...) where ring
+    slot j of row b holds the newest valid position p < lengths[b] with
+    p % cap == j — the layout the windowed decode ring expects (slot =
+    pos % cap). Slots with no valid position (short rows) repeat a row
+    that the decode's kv_len never reads. As the reference's."""
+    S = kv.shape[2]
+    j = torch.arange(cap, device=kv.device)[None, :]
+    base = lengths.to(kv.device, torch.int64)[:, None] - cap
+    # the smallest multiple of cap lifting j into [len - cap, len)
+    extra = torch.clamp(torch.div(base - j + cap - 1, cap,
+                                  rounding_mode="floor"), min=0)
+    p = torch.clamp(j + cap * extra, 0, S - 1)              # (B, cap)
+    b = torch.arange(kv.shape[1], device=kv.device)[:, None]
+    return kv[:, b, p]
+
+
+def _align(t: torch.Tensor, s_buf: int, lengths: Optional[torch.Tensor], *,
+           gather: bool, roll: bool) -> torch.Tensor:
+    """Stacked prefill K/V t (L, B, S, ...) to a cache of ``s_buf`` rows:
+    with ``gather`` each row's ring (:func:`_ring_gather`); else the last
+    ``s_buf`` positions (zeros past S), rolled so that position p sits at
+    row p % s_buf when ``roll`` and the prompt is longer than the cache —
+    the reference's alignment, for its dense and hybrid branches."""
+    S = t.shape[2]
+    if gather:
+        return _ring_gather(t, lengths, s_buf)
+    t = _fit(t, s_buf, dim=2)
+    if roll and S > s_buf:
+        t = torch.roll(t, S % s_buf, dims=2)
+    return t
+
+
 def _fit(x: torch.Tensor, cap: int, *, dim: int) -> torch.Tensor:
+
     """Pad (zeros) or crop (keep the last ``cap``) x along ``dim``."""
     S = x.shape[dim]
     if S == cap:

@@ -14,15 +14,17 @@ the absorbed form: W_uk is folded into the query, the scores are taken
 against the latent and rope caches, and W_uv is applied after the
 probability-weighted sum of latents; as in the reference, every product
 there is in f32. The reference computes that decode in jnp, not Pallas,
-so it launches no kernel here either.
+so it launches no kernel here either. A chunk of a resumed prefill
+(:func:`mla_chunk`) runs the same absorbed form over the latent cache.
 
 Leaf names and layouts are the reference's: ``q_down``, ``q_norm``,
 ``q_up`` (or ``wq`` when ``q_lora_rank`` is 0), ``kv_down``,
 ``kv_norm``, ``k_up``, ``v_up``, ``wo``, dense weights ``(in, out)``
 and f32 norm scales. The cache rows are written in place
-(:func:`repro_torch.models.attention._insert_at`). The reference's
-chunked-prefill ``mla_chunk`` waits for chunked prefill, its only
-caller.
+(:func:`repro_torch.models.attention._insert_at`,
+:func:`~repro_torch.models.attention._write_span`). MLA refuses a
+sliding window and the logit softcap everywhere: the reference's MLA
+ignores both.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.attention import _insert_at, attention_core
+from repro_torch.models.attention import (_insert_at, _rows, _write_span,
+                                          attention_core, span_index)
 
 NEG_INF = -1.0e30
 
@@ -115,11 +118,13 @@ def mla_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor
 
 
 def mla_decode(cfg, p: dict, x: torch.Tensor, cache_ckv: torch.Tensor,
-               cache_krope: torch.Tensor, pos: torch.Tensor):
+               cache_krope: torch.Tensor, pos: torch.Tensor,
+               live: torch.Tensor | None = None):
     """One-token absorbed decode: x (B,1,d); a layer's caches, cache_ckv
     (B,S,r) and cache_krope (B,S,rope); pos (B,) int32. Writes the new
-    latent and rope key at row min(pos, S-1) in place and returns
-    (out (B,1,d), cache_ckv, cache_krope).
+    latent and rope key at row min(pos, S-1) in place (not in the rows
+    ``live`` masks off) and returns (out (B,1,d), cache_ckv,
+    cache_krope).
 
     The reference clamps a write past capacity to row S-1 and attends
     the rows j < pos + 1: every row once pos reaches S-1; so does this.
@@ -131,8 +136,8 @@ def mla_decode(cfg, p: dict, x: torch.Tensor, cache_ckv: torch.Tensor,
     S = cache_ckv.shape[1]
     q_nope, q_rope = _queries(cfg, p, x, pos[:, None])      # (B,1,H,*)
     c_kv, k_rope = _latents(cfg, p, x, pos[:, None])        # (B,1,r), ...
-    _insert_at(cache_ckv, c_kv, pos)
-    _insert_at(cache_krope, k_rope[:, :, 0], pos)
+    _insert_at(cache_ckv, c_kv, pos, live)
+    _insert_at(cache_krope, k_rope[:, :, 0], pos, live)
     ckv = cache_ckv.float()
     # absorb W_uk into q: (B,1,H,nope) . (r,H,nope) -> (B,H,r)
     q_lat = torch.einsum("bohn,rhn->bhr", q_nope.float(),
@@ -147,4 +152,55 @@ def mla_decode(cfg, p: dict, x: torch.Tensor, cache_ckv: torch.Tensor,
     out = torch.einsum("bhr,rhv->bhv", out_lat,
                        p["v_up"].reshape(r, H, vd).float())
     out = out.reshape(B, 1, H * vd).to(x.dtype) @ p["wo"]
+    return out, cache_ckv, cache_krope
+
+
+def mla_chunk(cfg, p: dict, x: torch.Tensor, cache_ckv: torch.Tensor,
+              cache_krope: torch.Tensor, qpos: torch.Tensor, start,
+              lengths, rows: torch.Tensor | None = None, *,
+              index: dict | None = None):
+    """Absorbed resume-prefill for a C-token chunk, in place: x (n,C,d);
+    the layer's latent caches (B,S,r) and (B,S,rope); ``rows`` (n,) the
+    chunk rows' slots (default 0..n-1); qpos (n,C) absolute positions
+    start[b] + i; ``start`` and ``lengths`` (n,) host values. The
+    chunk's valid latents are written at [start, start + lengths) (past
+    the capacity dropped), then the chunk attends the rows' latent cache
+    under a causal + kv_len mask, so positions past start + lengths (a
+    prior occupant's leftovers) never contribute. Every product in f32,
+    as the reference's. Reads only the first max(start + lengths) rows of
+    the chunk rows' slots. Returns (out (n,C,d), cache_ckv,
+    cache_krope)."""
+    n, C, _ = x.shape
+    H = cfg.num_heads
+    nope, rope, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+    S = cache_ckv.shape[1]
+    rows = _rows(cache_ckv, x, rows)
+    if index is None:
+        index = {}
+    if (S, False) not in index:
+        index[(S, False)] = span_index(start, lengths, S, False, x.device)
+    q_nope, q_rope = _queries(cfg, p, x, qpos)              # (n,C,H,*)
+    c_kv, k_rope = _latents(cfg, p, x, qpos)                # (n,C,r), ...
+    _write_span(cache_ckv, c_kv, rows, index[(S, False)])
+    _write_span(cache_krope, k_rope[:, :, 0], rows, index[(S, False)])
+    start_h = torch.as_tensor(start).cpu().long()
+    end_h = start_h + torch.as_tensor(lengths).cpu().long()
+    kmax = max(1, min(int(end_h.max()), S))
+    ckv = cache_ckv[rows, :kmax].float()
+    krope = cache_krope[rows, :kmax].float()
+    q_lat = torch.einsum("bchn,rhn->bchr", q_nope.float(),
+                         p["k_up"].reshape(r, H, nope).float())
+    scores = torch.einsum("bchr,bsr->bhcs", q_lat, ckv)
+    scores = scores + torch.einsum("bche,bse->bhcs", q_rope.float(), krope)
+    scores = scores * (nope + rope) ** -0.5
+    kp = torch.arange(kmax, device=x.device)[None, None, None, :]
+    qp = qpos[:, None, :, None]
+    kv_len = end_h.to(x.device)[:, None, None, None]
+    scores = torch.where((kp <= qp) & (kp < kv_len), scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)                   # (n,H,C,kmax)
+    out_lat = torch.einsum("bhcs,bsr->bchr", probs, ckv)
+    out = torch.einsum("bchr,rhv->bchv", out_lat,
+                       p["v_up"].reshape(r, H, vd).float())
+    out = out.reshape(n, C, H * vd).to(x.dtype) @ p["wo"]
     return out, cache_ckv, cache_krope

@@ -1,53 +1,70 @@
-"""The continuous-batching :class:`ServeEngine` (slot cache + FIFO
-scheduler + on-device sampling), the static-batch :class:`DecodeEngine`
-and the prefill/serve step factories: port of the FIFO, unchunked path
-of ``repro/serve/engine.py``.
+"""The continuous-batching :class:`ServeEngine` (slot cache + FIFO or
+SLO-tiered scheduler + on-device sampling, with chunked prefill, a prefix
+store and preemption), the static-batch :class:`DecodeEngine` and the
+prefill/serve step factories: port of ``repro/serve/engine.py`` on one
+device.
 
 ServeEngine contract (the decode hot path):
-  * ONE decode step per emitted token for the whole slot batch. The
-    reference jits it and donates the cache; here the decode cache (K/V,
-    MLA's latents, or the SSM and hybrid families' conv and recurrent
-    states beside the hybrid's shared-block K/V) is a set of persistent
-    device tensors that the step writes in place (one row per slot,
-    layer and leaf; one state per slot and Mamba layer), so it is never
-    copied per token. On the card, GQA attention runs as one
-    ``flash_decode`` kernel launch per layer (per application of the
-    hybrid's shared block); MLA's absorbed decode and the Mamba layers
-    are torch ops, as the reference's are jnp;
+  * ONE decode step per emitted token for the whole slot batch — every
+    slot decodes, and the rows that are not live are masked, so the
+    tick's shapes never change. The reference jits it and donates the
+    cache; here the decode cache (K/V or a window's ring, MLA's latents,
+    or the SSM and hybrid families' conv and recurrent states beside the
+    hybrid's shared-block K/V) is a set of persistent device tensors that
+    the step writes in place (one row per slot, layer and leaf; one state
+    per slot and Mamba layer), so it is never copied per token. On the
+    card, GQA attention runs as one ``flash_decode`` kernel launch per
+    layer (per application of the hybrid's shared block); MLA's absorbed
+    decode and the Mamba layers are torch ops, as the reference's are
+    jnp;
   * sampling (greedy/temperature/top-k/top-p, per-request keys) runs on
     the device in that step, so only (slots, 1) int32 tokens are copied
     to the host, once per tick;
-  * admission is ``prefill_at``: a batch of new requests is prefilled
-    and its prompt rows (and recurrent states) written into free slots
-    in place while resident slots keep theirs — the NEXT decode step
-    serves old and new together.
+  * admission is ``prefill_at`` (a batch of new requests prefilled and
+    written into free slots in place) or, with ``prefill_chunk`` or
+    ``prefix_entries``, ``prefill_chunk_at``: each mid-prefill slot
+    advances one chunk a tick inside the resident cache while the live
+    slots keep decoding (the masked live decode drops the masked rows'
+    cache writes, so a slot mid-prefill is not touched), and a prefix
+    matched in the prefix store is restored by an on-device row copy.
+    None of these launches ``flash_decode``: its launches happen in the
+    ticks only, and the engine counts them (``stats``).
 
 ``ServeEngine`` serves the families of ``SERVE_FAMILIES``, as the
 reference's: the encdec and vlm families' prompts carry frames or image
 embeddings, which slot admission does not take, so they are served by
-:class:`DecodeEngine`. The reference's SLO priority scheduling
-(``slos``), chunked prefill (``prefill_chunk``), the prefix store
-(``prefix_entries``), meshes and slot autoscaling (``min_slots``) are
-not yet ported and raise.
+:class:`DecodeEngine`. A mesh is not yet ported and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as kops
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import SlotCache
+from repro_torch.serve.prefix import PrefixPool
 from repro_torch.serve.sampling import SamplerConfig
-from repro_torch.serve.scheduler import (FinishedRequest, Request,
-                                         RequestScheduler)
+from repro_torch.serve.scheduler import (FinishedRequest, PriorityScheduler,
+                                         Request, RequestScheduler)
 
 SERVE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
+
+@dataclasses.dataclass
+class _PendingRow:
+    """A slot mid-prefill on the chunked admission path."""
+
+    slot: int
+    req: Request
+    start: int                    # next prompt position to fill
+    hold: Optional[int]           # pinned prefix-store entry (refcount)
 
 def make_prefill_step(model) -> Callable:
     """(params, batch) -> (last-token logits (B, V), cache).
@@ -130,6 +147,28 @@ class ServeEngine:
     ``flash_decode`` kernel on the card and its plain version on the
     CPU. ``use_flash`` checks that placement (``None``/``"auto"``: either;
     ``True``: the card; ``False``: the CPU).
+
+    Passing ``slos`` ({tier: TierSLO}) swaps the FIFO scheduler for the
+    :class:`PriorityScheduler`: admission orders by (aged) tier, and an
+    SLO-driven preemption pass runs before admission each tick — when a
+    queued high-tier request has burned ``preempt_at`` of its TTFT
+    budget and no slot is free, the worst over-budget lower-tier decode
+    is evicted. Its resident state (prompt + emitted[:-1]) is
+    snapshotted into the prefix store and PINNED, so re-admission
+    replays the emitted tokens as a one-suffix-token prefill and the
+    token stream resumes byte-identically (position-folded sampling).
+    ``min_slots`` bounds slot autoscaling: the admission target starts
+    there and ramps one slot per tick while the queue is non-empty
+    (decaying back when it drains). ``reserve_slots`` keeps that many
+    slots off-limits to tier > 0 admissions. ``admit_limit`` caps the
+    admissions of one tick. As the reference's.
+
+    ``stats`` holds the reference's counters and three of the port's:
+    ``decode_calls`` (``decode_step`` calls: one per decode tick, the
+    port's form of the reference's one-trace contract),
+    ``flash_decode_launches`` (kernel launches inside those calls) and
+    ``flash_decode_outside_ticks`` (launches during admission, chunks,
+    restores and snapshots: none, on either device).
     """
 
     def __init__(self, model, params, cfg=None, *, slots: int = 4,
@@ -137,22 +176,22 @@ class ServeEngine:
                  mesh=None, use_flash: Optional[bool] = None,
                  prefill_bucket: int = 1, max_queue: int = 1024,
                  prefill_chunk: Optional[int] = None,
-                 prefix_entries: int = 0, seed: int = 0, slos=None,
-                 min_slots: Optional[int] = None):
+                 prefix_entries: int = 0, prefix_min_tokens: int = 4,
+                 admit_limit: Optional[int] = None, seed: int = 0,
+                 slos=None, min_slots: Optional[int] = None,
+                 aging_s: Optional[float] = None, preempt_at: float = 0.5,
+                 over_budget_only: bool = False, preempt: bool = True,
+                 reserve_slots: int = 0):
         self.model = model
         self.cfg = cfg if cfg is not None else model.cfg
         if self.cfg.family not in SERVE_FAMILIES:
             raise ValueError(f"ServeEngine covers {SERVE_FAMILIES}, got "
                              f"{self.cfg.family!r}")
-        unported = {"slos": slos is not None, "prefill_chunk":
-                    prefill_chunk is not None, "prefix_entries":
-                    prefix_entries > 0, "mesh": mesh is not None,
-                    "min_slots": min_slots is not None}
-        for name, given in unported.items():
-            if given:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not yet ported to "
-                    "repro_torch")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...) is not yet ported to repro_torch")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
         self.sampler = sampler if sampler is not None else SamplerConfig()
         self.params = params
         self.device = params["embed"].device
@@ -161,31 +200,90 @@ class ServeEngine:
                                option="use_flash")
         self.seed = seed
         self.cache = SlotCache(model, slots, capacity, device=self.device)
-        self.scheduler = RequestScheduler(self.cache, max_queue=max_queue,
-                                          prefill_bucket=prefill_bucket)
+        if slos is not None:
+            self.scheduler: RequestScheduler = PriorityScheduler(
+                self.cache, slos=slos, max_queue=max_queue,
+                prefill_bucket=prefill_bucket, aging_s=aging_s,
+                preempt_at=preempt_at, over_budget_only=over_budget_only,
+                reserve_slots=reserve_slots)
+        else:
+            self.scheduler = RequestScheduler(
+                self.cache, max_queue=max_queue,
+                prefill_bucket=prefill_bucket)
+        self.preempt_enabled = preempt and slos is not None
+        if min_slots is not None and not 1 <= min_slots <= slots:
+            raise ValueError(f"min_slots must be in [1, {slots}]")
+        self.min_slots = min_slots
+        self._slot_target = min_slots if min_slots is not None else slots
+        self._preempt_holds: dict[int, int] = {}   # rid -> pinned entry
         self._next_rid = 0
-        self.stats = {"decode_steps": 0, "admit_calls": 0, "tokens_out": 0,
-                      "occupancy_sum": 0.0, "ticks": 0}
+        self.stats = {"decode_steps": 0, "admit_calls": 0,
+                      "chunk_calls": 0, "restore_calls": 0,
+                      "snap_calls": 0, "prefix_hits": 0,
+                      "prefix_hit_tokens": 0,
+                      "tokens_out": 0, "occupancy_sum": 0.0,
+                      "ticks": 0, "preemptions": 0,
+                      "replayed_tokens": 0, "slot_target_sum": 0.0,
+                      "decode_calls": 0, "flash_decode_launches": 0,
+                      "flash_decode_outside_ticks": 0}
+        # chunked admission path: active when either knob is set. With
+        # `prefill_chunk` each engine tick advances every mid-prefill
+        # slot by ONE C-token chunk and still decodes the resident
+        # slots (the masked live decode leaves mid-prefill rows alone);
+        # with only `prefix_entries` the suffix past the matched prefix
+        # is filled in one shot.
+        self.prefill_chunk = prefill_chunk
+        self.admit_limit = admit_limit
+        self._chunked = prefill_chunk is not None or prefix_entries > 0
+        self.pool: Optional[PrefixPool] = None
+        self.store: Optional[SlotCache] = None
+        if prefix_entries > 0:
+            self.pool = PrefixPool(prefix_entries,
+                                   min_tokens=prefix_min_tokens)
+            self.store = SlotCache(model, prefix_entries, capacity,
+                                   device=self.device)
+        self._pending: list[_PendingRow] = []
+        self._prefilling: set[int] = set()
+        self._snap_q: list[tuple[int, int]] = []    # (entry, src slot)
         self._toks = torch.zeros((slots, 1), dtype=torch.int32,
                                  device=self.device)
         self._keys = torch.zeros((slots, 2), dtype=torch.int64,
                                  device=self.device)
-        # True while every logits row computed so far was finite; read
-        # on the host only by :attr:`logits_finite`
+        # True while every logits row computed for a live request so far
+        # was finite; read on the host only by :attr:`logits_finite`
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
 
     # ----------------------------------------------------------- device
 
-    def _decode(self) -> None:
+    def _outside_ticks(self, fn: Callable, *args):
+        """Call ``fn`` and count the ``flash_decode`` launches it made
+        (admission, chunks, restores and snapshots make none)."""
+        before = fd.LAUNCHES["flash_decode"]
+        out = fn(*args)
+        self.stats["flash_decode_outside_ticks"] += \
+            fd.LAUNCHES["flash_decode"] - before
+        return out
+
+    def _decode(self, live: Optional[torch.Tensor] = None) -> None:
         """One token for every slot: decode, fold each slot's key with
-        the position the token is written at, sample — on the device."""
+        the position the token is written at, sample — on the device.
+        With ``live`` (slots,) bool the masked rows keep their cache and
+        their token (the masked live decode)."""
+        before = fd.LAUNCHES["flash_decode"]
         logits, cache = self.model.decode_step(
             self.params, self.cache.data, self._toks,
-            use_flash=self.use_flash)
-        self._finite &= torch.isfinite(logits).all()
+            use_flash=self.use_flash, live=live)
+        self.stats["decode_calls"] += 1
+        self.stats["flash_decode_launches"] += \
+            fd.LAUNCHES["flash_decode"] - before
+        ok = torch.isfinite(logits)
+        if live is not None:
+            ok = ok | ~live[:, None, None]
+        self._finite &= ok.all()
         keys = sampling.fold_positions(self._keys, cache["pos"])
-        self._toks = sampling.sample(self.sampler, logits[:, -1],
-                                     keys)[:, None]
+        nxt = sampling.sample(self.sampler, logits[:, -1], keys)[:, None]
+        self._toks = nxt if live is None else torch.where(
+            live[:, None], nxt, self._toks)
 
     def _admit(self, prompt: torch.Tensor, lengths: torch.Tensor,
                slot_ids: torch.Tensor, req_keys: torch.Tensor
@@ -200,30 +298,97 @@ class ServeEngine:
         self._toks[slot_ids, 0] = first
         return first
 
+    def _admit_chunk(self, slot_ids: np.ndarray, chunk: np.ndarray,
+                     start: np.ndarray, cl: np.ndarray, full: np.ndarray,
+                     rids: list, done: np.ndarray) -> np.ndarray:
+        """One ``prefill_chunk_at`` call over the mid-prefill rows: rows
+        with ``cl`` > 0 take their request's key; rows completing their
+        prompt (``done``) sample their first token from the chunk's last
+        valid logits, folded at the prompt length — the stream of a
+        monolithic admission. Returns the first tokens (host)."""
+        dev = self.device
+        slots_t = torch.from_numpy(slot_ids).to(dev, torch.long)
+        logits, _ = self.model.prefill_chunk_at(
+            self.params, self.cache.data, torch.from_numpy(chunk).to(dev),
+            slots_t, start=start, chunk_lengths=cl)
+        write = torch.from_numpy(np.nonzero(cl > 0)[0]).to(dev)
+        self._finite &= torch.isfinite(logits[write]).all()
+        req_keys = sampling.make_keys(self.seed, rids, dev)
+        self._keys[slots_t[write]] = req_keys[write]
+        first = sampling.sample(
+            self.sampler, logits, sampling.fold_positions(
+                req_keys, torch.from_numpy(full).to(dev)))
+        sel = torch.from_numpy(np.nonzero(done & (cl > 0))[0]).to(dev)
+        self._toks[slots_t[sel], 0] = first[sel]
+        return first.cpu().numpy()
+
+    def _copy_rows(self, dst: dict, src: dict, pairs) -> None:
+        """dst[slot] <- src[slot'] for each (dst slot, src slot) of
+        ``pairs``, every leaf and ``pos``: one on-device copy of a
+        slot's whole state per pair, with no temporary."""
+        for d, s_ in pairs:
+            for name, big in dst.items():
+                if name == "pos":
+                    big[d].copy_(src[name][s_])
+                else:
+                    big[:, d].copy_(src[name][:, s_])
+
+    def _restore(self, pairs) -> None:
+        """cache[slot] <- store[entry] for each (slot, entry): the prefix
+        copy that replaces recomputing the matched prefix."""
+        self._copy_rows(self.cache.data, self.store.data, pairs)
+
+    def _snap(self, pairs) -> None:
+        """store[entry] <- cache[slot] for each (entry, slot): a slot's
+        complete decode state snapshotted into the prefix store."""
+        self._copy_rows(self.store.data, self.cache.data, pairs)
+
     @property
     def logits_finite(self) -> bool:
         """Whether every logits row of every decode step and admission
-        so far was finite (one host read)."""
+        so far was finite, for the live requests (one host read)."""
         return bool(self._finite.item())
 
     # ------------------------------------------------------------- host
 
     def submit(self, tokens, max_new_tokens: int, *,
                eos_id: Optional[int] = None,
-               rid: Optional[int] = None) -> int:
+               rid: Optional[int] = None, tier: int = 0) -> int:
         """Enqueue one request (bounded queue); returns its rid."""
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid) + 1
         req = Request(rid=rid, tokens=np.asarray(tokens),
-                      max_new_tokens=max_new_tokens, eos_id=eos_id)
+                      max_new_tokens=max_new_tokens, eos_id=eos_id,
+                      tier=tier)
         self.scheduler.submit(req, now=time.perf_counter())
         return rid
+
+    def _admit_budget(self) -> Optional[int]:
+        """Admissions allowed this tick: the static ``admit_limit`` cap
+        combined with the autoscaled slot target."""
+        lim = self.admit_limit
+        if self.min_slots is not None:
+            budget = max(0, self._slot_target - len(self.scheduler.active))
+            lim = budget if lim is None else min(lim, budget)
+        return lim
+
+    def _autoscale(self) -> None:
+        if self.min_slots is None:
+            return
+        if self.scheduler.queued > 0:
+            self._slot_target = min(self.cache.slots, self._slot_target + 1)
+        else:
+            self._slot_target = max(self.min_slots, self._slot_target - 1)
 
     def _admit_pending(self) -> list[FinishedRequest]:
         finished = []
         for pad_len, group in sorted(
-                self.scheduler.pop_admissions().items()):
+                self.scheduler.pop_admissions(self._admit_budget()).items()):
+            group = [(s, req, t0) for s, req, t0 in group
+                     if self.scheduler.claim_popped(s, req.rid)]
+            if not group:
+                continue
             n = len(group)
             prompt = np.zeros((n, pad_len), np.int32)
             lengths = np.zeros((n,), np.int32)
@@ -234,9 +399,10 @@ class ServeEngine:
                                     device=self.device)
             req_keys = sampling.make_keys(
                 self.seed, [req.rid for _, req, _ in group], self.device)
-            first = self._admit(torch.from_numpy(prompt).to(self.device),
-                                torch.from_numpy(lengths).to(self.device),
-                                slot_ids, req_keys)
+            first = self._outside_ticks(
+                self._admit, torch.from_numpy(prompt).to(self.device),
+                torch.from_numpy(lengths).to(self.device), slot_ids,
+                req_keys)
             self.stats["admit_calls"] += 1
             first = first.cpu().numpy()
             now = time.perf_counter()
@@ -247,25 +413,248 @@ class ServeEngine:
                     finished.append(fin)
         return finished
 
+    # --------------------------------------------------- chunked admission
+
+    def _record(self, slot: int, token: int, now: float,
+                finished: list) -> None:
+        """Record one emitted token; on retirement queue a prefix-store
+        snapshot of prompt + emitted[:-1] (exactly the tokens whose
+        state is resident — the last sampled token was never fed back),
+        which is what a follow-up session turn will prefix-match."""
+        st = self.scheduler.active[slot]
+        self.stats["tokens_out"] += 1
+        fin = self.scheduler.record(slot, token, now)
+        if fin is None:
+            return
+        if self.pool is not None:
+            # this slot's resident tokens: the CONTINUATION prompt (which
+            # already holds any pre-preemption output) plus the tokens
+            # emitted by this attempt, minus the never-fed last one
+            self._queue_snapshot(
+                np.concatenate([st.request.tokens,
+                                np.asarray(st.emitted[:-1], np.int32)]),
+                slot)
+        finished.append(fin)
+
+    def _queue_snapshot(self, tokens: np.ndarray, slot: int) -> None:
+        e = self.pool.insert(tokens)
+        if e is not None:
+            self._snap_q.append((e, slot))
+
+    def _flush_snaps(self) -> None:
+        """Copy every snapshot queued since the last flush. Must run
+        BEFORE anything rewrites the source slots (the next decode or
+        chunk for live rows, the next admission for freed ones) so each
+        stored state matches its token key. A later snapshot into the
+        same entry wins, as the reference's masked select does."""
+        if not self._snap_q:
+            return
+        by_entry = {e: slot for e, slot in self._snap_q}
+        self._snap_q.clear()
+        self.stats["snap_calls"] += 1
+        self._outside_ticks(self._snap, sorted(by_entry.items()))
+
+    def _admit_chunked(self) -> None:
+        """Move queued requests into slots on the chunk path: consult
+        the prefix pool, restore matched prefix states on the device
+        (pinning their entries), and leave each row mid-prefill."""
+        groups = self.scheduler.pop_admissions(self._admit_budget())
+        rows = [rt for g in sorted(groups) for rt in groups[g]]
+        rows = [(slot, req, t0) for slot, req, t0 in rows
+                if self.scheduler.claim_popped(slot, req.rid)]
+        if not rows:
+            return
+        restores = []
+        for slot, req, _t0 in rows:
+            start, hold = 0, None
+            if self.pool is not None and req.prompt_len >= 2:
+                # match capped at prompt_len - 1: at least one suffix
+                # token must run to produce the first-token logits
+                m = self.pool.acquire(req.tokens[:req.prompt_len - 1])
+                if m is not None:
+                    hold, start = m
+                    restores.append((slot, hold))
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += start
+            # a preempted request's snapshot hold is released only now,
+            # AFTER acquire pinned it again — the entry stays live from
+            # preemption through replay with no eviction window
+            prev = self._preempt_holds.pop(req.rid, None)
+            if prev is not None:
+                self.pool.release(prev)
+            self._pending.append(_PendingRow(slot, req, start, hold))
+            self._prefilling.add(slot)
+        if restores:
+            self.stats["restore_calls"] += 1
+            self._outside_ticks(self._restore, restores)
+
+    def _advance_chunks(self, finished: list) -> None:
+        """Advance every mid-prefill slot by one chunk (one
+        ``prefill_chunk_at`` call over the pending rows). Rows completing
+        their prompt emit their first token and join the decode batch
+        this tick."""
+        if not self._pending:
+            return
+        if self.prefill_chunk is not None:
+            C = self.prefill_chunk
+        else:   # prefix-only mode: drain each suffix in one shot
+            C = self.scheduler.padded_len(
+                max(r.req.prompt_len - r.start for r in self._pending))
+        # the row count padded to the next power of two (capped at the
+        # slot count), as the reference pads it: pad rows point at
+        # DISTINCT unused slots with cl == 0, so they pass through
+        # untouched (and a MoE routes the same rows as the reference's)
+        S = self.cache.slots
+        n_real = len(self._pending)
+        n_rows = n_real
+        if n_rows & (n_rows - 1):
+            n_rows = 1 << n_rows.bit_length()
+        n_rows = min(n_rows, S)
+        used = {r.slot for r in self._pending}
+        spare = iter(s for s in range(S) if s not in used)
+        slot_ids = np.zeros((n_rows,), np.int64)
+        chunk = np.zeros((n_rows, C), np.int32)
+        start = np.zeros((n_rows,), np.int32)
+        cl = np.zeros((n_rows,), np.int32)
+        full = np.ones((n_rows,), np.int32)
+        rids = [0] * n_rows
+        done = np.zeros((n_rows,), bool)
+        for i in range(n_real, n_rows):
+            slot_ids[i] = next(spare)
+        for i, r in enumerate(self._pending):
+            li = r.req.prompt_len
+            n = min(C, li - r.start)
+            slot_ids[i] = r.slot
+            chunk[i, :n] = r.req.tokens[r.start:r.start + n]
+            start[i] = r.start
+            cl[i] = n
+            full[i] = li
+            rids[i] = r.req.rid
+            done[i] = r.start + n == li
+        self.stats["chunk_calls"] += 1
+        first = self._outside_ticks(self._admit_chunk, slot_ids, chunk,
+                                    start, cl, full, rids, done)
+        now = time.perf_counter()
+        still = []
+        for i, r in enumerate(self._pending):
+            r.start += int(cl[i])
+            if done[i]:
+                self._prefilling.discard(r.slot)
+                if r.hold is not None:
+                    self.pool.release(r.hold)
+                    r.hold = None
+                if self.pool is not None:
+                    self._queue_snapshot(r.req.tokens, r.slot)
+                self._record(r.slot, int(first[i]), now, finished)
+            else:
+                if self.pool is not None \
+                        and r.req.prompt_len - r.start <= C:
+                    # the LAST chunk-boundary snapshot only: it still
+                    # lets a concurrent request sharing only PART of this
+                    # prompt (a system prompt) hit before this one
+                    # finishes prefilling, without one never-reused entry
+                    # per chunk of distinct-suffix traffic
+                    self._queue_snapshot(r.req.tokens[:r.start], r.slot)
+                still.append(r)
+        self._pending = still
+
+    def _preempt_pass(self) -> None:
+        """Evict SLO-selected victims so deadline-risk queued requests
+        admit this same tick. Each victim's resident state is inserted
+        into the prefix store and PINNED under its rid before the slot
+        is surrendered; the snapshot copy flushes before admission can
+        rewrite the freed rows."""
+        victims = self.scheduler.select_preemptions(
+            prefilling=frozenset(self._prefilling))
+        if not victims:
+            return
+        for slot in victims:
+            st = self.scheduler.active[slot]
+            if self.pool is not None:
+                resident = np.concatenate(
+                    [st.request.tokens,
+                     np.asarray(st.emitted[:-1], np.int32)])
+                self._hold_preempt_snapshot(st.request.rid, resident, slot)
+            self.stats["preemptions"] += 1
+            self.stats["replayed_tokens"] += len(st.emitted)
+            self.scheduler.preempt(slot, time.perf_counter())
+        self._flush_snaps()     # before admission reuses the freed slots
+
+    def _hold_preempt_snapshot(self, rid: int, tokens: np.ndarray,
+                               slot: int) -> None:
+        if len(tokens) < self.pool.min_tokens:
+            return
+        e = self.pool.insert(tokens)
+        if e is not None:
+            self._snap_q.append((e, slot))
+        else:
+            # exact prefix already stored (e.g. a second preemption at
+            # the same position): its state is byte-identical, reuse it
+            e = self.pool.index.get(tokens)
+        if e is None:
+            return          # pool fully pinned: re-admission recomputes
+        self.pool.pin(e)
+        prev = self._preempt_holds.pop(rid, None)
+        if prev is not None:
+            self.pool.release(prev)
+        self._preempt_holds[rid] = e
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a request: drop it from the queue (tombstoning it if
+        its admission group was already popped), or retire its slot
+        mid-prefill/mid-decode (releasing any pinned prefix entry). The
+        survivor slots are untouched — a cancelled row is masked off the
+        decode from the next tick on."""
+        kind, slot = self.scheduler.cancel(rid)
+        if kind is None:
+            return False
+        hold = self._preempt_holds.pop(rid, None)
+        if hold is not None:
+            self.pool.release(hold)
+        if kind == "active":
+            self._prefilling.discard(slot)
+            for r in list(self._pending):
+                if r.slot == slot:
+                    if r.hold is not None:
+                        self.pool.release(r.hold)
+                    self._pending.remove(r)
+        return True
+
     # -------------------------------------------------------------- tick
 
     def step(self) -> list[FinishedRequest]:
-        """One engine tick: admit into free slots, then decode ONE token
-        for every resident sequence."""
+        """One engine tick: preempt SLO victims (priority mode), admit
+        into free slots (chunk path: restore matched prefixes and
+        advance one chunk), then decode ONE token for every live
+        resident sequence (one ``decode_step`` call)."""
+        finished: list[FinishedRequest] = []
         self.stats["ticks"] += 1
-        finished = self._admit_pending()
-        live = list(self.scheduler.active)
+        self._autoscale()
+        self.stats["slot_target_sum"] += self._slot_target
+        if self.preempt_enabled:
+            self._preempt_pass()
+        if self._chunked:
+            self._admit_chunked()
+            self._advance_chunks(finished)
+            self._flush_snaps()     # before decode rewrites source rows
+        else:
+            finished.extend(self._admit_pending())
+        live = [s for s in self.scheduler.active
+                if s not in self._prefilling]
         if live:
             self.stats["decode_steps"] += 1
             self.stats["occupancy_sum"] += len(live) / self.cache.slots
-            self._decode()
+            if self._chunked:
+                mask = np.zeros((self.cache.slots,), bool)
+                mask[live] = True
+                self._decode(torch.from_numpy(mask).to(self.device))
+            else:
+                self._decode()
             emitted = self._toks[:, 0].cpu().numpy()   # the ONLY host copy
             now = time.perf_counter()
             for slot in live:
-                self.stats["tokens_out"] += 1
-                fin = self.scheduler.record(slot, int(emitted[slot]), now)
-                if fin is not None:
-                    finished.append(fin)
+                self._record(slot, int(emitted[slot]), now, finished)
+        self._flush_snaps()         # retirement snapshots from this tick
         return finished
 
     def run(self, requests: Optional[Iterable] = None
@@ -275,7 +664,7 @@ class ServeEngine:
         for r in requests or ():
             if isinstance(r, Request):
                 self.submit(r.tokens, r.max_new_tokens, eos_id=r.eos_id,
-                            rid=r.rid)
+                            rid=r.rid, tier=r.tier)
             else:
                 tokens, max_new = r
                 self.submit(tokens, max_new)
@@ -299,6 +688,9 @@ class ServeEngine:
         return self.stats["occupancy_sum"] / steps if steps else 0.0
 
     def reset_stats(self) -> None:
-        """Zero the step/occupancy counters (e.g. after a warm-up)."""
-        self.stats = {k: 0.0 if k == "occupancy_sum" else 0
-                      for k in self.stats}
+        """Zero the step/occupancy counters (e.g. after a warm-up) and
+        the prefix pool's."""
+        self.stats = {k: 0.0 if k in ("occupancy_sum", "slot_target_sum")
+                      else 0 for k in self.stats}
+        if self.pool is not None:
+            self.pool.stats = {k: 0 for k in self.pool.stats}

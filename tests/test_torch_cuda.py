@@ -1240,3 +1240,128 @@ def test_markerless_state_built_on_the_card_stays_there(cuda, slot_dtype):
         state.slots))
     with pytest.raises(ValueError, match="flat-packed"):
         lars(0.1, use_kernels=True).update(grads, state, params)
+
+
+# ------------------------- the decode softcap, the masked live decode
+
+# the capped instances at D 64, 128 and 256 (in bf16 past D 128 the wide
+# kernel), with lengths 0, 1, S and past S among the rows
+CAP_SHAPES = [(5, 1000, 3, 3, 64), (5, 700, 8, 5, 128), (5, 448, 1, 8, 256)]
+
+
+@pytest.mark.parametrize("shape", CAP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [2.0, 30.0])
+def test_flash_decode_softcap_matches_plain(cuda, shape, dtype, cap):
+    """The capped kernel against its plain version (cap * tanh(s / cap)
+    on each scaled score) at FD_TOL, in one launch; the zero-length row
+    gives zeros; and a cap that bites moves the output away from the
+    uncapped kernel's."""
+    q, k, v, lengths = _fd_inputs(*shape, dtype, cuda, seed=3)
+    q = q * 4                       # scores large enough for the cap
+    scale = shape[-1] ** -0.5
+    before = fdk.LAUNCHES["flash_decode"]
+    got = fdk.flash_decode(q, k, v, lengths, scale=scale, softcap=cap)
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES["flash_decode"] == before + 1
+    want = fdk.flash_decode_plain(q, k, v, lengths, scale=scale,
+                                  softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), **FD_TOL[dtype])
+    zero = (lengths == 0).nonzero().flatten()
+    assert len(zero) and torch.equal(got[zero], torch.zeros_like(got[zero]))
+    if cap == 2.0:
+        plain = fdk.flash_decode(q, k, v, lengths, scale=scale)
+        assert (got.float() - plain.float()).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("shape", CAP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_softcap_zero_is_the_uncapped_kernel(cuda, shape,
+                                                          dtype):
+    """softcap=0 launches the uncapped instance: the same bits as a call
+    without the keyword, call after call; the capped instance at a cap
+    far above every score agrees with it within FD_TOL."""
+    q, k, v, lengths = _fd_inputs(*shape, dtype, cuda, seed=4)
+    scale = shape[-1] ** -0.5
+    base = fdk.flash_decode(q, k, v, lengths, scale=scale)
+    for _ in range(2):
+        assert torch.equal(fdk.flash_decode(q, k, v, lengths, scale=scale,
+                                            softcap=0.0), base)
+    wide = fdk.flash_decode(q, k, v, lengths, scale=scale, softcap=1e4)
+    torch.testing.assert_close(wide.float(), base.float(), **FD_TOL[dtype])
+    with pytest.raises(ValueError, match="softcap"):
+        fdk.flash_decode(q, k, v, lengths, scale=scale, softcap=-1.0)
+
+
+@pytest.mark.parametrize("changes", [dict(), dict(sliding_window=8),
+                                     dict(attn_logit_softcap=2.0)],
+                         ids=["linear", "ring", "softcap"])
+def test_masked_live_decode_leaves_masked_rows_untouched(cuda, changes):
+    """``decode_step(live=...)`` on the card: the masked rows' K/V rows
+    and ``pos`` keep every bit, the live rows' logits and cache equal an
+    unmasked step's, and the tick is one flash_decode launch a layer."""
+    cfg, model, params = _lm(cuda, **changes)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 20))).to(
+        cuda)
+    lens = torch.tensor([20, 3, 11, 7], dtype=torch.int32, device=cuda)
+    cache = model.init_cache(4, 32, device=cuda)
+    model.prefill_at(params, cache, toks, torch.arange(4, device=cuda),
+                     lengths=lens)
+    ref = {k: v.clone() for k, v in cache.items()}
+    live = torch.tensor([True, False, True, False], device=cuda)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1))).to(cuda)
+    fdk.reset_launch_counts()
+    logits, _ = model.decode_step(params, cache, tok, live=live)
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES["flash_decode"] == cfg.num_layers
+    want, _ = model.decode_step(params, ref, tok)
+    for b in range(4):
+        for name in ("k", "v"):
+            if live[b]:
+                assert torch.equal(cache[name][:, b], ref[name][:, b])
+            else:
+                assert not torch.equal(cache[name][:, b], ref[name][:, b])
+        if live[b]:
+            torch.testing.assert_close(logits[b], want[b])
+    assert cache["pos"].tolist() == [21, 3, 12, 7]
+    before = {k: v.clone() for k, v in cache.items()}
+    model.decode_step(params, cache, tok,
+                      live=torch.zeros(4, dtype=torch.bool, device=cuda))
+    for name in cache:
+        assert torch.equal(cache[name], before[name]), name
+
+
+def test_chunked_engine_on_the_card_matches_the_cpu(cuda):
+    """Reduced smollm in f32 with a ring (window 8) and the softcap,
+    through the chunked engine with the prefix store and a forced
+    preemption: the card's greedy tokens equal the CPU's, and the card
+    launched flash_decode only in the decode ticks, one a layer."""
+    from repro_torch.serve.scheduler import TierSLO
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, model, params = _lm(dev, sliding_window=8,
+                                 attn_logit_softcap=30.0)
+        eng = ServeEngine(model, params, cfg, slots=2, capacity=64, seed=7,
+                          prefill_chunk=5, prefix_entries=4,
+                          slos={0: TierSLO(1e-6, 10.0),
+                                1: TierSLO(10.0, 60.0)})
+        rng = np.random.default_rng(6)
+        fdk.reset_launch_counts()
+        rids = [eng.submit(rng.integers(1, cfg.vocab_size, (n,)), 10,
+                           tier=1) for n in (13, 21)]
+        for _ in range(8):
+            eng.step()
+        rids.append(eng.submit(rng.integers(1, cfg.vocab_size, (6,)), 4,
+                               tier=0))
+        got = {f.request.rid: f.tokens.tolist() for f in eng.run([])}
+        torch.cuda.synchronize()
+        assert eng.stats["preemptions"] >= 1
+        assert eng.stats["flash_decode_outside_ticks"] == 0
+        assert fdk.LAUNCHES["flash_decode"] == (
+            cfg.num_layers * eng.stats["decode_steps"] if dev == "cuda"
+            else 0)
+        out[dev] = [got[r] for r in rids]
+    assert out["cuda"] == out["cpu"]

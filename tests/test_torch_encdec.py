@@ -378,9 +378,9 @@ def test_decode_runs_both_attentions_through_flash_decode(monkeypatch):
     calls = []
     inner = fd.flash_decode
 
-    def spy(q4, k, v, lengths, *, scale):
+    def spy(q4, k, v, lengths, *, scale, **kw):
         calls.append((k.shape[1], lengths.tolist()))
-        return inner(q4, k, v, lengths, scale=scale)
+        return inner(q4, k, v, lengths, scale=scale, **kw)
     monkeypatch.setattr(fd, "flash_decode", spy)
     before = dict(fd.LAUNCHES)
     model.decode_step(params, cache, torch.zeros(3, 1, dtype=torch.int32))

@@ -437,14 +437,18 @@ def test_bf16_prefill_prefill_at_and_decode_match_reference(variant):
     {"sliding_window": 64, "use_mla": True},
     {"attn_logit_softcap": 30.0, "use_mla": True}])
 def test_unported_features_raise(change):
-    """What the port still refuses: the unported families when the model
-    is built, and a sliding window or the logit softcap (with GQA, MLA or
-    the hybrid's shared block) wherever a decode cache is made
-    (``init_cache``, ``prefill``, the serving engine). Training takes both
-    with GQA and in the hybrid's shared block
-    (tests/test_torch_attention_masks.py) and MLA everywhere
-    (tests/test_torch_mla.py), but not MLA with either: the reference's
-    ``mla_block`` ignores both, and the port refuses them instead."""
+    """What the port still refuses, and what it no longer refuses. The
+    encdec and vlm families build, and the serving engine refuses them
+    with the reference's reason. MLA with a sliding window or the logit
+    softcap raises wherever a decode cache is made (``init_cache``,
+    ``prefill``, the serving engine) and in training: the reference's
+    MLA ignores both. A window and the softcap with GQA and in the
+    hybrid's shared block, which raised until the ring cache and the
+    decode softcap were ported, now build their cache (a window's is a
+    ring of ``window`` rows) and serve: prefill and 3 greedy decode
+    steps from the reference's params give the reference's logits (its
+    jnp decode, which applies the cap) within 1e-5, and training stays
+    finite."""
     change = dict(change)
     arch = change.pop("arch", "deepseek-v2-236b" if change.get("use_mla")
                       else "smollm-135m")
@@ -460,36 +464,86 @@ def test_unported_features_raise(change):
         with pytest.raises(ValueError, match=f"got '{cfg.family}'"):
             ServeEngine(model, params, cfg, slots=1, capacity=8)
         return
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
     tok = torch.zeros(1, 4, dtype=torch.int32)
-    # a window raises with its reason: decode would need the ring cache
-    reason = "not yet ported" + (".*ring cache" if cfg.sliding_window
-                                 else "")
-    for call in (lambda: model.init_cache(1, 8),
-                 lambda: model.prefill(params, tok),
-                 lambda: ServeEngine(model, params, cfg, slots=1,
-                                     capacity=8)):
-        with pytest.raises(NotImplementedError, match=reason):
-            call()
     if cfg.use_mla:
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        for call in (lambda: model.init_cache(1, 8),
+                     lambda: model.prefill(params, tok),
+                     lambda: ServeEngine(model, params, cfg, slots=1,
+                                         capacity=8)):
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                call()
         with pytest.raises(NotImplementedError, match="ignores both"):
             value_and_grad(model, cfg, params, {"tokens": tok})
         return
+    rcfg = dataclasses.replace(ref_get_config(arch).reduced(), **change)
+    if arch == "zamba2-7b":             # the shared block after layers 0, 2
+        cfg = dataclasses.replace(cfg, num_layers=3)
+        rcfg = dataclasses.replace(rcfg, num_layers=3)
+    rmodel = ref_build_model(rcfg)
+    rparams = rmodel.init(jax.random.key(1))
+    model = build_model(cfg)
+    params = bridge.lm_params_to_torch(jax.device_get(rparams), model)
+    cache = model.init_cache(2, 96)
+    rcache = rmodel.init_cache(2, 96)
+    for name in cache:
+        assert tuple(cache[name].shape) == tuple(rcache[name].shape), name
+    toks = _tokens(cfg, (2, 80), 11)    # longer than a window of 64
+    lens = np.array([80, 37], np.int32)
+    logits, cache = model.prefill(params, torch.tensor(toks), cache_len=96,
+                                  lengths=torch.tensor(lens))
+    if arch == "zamba2-7b" and cfg.attn_logit_softcap:
+        # the reference's hybrid prefill drops the cap its chunked
+        # prefill (and decode, and training) applies: the port's prefill
+        # is held against one whole-prompt chunk
+        rlogits, rcache = rmodel.prefill_chunk_at(
+            rparams, rcache, jnp.asarray(toks), jnp.arange(2),
+            start=jnp.zeros(2, jnp.int32), chunk_lengths=jnp.asarray(lens))
+    else:
+        rlogits, rcache = rmodel.prefill(rparams, jnp.asarray(toks),
+                                         cache_len=96,
+                                         lengths=jnp.asarray(lens))
+    _close(logits, rlogits)
+    for t in _tokens(cfg, (3, 2, 1), 12):
+        logits, cache = model.decode_step(params, cache, torch.tensor(t))
+        rlogits, rcache = rmodel.decode_step(rparams, rcache, jnp.asarray(t))
+        _close(logits, rlogits)
+    engine = ServeEngine(model, params, cfg, slots=1, capacity=8)
+    assert engine.generate([np.arange(3)], 2)[0].shape == (2,)
+    assert engine.logits_finite
     loss, _, _ = value_and_grad(model, cfg, params, {"tokens": tok})
     assert torch.isfinite(loss)
 
 
 def test_softcap_is_refused_on_the_kernel_path():
-    """The reference's flash path drops the softcap its jnp path applies;
-    the port refuses it rather than silently differ."""
-    cfg, p, _ = _layer0("gqa")
-    capped = dataclasses.replace(cfg, attn_logit_softcap=50.0)
-    x = torch.zeros(1, 1, cfg.d_model)
-    c = torch.zeros(1, 4, 3, 32)
-    with pytest.raises(NotImplementedError, match="flash-decode"):
-        A.decode_attention(capped, p, x, c, c.clone(),
-                           torch.zeros(1, dtype=torch.int32))
+    """The reference's flash path drops the softcap its jnp path applies.
+    The port refused the cap at decode until it picked a behaviour: the
+    jnp path's and training's, s = cap * tanh(s / cap) on each scaled
+    score, inside the kernel (its plain version here). One decode step
+    of a GQA layer against the reference's jnp decode (``use_flash=
+    False``) within 1e-5 — and away from its kernel path's uncapped
+    output, which the cap changes at this scale."""
+    cfg, p, rp = _layer0("gqa")
+    capped = dataclasses.replace(cfg, attn_logit_softcap=2.0)
+    rcapped = dataclasses.replace(
+        ref_get_config("smollm-135m").reduced(), **GQA,
+        attn_logit_softcap=2.0)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32) * 4
+    c = rng.standard_normal((3, 16, 3, 32)).astype(np.float32) * 4
+    pos = np.array([15, 4, 0], np.int32)
+    out, _, _ = A.decode_attention(capped, p, torch.tensor(x),
+                                   torch.tensor(c), torch.tensor(c.copy()),
+                                   torch.tensor(pos))
+    want, _, _ = RA.decode_attention(rcapped, rp, jnp.asarray(x),
+                                     jnp.asarray(c), jnp.asarray(c),
+                                     jnp.asarray(pos), use_flash=False)
+    _close(out, want)
+    uncapped, _, _ = RA.decode_attention(rcapped, rp, jnp.asarray(x),
+                                         jnp.asarray(c), jnp.asarray(c),
+                                         jnp.asarray(pos), use_flash=True)
+    assert np.abs(_np(out) - _np(uncapped)).max() > 1e-3
 
 
 def test_use_flash_is_a_placement_check():

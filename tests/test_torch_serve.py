@@ -9,6 +9,7 @@ the admission tick, and draws that follow the distribution.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
+from repro_torch.serve import report
 from repro_torch.serve import (QueueFull, Request, RequestScheduler,
                                SamplerConfig, ServeEngine, SlotCache,
                                make_prefill_step, make_serve_step,
@@ -304,9 +306,29 @@ def test_stochastic_output_is_independent_of_slot_and_admission_tick():
                                 {"prefix_entries": 2}, {"mesh": object()},
                                 {"min_slots": 1}])
 def test_engine_refuses_unported_options(kw):
+    """A mesh is not yet ported and raises. The other options, which
+    raised until this slice ported them, now run: an empty ``slos`` is
+    refused by the priority scheduler itself (as the reference's), and
+    chunked prefill, the prefix store and slot autoscaling serve the
+    same greedy tokens as the plain engine (4 requests through 2 slots).
+    tests/test_torch_serve_{slo,prefix}.py hold them against the
+    reference."""
     cfg, model, params, _, _ = _pair()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(model, params, cfg, **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            ServeEngine(model, params, cfg, **kw)
+        return
+    if "slos" in kw:
+        with pytest.raises(ValueError, match="at least one TierSLO"):
+            ServeEngine(model, params, cfg, **kw)
+        kw = {"slos": {0: 1.0, 1: (5.0, 60.0)}}
+    prompts = [np.arange(3 + 2 * i) % cfg.vocab_size for i in range(4)]
+    want = ServeEngine(model, params, cfg, slots=2,
+                       capacity=32).generate(prompts, 5)
+    engine = ServeEngine(model, params, cfg, slots=2, capacity=32, **kw)
+    assert [t.tolist() for t in engine.generate(prompts, 5)] == \
+        [t.tolist() for t in want]
+    assert engine.stats["decode_calls"] == engine.stats["decode_steps"]
 
 
 def test_engine_stats_and_reset():
@@ -338,19 +360,35 @@ def test_launch_serve_runs_reduced_on_the_cpu(capsys):
     ["--session", "2"], ["--prefill-chunk", "8"], ["--prefix-entries", "4"],
     ["--set", "sliding_window=8"], ["--arch", "paligemma-3b"],
     ["--set", "attn_logit_softcap=30.0"], ["--arch", "whisper-base"]])
-def test_launch_serve_refuses_unported_options(extra):
-    """The reference's options the port does not cover yet and a sliding
-    window or the softcap set through ``--set`` (serving refuses both;
-    ``--set`` itself works: tests/test_torch_mla.py) raise "not yet
-    ported"; the vlm and encdec archs raise the reference's own refusal:
-    its ``ServeEngine`` does not serve their families."""
-    args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
+def test_launch_serve_refuses_unported_options(extra, monkeypatch):
+    """What ``launch.serve`` still refuses: ``--mesh`` ("not yet
+    ported"), and the vlm and encdec archs with the reference's own
+    refusal (its ``ServeEngine`` does not serve their families). The
+    reference's other options, and a sliding window or the softcap set
+    through ``--set``, raised until this slice ported them; each now
+    serves its traffic (a window below the prompts' lengths: a ring),
+    every request finishing with finite logits and one ``decode_step``
+    call a tick."""
+    args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+            "--requests", "3"]
     if "--arch" in extra:
         with pytest.raises(ValueError, match="ServeEngine covers"):
             launch_serve.main(args + extra)
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        launch_serve.main(args + extra)
+    if "--mesh" in extra:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            launch_serve.main(args + extra)
+        return
+    if "--scenario" in extra:
+        # a shrunk bursty shape keeps the CPU run short
+        monkeypatch.setitem(report.SCENARIO_LIBRARY, "bursty",
+                            functools.partial(report.bursty_tier_traffic,
+                                              interactive=2, burst=2,
+                                              burst_new=4))
+        extra = extra + ["--time-scale", "0.1"]
+    rep = launch_serve.main(args + extra)
+    assert rep["requests"] > 0 and rep["logits_finite"]
+    assert rep["stats"]["decode_calls"] == rep["decode_steps"] > 0
 
 
 def test_launch_serve_defaults_to_the_card():

@@ -127,7 +127,8 @@ def main(argv=None) -> int:
     for name, (so, log) in build().items():
         fn = getattr(ctypes.CDLL(so), symbol)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         fns[name] = fn
         print(f"{name}: {kbuild.parse_ptxas(log)}", flush=True)
 
@@ -159,7 +160,7 @@ def main(argv=None) -> int:
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
                              tickets.data_ptr(), B, S, Hkv, G, D, scale,
-                             splits, keys,
+                             0.0, splits, keys,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: cudaError {err}")
