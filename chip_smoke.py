@@ -102,9 +102,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              reduced LM (LAMB) for 5 steps through ``ShardedLoader`` with
              prefetch and without, bit-identical; the registered
              ``lm_smoke`` grid through ``GridRunner`` (8 cells, 1,152
-             steps) with its launches per cell, then its first two cells
-             run again, killed mid-cell in the second and resumed to
-             equal trajectories and rows;
+             steps) with its launches per cell, then its first cell run
+             again, killed mid-cell and resumed to equal trajectories and
+             rows;
 13. lean LM — the memory-lean path (``flash_vjp``, ``attn_q_chunk``,
              ``loss_chunk``, ``remat_block``, set through ``--set``):
              first ``norms_flat``, ``apply_flat`` and ``apply_flat_q8``
@@ -113,9 +113,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
              versions (run on row chunks) on every row, the rows past
              element 2^31 reported apart; ``launch.train.main`` with
              smollm-135m at phase 12's 16 x 1024 and LARS, each knob alone
-             and all four together (one ``norms_flat`` and one
-             ``apply_flat`` per step; steps/s, tokens/s, the allocator's
-             peak), and a profile of one step with all four;
+             and all four together, 2 steps each (one ``norms_flat`` and
+             one ``apply_flat`` per step; steps/s, tokens/s, the
+             allocator's peak), and a profile of one step with all four;
              qwen3-14b at full width and 2 layers (``--set
              num_layers=2``), 4 x 4096 tokens through ``flash_vjp``,
              ``attn_q_chunk=2048`` and ``loss_chunk=1024``: 3 steps of f32
@@ -148,9 +148,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              (8 experts, top-2, capacity factor 0.5) in f32: 20 LARS
              steps card against CPU within 1e-5, 16 teacher-forced decode
              steps within 1e-4, greedy tokens identical;
-15. MLA and masks — deepseek-v2-236b at every published width, 2 of its
-             60 layers and 16 of its 160 routed experts (``--set
-             num_layers=2 --set num_experts=16``), 4 x 4096 tokens
+15. MLA and masks — deepseek-v2-236b at every published width, 1 of its
+             60 layers (2 until the script needed the time for phase 20)
+             and 16 of its 160 routed experts (``--set num_layers=1
+             --set num_experts=16``), 4 x 4096 tokens
              through ``flash_vjp``, ``attn_q_chunk=512``,
              ``loss_chunk=1024`` and remat: 3 steps each of f32 LARS and
              the large-batch path (one ``norms_flat`` and one
@@ -174,12 +175,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              within 1e-5;
 16. SSM and hybrid — ``norms_flat``, ``apply_flat`` and
              ``apply_flat_q8`` at the packed shapes of falcon-mamba-7b's
-             2-layer and zamba2-7b's 7-layer superbuffers, on fresh
+             1-layer and zamba2-7b's 7-layer superbuffers, on fresh
              buffers, held on every row and timed
              as in phase 13, and ``flash_decode`` at zamba2's decode shape
              (B 32, S 4096, Hkv 32, G 1, D 112, bf16) timed as in phase 3;
              then for each model at full width and that depth (``--set
-             num_layers=2`` / ``7``), 4 x 4096 tokens through phase 13's
+             num_layers=1`` / ``7``), 4 x 4096 tokens through phase 13's
              lean knobs: 3 steps each of f32 LARS and the large-batch path
              through ``launch.train.main`` (one ``norms_flat`` and one
              ``apply_flat`` or ``apply_flat_q8`` per step; finite losses;
@@ -277,7 +278,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
              on the card (a preempted stream equal to its uninterrupted
              run); ``launch.serve_experiment --grid serve_slo_smoke``
              into ``build/serve_grid/``, gated on its decode contract,
-             its claims A1–A3 logged. The phases' wall times are printed
+             its claims A1–A3 logged;
+20. data parallelism and ZeRO — (a) two ranks on the one card (this
+             file run as ``--zero-rank R 2 DIR``, gloo over a file store:
+             NCCL refuses two ranks on one device; gloo's all-gather and
+             reduce-scatter of CUDA tensors go through pinned host
+             memory, counted), each with its tensors on ``cuda:0``, a
+             ``2x1`` mesh and ``TrainPipeline(zero=True)`` and then
+             ``zero=False`` through ``ShardedLoader(mesh=)``: LeNet at
+             batch 1024, 20 steps, f32 and int8 LARS momentum, and
+             smollm-135m at full width (263,144 rows padded to 263,152:
+             131,576 a rank), 3 steps of 16 x 1024 tokens, f32 LARS;
+             every step of every rank exactly one ``norms_flat`` and one
+             ``apply_flat``/``apply_flat_q8``, each on the rank's own
+             rows; ZeRO bit-identical to replicated (losses and every
+             parameter); each against the same run alone on the card:
+             losses within ``MESH_RTOL`` (5e-3, the reference's), and
+             each rank's final params within 1e-2 of the change of the
+             run alone split into 2 microbatches as the ranks split the
+             batch (over the whole parameter vector; an unchanged state
+             reads 1.0), both ranks' params equal; slot bytes a rank
+             half the padded rows', pad rows zero and int8 pad scales
+             1.0; the allocator's peaks, step ms and the share in
+             collectives (CUDA events around each, no sync added)
+             printed; (b) ``launch.train --mesh 1x1 --zero`` on reduced
+             smollm (a cut in width: the full width's time goes to two
+             1.6 GB checkpoints) under ``torchrun --standalone
+             --nproc-per-node 1`` (NCCL), after (a), beside the runs
+             alone, which time nothing: its checkpoint equal, member
+             for member, to the same run's without a mesh; (c)
+             ``norms_flat``, ``apply_flat`` and ``apply_flat_q8`` timed
+             as in phase 3 on a shard's rows: smollm-135m's 131,576 and
+             qwen3-14b's 2,164,536. The phases' wall times are printed
              at the end.
 
 From phase 13 on, a model's seeded init is drawn on the host once per
@@ -304,7 +336,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SHAPES = [(272, 512), (65536, 512)]   # LeNet's packed buffer; HBM-sized
-GRAPH_CALLS = {272: 100, 65536: 10, 263144: 5}  # calls per timed graph
+GRAPH_CALLS = {272: 100, 65536: 10, 131576: 5,    # calls per timed graph
+               263144: 5}
 MAIN_ROWS = 272
 MAIN_STEPS = 20
 MAIN_ARGS = ["--arch", "lenet-mnist", "--batch", "8192",
@@ -387,12 +420,12 @@ LM_CARD_CPU_ARGS = ["--arch", "smollm-135m", "--reduced", "--batch", "8",
 # an H100 80GB HBM3 at 700 W; held at 1e-5
 LM_CARD_CPU_RTOL = {"lars": 1e-5, "lamb": 1e-5}
 LOADER_STEPS = 5
-# the registered lm_smoke grid: the killed run holds its first two cells
-# only (phase 11 kills and resumes a whole grid); the kill lands in the
-# second (adamw-b16, 256 steps, after lamb-b16's 256) at its step 110,
-# past its step-100 checkpoint
+# the registered lm_smoke grid: the killed run holds its first cell only
+# (phase 11 kills and resumes a whole grid, a finished cell skipped on
+# resume); the kill lands in lamb-b16 (256 steps) at its step 110, past
+# its step-100 checkpoint
 LM_GRID = "lm_smoke"
-LM_KILL_AFTER = 256 + 110
+LM_KILL_AFTER = 110
 
 # phase 13: the memory-lean LM path. smollm-135m at phase 12's 16 x 1024
 # with LARS, each knob alone and then all four, through --set
@@ -403,6 +436,11 @@ LEAN_RUNS = {
     "remat_block": ["remat_block=5"],
     "all_four": ["flash_vjp=true", "attn_q_chunk=512", "loss_chunk=1024",
                  "remat_block=5"]}
+# each knob run takes 2 steps (phase 12's runs take LM_STEPS) to keep the
+# script within its time limit beside phase 20
+LEAN_STEPS = 2
+LEAN_ARGS = ["--arch", "smollm-135m", "--batch", "16", "--seq", "1024",
+             "--steps", str(LEAN_STEPS), "--lr", "0.01", "--log-every", "0"]
 # qwen3-14b at full width, depth cut to 2 layers (2,216,453,632
 # parameters; a (4329072, 512) superbuffer of 25 slices), train_4k's
 # sequence length, through the reference's hillclimb settings
@@ -473,14 +511,16 @@ GRANITE_CARD_CPU_ARGS = [
 
 # phase 15: multi-head latent attention, and the training side of sliding
 # windows and the logit softcap. deepseek-v2-236b (the reference's config
-# verbatim) at every published width, trained at 2 of its 60 layers and
-# 16 of its 160 routed experts (2,196,537,344 parameters; one layer's 160
-# experts are 3.77 B parameters, which f32 LARS could not hold on the
-# card beside the rest), 4 x 4096 tokens a step through flash_vjp,
-# attn_q_chunk=512, loss_chunk=1024 and remat: f32 LARS and the
-# large-batch path, as qwen3's runs
+# verbatim) at every published width, trained at 1 of its 60 layers and
+# 16 of its 160 routed experts (at 2 layers 2,196,537,344 parameters; one
+# layer's 160 experts are 3.77 B parameters, which f32 LARS could not
+# hold on the card beside the rest; cut from 2 layers to 1 to keep the
+# script within its time limit beside phase 20), 4 x 4096 tokens a step
+# through flash_vjp, attn_q_chunk=512, loss_chunk=1024 and remat: f32
+# LARS and the large-batch path, as qwen3's runs
 DEEPSEEK = "deepseek-v2-236b"
-DEEPSEEK_CUT = ["num_layers=2", "num_experts=16"]
+DEEPSEEK_LAYERS = 1
+DEEPSEEK_CUT = [f"num_layers={DEEPSEEK_LAYERS}", "num_experts=16"]
 DEEPSEEK_LEAN = ["flash_vjp=true", "attn_q_chunk=512", "loss_chunk=1024"]
 DEEPSEEK_STEPS = 3
 DEEPSEEK_BATCH = 4
@@ -519,13 +559,13 @@ MASK_CARD_CPU_ARGS = [
 # at full width, trained at a cut depth, 4 x 4096 tokens a step through
 # phase 13's lean knobs (the loss chunked; in zamba2's shared block
 # flash_vjp and query chunks): f32 LARS and the large-batch path, as
-# qwen3's runs. falcon-mamba-7b at 2 of its 64 layers, zamba2-7b at 7 of
+# qwen3's runs. falcon-mamba-7b at 1 of its 64 layers, zamba2-7b at 7 of
 # its 81 (the shared block after layers 0 and 6: still two applications).
 # Both are served at the same cut with phase 8's traffic. Both trained at
 # 16 and 24 layers, and at 8 and 12, too (PERF.md); the cut keeps the
 # script within its time limit beside phases 17 and 19.
 FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-7b"
-SSM_LAYERS = {FALCON: 2, ZAMBA: 7}
+SSM_LAYERS = {FALCON: 1, ZAMBA: 7}
 SSM_STEPS = 3
 
 
@@ -697,13 +737,50 @@ STACK_FAMILIES = {"qwen3-14b": {}, DEEPSEEK: {}, FALCON: {},
 STACK_SLOS = {0: (1e-6, 10.0), 1: (10.0, 60.0)}
 
 
+# phase 20: data parallelism and ZeRO. Two ranks on the one card over
+# gloo (NCCL refuses two ranks on one device): LeNet at batch 1024, 20
+# steps, f32 and int8 LARS momentum, and smollm-135m at full width, 3
+# steps of 16 x 1024 tokens, each with ZeRO and replicated, against the
+# same run alone; then one rank under torchrun over NCCL; then the LARS
+# kernels on a shard's rows
+ZERO_RANKS = 2
+ZERO_RUNS = ("lenet_f32", "lenet_int8", "smollm_f32")
+ZERO_LENET = (1024, 20)                  # global batch, steps
+ZERO_LM = (16, 1024, 3)                  # global batch, seq, steps
+# smollm-135m's 263144 rows padded to a multiple of 2 * 8; a rank's half;
+# qwen3-14b's (4329072, 512) over two ranks
+ZERO_LM_ROWS = 263152
+ZERO_SHARD_ROWS = {"smollm": ZERO_LM_ROWS // ZERO_RANKS,
+                   "qwen3": 4329072 // ZERO_RANKS}
+# the reference's data-parallel mesh tolerance (tests/test_golden.py:73)
+ZERO_MESH_RTOL = 5e-3
+# a rank's final params against the run alone with the batch split as
+# the ranks split it: ||rank - alone|| / ||alone - init|| over the whole
+# parameter vector, which a rank that never updated reads as 1.0
+ZERO_PARAM_RTOL = 1e-2
+ZERO_JOIN_S = 300
+# (b): reduced smollm, f32 LARS (deterministic on the card without
+# cuDNN). A cut in width: at full width most of its ~40 s went to writing
+# and reading two 1.6 GB checkpoints, which the script's time limit
+# cannot spare
+ZERO_NCCL_ARGS = ["--arch", "smollm-135m", "--reduced", "--batch", "8",
+                  "--seq", "64", "--steps", "5", "--lr", "0.01",
+                  "--log-every", "0", "--optimizer", "lars"]
+
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
 CARDS = [("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
          ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12)]
 
 
+_STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a line that is not a JSON object ends with the
+    seconds since the script started, to show where its time goes."""
+    if not msg.startswith("{"):
+        msg = f"{msg}  [{time.perf_counter() - _STARTED:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1684,11 +1761,12 @@ def kill_and_resume(name: str, root: str, kill_after: int,
                     cells: int = 0) -> bool:
     """Run grid ``name`` into ``root/killed_<name>``, killed after
     ``kill_after`` steps (mid-cell, past a checkpoint, in the second
-    cell), resume it, and hold its trajectories and rows (without
-    ``wall_s``) equal to the uninterrupted run's in ``root/name``. With
-    ``cells`` only the grid's first ``cells`` cells run (the runner's
-    ``cell_ids``): the first finished before the kill and skipped on
-    resume, the second resumed from its checkpoint."""
+    cell, or in the first where it runs alone), resume it, and hold its
+    trajectories and rows (without ``wall_s``) equal to the uninterrupted
+    run's in ``root/name``. With ``cells`` only the grid's first
+    ``cells`` cells run (the runner's ``cell_ids``); a cell finished
+    before the kill is skipped on resume, the killed one resumed from
+    its checkpoint."""
     from repro_torch.experiments import GridRunner, get_grid
     from repro_torch.experiments.runner import ABORT_ENV
     grid = get_grid(name)
@@ -1702,7 +1780,7 @@ def kill_and_resume(name: str, root: str, kill_after: int,
         killed = True
     finally:
         os.environ.pop(ABORT_ENV, None)
-    ckpt = os.path.join(kdir, ids[1], "state.npz")
+    ckpt = os.path.join(kdir, ids[min(1, len(ids) - 1)], "state.npz")
     if not killed or not os.path.exists(ckpt):
         raise AssertionError(f"the kill after {kill_after} steps did not "
                              f"land mid-cell ({ckpt})")
@@ -2138,7 +2216,7 @@ def lm_phase(train, lk, fdk, bw: float, flops: float, floor: float,
                             "L3_lars_le_sgd_at_largest_batch",
                             "L4_best_layerwise_beats_best_generic_at_largest"})
     out["kill_resume_equal"] = kill_and_resume(LM_GRID, root, LM_KILL_AFTER,
-                                               cells=2)
+                                               cells=1)
     out["phase_wall_s"] = time.perf_counter() - t_phase
     log(f"  phase 12 wall time {out['phase_wall_s']:.1f} s")
     return out
@@ -2159,18 +2237,19 @@ def qwen_kernel_rows(lk, bw: float, flops: float, floor: float) -> dict:
 
 
 def large_kernel_rows(lk, layout, seed: int, bw: float, flops: float,
-                      floor: float) -> dict:
+                      floor: float, rows: int = 0) -> dict:
     """The three LARS kernels at a large ``layout``'s rows, on fresh
     buffers drawn from ``seed`` before any model is built. Each is held
     against its plain version on EVERY row — the plain versions run on
     chunks of PLAIN_CHUNK rows, whose temporaries fit beside the
     buffers — and the rows past element 2^31, if any, are reported
     apart. The kernel and the library call are timed from a CUDA graph
-    of one call, the chunked plain version by CUDA events."""
+    of one call, the chunked plain version by CUDA events. ``rows`` (with
+    no layout): a ZeRO shard's rows, which no fold follows."""
     import gc
     import torch
     from repro_torch.core import packing
-    R = layout.buffer_shape[0]
+    R = rows or layout.buffer_shape[0]
     gc.collect()
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2218,7 +2297,8 @@ def large_kernel_rows(lk, layout, seed: int, bw: float, flops: float,
     rel_all, rel_past = errs(rel)
     if not rel_all <= NORMS_RTOL:
         raise AssertionError(f"norms_flat at {R} rows: rel err {rel_all}")
-    fold = device_ms(lambda: packing.fold_rows(layout, wsq), calls=1)
+    fold = device_ms(lambda: packing.fold_rows(layout, wsq), calls=1) \
+        if layout is not None else None
     del wsq, gsq, rel
     vn = lambda x: torch.linalg.vector_norm(x, dim=1)  # noqa: E731
     out["norms_flat"] = _row(
@@ -2227,7 +2307,9 @@ def large_kernel_rows(lk, layout, seed: int, bw: float, flops: float,
                                                   block_rows=1)),
         device_ms(lambda: (vn(w), vn(g)), calls=1),
         2 * n * 4 + 2 * R * 4, 4 * n, bw, flops)
-    out["norms_flat"].update(fold_ms=fold, max_rel_err_past_2_31=rel_past)
+    out["norms_flat"]["max_rel_err_past_2_31"] = rel_past
+    if fold is not None:
+        out["norms_flat"]["fold_ms"] = fold
 
     w2, m2 = lk.apply_flat(w, g, m, lr, **kw)
     diff = []
@@ -2281,7 +2363,8 @@ def large_kernel_rows(lk, layout, seed: int, bw: float, flops: float,
     del w, g, q, s, lr
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  {R} rows, {layout.num_slices} slices ({n:,} elements"
+    log(f"  {R} rows, " + (f"{layout.num_slices} slices " if layout
+                           else "a ZeRO shard ") + f"({n:,} elements"
         + (f"; rows from {PAST_2_31} lie past element 2^31):" if R >
            PAST_2_31 else "):"))
     log_kernel_rows({k: [v] for k, v in out.items()}, floor)
@@ -2393,8 +2476,8 @@ def lean_phase(train, lk, fdk, bw: float, flops: float, floor: float
     out = {"qwen_kernel_rows": qwen_kernel_rows(lk, bw, flops, floor)}
     sets = lambda vs: [a for v in vs for a in ("--set", v)]  # noqa: E731
     out["smollm_runs"] = lm_train_runs(
-        train, lk, fdk, LM_ARGS + ["--optimizer", "lars"],
-        {tag: sets(vs) for tag, vs in LEAN_RUNS.items()})
+        train, lk, fdk, LEAN_ARGS + ["--optimizer", "lars"],
+        {tag: sets(vs) for tag, vs in LEAN_RUNS.items()}, LEAN_STEPS)
     out["smollm_profile"] = lm_profile("f32", cfg=apply_overrides(
         get_config("smollm-135m"), LEAN_RUNS["all_four"]))
     out["qwen_runs"] = lm_train_runs(train, lk, fdk, QWEN_ARGS, QWEN_RUNS,
@@ -2614,7 +2697,8 @@ def mla_phase(train, serve, lk, fdk, bw: float, flops: float, floor: float,
     out["runs"] = lm_train_runs(train, lk, fdk, DEEPSEEK_ARGS, QWEN_RUNS,
                                 DEEPSEEK_STEPS, aux=True)
     out["session"] = moe_session(deepseek_cfg(), DEEPSEEK_BATCH,
-                                 "deepseek (2 layers, 16 routed experts)")
+                                 f"deepseek ({DEEPSEEK_LAYERS} layer, 16 "
+                                 "routed experts)")
     out["serve"] = deepseek_serve(serve, fdk, lk)
     # reduced deepseek in f32 with a nonzero query rank: training and its
     # decode (16 teacher-forced steps, the engine's greedy tokens)
@@ -3551,6 +3635,488 @@ def serve_stack_phase(serve, fdk, lk, phase8: dict, workdir: str) -> dict:
     return out
 
 
+# ------------------------------------------ phase 20: data parallel, ZeRO
+
+def zero_spec(name: str):
+    """(cfg, model, optimizer, host batches, global batch, steps) of one
+    phase 20 run: LeNet at batch 1024 with f32 or int8 LARS momentum, or
+    smollm-135m at full width, 16 x 1024 tokens, f32 LARS."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars
+    from repro_torch.data import batch_iterator, synthetic_mnist
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import build_model
+    if name.startswith("lenet"):
+        cfg = get_config("lenet-mnist")
+        b, steps = ZERO_LENET
+        x, y, _, _ = synthetic_mnist(4 * b, 8, seed=0)
+        host = batch_iterator(x, y, batch=b, seed=0)
+        slots = "int8" if name.endswith("int8") else "f32"
+    else:
+        cfg = get_config("smollm-135m")
+        b, seq, steps = ZERO_LM
+        host = lm_batches(cfg, b, seq, seed=0)
+        slots = "f32"
+    return (cfg, build_model(cfg), lars(0.01, slot_dtype=slots), host, b,
+            steps)
+
+
+def timed_collectives(events: list):
+    """Within the block each collective of the data-parallel step is
+    bracketed by a pair of CUDA events on the current stream, appended to
+    ``events`` (the module's functions wrapped, as ``record_rows`` wraps
+    the kernels). The start event fires when the work queued before the
+    collective is done, the end event when its result is back on the
+    card, host staging included; nothing syncs the step."""
+    import contextlib
+    import torch
+    from repro_torch.distributed import collectives
+
+    @contextlib.contextmanager
+    def block():
+        names = ("all_reduce_sum", "reduce_scatter_rows", "all_gather_rows")
+        saved = {k: getattr(collectives, k) for k in names}
+        for k, inner in saved.items():
+            def clocked(*a, _f=inner, **kw):
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+                out = _f(*a, **kw)
+                pair[1].record()
+                events.append(pair)
+                return out
+            setattr(collectives, k, clocked)
+        try:
+            yield
+        finally:
+            for k, fn in saved.items():
+                setattr(collectives, k, fn)
+    return block()
+
+
+def zero_run(name: str, mesh, zero: bool, rows_seen: list,
+             accum: int = 1) -> tuple:
+    """One phase 20 run through TrainPipeline and ShardedLoader, on this
+    rank's rows (``mesh``) or alone (``mesh=None``; ``accum`` microbatches
+    a step, ``ZERO_RANKS`` of them split the batch as the ranks do, and
+    off a mesh the pipeline sums them in the order the ranks' reduction
+    does): per step exactly one
+    ``norms_flat`` and one ``apply_flat`` (``apply_flat_q8``: int8) on
+    this rank's rows, checked through LAUNCHES and the rows each launch
+    was given, and both summed over the run. Every step from the second
+    on gives its wall time and the time of its collectives
+    (``timed_collectives``). Returns (result, initial params, final
+    params)."""
+    import gc
+    import torch
+    from repro_torch.data import ShardedLoader
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.train import TrainPipeline
+    from repro_torch.treepath import tree_flatten_with_path, tree_leaves
+    cfg, model, opt, host, batch, steps = zero_spec(name)
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe = TrainPipeline(model, opt, cfg, mesh=mesh, zero=zero,
+                         accum_steps=accum)
+    state = pipe.init_state(torch.Generator().manual_seed(0), dev)
+    init = [t.clone() for t in tree_leaves(state.params)]
+    layout = state.opt_state.layout
+    rows = state.opt_state.slots["momentum"].shape[0]
+    apply = "apply_flat_q8" if name.endswith("int8") else "apply_flat"
+    want = {k: int(k in ("norms_flat", apply)) for k in KERNELS}
+    loader = ShardedLoader(host, dev, mesh=mesh, spec=pipe.batch_specs(
+        batch) if mesh is not None else None)
+    losses, step_ms, coll_ms, staged = [], [], [], []
+    launches = {k: 0 for k in KERNELS}
+    launch_rows = {k: [] for k in KERNELS}
+    try:
+        for i in range(steps):
+            b = next(loader)
+            lk.reset_launch_counts()
+            collectives.reset_counts()
+            rows_seen.clear()
+            events: list = []
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with timed_collectives(events):
+                state, m = pipe(state, b)
+            torch.cuda.synchronize(dev)
+            if i:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                coll_ms.append(sum(a.elapsed_time(z) for a, z in events))
+            staged.append(dict(collectives.STAGED))
+            counts = dict(lk.LAUNCHES)
+            for k, r in rows_seen:
+                launch_rows[k].append(r)
+            for k, n in counts.items():
+                launches[k] += n
+            if counts != want or rows_seen != [("norms_flat", rows),
+                                               (apply, rows)]:
+                raise AssertionError(
+                    f"{name} zero={zero} step {i}: launches {counts} on "
+                    f"rows {rows_seen}, want {want} on {rows} rows")
+            losses.append(float(m["loss"]))
+    finally:
+        loader.close()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name} zero={zero}: losses {losses}")
+    slot_bytes = sum(v.numel() * v.element_size()
+                     for v in state.opt_state.slots.values())
+    whole = sum(layout.total_rows * layout.lane * v.element_size()
+                if v.shape[1] == layout.lane else
+                layout.num_blocks * v.element_size()
+                for v in state.opt_state.slots.values())
+    out = {"losses": losses, "step_ms": step_ms,
+           "collective_ms": coll_ms, "staged": staged,
+           "launches": launches,
+           "launch_rows": {k: sorted(set(v)) for k, v in launch_rows.items()},
+           "rows": rows, "total_rows": layout.total_rows,
+           "leaf_paths": ["/".join(map(str, p)) for p, _ in
+                          tree_flatten_with_path(state.params)[0]],
+           "pad_rows": layout.pad_rows, "slot_bytes": slot_bytes,
+           "whole_slot_bytes": whole,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    if mesh is not None and zero:
+        # the pad rows lie in the last rank's shard: zero weights and
+        # momentum, int8 pad blocks at code 0 and scale 1.0
+        start = mesh.coords["data"] * rows
+        lo = max(layout.base_rows - start, 0)
+        pad = {k: v[lo:] if v.shape[1] == layout.lane else v[lo // 8:]
+               for k, v in state.opt_state.slots.items()}
+        out["pad_rows_here"] = rows - lo
+        out["pad_inert"] = all(
+            bool(((v == 1.0) if k.endswith("_scale") else (v == 0)).all())
+            for k, v in pad.items())
+        if not out["pad_inert"]:
+            raise AssertionError(f"{name}: pad rows moved")
+    return out, init, tree_leaves(state.params)
+
+
+def param_drift(got: list, ref: list, init: list) -> dict:
+    """How far a run's final params lie from a reference run's, against
+    how far the reference moved them from ``init``: over the whole
+    parameter vector, ``||got - ref|| / ||ref - init||`` (a run that
+    never updated reads 1.0), and the worst leaf's own ratio (its
+    index)."""
+    gaps, moves = [], []
+    for a, b, c in zip(got, ref, init):
+        gaps.append(float((a.double() - b.double()).norm()))
+        moves.append(float((b.double() - c.double()).norm()))
+    leaf = [g / m if m else (0.0 if g == 0 else math.inf)
+            for g, m in zip(gaps, moves)]
+    worst = max(range(len(leaf)), key=leaf.__getitem__)
+    return {"whole": math.hypot(*gaps) / math.hypot(*moves),
+            "worst_leaf": leaf[worst], "worst_leaf_index": worst}
+
+
+def record_rows(lk, rows_seen: list) -> dict:
+    """Wrap each LARS kernel wrapper of ``lk`` so that every call notes
+    (kernel, rows of its buffers) in ``rows_seen``; returns the wrappers
+    it replaced."""
+    saved = {k: getattr(lk, k) for k in KERNELS}
+    for k, inner in saved.items():
+        def seen(w2, *a, _k=k, _f=inner, **kw):
+            rows_seen.append((_k, w2.shape[0]))
+            return _f(w2, *a, **kw)
+        setattr(lk, k, seen)
+    return saved
+
+
+def zero_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 20 (a), one of the ranks (``chip_smoke.py --zero-rank R W
+    DIR``): gloo over a file store, every rank's tensors on ``cuda:0``.
+    Each run trains with ZeRO and then replicated, and the two must be
+    bit-identical (losses and every parameter); the ZeRO run's final
+    params go to ``DIR/params_<run>_rank<R>.pt`` for the parent to hold
+    against the run alone."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.launch.mesh import mesh_from_spec
+    rows_seen: list = []
+    record_rows(lk, rows_seen)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = mesh_from_spec(f"{world}x1", device="cuda:0")
+        with shared_inits():        # one host draw of smollm's init
+            for name in ZERO_RUNS:
+                z, _, zp = zero_run(name, mesh, True, rows_seen)
+                r, _, rp = zero_run(name, mesh, False, rows_seen)
+                gaps = [float((a.float() - b.float()).abs().max())
+                        for a, b in zip(zp, rp)]
+                out[name] = {"zero": z, "replicated": r,
+                             "identical": z["losses"] == r["losses"]
+                             and max(gaps) == 0.0,
+                             "max_param_gap": max(gaps)}
+                torch.save([t.cpu() for t in zp], os.path.join(
+                    workdir, f"params_{name}_rank{rank}.pt"))
+                del zp, rp
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def zero_two_ranks(workdir: str) -> list:
+    """Start the ranks of phase 20 (a) and wait for them (at most
+    ZERO_JOIN_S; a rank that hangs or fails ends the phase, and every
+    process is stopped)."""
+    procs = []
+    for r in range(ZERO_RANKS):
+        log_f = open(os.path.join(workdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zero-rank",
+             str(r), str(ZERO_RANKS), workdir], stdout=log_f,
+            stderr=subprocess.STDOUT), log_f))
+    deadline = time.monotonic() + ZERO_JOIN_S
+    failed = []
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                if p.wait(timeout=max(deadline - time.monotonic(), 1)):
+                    failed.append(f"rank {r} exit {p.returncode}")
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} did not end in {ZERO_JOIN_S} s")
+    finally:
+        for p, log_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+    if failed:
+        for r in range(ZERO_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                log(f"--- rank {r}\n" + f.read()[-3000:])
+        raise AssertionError("; ".join(failed))
+    out = []
+    for r in range(ZERO_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def zero_nccl_start(workdir: str) -> tuple:
+    """Phase 20 (b), started once (a) has ended, beside the runs alone
+    (which time nothing): ``launch.train --mesh 1x1 --zero`` under
+    ``torchrun --standalone --nproc-per-node 1`` (NCCL: the step's
+    reduce-scatter and loss all-reduce go through the backend on one
+    rank). Mostly process start; its few steps are a reduced model's.
+    Returns (process, its log file, start time)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    log_f = open(os.path.join(workdir, "nccl.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.train"]
+        + ZERO_NCCL_ARGS + ["--mesh", "1x1", "--zero", "--checkpoint",
+                            os.path.join(workdir, "nccl.npz")],
+        env=env, stdout=log_f, stderr=subprocess.STDOUT)
+    return proc, log_f, time.perf_counter()
+
+
+def zero_nccl_finish(train, workdir: str, started: tuple) -> dict:
+    """Phase 20 (b): wait for the torchrun run, then the same run without
+    a mesh in this process; the two checkpoints must hold the same
+    arrays, member for member."""
+    import zipfile
+    proc, log_f, t0 = started
+    try:
+        rc = proc.wait(timeout=ZERO_JOIN_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(workdir, "nccl.log")) as f:
+        text = f.read()
+    if rc:
+        log(text[-3000:])
+        raise AssertionError(f"torchrun exit {rc}")
+    mine = os.path.join(workdir, "plain.npz")
+    summary = train.main(ZERO_NCCL_ARGS + ["--checkpoint", mine])
+
+    def members(path):
+        with zipfile.ZipFile(path) as z:
+            return [(n, z.read(n)) for n in z.namelist()]
+    same = members(mine) == members(os.path.join(workdir, "nccl.npz"))
+    line = next((s for s in text.splitlines() if "mesh=" in s), "")
+    done = next((s for s in text.splitlines() if s.startswith("done:")), "")
+    log(f"  (b) torchrun, one rank, NCCL: {line.strip()}\n      {done}\n"
+        f"      checkpoint identical to the run without a mesh: {same} "
+        f"(torchrun {wall:.1f} s from its start to its end)")
+    if not same or "zero=True" not in line:
+        raise AssertionError("the one-rank NCCL run differs")
+    return {"identical": same, "losses": summary["losses"],
+            "wall_s": wall}
+
+
+def zero_against_alone(name: str, ranks: list, zdir: str,
+                       rows_seen: list) -> dict:
+    """Phase 20 (a)'s gates on one run: ZeRO against replicated on each
+    rank, the ranks' params against each other, and both against the
+    same run alone in this process, at one microbatch (losses within
+    ``ZERO_MESH_RTOL``) and split into ``ZERO_RANKS`` microbatches as the
+    ranks split the batch (params within ``ZERO_PARAM_RTOL``); slot
+    bytes, peaks, step ms and the share in collectives logged."""
+    import torch
+    alone, init, final = zero_run(name, None, False, rows_seen)
+    split, _, split_final = zero_run(name, None, False, rows_seen,
+                                     accum=ZERO_RANKS)
+    res = {"alone": {k: alone[k] for k in (
+        "losses", "peak_bytes", "slot_bytes", "rows")},
+           "split": {"losses": split["losses"]}}
+    # the gate's reading of an unchanged state
+    res["unchanged_drift"] = param_drift(init, split_final, init)
+    params = [torch.load(os.path.join(
+        zdir, f"params_{name}_rank{r}.pt"), map_location="cuda")
+        for r in range(ZERO_RANKS)]
+    for r, rank in enumerate(ranks):
+        got = rank[name]
+        if not got["identical"]:
+            log(f"  {name} rank {r}: ZeRO and replicated differ "
+                f"(max param gap {got['max_param_gap']}; losses "
+                f"{got['zero']['losses']} vs "
+                f"{got['replicated']['losses']})")
+            raise AssertionError(f"{name}: ZeRO != replicated")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(params[r], params[0])):
+            raise AssertionError(f"{name}: rank {r}'s params "
+                                 "differ from rank 0's")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            got["zero"]["losses"], alone["losses"]))
+        drift = param_drift(params[r], split_final, init)
+        drift["bit_identical"] = all(
+            torch.equal(a, b) for a, b in zip(params[r],
+                                              split_final))
+        whole = param_drift(params[r], final, init)
+        for d in (drift, whole):
+            d["worst_leaf_path"] = alone["leaf_paths"][
+                d.pop("worst_leaf_index")]
+        if not rel <= ZERO_MESH_RTOL:
+            raise AssertionError(f"{name} rank {r}: rel {rel} "
+                                 "against the run alone")
+        if not drift["whole"] <= ZERO_PARAM_RTOL:
+            raise AssertionError(
+                f"{name} rank {r}: params {drift} of the split "
+                f"run's change from their init (an unchanged "
+                f"state reads {res['unchanged_drift']['whole']})")
+        z = got["zero"]
+        if z["slot_bytes"] * ZERO_RANKS != z["whole_slot_bytes"]:
+            raise AssertionError(f"{name}: slot bytes "
+                                 f"{z['slot_bytes']}")
+        res[f"rank{r}"] = dict(got, rel_to_alone=rel,
+                               drift_to_split=drift,
+                               drift_to_alone=whole)
+    del params, init, final, split_final
+    z0 = ranks[0][name]["zero"]
+    share = statistics.median(
+        c / t for c, t in zip(z0["collective_ms"], z0["step_ms"]))
+    res["collective_share"] = share
+    rep = ranks[0][name]["replicated"]
+    launched = ", ".join(
+        f"rank{r} " + " ".join(
+            f"{k} {n} on {rk[name]['zero']['launch_rows'][k]}"
+            for k, n in rk[name]["zero"]["launches"].items() if n)
+        for r, rk in enumerate(ranks))
+
+    def drifts(key):
+        return "; ".join(
+            f"rank{r} {d['whole']:.3g} (worst leaf "
+            f"{d['worst_leaf']:.3g} {d['worst_leaf_path']}"
+            + (f"; bit-identical {d['bit_identical']}"
+               if "bit_identical" in d else "") + ")"
+            for r, d in ((r, res[f"rank{r}"][key])
+                         for r in range(ZERO_RANKS)))
+    log("\n      ".join([
+        f"  {name}: {ZERO_RANKS} ranks, {z0['rows']} of "
+        f"{z0['total_rows']} rows a rank ({z0['pad_rows']} pad "
+        f"rows, inert: {ranks[-1][name]['zero']['pad_inert']}); "
+        f"ZeRO == replicated bit for bit; launches {launched}",
+        "losses " + " ".join(f"{x:.5f}" for x in z0["losses"][:3])
+        + " ... vs alone rel " + " ".join(
+            f"{res[f'rank{r}']['rel_to_alone']:.3g}"
+            for r in range(ZERO_RANKS)),
+        "params against the run alone split as the ranks split "
+        f"({ZERO_RANKS} microbatches): {drifts('drift_to_split')}"
+        f" (limit {ZERO_PARAM_RTOL:g} on the whole vector; an "
+        f"unchanged state {res['unchanged_drift']['whole']:.3g})",
+        "params against the run alone at one microbatch (not "
+        f"gated): {drifts('drift_to_alone')}",
+        f"slot bytes a rank {z0['slot_bytes']:,} of "
+        f"{z0['whole_slot_bytes']:,} (replicated "
+        f"{rep['slot_bytes']:,}); peak rank0 "
+        f"{z0['peak_bytes'] / 2**20:.1f} MiB, rank1 "
+        f"{ranks[1][name]['zero']['peak_bytes'] / 2**20:.1f} MiB "
+        f"(replicated {rep['peak_bytes'] / 2**20:.1f}, alone "
+        f"{alone['peak_bytes'] / 2**20:.1f})",
+        f"step ms {statistics.median(z0['step_ms']):.2f} "
+        f"(replicated {statistics.median(rep['step_ms']):.2f}), "
+        f"{share:.1%} of it in collectives; staged per step "
+        f"{z0['staged'][-1]}"]))
+    return res
+
+
+def zero_phase(train, lk, bw: float, flops: float, floor: float,
+               workdir: str) -> dict:
+    """Phase 20: data parallelism and ZeRO on the card."""
+    import torch
+    out = {"two_ranks": {}, "wall_s": {}}
+    zdir = os.path.join(workdir, "zero")
+    shutil.rmtree(zdir, ignore_errors=True)
+    os.makedirs(zdir)
+    t0 = time.perf_counter()
+    ranks = zero_two_ranks(zdir)
+    out["wall_s"]["two_ranks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = zero_nccl_start(zdir)
+    rows_seen: list = []
+    saved = record_rows(lk, rows_seen)
+    try:
+        torch.backends.cudnn.deterministic = True
+        with shared_inits():        # one host draw of smollm's init
+            for name in ZERO_RUNS:
+                out["two_ranks"][name] = zero_against_alone(
+                    name, ranks, zdir, rows_seen)
+    except BaseException:
+        nccl[0].kill()
+        nccl[0].wait()
+        nccl[1].close()
+        raise
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for k, fn in saved.items():
+            setattr(lk, k, fn)
+    out["wall_s"]["alone"] = time.perf_counter() - t0
+    out["nccl"] = zero_nccl_finish(train, zdir, nccl)
+    out["wall_s"]["nccl_after"] = time.perf_counter() - t0 - \
+        out["wall_s"]["alone"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out["kernel_rows"] = {"smollm": kernel_rows(
+        lk, ZERO_SHARD_ROWS["smollm"], 512, gen, bw, flops)}
+    log(f"  (c) the kernels on a ZeRO shard, smollm-135m's "
+        f"{ZERO_LM_ROWS} rows over {ZERO_RANKS}:")
+    log_kernel_rows({k: [v] for k, v in out["kernel_rows"]["smollm"].items()},
+                    floor)
+    out["kernel_rows"]["qwen3"] = large_kernel_rows(
+        lk, None, 21, bw, flops, floor, rows=ZERO_SHARD_ROWS["qwen3"])
+    out["wall_s"]["kernels"] = time.perf_counter() - t0
+    log("  phase 20 parts, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["wall_s"].items()))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the large steps (zamba2's f32 LARS at 24 layers) fit the card only
@@ -3648,8 +4214,9 @@ def main() -> int:
     with shared_inits():
         granite = granite_phase(train, serve, lk, fdk, bw, flops, floor)
 
-    phase(f"== 15. MLA and masks: {DEEPSEEK} trained at every width, 2 "
-          f"layers and 16 routed experts, served with all 160 at "
+    phase(f"== 15. MLA and masks: {DEEPSEEK} trained at every width, "
+          f"{DEEPSEEK_LAYERS} layer and 16 routed experts, served with all "
+          f"160 at "
           f"{DEEPSEEK_SERVE_LAYERS}; sliding windows and the softcap in "
           f"training")
     with shared_inits():
@@ -3680,6 +4247,12 @@ def main() -> int:
           "against CPU; the serve SLO grid")
     stack = serve_stack_phase(serve, fdk, lk, served,
                               os.path.join(ROOT, "build"))
+
+    phase(f"== 20. data parallelism and ZeRO: {ZERO_RANKS} ranks on the "
+          "card over gloo (LeNet, smollm-135m at full width), one rank "
+          "over NCCL under torchrun, the LARS kernels on a shard's rows")
+    zero = zero_phase(train, lk, bw, flops, floor,
+                      os.path.join(ROOT, "build"))
     stamps.append(("end", time.perf_counter()))
     phase_s = {a[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
     log("phase wall times, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in
@@ -3808,6 +4381,24 @@ def main() -> int:
             entry[f"launches_by_{tag}_run"] = {
                 t: r["launches"][kname]
                 for t, r in fam[arch]["runs"].items()}
+        # a ZeRO shard's rows: smollm's over 2 ranks, qwen3's over 2
+        entry["zero_shard_rows"] = {
+            tag: dict({k: v for k, v in r.items() if k.startswith("max_")},
+                      rows=r["rows"], ms=r["ms"], bound_ms=r["bound_ms"],
+                      bound_by=r["bound_by"], plain_ms=r["plain_ms"],
+                      library_ms=r["library_ms"],
+                      dispatch_ms=r["dispatch_ms"])
+            for tag, r in ((t, zero["kernel_rows"][t][kname])
+                           for t in ("smollm", "qwen3"))}
+        entry["shapes"] += [zero["kernel_rows"][t][kname]
+                            for t in ("smollm", "qwen3")]
+        # each rank's launches over its ZeRO run and the rows they took
+        entry["launches_by_zero_run"] = {
+            run: {f"rank{i}": {
+                "launches": r[f"rank{i}"]["zero"]["launches"][kname],
+                "rows": r[f"rank{i}"]["zero"]["launch_rows"][kname]}
+                for i in range(ZERO_RANKS)}
+            for run, r in zero["two_ranks"].items()}
         entries.append(entry)
     serve_row = fd_rows[0]                  # the serve path's shape
     cap_row = fd_rows[-1]                   # the same, capped
@@ -3897,10 +4488,10 @@ def main() -> int:
                     "serve_profile": serve_prof, "experiments": exp,
                     "lm": lm, "lean": lean, "granite": granite,
                     "mla": mla, "ssm": ssm, "families": fam,
-                    "tree": tree, "serve_stack": stack,
+                    "tree": tree, "serve_stack": stack, "zero": zero,
                     "phase_wall_s": phase_s}))
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
-    log(smi)
+    print(smi, flush=True)          # as nvidia-smi gives it, unstamped
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3909,4 +4500,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--zero-rank"]:        # phase 20's ranks
+        zero_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -24,6 +24,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
 from repro_torch.core.packing import PackedLayout
 from repro_torch.treepath import tree_flatten_with_path, tree_map
@@ -66,7 +67,9 @@ def opt_state_to_torch(step: int, slots: dict,
 
     ``layout`` is the port's layout of the same params for a packed
     state: code slots stay int8, scale slots are ``(num_blocks, 1)`` f32
-    and every other slot is a ``buffer_shape`` buffer. ``None`` takes a
+    and every other slot is a ``buffer_shape`` buffer. A ZeRO layout
+    (``shards > 1``) takes the reference's padded buffers; under an
+    ambient mesh each slot keeps this rank's row shard. ``None`` takes a
     tree state: every slot is a nested dict of arrays with the same leaf
     paths (int8 codes stay int8)."""
     if layout is None:
@@ -84,11 +87,21 @@ def opt_state_to_torch(step: int, slots: dict,
         if tuple(v.shape) != want:
             raise ValueError(f"slot {k!r} has shape {tuple(v.shape)}, the "
                              f"layout wants {want}")
-    return OptState(step=int(step), slots=out, layout=layout)
+    return OptState(step=int(step), slots={
+        k: packing.constrain_rows(layout, v) for k, v in out.items()},
+        layout=layout)
 
 
 def opt_state_to_numpy(state: OptState) -> tuple[int, dict]:
-    """(step, slots as numpy): buffers, or nested dicts for a tree state."""
+    """(step, slots as numpy): buffers, or nested dicts for a tree state.
+    A ZeRO state's row shards are all-gathered to the padded whole
+    buffers the reference holds (a collective under a mesh)."""
+    layout = state.layout
+    if layout is not None:
+        return state.step, {k: tensor_to_numpy(
+            packing.gather_blocks(layout, v) if k.endswith(SCALE_SUFFIX)
+            else packing.gather_rows(layout, v))
+            for k, v in state.slots.items()}
     return state.step, {k: tree_map(tensor_to_numpy, v)
                         for k, v in state.slots.items()}
 

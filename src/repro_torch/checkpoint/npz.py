@@ -1,5 +1,4 @@
-"""TrainState <-> npz (port of ``repro/checkpoint/npz.py``, unsharded
-layouts).
+"""TrainState <-> npz (port of ``repro/checkpoint/npz.py``).
 
 ``save_train_state`` / ``restore_train_state`` round-trip the FULL
 :class:`~repro_torch.train.state.TrainState` — params, every optimizer
@@ -21,6 +20,15 @@ buffer, a tree slot one key per leaf::
 so a state saved by either package restores into the other. bfloat16
 leaves are stored as float32 (npz cannot hold them; every bfloat16 value
 is exact in float32) and cast back to the template's dtype on restore.
+
+ZeRO layouts stay layout-independent on disk, as the reference keeps
+them: a save all-gathers each row-sharded slot (a collective: every rank
+of the mesh calls it, and only rank 0 of the process group writes),
+then strips the pad rows and the pad blocks' scales down to the
+``shards=1`` shapes; a restore re-pads to the template's layout (zero
+rows and codes, unit scales: exactly the live values) and keeps this
+rank's rows where the template holds a row shard. A file saved under
+any shard count is byte-equal to the reference's for the same state.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import tensor_to_numpy
-from repro_torch.core.optim_base import OptState
+from repro_torch.core import packing
+from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
+from repro_torch.launch.mesh import world
 from repro_torch.train.state import TrainState
 from repro_torch.treepath import (path_str, tree_flatten_with_path,
                                   tree_unflatten)
@@ -74,9 +84,51 @@ def _atomic(dst: str, write) -> None:
     os.replace(tmp, dst)
 
 
+def _strip(name: str, buf: torch.Tensor, layout) -> torch.Tensor:
+    """A packed slot's whole buffer cropped to the ``shards=1`` rows (or
+    scale blocks)."""
+    keep = layout.base_rows // layout.block_rows \
+        if name.endswith(SCALE_SUFFIX) else layout.base_rows
+    return buf[:keep]
+
+
+def _repad(name: str, arr: np.ndarray, layout) -> np.ndarray:
+    """Inverse of :func:`_strip` for ``layout``: zero rows and codes,
+    UNIT scales for the pad blocks (what the live state holds there)."""
+    if not layout.pad_rows:
+        return arr
+    if name.endswith(SCALE_SUFFIX):
+        tail = np.ones((layout.num_blocks - arr.shape[0], 1), arr.dtype)
+    else:
+        tail = np.zeros((layout.total_rows - arr.shape[0], layout.lane),
+                        arr.dtype)
+    return np.concatenate([arr, tail])
+
+
+def _whole_slots(state: TrainState) -> TrainState:
+    """A ZeRO state's slots gathered to whole buffers and stripped of
+    their pad rows (a collective under a mesh); any other state as it
+    is."""
+    layout = state.opt_state.layout
+    if layout is None or layout.shards == 1:
+        return state
+    slots = {}
+    for k, v in state.opt_state.slots.items():
+        whole = packing.gather_blocks(layout, v) \
+            if k.endswith(SCALE_SUFFIX) else packing.gather_rows(layout, v)
+        slots[k] = _strip(k, whole, layout)
+    return state._replace(opt_state=OptState(
+        step=state.opt_state.step, slots=slots, layout=layout))
+
+
 def save_train_state(path: str, state: TrainState) -> None:
     """Persist a full TrainState (params + opt slots + step) to npz,
-    atomically."""
+    atomically. A ZeRO state is gathered and stripped of its pad rows
+    first; every rank of its mesh must call this, and only rank 0 of the
+    process group writes."""
+    state = _whole_slots(state)
+    if world()[0] != 0:
+        return
     arrays = {k: v if isinstance(v, np.ndarray) else tensor_to_numpy(v)
               for k, v in _flatten(state).items()}
     _atomic(_npz(path), lambda tmp: np.savez(tmp, **arrays))
@@ -96,7 +148,49 @@ def restore_train_state(path: str, template: TrainState) -> TrainState:
     the step. Mismatches fail loudly: a leaf the checkpoint lacks, a
     leaf the template has no place for (e.g. a bf16-policy master buffer
     restored into an f32-policy state) and a shape mismatch.
+
+    A ZeRO template (``layout.shards > 1``) is checked against the
+    stored pad-free shapes; each slot is re-padded to the template's
+    layout and, where the template holds a row shard, cut to this rank's
+    rows. No collective: every rank reads the file.
     """
+    layout = template.opt_state.layout
+    if layout is None or layout.shards == 1:
+        return _restore_exact(path, template)
+    like = template.opt_state.slots
+    # a pad-free template on the host (torch.empty touches no memory)
+    stripped = template._replace(opt_state=OptState(
+        step=template.opt_state.step, layout=layout, slots={
+            k: torch.empty(_strip_shape(k, layout), dtype=v.dtype)
+            for k, v in like.items()}))
+    got = _restore_exact(path, stripped)
+    slots = {k: _fit(k, v, layout, like[k])
+             for k, v in got.opt_state.slots.items()}
+    return got._replace(opt_state=OptState(
+        step=got.opt_state.step, slots=slots, layout=layout))
+
+
+def _strip_shape(name: str, layout) -> tuple[int, int]:
+    if name.endswith(SCALE_SUFFIX):
+        return (layout.base_rows // layout.block_rows, 1)
+    return (layout.base_rows, layout.lane)
+
+
+def _fit(name: str, base: torch.Tensor, layout, like: torch.Tensor
+         ) -> torch.Tensor:
+    """A restored pad-free slot re-padded to ``layout`` (zero rows and
+    codes, unit scales), cut to ``like``'s rows where it is a row shard,
+    on ``like``'s device."""
+    whole = torch.from_numpy(_repad(name, base.numpy(), layout))
+    if like.shape[0] != whole.shape[0]:
+        per = layout.block_rows if name.endswith(SCALE_SUFFIX) else 1
+        start, stop = packing.shard_span(layout, like.shape[0] * per)
+        whole = whole[start // per:stop // per]
+    return whole.contiguous().to(like.device)
+
+
+def _restore_exact(path: str, template: TrainState) -> TrainState:
+    """Shape-strict restore against the template as it is."""
     with np.load(_npz(path)) as data:
         stored = {k: data[k] for k in data.files}
     want = _flatten(template)

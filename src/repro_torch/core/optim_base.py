@@ -43,8 +43,24 @@
   (``packing.quantize_leaf_q8``). Packed LARS hands the raw codes to its
   fused kernel; everywhere else the engine dequantizes on read, runs the
   rule and requantizes on write.
-
-Not yet ported: ZeRO-sharded layouts.
+* **ZeRO** (``init(params, stacked=marker, zero_shards=n)``): the
+  layout's rows are padded to a multiple of ``n * block_rows``. Under an
+  ambient data-parallel mesh of ``n`` data ranks (``with mesh:``) every
+  slot — the rule slots, their int8 scales and the weight or master
+  buffer — holds only this rank's ``total_rows / n`` rows, and ``update``
+  runs on them: the gradient rows of this rank (``PackedGrads`` of the
+  shard, as ``TrainPipeline`` reduce-scatters them; a whole buffer or a
+  tree is cut to the shard), ``norms_flat`` on the local weight and
+  gradient rows, their per-row partials all-gathered and folded whole
+  (trust ratios bit-identical to the unsharded step's), ``apply_flat``
+  or ``apply_flat_q8`` on the local rows with their own learning rates,
+  then one all-gather of the updated weight rows, unpacked into the new
+  params. The reference cannot do this: ``pallas_call`` has no GSPMD
+  partitioning rule, so its ZeRO layouts fall back to its jnp engine;
+  the port's kernels launch on the shard because every shard boundary is
+  a block boundary. Without a mesh a ZeRO layout is a padded whole
+  buffer, updated whole, bit for bit as ``shards=1``; its pad rows stay
+  zero (int8 pad blocks: code 0, scale 1) through any number of steps.
 """
 
 from __future__ import annotations
@@ -210,9 +226,18 @@ def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
     has one, else dequantized on read and requantized on write.
     Returns the new params (the storage-dtype view of the new weight
     buffer) and the new slots, including the new weight or master buffer.
+
+    On a ZeRO row shard (``wbuf`` holds this rank's rows under the
+    ambient mesh) every buffer pass is on the shard, the per-slice norms
+    fold the all-gathered partials, and the updated weight rows are
+    all-gathered once before the unpack.
     """
-    gbuf = grads.buf if isinstance(grads, PackedGrads) \
-        else packing.pack(layout, grads)
+    gbuf = packing.constrain_rows(
+        layout, grads.buf if isinstance(grads, PackedGrads)
+        else packing.pack(layout, grads))
+    if gbuf.shape != wbuf.shape:
+        raise ValueError(f"gradient rows {tuple(gbuf.shape)} do not match "
+                         f"the weight rows {tuple(wbuf.shape)}")
     if rule.needs_grad_sq:
         # the square of the f32 gradient: pack casts to f32 first, so
         # squaring the packed buffer is the reference's square-then-pack
@@ -240,7 +265,8 @@ def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
                                      slots)
         else:
             wbuf2, new_slots = rule.apply(
-                ctx, wbuf, gbuf, u, lr * packing.rows_expand(layout, ratio),
+                ctx, wbuf, gbuf, u,
+                lr * packing.rows_expand(layout, ratio, wbuf.shape[0]),
                 slots)
     if quant and not q8_kernel:
         for k in rule.slots:
@@ -251,7 +277,9 @@ def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
     else:
         wbuf2 = packing.quantize_to_storage(layout, wbuf2)
         new_slots[packing.WEIGHT_SLOT] = wbuf2
-    return packing.unpack(layout, wbuf2), new_slots
+    # a ZeRO row shard's one all-gather per step: the updated weight rows
+    return packing.unpack(layout, packing.gather_rows(layout, wbuf2)), \
+        new_slots
 
 
 def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
@@ -268,12 +296,21 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
     quant = slot_dtype == "int8"
 
     def init(params: Pytree, stacked: Optional[Pytree] = None,
-             master: bool = False) -> OptState:
+             master: bool = False, zero_shards: int = 1) -> OptState:
         if stacked is None:
+            if zero_shards > 1:
+                raise ValueError(
+                    "zero_shards > 1 requires the flat-packed layout: "
+                    "init(params, stacked=marker). The tree layout "
+                    "already shards leaf-for-leaf under pjit.")
             return OptState(step=0, slots=_tree_slots(params, master))
         layout = packing.build_layout(params, normalize_stacked(params,
-                                                                stacked))
-        weights = packing.pack(layout, params)
+                                                                stacked),
+                                      shards=int(zero_shards))
+        # under an ambient mesh of zero_shards data ranks, this rank's
+        # rows only: every slot below is allocated at the shard's size
+        weights = packing.constrain_rows(layout,
+                                         packing.pack(layout, params))
         slots = {}
         for k in rule.slots:
             zeros = torch.zeros_like(weights)

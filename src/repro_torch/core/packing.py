@@ -1,11 +1,25 @@
 """Flat-packed layer-wise substrate: one superbuffer for the whole pytree.
 
-Port of ``repro/core/packing.py`` (unsharded layouts only). The layout
-is the reference's to the byte: the same segment table, the same
-``(total_rows, LANE)`` f32 superbuffer, the same zero padding of every
-layer slice to whole ``BLOCK_ROWS`` row blocks, and the same leaf order
-(dict keys sorted, as ``jax.tree_util`` flattens them). Packed buffers
-and slot states therefore carry between the two packages unchanged.
+Port of ``repro/core/packing.py``. The layout is the reference's to the
+byte: the same segment table, the same ``(total_rows, LANE)`` f32
+superbuffer, the same zero padding of every layer slice to whole
+``BLOCK_ROWS`` row blocks, the same leaf order (dict keys sorted, as
+``jax.tree_util`` flattens them), and for a ZeRO layout (``shards > 1``)
+the same all-zero pad rows at the tail. Packed buffers and slot states
+therefore carry between the two packages unchanged.
+
+ZeRO row shards. Under an ambient data-parallel mesh whose ``data`` axis
+has ``layout.shards`` ranks, a slot buffer of a ZeRO layout holds only
+this rank's rows: the block ``[i * n, (i + 1) * n)`` with ``n =
+total_rows / shards`` for the rank at data coordinate ``i``
+(:func:`shard_span`). Every shard boundary lies on a row-block boundary,
+so the per-block int8 scales split with the rows. :func:`constrain_rows`
+cuts a whole buffer to this rank's rows, :func:`gather_rows` all-gathers
+a row shard back to the whole buffer (the step's one weight gather),
+and the per-slice reductions take a row shard's per-row (or per-block)
+partials, all-gather them and fold the whole vector, so a sharded run's
+trust ratios are bit-identical to an unsharded one's. Without a mesh a
+ZeRO layout is a padded whole buffer, updated whole.
 
 Per-slice reductions sum each row block (or each row, as the CUDA
 ``norms_flat`` does), then fold the partials into slices through a
@@ -25,6 +39,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.constrain import current_mesh
 from repro_torch.treepath import (TreeDef, flatten_up_to, path_str,
                                   tree_flatten_with_path, tree_unflatten)
 
@@ -78,7 +94,15 @@ class Segment:
 
 @dataclasses.dataclass(frozen=True)
 class PackedLayout:
-    """Static description of a whole-pytree superbuffer packing."""
+    """Static description of a whole-pytree superbuffer packing.
+
+    ``shards > 1`` marks a ZeRO row-sharded layout: ``total_rows`` is
+    padded up to a multiple of ``shards * block_rows`` (``pad_rows``
+    all-zero rows at the tail), so the buffer splits evenly over the
+    mesh's ``data`` axis with every shard boundary on a block boundary.
+    The pad rows belong to no slice: reductions drop them, and every
+    buffer keeps them exactly zero (int8 pad blocks: code 0, scale 1).
+    """
 
     segments: tuple[Segment, ...]
     treedef: TreeDef            # leaf key paths, in flatten order
@@ -86,6 +110,8 @@ class PackedLayout:
     block_rows: int
     total_rows: int
     num_slices: int
+    shards: int = 1             # ZeRO row-shard count (1 = replicated)
+    pad_rows: int = 0           # all-zero tail rows padding to shards
 
     @property
     def buffer_shape(self) -> tuple[int, int]:
@@ -94,6 +120,16 @@ class PackedLayout:
     @property
     def num_blocks(self) -> int:
         return self.total_rows // self.block_rows
+
+    @property
+    def base_rows(self) -> int:
+        """Rows holding real data (the shards=1 layout's total_rows)."""
+        return self.total_rows - self.pad_rows
+
+    @property
+    def shard_rows(self) -> int:
+        """Rows of one ZeRO row shard."""
+        return self.total_rows // self.shards
 
     def stacked_flags(self) -> tuple[bool, ...]:
         return tuple(s.stacked for s in self.segments)
@@ -104,7 +140,8 @@ def _build_layout_static(treedef: TreeDef,
                          shapes: tuple[tuple[int, ...], ...],
                          dtypes: tuple[str, ...],
                          stacked: tuple[bool, ...],
-                         lane: int, block_rows: int) -> PackedLayout:
+                         lane: int, block_rows: int,
+                         shards: int) -> PackedLayout:
     segments = []
     row_offset = 0
     slice_offset = 0
@@ -126,36 +163,55 @@ def _build_layout_static(treedef: TreeDef,
             adapt=len(shape) - (1 if stk else 0) > 1))
         row_offset += layers * rows
         slice_offset += layers
+    # ZeRO: pad to a multiple of shards * block_rows, so the row shards
+    # are even and every shard boundary is a block boundary
+    pad = -row_offset % (shards * block_rows) if shards > 1 else 0
     return PackedLayout(segments=tuple(segments), treedef=treedef,
                         lane=lane, block_rows=block_rows,
-                        total_rows=row_offset, num_slices=slice_offset)
+                        total_rows=row_offset + pad,
+                        num_slices=slice_offset, shards=shards,
+                        pad_rows=pad)
 
 
 def build_layout(params: Pytree, stacked: Pytree, *, lane: int = LANE,
-                 block_rows: int = BLOCK_ROWS) -> PackedLayout:
+                 block_rows: int = BLOCK_ROWS,
+                 shards: int = 1) -> PackedLayout:
     """Static layout from a param tree (tensors, or anything with
     ``.shape`` and ``.dtype``) and a full bool tree marking ``(L, ...)``
-    layer-stacked leaves."""
+    layer-stacked leaves. ``shards``: the ZeRO row-shard count (see
+    :class:`PackedLayout`)."""
     leaves, treedef = tree_flatten_with_path(params)
     if not leaves:
         raise ValueError("cannot build a packed layout for an empty pytree")
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     flags = tuple(bool(s) for s in flatten_up_to(treedef, stacked))
     shapes = tuple(tuple(int(d) for d in leaf.shape) for _, leaf in leaves)
     dtypes = tuple(dtype_name(leaf.dtype) for _, leaf in leaves)
     return _build_layout_static(treedef, shapes, dtypes, flags, lane,
-                                block_rows)
+                                block_rows, int(shards))
 
 
 # ------------------------------------------------------- static index maps
 
 @functools.lru_cache(maxsize=64)
 def _row_slice_ids(layout: PackedLayout) -> np.ndarray:
-    """(total_rows,) int64: owning slice id of every superbuffer row."""
-    ids = np.empty(layout.total_rows, np.int64)
+    """(total_rows,) int64: owning slice id of every superbuffer row; a
+    ZeRO pad row gets the out-of-range id ``num_slices``."""
+    ids = np.full(layout.total_rows, layout.num_slices, np.int64)
     for seg in layout.segments:
         ids[seg.row_offset:seg.row_offset + seg.layers * seg.rows] = \
             np.repeat(np.arange(seg.slice_offset,
                                 seg.slice_offset + seg.layers), seg.rows)
+    return ids
+
+
+@functools.lru_cache(maxsize=64)
+def _gather_ids(layout: PackedLayout) -> np.ndarray:
+    """``_row_slice_ids`` with the pad rows on slice 0, for broadcasts:
+    whatever scalar lands on a pad row multiplies zeros."""
+    ids = _row_slice_ids(layout).copy()
+    ids[ids == layout.num_slices] = 0
     return ids
 
 
@@ -172,9 +228,12 @@ def _fold_index(layout: PackedLayout, stride: int) -> np.ndarray:
     """(num_slices, max_partials) int64 gather index over partials of
     ``stride`` rows each (``block_rows`` or 1): the partial ids of each
     slice, in order, padded with the out-of-range id ``total_rows //
-    stride`` (a zero appended by :func:`_fold`)."""
+    stride`` (a zero appended by :func:`_fold`). ZeRO pad rows are in no
+    slice's list: the fold of a padded buffer's partials is the unpadded
+    fold, op for op."""
     ids = _row_slice_ids(layout)[::stride]
-    counts = np.bincount(ids, minlength=layout.num_slices)
+    counts = np.bincount(ids, minlength=layout.num_slices + 1)[
+        :layout.num_slices]
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     cols = np.arange(int(counts.max()))
     idx = starts[:, None] + cols[None, :]
@@ -218,15 +277,90 @@ def fold_blocks(layout: PackedLayout, per_block: torch.Tensor
 
 def fold_rows(layout: PackedLayout, per_row: torch.Tensor) -> torch.Tensor:
     """(total_rows,) per-row partials -> (num_slices,) sums, in the same
-    fixed order and with the same ops as :func:`fold_blocks`."""
+    fixed order and with the same ops as :func:`fold_blocks`. A ZeRO
+    row shard's partials are all-gathered to the whole vector first."""
+    per_row = gather_rows(layout, per_row)
     return _fold(layout, per_row, 1)
+
+
+# ------------------------------------------------------------ ZeRO shards
+
+def _zero_mesh(layout: PackedLayout):
+    """The ambient mesh if it row-shards this layout, else None."""
+    mesh = current_mesh()
+    if layout.shards > 1 and mesh is not None \
+            and "data" in mesh.axis_names:
+        if mesh.shape["data"] != layout.shards:
+            raise ValueError(
+                f"a ZeRO layout of {layout.shards} shards under a mesh "
+                f"whose data axis has {mesh.shape['data']} ranks")
+        return mesh
+    return None
+
+
+def shard_span(layout: PackedLayout, rows: int) -> tuple[int, int]:
+    """The superbuffer rows ``[start, stop)`` that a buffer of ``rows``
+    rows holds: all of them, or under an ambient mesh this rank's ZeRO
+    row shard. Raises for any other row count."""
+    if rows == layout.total_rows:
+        return 0, rows
+    mesh = _zero_mesh(layout)
+    if mesh is not None and rows == layout.shard_rows:
+        start = mesh.coords["data"] * rows
+        return start, start + rows
+    raise ValueError(
+        f"a buffer of {rows} rows is neither the layout's {layout.total_rows} "
+        f"nor, under a mesh of {layout.shards} data ranks, one shard of "
+        f"{layout.shard_rows}")
+
+
+def is_shard(layout: PackedLayout, buf: torch.Tensor) -> bool:
+    """True where ``buf`` holds a row shard, not the whole buffer."""
+    return shard_span(layout, buf.shape[0]) != (0, layout.total_rows)
+
+
+def constrain_rows(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
+    """This rank's ZeRO row shard of a whole superbuffer (or of its
+    ``(num_blocks, 1)`` per-block scales) under an ambient mesh: a fresh
+    contiguous copy, so the whole buffer can be freed. The buffer as it is
+    without a mesh, for an unsharded layout, or when it already is a
+    shard."""
+    mesh = _zero_mesh(layout)
+    # a per-block column is (num_blocks, 1); anything else is in rows
+    # (both can have num_blocks rows: a shard's under 8 ranks)
+    blocks = buf.ndim == 2 and buf.shape[1] == 1
+    whole = layout.num_blocks if blocks else layout.total_rows
+    if mesh is None or buf.shape[0] != whole:
+        return buf
+    n = buf.shape[0] // layout.shards
+    start = mesh.coords["data"] * n
+    return buf[start:start + n].clone()
+
+
+def gather_rows(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
+    """All-gather a row shard (of the superbuffer, or a per-row vector
+    such as ``norms_flat``'s partials) over the mesh's data axis back to
+    the whole; a whole buffer as it is. This is the ZeRO step's one
+    weight all-gather, and the gather of the norm partials."""
+    if not is_shard(layout, buf):
+        return buf
+    return collectives.all_gather_rows(buf, _zero_mesh(layout))
+
+
+def gather_blocks(layout: PackedLayout, scales: torch.Tensor
+                  ) -> torch.Tensor:
+    """:func:`gather_rows` for a per-block column (the int8 scales)."""
+    if scales.shape[0] == layout.num_blocks:
+        return scales
+    return collectives.all_gather_rows(scales, _zero_mesh(layout))
 
 
 # ---------------------------------------------------------- pack / unpack
 
 def pack(layout: PackedLayout, tree: Pytree) -> torch.Tensor:
-    """Pytree -> (total_rows, lane) f32 superbuffer (zero padded), on the
-    device of the leaves."""
+    """Pytree -> (total_rows, lane) f32 superbuffer (zero padded, and the
+    ZeRO pad rows zero), on the device of the leaves. Always the whole
+    buffer: :func:`constrain_rows` cuts a rank's shard."""
     leaves = flatten_up_to(layout.treedef, tree)
     parts = []
     for seg, leaf in zip(layout.segments, leaves):
@@ -235,6 +369,8 @@ def pack(layout: PackedLayout, tree: Pytree) -> torch.Tensor:
         if pad:
             flat = torch.nn.functional.pad(flat, (0, pad))
         parts.append(flat.reshape(-1))
+    if layout.pad_rows:
+        parts.append(parts[0].new_zeros(layout.pad_rows * layout.lane))
     return torch.cat(parts).reshape(layout.total_rows, layout.lane)
 
 
@@ -248,15 +384,20 @@ def quantize_to_storage(layout: PackedLayout, buf: torch.Tensor
     """Round each segment's rows through its storage dtype (in f32).
 
     All-f32 layouts are returned as they are; otherwise a new buffer is
-    returned and ``buf`` is left untouched. Zero padding is preserved.
+    returned and ``buf`` is left untouched. Zero padding is preserved. A
+    ZeRO row shard rounds the rows of each segment that it holds.
     """
     lowp = [seg for seg in layout.segments if seg.dtype != "float32"]
     if not lowp:
         return buf
+    start, stop = shard_span(layout, buf.shape[0])
     buf = buf.clone()
     for seg in lowp:
-        rows = slice(seg.row_offset, seg.row_offset + seg.layers * seg.rows)
-        buf[rows] = buf[rows].to(torch_dtype(seg.dtype)).float()
+        lo = max(seg.row_offset, start)
+        hi = min(seg.row_offset + seg.layers * seg.rows, stop)
+        if lo < hi:
+            rows = slice(lo - start, hi - start)
+            buf[rows] = buf[rows].to(torch_dtype(seg.dtype)).float()
     return buf
 
 
@@ -283,9 +424,14 @@ def unpack(layout: PackedLayout, buf: torch.Tensor,
 # -------------------------------------------------- per-slice reductions
 
 def slice_sumsq(layout: PackedLayout, buf: torch.Tensor) -> torch.Tensor:
-    """(num_slices,) f32: sum of squares per layer slice."""
+    """(num_slices,) f32: sum of squares per layer slice. A ZeRO row
+    shard's per-block partials are all-gathered first, then folded
+    whole (pad blocks fall out of the fold)."""
     per_block = torch.sum(torch.square(buf.float()).reshape(
-        layout.num_blocks, -1), dim=1)
+        buf.shape[0] // layout.block_rows, -1), dim=1)
+    if is_shard(layout, buf):
+        per_block = collectives.all_gather_rows(per_block,
+                                                _zero_mesh(layout))
     return fold_blocks(layout, per_block)
 
 
@@ -306,18 +452,25 @@ def tree_slice_sumsq(layout: PackedLayout, tree: Pytree) -> torch.Tensor:
         for seg, leaf in zip(layout.segments, leaves)])
 
 
-def rows_expand(layout: PackedLayout, per_slice: torch.Tensor
-                ) -> torch.Tensor:
+def rows_expand(layout: PackedLayout, per_slice: torch.Tensor,
+                rows: Optional[int] = None) -> torch.Tensor:
     """(num_slices,) -> (total_rows, 1): broadcast per-slice scalars so
-    they multiply against the superbuffer."""
-    return per_slice[row_slice_ids(layout, per_slice.device)][:, None]
+    they multiply against the superbuffer; ``rows``: the row count of
+    the buffer they meet (a ZeRO shard takes its own rows)."""
+    start, stop = shard_span(layout, rows or layout.total_rows)
+    ids = _on_device(_gather_ids, layout, per_slice.device)
+    return per_slice[ids[start:stop]][:, None]
 
 
-def blocks_expand(layout: PackedLayout, per_slice: torch.Tensor
-                  ) -> torch.Tensor:
+def blocks_expand(layout: PackedLayout, per_slice: torch.Tensor,
+                  rows: Optional[int] = None) -> torch.Tensor:
     """(num_slices,) -> (num_blocks, 1): per-row-block scalars (the apply
-    kernel reads one scalar per row block)."""
-    return per_slice[block_slice_ids(layout, per_slice.device)][:, None]
+    kernel reads one scalar per row block); ``rows`` as in
+    :func:`rows_expand`."""
+    start, stop = shard_span(layout, rows or layout.total_rows)
+    ids = _on_device(_gather_ids, layout, per_slice.device)
+    b = layout.block_rows
+    return per_slice[ids[start:stop:b]][:, None]
 
 
 def check_marker(layout: PackedLayout, params: Pytree,
@@ -362,29 +515,39 @@ def quantize_blocks_q8(grouped: torch.Tensor
     return q.to(torch.int8), scale
 
 
-def quantize_q8(layout: PackedLayout, buf: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """f32 superbuffer -> (int8 codes (rows, lane), f32 scales
-    (num_blocks, 1)): one scale per block_rows row block. Slices are
-    block-aligned, so every scale group lies inside one layer slice."""
-    if tuple(buf.shape) != layout.buffer_shape:
+def _rows_shape(layout: PackedLayout, buf: torch.Tensor
+                ) -> tuple[int, int]:
+    """``buf``'s (rows, lane) if it is the whole buffer or a row shard."""
+    if buf.ndim != 2 or buf.shape[1] != layout.lane:
         raise ValueError(f"buffer shape {tuple(buf.shape)} != layout "
                          f"{layout.buffer_shape}")
-    q, scale = quantize_blocks_q8(buf.float().reshape(layout.num_blocks,
-                                                      -1))
-    return q.reshape(layout.buffer_shape), scale
+    shard_span(layout, buf.shape[0])
+    return tuple(buf.shape)
+
+
+def quantize_q8(layout: PackedLayout, buf: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 superbuffer (or a ZeRO row shard) -> (int8 codes (rows, lane),
+    f32 scales (rows // block_rows, 1)): one scale per block_rows row
+    block. Slices are block-aligned, so every scale group lies inside
+    one layer slice."""
+    shape = _rows_shape(layout, buf)
+    q, scale = quantize_blocks_q8(buf.float().reshape(
+        shape[0] // layout.block_rows, -1))
+    return q.reshape(shape), scale
 
 
 def dequantize_q8(layout: PackedLayout, q: torch.Tensor,
                   scale: torch.Tensor) -> torch.Tensor:
-    """(int8 codes, per-block scales) -> f32 superbuffer."""
-    if tuple(q.shape) != layout.buffer_shape \
-            or tuple(scale.shape) != (layout.num_blocks, 1):
+    """(int8 codes, per-block scales) -> f32 superbuffer (or shard)."""
+    shape = _rows_shape(layout, q)
+    blocks = shape[0] // layout.block_rows
+    if tuple(scale.shape) != (blocks, 1):
         raise ValueError(f"codes {tuple(q.shape)} / scales "
                          f"{tuple(scale.shape)} do not fit the layout "
                          f"{layout.buffer_shape}")
-    grouped = q.reshape(layout.num_blocks, -1).float() * scale
-    return grouped.reshape(layout.buffer_shape)
+    grouped = q.reshape(blocks, -1).float() * scale
+    return grouped.reshape(shape)
 
 
 def quantize_leaf_q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,7 +12,16 @@ copy on a side stream; the consumer's stream waits on an event recorded
 after the copy, and the device tensors are marked as used on the
 consumer's stream (``record_stream``). A pinned buffer is kept alive
 until its copy's event has completed. On the CPU a batch is a plain
-``torch.from_numpy``. Placing onto a mesh is not yet ported.
+``torch.from_numpy``.
+
+``ShardedLoader(it, device, mesh=mesh, spec=specs)`` is the reference's
+mesh placement on a data-parallel mesh: every rank runs the same host
+iterator (the global batch, from the same seed), keeps its own rows of
+each batch as ``spec`` — ``pipe.batch_specs(B)``, i.e. ``batch_pspecs``
+— cuts them (all rows where the batch is replicated), and copies only
+those to its device, yielding a
+:class:`~repro_torch.distributed.sharding.LocalBatch`. Prefetch and the
+copy ring are the same.
 """
 
 from __future__ import annotations
@@ -143,26 +152,52 @@ class ShardedLoader:
     tensors on ``device``, placed ``prefetch`` batches ahead (0: placed
     in the consumer's thread at ``next()``, with the same copies).
 
-    ``mesh`` (the reference's multi-device placement) is not yet
-    ported. Call :meth:`close` when done: it stops the thread and waits
-    for every copy still in flight.
+    ``mesh``: a data-parallel :class:`~repro_torch.launch.mesh.Mesh`;
+    each batch is cut to this rank's rows per ``spec`` (a dict of
+    ``PartitionSpec`` by key, default: dim 0 over ``data`` where it
+    divides) and yielded as a ``LocalBatch``. Call :meth:`close` when
+    done: it stops the thread and waits for every copy still in flight.
     """
 
     def __init__(self, it: Iterator[dict], device: torch.device | str, *,
-                 mesh=None, prefetch: int = 2):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedLoader over a mesh is not yet ported to repro_torch")
+                 mesh=None, spec: Optional[dict] = None,
+                 prefetch: int = 2):
         self.device = torch.device(device)
         self._copier = (_CudaCopier(self.device)
                         if self.device.type == "cuda" else None)
         place_fn = self._copier or (lambda b: place(b, self.device))
+        self.mesh, self.spec = mesh, spec
+        if mesh is not None:
+            if not all(hasattr(mesh, a) for a in ("shape", "coords")):
+                raise TypeError(f"mesh must be a repro_torch.launch.mesh."
+                                f"Mesh, got {type(mesh).__name__}")
+            inner = place_fn
+            place_fn = lambda b: self._place_rows(b, inner)  # noqa: E731
         if prefetch:
             self._it: Iterator[Any] = Prefetcher(
                 iter(it), transform=place_fn, buffer_size=prefetch)
         else:
             self._it = (place_fn(b) for b in it)
         self._inflight: collections.deque = collections.deque()
+
+    def _place_rows(self, batch: dict, inner):
+        """This rank's rows of a host batch, placed by ``inner``."""
+        from repro_torch.distributed.sharding import (P, LocalBatch,
+                                                      shard_rows, tree_named)
+        n = next(iter(batch.values())).shape[0]
+        spec = self.spec
+        if spec is None:
+            split = ("data",) if n % self.mesh.shape["data"] == 0 else None
+            spec = {k: P(split, *([None] * (np.ndim(v) - 1)))
+                    for k, v in batch.items()}
+        cut = shard_rows(batch, tree_named(self.mesh, spec))
+        placed = inner(dict(cut))
+        wrap = lambda b: LocalBatch(b, global_rows=cut.global_rows,  # noqa
+                                    sharded=cut.sharded)
+        if self._copier is None:
+            return wrap(placed)
+        out, event, pinned = placed
+        return wrap(out), event, pinned
 
     def __iter__(self):
         return self

@@ -1,0 +1,66 @@
+"""Activation sharding constraints and the ambient mesh (port of
+``repro/distributed/constrain.py``).
+
+The reference pins activations to the batch axes at a few load-bearing
+points so that GSPMD cannot resolve a sharding ambiguity by gathering
+the batch. The port has no GSPMD: on a data-parallel mesh each rank
+already holds only its own rows of the batch (``ShardedLoader(mesh=)``
+or ``TrainPipeline`` cut them before the forward), every activation it
+computes is of those rows, and nothing is ever gathered behind its back.
+So :func:`shard_batch` and :func:`shard_spec` are the identity, with a
+mesh and without one, and the models may call them as the reference's
+do. Tensor parallelism over a ``model`` axis larger than 1 is where they
+would do work; it is not yet ported (``TrainPipeline`` refuses such a
+mesh).
+
+The ambient mesh is the one entered last with ``with mesh:`` on this
+thread (:meth:`repro_torch.launch.mesh.Mesh.__enter__`), as the
+reference reads the legacy ``with mesh:`` context.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+_LOCAL = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_LOCAL, "meshes"):
+        _LOCAL.meshes = []
+    return _LOCAL.meshes
+
+
+def push_mesh(mesh) -> None:
+    _stack().append(mesh)
+
+
+def pop_mesh(mesh) -> None:
+    stack = _stack()
+    if not stack or stack[-1] is not mesh:
+        raise RuntimeError("mesh contexts must be left in the order they "
+                           "were entered")
+    stack.pop()
+
+
+def current_mesh() -> Optional[object]:
+    """The ambient mesh, or None."""
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+def shard_batch(x, *, last: Optional[str] = None):
+    """The reference constrains dim 0 to the batch axes (and dim -1 to
+    ``last``); on the port's data-parallel meshes ``x`` already holds
+    this rank's rows, so it is returned as it is."""
+    del last
+    return x
+
+
+def shard_spec(x, *axes):
+    """The reference constrains ``x`` to an explicit per-dim axis tuple;
+    on the port's data-parallel meshes every such constraint is already
+    met (rows are this rank's, nothing else is split)."""
+    del axes
+    return x

@@ -1,0 +1,409 @@
+"""Logical sharding rules: param tree -> PartitionSpec tree (port of
+``repro/distributed/sharding.py``, whole).
+
+Scheme (the reference's): a 2-D ``(data, model)`` mesh, optionally a
+leading ``pod`` axis. Megatron-style tensor parallelism over ``model``
+(attention heads / FFN hidden / vocab / experts / SSM channels) combined
+with FSDP-style parameter sharding over ``data`` on the remaining large
+axis. Rules are matched on the leaf's path (module key + leaf name),
+falling back to replication; every leaf under a scan-stacked collection
+("layers" / "enc_layers" / "dec_layers") gets a leading ``None`` for the
+layer axis.
+
+The rule tables and the spec functions are the reference's, leaf for
+leaf, so the port's specs compare one to one with its ``PartitionSpec``s.
+A spec here is :class:`PartitionSpec`: a tuple with one entry per
+dimension, each ``None``, an axis name or a tuple of names. The mesh
+argument is anything with ``shape`` (axis -> size) and ``axis_names``:
+the port's :class:`~repro_torch.launch.mesh.Mesh`, or a stand-in for a
+mesh no process group has (the tests' 16 x 16).
+
+What the port EXECUTES is the data-parallel part: a mesh whose ``model``
+axis is 1. There every param is whole on every rank (the ``data`` entry
+of an FSDP param spec is the reference's; ZeRO shards the optimizer
+slots instead), a batch is cut into row blocks by :func:`batch_pspecs`,
+and :func:`named` / :func:`tree_named` turn a spec into a
+:class:`RowSharding` — which rows of dim 0 this rank holds, or all of
+them. Tensor parallelism over ``model`` executes none of these specs
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
+
+Pytree = Any
+
+STACKED_KEYS = ("layers", "enc_layers", "dec_layers")
+
+
+class PartitionSpec(tuple):
+    """One entry per dimension: ``None``, an axis name, or a tuple of
+    names. ``P("data", None)``. A one-name tuple is stored as the name,
+    as JAX's ``PartitionSpec`` stores it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# (module-context, leaf-name) -> spec for the trailing (own) dims.
+# "@model" / "@data" mark mesh axes; None = replicated dim.
+_ATTN = {
+    "wq": ("@data", "@model"), "wk": ("@data", "@model"),
+    "wv": ("@data", "@model"), "wo": ("@model", "@data"),
+    "bq": ("@model",), "bk": ("@model",), "bv": ("@model",),
+    "q_norm": (None,), "k_norm": (None,),
+    # --- MLA ---
+    "q_down": ("@data", None), "q_up": ("@data", "@model"),
+    "kv_down": ("@data", None), "kv_norm": (None,),
+    "k_up": ("@data", "@model"), "v_up": ("@data", "@model"),
+}
+_MLP = {
+    "wi": ("@data", "@model"), "wg": ("@data", "@model"),
+    "wo": ("@model", "@data"),
+}
+_MOE = {
+    "router": (None, None),                       # (d, E) small, replicated
+    "wi": ("@model", "@data", None),              # (E, d, ff): experts on TP
+    "wg": ("@model", "@data", None),
+    "wo": ("@model", None, "@data"),
+}
+# expert count not divisible by the model axis (granite: 40 experts on a
+# 16-way axis) -> expert-INTERNAL tensor parallelism instead
+_MOE_TP = {
+    "router": (None, None),
+    "wi": (None, "@data", "@model"),
+    "wg": (None, "@data", "@model"),
+    "wo": (None, "@model", "@data"),
+}
+_SSM = {
+    "in_proj": ("@data", "@model"),
+    "out_proj": ("@model", "@data"),
+    "x_proj": ("@model", None),                   # (din, R+2N) row-parallel
+    "dt_proj": (None, "@model"),                  # (R, din)
+    "conv_w": (None, "@model"),                   # (K, channels)
+    "conv_b": ("@model",),
+    "dt_bias": ("@model",),
+    "A_log": None,                                # mamba1 (din,N) / mamba2 (heads,)
+    "D": ("@model",),
+    "norm_scale": ("@model",),
+}
+_TOP = {
+    # vocab-parallel only (see the reference)
+    "embed": ("@model", None),
+    "unembed": (None, "@model"),
+}
+
+
+def _resolve(entry, shape) -> PartitionSpec:
+    if entry is None:
+        return P(*([None] * len(shape)))
+    assert len(entry) == len(shape), (entry, shape)
+    return P(*[e[1:] if isinstance(e, str) and e.startswith("@") else e
+               for e in entry])
+
+
+def _leaf_spec(path, shape, family: str, moe_tp: bool = False
+               ) -> PartitionSpec:
+    keys = [str(k) for k in path]
+    name = keys[-1] if keys else ""
+    stacked = any(k in STACKED_KEYS for k in keys)
+    own = tuple(shape[1:]) if stacked else tuple(shape)
+
+    spec: Optional[PartitionSpec] = None
+    ctx = set(keys)
+    moe_rules = _MOE_TP if moe_tp else _MOE
+    if name in ("embed", "unembed") and len(own) == 2:
+        spec = _resolve(_TOP[name], own)
+    elif "ssm" in ctx and name in _SSM:
+        ent = _SSM[name]
+        if name == "A_log":
+            # mamba1: (din, N) -> shard din; mamba2: (heads,) -> replicate
+            ent = ("@model", None) if len(own) == 2 else (None,)
+        if name == "conv_b" and len(own) == 1:
+            ent = ("@model",)
+        spec = _resolve(ent, own)
+    elif "moe" in ctx and name in moe_rules and "shared" not in ctx:
+        spec = _resolve(moe_rules[name], own)
+    elif ("mlp" in ctx or "shared" in ctx) and name in _MLP:
+        spec = _resolve(_MLP[name], own)
+    elif name in _ATTN and len(own) == len(_ATTN[name]):
+        spec = _resolve(_ATTN[name], own)
+    elif name in ("scale", "bias"):                     # norms
+        spec = P(*([None] * len(own)))
+    elif len(own) == 2 and name in ("wi", "wg", "wo"):  # bare mlp
+        spec = _resolve(_MLP[name], own)
+    if spec is None:
+        spec = P(*([None] * len(own)))                  # replicate fallback
+
+    if stacked:
+        return P(None, *spec)
+    return spec
+
+
+def _divisible(spec: PartitionSpec, shape, mesh) -> PartitionSpec:
+    """Drop sharded axes that don't divide their dim (e.g. whisper's
+    vocab 51865 on a 16-way model axis falls back to replicated)."""
+    if mesh is None:
+        return spec
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                       - len(spec))):
+        if ax is None:
+            out.append(None)
+            continue
+        names = (ax,) if isinstance(ax, str) else tuple(ax)
+        size = 1
+        for n in names:
+            size *= mesh.shape[n]
+        out.append(ax if dim % size == 0 else None)
+    return P(*out)
+
+
+def _map_with_path(fn, tree: Pytree) -> Pytree:
+    leaves, treedef = tree_flatten_with_path(tree)
+    return tree_unflatten(treedef, [fn(p, leaf) for p, leaf in leaves])
+
+
+def param_pspecs(cfg, params_shapes: Pytree, mesh=None) -> Pytree:
+    """Shape tree (tensors, meta tensors, anything with ``.shape``) ->
+    PartitionSpecs."""
+    if cfg.family == "cnn":                             # LeNet: replicated
+        return _map_with_path(lambda p, x: P(), params_shapes)
+    moe_tp = bool(cfg.num_experts) and mesh is not None \
+        and cfg.num_experts % mesh.shape["model"] != 0
+    return _map_with_path(
+        lambda path, leaf: _divisible(
+            _leaf_spec(path, tuple(leaf.shape), cfg.family, moe_tp),
+            tuple(leaf.shape), mesh),
+        params_shapes)
+
+
+def serve_param_pspecs(cfg, params_shapes: Pytree, mesh=None,
+                       hbm_budget: float = 12e9) -> Pytree:
+    """Serving-mode param specs: pure tensor parallelism. When the TP-only
+    per-device footprint fits the HBM budget, drop the ``data`` axis from
+    every param spec; models too big for pure TP keep the training
+    sharding (the reference's rule)."""
+    specs = param_pspecs(cfg, params_shapes, mesh)
+    if mesh is None:
+        return specs
+    total = 0
+    for _, leaf in tree_flatten_with_path(params_shapes)[0]:
+        n = 1
+        for d in leaf.shape:
+            n *= int(d)
+        total += n * leaf.dtype.itemsize
+    if total / mesh.shape["model"] > hbm_budget:
+        return specs
+
+    def strip(spec: PartitionSpec) -> PartitionSpec:
+        out = []
+        for ax in spec:
+            if ax == "data":
+                out.append(None)
+            elif isinstance(ax, tuple):
+                kept = tuple(a for a in ax if a != "data")
+                out.append(kept if kept else None)
+            else:
+                out.append(ax)
+        return P(*out)
+
+    return _map_with_path(lambda p, s: strip(s), specs)
+
+
+def state_pspecs(cfg, state_shapes, mesh=None) -> Any:
+    """TrainState(params, OptState(step, slots)) -> matching spec tree.
+
+    Tree-layout opt states: slot trees mirror params leaf for leaf, so
+    they inherit the param specs (the int8 scale trees stay replicated).
+    Flat-packed states: each slot is one superbuffer, replicated, unless
+    the layout is ZeRO-sharded (``layout.shards > 1``) over a mesh whose
+    ``data`` axis splits its rows on block boundaries: then every packed
+    slot is ``P("data", None)`` — which is what the port's ZeRO state
+    holds, each rank its own block of rows.
+    """
+    from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
+    from repro_torch.train.state import TrainState
+    pspecs = param_pspecs(cfg, state_shapes.params, mesh)
+    opt = state_shapes.opt_state
+    if getattr(opt, "layout", None) is not None:
+        layout = opt.layout
+        if getattr(layout, "shards", 1) > 1 and mesh is not None \
+                and "data" in mesh.axis_names \
+                and layout.total_rows % (mesh.shape["data"]
+                                         * layout.block_rows) == 0:
+            slot_specs = {k: P("data", None) for k in opt.slots}
+        else:
+            slot_specs = {k: P(None, None) for k in opt.slots}
+        opt_spec = OptState(step=P(), slots=slot_specs, layout=opt.layout)
+    else:
+        replicated = _map_with_path(lambda p, s: P(), pspecs)
+        slot_specs = {k: (replicated if k.endswith(SCALE_SUFFIX)
+                          else pspecs) for k in opt.slots}
+        opt_spec = OptState(step=P(), slots=slot_specs)
+    return TrainState(params=pspecs, opt_state=opt_spec)
+
+
+# ----------------------------------------------------------------- batches
+
+def _batch_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_pspecs(cfg, mesh, *, batch: int) -> dict[str, PartitionSpec]:
+    """Input-batch PartitionSpecs for a train/prefill step: rows over the
+    batch axes where they divide ``batch``, else replicated."""
+    ba = _batch_axes(mesh)
+    bsz = 1
+    for a in ba:
+        bsz *= mesh.shape[a]
+    b_ax = ba if batch % bsz == 0 else None
+    if cfg.family == "cnn":
+        return {"x": P(b_ax, None, None, None), "y": P(b_ax)}
+    specs = {"tokens": P(b_ax, None)}
+    if cfg.family == "encdec":
+        specs["frames"] = P(b_ax, None, None)
+    if cfg.family == "vlm":
+        specs["image_embeddings"] = P(b_ax, None, None)
+    return specs
+
+
+# ------------------------------------------------------------------ caches
+
+def cache_pspecs(cfg, mesh, cache_shapes: Pytree, *, batch: int) -> Pytree:
+    """Decode-cache PartitionSpecs (the reference's): sequence axes over
+    ``model`` (split-KV), batch over (pod, data) when divisible; for a
+    batch the batch axes do not divide, the sequence also takes
+    ``data``. SSM states shard d_inner over ``model``."""
+    ba = _batch_axes(mesh)
+    bsz = 1
+    for a in ba:
+        bsz *= mesh.shape[a]
+    b_ax: Any = ba if batch % bsz == 0 else None
+    seq_ax: Any = "model" if b_ax is not None else ("data", "model")
+
+    def spec(path, leaf):
+        name = str(path[-1])
+        nd = len(leaf.shape)
+        if name == "pos":
+            return P(b_ax)
+        if name in ("k", "v", "attn_k", "attn_v"):     # (L,B,S,Hkv,hd)
+            return P(None, b_ax, seq_ax, None, None)
+        if name in ("xk", "xv"):                       # (L,B,S_enc,Hkv,hd)
+            return P(None, b_ax, None, None, None)
+        if name in ("ckv", "krope"):                   # (L,B,S,r)
+            return P(None, b_ax, seq_ax, None)
+        if name == "conv":                             # (L,B,K-1,C)
+            return P(None, b_ax, None, "model")
+        if name == "h":                                # mamba1 (L,B,din,N)
+            if nd == 4:                                # / mamba2
+                return P(None, b_ax, "model", None)
+            return P(None, b_ax, "model", None, None)  # (L,B,heads,hd,N)
+        return P(*([None] * nd))
+
+    return _map_with_path(
+        lambda path, leaf: _divisible(spec(path, leaf), tuple(leaf.shape),
+                                      mesh),
+        cache_shapes)
+
+
+# ----------------------------------------------------------------- helpers
+
+class RowSharding:
+    """What a spec means for one rank of a data-parallel mesh: the block
+    of dim 0 it holds (``rows(n)``), or every row where dim 0 is not
+    split. The port's counterpart of the reference's ``NamedSharding``.
+    Entries past dim 0 must not split a dimension over an axis of more
+    than one rank: that is tensor parallelism, not yet ported."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh, self.spec = mesh, P(*spec)
+        for ax in tuple(self.spec)[1:]:
+            if _axis_size(mesh, ax) > 1:
+                raise NotImplementedError(
+                    f"spec {self.spec} splits a dimension past the batch "
+                    "rows over a mesh axis of more than one rank: tensor "
+                    "parallelism is not yet ported to repro_torch (it is "
+                    "the next slice)")
+        first = self.spec[0] if len(self.spec) else None
+        self.parts = _axis_size(mesh, first)
+        names = () if first is None else (
+            (first,) if isinstance(first, str) else tuple(first))
+        index = 0
+        for n in names:                         # row-major over the axes
+            index = index * mesh.shape[n] + mesh.coords[n]
+        self.index = index
+
+    @property
+    def sharded(self) -> bool:
+        """Dim 0 is split over the batch axes (one part on a one-rank
+        axis: the ranks' gradients are still reduced over it)."""
+        return len(self.spec) > 0 and self.spec[0] is not None
+
+    def rows(self, n: int) -> slice:
+        if n % self.parts:
+            raise ValueError(f"{n} rows do not split into {self.parts}")
+        step = n // self.parts
+        return slice(self.index * step, (self.index + 1) * step)
+
+    def shard(self, x):
+        """This rank's rows of ``x`` (a view, or ``x`` itself)."""
+        return x[self.rows(x.shape[0])] if self.parts > 1 else x
+
+    def __repr__(self) -> str:
+        return f"RowSharding({self.spec}, part {self.index}/{self.parts})"
+
+
+def _axis_size(mesh, ax) -> int:
+    if ax is None:
+        return 1
+    names = (ax,) if isinstance(ax, str) else tuple(ax)
+    size = 1
+    for n in names:
+        size *= mesh.shape[n]
+    return size
+
+
+def named(mesh, spec: PartitionSpec) -> RowSharding:
+    return RowSharding(mesh, spec)
+
+
+def tree_named(mesh, specs: Pytree) -> Pytree:
+    if isinstance(specs, PartitionSpec):
+        return named(mesh, specs)
+    return {k: tree_named(mesh, v) for k, v in specs.items()}
+
+
+class LocalBatch(dict):
+    """This rank's part of a global batch: its rows where the batch is
+    split over the batch axes (``sharded``: the ranks' gradients differ
+    and are reduced), the whole batch where it is replicated.
+    ``global_rows`` is the global batch size."""
+
+    def __init__(self, items, *, global_rows: int, sharded: bool):
+        super().__init__(items)
+        self.global_rows = global_rows
+        self.sharded = sharded
+
+
+def shard_rows(batch: dict, shardings: dict) -> LocalBatch:
+    """A global batch dict -> this rank's :class:`LocalBatch` under
+    ``tree_named(mesh, batch_pspecs(...))``."""
+    first = next(iter(batch.values()))
+    split = {shardings[k].sharded for k in batch}
+    if len(split) > 1:
+        raise ValueError("a batch's leaves must all split or all be "
+                         "replicated")
+    return LocalBatch({k: shardings[k].shard(v) for k, v in batch.items()},
+                      global_rows=int(first.shape[0]),
+                      sharded=split.pop())

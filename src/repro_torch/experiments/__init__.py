@@ -1,5 +1,6 @@
 """Paper-reproduction experiment harness of the port (cnn and lm
-families, one device):
+families; mesh and ZeRO cells on the ranks of a ``torch.distributed``
+process group):
 
 * :mod:`repro_torch.experiments.spec`   — grids as data, deterministic
   per-cell seeding, the named registry (the reference's, verbatim);
@@ -18,7 +19,8 @@ families, one device):
   (scenario x scheduler x slots x sampler ->
   ``EXPERIMENTS_torch_serve.json``).
 
-Not yet ported: mesh/ZeRO cells.
+Mesh and ZeRO cells (``zero_smoke``) train on a data-parallel mesh over
+the process group's ranks; only rank 0 writes (see the runner).
 """
 
 from repro_torch.experiments.spec import (CellSpec, GridSpec,  # noqa: F401

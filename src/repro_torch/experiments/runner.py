@@ -1,5 +1,5 @@
 """Grid execution: every cell through TrainPipeline, resumable mid-grid.
-Port of ``repro/experiments/runner.py`` on one device. Two families run
+Port of ``repro/experiments/runner.py``. Two families run
 through the same machinery (dispatch on ``grid.family``):
 
 * ``cnn`` — the paper's LeNet/MNIST study: shuffled epoch-cycling
@@ -44,8 +44,19 @@ tests override this one method to start from the reference's init.
 Cells sharing a ``pipeline_key`` reuse one TrainPipeline. The cell
 functions take a ``dir_name`` that overrides the cell's directory: a PBT
 lineage (:mod:`repro_torch.experiments.controller`) keeps one directory
-across generations. Not yet ported: mesh and ZeRO cells (they raise
-``NotImplementedError``).
+across generations.
+
+Mesh and ZeRO cells (``cell.mesh``, e.g. ``zero_smoke``'s ``8x1`` with
+``zero=True``) run when the default process group has the ranks their
+mesh needs (``torchrun``, or a spawn helper), and otherwise fail with
+the reference's message (``--mesh 8x1 needs 8 devices, have 1``). Every
+rank runs the runner; the cell's mesh is built once per spec
+(:meth:`GridRunner._cell_mesh`) over the leading ranks, the ranks in it
+train the cell together (each its rows of every batch), and a cell
+without a mesh runs on rank 0 alone. Only rank 0 writes: the manifest,
+the trajectories, the checkpoints (a ZeRO save is gathered from every
+rank of the mesh) and, in ``launch.experiment``, the report. A kill and
+a resume under ZeRO re-record the uninterrupted trajectories.
 """
 
 from __future__ import annotations
@@ -65,11 +76,16 @@ from repro_torch.core import grad_stats
 from repro_torch.data import (TokenTaskConfig, batch_iterator, place,
                               synthetic_mnist, token_batches,
                               token_eval_set)
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (LocalBatch, batch_pspecs,
+                                              shard_rows, tree_named)
 from repro_torch.experiments.record import (TrajectoryRecorder,
                                             atomic_write_json, load_json,
                                             read_trajectory, to_jsonable,
                                             truncate_trajectory)
 from repro_torch.experiments.spec import CellSpec, GridSpec
+from repro_torch.launch.mesh import (barrier, mesh_from_spec, parse_spec,
+                                     world)
 from repro_torch.models import build_model
 from repro_torch.train import (TrainPipeline, TrainState,
                                generalization_error, make_eval_step)
@@ -84,10 +100,6 @@ def resolve_config(grid: GridSpec):
     """The model config a grid's cells train: the registered config for
     cnn grids, its ``reduced()`` CPU-scale variant (capped layers / width
     / vocab from the grid's model fields) for lm grids."""
-    if grid.mesh or grid.zero:
-        raise NotImplementedError(
-            f"grid {grid.name!r}: mesh and zero cells are not yet ported "
-            "to repro_torch.experiments")
     cfg = get_config(grid.arch)
     if grid.family == "cnn":
         if cfg.family != "cnn":
@@ -138,6 +150,10 @@ class GridRunner:
         self.model = build_model(self.cfg)
         self._eval_step = make_eval_step(self.model, self.cfg)
         self._pipelines: dict[tuple, TrainPipeline] = {}
+        self._meshes: dict = {}
+        for spec in sorted({c.mesh for c in grid.cells() if c.mesh}):
+            parse_spec(spec)        # too few ranks: fail before any write
+        self.rank = world()[0]
         self._data = None
         self._eval_tokens = None
         self._steps_done = 0
@@ -181,7 +197,8 @@ class GridRunner:
 
     def cell_batches(self, cell: CellSpec, *, start: int = 0):
         """The cell's deterministic batch stream, positioned at ``start``
-        (mid-cell resume), each batch on the runner's device."""
+        (mid-cell resume), each batch on the runner's device; on a mesh
+        each rank's rows of it (a LocalBatch), cut on the host."""
         if self.grid.family == "cnn":
             x_tr, y_tr, _, _ = self.data()
             it = batch_iterator(x_tr, y_tr, batch=self.eff_batch(cell),
@@ -192,8 +209,17 @@ class GridRunner:
             it = ({"tokens": toks} for toks in token_batches(
                 self.token_task(), batch=self.eff_batch(cell),
                 seq_len=cell.seq_len, seed=cell.cell_seed(), start=start))
+        mesh = self._cell_mesh(cell)
+        cut = None if mesh is None else tree_named(mesh, batch_pspecs(
+            self.cfg, mesh, batch=self.eff_batch(cell)))
         for b in it:
-            yield place(b, self.device)
+            if cut is None:
+                yield place(b, self.device)
+            else:
+                local = shard_rows(b, cut)
+                yield LocalBatch(place(dict(local), self.device),
+                                 global_rows=local.global_rows,
+                                 sharded=local.sharded)
 
     def eff_batch(self, cell: CellSpec) -> int:
         """cnn cells cap the batch at the dataset size; lm streams are
@@ -201,6 +227,25 @@ class GridRunner:
         if self.grid.family == "cnn":
             return min(cell.batch, self.grid.n_train)
         return cell.batch
+
+    def _cell_mesh(self, cell: CellSpec):
+        """The (cached) mesh a cell's pipeline trains under, on the
+        runner's device; None for the single-device cells and on a rank
+        past the mesh. Building one is collective: every rank builds
+        every spec, in grid order."""
+        if not cell.mesh:
+            return None
+        if cell.mesh not in self._meshes:
+            self._meshes[cell.mesh] = mesh_from_spec(cell.mesh,
+                                                     device=self.device)
+        return self._meshes[cell.mesh]
+
+    def runs_here(self, cell: CellSpec) -> bool:
+        """Whether this rank trains the cell: a rank of its mesh, or rank
+        0 for a cell without one."""
+        if cell.mesh:
+            return self._cell_mesh(cell) is not None
+        return self.rank == 0
 
     def pipeline(self, cell: CellSpec) -> TrainPipeline:
         key = cell.pipeline_key()
@@ -213,11 +258,13 @@ class GridRunner:
             self._pipelines[key] = TrainPipeline(
                 self.model, cell.build_optimizer(), self.cfg,
                 accum_steps=cell.accum_steps, precision=cell.precision,
+                mesh=self._cell_mesh(cell), zero=cell.zero,
                 donate=False, stats_fn=stats_fn)
         return self._pipelines[key]
 
     def init_state(self, cell: CellSpec, pipe: TrainPipeline) -> TrainState:
-        """A cell's initial TrainState on the runner's device."""
+        """A cell's initial TrainState on the runner's device (a ZeRO
+        cell's: this rank's row shards)."""
         return pipe.init_state(torch.Generator().manual_seed(
             cell.cell_seed()), self.device)
 
@@ -268,18 +315,24 @@ class GridRunner:
         ckpt_path = os.path.join(cdir, "state.npz")
         start = 0
         if resume and os.path.exists(ckpt_path):
-            state = restore_train_state(ckpt_path, state)
+            with pipe.mesh_context():
+                state = restore_train_state(ckpt_path, state)
             start = state.opt_state.step
-            kept = truncate_trajectory(traj_path, keep_below_step=start)
-            if kept != start:
-                raise ValueError(
-                    f"trajectory {traj_path} holds {kept} records below "
-                    f"the checkpointed step {start} — corrupted run "
-                    "directory")
+            if self.rank == 0:
+                kept = truncate_trajectory(traj_path,
+                                           keep_below_step=start)
+                if kept != start:
+                    raise ValueError(
+                        f"trajectory {traj_path} holds {kept} records "
+                        f"below the checkpointed step {start} — corrupted "
+                        "run directory")
             self.log(f"  resumed {cell.cell_id} at step "
                      f"{start}/{cell.steps}")
-        elif os.path.isdir(cdir):
+        elif os.path.isdir(cdir) and self.rank == 0:
             shutil.rmtree(cdir)  # partial cell without checkpoint: redo
+        # every rank of the mesh has read the checkpoint before rank 0
+        # may touch it again
+        collectives.barrier(pipe.mesh)
         return state, start
 
     def run_cell_segment(self, cell: CellSpec, state, *, start: int,
@@ -315,7 +368,8 @@ class GridRunner:
         metrics: dict = {}
         if start >= until:
             return state, metrics, batch
-        recorder = TrajectoryRecorder(traj_path, append=start > 0)
+        recorder = TrajectoryRecorder(traj_path, append=start > 0) \
+            if self.rank == 0 else _NoRecorder()
         it = self.cell_batches(cell, start=start)
         t0 = t_prev = time.perf_counter()
         try:
@@ -346,7 +400,8 @@ class GridRunner:
                 if (self.checkpoint_every
                         and done % self.checkpoint_every == 0) \
                         or (checkpoint_at_end and done == until):
-                    save_train_state(ckpt_path, state)
+                    with pipe.mesh_context():       # gathers a ZeRO state
+                        save_train_state(ckpt_path, state)
                 self._tick()
         finally:
             recorder.close()
@@ -395,7 +450,8 @@ class GridRunner:
                 # step's batch SHAPES, any stream position serves
                 batch = next(self.cell_batches(cell))
             row["peak_bytes"] = pipe.peak_bytes(batch)
-        if not keep_checkpoint and os.path.exists(ckpt_path):
+        if not keep_checkpoint and self.rank == 0 \
+                and os.path.exists(ckpt_path):
             os.remove(ckpt_path)  # completed cells resume via manifest
         return row
 
@@ -460,7 +516,9 @@ class GridRunner:
         point leaves a resumable directory.
         """
         manifest = self._load_manifest(resume)
-        atomic_write_json(self.manifest_path, manifest)
+        barrier()            # every rank has read it before rank 0 writes
+        if self.rank == 0:
+            atomic_write_json(self.manifest_path, manifest)
         cells = self.grid.cells()
         if cell_ids is not None:
             wanted = set(cell_ids)
@@ -472,10 +530,23 @@ class GridRunner:
             if cell.cell_id in manifest["cells"]:
                 self.log(f"  [done] {cell.cell_id}")
                 continue
+            if not self.runs_here(cell):
+                continue
             self.log(f"  [run ] {cell.cell_id} ({cell.steps} steps)")
             row = self.run_cell(cell, resume=resume)
             manifest["cells"][cell.cell_id] = row
-            atomic_write_json(self.manifest_path, manifest)
+            if self.rank == 0:
+                atomic_write_json(self.manifest_path, manifest)
             if on_row is not None:
                 on_row(row)
         return manifest
+
+
+class _NoRecorder:
+    """The recorder of a rank other than 0: it writes nothing."""
+
+    def record(self, entry: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

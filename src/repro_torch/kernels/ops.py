@@ -47,8 +47,17 @@ def lars_norms_packed(layout: packing.PackedLayout, wbuf: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Joint per-layer-slice (||w||, ||g||) over the whole superbuffer:
     ONE norms_flat launch (per-row partial sums), then a fixed-order
-    fold of the rows into slices. Two (num_slices,) f32 vectors."""
+    fold of the rows into slices. Two (num_slices,) f32 vectors.
+
+    On a ZeRO row shard the launch covers this rank's rows; their
+    partials, ``rows / 512`` floats per vector, are all-gathered in one
+    call and the whole vector is folded as the unsharded step folds it,
+    so the norms are bit-identical to an unsharded step's."""
     wsq_rows, gsq_rows = lars_kernels.norms_flat(wbuf, gbuf, block_rows=1)
+    if packing.is_shard(layout, wbuf):
+        both = packing.gather_rows(layout, torch.stack([wsq_rows, gsq_rows],
+                                                       dim=1))
+        wsq_rows, gsq_rows = both[:, 0].contiguous(), both[:, 1].contiguous()
     return (torch.sqrt(packing.fold_rows(layout, wsq_rows)),
             torch.sqrt(packing.fold_rows(layout, gsq_rows)))
 
@@ -59,9 +68,12 @@ def lars_apply_packed(layout: packing.PackedLayout, wbuf: torch.Tensor,
                       weight_decay: float
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused m' = mu*m + lr_l*(g + beta*w); w' = w - m' over the whole
-    superbuffer. lr_slices: (num_slices,) per-layer local LR. ONE launch.
+    superbuffer (or this rank's ZeRO row shard of it, with the learning
+    rates of its own row blocks). lr_slices: (num_slices,) per-layer
+    local LR. ONE launch.
     """
-    lr_blocks = packing.blocks_expand(layout, lr_slices.float())
+    lr_blocks = packing.blocks_expand(layout, lr_slices.float(),
+                                      wbuf.shape[0])
     return lars_kernels.apply_flat(
         wbuf, gbuf, mbuf, lr_blocks, momentum=momentum,
         weight_decay=weight_decay, block_rows=layout.block_rows)
@@ -75,8 +87,12 @@ def lars_apply_packed_q8(layout: packing.PackedLayout, wbuf: torch.Tensor,
                                     torch.Tensor]:
     """``lars_apply_packed`` with int8 momentum codes + per-block scales:
     dequantize, update and requantize in the ONE apply launch. Returns
-    (w_new, q_new, scale_new)."""
-    lr_blocks = packing.blocks_expand(layout, lr_slices.float())
+    (w_new, q_new, scale_new). A ZeRO row shard as in
+    :func:`lars_apply_packed`: its clusters of four two-row CTAs still
+    cover whole 8-row scale blocks, since shards split on block
+    boundaries."""
+    lr_blocks = packing.blocks_expand(layout, lr_slices.float(),
+                                      wbuf.shape[0])
     return lars_kernels.apply_flat_q8(
         wbuf, gbuf, q_m, m_scale, lr_blocks, momentum=momentum,
         weight_decay=weight_decay, block_rows=layout.block_rows)

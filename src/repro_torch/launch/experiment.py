@@ -1,6 +1,6 @@
 """Experiment CLI of the port: run a declarative grid end to end,
 resumably. Port of ``repro/launch/experiment.py`` for the cnn and lm
-grids on one device.
+grids.
 
 Examples (on the card; ``--device cpu`` runs them on the CPU)::
 
@@ -30,6 +30,16 @@ Examples (on the card; ``--device cpu`` runs them on the CPU)::
   PYTHONPATH=src python -m repro_torch.launch.experiment --grid pbt_smoke \\
       --pbt --population 4 --exploit-every 4
 
+  # a grid of mesh / ZeRO cells (zero_smoke: 8x1, zero=True) on 8 ranks,
+  # one card each (NCCL); on the CPU add --device cpu (gloo)
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m \\
+      repro_torch.launch.experiment --grid zero_smoke
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank runs the grid and
+joins the default process group (NCCL for ``cuda``, each rank on
+``cuda:<LOCAL_RANK>``; gloo for ``--device cpu``); only rank 0 prints
+the report and writes it.
+
 The run directory (``--out-dir``, default ``runs/torch/<grid>``, apart
 from the reference's ``runs/<grid>`` so neither resumes the other's
 manifest) holds the manifest and one JSONL trajectory per cell; the
@@ -55,6 +65,7 @@ from repro_torch.experiments import (GRIDS, GridRunner,
                                      get_grid, write_pbt_report,
                                      write_report)
 from repro_torch.experiments.record import load_json
+from repro_torch.launch.mesh import init_distributed, world
 
 
 def device_line(index: int) -> str:
@@ -149,7 +160,8 @@ def main(argv=None) -> int:
     out = args.out or grid.report_file
     runner = GridRunner(grid, out_dir,
                         checkpoint_every=args.checkpoint_every,
-                        collect_stats=not args.no_stats, device=args.device)
+                        collect_stats=not args.no_stats,
+                        device=init_distributed(args.device))
     backend = runner.device.type
     device = device_line(runner.device.index or 0) \
         if backend == "cuda" else None
@@ -166,7 +178,8 @@ def main(argv=None) -> int:
         manifest = load_json(runner.manifest_path)
         interrupted = True
         print("interrupted — rerun with --resume to continue", flush=True)
-
+    if world()[0] != 0:
+        return 130 if interrupted else 0
     payload = write_report(out, grid, manifest, backend=backend,
                            device=device)
     print(f"# report ({payload['completed_cells']}/"

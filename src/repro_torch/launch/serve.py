@@ -45,7 +45,8 @@ Weights are random, drawn from ``--seed`` (the port's own init at the
 reference's distributions). ``--set FIELD=VALUE`` overrides a config
 field after ``--reduced``, as in the reference (a sliding window serves
 from a ring cache, the logit softcap is applied at decode). ``--mesh``
-is not yet ported and raises. As in the reference, the encdec and vlm
+is not yet ported and raises (the serving mesh is the slice after
+tensor parallelism). As in the reference, the encdec and vlm
 archs (whisper-base, paligemma-3b) raise too: ``ServeEngine`` does not
 serve their families (:class:`repro_torch.serve.DecodeEngine` does).
 ``--use-flash`` asks for the ``flash_decode`` kernel, so it needs the
@@ -225,7 +226,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="round prompt buffers up to a multiple of this "
                     "(groups admissions of similar length)")
     ap.add_argument("--mesh", default="none",
-                    help="'none' (a mesh is not yet ported)")
+                    help="'none' (the serving mesh is not yet ported)")
     ap.add_argument("--use-flash", action="store_true",
                     help="ask for the flash_decode kernel (needs the card; "
                     "default: the kernel on the card, its plain version "
@@ -287,8 +288,10 @@ def main(argv=None) -> dict:
     kernel launches, the engine's counters)."""
     args = parse_args(argv)
     if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh} is not yet ported to "
-                                  "repro_torch.launch.serve")
+        raise NotImplementedError(
+            f"--mesh {args.mesh} is not yet ported to repro_torch.launch."
+            "serve: the serving mesh is the slice after tensor parallelism "
+            "(launch.train takes --mesh)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "

@@ -1,5 +1,4 @@
-"""Training entry point of the port (one device): port of
-``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
+"""Training entry point of the port: port of ``repro/launch/train.py``. ``--arch`` selects lenet-mnist (the paper's
 cnn), a dense LM — smollm-135m, qwen3-14b, qwen2-72b, minitron-8b —,
 an MoE LM — granite-moe-3b-a800m, deepseek-v2-236b (MLA) —, the SSM LM
 falcon-mamba-7b, the hybrid zamba2-7b, the encoder-decoder whisper-base
@@ -40,10 +39,24 @@ Examples (on the card; ``--device cpu`` runs them on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
       --reduced --steps 5 --batch 4 --seq 32 --device cpu
 
+Data parallelism and ZeRO, under ``torchrun`` (one process per rank,
+one card each, NCCL; ``--device cpu`` takes gloo and CPU ranks):
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --arch smollm-135m --mesh 8x1 --zero --batch 64 --seq 1024 --steps 10
+
+``--mesh auto|DATAxMODEL`` builds the mesh over the default process
+group (``auto``: every rank on ``data``); without ``--mesh`` the run is
+one device and no process group, as before (the reference defaults to
+``auto`` over the local devices). ``--zero`` row-shards the packed
+optimizer slots over the mesh's data axis (the reference's
+``TrainPipeline(zero=True)``, which its launcher does not expose). Each
+rank takes its rows of every global batch; a ``model`` axis above 1
+raises (tensor parallelism is the next slice). Only rank 0 prints the
+steps and writes the checkpoint (a ZeRO state is gathered from every
+rank first).
+
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
-``--mesh``, which the port does not cover yet, raises rather than being
-ignored.
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ from repro_torch.core.scaling import scaled_lr
 from repro_torch.data import (ShardedLoader, TokenTaskConfig,
                               batch_iterator, place, synthetic_mnist,
                               token_batches)
+from repro_torch.launch.mesh import init_distributed, mesh_from_spec, world
 from repro_torch.launch.overrides import apply_overrides
 from repro_torch.models import build_model
 from repro_torch.train import TrainPipeline, make_eval_step, train_loop
@@ -122,7 +136,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "f32 scales (weights stay f32)")
     ap.add_argument("--precision", default="f32", choices=("f32", "bf16"),
                     help="bf16: bf16 compute + f32 master weights")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="auto or DATAxMODEL: a data-parallel mesh over "
+                    "the ranks of the process group (torchrun); default "
+                    "none, one device")
+    ap.add_argument("--zero", action="store_true",
+                    help="ZeRO: row-shard the packed optimizer slots over "
+                    "the mesh's data axis (needs --mesh)")
     ap.add_argument("--seq", type=int, default=64,
                     help="LM training sequence length")
     ap.add_argument("--seed", type=int, default=0)
@@ -139,24 +159,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _check_ported(args) -> None:
-    if args.mesh is not None:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not yet ported to "
-            "repro_torch.launch.train")
-
-
 def main(argv=None) -> dict:
     """Train; returns a summary (losses, timings, eval accuracy)."""
     args = parse_args(argv)
-    _check_ported(args)
     if args.batch % args.accum_steps:
         raise SystemExit(f"--batch {args.batch} must be divisible by "
                          f"--accum-steps {args.accum_steps}")
+    if args.zero and args.mesh is None:
+        raise SystemExit("--zero needs --mesh (the slots shard across its "
+                         "data axis)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
                            "train on the CPU")
+    mesh = None
+    if args.mesh is not None:
+        device = init_distributed(device)
+        mesh = mesh_from_spec(args.mesh, device=device)
+        if mesh is None:
+            print(f"rank {world()[0]} lies past --mesh {args.mesh}: idle")
+            return {"rank": world()[0], "mesh": None}
+    lead = world()[0] == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -168,20 +191,27 @@ def main(argv=None) -> dict:
     opt = get_optimizer(args.optimizer, learning_rate=make_lr_schedule(args),
                         slot_dtype=args.opt_state_dtype)
     pipeline = TrainPipeline(model, opt, cfg, accum_steps=args.accum_steps,
-                             precision=args.precision)
+                             precision=args.precision, mesh=mesh,
+                             zero=args.zero)
     state = pipeline.init_state(torch.Generator().manual_seed(args.seed),
                                 device)
     if args.resume:
-        state = restore_train_state(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.opt_state.step}")
+        with pipeline.mesh_context():
+            state = restore_train_state(args.resume, state)
+        if lead:
+            print(f"resumed from {args.resume} at step "
+                  f"{state.opt_state.step}")
     resumed_from = state.opt_state.step
     n_params = sum(x.numel() for x in tree_leaves(state.params))
-    print(f"arch={cfg.name} family={cfg.family} params={n_params:,} "
-          f"opt={opt.name} lr={args.lr} device={device} "
-          f"global_batch={args.batch} "
-          f"micro_batch={args.batch // args.accum_steps} "
-          f"accum={args.accum_steps} precision={args.precision} "
-          f"opt_state_dtype={args.opt_state_dtype}")
+    if lead:
+        print(f"arch={cfg.name} family={cfg.family} params={n_params:,} "
+              f"opt={opt.name} lr={args.lr} device={device} "
+              f"global_batch={args.batch} "
+              f"micro_batch={args.batch // args.accum_steps} "
+              f"accum={args.accum_steps} precision={args.precision} "
+              f"opt_state_dtype={args.opt_state_dtype}"
+              + (f" mesh={dict(mesh.shape)} zero={args.zero}" if mesh
+                 else ""))
 
     if cfg.family == "cnn":
         # size the procedural dataset to the global batch: batch_iterator's
@@ -194,7 +224,8 @@ def main(argv=None) -> dict:
     else:
         host_batches = lm_batches(cfg, args.batch, args.seq, args.seed)
         eval_batches = None
-    batches = ShardedLoader(host_batches, device)
+    batches = ShardedLoader(host_batches, device, mesh=mesh, spec=(
+        pipeline.batch_specs(args.batch) if mesh is not None else None))
     # hand train_loop the only reference to the first state: it drops
     # each state once the next exists, and a name held here would keep
     # the first alive through the run (22 GB of weights and slots at
@@ -203,7 +234,7 @@ def main(argv=None) -> dict:
     del state
     try:
         state, hist = train_loop(pipeline, first.pop(), batches, args.steps,
-                                 log_every=args.log_every,
+                                 log_every=args.log_every if lead else 0,
                                  eval_fn=make_eval_step(model, cfg)
                                  if eval_batches else None,
                                  eval_batches=eval_batches)
@@ -219,6 +250,8 @@ def main(argv=None) -> dict:
                "precision": args.precision,
                "opt_state_dtype": args.opt_state_dtype,
                "resumed_from_step": resumed_from,
+               "mesh": dict(mesh.shape) if mesh is not None else None,
+               "zero": args.zero, "rank": world()[0],
                "losses": run["losses"], "aux_losses": run["aux_losses"],
                "train_s": dt,
                "steps_per_s": args.steps / dt,
@@ -227,16 +260,19 @@ def main(argv=None) -> dict:
     if cfg.family != "cnn":
         summary["seq"] = args.seq
         summary["tokens_per_s"] = args.steps * args.batch * args.seq / dt
-    print(f"done: {args.steps} steps in {dt:.1f}s "
-          f"({summary['steps_per_s']:.2f} steps/s, "
-          f"{summary['examples_per_s']:.0f} examples/s"
-          + (f", {summary['tokens_per_s']:.0f} tokens/s"
-             if "tokens_per_s" in summary else "") + ")")
-    if eval_acc is not None:
-        print(f"eval accuracy: {eval_acc:.4f}")
+    if lead:
+        print(f"done: {args.steps} steps in {dt:.1f}s "
+              f"({summary['steps_per_s']:.2f} steps/s, "
+              f"{summary['examples_per_s']:.0f} examples/s"
+              + (f", {summary['tokens_per_s']:.0f} tokens/s"
+                 if "tokens_per_s" in summary else "") + ")")
+        if eval_acc is not None:
+            print(f"eval accuracy: {eval_acc:.4f}")
     if args.checkpoint:
-        save_train_state(args.checkpoint, state)
-        print(f"full TrainState checkpoint -> {args.checkpoint}")
+        with pipeline.mesh_context():   # gathers a ZeRO state's rows
+            save_train_state(args.checkpoint, state)
+        if lead:
+            print(f"full TrainState checkpoint -> {args.checkpoint}")
     return summary
 
 

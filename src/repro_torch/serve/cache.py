@@ -24,14 +24,17 @@ class SlotCache:
 
     ``capacity`` bounds prompt_len + max_new_tokens per request (the
     cache leaves are (L, slots, capacity, ...)). A ``mesh`` is not yet
-    ported.
+    ported: the serving mesh (``cache_pspecs`` executed over ``model``) is
+    the slice after tensor parallelism.
     """
 
     def __init__(self, model, slots: int, capacity: int, *, mesh=None,
                  device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh-sharded SlotCache is not yet ported to repro_torch")
+                "a mesh-sharded SlotCache is not yet ported to repro_torch: "
+                "the serving mesh is the slice after tensor parallelism "
+                "(training's data-parallel meshes are ported)")
         if slots < 1 or capacity < 1:
             raise ValueError(f"bad slot cache shape ({slots}, {capacity})")
         self.model = model

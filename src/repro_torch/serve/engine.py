@@ -33,7 +33,8 @@ ServeEngine contract (the decode hot path):
 ``ServeEngine`` serves the families of ``SERVE_FAMILIES``, as the
 reference's: the encdec and vlm families' prompts carry frames or image
 embeddings, which slot admission does not take, so they are served by
-:class:`DecodeEngine`. A mesh is not yet ported and raises.
+:class:`DecodeEngine`. A mesh is not yet ported and raises: the serving
+mesh is the slice after tensor parallelism.
 """
 
 from __future__ import annotations
@@ -189,7 +190,9 @@ class ServeEngine:
                              f"{self.cfg.family!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "ServeEngine(mesh=...) is not yet ported to repro_torch")
+                "ServeEngine(mesh=...) is not yet ported to repro_torch: "
+                "the serving mesh is the slice after tensor parallelism "
+                "(training's data-parallel meshes are ported)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.sampler = sampler if sampler is not None else SamplerConfig()

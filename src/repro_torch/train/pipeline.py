@@ -1,6 +1,6 @@
-"""Large-batch execution pipeline: microbatched gradient accumulation and
-the bf16/f32 precision policy (port of ``repro/train/pipeline.py``, one
-device, no mesh).
+"""Large-batch execution pipeline: microbatched gradient accumulation,
+the bf16/f32 precision policy, and data-parallel meshes with ZeRO-sharded
+optimizer states (port of ``repro/train/pipeline.py``).
 
 The paper's point is scaling the *global* batch without losing accuracy
 (LARS); You et al. reach 16K-32K batches only through gradient
@@ -40,7 +40,34 @@ alive (``False``); the port's eager step never frees or overwrites the
 caller's state, which is what ``False`` promises and ``True`` permits,
 so both run the same step.
 
-Not yet ported: meshes and ZeRO-sharded optimizer states.
+* **Data-parallel mesh** (``mesh=``, a
+  :class:`~repro_torch.launch.mesh.Mesh` whose ``model`` axis is 1; one
+  process per rank over ``torch.distributed``). Every rank holds the
+  params whole and takes its rows of the global batch as
+  :func:`~repro_torch.distributed.sharding.batch_pspecs` cuts them — a
+  :class:`~repro_torch.distributed.sharding.LocalBatch` from
+  ``ShardedLoader(mesh=)`` as it is, a global batch dict cut here; a
+  batch the data axis does not divide is replicated, as in the
+  reference, and then nothing is reduced. Each rank accumulates its
+  microbatches locally, then the mean gradient is reduced across the
+  ``data`` group ONCE per global step: with ``zero=False`` one
+  ``all_reduce`` of the packed gradient and the full update on every
+  rank; with ``zero=True`` one reduce-scatter into this rank's row shard
+  and the update on its rows (:mod:`repro_torch.core.optim_base`). The
+  reference reduces once per microbatch (GSPMD reduces each
+  microbatch's gradient inside its scan): the port sums a rank's
+  microbatches first and the ranks after, which re-brackets the sum
+  (held by tests/test_torch_zero.py). The loss and aux loss are the
+  mean over the ranks. A rank's microbatch is its own rows of the
+  global microbatch, not the reference's; the mean gradient is the
+  same. Caveat: the MoE family's load-balance loss and capacity are
+  taken over a rank's tokens, where the reference's GSPMD program
+  takes them over the global microbatch.
+* ``fuse_update`` follows the reference's rules under a mesh: ``"auto"``
+  fuses only in ZeRO mode; ``True`` is valid on a pure data-parallel
+  mesh. A ``model`` axis larger than 1 raises ``NotImplementedError``
+  (tensor parallelism is the next slice), except with
+  ``fuse_update=True``, where the reference's ``ValueError`` comes first.
 
 Typical use::
 
@@ -48,10 +75,20 @@ Typical use::
     state = pipe.init_state(torch.Generator().manual_seed(0), "cuda")
     for batch in ShardedLoader(host_batches, "cuda"):
         state, metrics = pipe(state, batch)
+
+and on a mesh (under ``torchrun``; see ``launch/train.py``)::
+
+    mesh = mesh_from_spec("auto")
+    pipe = TrainPipeline(model, opt, cfg, mesh=mesh, zero=True)
+    state = pipe.init_state(torch.Generator().manual_seed(0))
+    for batch in ShardedLoader(host_batches, mesh.device, mesh=mesh,
+                               spec=pipe.batch_specs(B)):
+        state, metrics = pipe(state, batch)
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import Callable, Optional
 
@@ -59,11 +96,20 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.optim_base import PackedGrads
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (LocalBatch, batch_pspecs,
+                                              shard_rows, tree_named)
 from repro_torch.train.state import (PRECISIONS, Precision,  # noqa: F401
                                      TrainState, cast_floats,
                                      create_train_state, get_precision)
 from repro_torch.train.step import apply_update, value_and_grad
-from repro_torch.treepath import tree_leaves, tree_map
+from repro_torch.treepath import (tree_flatten_with_path, tree_leaves,
+                                  tree_map, tree_unflatten)
+
+FUSE_ERROR = (
+    "fuse_update=True needs accum_steps > 1, a flat-packed opt state, and "
+    "no mesh or a pure data-parallel mesh (model axis size 1); use "
+    "fuse_update='auto' to fall back silently")
 
 
 class TrainPipeline:
@@ -74,33 +120,115 @@ class TrainPipeline:
                  donate: bool = True, packed: bool = True,
                  fuse_update: bool | str = "auto", zero: bool = False,
                  stats_fn: Optional[Callable] = None):
-        if mesh is not None or zero:
-            raise NotImplementedError(
-                "TrainPipeline's mesh and zero are not yet ported to "
-                "repro_torch")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if fuse_update not in (True, False, "auto"):
             raise ValueError(f"fuse_update must be True/False/'auto', "
                              f"got {fuse_update!r}")
+        if zero:
+            if mesh is None:
+                raise ValueError(
+                    "zero=True (ZeRO-sharded optimizer states) requires "
+                    "a mesh — the slots shard across its 'data' axis")
+            if not packed:
+                raise ValueError(
+                    "zero=True requires the flat-packed substrate "
+                    "(packed=True): ZeRO shards the superbuffer rows")
+            if "data" not in mesh.axis_names:
+                raise ValueError(
+                    f"zero=True needs a mesh with a 'data' axis, got "
+                    f"axes {mesh.axis_names}")
+        if mesh is not None:
+            if not all(hasattr(mesh, a) for a in ("shape", "axis_names",
+                                                  "coords", "device")):
+                raise TypeError(f"mesh must be a repro_torch.launch.mesh."
+                                f"Mesh, got {type(mesh).__name__}")
+            tp = {a: mesh.shape[a] for a in mesh.axis_names
+                  if a not in ("data", "pod") and mesh.shape[a] > 1}
+            if tp:
+                if fuse_update is True:
+                    raise ValueError(FUSE_ERROR)
+                raise NotImplementedError(
+                    f"TrainPipeline on a mesh with {tp}: tensor "
+                    "parallelism over 'model' is not yet ported to "
+                    "repro_torch (it is the next slice); use a DATAx1 "
+                    "mesh")
         self.model = model
         self.optimizer = optimizer
         self.cfg = cfg if cfg is not None else model.cfg
         self.accum_steps = accum_steps
         self.precision = get_precision(precision)
+        self.mesh = mesh
         self.donate = donate
         self.packed = packed
         self.fuse_update = fuse_update
+        # ZeRO: row-shard every packed slot across the mesh's data axis
+        self.zero = zero
+        self._zero_shards = int(mesh.shape["data"]) if zero else 1
         self.stats_fn = stats_fn
         self._peak_bytes: Optional[int] = None
         self._card_steps = 0
 
+    def mesh_context(self):
+        """``with pipe.mesh_context():`` makes the pipeline's mesh the
+        ambient one (nothing without a mesh): what a ZeRO state's
+        checkpoint save and restore need around them."""
+        return self.mesh if self.mesh is not None \
+            else contextlib.nullcontext()
+
     def init_state(self, generator: torch.Generator,
-                   device: torch.device | str) -> TrainState:
-        """Fresh TrainState on ``device`` from ``model.init``."""
-        return create_train_state(self.model, self.optimizer, generator,
-                                  device=device, packed=self.packed,
-                                  precision=self.precision)
+                   device: Optional[torch.device | str] = None
+                   ) -> TrainState:
+        """Fresh TrainState on ``device`` from ``model.init``. On a mesh
+        the device defaults to the mesh's (every rank draws the same
+        params from the same generator), and a ZeRO state holds this
+        rank's row shard of every slot."""
+        if self.mesh is not None:
+            mine = self.mesh.device
+            if device is not None and torch.device(device) not in (
+                    mine, torch.device(mine.type)):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mine}")
+            device = mine
+        elif device is None:
+            raise ValueError("init_state needs a device without a mesh")
+        with self.mesh_context():
+            return create_train_state(
+                self.model, self.optimizer, generator, device=device,
+                packed=self.packed, precision=self.precision,
+                zero_shards=self._zero_shards)
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """A (host or restored) state on the mesh's device, each ZeRO slot
+        cut to this rank's row shard; the state as it is without a
+        mesh."""
+        if self.mesh is None:
+            return state
+        dev = self.mesh.device
+        opt = state.opt_state
+        move = lambda t: t.to(dev)                          # noqa: E731
+        with self.mesh:
+            slots = {k: packing.constrain_rows(opt.layout, move(v))
+                     if opt.layout is not None else tree_map(move, v)
+                     for k, v in opt.slots.items()}
+        return TrainState(params=tree_map(move, state.params),
+                          opt_state=type(opt)(step=opt.step, slots=slots,
+                                              layout=opt.layout))
+
+    def batch_specs(self, global_batch: int):
+        """PartitionSpecs a host loader should place batches with."""
+        if self.mesh is None:
+            raise ValueError("batch_specs requires a mesh-aware pipeline")
+        return batch_pspecs(self.cfg, self.mesh, batch=global_batch)
+
+    def local_batch(self, batch) -> LocalBatch:
+        """This rank's part of a global batch dict (a LocalBatch, e.g.
+        from ``ShardedLoader(mesh=)``, as it is)."""
+        if isinstance(batch, LocalBatch):
+            return batch
+        rows = next(iter(batch.values())).shape[0]
+        return shard_rows(batch, tree_named(self.mesh,
+                                            self.batch_specs(rows)))
 
     def peak_bytes(self, batch) -> Optional[int]:
         """Peak device memory of one step on ``batch``'s device, in bytes;
@@ -166,17 +294,28 @@ class TrainPipeline:
         return out
 
     def _step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
-        model, cfg, k = self.model, self.cfg, self.accum_steps
+        with self.mesh_context():
+            return self._local_step(state, batch)
+
+    def _local_step(self, state: TrainState, batch
+                    ) -> tuple[TrainState, dict]:
+        model, cfg, k, mesh = self.model, self.cfg, self.accum_steps, \
+            self.mesh
+        # the ranks' gradients differ only where their batch rows do; over
+        # a one-rank data axis the reduction is the identity (sent through
+        # the backend where a process group holds the axis)
+        reduce = False
+        if mesh is not None:
+            batch = self.local_batch(batch)
+            reduce = batch.sharded
         batch = cast_floats(batch, self.precision.compute_dtype)
         layout = state.opt_state.layout
         can_fuse = k > 1 and layout is not None
         if self.fuse_update is True and not can_fuse:
-            raise ValueError(
-                "fuse_update=True needs accum_steps > 1, a flat-packed "
-                "opt state, and no mesh or a pure data-parallel mesh "
-                "(model axis size 1); use fuse_update='auto' to fall "
-                "back silently")
-        fuse = can_fuse and self.fuse_update is not False
+            raise ValueError(FUSE_ERROR)
+        # "auto" fuses off-mesh and in ZeRO mode, as the reference's does
+        fuse = can_fuse and (self.fuse_update is True or (
+            self.fuse_update is not False and (mesh is None or self.zero)))
         stacked = model.stacked_marker(state.params) if self.packed \
             else None
         if k == 1:
@@ -220,12 +359,19 @@ class TrainPipeline:
             grads = PackedGrads(gsum * inv) if fuse \
                 else tree_map(lambda g: g * inv, gsum)
             loss, aux_loss = lsum * inv, asum * inv
+        if reduce:
+            grads = self._reduce_grads(grads, layout)
+            both = collectives.all_reduce_sum(torch.stack(
+                [loss.float(), torch.as_tensor(aux_loss).float().to(
+                    loss.device)]), mesh)
+            loss, aux_loss = torch.div(both, mesh.shape["data"]).unbind()
         stats = None
         if self.stats_fn is not None:
             # taken before the update, on the params the update starts
             # from, as the reference's step reads them
-            stat_grads = packing.unpack(layout, grads.buf,
-                                        dtype=torch.float32) \
+            stat_grads = packing.unpack(
+                layout, packing.gather_rows(layout, grads.buf),
+                dtype=torch.float32) \
                 if isinstance(grads, PackedGrads) else grads
             stats = self.stats_fn(state.params, stat_grads, stacked)
         state, metrics = apply_update(self.optimizer, state, grads, loss,
@@ -233,3 +379,27 @@ class TrainPipeline:
         if stats is not None:
             metrics["stats"] = stats
         return state, metrics
+
+    def _reduce_grads(self, grads, layout):
+        """The mean over the data ranks of their mean gradients, in one
+        collective: packed, a reduce-scatter into this rank's row shard
+        (ZeRO) or an all-reduce of the whole buffer; on a tree state one
+        all-reduce of every leaf flattened into one f32 buffer."""
+        mesh, ranks = self.mesh, self.mesh.shape["data"]
+        if layout is not None:
+            buf = grads.buf if isinstance(grads, PackedGrads) \
+                else packing.pack(layout, grads)
+            if self.zero:
+                buf = collectives.reduce_scatter_rows(buf, mesh)
+            else:
+                buf = collectives.all_reduce_sum(buf, mesh)
+            return PackedGrads(torch.div(buf, ranks))
+        leaves, treedef = tree_flatten_with_path(grads)
+        flat = collectives.all_reduce_sum(torch.cat(
+            [g.float().reshape(-1) for _, g in leaves]), mesh)
+        flat = torch.div(flat, ranks)
+        out, at = [], 0
+        for _, g in leaves:
+            out.append(flat[at:at + g.numel()].view(g.shape))
+            at += g.numel()
+        return tree_unflatten(treedef, out)

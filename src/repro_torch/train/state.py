@@ -8,11 +8,12 @@ slots (momentum, second moment) live packed in superbuffers across steps
 and the OptState carries the static PackedLayout. ``packed=False`` keeps
 per-leaf slot trees instead: the reference's layout where slots must
 shard leaf for leaf beside FSDP-sharded params (its pjit dry run builds
-its states that way). The packed superbuffers are replicated per device,
-right for one replica group and wrong at FSDP scale, where the point is
-to shard optimizer memory; the tree layout is what shards there. The
-port runs one device, where the tree layout is the per-leaf engine: no
-kernel launch, a pass over every leaf per step.
+its states that way). The packed superbuffers are replicated per device
+unless the state is built ZeRO-sharded (``zero_shards=n``): under an
+ambient data-parallel mesh of ``n`` data ranks each rank then holds its
+own row shard of every slot (:mod:`repro_torch.core.optim_base`). The
+tree layout is the per-leaf engine: no kernel launch, a pass over every
+leaf per step.
 """
 
 from __future__ import annotations
@@ -74,25 +75,31 @@ def cast_floats(tree: Pytree, dtype: Optional[torch.dtype]) -> Pytree:
 
 def create_train_state(model, optimizer, generator: torch.Generator, *,
                        device: torch.device | str, packed: bool = True,
-                       precision: str | Precision = "f32") -> TrainState:
+                       precision: str | Precision = "f32",
+                       zero_shards: int = 1) -> TrainState:
     """Fresh TrainState on ``device`` from ``model.init(generator)``;
     ``precision="bf16"`` stores params in bfloat16 and seeds an f32
     master-weight slot — the policy ``TrainPipeline`` applies.
     ``packed=False`` builds the optimizer state without a marker: per-leaf
-    slot trees (the tree engine)."""
+    slot trees (the tree engine). ``zero_shards``: the ZeRO row-shard
+    count of the packed state."""
     return train_state_from_params(model, optimizer,
                                    model.init(generator, device),
-                                   precision=precision, packed=packed)
+                                   precision=precision, packed=packed,
+                                   zero_shards=zero_shards)
 
 
 def train_state_from_params(model, optimizer, params: Pytree, *,
                             precision: str | Precision = "f32",
-                            packed: bool = True) -> TrainState:
+                            packed: bool = True,
+                            zero_shards: int = 1) -> TrainState:
     """TrainState from given params on a precision policy: params cast to
     its compute dtype, the optimizer state packed from them (per-leaf
-    slot trees with ``packed=False``)."""
+    slot trees with ``packed=False``; row shards of a ZeRO layout under
+    an ambient mesh with ``zero_shards > 1``)."""
     policy = get_precision(precision)
     params = cast_floats(params, policy.compute_dtype)
+    kw = {"zero_shards": zero_shards} if zero_shards > 1 else {}
     return TrainState(params=params, opt_state=optimizer.init(
         params, stacked=model.stacked_marker(params) if packed else None,
-        master=policy.master_weights))
+        master=policy.master_weights, **kw))

@@ -1,0 +1,317 @@
+"""Multi-process runs of the port over ``torch.distributed`` (gloo, CPU
+ranks) for the data-parallel and ZeRO tests.
+
+``spawn(scenario, world, tmp, **kwargs)`` starts ``world`` fresh Python
+processes running this file, one rank each; they rendezvous through a
+``file://`` store under ``tmp`` (no TCP port to collide across the
+suite's parallel workers), run one torch thread each, call
+``SCENARIOS[scenario](**kwargs)`` and pickle its result back. A rank
+that fails raises in the parent with its output; every spawn has a join
+timeout, so a deadlocked collective fails the test instead of hanging
+the suite.
+
+This module imports torch, numpy and ``repro_torch`` only: the ranks
+never import JAX. The tests compute the reference's side in the parent
+and hand the ranks plain numpy (e.g. the reference's LeNet init).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+JOIN_S = 120
+
+
+def spawn(scenario: str, world: int, tmp, timeout: float = JOIN_S,
+          **kwargs) -> list:
+    """Run ``scenario`` on ``world`` ranks; each rank's result, by rank."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    with open(tmp / "args.pkl", "wb") as f:
+        pickle.dump(kwargs, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    procs = []
+    for rank in range(world):
+        log = open(tmp / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, scenario, str(rank), str(world),
+             str(tmp)], env=env, stdout=log, stderr=subprocess.STDOUT),
+            log))
+    deadline = time.monotonic() + timeout
+    failed = []
+    try:
+        for rank, (p, _) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {rank}: no exit in {timeout} s")
+                break
+            if rc:
+                failed.append(f"rank {rank}: exit {rc}")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if failed:
+        logs = "\n".join(f"--- rank {r}\n" + (tmp / f"rank{r}.log")
+                         .read_text()[-4000:] for r in range(world))
+        raise AssertionError(f"{scenario} on {world} ranks: "
+                             f"{'; '.join(failed)}\n{logs}")
+    out = []
+    for rank in range(world):
+        with open(tmp / f"out{rank}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# ------------------------------------------------------------- helpers
+
+def _np(t):
+    from repro_torch.bridge import tensor_to_numpy
+    return tensor_to_numpy(t)
+
+
+def _tree_np(tree):
+    from repro_torch.treepath import tree_map
+    return tree_map(_np, tree)
+
+
+def _lenet(init=None):
+    """LeNet's model and cfg, and its params: the given numpy tree, or
+    the port's init from seed 0."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("lenet-mnist")
+    model = build_model(cfg)
+    params = bridge.params_to_torch(init) if init is not None else \
+        model.init(torch.Generator().manual_seed(0), "cpu")
+    return cfg, model, params
+
+
+def _optimizer(name: str, lr: float, **kw):
+    from repro_torch.core import lars, sgd
+    common = dict(momentum=0.9, weight_decay=1e-4)
+    if name == "sgd":
+        return sgd(lr, **common)
+    return lars(lr, trust_coefficient=0.01, **common,
+                slot_dtype="int8" if name == "lars_int8" else "f32", **kw)
+
+
+def _whole_slots(pipe, state) -> dict:
+    """The state's slots gathered to whole padded buffers (collective)."""
+    from repro_torch.bridge import opt_state_to_numpy
+    with pipe.mesh_context():
+        return opt_state_to_numpy(state.opt_state)[1]
+
+
+def _mnist_batches(n_train: int, batch: int, seed: int = 0):
+    from repro_torch.data import batch_iterator, synthetic_mnist
+    x, y, _, _ = synthetic_mnist(n_train, 8, seed=0)
+    return batch_iterator(x, y, batch=batch, seed=seed)
+
+
+# ------------------------------------------------------------ scenarios
+
+def zero_vs_replicated(*, slot_dtypes=("f32", "int8"), steps: int = 6,
+                       batch: int = 64, accum: tuple = (1, 2),
+                       ckpt_dir: str = "") -> dict:
+    """LeNet on a (world, 1) mesh: ZeRO and replicated data parallelism
+    from one init on the same global batches, f32 and int8 slots, with
+    and without accumulation. Per run: losses, final params, the gathered
+    slots, this rank's slot shapes and bytes, and the mean gradient of
+    the last step and the params it started from (through
+    ``stats_fn``)."""
+    import torch
+    from repro_torch.checkpoint import save_train_state
+    from repro_torch.launch.mesh import mesh_from_spec, world
+    from repro_torch.train import TrainPipeline
+    rank, size = world()
+    mesh = mesh_from_spec(f"{size}x1", device="cpu")
+    cfg, model, _ = _lenet()
+    out = {}
+    for slot_dtype in slot_dtypes:
+        for k in accum:
+            for zero in (True, False):
+                seen = {}
+
+                def grab(params, grads, stacked):
+                    seen["grads"] = _tree_np(grads)
+                    seen["pre_params"] = _tree_np(params)
+                    return {}
+
+                pipe = TrainPipeline(
+                    model, _optimizer("lars_int8" if slot_dtype == "int8"
+                                      else "lars", 0.05), cfg,
+                    mesh=mesh, zero=zero, accum_steps=k, stats_fn=grab)
+                state = pipe.init_state(torch.Generator().manual_seed(3))
+                it = _mnist_batches(256, batch)
+                losses = []
+                for _ in range(steps):
+                    b = {n: torch.from_numpy(v) for n, v in next(it).items()}
+                    state, m = pipe(state, b)
+                    losses.append(float(m["loss"]))
+                tag = f"{slot_dtype}-a{k}-{'zero' if zero else 'repl'}"
+                local = {n: (tuple(v.shape), v.numel() * v.element_size())
+                         for n, v in state.opt_state.slots.items()}
+                if ckpt_dir:
+                    with pipe.mesh_context():
+                        save_train_state(os.path.join(ckpt_dir,
+                                                      tag + ".npz"), state)
+                out[tag] = {"losses": losses,
+                            "params": _tree_np(state.params),
+                            "slots": _whole_slots(pipe, state),
+                            "local": local,
+                            "layout": (state.opt_state.layout.total_rows,
+                                       state.opt_state.layout.base_rows,
+                                       state.opt_state.layout.shards),
+                            "grads": seen["grads"],
+                            "pre_params": seen["pre_params"]}
+    # a tree-layout state (packed=False): one all-reduce of every leaf
+    pipe = TrainPipeline(model, _optimizer("lars", 0.05), cfg, mesh=mesh,
+                         packed=False)
+    state = pipe.init_state(torch.Generator().manual_seed(3))
+    it = _mnist_batches(256, batch)
+    losses = []
+    for _ in range(steps):
+        state, m = pipe(state, {n: torch.from_numpy(v)
+                                for n, v in next(it).items()})
+        losses.append(float(m["loss"]))
+    out["tree"] = {"losses": losses, "layout": state.opt_state.layout}
+    return out
+
+
+def golden(*, init, runs, steps: int = 20, lr: float = 0.05) -> dict:
+    """The LeNet golden workloads (tests/test_golden.py's: synthetic
+    MNIST(256, 8, seed 0), batch_iterator seed 0) with ``zero=True`` on
+    a (world, 1) mesh from the reference's init: the losses, and the
+    final trust table as tests/test_torch_golden.py takes it."""
+    import torch
+    from repro_torch.core import trust_ratio as tr
+    from repro_torch.launch.mesh import mesh_from_spec, world
+    from repro_torch.train import TrainPipeline, train_state_from_params
+    from repro_torch.train.step import value_and_grad
+    _, size = world()
+    mesh = mesh_from_spec(f"{size}x1", device="cpu")
+    cfg, model, params = _lenet(init)
+    out = {}
+    for name, batch in runs:
+        pipe = TrainPipeline(model, _optimizer(name, lr), cfg, mesh=mesh,
+                             zero=True)
+        with pipe.mesh_context():
+            state = train_state_from_params(model, pipe.optimizer, params,
+                                            zero_shards=size)
+        it = _mnist_batches(256, batch)
+        losses, trust = [], {}
+        for i in range(steps):
+            b = {k: torch.from_numpy(v) for k, v in next(it).items()}
+            if i == steps - 1:
+                _, grads, _ = value_and_grad(model, cfg, state.params, b)
+                for layer, leaves in state.params.items():
+                    w, g = leaves["w"], grads[layer]["w"]
+                    ratio = tr.lars_trust_ratio(*tr.layer_norms(w, g, False),
+                                                eta=0.01, weight_decay=1e-4)
+                    trust[f"{layer}/w"] = [float(ratio)]
+            state, m = pipe(state, b)
+            losses.append(float(m["loss"]))
+        out[f"{name}-b{batch}"] = {"losses": losses, "final_trust": trust,
+                                   "rows": tuple(state.opt_state.slots[
+                                       "momentum"].shape)}
+    return out
+
+
+def fuse_rules(*, steps: int = 10) -> dict:
+    """``fuse_update=True`` on a (world, 1) mesh runs (ZeRO, 4 microbatches)
+    and tracks the unfused replicated step, as the reference's
+    ``_fused_zero_check``; on a (world/2, 2) mesh it raises ValueError,
+    and without it a model axis of 2 raises NotImplementedError."""
+    import torch
+    from repro_torch.data import synthetic_mnist
+    from repro_torch.launch.mesh import mesh_from_spec, world
+    from repro_torch.train import TrainPipeline
+    _, size = world()
+    mesh = mesh_from_spec(f"{size}x1", device="cpu")
+    cfg, model, _ = _lenet()
+    x, y, _, _ = synthetic_mnist(256, 8, seed=0)
+    losses = {}
+    for name, kw in [("zero_fused", dict(zero=True, fuse_update=True)),
+                     ("replicated", dict(zero=False, fuse_update=False))]:
+        pipe = TrainPipeline(model, _optimizer("lars", 0.05), cfg,
+                             accum_steps=4, mesh=mesh, donate=False, **kw)
+        state = pipe.init_state(torch.Generator().manual_seed(7))
+        run = []
+        for i in range(steps):
+            lo = (i * 128) % 256
+            state, m = pipe(state, {"x": torch.from_numpy(x[lo:lo + 128]),
+                                    "y": torch.from_numpy(y[lo:lo + 128])})
+            run.append(float(m["loss"]))
+        losses[name] = run
+    mp = mesh_from_spec(f"{size // 2}x2", device="cpu")
+    raised = {}
+    for fuse in (True, "auto"):
+        try:
+            TrainPipeline(model, _optimizer("lars", 0.05), cfg,
+                          accum_steps=2, mesh=mp, fuse_update=fuse)
+            raised[str(fuse)] = None
+        except (ValueError, NotImplementedError) as e:
+            raised[str(fuse)] = (type(e).__name__, str(e))
+    return {"losses": losses, "raised": raised}
+
+
+def zero_smoke(*, out_dir: str, abort_after: int = 0, resume: bool = False,
+               epochs: int = 1, n_train: int = 256) -> dict:
+    """A cut of the registered ``zero_smoke`` grid (a (world, 1) mesh,
+    1 epoch, ``n_train``) through GridRunner on CPU ranks; with
+    ``abort_after`` the run is killed after that many recorded steps
+    (the runner's test hook), with ``resume`` it continues."""
+    from repro_torch.experiments import GridRunner, get_grid
+    from repro_torch.experiments.runner import ABORT_ENV
+    from repro_torch.launch.mesh import world
+    _, size = world()
+    grid = get_grid("zero_smoke", mesh=f"{size}x1", epochs=epochs,
+                    n_train=n_train)
+    if abort_after:
+        os.environ[ABORT_ENV] = str(abort_after)
+    runner = GridRunner(grid, out_dir, checkpoint_every=1, log=None,
+                        device="cpu")
+    try:
+        manifest = runner.run(resume=resume)
+        return {"interrupted": False, "cells": sorted(manifest["cells"])}
+    except KeyboardInterrupt:
+        return {"interrupted": True}
+
+
+SCENARIOS = {f.__name__: f for f in (zero_vs_replicated, golden, fuse_rules,
+                                      zero_smoke)}
+
+
+def _main(scenario: str, rank: int, size: int, tmp: str) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    with open(os.path.join(tmp, "args.pkl"), "rb") as f:
+        kwargs = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=size)
+    try:
+        result = SCENARIOS[scenario](**kwargs)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

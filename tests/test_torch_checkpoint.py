@@ -34,6 +34,7 @@ from repro_torch.data import batch_iterator, synthetic_mnist
 from repro_torch.models import build_model
 from repro_torch.train import TrainPipeline, train_state_from_params
 from repro_torch.treepath import tree_leaves
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 ATOL = {"f32": 1e-6, "int8": 1e-4}
@@ -204,3 +205,76 @@ def test_clone_checkpoint_copies_atomically(tmp_path):
     assert sorted(os.listdir(tmp_path / "cells")) == ["b.npz"]
     with open(src, "rb") as a, open(tmp_path / "cells" / "b.npz", "rb") as b:
         assert a.read() == b.read()
+
+
+# --------------------------------------------- every LM family, and ZeRO
+
+FAMILIES = ["granite-moe-3b-a800m", "deepseek-v2-236b", "falcon-mamba-7b",
+            "zamba2-7b", "whisper-base", "paligemma-3b"]
+
+
+def _npz_members(path) -> list:
+    """An npz file's members in order, each its stored bytes: the file's
+    content without the zip entries' write times."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return [(n, z.read(n)) for n in z.namelist()]
+
+
+def _ref_template(arch, slot_dtype, zero_shards=1):
+    """The reference's fresh packed state of the reduced config."""
+    from repro.configs import get_config as ref_get_config
+    from repro.models import build_model as ref_build
+    from repro.train import TrainState as RefTrainState
+    cfg = ref_get_config(arch).reduced()
+    model = ref_build(cfg)
+    params = model.init(jax.random.key(0))
+    opt = ref_core.lars(0.01, use_pallas=False, slot_dtype=slot_dtype)
+    kw = {"zero_shards": zero_shards} if zero_shards > 1 else {}
+    return RefTrainState(params, opt.init(
+        params, stacked=model.stacked_marker(
+            jax.eval_shape(model.init, jax.random.key(0))), **kw))
+
+
+@pytest.mark.parametrize("case", [f"{a}-{d}" for a in FAMILIES
+                                  for d in ("f32", "int8")]
+                         + ["granite-moe-3b-a800m-zero4"])
+def test_every_lm_family_checkpoint_restores_in_the_reference(
+        tmp_path, case, one_torch_thread):
+    """``launch.train --reduced --checkpoint`` on the CPU for each LM
+    family, f32 and int8 slots: the file restores in the reference's
+    ``restore_train_state`` and the reference's re-save is the same file,
+    member for member. The ZeRO case trains a 4-shard layout (padded,
+    no mesh: updated whole) one step through ``TrainPipeline`` and
+    restores into the reference's 4-shard template."""
+    from repro_torch.launch import train
+    arch, _, slot_dtype = case.rpartition("-")
+    path = str(tmp_path / "state.npz")
+    if slot_dtype == "zero4":
+        from repro_torch.models import build_model as port_build
+        cfg = get_config(arch).reduced()
+        model = port_build(cfg)
+        opt = lars(0.01)
+        pipe = TrainPipeline(model, opt, cfg)
+        state = train_state_from_params(
+            model, opt, model.init(torch.Generator().manual_seed(0), "cpu"),
+            zero_shards=4)
+        assert state.opt_state.layout.pad_rows > 0
+        tokens = torch.randint(0, cfg.vocab_size, (2, 8),
+                               generator=torch.Generator().manual_seed(1))
+        state, m = pipe(state, {"tokens": tokens})
+        assert np.isfinite(float(m["loss"]))
+        save_train_state(path, state)
+        template = _ref_template(arch, "f32", zero_shards=4)
+    else:
+        out = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--steps", "1", "--batch", "2", "--seq", "8",
+                          "--log-every", "0", "--optimizer", "lars",
+                          "--opt-state-dtype", slot_dtype, "--checkpoint",
+                          path])
+        assert np.isfinite(out["losses"][0])
+        template = _ref_template(arch, slot_dtype)
+    back = ref_restore(path, template)
+    assert int(back.opt_state.step) == 1
+    ref_save(str(tmp_path / "again.npz"), back)
+    assert _npz_members(tmp_path / "again.npz") == _npz_members(path)

@@ -506,17 +506,29 @@ def test_interrupted_run_resumes_byte_identical(tmp_path, variant):
     ("lm_lars_vs_lamb", {"mesh": "1x1"}),
     ("zero_smoke", {})])
 def test_unported_grids_raise(tmp_path, name, changes):
-    """Mesh and zero cells are not yet ported. An lm grid over paligemma
-    is refused with the reason the reference's runner fails at its first
-    step: it feeds token batches, with no image stub."""
+    """Mesh and zero cells run where the process group has the ranks of
+    their mesh (tests/test_torch_zero.py runs zero_smoke on two CPU
+    ranks). Without a process group the process is one rank: a 1x1 cell
+    builds its mesh and runs, and zero_smoke's 8x1 fails with the
+    reference's message before anything is written. An lm grid over
+    paligemma is refused with the reason the reference's runner fails at
+    its first step: it feeds token batches, with no image stub."""
     if changes.get("arch") == "paligemma-3b":
         with pytest.raises(ValueError, match="token batches only"):
             GridRunner(get_grid(name, **changes), str(tmp_path), log=None,
                        device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        GridRunner(get_grid(name, **changes), str(tmp_path), log=None,
-                   device="cpu")
+    if name == "zero_smoke":
+        with pytest.raises(SystemExit, match="needs 8 devices, have 1"):
+            GridRunner(get_grid(name, **changes), str(tmp_path), log=None,
+                       device="cpu")
+        assert not os.listdir(tmp_path)
+        return
+    runner = GridRunner(get_grid(name, **changes), str(tmp_path), log=None,
+                        device="cpu")
+    pipe = runner.pipeline(runner.grid.cells()[0])
+    assert dict(pipe.mesh.shape) == {"data": 1, "model": 1}
+    assert pipe.mesh.device == torch.device("cpu")
 
 
 def test_runner_runs_on_cuda_unless_asked_otherwise(tmp_path):
@@ -571,9 +583,13 @@ def test_cli_runs_on_cuda_unless_asked_otherwise(tmp_path):
                   str(tmp_path / "r"), "--out", str(tmp_path / "r.json")])
 
 
-# the PBT flags are ported (tests/test_torch_pbt.py); mesh/zero grids
-# are not
+# the PBT flags are ported (tests/test_torch_pbt.py); a mesh grid runs
+# where the process group has its ranks (tests/test_torch_zero.py), and
+# without them fails with the reference's message, writing nothing
 @pytest.mark.parametrize("extra", [["--grid", "zero_smoke"]])
-def test_cli_refuses_unported_options(extra):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(CLI_TINY + extra)
+def test_cli_refuses_unported_options(extra, tmp_path):
+    out_dir = tmp_path / "run"
+    with pytest.raises(SystemExit, match="needs 8 devices, have 1"):
+        cli.main(CLI_TINY + extra + ["--out-dir", str(out_dir), "--out",
+                                     str(tmp_path / "r.json")])
+    assert not out_dir.exists()

@@ -52,7 +52,12 @@ def test_the_scan_sees_the_port():
             "src/repro_torch/configs/zamba2_7b.py",
             "src/repro_torch/models/encdec.py",
             "src/repro_torch/configs/whisper_base.py",
-            "src/repro_torch/configs/paligemma_3b.py"} <= names
+            "src/repro_torch/configs/paligemma_3b.py",
+            "src/repro_torch/distributed/__init__.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/constrain.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/launch/mesh.py"} <= names
 
 
 @pytest.mark.parametrize("module", [
@@ -78,7 +83,10 @@ def test_the_scan_sees_the_port():
     "repro_torch.models.ssm", "repro_torch.configs.falcon_mamba_7b",
     "repro_torch.configs.zamba2_7b", "repro_torch.bridge",
     "repro_torch.models.encdec", "repro_torch.configs.whisper_base",
-    "repro_torch.configs.paligemma_3b", "repro_torch.kernels.build"])
+    "repro_torch.configs.paligemma_3b", "repro_torch.kernels.build",
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.constrain",
+    "repro_torch.distributed.collectives", "repro_torch.launch.mesh"])
 def test_new_modules_import_without_a_card(module):
     """Importing builds nothing and needs no CUDA: kernels build inside
     the call that launches them."""

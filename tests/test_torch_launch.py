@@ -47,15 +47,23 @@ def test_main_runs_on_cuda_unless_asked_otherwise():
      "--set", "encoder_layers=1", "--set", "encoder_seq=8"],
     ["--arch", "paligemma-3b", "--reduced"]])
 def test_unported_options_raise(extra):
-    """--mesh raises. The encdec and vlm families, which raised here until
-    they were ported, now train (tests/test_torch_encdec.py,
+    """--mesh needs the ranks of its mesh: without a process group the
+    process is one rank, so 2x1 fails with the reference's message and
+    1x1 trains (data parallelism over more ranks:
+    tests/test_torch_zero.py). The encdec and vlm families, which raised
+    here until they were ported, now train (tests/test_torch_encdec.py,
     tests/test_torch_vlm.py hold them against the reference): whisper-base
     and paligemma-3b reduced, and smollm turned into an encoder-decoder
     by ``--set``, each one step on zero stub frames or image
     embeddings."""
-    if "--mesh" in extra:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    if extra == ["--mesh", "2x1"]:
+        with pytest.raises(SystemExit, match="needs 2 devices, have 1"):
             train.main(CPU + ["--steps", "1"] + extra)
+        return
+    if "--mesh" in extra:
+        out = train.main(CPU + ["--steps", "1", "--zero"] + extra)
+        assert out["mesh"] == {"data": 1, "model": 1} and out["zero"]
+        assert math.isfinite(out["losses"][0])
         return
     out = train.main(CPU + ["--steps", "1", "--batch", "2", "--seq", "8"]
                      + extra)

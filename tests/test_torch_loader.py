@@ -107,8 +107,20 @@ def test_sharded_loader_close_ends_its_thread_mid_stream():
 
 
 def test_sharded_loader_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Anything but a mesh is refused; on a one-rank 1x1 mesh (no process
+    group) a batch comes back whole as a LocalBatch: this rank's rows
+    are all of them (two ranks: tests/test_torch_zero.py)."""
+    from repro_torch.distributed.sharding import LocalBatch
+    from repro_torch.launch.mesh import mesh_from_spec
+    with pytest.raises(TypeError, match="Mesh"):
         ShardedLoader(iter(()), "cpu", mesh=object())
+    mesh = mesh_from_spec("1x1", device="cpu")
+    host = [{"x": np.arange(8, dtype=np.float32).reshape(4, 2)}]
+    loader = ShardedLoader(iter(host), "cpu", mesh=mesh)
+    got = next(loader)
+    loader.close()
+    assert isinstance(got, LocalBatch) and got.global_rows == 4
+    assert torch.equal(got["x"], torch.from_numpy(host[0]["x"]))
 
 
 def _trajectory(pipe, host, prefetch, steps):

@@ -248,9 +248,18 @@ def test_create_train_state_precision_matches_pipeline():
 
 def test_pipeline_refuses_what_it_cannot_do():
     opt = _opt("lars")
-    for kw in ({"mesh": object()}, {"zero": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TrainPipeline(MODEL, opt, CFG, **kw)
+    from repro_torch.launch.mesh import Mesh
+    # a (1, 2) mesh, built by hand (this process is one rank): tensor
+    # parallelism is not yet ported; data-parallel meshes and ZeRO are
+    # (tests/test_torch_zero.py, tests/test_torch_distributed.py)
+    tp = Mesh(shape={"data": 1, "model": 2}, coords={"data": 0, "model": 0},
+              groups={}, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TrainPipeline(MODEL, opt, CFG, mesh=tp)
+    with pytest.raises(TypeError, match="Mesh"):
+        TrainPipeline(MODEL, opt, CFG, mesh=object())
+    with pytest.raises(ValueError, match="requires a mesh"):
+        TrainPipeline(MODEL, opt, CFG, zero=True)
     with pytest.raises(ValueError, match="accum_steps"):
         TrainPipeline(MODEL, opt, CFG, accum_steps=0)
     # unfused accumulation is ported (tests/test_torch_tree_engine.py);
