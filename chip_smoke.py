@@ -95,9 +95,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              large-batch LARS path (bf16, int8 momentum, 4 microbatches
              of 16: one ``norms_flat`` and one ``apply_flat_q8`` per
              step): steps/s, tokens/s, the allocator's peak, finite
-             losses; a profile of one full-width step of each LARS path
-             fed by the loader (busy share, time by kernel, the H2D
-             copies); reduced smollm in f32, 20 steps of LARS and of LAMB
+             losses; a profile of one full-width f32 LARS step fed by
+             the loader (busy share, time by kernel, the H2D copies; the
+             large-batch path's profile was cut for phase 20's time in
+             PR 29); reduced smollm in f32, 20 steps of LARS and of LAMB
              on the card against the CPU; LeNet (LARS, batch 8192) and the
              reduced LM (LAMB) for 5 steps through ``ShardedLoader`` with
              prefetch and without, bit-identical; the registered
@@ -279,7 +280,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              run); ``launch.serve_experiment --grid serve_slo_smoke``
              into ``build/serve_grid/``, gated on its decode contract,
              its claims A1–A3 logged;
-20. data parallelism and ZeRO — (a) two ranks on the one card (this
+20. data parallelism, ZeRO and tensor parallelism — (a) two ranks on the one card (this
              file run as ``--zero-rank R 2 DIR``, gloo over a file store:
              NCCL refuses two ranks on one device; gloo's all-gather and
              reduce-scatter of CUDA tensors go through pinned host
@@ -306,15 +307,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
              1.6 GB checkpoints) under ``torchrun --standalone
              --nproc-per-node 1`` (NCCL), after (a), beside the runs
              alone, which time nothing: its checkpoint equal, member
-             for member, to the same run's without a mesh; (c)
-             ``norms_flat``, ``apply_flat`` and ``apply_flat_q8`` timed
-             as in phase 3 on a shard's rows: smollm-135m's 131,576 and
-             qwen3-14b's 2,164,536. The phases' wall times are printed
-             at the end.
+             for member, to the same run's without a mesh; (c) tensor
+             parallelism: three ranks on the card (``--tp-rank R 3
+             DIR``, gloo, started once (a) has ended), a ``1x3`` mesh,
+             smollm-135m at full width and depth (every attention, MLP
+             and vocabulary split head-aligned over 3), (a)'s smollm
+             run: the ranks' losses equal, every replicated leaf
+             bit-identical across them, one ``norms_flat`` and one
+             ``apply_flat`` a step a rank on the global 263,144 rows,
+             the gathered final params within ``TP_PARAM_RTOL`` of the
+             change of (a)'s run alone at one microbatch (same init and
+             batches), losses within ``MESH_RTOL``; step ms, the share
+             in collectives, bytes all-reduced and all-gathered a step,
+             host-staged copies and each rank's peak against the run
+             alone's printed; (d) ``norms_flat``, ``apply_flat`` and
+             ``apply_flat_q8`` timed as in phase 3 on a shard's rows:
+             smollm-135m's 131,576 and qwen3-14b's 2,164,536. The
+             phases' wall times are printed at the end.
 
-From phase 13 on, a model's seeded init is drawn on the host once per
-phase and shared by its training runs, sessions and serving
-(``shared_inits``: the same values as a fresh init).
+From phase 13 on, a model's seeded init is drawn once per phase and
+shared by its training runs, sessions and serving (``shared_inits``:
+below 0.5 B parameters on the host, the values of a fresh init; the
+larger full-width cuts on the card, from a generator seeded by the
+host's).
 
 It then prints nvidia-smi's line, a ``{"kernels": [...]}`` line (all four
 kernels, each with the launch floor as ``floor_ms``) and, last,
@@ -766,6 +781,23 @@ ZERO_JOIN_S = 300
 ZERO_NCCL_ARGS = ["--arch", "smollm-135m", "--reduced", "--batch", "8",
                   "--seq", "64", "--steps", "5", "--lr", "0.01",
                   "--log-every", "0", "--optimizer", "lars"]
+# (c): tensor parallelism. Three ranks on the card over gloo, a 1x3 mesh:
+# smollm-135m's 9 heads and 3 KV heads, its MLP's 1536 and its vocabulary
+# of 49152 all split evenly (head-aligned) over 3 ranks; zero_spec's
+# smollm run (init seed 0, 16 x 1024 tokens, 3 f32 LARS steps), held
+# against the run alone of (a)'s gates (one microbatch, same init and
+# batches). The packed state is the global one: 263,144 rows a rank
+TP_RANKS = 3
+TP_ROWS = 263144
+# the ranks' gathered final params against the run alone,
+# ||tp - alone|| / ||alone - init|| over the whole vector (an unchanged
+# state reads 1.0). smollm's params are bf16: the split products'
+# partial sums are added over the ranks in bf16 (as the reference's
+# GSPMD adds them) and a weight moves ~3e-5 of itself a step, under a
+# bf16 ulp, so a rounding that lands elsewhere flips a whole ulp.
+# Measured on an H100: 0.0839 (worst leaf 0.142, layers/attn/wk); the
+# same run alone split into two microbatches reads 0.070 against it
+TP_PARAM_RTOL = 0.25
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -857,14 +889,20 @@ def timings(fn, calls: int) -> tuple[float, float]:
 
 @contextlib.contextmanager
 def shared_inits():
-    """Within the block, each model's seeded init is drawn on the host
-    once: a later init for the card of the same param shapes from a
-    generator in the same state moves the kept host copy there. The
-    values are those of a fresh init (the init draws on the host, and the
-    card's casts round as the host's do), so a phase's training runs,
-    sessions and serving of one model share one draw of its normals
-    (16-19 s per 2.2 B parameters). Inits for the CPU or the meta device
-    draw as before."""
+    """Within the block, each model's seeded init is drawn once and kept
+    on the host: a later init for the card of the same param shapes from
+    a generator in the same state moves the kept copy there, so a
+    phase's training runs, sessions and serving of one model share one
+    draw. A model of fewer than CARD_DRAW_ELEMENTS parameters draws on
+    the host, the values of a fresh init (the card's casts round as the
+    host's do), as the card-against-CPU runs and the ranks of phase 20
+    need; a larger one (the full-width cuts, which no CPU run meets)
+    draws its normals on the card from a CUDA generator seeded by the
+    host generator's state (``card_draws``): other values than a fresh
+    init's, the same for every init in the block, in seconds where the
+    host takes 16-19 s per 2.2 B parameters. Inits for the CPU or the
+    meta device draw as before."""
+    import hashlib
     import torch
     from repro_torch.models import EncDecModel, LanguageModel
     from repro_torch.treepath import tree_flatten_with_path, tree_map
@@ -873,14 +911,23 @@ def shared_inits():
 
     def wrap(inner):
         def init(self, generator, device):
-            if torch.device(device).type != "cuda":
+            if torch.device(device).type != "cuda" or _CARD_DRAWS:
                 return inner(self, generator, device)
             shapes = tuple((path, tuple(t.shape), t.dtype) for path, t in
                            tree_flatten_with_path(inner(
                                self, torch.Generator(), "meta"))[0])
-            key = (shapes, generator.get_state().numpy().tobytes())
+            state = generator.get_state().numpy().tobytes()
+            key = (shapes, state)
             if key not in memo:
-                memo[key] = inner(self, generator, "cpu")
+                if sum(math.prod(s) for _, s, _ in shapes) \
+                        < CARD_DRAW_ELEMENTS:
+                    memo[key] = inner(self, generator, "cpu")
+                else:
+                    seed = int.from_bytes(
+                        hashlib.sha256(state).digest()[:7], "little")
+                    with card_draws(seed):
+                        memo[key] = tree_map(lambda t: t.cpu(), inner(
+                            self, generator, device))
             return tree_map(lambda t: t.to(device), memo[key])
         return init
 
@@ -892,6 +939,38 @@ def shared_inits():
         for cls, fn in saved.items():
             cls.init = fn
         memo.clear()
+
+
+_CARD_DRAWS: list = []
+# shared_inits draws a model of this many parameters or more on the card
+CARD_DRAW_ELEMENTS = 500_000_000
+
+
+@contextlib.contextmanager
+def card_draws(seed: int):
+    """Within the block an init for the card draws its normals there,
+    from one CUDA generator seeded ``seed``: other values than the
+    host's, for a model no CPU run is held against (deepseek served
+    with all 160 experts: 9.0 B normals, ~35 s on the host).
+    ``shared_inits`` steps aside inside it."""
+    import torch
+    from repro_torch.models import layers as L
+    inner = L._normal
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(g, shape, std, dtype, device):
+        if torch.device(device).type != "cuda":
+            return inner(g, shape, std, dtype, device)
+        return torch.randn(shape, generator=gen, device=device).mul_(
+            std).to(dtype)
+
+    L._normal = normal
+    _CARD_DRAWS.append(gen)
+    try:
+        yield
+    finally:
+        L._normal = inner
+        _CARD_DRAWS.pop()
 
 
 def lenet_layout():
@@ -2204,8 +2283,9 @@ def lm_phase(train, lk, fdk, bw: float, flops: float, floor: float,
     t_phase = time.perf_counter()
     out = {"kernel_rows": lm_kernel_rows(lk, bw, flops, floor)}
     out["runs"] = lm_train_runs(train, lk, fdk)
-    out["profile"] = {path: lm_profile(path)
-                      for path in ("f32", "large_batch")}
+    # one full-width f32 step profiled (the large-batch path's profile
+    # went for phase 20's time: phase 13 profiles it at qwen3-14b)
+    out["profile"] = {"f32": lm_profile("f32")}
     out["card_vs_cpu"] = lm_card_vs_cpu(train)
     out["loader"] = loader_phase()
     root = os.path.join(workdir, "lm_experiments")
@@ -2630,7 +2710,8 @@ def deepseek_cfg(cut=DEEPSEEK_CUT + DEEPSEEK_LEAN):
 
 def deepseek_serve(serve, fdk, lk) -> dict:
     """Phase 15: ``launch.serve`` on deepseek at every width, all 160
-    experts, DEEPSEEK_SERVE_LAYERS layers (phase 8's traffic): no
+    experts, DEEPSEEK_SERVE_LAYERS layers (phase 8's traffic; its init
+    drawn on the card, ``card_draws``): no
     ``flash_decode`` launch in the run; the share of slots the decode
     ticks' MoE blocks drop (each
     tick routes all 32 slots: capacity round(6 * 32 / 160 * 1.25) = 2 an
@@ -2649,7 +2730,8 @@ def deepseek_serve(serve, fdk, lk) -> dict:
 
     lm_module.moe_block = recording
     try:
-        out = serve_phase(serve, fdk, lk, DEEPSEEK_SERVE_ARGS)
+        with card_draws(15):
+            out = serve_phase(serve, fdk, lk, DEEPSEEK_SERVE_ARGS)
     finally:
         lm_module.moe_block = inner
     out["decode_dropped_frac"] = float(torch.stack(drops).mean())
@@ -3674,7 +3756,8 @@ def timed_collectives(events: list):
 
     @contextlib.contextmanager
     def block():
-        names = ("all_reduce_sum", "reduce_scatter_rows", "all_gather_rows")
+        names = ("all_reduce_sum", "all_reduce_max", "reduce_scatter_rows",
+                 "all_gather_rows")
         saved = {k: getattr(collectives, k) for k in names}
         for k, inner in saved.items():
             def clocked(*a, _f=inner, **kw):
@@ -3868,16 +3951,18 @@ def zero_rank(rank: int, world: int, workdir: str) -> None:
         json.dump(out, f)
 
 
-def zero_two_ranks(workdir: str) -> list:
-    """Start the ranks of phase 20 (a) and wait for them (at most
-    ZERO_JOIN_S; a rank that hangs or fails ends the phase, and every
-    process is stopped)."""
+def spawn_ranks(workdir: str, flag: str = "--zero-rank",
+                ranks: int = ZERO_RANKS) -> list:
+    """Start ``ranks`` processes of this file (``flag R W DIR``: phase 20
+    (a)'s or (c)'s ranks) and wait for them (at most ZERO_JOIN_S; a rank
+    that hangs or fails ends the phase, and every process is stopped);
+    each rank's ``rank<R>.json``."""
     procs = []
-    for r in range(ZERO_RANKS):
+    for r in range(ranks):
         log_f = open(os.path.join(workdir, f"rank{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--zero-rank",
-             str(r), str(ZERO_RANKS), workdir], stdout=log_f,
+            [sys.executable, os.path.abspath(__file__), flag,
+             str(r), str(ranks), workdir], stdout=log_f,
             stderr=subprocess.STDOUT), log_f))
     deadline = time.monotonic() + ZERO_JOIN_S
     failed = []
@@ -3895,15 +3980,182 @@ def zero_two_ranks(workdir: str) -> list:
                 p.wait()
             log_f.close()
     if failed:
-        for r in range(ZERO_RANKS):
+        for r in range(ranks):
             with open(os.path.join(workdir, f"rank{r}.log")) as f:
                 log(f"--- rank {r}\n" + f.read()[-3000:])
         raise AssertionError("; ".join(failed))
     out = []
-    for r in range(ZERO_RANKS):
+    for r in range(ranks):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def tp_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 20 (c), one of the ranks (``chip_smoke.py --tp-rank R W
+    DIR``): gloo over a file store, every rank's tensors on ``cuda:0``, a
+    ``1xW`` mesh. zero_spec's smollm run through TrainPipeline and
+    ShardedLoader: each step exactly one ``norms_flat`` and one
+    ``apply_flat`` on the global rows (LAUNCHES and the rows each launch
+    was given); its wall time and the time of its collectives (CUDA
+    events, from the second step), the bytes each kind of collective was
+    handed, the host-staged copies; the allocator's peak; a digest of
+    every replicated leaf. Rank 0 writes the gathered final params to
+    ``DIR/tp_params.pt``."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.data import ShardedLoader
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import gather_params
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.train import TrainPipeline
+    from repro_torch.treepath import tree_flatten_with_path, tree_leaves
+    rows_seen: list = []
+    record_rows(lk, rows_seen)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = mesh_from_spec(f"1x{world}", device="cuda:0")
+        dev = torch.device("cuda", 0)
+        with shared_inits():
+            cfg, model, opt, host, batch, steps = zero_spec("smollm_f32")
+            pipe = TrainPipeline(model, opt, cfg, mesh=mesh)
+            state = pipe.init_state(torch.Generator().manual_seed(0), dev)
+        rows = state.opt_state.slots["momentum"].shape[0]
+        want = {k: int(k in ("norms_flat", "apply_flat")) for k in KERNELS}
+        loader = ShardedLoader(host, dev, mesh=mesh,
+                               spec=pipe.batch_specs(batch))
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_ms, coll_ms, moved, staged = [], [], [], [], []
+        try:
+            for i in range(steps):
+                b = next(loader)
+                lk.reset_launch_counts()
+                collectives.reset_counts()
+                rows_seen.clear()
+                events: list = []
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                with timed_collectives(events):
+                    state, m = pipe(state, b)
+                torch.cuda.synchronize(dev)
+                if i:
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    coll_ms.append(sum(a.elapsed_time(z) for a, z in events))
+                moved.append(dict(collectives.MOVED))
+                staged.append(dict(collectives.STAGED))
+                counts = dict(lk.LAUNCHES)
+                if counts != want or rows_seen != [("norms_flat", rows),
+                                                   ("apply_flat", rows)]:
+                    raise AssertionError(
+                        f"tp rank {rank} step {i}: launches {counts} on "
+                        f"rows {rows_seen}, want {want} on {rows} rows")
+                losses.append(float(m["loss"]))
+        finally:
+            loader.close()
+        split = {p: sh.split for p, sh in
+                 tree_flatten_with_path(pipe.param_shardings)[0]}
+        leaves = tree_flatten_with_path(state.params)[0]
+        out = {"losses": losses, "step_ms": step_ms,
+               "collective_ms": coll_ms, "moved": moved, "staged": staged,
+               "rows": rows, "peak_bytes": torch.cuda.max_memory_allocated(
+                   dev),
+               "split": sorted("/".join(p) for p, _ in leaves if split[p]),
+               "replicated": {"/".join(p): hashlib.sha256(
+                   x.float().cpu().numpy().tobytes()).hexdigest()
+                   for p, x in leaves if not split[p]}}
+        with pipe.mesh_context():
+            whole = gather_params(state.params, pipe.param_shardings)
+        if rank == 0:
+            torch.save([t.cpu() for t in tree_leaves(whole)],
+                       os.path.join(workdir, "tp_params.pt"))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_against_alone(ranks: list, tdir: str, alone: dict) -> dict:
+    """Phase 20 (c)'s gates: the ranks' losses equal; every replicated
+    leaf bit-identical across the ranks; one ``norms_flat`` and one
+    ``apply_flat`` a step a rank on the global rows (checked in the
+    ranks); the gathered final params against the run alone (``alone``:
+    (a)'s smollm run at one microbatch: its result, init and final
+    params) within TP_PARAM_RTOL, its losses within ZERO_MESH_RTOL.
+    Step ms, the share in collectives, bytes a step and the peaks
+    logged."""
+    import torch
+    r0 = ranks[0]
+    for r, rk in enumerate(ranks):
+        if rk["losses"] != r0["losses"]:
+            raise AssertionError(f"tp rank {r} losses {rk['losses']} != "
+                                 f"rank 0's {r0['losses']}")
+        if rk["replicated"] != r0["replicated"]:
+            bad = sorted(k for k in r0["replicated"]
+                         if rk["replicated"][k] != r0["replicated"][k])
+            raise AssertionError(f"tp rank {r}: replicated leaves {bad} "
+                                 "differ from rank 0's")
+        if rk["rows"] != TP_ROWS:
+            raise AssertionError(f"tp rank {r}: {rk['rows']} rows")
+    base = alone["result"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                  base["losses"]))
+    params = torch.load(os.path.join(tdir, "tp_params.pt"),
+                        map_location="cuda")
+    drift = param_drift(params, alone["final"], alone["init"])
+    drift["worst_leaf_path"] = base["leaf_paths"][
+        drift.pop("worst_leaf_index")]
+    del params
+    share = statistics.median(c / t for c, t in zip(r0["collective_ms"],
+                                                    r0["step_ms"]))
+    res = {"losses": r0["losses"], "rel_to_alone": rel, "drift": drift,
+           "step_ms": [rk["step_ms"] for rk in ranks],
+           "collective_share": share, "moved": r0["moved"][-1],
+           "staged": r0["staged"][-1],
+           "peak_bytes": [rk["peak_bytes"] for rk in ranks],
+           "alone_peak_bytes": base["peak_bytes"],
+           "alone_losses": base["losses"], "split": r0["split"],
+           "replicated": sorted(r0["replicated"])}
+    log("\n      ".join([
+        f"  (c) tensor parallelism, {TP_RANKS} ranks on a 1x{TP_RANKS} "
+        f"mesh (smollm-135m whole; split: {', '.join(r0['split'])}; "
+        f"replicated, bit-identical across the ranks: "
+        f"{', '.join(sorted(r0['replicated']))})",
+        "losses " + " ".join(f"{x:.5f}" for x in r0["losses"])
+        + f" (equal on every rank) vs alone rel {rel:.3g} (limit "
+        f"{ZERO_MESH_RTOL:g})",
+        f"params against the run alone: {drift['whole']:.4g} of its "
+        f"change (worst leaf {drift['worst_leaf']:.3g} "
+        f"{drift['worst_leaf_path']}; limit {TP_PARAM_RTOL:g}, an "
+        "unchanged state 1.0)",
+        f"launches a rank: 1 norms_flat + 1 apply_flat a step on "
+        f"{TP_ROWS} rows",
+        "step ms " + "; ".join(
+            f"rank{r} " + " ".join(f"{t:.2f}" for t in rk["step_ms"])
+            for r, rk in enumerate(ranks))
+        + f" (the run alone: {statistics.median(base['step_ms']):.2f}), "
+        f"{share:.1%} of rank 0's in collectives (three ranks share one "
+        "card: the transport, not a scaling)",
+        "bytes a step a rank: " + ", ".join(
+            f"{k} {v:,}" for k, v in r0["moved"][-1].items())
+        + f"; staged {r0['staged'][-1]}",
+        "peak a rank " + ", ".join(
+            f"{rk['peak_bytes'] / 2**20:.1f}" for rk in ranks)
+        + f" MiB (alone {base['peak_bytes'] / 2**20:.1f})"]))
+    if not rel <= ZERO_MESH_RTOL:
+        raise AssertionError(f"tp: losses rel {rel} against the run alone")
+    if not drift["whole"] <= TP_PARAM_RTOL:
+        raise AssertionError(f"tp: params {drift} of the run alone's "
+                             "change from their init")
+    return res
 
 
 def zero_nccl_start(workdir: str) -> tuple:
@@ -3962,15 +4214,20 @@ def zero_nccl_finish(train, workdir: str, started: tuple) -> dict:
 
 
 def zero_against_alone(name: str, ranks: list, zdir: str,
-                       rows_seen: list) -> dict:
+                       rows_seen: list, keep: dict | None = None
+                       ) -> dict:
     """Phase 20 (a)'s gates on one run: ZeRO against replicated on each
     rank, the ranks' params against each other, and both against the
     same run alone in this process, at one microbatch (losses within
     ``ZERO_MESH_RTOL``) and split into ``ZERO_RANKS`` microbatches as the
     ranks split the batch (params within ``ZERO_PARAM_RTOL``); slot
-    bytes, peaks, step ms and the share in collectives logged."""
+    bytes, peaks, step ms and the share in collectives logged. ``keep``
+    receives the run alone at one microbatch (its result, init and final
+    params) for (c)."""
     import torch
     alone, init, final = zero_run(name, None, False, rows_seen)
+    if keep is not None:
+        keep.update(result=alone, init=init, final=final)
     split, _, split_final = zero_run(name, None, False, rows_seen,
                                      accum=ZERO_RANKS)
     res = {"alone": {k: alone[k] for k in (
@@ -4076,18 +4333,28 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
     shutil.rmtree(zdir, ignore_errors=True)
     os.makedirs(zdir)
     t0 = time.perf_counter()
-    ranks = zero_two_ranks(zdir)
+    ranks = spawn_ranks(zdir)
     out["wall_s"]["two_ranks"] = time.perf_counter() - t0
+    tdir = os.path.join(workdir, "tp")
+    shutil.rmtree(tdir, ignore_errors=True)
+    os.makedirs(tdir)
+    t0 = time.perf_counter()
+    tp_ranks = spawn_ranks(tdir, "--tp-rank", TP_RANKS)
+    out["wall_s"]["tp_ranks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     nccl = zero_nccl_start(zdir)
     rows_seen: list = []
     saved = record_rows(lk, rows_seen)
+    alone: dict = {}
     try:
         torch.backends.cudnn.deterministic = True
         with shared_inits():        # one host draw of smollm's init
             for name in ZERO_RUNS:
                 out["two_ranks"][name] = zero_against_alone(
-                    name, ranks, zdir, rows_seen)
+                    name, ranks, zdir, rows_seen,
+                    alone if name == "smollm_f32" else None)
+        out["tensor_parallel"] = tp_against_alone(tp_ranks, tdir, alone)
+        alone.clear()
     except BaseException:
         nccl[0].kill()
         nccl[0].wait()
@@ -4105,7 +4372,7 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
     gen = torch.Generator(device="cuda").manual_seed(20)
     out["kernel_rows"] = {"smollm": kernel_rows(
         lk, ZERO_SHARD_ROWS["smollm"], 512, gen, bw, flops)}
-    log(f"  (c) the kernels on a ZeRO shard, smollm-135m's "
+    log(f"  (d) the kernels on a ZeRO shard, smollm-135m's "
         f"{ZERO_LM_ROWS} rows over {ZERO_RANKS}:")
     log_kernel_rows({k: [v] for k, v in out["kernel_rows"]["smollm"].items()},
                     floor)
@@ -4203,7 +4470,7 @@ def main() -> int:
                   os.path.join(ROOT, "build"))
 
     # from here on a model's runs, sessions and serving in one phase share
-    # one host draw of its init
+    # one draw of its init
     phase("== 13. the memory-lean LM path: smollm-135m's knobs, qwen3-14b "
           "at full width")
     with shared_inits():
@@ -4248,9 +4515,11 @@ def main() -> int:
     stack = serve_stack_phase(serve, fdk, lk, served,
                               os.path.join(ROOT, "build"))
 
-    phase(f"== 20. data parallelism and ZeRO: {ZERO_RANKS} ranks on the "
-          "card over gloo (LeNet, smollm-135m at full width), one rank "
-          "over NCCL under torchrun, the LARS kernels on a shard's rows")
+    phase(f"== 20. data parallelism, ZeRO and tensor parallelism: "
+          f"{ZERO_RANKS} ranks on the card over gloo (LeNet, smollm-135m at "
+          f"full width), one rank over NCCL under torchrun, {TP_RANKS} "
+          f"ranks on a 1x{TP_RANKS} mesh (smollm-135m whole), the LARS "
+          "kernels on a shard's rows")
     zero = zero_phase(train, lk, bw, flops, floor,
                       os.path.join(ROOT, "build"))
     stamps.append(("end", time.perf_counter()))
@@ -4303,8 +4572,7 @@ def main() -> int:
             "library_ms": lm_row["library_ms"],
             "dispatch_ms": lm_row["dispatch_ms"],
             "max_abs_err": lm_row["max_abs_err"],
-            "device_ms_in_lm_step": lm["profile"][
-                "large_batch" if int8 else "f32"][
+            "device_ms_in_lm_step": None if int8 else lm["profile"]["f32"][
                 "hand_kernel_device_ms_per_step"][kname]}
         if "fold_ms" in lm_row:
             entry["smollm_row"]["fold_ms"] = lm_row["fold_ms"]
@@ -4502,5 +4770,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--zero-rank"]:        # phase 20's ranks
         zero_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -15,6 +15,11 @@ state carries across mid-run.
 bfloat16 arrays (``ml_dtypes.bfloat16`` on the JAX side) arrive through
 float32, which holds every bfloat16 value exactly; they leave as
 float32 arrays.
+
+On a tensor-parallel mesh :func:`params_to_mesh` turns the reference's
+whole params into this rank's blocks and :func:`params_from_mesh`
+gathers them back (a collective over ``model``), so both packages start
+from one init and compare whole leaves.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
 from repro_torch.core.packing import PackedLayout
+from repro_torch.distributed.sharding import (gather_params, param_shardings,
+                                              shard_params)
 from repro_torch.treepath import tree_flatten_with_path, tree_map
 
 Pytree = Any
@@ -127,6 +134,27 @@ def lm_params_to_torch(params: Pytree, model,
                              f"{tuple(g.shape)}, the port's init "
                              f"{tuple(w.shape)}")
     return got
+
+
+def _shardings(model, mesh):
+    return param_shardings(model.cfg, model.init(torch.Generator(), "meta"),
+                           mesh)
+
+
+def params_to_mesh(params: Pytree, model, mesh,
+                   device: torch.device | str = "cpu") -> Pytree:
+    """The reference's whole params (numpy) as this rank's blocks of
+    ``mesh``'s ``model`` splits, on ``device`` (an LM's checked as
+    :func:`lm_params_to_torch` checks them)."""
+    whole = lm_params_to_torch(params, model, device) \
+        if model.cfg.family != "cnn" else params_to_torch(params, device)
+    return shard_params(whole, _shardings(model, mesh))
+
+
+def params_from_mesh(params: Pytree, model, mesh) -> Pytree:
+    """This rank's blocks gathered to the whole params, as numpy (a
+    collective: every rank of the mesh calls it)."""
+    return params_to_numpy(gather_params(params, _shardings(model, mesh)))
 
 
 CACHE_LEAVES = ({"pos", "k", "v"}, {"pos", "k", "v", "xk", "xv"},

@@ -29,6 +29,14 @@ then strips the pad rows and the pad blocks' scales down to the
 rows and codes, unit scales: exactly the live values) and keeps this
 rank's rows where the template holds a row shard. A file saved under
 any shard count is byte-equal to the reference's for the same state.
+
+Tensor-parallel states (``shardings=``: one
+:class:`~repro_torch.distributed.sharding.LeafSharding` a param leaf,
+``TrainPipeline.param_shardings``) are stored whole too: a save
+all-gathers the split params and a tree state's slots over ``model``
+(packed slots are already global), so the file is byte-equal to a
+``1x1`` run's for the same state; a restore reads the whole leaves on
+the host and keeps this rank's blocks.
 """
 
 from __future__ import annotations
@@ -43,10 +51,12 @@ import torch
 from repro_torch.bridge import tensor_to_numpy
 from repro_torch.core import packing
 from repro_torch.core.optim_base import SCALE_SUFFIX, OptState
+from repro_torch.distributed.sharding import (gather_leaf, scale_sharding,
+                                              shard_leaf)
 from repro_torch.launch.mesh import world
 from repro_torch.train.state import TrainState
 from repro_torch.treepath import (path_str, tree_flatten_with_path,
-                                  tree_unflatten)
+                                  tree_map, tree_unflatten)
 
 PARAMS = ".params/"
 STEP = ".opt_state/.step"
@@ -121,12 +131,36 @@ def _whole_slots(state: TrainState) -> TrainState:
         step=state.opt_state.step, slots=slots, layout=layout))
 
 
-def save_train_state(path: str, state: TrainState) -> None:
+def _map_split(fn, state: TrainState, shardings, *others: TrainState
+               ) -> TrainState:
+    """``fn(leaf, sharding, *other leaves)`` over the params and a tree
+    state's slots (an int8 scale slot sharded as its leaf's dim 0); a
+    packed state's slots as they are."""
+    def tree(t, shs, *rest):
+        return tree_map(fn, t, shs, *rest)
+
+    opt = state.opt_state
+    slots = dict(opt.slots)
+    if opt.layout is None:
+        for k, v in opt.slots.items():
+            shs = shardings if not k.endswith(SCALE_SUFFIX) else tree_map(
+                lambda x, sh: scale_sharding(sh, x.ndim), v, shardings)
+            slots[k] = tree(v, shs, *(o.opt_state.slots[k] for o in others))
+    return TrainState(
+        params=tree(state.params, shardings, *(o.params for o in others)),
+        opt_state=OptState(step=opt.step, slots=slots, layout=opt.layout))
+
+
+def save_train_state(path: str, state: TrainState, *,
+                     shardings=None) -> None:
     """Persist a full TrainState (params + opt slots + step) to npz,
     atomically. A ZeRO state is gathered and stripped of its pad rows
-    first; every rank of its mesh must call this, and only rank 0 of the
-    process group writes."""
+    first, a tensor-parallel state's split leaves gathered
+    (``shardings``); every rank of its mesh must call this, and only
+    rank 0 of the process group writes."""
     state = _whole_slots(state)
+    if shardings is not None:
+        state = _map_split(gather_leaf, state, shardings)
     if world()[0] != 0:
         return
     arrays = {k: v if isinstance(v, np.ndarray) else tensor_to_numpy(v)
@@ -139,7 +173,8 @@ def clone_checkpoint(src: str, dst: str) -> None:
     _atomic(_npz(dst), lambda tmp: shutil.copyfile(_npz(src), tmp))
 
 
-def restore_train_state(path: str, template: TrainState) -> TrainState:
+def restore_train_state(path: str, template: TrainState, *,
+                        shardings=None) -> TrainState:
     """Restore a TrainState into ``template``'s structure.
 
     ``template`` is a freshly initialized state from the same (model,
@@ -153,7 +188,18 @@ def restore_train_state(path: str, template: TrainState) -> TrainState:
     stored pad-free shapes; each slot is re-padded to the template's
     layout and, where the template holds a row shard, cut to this rank's
     rows. No collective: every rank reads the file.
+
+    ``shardings``: ``template`` holds this rank's blocks of a
+    tensor-parallel state; the whole leaves are read on the host and
+    cut to the template's blocks on its devices.
     """
+    if shardings is not None:
+        whole = _map_split(lambda x, sh: torch.empty(
+            sh.whole_shape(x.shape), dtype=x.dtype) if sh.split else x,
+            template, shardings)
+        got = restore_train_state(path, whole)
+        return _map_split(lambda x, sh, like: shard_leaf(x, sh).to(
+            like.device), got, shardings, template)
     layout = template.opt_state.layout
     if layout is None or layout.shards == 1:
         return _restore_exact(path, template)

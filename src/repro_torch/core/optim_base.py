@@ -74,6 +74,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core import trust_ratio as tr
 from repro_torch.core.schedules import Schedule
+from repro_torch.distributed import collectives
 from repro_torch.treepath import (flatten_up_to, tree_flatten_with_path,
                                   tree_map, tree_unflatten)
 
@@ -166,7 +167,9 @@ class Optimizer:
 
 def _tree_update(rule: LayerwiseRule, lr: float, ctx: dict, grads: Pytree,
                  slots: dict, params: Pytree, stacked_full: Pytree,
-                 master: Optional[Pytree] = None) -> tuple[Pytree, dict]:
+                 master: Optional[Pytree] = None,
+                 split: Optional[list] = None, mesh=None
+                 ) -> tuple[Pytree, dict]:
     """Per-leaf engine: ``direction``, the trust ratio from the leaf's
     norms (per leading index where ``stacked_full`` marks the leaf;
     rank <= 1 leaves keep the scalar LR under ``skip_adaptation_1d``),
@@ -175,22 +178,33 @@ def _tree_update(rule: LayerwiseRule, lr: float, ctx: dict, grads: Pytree,
     ``master``: the f32 master tree of the bf16 policy. The update then
     reads and writes it, the new params are it cast down to each leaf's
     dtype, and the new master rides back in the slot dict.
+
+    ``split``: on a tensor-parallel ``mesh``, one bool a leaf in
+    flattening order, True where the leaf is this rank's block of a leaf
+    split over ``model``. Every leaf's direction comes first;
+    then the squared norms' partials of all leaves go through ONE
+    all-reduce over ``model``, a replicated leaf's counted on the rank
+    at model coordinate 0 only (zeros elsewhere), so every rank takes
+    the whole leaf's trust ratio; then every leaf's apply.
     """
     n_rule = len(rule.slots)
     extras = [slots[k] for k in rule.slots]
     if master is not None:
         extras.append(master)
 
-    def leaf(g, w, s, *extra):
+    def prep(g, w, s, *extra):
         sl = dict(zip(rule.slots, extra[:n_rule]))
         gf = g.float()
         wf = extra[n_rule] if master is not None else w.float()
         u, sl = rule.direction(ctx, gf, wf, sl)
+        adapt = rule.trust is not None and not (
+            rule.skip_adaptation_1d and tr.effective_rank(w, s) <= 1)
+        return gf, wf, u, sl, adapt
+
+    def finish(w, s, gf, wf, u, sl, adapt, norms):
         local_lr = lr
-        if rule.trust is not None and not (
-                rule.skip_adaptation_1d and tr.effective_rank(w, s) <= 1):
-            w_norm, u_norm = tr.layer_norms(wf, u, s)
-            ratio = rule.trust(ctx, w_norm, u_norm)
+        if adapt:
+            ratio = rule.trust(ctx, *norms)
             local_lr = lr * tr.broadcast_ratio(ratio, wf, s)
         w_new, sl = rule.apply(ctx, wf, gf, u, local_lr, sl)
         return (w_new.to(w.dtype), [sl[k] for k in rule.slots], w_new)
@@ -198,8 +212,37 @@ def _tree_update(rule: LayerwiseRule, lr: float, ctx: dict, grads: Pytree,
     leaves, treedef = tree_flatten_with_path(params)
     others = [flatten_up_to(treedef, t) for t in [grads, stacked_full]
               + extras]
-    outs = [leaf(others[0][i], w, others[1][i], *(o[i] for o in others[2:]))
+    args = [(w, others[1][i], others[0][i], [o[i] for o in others[2:]])
             for i, (_, w) in enumerate(leaves)]
+    if mesh is None:
+        outs = []
+        for w, s, g, extra in args:
+            gf, wf, u, sl, adapt = prep(g, w, s, *extra)
+            norms = tr.layer_norms(wf, u, s) if adapt else None
+            outs.append(finish(w, s, gf, wf, u, sl, adapt, norms))
+    else:
+        preps = [prep(g, w, s, *extra) for w, s, g, extra in args]
+        outs = [None] * len(args)
+        parts, shapes = [], {}
+        first = mesh.coords["model"] == 0
+        for i, ((_, s, _, _), (_, wf, u, _, adapt)) in enumerate(
+                zip(args, preps)):
+            if adapt:
+                sw, su = tr.layer_sumsq(wf, s), tr.layer_sumsq(u, s)
+                shapes[i] = sw.shape
+                sq = torch.stack([sw, su]).reshape(2, -1)
+                parts.append(sq if split[i] or first
+                             else torch.zeros_like(sq))
+        norms = {}
+        if parts:
+            flat = collectives.all_reduce_sum(
+                torch.cat(parts, dim=1), mesh, "model")
+            for i, sq in zip(shapes, torch.split(
+                    flat, [p.shape[1] for p in parts], dim=1)):
+                norms[i] = tuple(torch.sqrt(x.reshape(shapes[i]))
+                                 for x in sq)
+        for i, ((w, s, _, _), pr) in enumerate(zip(args, preps)):
+            outs[i] = finish(w, s, *pr, norms.get(i))
     new_params = tree_unflatten(treedef, [o[0] for o in outs])
     new_slots = {k: tree_unflatten(treedef, [o[1][j] for o in outs])
                  for j, k in enumerate(rule.slots)}
@@ -342,14 +385,20 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
         return slots
 
     def update(grads: Pytree | PackedGrads, state: OptState, params: Pytree,
-               stacked: Optional[Pytree] = None
+               stacked: Optional[Pytree] = None,
+               shardings: Optional[Pytree] = None
                ) -> tuple[Pytree, OptState]:
+        """``shardings``: a tree-layout state's params and slots as this
+        rank's blocks of a tensor-parallel mesh, a
+        :class:`~repro_torch.distributed.sharding.LeafSharding` a leaf:
+        split leaves take their norms (and int8 absmaxes) over the
+        ``model`` ranks. A packed state is global and ignores it."""
         slots = dict(state.slots)
         lr = float(lr_fn(state.step))
         ctx = rule.prepare(state.step) if rule.prepare is not None else {}
         if state.layout is None:
             new_params, new_slots = tree_update(grads, slots, params,
-                                                stacked, lr, ctx)
+                                                stacked, lr, ctx, shardings)
         else:
             if stacked is not None:
                 packing.check_marker(state.layout, params, stacked)
@@ -362,7 +411,7 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
         return new_params, OptState(step=state.step + 1, slots=new_slots,
                                     layout=state.layout)
 
-    def tree_update(grads, slots, params, stacked, lr, ctx):
+    def tree_update(grads, slots, params, stacked, lr, ctx, shardings):
         if use_kernels is True:
             raise ValueError(
                 f"{rule.name}(use_kernels=True) requires the flat-packed "
@@ -378,13 +427,24 @@ def make_optimizer(rule: LayerwiseRule, learning_rate: float | Schedule, *,
             slots = {k: tree_map(packing.dequantize_leaf_q8, slots[k],
                                  slots[k + SCALE_SUFFIX])
                      for k in rule.slots}
+        treedef = tree_flatten_with_path(params)[1]
+        split = mesh = None
+        amax_over = [None] * len(treedef)
+        if shardings is not None:
+            shs = flatten_up_to(treedef, shardings)
+            split, mesh = [sh.split for sh in shs], shs[0].mesh
+            # a leaf split past dim 0 takes each absmax over its ranks
+            amax_over = [sh.mesh if any(p > 1 for p in sh.parts[1:])
+                         else None for sh in shs]
         new_params, new_slots = _tree_update(
             rule, lr, ctx, grads, slots, params,
-            normalize_stacked(params, stacked), master=master)
+            normalize_stacked(params, stacked), master=master, split=split,
+            mesh=collectives.model_parallel(mesh))
         if quant:
             for k in rule.slots:
                 new_slots[k], new_slots[k + SCALE_SUFFIX] = _split_pairs(
-                    tree_map(packing.quantize_leaf_q8, new_slots[k]))
+                    tree_map(packing.quantize_leaf_q8, new_slots[k],
+                             tree_unflatten(treedef, amax_over)))
         return new_params, new_slots
 
     return Optimizer(name=rule.name, init=init, update=update,

@@ -550,18 +550,23 @@ def dequantize_q8(layout: PackedLayout, q: torch.Tensor,
     return grouped.reshape(shape)
 
 
-def quantize_leaf_q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_leaf_q8(x: torch.Tensor, amax_over=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-leaf int8 quantization for the tree engine: one scale per
     leading index, shape ``(d0, 1, ..., 1)``; a vector's scale is its
     absolute values and a scalar leaf gets a scalar scale. The scale
     shape depends on the leaf shape only, never on the stacked marker,
     so slot shapes are the same whether ``update`` gets one or not. The
-    rules are :func:`quantize_blocks_q8`'s (a NaN keeps its scale NaN)."""
+    rules are :func:`quantize_blocks_q8`'s (a NaN keeps its scale NaN).
+    ``amax_over``: a mesh whose ``model`` axis splits ``x`` past dim 0;
+    each absmax is then the max over its ranks (the whole leaf's)."""
     x = x.float()
     # amax over no axis is the identity, as jnp.max(axis=()) is;
     # torch.amax(dim=()) would reduce every axis instead
     amax = torch.abs(x) if x.ndim <= 1 else torch.amax(
         torch.abs(x), dim=tuple(range(1, x.ndim)), keepdim=True)
+    if amax_over is not None:
+        amax = collectives.all_reduce_max(amax.contiguous(), amax_over)
     scale = _q8_scale(amax)
     q = torch.clamp(torch.round(x / scale), -Q8_LEVELS, Q8_LEVELS)
     q = torch.where(torch.isnan(q), torch.zeros_like(q), q)

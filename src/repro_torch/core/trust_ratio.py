@@ -32,18 +32,20 @@ def effective_rank(x: torch.Tensor, stacked: bool) -> int:
     return x.ndim - (1 if stacked else 0)
 
 
+def layer_sumsq(x: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """Sum of squares per layer, in f32; shape () or (L,)."""
+    axes = reduction_axes(x, stacked)
+    sq = torch.square(x.float())
+    # a sum over no axis is the identity, as jnp.sum(axis=()) is (a
+    # stacked (L,) leaf); torch.sum(dim=()) would sum every axis
+    return torch.sum(sq, dim=axes) if axes else sq
+
+
 def layer_norms(w: torch.Tensor, g: torch.Tensor, stacked: bool
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(||w||, ||g||) per layer, computed in f32; shape () or (L,)."""
-    axes = reduction_axes(w, stacked)
-
-    def norm(x):
-        sq = torch.square(x.float())
-        # a sum over no axis is the identity, as jnp.sum(axis=()) is (a
-        # stacked (L,) leaf); torch.sum(dim=()) would sum every axis
-        return torch.sqrt(torch.sum(sq, dim=axes) if axes else sq)
-
-    return norm(w), norm(g)
+    return (torch.sqrt(layer_sumsq(w, stacked)),
+            torch.sqrt(layer_sumsq(g, stacked)))
 
 
 def lars_trust_ratio(w_norm: torch.Tensor, g_norm: torch.Tensor, *,

@@ -7,11 +7,21 @@ the batch. The port has no GSPMD: on a data-parallel mesh each rank
 already holds only its own rows of the batch (``ShardedLoader(mesh=)``
 or ``TrainPipeline`` cut them before the forward), every activation it
 computes is of those rows, and nothing is ever gathered behind its back.
-So :func:`shard_batch` and :func:`shard_spec` are the identity, with a
-mesh and without one, and the models may call them as the reference's
-do. Tensor parallelism over a ``model`` axis larger than 1 is where they
-would do work; it is not yet ported (``TrainPipeline`` refuses such a
-mesh).
+So :func:`shard_batch` and :func:`shard_spec` are the identity on the
+tensors, with a mesh and without one, and the models may call them as
+the reference's do.
+
+On a mesh whose ``model`` axis has more than one rank (tensor
+parallelism, the dense family) the port's model code does explicitly
+what these constraints ask of GSPMD: ``shard_batch(logits,
+last="model")`` in the reference's ``LanguageModel.logits`` means the
+logits stay split over the vocabulary, and in the port they do — a
+rank's logits ARE its block of the vocabulary (``LanguageModel.logits``
+under a split unembedding), the loss is vocab-parallel
+(:func:`repro_torch.train.losses.vocab_parallel_nll`) and evaluation
+all-gathers them. The activations between the blocks are replicated
+over ``model`` (each block ends in ``reduce_from_model``), which is what
+the reference's ``shard_batch`` on the embedding's output pins.
 
 The ambient mesh is the one entered last with ``with mesh:`` on this
 thread (:meth:`repro_torch.launch.mesh.Mesh.__enter__`), as the
@@ -52,15 +62,17 @@ def current_mesh() -> Optional[object]:
 
 def shard_batch(x, *, last: Optional[str] = None):
     """The reference constrains dim 0 to the batch axes (and dim -1 to
-    ``last``); on the port's data-parallel meshes ``x`` already holds
-    this rank's rows, so it is returned as it is."""
+    ``last``); on the port's meshes ``x`` already holds this rank's rows
+    (and, for ``last="model"``, its vocab block), so it is returned as
+    it is."""
     del last
     return x
 
 
 def shard_spec(x, *axes):
     """The reference constrains ``x`` to an explicit per-dim axis tuple;
-    on the port's data-parallel meshes every such constraint is already
-    met (rows are this rank's, nothing else is split)."""
+    on the port's meshes every such constraint is already met by the
+    model code (rows are this rank's; a split over ``model`` is made
+    where the block computes it)."""
     del axes
     return x

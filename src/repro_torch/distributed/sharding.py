@@ -18,21 +18,30 @@ argument is anything with ``shape`` (axis -> size) and ``axis_names``:
 the port's :class:`~repro_torch.launch.mesh.Mesh`, or a stand-in for a
 mesh no process group has (the tests' 16 x 16).
 
-What the port EXECUTES is the data-parallel part: a mesh whose ``model``
-axis is 1. There every param is whole on every rank (the ``data`` entry
-of an FSDP param spec is the reference's; ZeRO shards the optimizer
-slots instead), a batch is cut into row blocks by :func:`batch_pspecs`,
-and :func:`named` / :func:`tree_named` turn a spec into a
-:class:`RowSharding` — which rows of dim 0 this rank holds, or all of
-them. Tensor parallelism over ``model`` executes none of these specs
-yet.
+What the port executes: on a data-parallel mesh (``model`` axis 1)
+every param is whole on every rank (the ``data`` entry of an FSDP param
+spec is the reference's; ZeRO shards the optimizer slots instead), a
+batch is cut into row blocks by :func:`batch_pspecs`, and :func:`named`
+/ :func:`tree_named` turn a spec into a :class:`LeafSharding` — which
+block of each dim this rank holds. On a ``model`` axis above 1 it also
+executes the ``model`` entries of the dense family's param specs (and
+LeNet's, all replicated): Megatron tensor parallelism.
+:func:`model_pspecs` keeps a param spec's ``model`` entries and drops
+its ``data`` ones (FSDP's, queue 1 item 4b-ii: params stay whole over
+``data``); :func:`param_shardings` turns them into one
+:class:`LeafSharding` a leaf, :func:`shard_params` cuts a whole params
+tree to this rank's blocks and :func:`gather_params` gathers them back.
+Every other family raises on a ``model`` axis above 1
+(:func:`check_model_parallel`).
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from repro_torch.treepath import tree_flatten_with_path, tree_unflatten
+from repro_torch.distributed import collectives
+from repro_torch.treepath import (tree_flatten_with_path, tree_map,
+                                  tree_unflatten)
 
 Pytree = Any
 
@@ -319,30 +328,19 @@ def cache_pspecs(cfg, mesh, cache_shapes: Pytree, *, batch: int) -> Pytree:
 
 # ----------------------------------------------------------------- helpers
 
-class RowSharding:
-    """What a spec means for one rank of a data-parallel mesh: the block
-    of dim 0 it holds (``rows(n)``), or every row where dim 0 is not
-    split. The port's counterpart of the reference's ``NamedSharding``.
-    Entries past dim 0 must not split a dimension over an axis of more
-    than one rank: that is tensor parallelism, not yet ported."""
+class LeafSharding:
+    """What a spec means for one rank of a mesh: the block of every dim
+    it holds (``block(dim, n)``; ``rows(n)`` for dim 0), or all of a dim
+    the spec does not split or splits over axes of one rank. The port's
+    counterpart of the reference's ``NamedSharding``: :meth:`shard` cuts a
+    whole tensor to this rank's block, :meth:`gather` all-gathers the
+    blocks back (a collective over each splitting axis), and
+    :meth:`whole_shape` is the shape of the whole."""
 
     def __init__(self, mesh, spec: PartitionSpec):
         self.mesh, self.spec = mesh, P(*spec)
-        for ax in tuple(self.spec)[1:]:
-            if _axis_size(mesh, ax) > 1:
-                raise NotImplementedError(
-                    f"spec {self.spec} splits a dimension past the batch "
-                    "rows over a mesh axis of more than one rank: tensor "
-                    "parallelism is not yet ported to repro_torch (it is "
-                    "the next slice)")
-        first = self.spec[0] if len(self.spec) else None
-        self.parts = _axis_size(mesh, first)
-        names = () if first is None else (
-            (first,) if isinstance(first, str) else tuple(first))
-        index = 0
-        for n in names:                         # row-major over the axes
-            index = index * mesh.shape[n] + mesh.coords[n]
-        self.index = index
+        self.parts = tuple(_axis_size(mesh, ax) for ax in self.spec)
+        self.index = tuple(_axis_index(mesh, ax) for ax in self.spec)
 
     @property
     def sharded(self) -> bool:
@@ -350,18 +348,48 @@ class RowSharding:
         axis: the ranks' gradients are still reduced over it)."""
         return len(self.spec) > 0 and self.spec[0] is not None
 
+    @property
+    def split(self) -> bool:
+        """Some dim is cut into more than one part."""
+        return any(p > 1 for p in self.parts)
+
+    def block(self, dim: int, n: int) -> slice:
+        parts = self.parts[dim] if dim < len(self.parts) else 1
+        if n % parts:
+            raise ValueError(f"{n} rows do not split into {parts}")
+        step = n // parts
+        i = self.index[dim] if dim < len(self.index) else 0
+        return slice(i * step, (i + 1) * step)
+
     def rows(self, n: int) -> slice:
-        if n % self.parts:
-            raise ValueError(f"{n} rows do not split into {self.parts}")
-        step = n // self.parts
-        return slice(self.index * step, (self.index + 1) * step)
+        return self.block(0, n)
 
     def shard(self, x):
-        """This rank's rows of ``x`` (a view, or ``x`` itself)."""
-        return x[self.rows(x.shape[0])] if self.parts > 1 else x
+        """This rank's block of ``x`` (a view, or ``x`` itself)."""
+        if not self.split:
+            return x
+        return x[tuple(self.block(d, n) for d, n in enumerate(
+            x.shape[:len(self.parts)]))]
+
+    def whole_shape(self, shape) -> tuple:
+        return tuple(n * (self.parts[d] if d < len(self.parts) else 1)
+                     for d, n in enumerate(shape))
+
+    def gather(self, x):
+        """The whole tensor from this rank's block: one all-gather over
+        each axis that splits a dim (the last-named axis first, so a dim
+        split over several axes comes back in row-major order)."""
+        for d, ax in enumerate(self.spec):
+            if self.parts[d] == 1:
+                continue
+            names = (ax,) if isinstance(ax, str) else tuple(ax)
+            for n in reversed(names):
+                x = collectives.all_gather_dim(x, self.mesh, d, n)
+        return x
 
     def __repr__(self) -> str:
-        return f"RowSharding({self.spec}, part {self.index}/{self.parts})"
+        return (f"LeafSharding({self.spec}, block {self.index} of "
+                f"{self.parts})")
 
 
 def _axis_size(mesh, ax) -> int:
@@ -374,8 +402,20 @@ def _axis_size(mesh, ax) -> int:
     return size
 
 
-def named(mesh, spec: PartitionSpec) -> RowSharding:
-    return RowSharding(mesh, spec)
+def _axis_index(mesh, ax) -> int:
+    """This rank's part of a dim split over ``ax`` (row-major over a
+    tuple of axes)."""
+    if ax is None:
+        return 0
+    names = (ax,) if isinstance(ax, str) else tuple(ax)
+    index = 0
+    for n in names:
+        index = index * mesh.shape[n] + mesh.coords[n]
+    return index
+
+
+def named(mesh, spec: PartitionSpec) -> LeafSharding:
+    return LeafSharding(mesh, spec)
 
 
 def tree_named(mesh, specs: Pytree) -> Pytree:
@@ -407,3 +447,76 @@ def shard_rows(batch: dict, shardings: dict) -> LocalBatch:
     return LocalBatch({k: shardings[k].shard(v) for k, v in batch.items()},
                       global_rows=int(first.shape[0]),
                       sharded=split.pop())
+
+
+# ------------------------------------------------------ tensor parallelism
+
+# families whose params the port splits over a model axis above 1: the
+# dense attention family, and LeNet (every spec replicated)
+TP_FAMILIES = ("cnn", "dense")
+
+
+def check_model_parallel(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` where ``mesh``'s ``model`` axis has
+    more than one rank and ``cfg`` is not of a family the port splits."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return
+    if cfg.family not in TP_FAMILIES or cfg.use_mla:
+        kind = cfg.family + (", MLA" if cfg.use_mla else "")
+        raise NotImplementedError(
+            f"tensor parallelism over 'model' ({mesh.shape['model']} "
+            f"ranks) is ported for the dense attention family; {cfg.name} "
+            f"({kind}) is ROADMAP.md queue 1 item 4b-ii, not yet ported "
+            "to repro_torch")
+
+
+def _model_only(spec: PartitionSpec) -> PartitionSpec:
+    out = []
+    for ax in spec:
+        names = () if ax is None else (
+            (ax,) if isinstance(ax, str) else tuple(ax))
+        out.append("model" if "model" in names else None)
+    return P(*out)
+
+
+def model_pspecs(cfg, params_shapes: Pytree, mesh) -> Pytree:
+    """:func:`param_pspecs` with only the ``model`` entries kept: the
+    splits the port executes."""
+    return _map_with_path(lambda p, s: _model_only(s),
+                          param_pspecs(cfg, params_shapes, mesh))
+
+
+def param_shardings(cfg, params_shapes: Pytree, mesh) -> Pytree:
+    """One :class:`LeafSharding` a leaf of the WHOLE params'
+    ``params_shapes`` (a meta init serves)."""
+    return _map_with_path(lambda p, s: LeafSharding(mesh, s),
+                          model_pspecs(cfg, params_shapes, mesh))
+
+
+def scale_sharding(sh: LeafSharding, ndim: int) -> LeafSharding:
+    """The sharding of a tree-state int8 scale beside a leaf of
+    ``ndim`` dims sharded by ``sh``: one scale per leading index (split
+    where dim 0 is), or a vector's own shape."""
+    if ndim <= 1:
+        return sh
+    return LeafSharding(sh.mesh, P(sh.spec[0], *([None] * (ndim - 1))))
+
+
+def shard_leaf(x, sh: LeafSharding):
+    """This rank's block of a whole leaf, as a tensor of its own (the
+    whole can be freed); a replicated leaf as it is."""
+    return sh.shard(x).clone() if sh.split else x
+
+
+def gather_leaf(x, sh: LeafSharding):
+    """The whole leaf from this rank's block (a collective where the
+    leaf is split)."""
+    return sh.gather(x) if sh.split else x
+
+
+def shard_params(tree: Pytree, shardings: Pytree) -> Pytree:
+    return tree_map(shard_leaf, tree, shardings)
+
+
+def gather_params(tree: Pytree, shardings: Pytree) -> Pytree:
+    return tree_map(gather_leaf, tree, shardings)

@@ -54,9 +54,11 @@ rank runs the runner; the cell's mesh is built once per spec
 (:meth:`GridRunner._cell_mesh`) over the leading ranks, the ranks in it
 train the cell together (each its rows of every batch), and a cell
 without a mesh runs on rank 0 alone. Only rank 0 writes: the manifest,
-the trajectories, the checkpoints (a ZeRO save is gathered from every
-rank of the mesh) and, in ``launch.experiment``, the report. A kill and
-a resume under ZeRO re-record the uninterrupted trajectories.
+the trajectories, the checkpoints (a ZeRO or tensor-parallel save is
+gathered from every rank of the mesh) and, in ``launch.experiment``, the
+report. A kill and a resume under ZeRO re-record the uninterrupted
+trajectories. A cell's mesh may split ``model`` too (``DxM``, the dense
+family's tensor parallelism); its evaluation runs under the mesh.
 """
 
 from __future__ import annotations
@@ -70,7 +72,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs import get_config
 from repro_torch.core import grad_stats
 from repro_torch.data import (TokenTaskConfig, batch_iterator, place,
@@ -315,8 +316,7 @@ class GridRunner:
         ckpt_path = os.path.join(cdir, "state.npz")
         start = 0
         if resume and os.path.exists(ckpt_path):
-            with pipe.mesh_context():
-                state = restore_train_state(ckpt_path, state)
+            state = pipe.restore(ckpt_path, state)
             start = state.opt_state.step
             if self.rank == 0:
                 kept = truncate_trajectory(traj_path,
@@ -400,8 +400,7 @@ class GridRunner:
                 if (self.checkpoint_every
                         and done % self.checkpoint_every == 0) \
                         or (checkpoint_at_end and done == until):
-                    with pipe.mesh_context():       # gathers a ZeRO state
-                        save_train_state(ckpt_path, state)
+                    pipe.save(ckpt_path, state)     # gathers a mesh's
                 self._tick()
         finally:
             recorder.close()
@@ -423,8 +422,10 @@ class GridRunner:
         ckpt_path = os.path.join(cdir, "state.npz")
         row = dict(cell.to_json())
         row["cell_id"] = cell.cell_id
-        row.update(self._evaluate_cnn(state) if self.grid.family == "cnn"
-                   else self._evaluate_lm(state))
+        with pipe.mesh_context():       # a model axis splits the eval too
+            row.update(self._evaluate_cnn(state)
+                       if self.grid.family == "cnn"
+                       else self._evaluate_lm(state))
         if metrics:
             loss = float(metrics["loss"])
         else:

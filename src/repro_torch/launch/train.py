@@ -50,10 +50,16 @@ one device and no process group, as before (the reference defaults to
 ``auto`` over the local devices). ``--zero`` row-shards the packed
 optimizer slots over the mesh's data axis (the reference's
 ``TrainPipeline(zero=True)``, which its launcher does not expose). Each
-rank takes its rows of every global batch; a ``model`` axis above 1
-raises (tensor parallelism is the next slice). Only rank 0 prints the
-steps and writes the checkpoint (a ZeRO state is gathered from every
-rank first).
+rank takes its rows of every global batch (the ranks of one ``data`` row
+the same rows). A ``model`` axis above 1 is tensor parallelism for the
+dense family (Megatron splits; any other family but LeNet raises,
+naming queue 1 item 4b-ii), e.g. on two CPU ranks:
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
+      repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
+      --mesh 1x2 --batch 8 --seq 32 --steps 5
+Only rank 0 prints the steps and writes the checkpoint (a ZeRO state's
+rows and a tensor-parallel state's blocks are gathered from every rank
+first: the file is the one-device run's).
 
 TF32 is switched off for matrix products and cuDNN convolutions, so f32
 means f32 on the card and a card run is comparable with a CPU run.
@@ -67,7 +73,6 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import restore_train_state, save_train_state
 from repro_torch.configs import get_config
 from repro_torch.core import get_optimizer, schedules
 from repro_torch.core.scaling import scaled_lr
@@ -137,9 +142,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--precision", default="f32", choices=("f32", "bf16"),
                     help="bf16: bf16 compute + f32 master weights")
     ap.add_argument("--mesh", default=None,
-                    help="auto or DATAxMODEL: a data-parallel mesh over "
-                    "the ranks of the process group (torchrun); default "
-                    "none, one device")
+                    help="auto or DATAxMODEL: a (data, model) mesh over "
+                    "the ranks of the process group (torchrun); MODEL > 1 "
+                    "is tensor parallelism (dense family); default none, "
+                    "one device")
     ap.add_argument("--zero", action="store_true",
                     help="ZeRO: row-shard the packed optimizer slots over "
                     "the mesh's data axis (needs --mesh)")
@@ -196,13 +202,14 @@ def main(argv=None) -> dict:
     state = pipeline.init_state(torch.Generator().manual_seed(args.seed),
                                 device)
     if args.resume:
-        with pipeline.mesh_context():
-            state = restore_train_state(args.resume, state)
+        state = pipeline.restore(args.resume, state)
         if lead:
             print(f"resumed from {args.resume} at step "
                   f"{state.opt_state.step}")
     resumed_from = state.opt_state.step
-    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    # the whole model's count (a tensor-parallel rank holds blocks)
+    n_params = sum(x.numel() for x in tree_leaves(
+        pipeline.whole_params or state.params))
     if lead:
         print(f"arch={cfg.name} family={cfg.family} params={n_params:,} "
               f"opt={opt.name} lr={args.lr} device={device} "
@@ -269,8 +276,8 @@ def main(argv=None) -> dict:
         if eval_acc is not None:
             print(f"eval accuracy: {eval_acc:.4f}")
     if args.checkpoint:
-        with pipeline.mesh_context():   # gathers a ZeRO state's rows
-            save_train_state(args.checkpoint, state)
+        # gathers a ZeRO state's rows and a tensor-parallel state's blocks
+        pipeline.save(args.checkpoint, state)
         if lead:
             print(f"full TrainState checkpoint -> {args.checkpoint}")
     return summary

@@ -46,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.flash_attn import block_mask, flash_attention
@@ -92,29 +93,93 @@ def init_attention(gen: torch.Generator, cfg, d: int, dtype: torch.dtype,
 
 
 def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
-                rope: bool = True):
+                rope: bool = True, tp=None):
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd): the f32 biases
     added in the activation dtype, q and k normed over the head dim, then
-    rotated."""
+    rotated.
+
+    ``tp``: a tensor-parallel mesh whose ``model`` axis splits ``wq``'s
+    columns (inside the ranks' split computation: ``x`` has passed
+    :func:`~repro_torch.distributed.collectives.copy_to_model`). q then
+    holds this rank's block of heads, and k/v the KV heads they read; see
+    :func:`_split_weights`."""
     H, Hkv, hd = cfg.attn_dims
     B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    w = _split_weights(cfg, p, tp) if tp is not None else p
+    q = x @ w["wq"]
+    k = x @ w["wk"]
+    v = x @ w["wv"]
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+        q = q + w["bq"].to(q.dtype)
+        k = k + w["bk"].to(k.dtype)
+        v = v + w["bv"].to(v.dtype)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if tp is not None:
+        k, v = (_kv_for_heads(t, w["kv_heads"]) for t in (k, v))
     if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = L.rmsnorm(q, w["q_norm"], cfg.norm_eps)
+        k = L.rmsnorm(k, w["k_norm"], cfg.norm_eps)
     if rope and cfg.use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _split_weights(cfg, p: dict, tp) -> dict:
+    """The projections one rank of ``tp``'s ``model`` axis computes with.
+
+    ``wq``/``bq`` are column-split (the caller checked): where the head
+    count divides over the ranks they are this rank's heads, as stored;
+    where it does not, they are all-gathered (``gather_from_model``: the
+    rank keeps its block of the summed gradient) and every head is
+    computed on every rank. ``wk``/``wv``/``bk``/``bv`` stay this rank's
+    where both head counts divide; else they are gathered (split) or
+    passed through ``copy_to_model`` (replicated: their gradient is the
+    ranks' sum), and ``kv_heads`` names the KV heads that the rank's
+    query heads read. The replicated QK-norm scales pass through
+    ``copy_to_model`` too."""
+    H, Hkv, hd = cfg.attn_dims
+    m, r = tp.shape["model"], tp.coords["model"]
+    aligned = H % m == 0
+    w = dict(p)
+    if aligned:
+        h0, nq = r * (H // m), H // m
+    else:
+        h0, nq = 0, H
+        for name in ("wq", "bq"):
+            if name in p:
+                w[name] = C.gather_from_model(p[name], tp, -1)
+    kv_split = p["wk"].shape[-1] != Hkv * hd
+    kv_local = kv_split and aligned and Hkv % m == 0
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p and not kv_local:
+            w[name] = C.gather_from_model(p[name], tp, -1) if kv_split \
+                else C.copy_to_model(p[name], tp)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            w[name] = C.copy_to_model(p[name], tp)
+    # the KV head each query head reads, counted from the first KV head
+    # this rank's k/v hold
+    G = H // Hkv
+    base = r * (Hkv // m) if kv_local else 0
+    w["kv_heads"] = [(h0 + j) // G - base for j in range(nq)]
+    return w
+
+
+def _kv_for_heads(t: torch.Tensor, heads: list) -> torch.Tensor:
+    """k or v (B, S, n, hd) cut to the KV heads ``heads`` reads, in the
+    grouping ``attention_core`` takes (query head j reads KV head
+    j // (nq / nkv)): a range of heads where every one serves the same
+    number of query heads, else one KV head per query head."""
+    uniq = sorted(set(heads))
+    per = len(heads) // len(uniq)
+    if all(heads[j] == uniq[0] + j // per for j in range(len(heads))):
+        if uniq[0] == 0 and len(uniq) == t.shape[2]:
+            return t
+        return t[:, :, uniq[0]:uniq[-1] + 1]
+    return t[:, :, heads]
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -202,21 +267,38 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                     *, causal: bool = True, prefix_len: int | None = None,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, tp=None) -> torch.Tensor:
     """Self-attention sub-block for training and prefill, projections
     included, with the config's logit softcap and its sliding window
     (``window`` overrides it): x (B, S, d) -> (B, S, d). ``causal=False``
     is the encoder's; ``prefix_len`` makes the first positions a
-    bidirectional prefix."""
+    bidirectional prefix.
+
+    ``tp``: a tensor-parallel mesh (Megatron's split). Where it splits
+    ``wo``'s rows (and so ``wq``'s columns: one count, H * hd) the block
+    runs between ``copy_to_model`` and ``reduce_from_model``: this
+    rank's heads (:func:`qkv_project`), its rows of ``wo``, the ranks'
+    partial outputs summed. Heads computed whole (H not divisible by the
+    ranks) meet ``wo`` as this rank's block of their output. Where
+    nothing is split the block is the plain one on every rank."""
     B, S, _ = x.shape
     H, _, hd = cfg.attn_dims
-    q, k, v = qkv_project(cfg, p, x, positions)
+    if tp is not None and p["wo"].shape[0] == H * hd:
+        tp = None
+    if tp is not None:
+        x = C.copy_to_model(x, tp)
+    q, k, v = qkv_project(cfg, p, x, positions, tp=tp)
     out = attention_core(q, k, v, q_positions=positions, causal=causal,
                          window=cfg.sliding_window if window is None
                          else window, prefix_len=prefix_len,
                          softcap=cfg.attn_logit_softcap,
                          q_chunk=cfg.attn_q_chunk, flash_vjp=cfg.flash_vjp)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    out = out.reshape(B, S, -1)
+    if tp is None:
+        return out @ p["wo"]
+    if out.shape[-1] == H * hd:                 # every head, whole
+        out = C.split_dim(out, tp, -1)
+    return C.reduce_from_model(out @ p["wo"], tp)
 
 
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,

@@ -84,6 +84,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.constrain import current_mesh
+from repro_torch.distributed.sharding import check_model_parallel
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -190,13 +193,32 @@ class LanguageModel:
 
     # ------------------------------------------------------------- embedding
 
-    def embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, params["embed"])
+    def embed_tokens(self, params, tokens: torch.Tensor, tp=None
+                     ) -> torch.Tensor:
+        """The token embeddings. Under a tensor-parallel mesh ``tp`` whose
+        ``model`` axis splits the vocabulary (``embed``'s rows) the lookup
+        is vocab-parallel: each rank looks up the tokens in its rows,
+        zeros the others, and the ranks' lookups are summed."""
+        emb = params["embed"]
+        if tp is None or emb.shape[0] == self.cfg.vocab_size:
+            return F.embedding(tokens, emb)
+        n = emb.shape[0]
+        local = tokens - tp.coords["model"] * n
+        inside = (local >= 0) & (local < n)
+        x = F.embedding(torch.where(inside, local, 0), emb)
+        return C.reduce_from_model(x.masked_fill(~inside[..., None], 0), tp)
 
-    def logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        """Final norm, then the matmul in the params' dtype, then f32."""
+    def logits(self, params, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """Final norm, then the matmul in the params' dtype, then f32.
+        Under a mesh ``tp`` that splits the unembedding's columns (the
+        tied embedding's rows) the logits stay this rank's block of the
+        vocabulary (the reference's ``shard_batch(..., last="model")``),
+        the hidden state passing ``copy_to_model`` first."""
         x = L.apply_norm(self.cfg, x, params["final_norm"])
-        return (x @ self.unembed_matrix(params)).float()
+        w = self.unembed_matrix(params)
+        if tp is not None and w.shape[1] != self.cfg.vocab_size:
+            x = C.copy_to_model(x, tp)
+        return (x @ w).float()
 
     def unembed_matrix(self, params) -> torch.Tensor:
         return (params["embed"].T if self.cfg.tie_embeddings
@@ -206,21 +228,23 @@ class LanguageModel:
 
     def attention_block(self, params_attn, h: torch.Tensor,
                         positions: torch.Tensor,
-                        prefix_len: Optional[int] = None) -> torch.Tensor:
+                        prefix_len: Optional[int] = None, tp=None
+                        ) -> torch.Tensor:
         """The layer's attention sub-block for training: MLA's expanded
         block or the GQA block, with the vlm family's bidirectional
-        prefix of ``prefix_len`` positions."""
+        prefix of ``prefix_len`` positions; ``tp``: the dense family's
+        tensor-parallel mesh."""
         if self.cfg.use_mla:
             return MLA.mla_block(self.cfg, params_attn, h, positions)
         return A.attention_block(self.cfg, params_attn, h, positions,
-                                 prefix_len=prefix_len)
+                                 prefix_len=prefix_len, tp=tp)
 
-    def _ffn(self, params_l, h: torch.Tensor
+    def _ffn(self, params_l, h: torch.Tensor, tp=None
              ) -> tuple[torch.Tensor, Optional[dict]]:
         """The layer's MLP, or its MoE block with the block's aux."""
         if self.cfg.family == "moe":
             return moe_block(self.cfg, params_l["moe"], h)
-        return mlp_block(self.cfg, params_l["mlp"], h), None
+        return mlp_block(self.cfg, params_l["mlp"], h, tp), None
 
     def _shared_block(self, shared, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
@@ -233,7 +257,7 @@ class LanguageModel:
 
     def _layer_train(self, params_l, x: torch.Tensor, aux: torch.Tensor,
                      positions: torch.Tensor, shared=None,
-                     prefix_len: Optional[int] = None
+                     prefix_len: Optional[int] = None, tp=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """One layer on the carry (x, aux): aux gains the MoE block's
         load-balance loss. A Mamba layer is ``x + ssm(norm(x))``, then
@@ -246,23 +270,27 @@ class LanguageModel:
                 x = self._shared_block(shared, x, positions)
             return x, aux
         x = x + self.attention_block(params_l["attn"], h, positions,
-                                     prefix_len)
+                                     prefix_len, tp)
         h = L.apply_norm(cfg, x, params_l["ln2"])
-        y, moe_aux = self._ffn(params_l, h)
+        y, moe_aux = self._ffn(params_l, h, tp)
         if moe_aux is not None:
             aux = aux + moe_aux["aux_loss"]
         return x + y, aux
 
     def _block_train(self, layers, shared, x: torch.Tensor,
                      aux: torch.Tensor, positions: torch.Tensor, idx: range,
-                     prefix_len: Optional[int] = None
+                     prefix_len: Optional[int] = None, tp=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Layers ``idx`` in order on the carry (x, aux), each
         checkpointed when ``cfg.remat``; ``shared``: the hybrid's shared
-        block, applied after the layers :meth:`_applies_shared` names."""
+        block, applied after the layers :meth:`_applies_shared` names.
+        ``tp`` rides in the checkpoints' arguments, so a recompute (on
+        the autograd engine's thread, which has no ambient mesh) splits
+        as the forward did."""
         for i in idx:
             args = (_index(layers, i), x, aux, positions,
-                    shared if self._applies_shared(i) else None, prefix_len)
+                    shared if self._applies_shared(i) else None, prefix_len,
+                    tp)
             if self.cfg.remat:
                 x, aux = checkpoint(self._layer_train, *args,
                                     use_reentrant=False)
@@ -284,9 +312,19 @@ class LanguageModel:
         ``return_hidden``. The reference wraps each layer's carry in an
         optimization barrier, an XLA layout workaround that is the
         identity in value and in gradient; it has no counterpart here.
+
+        Under an ambient mesh whose ``model`` axis has more than one rank
+        (the dense family only; any other raises) ``params`` are this
+        rank's shards and the forward is Megatron's: a vocab-parallel
+        embedding, column- then row-parallel attention and MLP blocks,
+        and logits over this rank's block of the vocabulary.
         """
         cfg = self.cfg
-        x, prefix_len = self._embed_inputs(params, tokens, image_embeddings)
+        tp = C.model_parallel(current_mesh())
+        if tp is not None:
+            check_model_parallel(cfg, tp)
+        x, prefix_len = self._embed_inputs(params, tokens, image_embeddings,
+                                           tp)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), device=x.device)
         blk = cfg.remat_block
@@ -295,24 +333,24 @@ class LanguageModel:
             for i in range(0, cfg.num_layers, blk):
                 x, aux = checkpoint(self._block_train, params["layers"],
                                     shared, x, aux, positions,
-                                    range(i, i + blk), prefix_len,
+                                    range(i, i + blk), prefix_len, tp,
                                     use_reentrant=False)
         else:
             x, aux = self._block_train(params["layers"], shared, x, aux,
                                        positions, range(cfg.num_layers),
-                                       prefix_len)
+                                       prefix_len, tp)
         aux = {"aux_loss": aux}
         if return_hidden:
             return L.apply_norm(cfg, x, params["final_norm"]), aux
-        return self.logits(params, x), aux
+        return self.logits(params, x, tp), aux
 
     def _embed_inputs(self, params, tokens: torch.Tensor,
-                      image_embeddings: Optional[torch.Tensor]
+                      image_embeddings: Optional[torch.Tensor], tp=None
                       ) -> tuple[torch.Tensor, Optional[int]]:
         """The embedded tokens, behind the image embeddings for the vlm
         family; and the bidirectional prefix's length (None but for
         vlm)."""
-        x = self.embed_tokens(params, tokens)
+        x = self.embed_tokens(params, tokens, tp)
         if self.cfg.family != "vlm":
             return x, None
         if image_embeddings is None:

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 
 
@@ -17,11 +18,19 @@ def init_mlp(gen: torch.Generator, cfg, d: int, ff: int,
     return p
 
 
-def mlp_block(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(cfg, p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``tp``: a tensor-parallel mesh. Where its ``model`` axis splits
+    the hidden width (``wi``/``wg`` by columns, ``wo`` by rows) the block
+    runs between ``copy_to_model`` and ``reduce_from_model``: this
+    rank's block of the hidden units, the ranks' partial outputs summed
+    (Megatron's MLP)."""
+    split = tp is not None and p["wo"].shape[0] != cfg.d_ff
+    if split:
+        x = C.copy_to_model(x, tp)
     act = L.act_fn(cfg)
     h = x @ p["wi"]
     if "wg" in p:
         h = act(x @ p["wg"]) * h
     else:
         h = act(h)
-    return h @ p["wo"]
+    return C.reduce_from_model(h @ p["wo"], tp) if split else h @ p["wo"]

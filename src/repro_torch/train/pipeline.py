@@ -63,11 +63,27 @@ so both run the same step.
   same. Caveat: the MoE family's load-balance loss and capacity are
   taken over a rank's tokens, where the reference's GSPMD program
   takes them over the global microbatch.
+* **Tensor-parallel mesh** (a ``model`` axis larger than 1; the dense
+  family, and LeNet, whose specs are all replicated; any other family
+  raises ``NotImplementedError`` naming queue 1 item 4b-ii). The params
+  are this rank's blocks as :func:`~repro_torch.distributed.sharding.
+  model_pspecs` cuts them (``param_shardings``); the forward and
+  backward are Megatron's (:mod:`repro_torch.models.lm`), and ranks in
+  one ``data`` row take the same batch rows. A packed optimizer state is
+  the GLOBAL one, as the reference's ``state_pspecs`` keeps it
+  (replicated over ``model``; with ZeRO, rows over ``data``): once per
+  global step the split leaves' gradients are all-gathered over
+  ``model`` into whole leaves, packed and reduced over ``data`` as on a
+  data-parallel mesh, the update runs as there (one ``norms_flat`` and
+  one apply a rank, on the global rows or the ZeRO shard) and the new
+  params are cut to this rank's blocks again. A tree state is sharded
+  like the params: its slots are this rank's blocks, reduced over
+  ``data`` only, and the tree engine sums a split leaf's squared norms
+  over ``model`` (``Optimizer.update(shardings=)``).
 * ``fuse_update`` follows the reference's rules under a mesh: ``"auto"``
-  fuses only in ZeRO mode; ``True`` is valid on a pure data-parallel
-  mesh. A ``model`` axis larger than 1 raises ``NotImplementedError``
-  (tensor parallelism is the next slice), except with
-  ``fuse_update=True``, where the reference's ``ValueError`` comes first.
+  fuses only in ZeRO mode on a pure data-parallel mesh and runs unfused
+  on a ``model`` axis larger than 1; ``True`` is valid on a pure
+  data-parallel mesh only (the reference's ``ValueError`` otherwise).
 
 Typical use::
 
@@ -98,6 +114,9 @@ from repro_torch.core import packing
 from repro_torch.core.optim_base import PackedGrads
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import (LocalBatch, batch_pspecs,
+                                              check_model_parallel,
+                                              gather_params, param_shardings,
+                                              shard_leaf, shard_params,
                                               shard_rows, tree_named)
 from repro_torch.train.state import (PRECISIONS, Precision,  # noqa: F401
                                      TrainState, cast_floats,
@@ -145,14 +164,10 @@ class TrainPipeline:
                                 f"Mesh, got {type(mesh).__name__}")
             tp = {a: mesh.shape[a] for a in mesh.axis_names
                   if a not in ("data", "pod") and mesh.shape[a] > 1}
-            if tp:
-                if fuse_update is True:
-                    raise ValueError(FUSE_ERROR)
-                raise NotImplementedError(
-                    f"TrainPipeline on a mesh with {tp}: tensor "
-                    "parallelism over 'model' is not yet ported to "
-                    "repro_torch (it is the next slice); use a DATAx1 "
-                    "mesh")
+            if tp and fuse_update is True:
+                raise ValueError(FUSE_ERROR)
+            check_model_parallel(cfg if cfg is not None else model.cfg,
+                                 mesh)
         self.model = model
         self.optimizer = optimizer
         self.cfg = cfg if cfg is not None else model.cfg
@@ -168,6 +183,16 @@ class TrainPipeline:
         self.stats_fn = stats_fn
         self._peak_bytes: Optional[int] = None
         self._card_steps = 0
+        # tensor parallelism: the whole params' shapes (a meta init,
+        # ``whole_params``) and one LeafSharding a leaf; None without a
+        # model axis above 1
+        self._tp = collectives.model_parallel(mesh)
+        self.whole_params = self.param_shardings = None
+        if self._tp is not None:
+            self.whole_params = model.init(torch.Generator(), "meta")
+            self.param_shardings = param_shardings(self.cfg,
+                                                   self.whole_params,
+                                                   mesh)
 
     def mesh_context(self):
         """``with pipe.mesh_context():`` makes the pipeline's mesh the
@@ -196,24 +221,50 @@ class TrainPipeline:
             return create_train_state(
                 self.model, self.optimizer, generator, device=device,
                 packed=self.packed, precision=self.precision,
-                zero_shards=self._zero_shards)
+                zero_shards=self._zero_shards, mesh=self.mesh)
 
     def place_state(self, state: TrainState) -> TrainState:
         """A (host or restored) state on the mesh's device, each ZeRO slot
-        cut to this rank's row shard; the state as it is without a
-        mesh."""
+        cut to this rank's row shard and, on a tensor-parallel mesh,
+        each whole param cut to this rank's block; the state as it is
+        without a mesh."""
         if self.mesh is None:
             return state
         dev = self.mesh.device
         opt = state.opt_state
         move = lambda t: t.to(dev)                          # noqa: E731
+        params = tree_map(move, state.params)
+        if self._tp is not None:
+            params = tree_map(
+                lambda x, w, sh: shard_leaf(x, sh)
+                if tuple(x.shape) == tuple(w.shape) else x,
+                params, self.whole_params, self.param_shardings)
         with self.mesh:
             slots = {k: packing.constrain_rows(opt.layout, move(v))
                      if opt.layout is not None else tree_map(move, v)
                      for k, v in opt.slots.items()}
-        return TrainState(params=tree_map(move, state.params),
+        return TrainState(params=params,
                           opt_state=type(opt)(step=opt.step, slots=slots,
                                               layout=opt.layout))
+
+    def save(self, path: str, state: TrainState) -> None:
+        """``save_train_state`` under the pipeline's mesh: a ZeRO state's
+        rows and a tensor-parallel state's params and tree slots are
+        gathered first (collective: every rank calls it; rank 0
+        writes, and every rank returns once the file is there)."""
+        from repro_torch.checkpoint import save_train_state
+        with self.mesh_context():
+            save_train_state(path, state, shardings=self.param_shardings)
+        for axis in ("model", "data"):
+            collectives.barrier(self.mesh, axis)
+
+    def restore(self, path: str, template: TrainState) -> TrainState:
+        """``restore_train_state`` under the pipeline's mesh: each rank
+        keeps its ZeRO rows and its blocks of the split leaves."""
+        from repro_torch.checkpoint import restore_train_state
+        with self.mesh_context():
+            return restore_train_state(path, template,
+                                       shardings=self.param_shardings)
 
     def batch_specs(self, global_batch: int):
         """PartitionSpecs a host loader should place batches with."""
@@ -310,7 +361,8 @@ class TrainPipeline:
             reduce = batch.sharded
         batch = cast_floats(batch, self.precision.compute_dtype)
         layout = state.opt_state.layout
-        can_fuse = k > 1 and layout is not None
+        # never on a model axis above 1: the gradients are blocks there
+        can_fuse = k > 1 and layout is not None and self._tp is None
         if self.fuse_update is True and not can_fuse:
             raise ValueError(FUSE_ERROR)
         # "auto" fuses off-mesh and in ZeRO mode, as the reference's does
@@ -359,6 +411,11 @@ class TrainPipeline:
             grads = PackedGrads(gsum * inv) if fuse \
                 else tree_map(lambda g: g * inv, gsum)
             loss, aux_loss = lsum * inv, asum * inv
+        shardings = self.param_shardings
+        if shardings is not None and layout is not None:
+            # the global packed state takes whole leaves: one all-gather
+            # over model of each split leaf's gradient, once a step
+            grads = gather_params(grads, shardings)
         if reduce:
             grads = self._reduce_grads(grads, layout)
             both = collectives.all_reduce_sum(torch.stack(
@@ -373,9 +430,19 @@ class TrainPipeline:
                 layout, packing.gather_rows(layout, grads.buf),
                 dtype=torch.float32) \
                 if isinstance(grads, PackedGrads) else grads
-            stats = self.stats_fn(state.params, stat_grads, stacked)
-        state, metrics = apply_update(self.optimizer, state, grads, loss,
-                                      aux_loss, stacked)
+            stat_params = state.params
+            if shardings is not None:
+                # whole leaves, as the reference's step reads them
+                stat_params = gather_params(stat_params, shardings)
+                if layout is None:
+                    stat_grads = gather_params(stat_grads, shardings)
+            stats = self.stats_fn(stat_params, stat_grads, stacked)
+        state, metrics = apply_update(
+            self.optimizer, state, grads, loss, aux_loss, stacked,
+            shardings if layout is None else None)
+        if shardings is not None and layout is not None:
+            state = state._replace(params=shard_params(state.params,
+                                                       shardings))
         if stats is not None:
             metrics["stats"] = stats
         return state, metrics

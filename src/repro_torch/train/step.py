@@ -9,6 +9,11 @@ caller's choice. The batch's contents follow the family:
   vlm      {"tokens", "image_embeddings"}  prefix-LM loss mask
   encdec   {"tokens", "frames"}            teacher-forced decoder loss
 
+Under an ambient mesh whose ``model`` axis has more than one rank
+(tensor parallelism; the dense family) params are this rank's shards,
+the logits this rank's block of the vocabulary where the unembedding is
+split, and the loss vocab-parallel; evaluation gathers the logits.
+
 With ``loss_chunk > 0`` the LM's loss runs chunked over the sequence
 (:func:`~repro_torch.train.losses.chunked_lm_loss`) and the step returns
 no logits; evaluation always takes the whole logits. The encdec family
@@ -23,6 +28,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.constrain import current_mesh
 from repro_torch.train.losses import (chunked_lm_loss, classification_loss,
                                       lm_loss)
 from repro_torch.train.metrics import accuracy
@@ -61,15 +68,27 @@ def _forward_and_loss(model, cfg, params, batch):
         text_logits = logits[:, n_img:]
         loss = lm_loss(text_logits, batch["tokens"])
         return loss + aux["aux_loss"], (text_logits, aux)
+    tp = collectives.model_parallel(current_mesh())
     if cfg.loss_chunk:
         hidden, aux = model.forward(params, batch["tokens"],
                                     return_hidden=True)
-        loss = chunked_lm_loss(hidden, model.unembed_matrix(params),
-                               batch["tokens"], chunk=cfg.loss_chunk)
+        w = model.unembed_matrix(params)
+        loss = chunked_lm_loss(hidden, w, batch["tokens"],
+                               chunk=cfg.loss_chunk,
+                               tp=_vocab_split(cfg, w.shape[1], tp))
         return loss + aux["aux_loss"], (None, aux)
     logits, aux = model.forward(params, batch["tokens"])
-    loss = lm_loss(logits, batch["tokens"])
+    loss = lm_loss(logits, batch["tokens"],
+                   tp=_vocab_split(cfg, logits.shape[-1], tp))
     return loss + aux["aux_loss"], (logits, aux)
+
+
+def _vocab_split(cfg, vocab: int, tp):
+    """``tp`` where the logits hold only its rank's block of the
+    vocabulary (``vocab`` columns of ``cfg.vocab_size``), else None."""
+    split = tp is not None and cfg.family != "cnn" \
+        and vocab != cfg.vocab_size
+    return tp if split else None
 
 
 def value_and_grad(model, cfg, params: Pytree, batch
@@ -86,13 +105,15 @@ def value_and_grad(model, cfg, params: Pytree, batch
 
 
 def apply_update(optimizer, state: TrainState, grads, loss, aux_loss,
-                 stacked) -> tuple[TrainState, dict]:
+                 stacked, shardings=None) -> tuple[TrainState, dict]:
     """One optimizer update from the step's gradients (a tree, or
     ``PackedGrads``), and the step's metrics. ``stacked`` is the marker
     the update gets (``None``: none, as the reference's
-    ``TrainPipeline(packed=False)`` passes)."""
+    ``TrainPipeline(packed=False)`` passes); ``shardings``: a tree
+    state's leaf shardings on a tensor-parallel mesh."""
+    kw = {} if shardings is None else {"shardings": shardings}
     new_params, new_opt = optimizer.update(
-        grads, state.opt_state, state.params, stacked=stacked)
+        grads, state.opt_state, state.params, stacked=stacked, **kw)
     metrics = {"loss": loss, "aux_loss": aux_loss, "step": new_opt.step}
     return TrainState(new_params, new_opt), metrics
 
@@ -130,6 +151,9 @@ def make_eval_step(model, cfg=None) -> Callable:
         batch = {k: v.to(dt) if v.is_floating_point() else v
                  for k, v in batch.items()}
         loss, (logits, _) = _forward_and_loss(model, cfg, params, batch)
+        tp = collectives.model_parallel(current_mesh())
+        if _vocab_split(cfg, logits.shape[-1], tp) is not None:
+            logits = collectives.all_gather_dim(logits, tp, -1)
         if cfg.family == "cnn":
             acc = accuracy(logits, batch["y"])
         else:

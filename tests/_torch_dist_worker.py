@@ -236,11 +236,14 @@ def fuse_rules(*, steps: int = 10) -> dict:
     """``fuse_update=True`` on a (world, 1) mesh runs (ZeRO, 4 microbatches)
     and tracks the unfused replicated step, as the reference's
     ``_fused_zero_check``; on a (world/2, 2) mesh it raises ValueError,
-    and without it a model axis of 2 raises NotImplementedError."""
+    and ``"auto"`` trains LeNet there unfused (``model_parallel``: the
+    losses and a digest of the final params, beside the same run on a
+    (world/2, 1) mesh of the leading ranks)."""
     import torch
     from repro_torch.data import synthetic_mnist
     from repro_torch.launch.mesh import mesh_from_spec, world
     from repro_torch.train import TrainPipeline
+    from repro_torch.treepath import tree_leaves
     _, size = world()
     mesh = mesh_from_spec(f"{size}x1", device="cpu")
     cfg, model, _ = _lenet()
@@ -259,7 +262,8 @@ def fuse_rules(*, steps: int = 10) -> dict:
             run.append(float(m["loss"]))
         losses[name] = run
     mp = mesh_from_spec(f"{size // 2}x2", device="cpu")
-    raised = {}
+    half = mesh_from_spec(f"{size // 2}x1", device="cpu")
+    raised, runs = {}, {}
     for fuse in (True, "auto"):
         try:
             TrainPipeline(model, _optimizer("lars", 0.05), cfg,
@@ -267,7 +271,21 @@ def fuse_rules(*, steps: int = 10) -> dict:
             raised[str(fuse)] = None
         except (ValueError, NotImplementedError) as e:
             raised[str(fuse)] = (type(e).__name__, str(e))
-    return {"losses": losses, "raised": raised}
+    for name, mesh in ((f"{size // 2}x2", mp), (f"{size // 2}x1", half)):
+        if mesh is None:                    # a rank past the (W/2, 1) mesh
+            continue
+        pipe = TrainPipeline(model, _optimizer("lars", 0.05), cfg,
+                             accum_steps=2, mesh=mesh)
+        state = pipe.init_state(torch.Generator().manual_seed(7))
+        run = []
+        for i in range(5):
+            lo = (i * 128) % 256
+            state, m = pipe(state, {"x": torch.from_numpy(x[lo:lo + 128]),
+                                    "y": torch.from_numpy(y[lo:lo + 128])})
+            run.append(float(m["loss"]))
+        runs[name] = {"losses": run, "params": [
+            _np(t).tobytes() for t in tree_leaves(state.params)]}
+    return {"losses": losses, "raised": raised, "model_parallel": runs}
 
 
 def zero_smoke(*, out_dir: str, abort_after: int = 0, resume: bool = False,
@@ -293,8 +311,206 @@ def zero_smoke(*, out_dir: str, abort_after: int = 0, resume: bool = False,
         return {"interrupted": True}
 
 
+def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
+    """One tensor-parallelism run (``tests/test_torch_tensor_parallel.
+    py``): a reduced dense LM from the reference's ``init`` (numpy; the
+    port's seed-0 init with ``run["port_init"]``) for
+    ``run["steps"]`` LARS steps on ``tokens`` through TrainPipeline on
+    ``mesh`` (``None``: the port alone, no process group). ``run`` names
+    the arch and the pipeline's options. Returns the losses, the whole
+    final params (gathered; on model rank 0 of data row 0 only), a digest
+    of every replicated leaf, the trust ratios the update applied on the
+    last step (``lars_trust_ratio`` recorded) and the LARS kernel
+    wrappers called each step with their buffers' rows."""
+    import dataclasses
+    import hashlib
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.core import lars
+    from repro_torch.core import trust_ratio as tr
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainPipeline, train_state_from_params
+    from repro_torch.treepath import tree_flatten_with_path, tree_leaves
+    cfg = dataclasses.replace(get_config(run["arch"]).reduced(),
+                              **run.get("changes", {}))
+    model = build_model(cfg)
+    opt = lars(run.get("lr", 0.05), trust_coefficient=0.01,
+               slot_dtype=run.get("slots", "f32"))
+    zero = run.get("zero", False) and mesh is not None
+    pipe = TrainPipeline(model, opt, cfg, accum_steps=run.get("accum", 2),
+                         precision=run.get("precision", "f32"), mesh=mesh,
+                         zero=zero, packed=run.get("packed", True),
+                         donate=False)
+    with pipe.mesh_context():
+        state = train_state_from_params(
+            model, opt, model.init(torch.Generator().manual_seed(0), "cpu")
+            if run.get("port_init") else
+            bridge.lm_params_to_torch(init, model),
+            precision=pipe.precision, packed=pipe.packed,
+            zero_shards=pipe._zero_shards, mesh=mesh)
+    if ckpt_dir:
+        pipe.save(os.path.join(ckpt_dir, run["tag"] + "-init.npz"), state)
+    # the bridge's cut of the reference's init is the state's blocks
+    bridged = None
+    if mesh is not None and not run.get("port_init") \
+            and pipe.precision.compute_dtype is None:
+        bridged = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(bridge.params_to_mesh(init, model, mesh)),
+            tree_leaves(state.params)))
+    seen, ratios = [], []
+    kernels = ("norms_flat", "apply_flat", "apply_flat_q8")
+    saved = {k: getattr(lk, k) for k in kernels}
+    saved_trust = tr.lars_trust_ratio
+
+    def trust(*a, **kw):
+        out = saved_trust(*a, **kw)
+        ratios.append(out.detach().reshape(-1).numpy().copy())
+        return out
+
+    for k, inner in saved.items():
+        def wrapped(w2, *a, _k=k, _f=inner, **kw):
+            seen[-1].append((_k, int(w2.shape[0])))
+            return _f(w2, *a, **kw)
+        setattr(lk, k, wrapped)
+    tr.lars_trust_ratio = trust
+    losses = []
+    try:
+        for _ in range(run.get("steps", 2)):
+            seen.append([])
+            ratios.clear()
+            state, m = pipe(state, {"tokens": torch.from_numpy(tokens)})
+            losses.append(float(m["loss"]))
+    finally:
+        for k, fn in saved.items():
+            setattr(lk, k, fn)
+        tr.lars_trust_ratio = saved_trust
+    shardings = pipe.param_shardings
+    split = {} if shardings is None else {
+        p: sh.split for p, sh in tree_flatten_with_path(shardings)[0]}
+    replicated = {"/".join(p): hashlib.sha256(_np(x).tobytes()).hexdigest()
+                  for p, x in tree_flatten_with_path(state.params)[0]
+                  if not split.get(p)}
+    whole = _tree_np(state.params) if shardings is None else \
+        bridge.params_from_mesh(state.params, model, mesh)
+    restored = None
+    if ckpt_dir:
+        path = os.path.join(ckpt_dir, run["tag"] + ".npz")
+        pipe.save(path, state)
+        back = pipe.restore(path, pipe.init_state(
+            torch.Generator().manual_seed(1), "cpu"))
+        restored = back.opt_state.step == state.opt_state.step and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves({"p": back.params, "s": back.opt_state.slots}),
+                tree_leaves({"p": state.params,
+                             "s": state.opt_state.slots})))
+    first = mesh is None or mesh.rank == 0
+    return {"losses": losses, "params": whole if first else None,
+            "replicated": replicated, "ratios": list(ratios),
+            "kernels": seen,
+            "local": {"/".join(p): tuple(x.shape) for p, x in
+                      tree_flatten_with_path(state.params)[0]},
+            "rows": None if state.opt_state.layout is None else
+            int(state.opt_state.slots["momentum"].shape[0]),
+            "restored": restored, "bridged": bridged}
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tp_units(mesh) -> dict:
+    """Tensor parallelism's pieces alone against the plain functions on
+    this rank, as max gaps relative to the plain result's largest
+    magnitude: the vocab-parallel NLL (value and gradient) and attention
+    blocks whose heads the model axis does not split evenly (output, the
+    input's gradient and every param's gathered gradient)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (gather_params,
+                                                  param_shardings,
+                                                  shard_params)
+    from repro_torch.models import attention as A
+    from repro_torch.train.losses import softmax_cross_entropy
+    from repro_torch.treepath import tree_leaves
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    logits = torch.randn(2, 6, 16, generator=g) * 3
+    labels = torch.randint(0, 16, (2, 6), generator=g)
+    whole = logits.clone().requires_grad_(True)
+    plain = softmax_cross_entropy(whole, labels)
+    plain.backward()
+    local = C.split_dim(logits, mesh, -1).clone().requires_grad_(True)
+    vp = softmax_cross_entropy(local, labels, tp=mesh)
+    vp.backward()
+    out["nll"] = (_rel(vp, plain), _rel(local.grad, C.split_dim(
+        whole.grad, mesh, -1)))
+    # 3 heads over 2 ranks (every head computed whole, q/k norms and
+    # biases too); 6 heads on 3 KV heads (this rank's heads, the KV heads
+    # gathered and taken one per query head)
+    base = get_config("qwen3-14b").reduced()
+    for name, ch in (("heads_3", dict(num_heads=3, num_kv_heads=3,
+                                      qkv_bias=True)),
+                     ("heads_6_kv_3", dict(num_heads=6, num_kv_heads=3,
+                                           head_dim=16))):
+        cfg = dataclasses.replace(base, **ch)
+        p = A.init_attention(torch.Generator().manual_seed(6), cfg,
+                             cfg.d_model, torch.float32, "cpu")
+        if cfg.qkv_bias:
+            p = {k: v + 0.1 * torch.randn(v.shape, generator=g)
+                 if k.startswith("b") else v for k, v in p.items()}
+        sh = param_shardings(cfg, p, mesh)
+        x = torch.randn(2, 5, cfg.d_model, generator=g)
+        cot = torch.randn(2, 5, cfg.d_model, generator=g)
+        pos = torch.arange(5)
+        pw = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xw = x.clone().requires_grad_(True)
+        y = A.attention_block(cfg, pw, xw, pos)
+        (y * cot).sum().backward()
+        pl = {k: v.clone().requires_grad_(True)
+              for k, v in shard_params(p, sh).items()}
+        xl = x.clone().requires_grad_(True)
+        yl = A.attention_block(cfg, pl, xl, pos, tp=mesh)
+        (yl * cot).sum().backward()
+        grads = gather_params({k: v.grad for k, v in pl.items()}, sh)
+        out[name] = {
+            "out": _rel(yl, y),
+            "x_grad": _rel(xl.grad, xw.grad),
+            "param_grads": max(_rel(a, b.grad) for a, b in
+                               zip(tree_leaves(grads), tree_leaves(pw))),
+            "split": sorted(k for k, v in pl.items()
+                            if v.shape != p[k].shape)}
+    return out
+
+
+def tensor_parallel(*, runs, inits, tokens, ckpt_dir: str = "",
+                    units: bool = False) -> dict:
+    """Every run of ``runs`` on its mesh (``run["mesh"]``, ``DxM`` over
+    the leading ranks; the meshes built once each, in order, on every
+    rank), from ``inits[run["arch"]]``: :func:`tp_run`'s result by tag
+    (nothing for a rank past a run's mesh); with ``units``,
+    :func:`tp_units` on a ``1xW`` mesh under ``"units"``."""
+    from repro_torch.launch.mesh import mesh_from_spec, world
+    meshes, out = {}, {}
+    if units:
+        out["units"] = tp_units(mesh_from_spec(f"1x{world()[1]}",
+                                               device="cpu"))
+    for run in runs:
+        if run["mesh"] not in meshes:
+            meshes[run["mesh"]] = mesh_from_spec(run["mesh"], device="cpu")
+        mesh = meshes[run["mesh"]]
+        if mesh is not None:
+            out[run["tag"]] = tp_run(run, inits[run["arch"]], tokens, mesh,
+                                     ckpt_dir if run.get("ckpt") else "")
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (zero_vs_replicated, golden, fuse_rules,
-                                      zero_smoke)}
+                                      zero_smoke, tensor_parallel)}
 
 
 def _main(scenario: str, rank: int, size: int, tmp: str) -> None:

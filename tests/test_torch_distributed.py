@@ -236,8 +236,9 @@ def test_ambient_mesh_and_identity_constraints():
 def test_row_sharding_takes_this_ranks_block():
     """A spec on rank 2 of a (4, 1) mesh (built by hand: no process group
     here) holds rows [2n/4, 3n/4) of a split batch and every row of a
-    replicated one; a split past dim 0 over a larger axis is tensor
-    parallelism, refused."""
+    replicated one; a split past dim 0 over a larger axis (tensor
+    parallelism) cuts that dim: rank (1, 1) of a (2, 2) mesh holds the
+    second half of a leaf's columns."""
     mesh = port_mesh.Mesh(shape={"data": 4, "model": 1},
                           coords={"data": 2, "model": 0}, groups={},
                           device=torch.device("cpu"))
@@ -255,8 +256,29 @@ def test_row_sharding_takes_this_ranks_block():
                           device=torch.device("cpu"))
     assert sharding.named(wide, sharding.P(("data",), None)).rows(8) == \
         slice(4, 8)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        sharding.named(wide, sharding.P(None, "model"))
+    cols = sharding.named(wide, sharding.P(None, "model"))
+    leaf = torch.arange(24.0).reshape(3, 8)
+    assert torch.equal(cols.shard(leaf), leaf[:, 4:])
+    assert cols.split and not cols.sharded
+    assert cols.whole_shape((3, 4)) == (3, 8)
+
+
+def test_model_axis_refuses_the_families_not_yet_split():
+    """On a model axis above 1 a MoE config (and every other family but
+    the dense one and LeNet) raises naming queue 1 item 4b-ii; the mesh
+    is built by hand (constructing the pipeline sends nothing)."""
+    from repro_torch.train import TrainPipeline
+    mesh = port_mesh.Mesh(shape={"data": 1, "model": 2},
+                          coords={"data": 0, "model": 1}, groups={},
+                          device=torch.device("cpu"))
+    for arch in ("granite-moe-3b-a800m", "deepseek-v2-236b",
+                 "falcon-mamba-7b", "whisper-base"):
+        cfg = get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match="4b-ii"):
+            TrainPipeline(build_model(cfg), lars(0.01), cfg, mesh=mesh)
+    cfg = get_config("smollm-135m").reduced()
+    pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg, mesh=mesh)
+    assert pipe.param_shardings["embed"].parts == (2, 1)
 
 
 # ------------------------------------------------------ four CPU ranks
@@ -304,9 +326,14 @@ def test_fuse_update_true_runs_on_a_data_mesh(four_ranks):
 
 
 def test_fuse_update_true_raises_on_a_model_parallel_mesh(four_ranks):
+    """``True`` raises the reference's ValueError on a (2, 2) mesh;
+    ``"auto"`` runs LeNet there unfused (every LeNet spec replicated),
+    bit-identical to its (2, 1) run on the first two ranks."""
     _, fuse = four_ranks
     for rank in fuse:
         kind, msg = rank["raised"]["True"]
         assert kind == "ValueError" and "pure data-parallel" in msg
-        kind, msg = rank["raised"]["auto"]
-        assert kind == "NotImplementedError" and "next slice" in msg
+        assert rank["raised"]["auto"] is None
+        assert rank["model_parallel"]["2x2"] == fuse[0]["model_parallel"][
+            "2x1"]
+    assert len(fuse[0]["model_parallel"]["2x2"]["losses"]) == 5

@@ -250,12 +250,16 @@ def test_pipeline_refuses_what_it_cannot_do():
     opt = _opt("lars")
     from repro_torch.launch.mesh import Mesh
     # a (1, 2) mesh, built by hand (this process is one rank): tensor
-    # parallelism is not yet ported; data-parallel meshes and ZeRO are
-    # (tests/test_torch_zero.py, tests/test_torch_distributed.py)
+    # parallelism is ported for LeNet (every spec replicated) and the
+    # dense LMs (tests/test_torch_tensor_parallel.py), not yet for the
+    # other families
     tp = Mesh(shape={"data": 1, "model": 2}, coords={"data": 0, "model": 0},
               groups={}, device=torch.device("cpu"))
+    pipe = TrainPipeline(MODEL, opt, CFG, mesh=tp)
+    assert not any(sh.split for sh in tree_leaves(pipe.param_shardings))
+    moe = get_config("granite-moe-3b-a800m").reduced()
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TrainPipeline(MODEL, opt, CFG, mesh=tp)
+        TrainPipeline(build_model(moe), opt, moe, mesh=tp)
     with pytest.raises(TypeError, match="Mesh"):
         TrainPipeline(MODEL, opt, CFG, mesh=object())
     with pytest.raises(ValueError, match="requires a mesh"):

@@ -1,0 +1,340 @@
+"""Tensor parallelism over ``model`` for the dense LM family in the
+port, on gloo CPU ranks (tests/_torch_dist_worker.py), against the
+reference's single-device ``TrainPipeline`` and the port's own run
+without a mesh.
+
+qwen3-14b, smollm-135m and qwen2-72b reduced (f32) start from the
+reference's init (``bridge``) and take 2 LARS steps of 2 microbatches
+on one (8, 32) token batch: on ``1x2`` (two ranks) and on ``2x2`` (four
+ranks) with ZeRO on and off. Each run is held against the reference's
+pipeline at the reference's own mesh tolerances (tests/test_pipeline.py:
+284-289: loss rtol 2e-4 / atol 2e-5, params rtol 5e-3 / atol 5e-4) and
+against the port's run alone at tighter ones measured here; the trust
+ratios the update applied against the run alone's; every replicated
+leaf bit-identical across the ranks; one ``norms_flat`` and one apply a
+rank a step, on the global rows or the ZeRO shard. On ``1x2`` smollm
+also runs bf16, int8 slots, a tree state (f32 and int8), the chunked
+loss, two-level remat and 3 heads over 2 ranks (non-aligned), each
+against the port's run alone; the vocab-parallel loss and non-aligned
+attention blocks are held alone against the plain functions; and
+checkpoints saved on ``1x2`` are the ``1x1`` files, which both packages
+restore.
+
+One spawn of 2 ranks and one of 4 serve every test (module fixtures).
+"""
+
+import threading
+import zipfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref_core
+from repro.checkpoint import restore_train_state as ref_restore
+from repro.configs import get_config as ref_get_config
+from repro.models import build_model as ref_build_model
+from repro.train import TrainPipeline as RefPipeline
+from repro_torch.checkpoint import restore_train_state, save_train_state
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.train import TrainPipeline
+from repro_torch.treepath import tree_flatten_with_path
+import _torch_dist_worker as worker
+from _torch_threads import one_torch_thread  # noqa: F401
+
+ARCHS = ("qwen3-14b", "smollm-135m", "qwen2-72b")
+STEPS, ACCUM, BATCH, SEQ = 2, 2, 8, 32
+# the reference's own tolerances for its (4, 2)-mesh pipeline against
+# its single-device pipeline (tests/test_pipeline.py:284-289)
+REF_LOSS = dict(rtol=2e-4, atol=2e-5)
+REF_PARAMS = dict(rtol=5e-3, atol=5e-4)
+# the port's mesh runs against its run alone, f32: measured at most
+# 1.2e-7 on a param (the split products re-bracket their sums: no bit
+# identity), one ulp on a loss, 3.2e-7 relative on a trust ratio
+PORT_LOSS = dict(rtol=1e-6, atol=0)
+PORT_PARAMS = dict(rtol=1e-5, atol=1e-6)
+PORT_TRUST_RTOL = 1e-5
+# int8 slots: one momentum code step moves a weight by lr * scale
+# (measured 2.9e-6 on a tree state, 1.4e-6 packed)
+INT8_PARAMS = dict(rtol=1e-4, atol=2e-5)
+# bf16: the partial products are summed over the ranks in bf16, as the
+# reference's GSPMD sums them (measured 4.9e-4 on a param after 2
+# steps, 1.7e-3 relative on a trust ratio, 6e-5 relative on a loss)
+BF16_LOSS = dict(rtol=1e-4, atol=0)
+BF16_PARAMS = dict(rtol=1e-2, atol=2e-3)
+BF16_TRUST_RTOL = 1e-2
+
+TWO = [dict(tag=f"{a}-1x2", arch=a, mesh="1x2",
+            ckpt=a == "smollm-135m") for a in ARCHS] + [
+    dict(tag="bf16", arch="smollm-135m", mesh="1x2", precision="bf16"),
+    dict(tag="int8", arch="smollm-135m", mesh="1x2", slots="int8"),
+    dict(tag="tree", arch="smollm-135m", mesh="1x2", packed=False,
+         ckpt=True),
+    dict(tag="tree-int8", arch="smollm-135m", mesh="1x2", packed=False,
+         slots="int8"),
+    dict(tag="loss_chunk", arch="smollm-135m", mesh="1x2",
+         changes={"loss_chunk": 8}),
+    dict(tag="remat_block", arch="smollm-135m", mesh="1x2",
+         changes={"remat_block": 1}),
+    dict(tag="heads_3", arch="smollm-135m", mesh="1x2", port_init=True,
+         changes={"num_heads": 3, "num_kv_heads": 1})]
+FOUR = [dict(tag=f"{a}-2x2-{'zero' if z else 'repl'}", arch=a, mesh="2x2",
+             zero=z) for a in ARCHS for z in (True, False)]
+RUNS = {r["tag"]: r for r in TWO + FOUR}
+
+
+def _tokens(cfg) -> np.ndarray:
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+
+
+def _leaves(tree) -> dict:
+    return {"/".join(p): np.asarray(x, np.float32)
+            for p, x in tree_flatten_with_path(tree)[0]}
+
+
+def _reference_init(arch):
+    cfg = ref_get_config(arch).reduced()
+    pipe = RefPipeline(ref_build_model(cfg),
+                       ref_core.lars(0.05, trust_coefficient=0.01,
+                                     use_pallas=False),
+                       cfg, accum_steps=ACCUM, donate=False)
+    return pipe, pipe.init_state(jax.random.key(0)), _tokens(cfg)
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """Everything the tests read, made once: the two spawns (two ranks:
+    TWO, the units and checkpoints; four ranks: FOUR) run in threads
+    while this process runs, per arch, the reference's single-device
+    pipeline (``reference``: its init, tokens, losses and final params
+    after STEPS steps of ACCUM microbatches) and then the port's run
+    alone of every run (``alone``: no mesh, no process group; its
+    checkpoints in ``alone["_dir"]``)."""
+    tmp = tmp_path_factory.mktemp("tp")
+    (tmp / "ckpt").mkdir()
+    setup = {a: _reference_init(a) for a in ARCHS}
+    inits = {a: jax.tree_util.tree_map(np.asarray, st.params)
+             for a, (_, st, _) in setup.items()}
+    toks = setup[ARCHS[0]][2]
+    assert all((t == toks).all() for _, _, t in setup.values())
+    ranks = {"ckpt": tmp / "ckpt"}
+    spawns = [threading.Thread(target=lambda key, n, kw: ranks.__setitem__(
+        key, worker.spawn("tensor_parallel", n, tmp / key, runs=kw.pop(
+            "runs"), inits=inits, tokens=toks, **kw)), args=args)
+        for args in (("two", 2, dict(runs=TWO, units=True,
+                                     ckpt_dir=str(tmp / "ckpt"))),
+                     ("four", 4, dict(runs=FOUR)))]
+    for t in spawns:
+        t.start()
+    try:
+        reference = {}
+        for arch, (pipe, state, _) in setup.items():
+            losses = []
+            for _ in range(STEPS):
+                state, m = pipe(state, {"tokens": jnp.asarray(toks)})
+                losses.append(float(m["loss"]))
+            reference[arch] = {"losses": losses, "template": state,
+                               "params": jax.tree_util.tree_map(
+                                   np.asarray, state.params)}
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        alone, done = {"_dir": tmp / "alone"}, {}
+        alone["_dir"].mkdir()
+        for tag, run in RUNS.items():
+            # a run's mesh and ZeRO do not change the run alone
+            key = repr(sorted((k, v) for k, v in run.items()
+                              if k not in ("tag", "mesh", "zero")))
+            if key not in done:
+                done[key] = worker.tp_run(
+                    run, inits[run["arch"]], toks,
+                    ckpt_dir=str(alone["_dir"]) if run.get("ckpt") else "")
+            alone[tag] = done[key]
+        torch.set_num_threads(threads)
+    finally:
+        for t in spawns:
+            t.join()
+    assert "two" in ranks and "four" in ranks, "a spawn failed"
+    return reference, alone, ranks
+
+
+@pytest.fixture(scope="module")
+def reference(results):
+    return results[0]
+
+
+@pytest.fixture(scope="module")
+def alone(results):
+    return results[1]
+
+
+@pytest.fixture(scope="module")
+def ranks(results):
+    return results[2]
+
+
+def _of(ranks, tag) -> list:
+    return [r[tag] for r in ranks["two" if tag in
+                                  {t["tag"] for t in TWO} else "four"]]
+
+
+def _tolerances(tag):
+    run = RUNS[tag]
+    if run.get("precision") == "bf16":
+        return BF16_LOSS, BF16_PARAMS, BF16_TRUST_RTOL
+    if run.get("slots") == "int8":
+        return PORT_LOSS, INT8_PARAMS, PORT_TRUST_RTOL
+    return PORT_LOSS, PORT_PARAMS, PORT_TRUST_RTOL
+
+
+MAIN = [f"{a}-1x2" for a in ARCHS] + [t["tag"] for t in FOUR]
+
+
+@pytest.mark.parametrize("tag", MAIN)
+def test_matches_the_references_single_device_pipeline(reference, ranks,
+                                                       tag):
+    ref = reference[RUNS[tag]["arch"]]
+    got = _of(ranks, tag)[0]
+    np.testing.assert_allclose(got["losses"], ref["losses"], **REF_LOSS)
+    want = _leaves(ref["params"])
+    mine = _leaves(got["params"])
+    assert sorted(mine) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(mine[k], want[k], **REF_PARAMS,
+                                   err_msg=f"{tag}: {k}")
+
+
+@pytest.mark.parametrize("tag", sorted(RUNS))
+def test_matches_the_port_alone(alone, ranks, tag):
+    """Losses (every rank), final params and the trust ratios of the
+    last update against the run without a mesh."""
+    loss_tol, param_tol, trust_rtol = _tolerances(tag)
+    base = alone[tag]
+    for rank in _of(ranks, tag):
+        np.testing.assert_allclose(rank["losses"], base["losses"],
+                                   **loss_tol)
+    got = _of(ranks, tag)[0]
+    want = _leaves(base["params"])
+    for k, v in _leaves(got["params"]).items():
+        np.testing.assert_allclose(v, want[k], **param_tol,
+                                   err_msg=f"{tag}: {k}")
+    assert len(got["ratios"]) == len(base["ratios"]) > 0
+    for a, b in zip(got["ratios"], base["ratios"]):
+        np.testing.assert_allclose(a, b, rtol=trust_rtol, atol=0)
+
+
+@pytest.mark.parametrize("tag", sorted(RUNS))
+def test_replicated_leaves_are_bit_identical_across_ranks(ranks, tag):
+    runs = _of(ranks, tag)
+    assert runs[0]["replicated"]                     # norms at least
+    for rank in runs[1:]:
+        assert rank["replicated"] == runs[0]["replicated"]
+        assert rank["losses"] == runs[0]["losses"]
+
+
+@pytest.mark.parametrize("tag", sorted(RUNS))
+def test_one_norms_and_one_apply_per_step_a_rank(alone, ranks, tag):
+    """Packed: one ``norms_flat`` and one apply a step on every rank, on
+    the global rows (the run alone's) or, with ZeRO over 2 data ranks,
+    half of them; a tree state calls neither."""
+    run = RUNS[tag]
+    apply = "apply_flat_q8" if run.get("slots") == "int8" \
+        else "apply_flat"
+    whole = alone[tag]["rows"]
+    for rank in _of(ranks, tag):
+        if run.get("packed", True) is False:
+            assert rank["kernels"] == [[]] * STEPS
+            continue
+        # ZeRO over 2 data ranks: the rows padded to 2 x 8, halved
+        rows = -(-whole // 16) * 8 if run.get("zero") else whole
+        assert rank["rows"] == rows
+        assert rank["kernels"] == [[("norms_flat", rows),
+                                    (apply, rows)]] * STEPS
+
+
+def test_params_are_this_ranks_blocks(ranks):
+    """smollm reduced on 1x2: heads (4 of 1 KV head: the KV projections
+    split mid-head), the MLP and the tied vocabulary each split over the
+    two ranks; the norms whole. Every f32 run's first state holds the
+    blocks ``bridge.params_to_mesh`` cuts from the reference's init."""
+    for tag, run in RUNS.items():
+        if not run.get("port_init") and run.get("precision") != "bf16":
+            assert all(r["bridged"] for r in _of(ranks, tag)), tag
+    local = ranks["two"][1]["smollm-135m-1x2"]["local"]
+    assert local["embed"] == (256, 288)
+    assert local["layers/attn/wq"] == (2, 288, 144)
+    assert local["layers/attn/wk"] == (2, 288, 36)
+    assert local["layers/attn/wo"] == (2, 144, 288)
+    assert local["layers/mlp/wi"] == (2, 288, 576)
+    assert local["layers/mlp/wo"] == (2, 576, 288)
+    assert local["layers/ln1/scale"] == (2, 288)
+    assert ranks["two"][0]["heads_3"]["local"]["layers/attn/wq"] == \
+        (2, 288, 108)
+
+
+def test_vocab_parallel_loss_matches_the_plain_loss(ranks):
+    for rank in ranks["two"]:
+        value, grad = rank["units"]["nll"]       # relative; measured
+        assert value <= 1e-6 and grad <= 2e-6     # 0 and 3.6e-7
+
+
+@pytest.mark.parametrize("name", ["heads_3", "heads_6_kv_3"])
+def test_non_aligned_heads_match_the_plain_block(ranks, name):
+    """Heads the ranks do not split evenly: the leaves are still stored
+    split; gathered for the product; output and gradients as the plain
+    block's."""
+    for rank in ranks["two"]:
+        got = rank["units"][name]
+        assert got["split"] == (["bk", "bq", "bv", "wk", "wo", "wq", "wv"]
+                                if name == "heads_3"
+                                else ["wk", "wo", "wq", "wv"])
+        # relative to the plain block's largest magnitude; measured
+        # 4.9e-7, 5.6e-7 and 8.5e-7 at most
+        assert got["out"] <= 5e-6
+        assert got["x_grad"] <= 5e-6
+        assert got["param_grads"] <= 5e-6
+
+
+def _npz(path) -> list:
+    with zipfile.ZipFile(path) as z:
+        return [(n, z.read(n)) for n in z.namelist()]
+
+
+@pytest.mark.parametrize("tag", ["smollm-135m-1x2", "tree"])
+def test_checkpoints_saved_on_1x2_are_the_1x1_files(alone, ranks, reference,
+                                                    tmp_path, tag):
+    """The initial state saved on 1x2 is byte-equal to the run alone's;
+    the final state, restored without a mesh and saved again, is the
+    1x2 file byte for byte; each rank restored it into its blocks; and
+    the reference's ``restore_train_state`` reads it."""
+    mesh_dir, one_dir = ranks["ckpt"], alone["_dir"]
+    assert _npz(mesh_dir / f"{tag}-init.npz") == \
+        _npz(one_dir / f"{tag}-init.npz")
+    assert all(r[tag]["restored"] for r in ranks["two"])
+    run = RUNS[tag]
+    cfg = get_config(run["arch"]).reduced()
+    from repro_torch.core import lars
+    pipe = TrainPipeline(build_model(cfg),
+                         lars(0.05, trust_coefficient=0.01), cfg,
+                         accum_steps=ACCUM, packed=run.get("packed", True))
+    template = pipe.init_state(torch.Generator().manual_seed(1), "cpu")
+    state = restore_train_state(str(mesh_dir / f"{tag}.npz"), template)
+    save_train_state(str(tmp_path / "again.npz"), state)
+    assert _npz(tmp_path / "again.npz") == _npz(mesh_dir / f"{tag}.npz")
+    got = _leaves(ranks["two"][0][tag]["params"])
+    for k, v in _leaves(state.params).items():
+        assert np.array_equal(v, got[k])
+    template = reference[run["arch"]]["template"]
+    if not run.get("packed", True):
+        ref_cfg = ref_get_config(run["arch"]).reduced()
+        template = RefPipeline(
+            ref_build_model(ref_cfg), ref_core.lars(
+                0.05, trust_coefficient=0.01, use_pallas=False),
+            ref_cfg, accum_steps=ACCUM, packed=False,
+            donate=False).init_state(jax.random.key(0))
+    back = ref_restore(str(mesh_dir / f"{tag}.npz"), template)
+    for k, v in _leaves(back.params).items():
+        assert np.array_equal(v, got[k])
