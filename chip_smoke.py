@@ -32,7 +32,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
              zero-length rows and NaN rows past each length kept out of
              the output, and timed at the serve shape beside its library
              call, one compiled ``flex_attention`` with the cap as its
-             ``score_mod`` and the lengths as its block mask;
+             ``score_mod`` and the lengths as its block mask; its
+             log-sum-exp instances (``lse=True``: an f32 output and each
+             row's log-sum-exp, what the serving mesh's stripes merge by)
+             at the serve shape (also capped), paligemma's D 256 (the
+             wide kernel) and in f32 against their plain versions (lse
+             within 1e-5 of max(|lse|, 1), -inf on an empty row), three
+             stripes of the serve shape merged against the whole cache's
+             one launch (f32 within 1e-5, bf16 one ulp), NaN past a
+             stripe's lengths kept out, and timed at the serve shape and
+             at a third of the D 128 shape's keys beside the instance
+             without it and SDPA; the rows without lse are printed
+             beside PERF.md's;
 4. main    — ``repro_torch.launch.train``'s ``main`` on the card,
              lenet-mnist at batch 8192 for 20 steps: with LARS (exactly
              one ``norms_flat`` and one ``apply_flat`` launch per step),
@@ -54,7 +65,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 8. serve   — ``repro_torch.launch.serve``'s ``main`` on the card:
              smollm-135m at full width (30 layers, bf16, random weights
              from seed 0), 32 slots of capacity 4096 (a 3.0 GB KV cache),
-             64 requests with prompts of 256-2048 tokens and 32-256 new
+             32 requests (64 until the script needed the time for
+             phase 20) with prompts of 256-2048 tokens and 32-256 new
              tokens, a Poisson arrival every tick: exactly 30
              ``flash_decode`` launches per decode tick and no LARS kernel,
              every request finished with finite logits, the allocator's
@@ -143,7 +155,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
              same seed-0 init, the share of dropped slots at layer 0 for
              the first batch and a profiled f32 LARS step;
              ``launch.serve.main`` at full width and the same 2 layers
-             (bf16), phase 8's 64 requests over 32 slots of capacity 4096:
+             (bf16), phase 8's 32 requests over 32 slots of capacity 4096:
              2 ``flash_decode`` launches per decode tick, none in
              admission, finite logits; reduced granite that drops slots
              (8 experts, top-2, capacity factor 0.5) in f32: 20 LARS
@@ -305,11 +317,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
              printed; (b) ``launch.train --mesh 1x1 --zero`` on reduced
              smollm (a cut in width: the full width's time goes to two
              1.6 GB checkpoints) under ``torchrun --standalone
-             --nproc-per-node 1`` (NCCL), after (a), beside the runs
-             alone, which time nothing: its checkpoint equal, member
-             for member, to the same run's without a mesh; (c) tensor
-             parallelism: three ranks on the card (``--tp-rank R 3
-             DIR``, gloo, started once (a) has ended), a ``1x3`` mesh,
+             --nproc-per-node 1`` (NCCL), started with (a)'s and (c)'s
+             ranks: its checkpoint equal, member for member, to the
+             same run's without a mesh; (c) tensor parallelism: three
+             ranks on the card (``--tp-rank R 3 DIR``, gloo, started
+             with (a)'s, so each mesh's step ms is taken beside the
+             other's processes), a ``1x3`` mesh,
              smollm-135m at full width and depth (every attention, MLP
              and vocabulary split head-aligned over 3), (a)'s smollm
              run: the ranks' losses equal, every replicated leaf
@@ -322,8 +335,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
              host-staged copies and each rank's peak against the run
              alone's printed; (d) ``norms_flat``, ``apply_flat`` and
              ``apply_flat_q8`` timed as in phase 3 on a shard's rows:
-             smollm-135m's 131,576 and qwen3-14b's 2,164,536. The
-             phases' wall times are printed at the end.
+             smollm-135m's 131,576 and qwen3-14b's 2,164,536; (e) the
+             serving mesh in (c)'s ranks after their training:
+             ``launch.serve --mesh 1x3`` on reduced smollm (f32, a
+             48-row cache: prompts span its stripes; greedy tokens
+             identical to the run alone on the card) and on smollm-135m
+             whole (bf16, 32 slots of 1,536 rows, 512 a stripe, 32
+             requests of 520-1,450 prompt tokens, 8 new): every request
+             finished with finite logits, 30 ``flash_decode`` launches a
+             tick a rank (the lse instance on its stripe) and none
+             outside the ticks, the ranks' scheduler digests and tokens
+             equal; the share of requests whose tokens equal the run
+             alone's, tick ms, the share of a tick in collectives, bytes
+             a tick and the peaks printed. The phases' wall times are
+             printed at the end.
 
 From phase 13 on, a model's seeded init is drawn once per phase and
 shared by its training runs, sessions and serving (``shared_inits``:
@@ -382,7 +407,8 @@ CKPT_STEPS = 10
 # flash_decode: (B, S, Hkv, G, D, lengths) timed in bf16 — the serve
 # path's shape (lengths drawn in 1..S) and decode_32k's D = 128 GQA shape
 FD_SHAPES = [(32, 4096, 3, 3, 64, "drawn"), (8, 32768, 8, 5, 128, "full")]
-FD_CALLS = {448: 50, 1500: 20, 4096: 20, 32768: 5}   # calls per timed graph
+FD_CALLS = {448: 50, 1500: 20, 4095: 20, 4096: 20, 10923: 10,
+            32768: 5}                          # calls per timed graph
 # the kernel sums in another order than its plain version (an online
 # rescale per tile of keys, a merge of warps and of splits): f32 agrees to a few ulp of values of order
 # one; bf16 outputs round the same f32 result, so one bf16 ulp (2^-7
@@ -392,8 +418,36 @@ FD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-6)}
 # D 64, 128 and 256 (G 3, 5 and 8), and timed at the serve shape
 SOFTCAP = 30.0
 FD_CAP_SHAPES = [(64, 3, 3), (128, 8, 5), (256, 1, 8)]
+# flash_decode's log-sum-exp instances (the serving mesh runs them on
+# each rank's stripe of the KV cache): held against their plain versions
+# (out at FD_TOL, lse at FD_LSE_RTOL of max(|lse|, 1), -inf exactly on an
+# empty row) at phase 8's serve shape (the mma kernel, D 64; also
+# capped), paligemma's (the wide kernel, D 256), in f32 (the SIMT
+# kernel, D 64 and 128) and at the two stripes phase 20 (e) gives it:
+# smollm-135m's full-width stripe (bf16, 512 rows: two splits of 256)
+# and reduced smollm's (f32, 16 rows, D 72); each with lengths 0, 1,
+# S/2, S/2 + 1, S and past S in its first rows: (shape, dtype, softcap)
+FD_LSE_CHECKS = [((32, 4096, 3, 3, 64, "drawn"), "bfloat16", 0.0),
+                 ((32, 4096, 3, 3, 64, "drawn"), "bfloat16", SOFTCAP),
+                 ((32, 448, 1, 8, 256, "edges"), "bfloat16", 0.0),
+                 ((8, 4096, 3, 3, 64, "drawn"), "float32", 0.0),
+                 ((8, 4096, 8, 5, 128, "drawn"), "float32", 0.0),
+                 ((32, 512, 3, 3, 64, "drawn"), "bfloat16", 0.0),
+                 ((4, 16, 1, 4, 72, "drawn"), "float32", 0.0)]
+FD_LSE_RTOL = 1e-5
+# three stripes of the serve shape (4,095 keys: 1,365 a stripe), merged,
+# against the whole cache's one launch
+FD_STRIPES = (3, 1365)
+# timed: the lse instance at the serve shape and at a third of
+# decode_32k's S, beside the instance without it on the same inputs
+FD_LSE_TIMED = [(32, 4096, 3, 3, 64, "drawn"), (8, 10923, 8, 5, 128, "full")]
+# the rows without lse as PERF.md section 6 keeps them (NVIDIA H100
+# 80GB HBM3 at 700 W): this run's are logged beside them
+FD_PERF_MS = {4096: 0.02608, 32768: 0.38031}
+# phase 8's traffic, also served by phases 14-16: 32 requests (64 until
+# the script needed the time: it ran 1,294 s on a slower H100 host)
 SERVE_ARGS = ["--arch", "smollm-135m", "--slots", "32", "--capacity", "4096",
-              "--requests", "64", "--prompt-min", "256", "--prompt-max",
+              "--requests", "32", "--prompt-min", "256", "--prompt-max",
               "2048", "--new-min", "32", "--new-max", "256",
               "--arrival-every", "1", "--seed", "0"]
 # reduced smollm, card vs CPU: only f32 summation orders differ
@@ -756,8 +810,9 @@ STACK_SLOS = {0: (1e-6, 10.0), 1: (10.0, 60.0)}
 # gloo (NCCL refuses two ranks on one device): LeNet at batch 1024, 20
 # steps, f32 and int8 LARS momentum, and smollm-135m at full width, 3
 # steps of 16 x 1024 tokens, each with ZeRO and replicated, against the
-# same run alone; then one rank under torchrun over NCCL; then the LARS
-# kernels on a shard's rows
+# same run alone; one rank under torchrun over NCCL and (c)'s three
+# ranks started at the same time; then the LARS kernels on a shard's
+# rows
 ZERO_RANKS = 2
 ZERO_RUNS = ("lenet_f32", "lenet_int8", "smollm_f32")
 ZERO_LENET = (1024, 20)                  # global batch, steps
@@ -798,6 +853,31 @@ TP_ROWS = 263144
 # Measured on an H100: 0.0839 (worst leaf 0.142, layers/attn/wk); the
 # same run alone split into two microbatches reads 0.070 against it
 TP_PARAM_RTOL = 0.25
+# (e): the serving mesh, in (c)'s three ranks after their training,
+# through launch.serve --mesh 1x3, each run against the same run alone
+# on the card: reduced smollm (f32) on a 48-row cache (16 rows a stripe,
+# prompts of 17-40 tokens: two stripes or three), greedy tokens gated
+# identical; smollm-135m whole in bf16, 32 slots of 1,536 (512 rows a
+# stripe), 32 requests of 520-1,450 prompt tokens (each spans two
+# stripes or more) and 8 new (cut from 32 for the script's time: a tick
+# took 614-823 ms a rank on an H100 over gloo), greedy: every request
+# finished, finite logits, 30 flash_decode launches a tick a rank (its
+# lse instance, one a layer) and none outside the ticks, the ranks'
+# scheduler digests equal; in both runs the first tick's layer 0 on
+# every rank against the plain version (each stripe's out and lse, the
+# merged output against the whole cache's); its tokens' agreement with
+# the run alone (bf16 sums differ under tensor parallelism), tick ms,
+# the tick's share in collectives and the bytes a tick logged
+SERVE_MESH_ARGS = {
+    "reduced": ["--arch", "smollm-135m", "--reduced", "--slots", "4",
+                "--capacity", "48", "--requests", "6", "--prompt-min", "17",
+                "--prompt-max", "40", "--new-min", "8", "--new-max", "8",
+                "--arrival-every", "1", "--prefill-bucket", "1", "--seed",
+                "0"],
+    "full": ["--arch", "smollm-135m", "--slots", "32", "--capacity", "1536",
+             "--requests", "32", "--prompt-min", "520", "--prompt-max",
+             "1450", "--new-min", "8", "--new-max", "8", "--arrival-every",
+             "0", "--prefill-bucket", "64", "--seed", "0"]}
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -1415,6 +1495,224 @@ def flash_decode_phase(fdk, bw: float, flops: float) -> list[dict]:
     return rows
 
 
+def _fd_lse_err(fdk, q, k, v, lens, dtype_name, softcap: float = 0.0
+                ) -> dict:
+    """The kernel's lse instance against its plain version: out (f32) at
+    FD_TOL of its input dtype, lse at FD_LSE_RTOL of max(|lse|, 1) and
+    -inf exactly (and a zero output) where a row has no valid key; one
+    launch. Raises beyond them."""
+    import torch
+    scale = q.shape[-1] ** -0.5
+    before = fdk.LAUNCHES["flash_decode"]
+    out, lse = fdk.flash_decode(q, k, v, lens, scale=scale, softcap=softcap,
+                                lse=True)
+    launches = fdk.LAUNCHES["flash_decode"] - before
+    want, want_lse = fdk.flash_decode_plain(q, k, v, lens, scale=scale,
+                                            softcap=softcap, lse=True)
+    torch.cuda.synchronize()
+    rtol, atol = FD_TOL[dtype_name]
+    err = (out - want).abs()
+    empty = lens.clamp(max=k.shape[1]) == 0
+    fin = ~empty
+    lerr = ((lse[fin] - want_lse[fin]).abs()
+            / want_lse[fin].abs().clamp(min=1.0))
+    bad = []
+    if out.dtype != torch.float32 or lse.dtype != torch.float32 \
+            or launches != 1:
+        bad.append(f"out {out.dtype}, lse {lse.dtype}, {launches} launches")
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        bad.append(f"out max abs err {err.max().item()}")
+    if lerr.numel() and not lerr.max().item() <= FD_LSE_RTOL:
+        bad.append(f"lse max rel err {lerr.max().item()}")
+    if not bool(torch.isneginf(lse[empty]).all()) \
+            or not bool((out[empty] == 0).all()) \
+            or bool(torch.isinf(lse[fin]).any()):
+        bad.append("an empty row's lse is not -inf (or its output not 0), "
+                   "or a row with keys has an infinite lse")
+    if bad:
+        raise AssertionError(f"flash_decode lse {tuple(q.shape)} S "
+                             f"{k.shape[1]} {dtype_name} softcap {softcap}: "
+                             + "; ".join(bad))
+    return {"max_abs_err": err.max().item(),
+            "lse_max_rel_err": lerr.max().item() if lerr.numel() else 0.0,
+            "empty_rows": int(empty.sum())}
+
+
+def fd_stripes(fdk, q, k, v, lens, rows: int, stripes: int) -> tuple:
+    """flash_decode with the log-sum-exp on each of ``stripes`` stripes of
+    ``rows`` keys of the cache, at each stripe's own valid length
+    clamp(min(n, S) - r * rows, 0, rows), as the serving mesh's ranks
+    run it: [(out, lse)], one launch each."""
+    import torch
+    S = k.shape[1]
+    parts = []
+    for r in range(stripes):
+        n = torch.clamp(torch.clamp(lens, max=S) - r * rows, 0, rows)
+        sl = slice(r * rows, (r + 1) * rows)
+        parts.append(fdk.flash_decode(
+            q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+            n.to(torch.int32), scale=q.shape[-1] ** -0.5, lse=True))
+    return parts
+
+
+def fd_lse_phase(fdk, bw: float, flops: float, fd_rows: list) -> dict:
+    """Phase 3, the lse instances: each against its plain version
+    (FD_LSE_CHECKS), three stripes of the serve shape merged against the
+    whole cache's one launch (f32 within FD_TOL, bf16 within one bf16
+    ulp), NaN rows past a stripe's length (the same bits as finite rows,
+    out and lse), then the timed rows (FD_LSE_TIMED) beside the instance
+    without lse; this run's rows without lse are logged beside PERF.md's
+    (FD_PERF_MS)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    out = {"checks": [], "rows": []}
+    for (B, S, Hkv, G, D, lengths), name, cap in FD_LSE_CHECKS:
+        dt = getattr(torch, name)
+        q, k, v, lens = fd_inputs(B, S, Hkv, G, D, lengths, dt, gen)
+        if cap:
+            q = (q.float() * (cap * D ** 0.5 / 8)).to(dt)
+        edges = [0, 1, S // 2, S // 2 + 1, S, S + 7]
+        for i in range(0, len(edges), B):      # B rows of edges a launch
+            part = edges[i:i + B]
+            lens[:len(part)] = torch.tensor(part, device=lens.device)
+            r = _fd_lse_err(fdk, q, k, v, lens, name, cap)
+            r.update(shape=[B, S, Hkv, G, D], dtype=name, softcap=cap,
+                     edge_lengths=part)
+            out["checks"].append(r)
+            log(f"  flash_decode lse {name} B={B} S={S} Hkv={Hkv} G={G} "
+                f"D={D} softcap {cap} (lengths {part} in the first rows): "
+                f"out max abs err {r['max_abs_err']:.3g}, lse max rel err "
+                f"{r['lse_max_rel_err']:.3g}, {r['empty_rows']} empty rows "
+                "at -inf")
+    count, rows = FD_STRIPES
+    S = count * rows
+    merge = {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        q, k, v, lens = fd_inputs(32, S, 3, 3, 64, "drawn", dt, gen)
+        lens[:6] = torch.tensor([0, 1, rows, rows + 1, 2 * rows, S + 7],
+                                device=lens.device)
+        whole = fdk.flash_decode(q, k, v, lens, scale=64 ** -0.5)
+        parts = fd_stripes(fdk, q, k, v, lens, rows, count)
+        got = fdk.merge_stripes([o for o, _ in parts], [x for _, x in parts])
+        want = fdk.flash_decode_plain(q, k, v, lens, scale=64 ** -0.5,
+                                      lse=True)[0]
+        torch.cuda.synchronize()
+        rtol, atol = FD_TOL[name]
+        err = (got.to(dt).float() - whole.float()).abs()
+        if not bool((err <= atol + rtol * whole.float().abs()).all()):
+            raise AssertionError(f"flash_decode: {count} merged stripes "
+                                 f"{name} max abs err {err.max().item()} "
+                                 "against the whole cache")
+        merge[name] = {"max_abs_err_vs_whole": err.max().item(),
+                       "max_abs_err_vs_plain":
+                       (got - want).abs().max().item()}
+        log(f"  flash_decode {name}: {count} stripes of {rows} keys (B 32, "
+            f"Hkv 3, G 3, D 64), merged: max abs err "
+            f"{merge[name]['max_abs_err_vs_whole']:.3g} against the whole "
+            f"cache's one launch, {merge[name]['max_abs_err_vs_plain']:.3g} "
+            f"against the plain whole (f32)")
+    out["stripe_merge"] = merge
+    out["poison"] = fd_lse_poison_check(fdk)
+    for shape in FD_LSE_TIMED:
+        out["rows"].append(fd_lse_timed_row(fdk, shape, gen, bw, flops))
+    for row in fd_rows:
+        S = row["shape"]["S"]
+        if S in FD_PERF_MS and not row["shape"]["softcap"]:
+            row["perf_md_ms"] = FD_PERF_MS[S]
+            log(f"  flash_decode without lse, S={S}: {row['ms']:.5f} ms, "
+                f"PERF.md {FD_PERF_MS[S]:.5f} ms "
+                f"({row['ms'] / FD_PERF_MS[S] - 1:+.1%})")
+    return out
+
+
+def fd_lse_poison_check(fdk) -> dict:
+    """The lse instances (bf16 D 64 and the wide D 256, f32 D 64) on one
+    stripe of a cache: K and V rows past each row's valid length filled
+    with NaN give the same bits, out and lse, as finite rows; a row with
+    none gives -inf and zeros."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    for D, name in ((64, "bfloat16"), (256, "bfloat16"), (64, "float32")):
+        dt = getattr(torch, name)
+        q, k, v, _ = fd_inputs(8, 512, 1, 8, D, "full", dt, gen)
+        lens = torch.tensor([0, 1, 17, 16, 255, 300, 509, 512],
+                            dtype=torch.int32, device=q.device)
+        past = (torch.arange(512, device=q.device)[None, :]
+                >= lens[:, None].long())[:, :, None, None]
+        nan = torch.tensor(float("nan"), dtype=dt, device=q.device)
+        clean = fdk.flash_decode(q, k, v, lens, scale=D ** -0.5, lse=True)
+        dirty = fdk.flash_decode(q, torch.where(past, nan, k),
+                                 torch.where(past, nan, v), lens,
+                                 scale=D ** -0.5, lse=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(clean[0], dirty[0])
+                and torch.equal(clean[1], dirty[1])):
+            raise AssertionError(f"flash_decode lse D={D} {name}: NaN rows "
+                                 "past the length reach the output")
+        if not bool(torch.isneginf(clean[1][0]).all()) \
+                or not bool((clean[0][0] == 0).all()):
+            raise AssertionError(f"flash_decode lse D={D} {name}: an empty "
+                                 "row is not (0, -inf)")
+        out[f"{name}_D{D}"] = True
+    log("  flash_decode lse, bf16 D 64 and 256, f32 D 64: NaN rows past "
+        "each length give the same bits (out and lse) as finite rows")
+    return out
+
+
+def fd_lse_timed_row(fdk, shape: tuple, gen, bw: float, flops: float
+                     ) -> dict:
+    """The lse instance in bf16 at ``shape`` (B, S, Hkv, G, D, lengths):
+    timed beside the instance without lse on the same inputs, its plain
+    version and SDPA (the library call, on the same keys: it gives no
+    log-sum-exp), with its bound: K and V over the valid rows, q read, an
+    f32 output and lse written once."""
+    import torch
+    import torch.nn.functional as F
+    B, S, Hkv, G, D, lengths = shape
+    q, k, v, lens = fd_inputs(B, S, Hkv, G, D, lengths, torch.bfloat16, gen)
+    chk = _fd_lse_err(fdk, q, k, v, lens, "bfloat16")
+    scale = D ** -0.5
+    valid = int(lens.clamp(max=S).sum())
+    nbytes = valid * Hkv * D * 2 * 2 + q.numel() * 2 + q.numel() * 4 \
+        + B * Hkv * G * 4 + B * 4
+    nops = valid * Hkv * G * (4 * D + 1)
+    calls = FD_CALLS[S]
+    qs = q.reshape(B, Hkv * G, 1, D)
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    row = _row(B, S, chk["max_abs_err"], chk["lse_max_rel_err"], timings(
+        lambda: fdk.flash_decode(q, k, v, lens, scale=scale, lse=True),
+        calls),
+        device_ms(lambda: fdk.flash_decode_plain(q, k, v, lens, scale=scale,
+                                                 lse=True),
+                  calls=max(1, calls // 5)),
+        device_ms(lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True),
+            calls=calls), nbytes, nops, bw, flops)
+    del row["rows"], row["lane"]
+    row["without_lse_ms"] = device_ms(
+        lambda: fdk.flash_decode(q, k, v, lens, scale=scale), calls=calls)
+    plan = fdk.plan(q, k)
+    row.update(shape={"B": B, "S": S, "Hkv": Hkv, "G": G, "D": D,
+                      "dtype": "bfloat16", "lengths": lengths,
+                      "valid_rows": valid, "lse": True},
+               splits=plan.splits, keys_per_split=plan.keys_per_split,
+               ctas=B * Hkv * plan.splits, library="SDPA")
+    log(f"  flash_decode lse B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 "
+        f"({lengths} lengths, {valid} valid rows; {plan.splits} splits of "
+        f"{plan.keys_per_split} keys): kernel {row['ms']:.5f} ms (without "
+        f"lse {row['without_lse_ms']:.5f}; dispatch "
+        f"{row['dispatch_ms']:.4f})  plain {row['plain_ms']:.5f} ms  SDPA "
+        f"{row['library_ms']:.5f} ms  bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
+    del q, k, v, lens, kt, vt, mask, qs
+    torch.cuda.empty_cache()
+    return row
+
+
 def flex_decode(q, k, v, lens, scale: float, softcap: float):
     """A zero-argument call of PyTorch's compiled ``flex_attention``
     computing the capped, length-masked GQA decode of ``flash_decode(q,
@@ -1518,7 +1816,7 @@ def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float,
     return row
 
 
-def serve_phase(serve, fdk, lk, args=SERVE_ARGS, requests: int = 64,
+def serve_phase(serve, fdk, lk, args=SERVE_ARGS, requests: int = 32,
                 phase8=None, label: str = "") -> dict:
     """Phase 8 (and 14, for granite; 15, for deepseek, whose absorbed MLA
     decode launches no ``flash_decode``; 16, for falcon-mamba, which
@@ -3951,12 +4249,11 @@ def zero_rank(rank: int, world: int, workdir: str) -> None:
         json.dump(out, f)
 
 
-def spawn_ranks(workdir: str, flag: str = "--zero-rank",
+def start_ranks(workdir: str, flag: str = "--zero-rank",
                 ranks: int = ZERO_RANKS) -> list:
     """Start ``ranks`` processes of this file (``flag R W DIR``: phase 20
-    (a)'s or (c)'s ranks) and wait for them (at most ZERO_JOIN_S; a rank
-    that hangs or fails ends the phase, and every process is stopped);
-    each rank's ``rank<R>.json``."""
+    (a)'s or (c)'s ranks), each logging to ``DIR/rank<R>.log``; for
+    :func:`join_ranks`."""
     procs = []
     for r in range(ranks):
         log_f = open(os.path.join(workdir, f"rank{r}.log"), "w")
@@ -3964,31 +4261,51 @@ def spawn_ranks(workdir: str, flag: str = "--zero-rank",
             [sys.executable, os.path.abspath(__file__), flag,
              str(r), str(ranks), workdir], stdout=log_f,
             stderr=subprocess.STDOUT), log_f))
-    deadline = time.monotonic() + ZERO_JOIN_S
+    return procs
+
+
+def join_ranks(workdir: str, procs: list, started: float) -> list:
+    """Wait for the ranks :func:`start_ranks` started at ``started`` (at
+    most ZERO_JOIN_S from then; a rank that hangs or fails ends the
+    phase, and every process is stopped); each rank's
+    ``rank<R>.json``."""
+    deadline = started + ZERO_JOIN_S
     failed = []
     try:
         for r, (p, _) in enumerate(procs):
             try:
-                if p.wait(timeout=max(deadline - time.monotonic(), 1)):
+                if p.wait(timeout=max(deadline - time.perf_counter(), 1)):
                     failed.append(f"rank {r} exit {p.returncode}")
             except subprocess.TimeoutExpired:
                 failed.append(f"rank {r} did not end in {ZERO_JOIN_S} s")
     finally:
-        for p, log_f in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log_f.close()
+        stop_ranks(procs)
     if failed:
-        for r in range(ranks):
+        for r in range(len(procs)):
             with open(os.path.join(workdir, f"rank{r}.log")) as f:
                 log(f"--- rank {r}\n" + f.read()[-3000:])
         raise AssertionError("; ".join(failed))
     out = []
-    for r in range(ranks):
+    for r in range(len(procs)):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def stop_ranks(procs: list) -> None:
+    """Kill every process of ``procs`` still running; close their logs."""
+    for p, log_f in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log_f.close()
+
+
+def spawn_ranks(workdir: str, flag: str = "--zero-rank",
+                ranks: int = ZERO_RANKS) -> list:
+    """:func:`start_ranks`, then :func:`join_ranks`."""
+    t0 = time.perf_counter()
+    return join_ranks(workdir, start_ranks(workdir, flag, ranks), t0)
 
 
 def tp_rank(rank: int, world: int, workdir: str) -> None:
@@ -4077,10 +4394,299 @@ def tp_rank(rank: int, world: int, workdir: str) -> None:
         if rank == 0:
             torch.save([t.cpu() for t in tree_leaves(whole)],
                        os.path.join(workdir, "tp_params.pt"))
+        del whole, state, pipe
+        torch.cuda.empty_cache()
+        out["serve"] = serve_mesh_rank(world, workdir)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def serve_mesh_rank(world: int, workdir: str) -> dict:
+    """Phase 20 (e), in one of (c)'s ranks: each SERVE_MESH_ARGS run
+    through ``launch.serve --mesh 1xW`` (the counts set to 0 just before,
+    read just after). Each ``decode_step`` (a tick) is timed between
+    syncs, its collectives by CUDA events (``timed_collectives``) and the
+    bytes it handed them (``MOVED``). The run's first stripe kernel call
+    (tick 1, layer 0) is kept: its inputs, its (out, lse) and the merged
+    output, in ``DIR/serve_<run>_rank<R>.pt`` (:func:`serve_mesh_merge`
+    holds them against the plain version). Returns per run: the tokens
+    by rid, the report's counts, the rank's launches, the ticks' ms,
+    collective ms and bytes, the peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.models import LanguageModel
+    dev = torch.device("cuda", 0)
+    res = {}
+    for tag, args in SERVE_MESH_ARGS.items():
+        tick_ms, coll_ms, moved, prefill_ms = [], [], [], []
+        inner = LanguageModel.decode_step
+        inner_prefill = LanguageModel.prefill_at
+        inner_fd, inner_merge = kops.flash_decode, collectives.merge_stripes
+        first: dict = {}
+
+        def first_stripe(q, k, v, n, **kw):
+            got = inner_fd(q, k, v, n, **kw)
+            if kw.get("lse") and "q" not in first:
+                first.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                             n=n.clone(), part=got[0].clone(),
+                             lse=got[1].clone(), scale=kw["scale"],
+                             softcap=kw.get("softcap", 0.0))
+            return got
+
+        def first_merge(*a, **kw):
+            got = inner_merge(*a, **kw)
+            first.setdefault("merged", got.clone())
+            return got
+
+        def timed_prefill(self, *a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = inner_prefill(self, *a, **kw)
+            torch.cuda.synchronize(dev)
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed(self, *a, **kw):
+            torch.cuda.synchronize(dev)
+            before = dict(collectives.MOVED)
+            events: list = []
+            t0 = time.perf_counter()
+            with timed_collectives(events):
+                out = inner(self, *a, **kw)
+            torch.cuda.synchronize(dev)
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append(sum(x.elapsed_time(y) for x, y in events))
+            moved.append(sum(collectives.MOVED[k] - before[k]
+                             for k in before))
+            return out
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fdk.reset_launch_counts()
+        collectives.reset_counts()
+        LanguageModel.decode_step = timed
+        LanguageModel.prefill_at = timed_prefill
+        kops.flash_decode = first_stripe
+        collectives.merge_stripes = first_merge
+        t0 = time.perf_counter()
+        try:
+            rep = serve.main(args + ["--mesh", f"1x{world}"])
+        finally:
+            LanguageModel.decode_step = inner
+            LanguageModel.prefill_at = inner_prefill
+            kops.flash_decode = inner_fd
+            collectives.merge_stripes = inner_merge
+        torch.save({k: x.cpu() if torch.is_tensor(x) else x
+                    for k, x in first.items()},
+                   os.path.join(workdir, f"serve_{tag}_rank"
+                                f"{dist.get_rank()}.pt"))
+        res[tag] = {
+            "tokens": {str(f.request.rid): f.tokens.tolist()
+                       for f in rep["finished"]},
+            "requests": rep["requests"], "finite": rep["logits_finite"],
+            "agree": rep["ranks_agree"], "ticks": rep["decode_steps"],
+            "per_tick": rep["flash_decode_per_tick"],
+            "stats": dict(rep["stats"]),
+            "launches": fdk.LAUNCHES["flash_decode"],
+            "tick_ms": tick_ms, "collective_ms": coll_ms,
+            "prefill_ms": prefill_ms,
+            "moved_per_tick": moved, "moved_total": dict(collectives.MOVED),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+            "wall_s": time.perf_counter() - t0}
+    return res
+
+
+def serve_mesh_rank_main(rank: int, world: int, workdir: str) -> None:
+    """Phase 20 (e) alone, one of its ranks (``chip_smoke.py
+    --serve-mesh-rank R W DIR``): gloo over a file store, the rank's
+    tensors on ``cuda:0``, :func:`serve_mesh_rank`; its result in
+    ``DIR/rank<R>.json`` under ``"serve"``, as (c)'s ranks write it. To
+    run (e) without (c)'s training: build the kernels, then
+    ``serve_mesh_against_alone(spawn_ranks(dir, "--serve-mesh-rank",
+    TP_RANKS), dir)``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    try:
+        out = {"serve": serve_mesh_rank(world, workdir)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def serve_mesh_merge(fdk, workdir: str, tag: str) -> dict:
+    """Phase 20 (e)'s numbers: each rank's first stripe kernel call of
+    run ``tag`` (tick 1, layer 0, saved by :func:`serve_mesh_rank`)
+    against the plain version on the same inputs: the stripe's out
+    within FD_TOL and lse within FD_LSE_RTOL of max(|lse|, 1) (-inf
+    exactly where the stripe holds no key of the row), and the merged
+    output, rounded to the cache's dtype as the path rounds it, within
+    FD_TOL of the plain version on the whole cache (the ranks' stripes
+    side by side, lengths their sum); q and the merged output
+    bit-identical on every rank. Raises beyond them."""
+    import torch
+    dev = torch.device("cuda")
+    caps = [torch.load(os.path.join(workdir, f"serve_{tag}_rank{r}.pt"))
+            for r in range(TP_RANKS)]
+    c0 = caps[0]
+    name = str(c0["k"].dtype).removeprefix("torch.")
+    rtol, atol = FD_TOL[name]
+    kw = dict(scale=c0["scale"], softcap=c0["softcap"])
+    bad, out_err, lse_err, empty = [], 0.0, 0.0, 0
+    for r, c in enumerate(caps):
+        if not (torch.equal(c["q"], c0["q"])
+                and torch.equal(c["merged"], c0["merged"])):
+            bad.append(f"rank {r}'s q or merged output differs from rank "
+                       "0's")
+        q, k, v, n = (c[x].to(dev) for x in ("q", "k", "v", "n"))
+        B, H, D = q.shape                  # ops.flash_decode's (B, H, D)
+        G = H // k.shape[2]
+        want, want_lse = fdk.flash_decode_plain(
+            q.reshape(B, -1, G, D), k, v, n, lse=True, **kw)
+        part = c["part"].to(dev).reshape(want.shape)
+        lse = c["lse"].to(dev).reshape(want_lse.shape)
+        err = (part - want).abs()
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            bad.append(f"rank {r}'s stripe out max abs err "
+                       f"{err.max().item()}")
+        out_err = max(out_err, err.max().item())
+        none = n == 0
+        empty += int(none.sum())
+        if not bool(torch.isneginf(lse[none]).all()) \
+                or bool(torch.isinf(lse[~none]).any()):
+            bad.append(f"rank {r}: an empty stripe row's lse is not -inf, "
+                       "or a row with keys has an infinite lse")
+        if bool((~none).any()):
+            rel = ((lse[~none] - want_lse[~none]).abs()
+                   / want_lse[~none].abs().clamp(min=1.0)).max().item()
+            lse_err = max(lse_err, rel)
+            if not rel <= FD_LSE_RTOL:
+                bad.append(f"rank {r}'s stripe lse max rel err {rel}")
+    k = torch.cat([c["k"] for c in caps], dim=1).to(dev)
+    v = torch.cat([c["v"] for c in caps], dim=1).to(dev)
+    q = c0["q"].to(dev).reshape(B, k.shape[2], G, D)
+    lens = sum(c["n"] for c in caps).to(dev)
+    whole = fdk.flash_decode_plain(q, k, v, lens, lse=True, **kw)[0]
+    got = c0["merged"].to(dev).reshape(whole.shape).to(c0["k"].dtype)
+    want = whole.to(c0["k"].dtype).float()
+    err = (got.float() - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        bad.append(f"merged max abs err {err.max().item()} against the "
+                   "plain version on the whole cache")
+    res = {"shape": list(k.shape), "dtype": name,
+           "stripe_max_abs_err": out_err, "stripe_lse_max_rel_err": lse_err,
+           "empty_stripe_rows": empty, "merged_max_abs_err":
+           err.max().item()}
+    log(f"  (e) {tag}, tick 1 layer 0 on the ranks' stripes (whole cache "
+        f"{list(k.shape)} {name}): stripes against the plain version out "
+        f"{out_err:.3g}, lse rel {lse_err:.3g} ({empty} empty stripe rows "
+        f"at -inf); merged against the plain whole {err.max().item():.3g}")
+    if bad:
+        raise AssertionError(f"serving mesh {tag}: " + "; ".join(bad))
+    return res
+
+
+def serve_mesh_against_alone(ranks: list, workdir: str) -> dict:
+    """Phase 20 (e)'s gates, in the parent once the ranks have ended:
+    each SERVE_MESH_ARGS run alone on the card (``launch.serve`` without
+    ``--mesh``, the counts set to 0 just before it and read just after:
+    one launch a layer a tick), then every rank's run against it, and
+    the first tick's stripes and merge against the plain version
+    (:func:`serve_mesh_merge`). Reduced f32: tokens identical. Full
+    width, bf16: every request finished with finite logits, one
+    ``decode_step`` a tick with 30 launches on every rank and none
+    outside the ticks, the scheduler digests equal, the ranks' tokens
+    equal; the share of requests whose tokens equal the run alone's,
+    tick ms, the share of a tick in collectives, bytes a tick and peaks
+    logged."""
+    import torch
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch import serve
+    res = {}
+    for tag, args in SERVE_MESH_ARGS.items():
+        fdk.reset_launch_counts()
+        rep = serve.main(args)
+        torch.cuda.synchronize()
+        alone = {str(f.request.rid): f.tokens.tolist()
+                 for f in rep["finished"]}
+        per, n_req = rep["flash_decode_per_tick"], int(args[args.index(
+            "--requests") + 1])
+        bad = []
+        if fdk.LAUNCHES["flash_decode"] != per * rep["decode_steps"]:
+            bad.append(f"alone: {fdk.LAUNCHES} for {rep['decode_steps']} "
+                       "ticks")
+        for r, rk in enumerate(ranks):
+            got = rk["serve"][tag]
+            st = got["stats"]
+            if got["requests"] != n_req or not got["finite"] \
+                    or got["agree"] is not True:
+                bad.append(f"rank {r}: {got['requests']} of {n_req} "
+                           f"requests, finite {got['finite']}, digests "
+                           f"agree {got['agree']}")
+            if got["ticks"] == 0 or st["decode_calls"] != got["ticks"] \
+                    or got["launches"] != per * got["ticks"] \
+                    or st["flash_decode_launches"] != got["launches"] \
+                    or st["flash_decode_outside_ticks"]:
+                bad.append(f"rank {r}: {got['launches']} flash_decode "
+                           f"launches for {got['ticks']} ticks, want {per} "
+                           f"a tick; {st}")
+            if got["tokens"] != ranks[0]["serve"][tag]["tokens"]:
+                bad.append(f"rank {r}'s tokens differ from rank 0's")
+        mine = ranks[0]["serve"][tag]["tokens"]
+        same = sum(mine.get(k) == v for k, v in alone.items()) / len(alone)
+        if tag == "reduced" and same != 1.0:
+            bad.append(f"greedy tokens equal the run alone's for {same:.1%} "
+                       "of the requests")
+        r0 = ranks[0]["serve"][tag]
+        share = statistics.median(
+            c / t for c, t in zip(r0["collective_ms"], r0["tick_ms"]))
+        res[tag] = {
+            "requests": r0["requests"], "ticks": r0["ticks"],
+            "launches_per_tick": [rk["serve"][tag]["launches"]
+                                  / rk["serve"][tag]["ticks"]
+                                  for rk in ranks],
+            "tokens_equal_alone_share": same,
+            "tick_ms_median": [statistics.median(rk["serve"][tag]["tick_ms"])
+                               for rk in ranks],
+            "alone_tick_ms": 1e3 * rep["wall_s"] / max(rep["decode_steps"],
+                                                        1),
+            "prefill_s": sum(r0["prefill_ms"]) / 1e3,
+            "collective_share": share,
+            "moved_per_tick": statistics.median(r0["moved_per_tick"]),
+            "moved_total": r0["moved_total"],
+            "peak_bytes": [rk["serve"][tag]["peak_bytes"] for rk in ranks],
+            "wall_s": [rk["serve"][tag]["wall_s"] for rk in ranks],
+            "alone_wall_s": rep["wall_s"]}
+        res[tag]["first_merge"] = serve_mesh_merge(fdk, workdir, tag)
+        x = res[tag]
+        log(f"  (e) serving mesh, {tag}, 1x{TP_RANKS} ({' '.join(args[:4])}"
+            f"): {x['requests']} requests in {x['ticks']} ticks, "
+            f"flash_decode {per} a tick on every rank (lse instance on its "
+            f"stripe), digests equal; tokens equal the run alone's for "
+            f"{same:.1%} of the requests; tick ms "
+            + " ".join(f"{t:.2f}" for t in x["tick_ms_median"])
+            + f" (alone, admissions included: {x['alone_tick_ms']:.2f}), "
+            f"prefills {x['prefill_s']:.1f} s, "
+            f"{share:.1%} of rank 0's tick in collectives, "
+            f"{x['moved_per_tick']:,} B a tick a rank handed to them; peak "
+            + ", ".join(f"{b / 2 ** 20:.1f}" for b in x["peak_bytes"])
+            + " MiB; wall " + " ".join(f"{w:.1f}" for w in x["wall_s"])
+            + f" s (alone {x['alone_wall_s']:.1f})")
+        if bad:
+            raise AssertionError(f"serving mesh {tag}: " + "; ".join(bad))
+    return res
 
 
 def tp_against_alone(ranks: list, tdir: str, alone: dict) -> dict:
@@ -4159,8 +4765,8 @@ def tp_against_alone(ranks: list, tdir: str, alone: dict) -> dict:
 
 
 def zero_nccl_start(workdir: str) -> tuple:
-    """Phase 20 (b), started once (a) has ended, beside the runs alone
-    (which time nothing): ``launch.train --mesh 1x1 --zero`` under
+    """Phase 20 (b), started with (a)'s and (c)'s ranks:
+    ``launch.train --mesh 1x1 --zero`` under
     ``torchrun --standalone --nproc-per-node 1`` (NCCL: the step's
     reduce-scatter and loss all-reduce go through the backend on one
     rank). Mostly process start; its few steps are a reduced model's.
@@ -4326,23 +4932,33 @@ def zero_against_alone(name: str, ranks: list, zdir: str,
 
 def zero_phase(train, lk, bw: float, flops: float, floor: float,
                workdir: str) -> dict:
-    """Phase 20: data parallelism and ZeRO on the card."""
+    """Phase 20: data parallelism and ZeRO on the card. (a)'s two ranks,
+    (c)'s three and (b)'s torchrun start together (each mesh its own
+    process group), for the script's time limit: the step times each
+    logs were taken beside the others' processes."""
     import torch
     out = {"two_ranks": {}, "wall_s": {}}
-    zdir = os.path.join(workdir, "zero")
-    shutil.rmtree(zdir, ignore_errors=True)
-    os.makedirs(zdir)
+    zdir, tdir = (os.path.join(workdir, d) for d in ("zero", "tp"))
+    for d in (zdir, tdir):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_ranks(zdir)
-    out["wall_s"]["two_ranks"] = time.perf_counter() - t0
-    tdir = os.path.join(workdir, "tp")
-    shutil.rmtree(tdir, ignore_errors=True)
-    os.makedirs(tdir)
-    t0 = time.perf_counter()
-    tp_ranks = spawn_ranks(tdir, "--tp-rank", TP_RANKS)
-    out["wall_s"]["tp_ranks"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    zprocs = start_ranks(zdir)
+    tprocs = start_ranks(tdir, "--tp-rank", TP_RANKS)
     nccl = zero_nccl_start(zdir)
+    try:
+        ranks = join_ranks(zdir, zprocs, t0)
+        out["wall_s"]["two_ranks"] = time.perf_counter() - t0
+        tp_ranks = join_ranks(tdir, tprocs, t0)
+        out["wall_s"]["tp_ranks"] = time.perf_counter() - t0
+    except BaseException:
+        stop_ranks(tprocs)
+        nccl[0].kill()
+        nccl[0].wait()
+        nccl[1].close()
+        raise
+    t0 = time.perf_counter()
     rows_seen: list = []
     saved = record_rows(lk, rows_seen)
     alone: dict = {}
@@ -4355,6 +4971,9 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
                     alone if name == "smollm_f32" else None)
         out["tensor_parallel"] = tp_against_alone(tp_ranks, tdir, alone)
         alone.clear()
+        t1 = time.perf_counter()
+        out["serve_mesh"] = serve_mesh_against_alone(tp_ranks, tdir)
+        out["wall_s"]["serve_mesh_alone"] = time.perf_counter() - t1
     except BaseException:
         nccl[0].kill()
         nccl[0].wait()
@@ -4436,6 +5055,7 @@ def main() -> int:
     phase("== 3. kernels against their plain versions")
     kern, floor = kernel_phase(lk, bw, flops)
     fd_rows = flash_decode_phase(fdk, bw, flops)
+    fd_lse = fd_lse_phase(fdk, bw, flops, fd_rows)
 
     phase("== 4. main path: lenet-mnist, batch 8192, 20 steps")
     runs = main_phase(train, lk, fdk)
@@ -4449,7 +5069,7 @@ def main() -> int:
     phase("== 7. profile of main-path steps")
     prof = {path: profile_phase(path) for path in ("f32", "large_batch")}
 
-    phase("== 8. serve: smollm-135m at full width, 32 slots, 64 requests")
+    phase("== 8. serve: smollm-135m at full width, 32 slots, 32 requests")
     served = serve_phase(serve, fdk, lk)
 
     phase("== 9. serve, card against CPU: reduced smollm in f32, plain, "
@@ -4518,8 +5138,9 @@ def main() -> int:
     phase(f"== 20. data parallelism, ZeRO and tensor parallelism: "
           f"{ZERO_RANKS} ranks on the card over gloo (LeNet, smollm-135m at "
           f"full width), one rank over NCCL under torchrun, {TP_RANKS} "
-          f"ranks on a 1x{TP_RANKS} mesh (smollm-135m whole), the LARS "
-          "kernels on a shard's rows")
+          f"ranks on a 1x{TP_RANKS} mesh (smollm-135m whole, trained and "
+          "served by the serving mesh), the LARS kernels on a shard's "
+          "rows")
     zero = zero_phase(train, lk, bw, flops, floor,
                       os.path.join(ROOT, "build"))
     stamps.append(("end", time.perf_counter()))
@@ -4744,9 +5365,24 @@ def main() -> int:
         "device_ms_in_tick_by_model": {
             arch: fam[arch]["serve"]["profile"]["flash_decode_ms_per_tick"]
             for arch in (WHISPER, PALIGEMMA)},
+        # the lse instances (the serving mesh's stripes): timed rows with
+        # their bounds, checks against the plain version, three stripes
+        # merged against the whole cache, NaN past a stripe's length; the
+        # launches a tick a rank of phase 20 (e)'s full-width run
+        "lse_rows": [{k: r[k] for k in (
+            "shape", "ms", "without_lse_ms", "bound_ms", "bound_by",
+            "plain_ms", "library_ms", "library", "dispatch_ms",
+            "max_abs_err", "splits", "ctas")} for r in fd_lse["rows"]],
+        "lse_checks": fd_lse["checks"],
+        "stripe_merge": fd_lse["stripe_merge"],
+        "lse_nan_past_length_identical": fd_lse["poison"],
+        "serve_mesh_launches_per_tick": zero["serve_mesh"]["full"][
+            "launches_per_tick"],
+        "serve_mesh_first_tick_vs_plain": {
+            tag: r["first_merge"] for tag, r in zero["serve_mesh"].items()},
         "shapes": fd_rows + [granite["flash_decode_row"],
                              ssm["flash_decode_row"]]
-        + fam["flash_decode_rows"]})
+        + fam["flash_decode_rows"] + fd_lse["rows"]})
     main_path = {tag: {k: r[k] for k in ("steps_per_s", "examples_per_s",
                                         "eval_accuracy", "train_s")}
                  for tag, r in runs.items()}
@@ -4773,5 +5409,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--tp-rank"]:
         tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-mesh-rank"]:
+        serve_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

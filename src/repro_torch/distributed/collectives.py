@@ -8,7 +8,13 @@ all-gather of the updated weight rows and of the norm partials
 functions: :func:`copy_to_model` (identity forward, all-reduce backward),
 :func:`reduce_from_model` (all-reduce forward, identity backward) and
 :func:`gather_from_model` (all-gather forward, the sum over the ranks of
-this rank's slice backward).
+this rank's slice backward). The serving mesh adds :func:`broadcast_scalar`
+(rank 0's clock to every rank), :func:`merge_stripes` (decode attention
+over a sequence split into stripes, merged by each stripe's log-sum-exp)
+and :func:`gather_vocab` / :func:`argmax_vocab` (sampling from logits
+split over the vocabulary). ``all_reduce_sum``, ``all_reduce_max``,
+``all_gather_rows`` and the merge take an axis name or the pair
+``("data", "model")`` (a dim split over both).
 
 Over an axis of one rank every collective is the identity and sends
 nothing. NCCL and gloo take CPU or CUDA tensors as their backends do,
@@ -37,7 +43,8 @@ import torch.distributed as dist
 # host-staged gloo collectives of CUDA tensors since the last reset
 STAGED = {"calls": 0, "copies": 0, "bytes": 0}
 # bytes of the input of each collective this rank joined, by kind
-MOVED = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+MOVED = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+         "broadcast": 0}
 
 
 def reset_counts() -> None:
@@ -68,9 +75,9 @@ def _to_device(h: torch.Tensor, device: torch.device) -> torch.Tensor:
     return h.to(device)
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axis: str = "data"
-                   ) -> torch.Tensor:
-    """Sum ``x`` over the axis, in place; returns ``x``."""
+def all_reduce_sum(x: torch.Tensor, mesh, axis="data") -> torch.Tensor:
+    """Sum ``x`` over the axis (a name or a tuple of names), in place;
+    returns ``x``."""
     group = None if mesh is None else mesh.group(axis)
     if group is None:
         return x
@@ -79,10 +86,9 @@ def all_reduce_sum(x: torch.Tensor, mesh, axis: str = "data"
     return x
 
 
-def all_reduce_max(x: torch.Tensor, mesh, axis: str = "model"
-                   ) -> torch.Tensor:
-    """The elementwise max of ``x`` over the axis, in place; returns
-    ``x``."""
+def all_reduce_max(x: torch.Tensor, mesh, axis="model") -> torch.Tensor:
+    """The elementwise max of ``x`` over the axis (a name or a tuple of
+    names), in place; returns ``x``."""
     group = None if mesh is None else mesh.group(axis)
     if group is None:
         return x
@@ -116,13 +122,13 @@ def reduce_scatter_rows(x: torch.Tensor, mesh, axis: str = "data"
     return out
 
 
-def all_gather_rows(x: torch.Tensor, mesh, axis: str = "data"
-                    ) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along dim 0 in coordinate order."""
+def all_gather_rows(x: torch.Tensor, mesh, axis="data") -> torch.Tensor:
+    """Concatenate every rank's ``x`` along dim 0 in coordinate order
+    (over a tuple of axes: row-major, the ranks' order in the mesh)."""
     group = None if mesh is None else mesh.group(axis)
     if group is None:
         return x
-    size = mesh.shape[axis]
+    size = dist.get_world_size(group)
     x = x.contiguous()
     _moved("all_gather", x)
     shape = (x.shape[0] * size,) + tuple(x.shape[1:])
@@ -228,3 +234,80 @@ def gather_from_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     inside the split computation; backward keeps this rank's block of the
     summed gradient."""
     return x if mesh is None else _GatherFromModel.apply(x, mesh, dim)
+
+
+# ------------------------------------------------------- the serving mesh
+
+def _host_values(values: list, dtype, mesh, group) -> torch.Tensor:
+    """A few host values as a tensor for a collective over ``group``: on
+    the host for gloo, on the rank's device for NCCL (which takes CUDA
+    tensors only)."""
+    dev = mesh.device if dist.get_backend(group) == "nccl" else "cpu"
+    return torch.tensor(values, dtype=dtype, device=dev)
+
+
+def broadcast_scalar(value: float, mesh) -> float:
+    """Rank 0's ``value`` on every rank of the mesh (one f64 broadcast;
+    the value itself on a mesh of one rank). Every rank calls it at the
+    same point: the serving engine's clock, so that every rank's
+    scheduler decides from the same time."""
+    group = None if mesh is None else mesh.group(("data", "model"))
+    if group is None:
+        return value
+    x = _host_values([value], torch.float64, mesh, group)
+    _moved("broadcast", x)
+    dist.broadcast(x, src=0, group=group)
+    return float(x.item())
+
+
+def all_agree(value: int, mesh) -> bool:
+    """Whether every rank of the mesh holds the same integer ``value``
+    (|value| < 2^63): one all-reduce of (value, -value) by max. True on
+    a mesh of one rank."""
+    group = None if mesh is None else mesh.group(("data", "model"))
+    if group is None:
+        return True
+    x = _host_values([value, -value], torch.int64, mesh, group)
+    all_reduce_max(x, mesh, ("data", "model"))
+    return int(x[0]) == -int(x[1]) == value
+
+
+def merge_stripes(out: torch.Tensor, lse: torch.Tensor, mesh, axis
+                  ) -> torch.Tensor:
+    """Decode attention over a sequence split into stripes over ``axis``
+    (a name or a tuple of names: the ranks' order along it is the
+    stripes'), from this rank's stripe's ``(out, lse)``
+    (``flash_decode(..., lse=True)``: out (..., D) f32, lse (...) f32,
+    -inf where the stripe holds no key of the row). ONE all-gather of
+    every rank's (out, lse) side by side, then each rank merges them in
+    stripe order (:func:`repro_torch.kernels.flash_decode.merge_stripes`:
+    each stripe weighted by exp(lse - max lse), 0 where it is empty), in
+    f32: every rank computes the same result from the same bits."""
+    from repro_torch.kernels.flash_decode import merge_stripes as merge
+    both = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+    every = all_gather_rows(both[None].contiguous(), mesh, axis)
+    return merge(list(every[..., :-1]), list(every[..., -1]))
+
+
+def gather_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """Logits (..., V / ranks) split over ``model`` by blocks of the
+    vocabulary -> the whole rows (..., V), on every rank."""
+    return all_gather_dim(logits.contiguous(), mesh, -1, "model")
+
+
+def argmax_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The argmax over the whole vocabulary of logits (B, V / ranks)
+    split over ``model`` by blocks, int32 (B,), without gathering the
+    rows: each rank's block max and its index, gathered (B, 2 x ranks
+    floats), and the first block holding the largest value wins — the
+    first occurrence of the maximum, as ``torch.argmax`` of the whole
+    row takes it."""
+    n = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    val = logits.float().gather(-1, idx[:, None])[:, 0]
+    idx = idx + mesh.coords["model"] * n
+    both = all_gather_dim(torch.stack([val, idx.float()], dim=-1)[:, None],
+                          mesh, 1, "model")                # (B, ranks, 2)
+    best = both[..., 0].argmax(dim=-1, keepdim=True)
+    return both[..., 1].gather(1, best)[:, 0].to(torch.int32)
+

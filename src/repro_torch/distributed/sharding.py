@@ -33,11 +33,18 @@ its ``data`` ones (FSDP's, queue 1 item 4b-ii: params stay whole over
 tree to this rank's blocks and :func:`gather_params` gathers them back.
 Every other family raises on a ``model`` axis above 1
 (:func:`check_model_parallel`).
+
+The serving mesh executes :func:`serve_param_pspecs` (pure tensor
+parallelism, :func:`serve_param_shardings`) and :func:`cache_pspecs`
+(:class:`CacheSharding`): each rank holds its block of the slots (over
+``data``) and its stripe of the sequence (over ``model``, or over
+``("data", "model")`` where ``data`` does not divide the slots), as
+:class:`Stripe` tells the decode attention.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 from repro_torch.distributed import collectives
 from repro_torch.treepath import (tree_flatten_with_path, tree_map,
@@ -520,3 +527,82 @@ def shard_params(tree: Pytree, shardings: Pytree) -> Pytree:
 
 def gather_params(tree: Pytree, shardings: Pytree) -> Pytree:
     return tree_map(gather_leaf, tree, shardings)
+
+
+# --------------------------------------------------------- the serving mesh
+
+def serve_param_shardings(cfg, params_shapes: Pytree, mesh) -> Pytree:
+    """One :class:`LeafSharding` a leaf of the whole params for serving:
+    :func:`serve_param_pspecs`' ``model`` entries (it keeps no ``data``
+    entry where the tensor-parallel footprint fits; where it does not,
+    the port still holds params whole over ``data``, as in training)."""
+    return _map_with_path(lambda p, s: LeafSharding(mesh, _model_only(s)),
+                          serve_param_pspecs(cfg, params_shapes, mesh))
+
+
+# cache leaves with a sequence axis (dim 2): K/V, the hybrid's shared
+# block's K/V, MLA's latents
+SEQ_LEAVES = ("k", "v", "attn_k", "attn_v", "ckv", "krope")
+
+
+class Stripe(NamedTuple):
+    """This rank's stripe of a decode cache's sequence axis: rows
+    ``[index * rows, (index + 1) * rows)`` of the whole, the ``index``-th
+    of ``count`` stripes split over ``axis`` of ``mesh`` (the axes whose
+    ranks merge their partial attention)."""
+
+    index: int
+    count: int
+    rows: int
+    axis: Any
+    mesh: Any
+
+
+class LocalCache(dict):
+    """This rank's leaves of a decode cache under a serving mesh: the
+    dict the models read and write in place, and its ``stripe`` (None
+    where the rank holds the whole sequence)."""
+
+    def __init__(self, items, *, stripe: Optional[Stripe] = None):
+        super().__init__(items)
+        self.stripe = stripe
+
+
+class CacheSharding:
+    """:func:`cache_pspecs` executed for one rank: ``specs`` (the
+    reference's PartitionSpecs), ``shardings`` (a :class:`LeafSharding`
+    a leaf), each leaf's local shape (:meth:`local_shape`), this data
+    rank's block of the slots (``slot_block``, all of them where the
+    slots are not split) and this rank's :class:`Stripe` (None where the
+    sequence is whole: a capacity the stripes do not divide is
+    replicated, as the reference's ``_divisible`` leaves it).
+
+    ``shapes``: {leaf: whole shape} of the cache (``pos`` included)."""
+
+    def __init__(self, cfg, mesh, shapes: dict, *, slots: int):
+        import torch
+        self.whole = {k: tuple(v) for k, v in shapes.items()}
+        meta = {k: torch.empty(v, device="meta")
+                for k, v in self.whole.items()}
+        self.specs = cache_pspecs(cfg, mesh, meta, batch=slots)
+        self.shardings = tree_named(mesh, self.specs)
+        self.slot_block = self.shardings["pos"].rows(slots)
+        self.stripe: Optional[Stripe] = None
+        for name in SEQ_LEAVES:
+            if name in self.specs and self.shardings[name].parts[2] > 1:
+                sh = self.shardings[name]
+                self.stripe = Stripe(sh.index[2], sh.parts[2],
+                                     self.whole[name][2] // sh.parts[2],
+                                     sh.spec[2], mesh)
+                break
+
+    @property
+    def slots_split(self) -> bool:
+        """Whether the ranks of ``data`` hold different slots."""
+        return self.shardings["pos"].parts[0] > 1
+
+    def local_shape(self, name: str) -> tuple:
+        sh = self.shardings[name]
+        return tuple(n // (sh.parts[d] if d < len(sh.parts) else 1)
+                     for d, n in enumerate(self.whole[name]))
+

@@ -87,19 +87,22 @@ def _kernel_label(mangled: str) -> str | None:
     """``flash_decode_mma_kernel<256>`` for the Itanium-mangled name of
     a ``..._kernel`` (a length-prefixed identifier, then its template's
     int argument, if any); a second, bool template argument that is true
-    (``flash_decode``'s softcap flag) gives ``<256,softcap>``. None for
-    any other function. Where digits inside a namespace's name also read
-    as a length, the shortest identifier is the kernel's own."""
+    (``flash_decode``'s softcap flag) gives ``<256,softcap>``, and a
+    third that is true (its log-sum-exp flag) ``<256,lse>`` or
+    ``<256,softcap,lse>``. None for any other function. Where digits
+    inside a namespace's name also read as a length, the shortest
+    identifier is the kernel's own."""
     found = []
     for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
         for k in range(len(m.group())):           # the prefix's digits
             n = int(m.group()[k:])
             ident = mangled[m.end():m.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                t = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                t = re.match(r"ILi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?",
                              mangled[m.end() + n:])
                 args = "" if not t else t.group(1) + (
-                    ",softcap" if t.group(2) == "1" else "")
+                    ",softcap" if t.group(2) == "1" else "") + (
+                    ",lse" if t.group(3) == "1" else "")
                 found.append(ident + (f"<{args}>" if t else ""))
     return min(found, key=len) if found else None
 

@@ -94,6 +94,16 @@
 //       are on their way to shared memory by cp.async, and sums them in
 //       split order; the ticket is an acq_rel atomic, with no full fence.
 //
+//   * the log-sum-exp (LSE, a template flag of each kernel, like CAP): the
+//     entry points flash_decode_lse_{f32,bf16} also write, per (b, h, g),
+//     lse = log sum_j exp(s_j) of the scaled (capped) scores over the valid
+//     keys, in f32 and in natural units, (m + log2 l) ln 2 from the merge's
+//     base-2 running max m and denominator l; an empty row gives -inf. The
+//     output is then f32 whatever q's type: a caller that merges attention
+//     over stripes of the keys (a sequence split over ranks) weighs each
+//     stripe's output by exp(lse - max lse) and rounds once, after the merge.
+//     The instances without the flag compute what they computed before it.
+//
 // Every entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() of its launch (or the error of
 // setting the kernel's dynamic shared memory, the first time on a device).
@@ -116,6 +126,7 @@ constexpr int kNoRow = 1 << 29;            // a copy slot past D: zero-fill
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1.0e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------------ helpers
 
@@ -289,10 +300,18 @@ struct Split {
   int pair, b, h, n, nvalid, k0, k1;
 };
 
+// The log-sum-exp of head g of a pair from the merge's base-2 max and
+// denominator (lse is null in the instances without it).
+__device__ __forceinline__ void put_lse(float* lse, const Split& sp, int G,
+                                        int g, float m2, float den) {
+  if (lse) lse[(long long)sp.pair * G + g] = (m2 + log2f(den)) * kLn2;
+}
+
 template <typename T>
 __device__ __forceinline__ bool open_split(const int* lengths, T* out, int S,
                                            int Hkv, int G, int D,
-                                           int keys_per_split, Split* sp) {
+                                           int keys_per_split, Split* sp,
+                                           float* lse) {
   sp->pair = blockIdx.x;
   sp->b = sp->pair / Hkv;
   sp->h = sp->pair - sp->b * Hkv;
@@ -304,6 +323,9 @@ __device__ __forceinline__ bool open_split(const int* lengths, T* out, int S,
       T* ob = out + (long long)sp->pair * G * D;
       for (int i = threadIdx.x; i < G * D; i += kThreads)
         ob[i] = Conv<T>::from_float(0.0f);
+      if (lse)
+        for (int g = threadIdx.x; g < G; g += kThreads)
+          lse[(long long)sp->pair * G + g] = __int_as_float(0xff800000);   // -inf
     }
     return false;
   }
@@ -319,7 +341,7 @@ __device__ __forceinline__ bool open_split(const int* lengths, T* out, int S,
 template <typename T, int DMAX>
 __device__ __forceinline__ void finish(const float* red, T* out, float* ws,
                                        int* tickets, const Split& sp,
-                                       int splits, int G, int D) {
+                                       int splits, int G, int D, float* lse) {
   constexpr int kRed = DMAX + 2;
   __shared__ int last_ticket;
   const int tid = threadIdx.x;
@@ -341,6 +363,7 @@ __device__ __forceinline__ void finish(const float* red, T* out, float* ws,
     }
     if (single) {
       ob[i] = Conv<T>::from_float(a / fmaxf(den, 1e-30f));
+      if (d == 0) put_lse(lse, sp, G, g, mx, den);
     } else {
       float* wg = wsp + g * (D + 2);
       wg[d] = a;
@@ -372,6 +395,7 @@ __device__ __forceinline__ void finish(const float* red, T* out, float* ws,
       den += __ldcg(wg + D + 1) * f;
     }
     ob[i] = Conv<T>::from_float(a / fmaxf(den, 1e-30f));
+    if (d == 0) put_lse(lse, sp, G, g, mx, den);
   }
   if (tid == 0) tickets[sp.pair] = 0;     // ready for the next call
 }
@@ -395,18 +419,25 @@ struct MmaCfg {
                 "the warps' merge fits over the rings");
 };
 
-template <int DMAX, bool CAP>
+// The output's type: q's, or f32 where the instance writes the LSE.
+template <typename T, bool LSE>
+using OutT = typename std::conditional<LSE, float, T>::type;
+
+template <int DMAX, bool CAP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
-                        const int* __restrict__ lengths, bf16* __restrict__ out,
+                        const int* __restrict__ lengths,
+                        OutT<bf16, LSE>* __restrict__ out,
                         float* __restrict__ ws, int* __restrict__ tickets,
                         int S, int Hkv, int G, int D, float scale,
-                        float softcap, int splits, int keys_per_split) {
+                        float softcap, int splits, int keys_per_split,
+                        float* __restrict__ lse_out) {
   using C = MmaCfg<DMAX>;
   extern __shared__ __align__(128) unsigned char smem[];
+  float* const lse = LSE ? lse_out : nullptr;
   Split sp;
-  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp)) return;
+  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp, lse)) return;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gr = lane >> 2;               // fragment row: query head g
@@ -558,7 +589,7 @@ flash_decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncthreads();
-  finish<bf16, DMAX>(red, out, ws, tickets, sp, splits, G, D);
+  finish<OutT<bf16, LSE>, DMAX>(red, out, ws, tickets, sp, splits, G, D, lse);
 }
 
 // ------------------------------------------ bf16 past D 128: the wide kernel
@@ -606,11 +637,12 @@ struct WideCfg {
 // way to shared memory (cp.async, as many splits a round trip as the ring
 // holds), takes each head's weights and denominator, and sums. A thread
 // owns d = tid + kMerge c of every head.
-template <int DMAX>
+template <int DMAX, typename TO>
 __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
-                                            bf16* out, float* ws,
+                                            TO* out, float* ws,
                                             int* tickets, const Split& sp,
-                                            int splits, int G, int D) {
+                                            int splits, int G, int D,
+                                            float* lse) {
   using C = WideCfg<DMAX>;
   __shared__ int last_ticket;
   __shared__ float wf[C::kConsumers][kMaxG];   // the warps' weights
@@ -638,6 +670,7 @@ __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
       den += wml[(i * kMaxG + tid) * 2 + 1] * f;
     }
     den_s[tid] = den;
+    if (single) put_lse(lse, sp, G, tid, mx, den);
     if (!single) {
       float* ml = ml_p + (blockIdx.y * G + tid) * 2;
       ml[0] = mx;
@@ -645,7 +678,7 @@ __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
     }
   }
   __syncthreads();
-  bf16* ob = out + (long long)sp.pair * gd;
+  TO* ob = out + (long long)sp.pair * gd;
   float* wacc = ws + ((long long)sp.pair * splits + blockIdx.y) * gd;
   if (tid < C::kMerge) {
 #pragma unroll
@@ -660,7 +693,7 @@ __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
             for (int i = 0; i < C::kConsumers; ++i)
               a += fl[(i * kMaxG + g) * kP + d] * wf[i][g];
             if (single)
-              ob[g * D + d] = __float2bfloat16(a / fmaxf(den_s[g], 1e-30f));
+              ob[g * D + d] = Conv<TO>::from_float(a / fmaxf(den_s[g], 1e-30f));
             else
               wacc[g * D + d] = a;
           }
@@ -708,7 +741,10 @@ __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
       den += e[1] * f;
     }
     den = warp_sum(den);
-    if (lane == 0) den_s[g] = den;
+    if (lane == 0) {
+      den_s[g] = den;
+      put_lse(lse, sp, G, g, mx, den);
+    }
   }
   float a[kMaxG][C::kCols];
 #pragma unroll
@@ -743,27 +779,29 @@ __device__ __forceinline__ void wide_finish(float* fl, const float* wml,
       for (int c = 0; c < C::kCols; ++c) {
         const int d = tid + c * C::kMerge;
         if (g < G && d < D)
-          ob[g * D + d] = __float2bfloat16(a[g][c] / fmaxf(den_s[g], 1e-30f));
+          ob[g * D + d] = Conv<TO>::from_float(a[g][c] / fmaxf(den_s[g], 1e-30f));
       }
   }
   if (tid == 0) tickets[sp.pair] = 0;     // ready for the next call
 }
 
-template <int DMAX, bool CAP>
+template <int DMAX, bool CAP, bool LSE>
 __global__ void __launch_bounds__(WideCfg<DMAX>::kThreads, 1)
 flash_decode_wide_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const int* __restrict__ lengths,
-                         bf16* __restrict__ out, float* __restrict__ ws,
+                         OutT<bf16, LSE>* __restrict__ out,
+                         float* __restrict__ ws,
                          int* __restrict__ tickets, int S, int Hkv, int G,
                          int D, float scale, float softcap, int splits,
-                         int keys_per_split) {
+                         int keys_per_split, float* __restrict__ lse_out) {
   using C = WideCfg<DMAX>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float wml[C::kConsumers * kMaxG * 2];   // each warp's (m, l)
+  float* const lse = LSE ? lse_out : nullptr;
   Split sp;
-  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp)) return;
+  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp, lse)) return;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const uint32_t ring = smem_addr(smem);
@@ -986,7 +1024,7 @@ flash_decode_wide_kernel(const bf16* __restrict__ q,
     }
   }
   __syncthreads();
-  wide_finish<DMAX>(fl, wml, out, ws, tickets, sp, splits, G, D);
+  wide_finish<DMAX>(fl, wml, out, ws, tickets, sp, splits, G, D, lse);
 }
 
 // --------------------------------------------------------- f32: CUDA cores
@@ -1021,18 +1059,20 @@ __device__ __forceinline__ int swz(int r) {
   return (r % C::kSwzRows) * C::kLK;
 }
 
-template <int DMAX, bool CAP>
+template <int DMAX, bool CAP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v,
                          const int* __restrict__ lengths, float* __restrict__ out,
                          float* __restrict__ ws, int* __restrict__ tickets,
                          int S, int Hkv, int G, int D, float scale,
-                         float softcap, int splits, int keys_per_split) {
+                         float softcap, int splits, int keys_per_split,
+                         float* __restrict__ lse_out) {
   using C = SimtCfg<DMAX>;
   extern __shared__ __align__(128) unsigned char smem[];
+  float* const lse = LSE ? lse_out : nullptr;
   Split sp;
-  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp)) return;
+  if (!open_split(lengths, out, S, Hkv, G, D, keys_per_split, &sp, lse)) return;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -1191,7 +1231,7 @@ flash_decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
   }
   __syncthreads();
-  finish<float, DMAX>(red, out, ws, tickets, sp, splits, G, D);
+  finish<float, DMAX>(red, out, ws, tickets, sp, splits, G, D, lse);
 }
 
 // ------------------------------------------------------------------ launch
@@ -1209,79 +1249,82 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
   return err;
 }
 
-template <typename T, int DMAX, bool CAP>
-int launch_dmax(const T* q, const T* k, const T* v, const int* lengths, T* out,
-                float* ws, int* tickets, int B, int S, int Hkv, int G, int D,
-                float scale, float softcap, int splits, int keys_per_split,
-                cudaStream_t st) {
+template <typename T, int DMAX, bool CAP, bool LSE>
+int launch_dmax(const T* q, const T* k, const T* v, const int* lengths,
+                void* out, float* ws, int* tickets, int B, int S, int Hkv,
+                int G, int D, float scale, float softcap, int splits,
+                int keys_per_split, float* lse, cudaStream_t st) {
   static bool done[kMaxDevices] = {};
   const dim3 grid(B * Hkv, splits);
+  OutT<T, LSE>* o = static_cast<OutT<T, LSE>*>(out);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = MmaCfg<DMAX>::kSmem;
-    err = allow_smem(flash_decode_mma_kernel<DMAX, CAP>, smem, done);
+    err = allow_smem(flash_decode_mma_kernel<DMAX, CAP, LSE>, smem, done);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_decode_mma_kernel<DMAX, CAP><<<grid, kThreads, smem, st>>>(
-        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, softcap,
-        splits, keys_per_split);
+    flash_decode_mma_kernel<DMAX, CAP, LSE><<<grid, kThreads, smem, st>>>(
+        q, k, v, lengths, o, ws, tickets, S, Hkv, G, D, scale, softcap,
+        splits, keys_per_split, lse);
   } else {
     constexpr int smem = SimtCfg<DMAX>::kSmem;
-    err = allow_smem(flash_decode_simt_kernel<DMAX, CAP>, smem, done);
+    err = allow_smem(flash_decode_simt_kernel<DMAX, CAP, LSE>, smem, done);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_decode_simt_kernel<DMAX, CAP><<<grid, kThreads, smem, st>>>(
-        q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, softcap,
-        splits, keys_per_split);
+    flash_decode_simt_kernel<DMAX, CAP, LSE><<<grid, kThreads, smem, st>>>(
+        q, k, v, lengths, o, ws, tickets, S, Hkv, G, D, scale, softcap,
+        splits, keys_per_split, lse);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 past D 128: the wide kernel, one CTA an SM.
-template <bool CAP>
+template <bool CAP, bool LSE>
 int launch_wide(const bf16* q, const bf16* k, const bf16* v,
-                const int* lengths, bf16* out, float* ws, int* tickets, int B,
+                const int* lengths, void* out, float* ws, int* tickets, int B,
                 int S, int Hkv, int G, int D, float scale, float softcap,
-                int splits, int keys_per_split, cudaStream_t st) {
+                int splits, int keys_per_split, float* lse, cudaStream_t st) {
   using C = WideCfg<256>;
   static bool done[kMaxDevices] = {};
   if (splits > C::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(flash_decode_wide_kernel<256, CAP>,
+  const cudaError_t err = allow_smem(flash_decode_wide_kernel<256, CAP, LSE>,
                                      C::kSmem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_wide_kernel<256, CAP><<<dim3(B * Hkv, splits), C::kThreads,
-                                       C::kSmem, st>>>(
-      q, k, v, lengths, out, ws, tickets, S, Hkv, G, D, scale, softcap,
-      splits, keys_per_split);
+  flash_decode_wide_kernel<256, CAP, LSE><<<dim3(B * Hkv, splits),
+                                            C::kThreads, C::kSmem, st>>>(
+      q, k, v, lengths, static_cast<OutT<bf16, LSE>*>(out), ws, tickets, S,
+      Hkv, G, D, scale, softcap, splits, keys_per_split, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool CAP>
-int launch_capped(const T* qp, const T* kp, const T* vp, const int* lp, T* op,
-                  float* wp, int* tp, int B, int S, int Hkv, int G, int D,
-                  float scale, float softcap, int splits, int keys_per_split,
-                  cudaStream_t st) {
+template <typename T, bool CAP, bool LSE>
+int launch_capped(const T* qp, const T* kp, const T* vp, const int* lp,
+                  void* op, float* wp, int* tp, int B, int S, int Hkv, int G,
+                  int D, float scale, float softcap, int splits,
+                  int keys_per_split, float* lse, cudaStream_t st) {
   if (D <= 64)
-    return launch_dmax<T, 64, CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G,
-                                   D, scale, softcap, splits, keys_per_split,
-                                   st);
+    return launch_dmax<T, 64, CAP, LSE>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv,
+                                        G, D, scale, softcap, splits,
+                                        keys_per_split, lse, st);
   if (D <= 128)
-    return launch_dmax<T, 128, CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G,
-                                    D, scale, softcap, splits, keys_per_split,
-                                    st);
+    return launch_dmax<T, 128, CAP, LSE>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv,
+                                         G, D, scale, softcap, splits,
+                                         keys_per_split, lse, st);
   if constexpr (std::is_same<T, bf16>::value)
-    return launch_wide<CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                            scale, softcap, splits, keys_per_split, st);
+    return launch_wide<CAP, LSE>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
+                                 scale, softcap, splits, keys_per_split, lse,
+                                 st);
   else
-    return launch_dmax<T, 256, CAP>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G,
-                                    D, scale, softcap, splits, keys_per_split,
-                                    st);
+    return launch_dmax<T, 256, CAP, LSE>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv,
+                                         G, D, scale, softcap, splits,
+                                         keys_per_split, lse, st);
 }
 
-// softcap > 0 launches the capped instances; 0 the uncapped ones.
+// softcap > 0 launches the capped instances, 0 the uncapped ones; a non-null
+// lse the instances that write it (and an f32 output).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* ws, void* tickets, int B, int S, int Hkv, int G,
            int D, float scale, float softcap, int splits, int keys_per_split,
-           void* stream) {
+           void* lse, void* stream) {
   if (B <= 0 || Hkv <= 0) return 0;
   if (splits < 1 || keys_per_split < 1 || !(softcap >= 0.0f))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1290,14 +1333,25 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const int* lp = static_cast<const int*>(lengths);
-  T* op = static_cast<T*>(out);
   float* wp = static_cast<float*>(ws);
   int* tp = static_cast<int*>(tickets);
+  float* ls = static_cast<float*>(lse);
+  if (ls != nullptr) {
+    if (softcap > 0.0f)
+      return launch_capped<T, true, true>(qp, kp, vp, lp, out, wp, tp, B, S,
+                                          Hkv, G, D, scale, softcap, splits,
+                                          keys_per_split, ls, st);
+    return launch_capped<T, false, true>(qp, kp, vp, lp, out, wp, tp, B, S,
+                                         Hkv, G, D, scale, softcap, splits,
+                                         keys_per_split, ls, st);
+  }
   if (softcap > 0.0f)
-    return launch_capped<T, true>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                                  scale, softcap, splits, keys_per_split, st);
-  return launch_capped<T, false>(qp, kp, vp, lp, op, wp, tp, B, S, Hkv, G, D,
-                                 scale, softcap, splits, keys_per_split, st);
+    return launch_capped<T, true, false>(qp, kp, vp, lp, out, wp, tp, B, S, Hkv,
+                                         G, D, scale, softcap, splits,
+                                         keys_per_split, nullptr, st);
+  return launch_capped<T, false, false>(qp, kp, vp, lp, out, wp, tp, B, S, Hkv,
+                                        G, D, scale, softcap, splits,
+                                        keys_per_split, nullptr, st);
 }
 
 }  // namespace
@@ -1318,7 +1372,8 @@ int flash_decode_f32(const void* q, const void* k, const void* v,
                      float softcap, int splits, int keys_per_split,
                      void* stream) {
   return launch<float>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
-                       scale, softcap, splits, keys_per_split, stream);
+                       scale, softcap, splits, keys_per_split, nullptr,
+                       stream);
 }
 
 int flash_decode_bf16(const void* q, const void* k, const void* v,
@@ -1327,7 +1382,30 @@ int flash_decode_bf16(const void* q, const void* k, const void* v,
                       float softcap, int splits, int keys_per_split,
                       void* stream) {
   return launch<bf16>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
-                      scale, softcap, splits, keys_per_split, stream);
+                      scale, softcap, splits, keys_per_split, nullptr, stream);
+}
+
+// The same, and lse: f32 (B, Hkv, G), the log-sum-exp of each row's scaled
+// (capped) scores over its valid keys (-inf for an empty row); out is then f32
+// (B, Hkv, G, D) whatever q's type.
+int flash_decode_lse_f32(const void* q, const void* k, const void* v,
+                         const void* lengths, void* out, void* ws,
+                         void* tickets, int B, int S, int Hkv, int G, int D,
+                         float scale, float softcap, int splits,
+                         int keys_per_split, void* lse, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
+                       scale, softcap, splits, keys_per_split, lse, stream);
+}
+
+int flash_decode_lse_bf16(const void* q, const void* k, const void* v,
+                          const void* lengths, void* out, void* ws,
+                          void* tickets, int B, int S, int Hkv, int G, int D,
+                          float scale, float softcap, int splits,
+                          int keys_per_split, void* lse, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<bf16>(q, k, v, lengths, out, ws, tickets, B, S, Hkv, G, D,
+                      scale, softcap, splits, keys_per_split, lse, stream);
 }
 
 }  // extern "C"

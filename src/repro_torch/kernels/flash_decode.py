@@ -20,6 +20,14 @@ results from an f32 workspace in split order. One launch per call, two
 calls give the same bits. :func:`flash_decode_split_plain` models that
 decomposition in plain PyTorch for the tests.
 
+``lse=True`` launches the instances that also write each row's
+log-sum-exp (B, Hkv, G) in f32 (-inf for an empty row) and the output in
+f32: a sequence split over ranks (the serving mesh's stripes of the KV
+cache) runs the kernel on each stripe and merges the stripes by their
+log-sum-exp (:func:`merge_stripes`, and over ranks
+:func:`repro_torch.distributed.collectives.merge_stripes`), rounding once
+after the merge.
+
 A wrapper runs its plain version only because the tensors it was given
 lie on the CPU. On CUDA tensors it launches the kernel or raises; there
 is no fallback from one to the other. It counts its launches in
@@ -140,36 +148,64 @@ def reset_launch_counts() -> None:
 
 
 @functools.cache
-def _fn(dtype: torch.dtype):
-    """The C entry point for ``dtype`` (builds on first use)."""
-    fn = getattr(build.load("flash_decode"), f"flash_decode_{_SUFFIX[dtype]}")
+def _fn(dtype: torch.dtype, lse: bool = False):
+    """The C entry point for ``dtype``, with the log-sum-exp or without
+    (builds on first use)."""
+    name = f"flash_decode_{'lse_' if lse else ''}{_SUFFIX[dtype]}"
+    fn = getattr(build.load("flash_decode"), name)
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   ctypes.c_float, ctypes.c_float, _I, _I, _P]
+                   ctypes.c_float, ctypes.c_float, _I, _I] + (
+                       [_P] if lse else []) + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_decode_plain(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        lengths: torch.Tensor, *, scale: float,
-                       softcap: float = 0.0) -> torch.Tensor:
+                       softcap: float = 0.0, lse: bool = False):
     """The kernel's function in plain PyTorch (``kernels.ref``): f32
-    scores over the whole cache, capped, masked, a guarded softmax."""
+    scores over the whole cache, capped, masked, a guarded softmax. With
+    ``lse``: (out f32, lse (B, Hkv, G) f32), as the kernel's."""
     B, Hkv, G, D = q4.shape
     out = ref.flash_decode(q4.reshape(B, Hkv * G, D), k, v, lengths,
-                           scale=scale, softcap=softcap)
+                           scale=scale, softcap=softcap, lse=lse)
+    if lse:
+        return out[0].reshape(B, Hkv, G, D), out[1].reshape(B, Hkv, G)
     return out.reshape(B, Hkv, G, D)
+
+
+def merge_stripes(outs, lses) -> torch.Tensor:
+    """Attention over a sequence cut into stripes, from each stripe's
+    ``(out, lse)`` of ``flash_decode(..., lse=True)`` (f32, any matching
+    leading shapes; ``out`` has one more trailing dim): each stripe's
+    output weighted by exp(lse - max lse), an empty stripe (lse -inf) by
+    0, summed in stripe order and divided by the weights' sum, in f32. A
+    row empty in every stripe gives zeros. The plain form of the merge
+    over ranks (:func:`repro_torch.distributed.collectives.
+    merge_stripes`)."""
+    lse = torch.stack([x.float() for x in lses])
+    m = torch.amax(lse, dim=0)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    num = torch.zeros_like(outs[0], dtype=torch.float32)
+    den = torch.zeros_like(m)
+    for out, x in zip(outs, lse):                 # stripe order
+        w = torch.exp(x - m)                      # exp(-inf) = 0
+        num = num + out.float() * w[..., None]
+        den = den + w
+    return num / den.clamp(min=1e-30)[..., None]
 
 
 def flash_decode_split_plain(q4: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, lengths: torch.Tensor, *,
                              scale: float, splits: int,
                              keys_per_split: int | None = None,
-                             softcap: float = 0.0) -> torch.Tensor:
+                             softcap: float = 0.0, lse: bool = False):
     """The kernel's decomposition in plain PyTorch, for the tests: split
     s reduces keys [s * kps, (s + 1) * kps) (``kps`` defaults to
     ceil(S / splits)) to a running max m, denominator l and accumulator,
-    all f32; the valid splits merge in split order. The main path never
-    calls it."""
+    all f32; the valid splits merge in split order. With ``lse``: (out
+    f32, lse = m + log l per row, -inf for an empty row). The main path
+    never calls it."""
     B, Hkv, G, D = q4.shape
     S = k.shape[1]
     kps = keys_per_split or _cdiv(S, splits)
@@ -200,7 +236,10 @@ def flash_decode_split_plain(q4: torch.Tensor, k: torch.Tensor,
         f = torch.exp(m - m_all)           # exp(-inf) = 0: an empty split
         acc = acc + a * f
         den = den + l * f
-    return (acc / den.clamp(min=1e-30)).to(q4.dtype)
+    out = acc / den.clamp(min=1e-30)
+    if lse:
+        return out, (m_all + torch.log(den))[..., 0]   # log 0 = -inf
+    return out.to(q4.dtype)
 
 
 def _check(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -237,10 +276,13 @@ def _check(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *, scale: float,
-                 softcap: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, lse: bool = False):
     """Decode attention of the G query heads of each kv head against a
     KV cache with per-sequence valid lengths. Returns a fresh
-    (B, Hkv, G, D) tensor in q4.dtype.
+    (B, Hkv, G, D) tensor in q4.dtype; with ``lse``, (out (B, Hkv, G, D)
+    f32, lse (B, Hkv, G) f32), each row's log-sum-exp of its scaled
+    (capped) scores over its valid keys (-inf where there is none): the
+    kernel's ``lse`` instances, in the same one launch.
 
     One launch, with no host sync and no memset: the f32 workspace of
     :func:`plan` comes from ``torch.empty``, and the kernel's tickets
@@ -252,20 +294,25 @@ def flash_decode(q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode takes a softcap >= 0, got {softcap}")
     if _on_cpu(q4, k, v, lengths):
         return flash_decode_plain(q4, k, v, lengths, scale=scale,
-                                  softcap=softcap)
+                                  softcap=softcap, lse=lse)
     _check(q4, k, v, lengths)
     B, Hkv, G, D = q4.shape
     splits, keys, ws_shape = plan(q4, k)
-    out = torch.empty_like(q4)
+    out = torch.empty(q4.shape, device=q4.device,
+                      dtype=torch.float32 if lse else q4.dtype)
+    lse_t = torch.empty((B, Hkv, G), dtype=torch.float32,
+                        device=q4.device) if lse else None
     ws = torch.empty(ws_shape, dtype=torch.float32, device=q4.device)
     tickets = _tickets(q4.device, B * Hkv)
-    fn = _fn(q4.dtype)
+    fn = _fn(q4.dtype, lse)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
+        extra = (lse_t.data_ptr(),) if lse else ()
         _raise_on(fn(q4.data_ptr(), k.data_ptr(), v.data_ptr(),
                      lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
                      tickets.data_ptr(), B, k.shape[1], Hkv, G, D,
-                     float(scale), float(softcap), splits, keys, stream),
+                     float(scale), float(softcap), splits, keys, *extra,
+                     stream),
                   "flash_decode")
     LAUNCHES["flash_decode"] += 1
-    return out
+    return (out, lse_t) if lse else out

@@ -102,11 +102,14 @@ def lars_apply_packed_q8(layout: packing.PackedLayout, wbuf: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *, scale: float | None = None,
-                 softcap: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, lse: bool = False):
     """Single-token decode attention. q (B, H, D); k/v (B, S, Hkv, D);
     lengths (B,) int. Returns (B, H, D) in q.dtype. ONE launch. With
     ``softcap`` > 0 each scaled score s is softcap * tanh(s / softcap)
-    (the reference's kernel path takes no cap; its jnp path does).
+    (the reference's kernel path takes no cap; its jnp path does). With
+    ``lse``: (out (B, H, D) f32, lse (B, H) f32), for a merge over
+    stripes of the keys (:func:`repro_torch.kernels.flash_decode.
+    merge_stripes`).
 
     The reference pads the whole cache to its block size whenever S is
     not a multiple of it; the kernel takes any S and reads only the
@@ -120,5 +123,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (D ** 0.5)
     out4 = fd.flash_decode(q.reshape(B, Hkv, H // Hkv, D), k, v,
                            lengths.to(torch.int32), scale=scale,
-                           softcap=softcap)
+                           softcap=softcap, lse=lse)
+    if lse:
+        return out4[0].reshape(B, H, D), out4[1].reshape(B, H)
     return out4.reshape(B, H, D)

@@ -34,7 +34,7 @@ def lars_apply(w: torch.Tensor, g: torch.Tensor, m: torch.Tensor, *,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *, scale: float | None = None,
-                 softcap: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, lse: bool = False):
     """Single-token decode attention with per-sequence valid lengths.
 
     q: (B, H, D); k/v: (B, S, Hkv, D); lengths: (B,) int — positions
@@ -42,7 +42,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     everything: that row gives zeros). GQA: H = G * Hkv. With
     ``softcap`` > 0 each scaled score s becomes softcap * tanh(s /
     softcap) before the mask, as in training. Returns (B, H, D) in
-    q.dtype; scores and softmax in f32.
+    q.dtype; scores and softmax in f32. With ``lse`` returns (out (B, H,
+    D) f32, lse (B, H) f32): the log-sum-exp of each row's scaled, capped
+    scores over its valid keys (-inf where there is none), the weight a
+    merge over stripes of the keys gives the row.
     """
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -55,9 +58,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = softcap * torch.tanh(scores / softcap)
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     mask = pos < lengths.to(q.device)[:, None, None, None]
-    p = _softmax(torch.where(mask, scores, -torch.inf))
-    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    masked = torch.where(mask, scores, -torch.inf)
+    p = _softmax(masked)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float()).reshape(B, H, D)
+    if lse:
+        return out, torch.logsumexp(masked, dim=-1).reshape(B, H)
+    return out.to(q.dtype)
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:

@@ -42,7 +42,10 @@ class Mesh:
     ``shape`` and ``axis_names`` are what the sharding rules read (as the
     reference's ``Mesh.shape`` / ``Mesh.axis_names``); ``groups`` holds
     the process group of each axis that has more than one rank (``None``
-    for an axis of size 1, over which nothing is sent). ``with mesh:``
+    for an axis of size 1, over which nothing is sent), and under
+    ``("data", "model")`` the group of every rank of the mesh where both
+    axes have more than one (a dim split over both: the serving mesh's
+    context parallelism). ``with mesh:``
     makes it the ambient mesh that the packed substrate and the
     collectives find through :func:`repro_torch.distributed.constrain.
     current_mesh`, as ``with mesh:`` does in the reference.
@@ -67,7 +70,15 @@ class Mesh:
         return self.coords["data"] * self.shape["model"] + \
             self.coords["model"]
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group of ``axis``: an axis name, or a tuple of
+        names (the group of the ranks that differ along those axes; where
+        only one of them has more than one rank, its group)."""
+        if isinstance(axis, tuple):
+            wide = tuple(a for a in AXES if a in axis and self.shape[a] > 1)
+            if len(wide) == 2:
+                return self.groups.get(AXES)
+            axis = wide[0] if wide else axis[0]
         return self.groups.get(axis)
 
     def __enter__(self) -> "Mesh":
@@ -141,9 +152,14 @@ def make_mesh(data: int, model: int = 1, *,
                     g = dist.new_group(ranks)
                 if rank in ranks:
                     mine[axis] = g
+        if data > 1 and model > 1:
+            mine[AXES] = dist.group.WORLD if n == size else \
+                dist.new_group(list(range(n)))
     if rank >= n:
         return None
     groups = {a: mine.get(a) for a in AXES}
+    if AXES in mine:
+        groups[AXES] = mine[AXES]
     return Mesh(shape={"data": data, "model": model},
                 coords={"data": rank // model, "model": rank % model},
                 groups=groups, device=device)

@@ -1,5 +1,6 @@
 """Serving launcher of the port: continuous-batching decode over
-synthetic traffic. Port of ``repro/launch/serve.py`` on one device.
+synthetic traffic. Port of ``repro/launch/serve.py``, on one device or
+on a serving mesh of ranks (``--mesh``).
 
 Drives :class:`repro_torch.serve.ServeEngine` with a stream of staggered
 heterogeneous requests (prompt/output lengths drawn from ranges, Poisson
@@ -15,6 +16,21 @@ history (shared system prompt + prior turns + prior outputs). With
 from the prefix store, so only the new user tokens are prefilled — the
 per-turn prefix hit count is reported. ``--prefill-chunk`` admits
 prompts one chunk a tick while the resident slots keep decoding.
+
+``--mesh DATAxMODEL`` (or ``auto``) serves on a ``(data, model)`` mesh
+of the ranks of a ``torch.distributed`` process group (``torchrun``;
+NCCL for ``cuda``, gloo for ``--device cpu``), as ``launch.train
+--mesh`` does: the slots over ``data``, the params and the KV cache's
+sequence over ``model`` (the dense family; a ``model`` axis of 1 serves
+every family, moe on one ``data`` rank only). Every rank runs the same
+traffic; only rank 0 prints. Without a process group the process is one
+rank, so ``--mesh 2x1`` fails with the reference's message. Chunked
+prefill, the prefix store, preemption and moe over ``data`` on a mesh
+are not yet ported and raise::
+
+    OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-135m \
+        --reduced --device cpu --mesh 1x2 --requests 6
 
 ``--scenario NAME`` replays a scenario-library traffic shape (steady /
 bursty / diurnal / heavy_tail, priority-tiered; or the port's
@@ -44,9 +60,8 @@ Examples (on the card; ``--device cpu`` runs on the CPU)::
 Weights are random, drawn from ``--seed`` (the port's own init at the
 reference's distributions). ``--set FIELD=VALUE`` overrides a config
 field after ``--reduced``, as in the reference (a sliding window serves
-from a ring cache, the logit softcap is applied at decode). ``--mesh``
-is not yet ported and raises (the serving mesh is the slice after
-tensor parallelism). As in the reference, the encdec and vlm
+from a ring cache, the logit softcap is applied at decode). As in the
+reference, the encdec and vlm
 archs (whisper-base, paligemma-3b) raise too: ``ServeEngine`` does not
 serve their families (:class:`repro_torch.serve.DecodeEngine` does).
 ``--use-flash`` asks for the ``flash_decode`` kernel, so it needs the
@@ -57,6 +72,8 @@ the card and its plain version on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
@@ -64,6 +81,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.launch.mesh import init_distributed, mesh_from_spec, world
 from repro_torch.launch.overrides import apply_overrides
 from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine, parse_sampler
@@ -226,7 +244,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="round prompt buffers up to a multiple of this "
                     "(groups admissions of similar length)")
     ap.add_argument("--mesh", default="none",
-                    help="'none' (the serving mesh is not yet ported)")
+                    help="none, auto or DATAxMODEL: a (data, model) mesh "
+                    "over the ranks of the process group (torchrun)")
     ap.add_argument("--use-flash", action="store_true",
                     help="ask for the flash_decode kernel (needs the card; "
                     "default: the kernel on the card, its plain version "
@@ -287,17 +306,27 @@ def main(argv=None) -> dict:
     (latency and TTFT percentiles, tokens/s, occupancy, decode ticks,
     kernel launches, the engine's counters)."""
     args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not yet ported to repro_torch.launch."
-            "serve: the serving mesh is the slice after tensor parallelism "
-            "(launch.train takes --mesh)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to "
                            "serve on the CPU")
+    mesh = None
+    if args.mesh != "none":
+        device = init_distributed(device)
+        mesh = mesh_from_spec(args.mesh, device=device)
+        if mesh is None:
+            print(f"rank {world()[0]} lies past --mesh {args.mesh}: idle")
+            return {"rank": world()[0], "mesh": None}
     torch.backends.cuda.matmul.allow_tf32 = False
+    # only the mesh's rank 0 prints
+    quiet = mesh is not None and mesh.rank != 0
+    with contextlib.redirect_stdout(io.StringIO()) if quiet \
+            else contextlib.nullcontext():
+        return _serve(args, device, mesh)
 
+
+def _serve(args, device: torch.device, mesh) -> dict:
+    """:func:`main` on ``device``, on ``mesh`` (None: one device)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -313,7 +342,7 @@ def main(argv=None) -> dict:
         prefix_entries=args.prefix_entries,
         prefix_min_tokens=args.prefix_min_tokens, seed=args.seed,
         slos=parse_slos(args.slos), min_slots=args.min_slots or None,
-        reserve_slots=args.reserve_slots)
+        reserve_slots=args.reserve_slots, mesh=mesh)
 
     rng = np.random.default_rng(args.seed)
     launches0 = fd.LAUNCHES["flash_decode"]
@@ -327,7 +356,9 @@ def main(argv=None) -> dict:
             + (f" slos={args.slos}" if args.slos else " (fifo)")
             + (f" min_slots={args.min_slots}" if args.min_slots else "")
             + (f" reserve={args.reserve_slots}"
-               if args.reserve_slots else ""))
+               if args.reserve_slots else "")
+            + (f" mesh={mesh.shape['data']}x{mesh.shape['model']}"
+               if mesh is not None else ""))
     if args.scenario:
         print(head + f" — scenario {args.scenario}")
         rep = run_library_scenario(engine, cfg, args)
@@ -341,7 +372,9 @@ def main(argv=None) -> dict:
                flash_decode_per_tick=model.flash_decode_per_step(),
                flash_decode_launches=fd.LAUNCHES["flash_decode"] - launches0,
                logits_finite=engine.logits_finite,
-               stats=dict(engine.stats))
+               stats=dict(engine.stats),
+               mesh=None if mesh is None else dict(mesh.shape),
+               ranks_agree=engine.ranks_agree())
     if engine.pool is not None:
         rep.setdefault("prefix", dict(engine.pool.stats,
                                       hit_rate=engine.pool.hit_rate))
@@ -372,6 +405,9 @@ def main(argv=None) -> dict:
           f"({rep['flash_decode_per_tick']} per tick on the card, 0 "
           f"on the CPU; {st['flash_decode_outside_ticks']} outside the "
           f"ticks); logits finite: {rep['logits_finite']}")
+    if mesh is not None:
+        print(f"  mesh {mesh.shape['data']}x{mesh.shape['model']}: the "
+              f"ranks' scheduler digests agree: {rep['ranks_agree']}")
     if args.session:
         for t, row in enumerate(rep["per_turn"]):
             print(f"  turn {t}: {row['submitted']} requests, "

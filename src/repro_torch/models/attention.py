@@ -30,6 +30,17 @@ the hand-written ``flash_decode`` kernel through
 tensors); the reference's other decode path, its jnp core, computes the
 same function and is not ported.
 
+On a serving mesh (:func:`decode_attention`'s ``tp`` and ``stripe``) a
+rank holds a stripe of the cache's sequence for every head: it projects
+its heads (column-parallel, as training's block), gathers the new
+token's q and k/v over the heads, writes the new row only where its
+stripe holds it, runs ``flash_decode`` on its stripe with the
+log-sum-exp and merges the ranks' partial softmaxes
+(:func:`repro_torch.distributed.collectives.merge_stripes`), then takes
+its heads into the row-parallel ``wo``. Prefill
+(:func:`prefill_attention`) computes its heads and gathers the prompt's
+K/V over the heads for the cache.
+
 A sliding window decodes from a RING cache of ``window`` rows, as the
 reference's: the key of absolute position p (roped at p) sits in row
 p % window, and decode attends every written row (``kv_len = min(pos +
@@ -103,9 +114,20 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     :func:`~repro_torch.distributed.collectives.copy_to_model`). q then
     holds this rank's block of heads, and k/v the KV heads they read; see
     :func:`_split_weights`."""
-    H, Hkv, hd = cfg.attn_dims
-    B, S, _ = x.shape
     w = _split_weights(cfg, p, tp) if tp is not None else p
+    q, k, v = _project(cfg, w, x, positions, rope)
+    if tp is not None:
+        k, v = (_kv_for_heads(t, w["kv_heads"]) for t in (k, v))
+    return q, k, v
+
+
+def _project(cfg, w: dict, x: torch.Tensor, positions: torch.Tensor,
+             rope: bool = True):
+    """q, k, v of the heads ``w``'s projections hold, biased, normed
+    over the head dim and rotated (per head: which heads they are does
+    not change a head's values)."""
+    hd = cfg.attn_dims[2]
+    B, S, _ = x.shape
     q = x @ w["wq"]
     k = x @ w["wk"]
     v = x @ w["wv"]
@@ -116,8 +138,6 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, -1, hd)
     v = v.reshape(B, S, -1, hd)
-    if tp is not None:
-        k, v = (_kv_for_heads(t, w["kv_heads"]) for t in (k, v))
     if cfg.qk_norm:
         q = L.rmsnorm(q, w["q_norm"], cfg.norm_eps)
         k = L.rmsnorm(k, w["k_norm"], cfg.norm_eps)
@@ -125,6 +145,56 @@ def qkv_project(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor, *,
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _split_heads(cfg, p: dict, tp) -> tuple[bool, bool]:
+    """Whether this rank's q holds its block of the heads (the head count
+    divides over the ranks; else every head, computed whole), and
+    whether its k/v hold its block of the KV heads (else every KV
+    head): as :func:`_split_weights` splits them."""
+    H, Hkv, hd = cfg.attn_dims
+    m = tp.shape["model"]
+    aligned = H % m == 0
+    return aligned, (p["wk"].shape[-1] != Hkv * hd and aligned
+                     and Hkv % m == 0)
+
+
+def _gather_heads(parts: list, tp) -> list:
+    """Each of ``parts`` ((B, S, n_i, hd): this rank's block of its
+    heads) with every rank's heads, in rank order: ONE all-gather over
+    ``model`` of the parts side by side."""
+    B, S, _, hd = parts[0].shape
+    sizes = [t.shape[2] for t in parts]
+    both = C.all_gather_dim(torch.cat(parts, dim=2).contiguous(), tp, 2)
+    both = both.reshape(B, S, tp.shape["model"], sum(sizes), hd)
+    return [t.reshape(B, S, -1, hd).contiguous()
+            for t in both.split(sizes, dim=3)]
+
+
+def _project_all_heads(cfg, p: dict, x: torch.Tensor,
+                       positions: torch.Tensor, tp, *, all_q: bool = False):
+    """Under a tensor-parallel ``tp``: this rank's projections (q, and
+    k/v for its query heads, as training's block computes them) and the
+    new k/v of EVERY KV head (a cache holds every head), gathered over
+    ``model`` where the ranks split them; with ``all_q`` q of every head
+    too (decode: the rank attends its stripe for every head), in the
+    same one all-gather. Returns (q, k_heads, v_heads, k_all, v_all)."""
+    w = _split_weights(cfg, p, tp)
+    q, k, v = _project(cfg, w, x, positions)
+    aligned, kv_local = _split_heads(cfg, p, tp)
+    k_all, v_all = k, v
+    if all_q and aligned:
+        if kv_local:
+            q, k_all, v_all = _gather_heads([q, k, v], tp)
+        else:
+            q, = _gather_heads([q], tp)
+        return q, None, None, k_all, v_all
+    if kv_local:
+        k_all, v_all = _gather_heads([k, v], tp)
+    if all_q:
+        return q, None, None, k_all, v_all
+    k, v = (_kv_for_heads(t, w["kv_heads"]) for t in (k, v))
+    return q, k, v, k_all, v_all
 
 
 def _split_weights(cfg, p: dict, tp) -> dict:
@@ -301,9 +371,44 @@ def attention_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     return C.reduce_from_model(out @ p["wo"], tp)
 
 
+def prefill_attention(cfg, p: dict, h: torch.Tensor,
+                      positions: torch.Tensor, prefix_len: int | None = None,
+                      tp=None):
+    """A GQA attention sub-block over a whole prompt, with the config's
+    window and softcap: (out (B, S, d), k, v (B, S, Hkv, hd) of every KV
+    head, for the cache). Under a tensor-parallel ``tp`` that splits
+    ``wo``'s rows the rank computes its heads (column-parallel, as
+    training's block) and its rows of ``wo``, the ranks' outputs summed,
+    and gathers the prompt's K/V over the heads. The reference's hybrid
+    prefill leaves the softcap out of its shared block (its training,
+    decode and chunked prefill apply it); the port applies it here
+    too."""
+    B, S, _ = h.shape
+    H, _, hd = cfg.attn_dims
+    if tp is not None and p["wo"].shape[0] == H * hd:
+        tp = None
+    if tp is None:
+        q, k, v = qkv_project(cfg, p, h, positions)
+        k_all, v_all = k, v
+    else:
+        q, k, v, k_all, v_all = _project_all_heads(cfg, p, h, positions,
+                                                   tp)
+    out = attention_core(q, k, v, q_positions=positions,
+                         window=cfg.sliding_window, prefix_len=prefix_len,
+                         softcap=cfg.attn_logit_softcap,
+                         q_chunk=cfg.attn_q_chunk, flash_vjp=cfg.flash_vjp)
+    out = out.reshape(B, S, -1)
+    if tp is None:
+        return out @ p["wo"], k_all, v_all
+    if out.shape[-1] == H * hd:                 # every head, whole
+        out = C.split_dim(out, tp, -1)
+    return C.reduce_from_model(out @ p["wo"], tp), k_all, v_all
+
+
 def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     live: torch.Tensor | None = None):
+                     live: torch.Tensor | None = None, *, tp=None,
+                     stripe=None):
     """One-token decode: x (B,1,d), a layer's cache (B,S_buf,Hkv,hd),
     pos (B,) int32 absolute position. Writes the new K/V row into the
     cache in place and attends it through ``flash_decode`` (ONE kernel
@@ -321,21 +426,64 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     ``live`` (B,) bool drops the K/V writes of the rows it masks off
     (their output is computed and meant to be discarded): the masked
     live decode of chunked admission.
+
+    On a serving mesh: ``tp``, a tensor-parallel mesh whose ``model``
+    axis splits the projections, and ``stripe``
+    (:class:`~repro_torch.distributed.sharding.Stripe`), this rank's
+    stripe of the sequence (``cache_k`` holds its ``stripe.rows`` rows
+    of the whole ``stripe.count * stripe.rows``, for every head). The
+    rank projects its heads, gathers the new token's q over the heads
+    and its k/v over the KV heads; the new row is written only by the
+    rank whose stripe holds it (row ``min(pos, S - 1)`` or a ring's
+    ``pos % S``; the others drop the write); ``flash_decode`` runs on
+    the stripe with its own valid length ``clamp(min(pos + 1, S) -
+    index * rows, 0, rows)`` and the log-sum-exp, the ranks' partials
+    are merged in f32 and rounded once, and the rank takes its heads
+    into the row-parallel ``wo``, the ranks' outputs summed.
     """
     check_decode_supported(cfg)
     B = x.shape[0]
     H, Hkv, hd = cfg.attn_dims
-    S_buf = cache_k.shape[1]
-    q, k_new, v_new = qkv_project(cfg, p, x, pos[:, None])
+    if tp is not None and p["wo"].shape[0] == H * hd:
+        tp = None
+    S_loc = cache_k.shape[1]
+    S_buf = S_loc * (stripe.count if stripe is not None else 1)
+    if tp is None:
+        q, k_new, v_new = qkv_project(cfg, p, x, pos[:, None])
+    else:
+        q, _, _, k_new, v_new = _project_all_heads(cfg, p, x, pos[:, None],
+                                                   tp, all_q=True)
     row = pos % S_buf if ring_windowed(cfg, S_buf) else pos
-    _insert_at(cache_k, k_new, row, live)
-    _insert_at(cache_v, v_new, row, live)
-    kv_len = torch.clamp(pos + 1, max=S_buf).to(torch.int32)
-    out = kops.flash_decode(q[:, 0], cache_k, cache_v, kv_len,
-                            scale=hd ** -0.5,
-                            softcap=float(cfg.attn_logit_softcap or 0.0))
-    out = out.reshape(B, 1, H * hd) @ p["wo"]
-    return out, cache_k, cache_v
+    softcap = float(cfg.attn_logit_softcap or 0.0)
+    if stripe is None:
+        _insert_at(cache_k, k_new, row, live)
+        _insert_at(cache_v, v_new, row, live)
+        kv_len = torch.clamp(pos + 1, max=S_buf).to(torch.int32)
+        out = kops.flash_decode(q[:, 0], cache_k, cache_v, kv_len,
+                                scale=hd ** -0.5, softcap=softcap)
+    else:
+        if live is not None:
+            raise NotImplementedError(
+                "the masked live decode (chunked prefill) on a serving "
+                "mesh is ROADMAP.md queue 1 item 4c-ii, not yet ported to "
+                "repro_torch")
+        lo = stripe.index * S_loc
+        local = torch.clamp(row, max=S_buf - 1) - lo
+        mine = (local >= 0) & (local < S_loc)
+        local = torch.clamp(local, 0, S_loc - 1)
+        _insert_at(cache_k, k_new, local, mine)
+        _insert_at(cache_v, v_new, local, mine)
+        n = torch.clamp(torch.clamp(pos + 1, max=S_buf) - lo, 0, S_loc)
+        part, lse = kops.flash_decode(q[:, 0], cache_k, cache_v,
+                                      n.to(torch.int32), scale=hd ** -0.5,
+                                      softcap=softcap, lse=True)
+        out = C.merge_stripes(part, lse, stripe.mesh,
+                              stripe.axis).to(x.dtype)
+    out = out.reshape(B, 1, H * hd)
+    if tp is None:
+        return out @ p["wo"], cache_k, cache_v
+    out = C.split_dim(out, tp, -1)
+    return C.reduce_from_model(out @ p["wo"], tp), cache_k, cache_v
 
 
 def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

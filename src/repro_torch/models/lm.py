@@ -71,6 +71,15 @@ cache) is aligned as the reference aligns it: each ring row holds the
 newest position that maps to it, per row of a right-padded batch
 (:func:`_ring_gather`).
 
+On a serving mesh (:meth:`decode_step` and :meth:`prefill_at` with
+``mesh``) the cache is this rank's
+(:class:`~repro_torch.distributed.sharding.LocalCache`: its slots, and
+its stripe of the sequence where the mesh splits it) and, on a
+``model`` axis above 1 (the dense family), the params are this rank's
+blocks: the lookup and the logits are vocab-parallel, the attention and
+MLP blocks Megatron's, the decode attention runs on the stripe and
+merges the ranks' partials, and prefill writes only the stripe's rows.
+
 The encdec family is :mod:`repro_torch.models.encdec`'s. MLA with a
 window or the softcap raises ``NotImplementedError`` wherever a decode
 cache is made (:func:`repro_torch.models.attention.check_decode_supported`).
@@ -86,7 +95,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.constrain import current_mesh
-from repro_torch.distributed.sharding import check_model_parallel
+from repro_torch.distributed.sharding import LocalCache, check_model_parallel
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -361,6 +370,12 @@ class LanguageModel:
 
     # ----------------------------------------------------------------- cache
 
+    def cache_shapes(self, batch: int, seq_len: int) -> dict:
+        """Every leaf of the decode cache, ``pos`` first: {name: (shape,
+        dtype)}."""
+        return dict({"pos": ((batch,), torch.int32)},
+                    **self._cache_shapes(batch, seq_len))
+
     def _cache_shapes(self, batch: int, seq_len: int) -> dict:
         """The decode cache's leaves other than ``pos``: {name: (shape,
         dtype)}. MLA's latent and rope-key caches; the SSM family's conv
@@ -388,12 +403,22 @@ class LanguageModel:
         kv = (L_, batch, s_kv, Hkv, hd)
         return {"k": (kv, dt), "v": (kv, dt)}
 
-    def init_cache(self, batch: int, seq_len: int, *, device=None) -> dict:
+    def init_cache(self, batch: int, seq_len: int, *, device=None,
+                   sharding=None) -> dict:
+        """A zero decode cache of ``batch`` slots and capacity
+        ``seq_len``; with ``sharding``
+        (:class:`~repro_torch.distributed.sharding.CacheSharding`), this
+        rank's leaves of it, as a ``LocalCache`` that knows its
+        stripe."""
         self._check_decode()
-        cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
-        for name, (shape, dt) in self._cache_shapes(batch, seq_len).items():
+        cache = {}
+        for name, (shape, dt) in self.cache_shapes(batch, seq_len).items():
+            if sharding is not None:
+                shape = sharding.local_shape(name)
             cache[name] = torch.zeros(shape, dtype=dt, device=device)
-        return cache
+        if sharding is None:
+            return cache
+        return LocalCache(cache, stripe=sharding.stripe)
 
     def flash_decode_per_step(self) -> int:
         """``flash_decode`` launches one :meth:`decode_step` makes on the
@@ -407,19 +432,24 @@ class LanguageModel:
     def cache_capacity(self, cache: dict) -> Optional[int]:
         """Token capacity of a decode cache, looked up by leaf name as
         the reference does: None for a pure-SSM cache, whose state does
-        not grow with the sequence."""
+        not grow with the sequence. A rank's stripe of a cache reports
+        the whole cache's."""
+        stripe = getattr(cache, "stripe", None)
         for name in ("k", "ckv", "attn_k"):
             if name in cache:
-                return cache[name].shape[2]
+                return cache[name].shape[2] * (stripe.count if stripe
+                                               else 1)
         return None
 
     # ---------------------------------------------------------------- decode
 
-    def _layer_decode(self, params_l, x, cache_l: dict, pos, live=None):
+    def _layer_decode(self, params_l, x, cache_l: dict, pos, live=None,
+                      tp=None, stripe=None):
         """One layer, one token; writes this layer's cache rows, or its
         new conv and recurrent state (``cache_l``: the layer's views of
         the cache leaves), for the rows ``live`` keeps (all without
-        it)."""
+        it). ``tp``/``stripe``: the serving mesh's split (the decode
+        attention's)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
         if self.recurrent:
@@ -432,24 +462,31 @@ class LanguageModel:
                 cache_l[name].copy_(new)
             return x + y
         if cfg.use_mla:
+            if stripe is not None:
+                raise NotImplementedError(
+                    "MLA's decode over a cache whose sequence is split over "
+                    "ranks is ROADMAP.md queue 1 item 4c-ii, not yet ported "
+                    "to repro_torch")
             out, _, _ = MLA.mla_decode(cfg, params_l["attn"], h,
                                        cache_l["ckv"], cache_l["krope"], pos,
                                        live)
         else:
             out, _, _ = A.decode_attention(cfg, params_l["attn"], h,
                                            cache_l["k"], cache_l["v"], pos,
-                                           live)
+                                           live, tp=tp, stripe=stripe)
         x = x + out
         h = L.apply_norm(cfg, x, params_l["ln2"])
-        return x + self._ffn(params_l, h)[0]
+        return x + self._ffn(params_l, h, tp)[0]
 
-    def _shared_decode(self, shared, x, cache_k, cache_v, pos, live=None):
+    def _shared_decode(self, shared, x, cache_k, cache_v, pos, live=None,
+                       stripe=None):
         """The hybrid's shared block, one token, over one application's
-        K/V cache (written in place)."""
+        K/V cache (written in place; ``stripe``: this rank's stripe of
+        it)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, shared["ln1"])
         out, _, _ = A.decode_attention(cfg, shared["attn"], h, cache_k,
-                                       cache_v, pos, live)
+                                       cache_v, pos, live, stripe=stripe)
         x = x + out
         h = L.apply_norm(cfg, x, shared["ln2"])
         return x + mlp_block(cfg, shared["mlp"], h)
@@ -457,7 +494,7 @@ class LanguageModel:
     @torch.no_grad()
     def decode_step(self, params, cache: dict, tokens: torch.Tensor, *,
                     use_flash: bool | str = "auto",
-                    live: Optional[torch.Tensor] = None
+                    live: Optional[torch.Tensor] = None, mesh=None
                     ) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) -> (logits (B, 1, V) f32, the cache, updated in
         place: one row per sequence and layer of each K/V or latent
@@ -482,53 +519,43 @@ class LanguageModel:
         logits are to be discarded. The reference selects old against
         new over every leaf (free under XLA's donation); the port drops
         the writes instead, so no cache leaf is copied.
+
+        ``mesh``: the serving mesh. ``cache`` is then this rank's
+        (``LocalCache``: its slots' rows, its stripe of the sequence),
+        and on a ``model`` axis above 1 ``params`` are this rank's blocks
+        and the logits (B, 1, V / ranks) its block of the vocabulary
+        where the unembedding is split.
         """
         pos = cache["pos"]
         kops.check_use_kernels(use_flash, pos.device, option="use_flash")
-        x = self.embed_tokens(params, tokens)
+        tp = C.model_parallel(mesh)
+        if tp is not None:
+            check_model_parallel(self.cfg, tp)
+        stripe = getattr(cache, "stripe", None)
+        x = self.embed_tokens(params, tokens, tp)
         layers = params["layers"]
         leaves = [name for name in cache
                   if name not in ("pos", "attn_k", "attn_v")]
         for i in range(self.cfg.num_layers):
             x = self._layer_decode(_index(layers, i), x,
                                    {name: cache[name][i] for name in leaves},
-                                   pos, live)
+                                   pos, live, tp, stripe)
             if self._applies_shared(i):
                 a = i // self.cfg.attn_every
                 x = self._shared_decode(params["shared"], x,
                                         cache["attn_k"][a],
-                                        cache["attn_v"][a], pos, live)
+                                        cache["attn_v"][a], pos, live,
+                                        stripe)
         pos.add_(1 if live is None else live.to(pos.dtype))
-        return self.logits(params, x), cache
+        return self.logits(params, x, tp), cache
 
     # --------------------------------------------------------------- prefill
-
-    def _attention_prefill(self, p, h: torch.Tensor, positions: torch.Tensor,
-                           prefix_len: Optional[int] = None
-                           ) -> tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]:
-        """A GQA attention sub-block over the whole prompt, with the
-        config's window and softcap: (out (B, S, d), k, v (B, S, Hkv,
-        hd)) for the cache. The reference's hybrid prefill leaves the
-        softcap out of its shared block (its training, decode and chunked
-        prefill apply it); the port applies it here too."""
-        cfg = self.cfg
-        B, S, _ = h.shape
-        H, _, hd = cfg.attn_dims
-        q, k, v = A.qkv_project(cfg, p, h, positions)
-        out = A.attention_core(q, k, v, q_positions=positions,
-                               window=cfg.sliding_window,
-                               prefix_len=prefix_len,
-                               softcap=cfg.attn_logit_softcap,
-                               q_chunk=cfg.attn_q_chunk,
-                               flash_vjp=cfg.flash_vjp)
-        return out.reshape(B, S, H * hd) @ p["wo"], k, v
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, *,
                 image_embeddings: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None,
-                lengths: Optional[torch.Tensor] = None
+                lengths: Optional[torch.Tensor] = None, mesh=None
                 ) -> tuple[torch.Tensor, dict]:
         """Run the full prompt, building a decode cache of capacity
         ``cache_len`` (default: the prompt length). The vlm family's
@@ -547,14 +574,21 @@ class LanguageModel:
         shared key) and the attention runs expanded, as the reference.
         The SSM and hybrid families carry their recurrent state through
         the prompt (:meth:`_prefill_recurrent`). Returns
-        (last-valid-token logits (B, V) f32, cache).
+        (last-valid-token logits (B, V) f32, cache). ``mesh``: a serving
+        mesh whose ``model`` axis splits the params (the dense family):
+        the forward is tensor-parallel, the cache's K/V hold every head
+        and the logits are this rank's block of the vocabulary.
         """
         cfg = self.cfg
         self._check_decode()
         if cfg.family == "vlm" and lengths is not None:
             raise ValueError("the vlm family's prefill takes no lengths, as "
                              "the reference's")
-        x, prefix_len = self._embed_inputs(params, tokens, image_embeddings)
+        tp = C.model_parallel(mesh)
+        if tp is not None:
+            check_model_parallel(cfg, tp)
+        x, prefix_len = self._embed_inputs(params, tokens, image_embeddings,
+                                           tp)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)
         cap = cache_len or S
@@ -573,14 +607,14 @@ class LanguageModel:
                     rows["ckv"].append(ckv)
                     rows["krope"].append(krope[:, :, 0])
                 else:
-                    out, k, v = self._attention_prefill(p, h, positions,
-                                                        prefix_len)
+                    out, k, v = A.prefill_attention(cfg, p, h, positions,
+                                                    prefix_len, tp)
                     x = x + out
                     rows["k"].append(k)
                     rows["v"].append(v)
                 h = L.apply_norm(cfg, x, params_l["ln2"])
-                x = x + self._ffn(params_l, h)[0]
-            logits = self._last_valid_logits(params, x, lengths)
+                x = x + self._ffn(params_l, h, tp)[0]
+            logits = self._last_valid_logits(params, x, lengths, tp)
             shapes = self._cache_shapes(B, cap)
             windowed = not cfg.use_mla and A.ring_windowed(
                 cfg, shapes["k"][0][2])
@@ -630,8 +664,8 @@ class LanguageModel:
             if self._applies_shared(i):
                 shared = params["shared"]
                 h = L.apply_norm(cfg, x, shared["ln1"])
-                out, k, v = self._attention_prefill(shared["attn"], h,
-                                                    positions)
+                out, k, v = A.prefill_attention(cfg, shared["attn"], h,
+                                                positions)
                 x = x + out
                 h = L.apply_norm(cfg, x, shared["ln2"])
                 x = x + mlp_block(cfg, shared["mlp"], h)
@@ -646,20 +680,22 @@ class LanguageModel:
         return self._last_valid_logits(params, x, lengths), cache
 
     def _last_valid_logits(self, params, x: torch.Tensor,
-                           lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        """Logits of each row's last valid position ((B, V) f32)."""
+                           lengths: Optional[torch.Tensor], tp=None
+                           ) -> torch.Tensor:
+        """Logits of each row's last valid position ((B, V) f32; this
+        rank's block of the vocabulary under a ``tp`` that splits it)."""
         if lengths is None:
-            return self.logits(params, x[:, -1:])[:, 0]
+            return self.logits(params, x[:, -1:], tp)[:, 0]
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, lengths.long() - 1][:, None]          # (B, 1, d)
-        return self.logits(params, x_last)[:, 0]
+        return self.logits(params, x_last, tp)[:, 0]
 
     # ------------------------------------------------------ slot admission
 
     @torch.no_grad()
     def prefill_at(self, params, cache: dict, tokens: torch.Tensor,
                    slots: torch.Tensor, *,
-                   lengths: Optional[torch.Tensor] = None
+                   lengths: Optional[torch.Tensor] = None, mesh=None
                    ) -> tuple[torch.Tensor, dict]:
         """Prefill prompts and write the resulting decode state into
         rows ``slots`` of a persistent slot cache (continuous-batching
@@ -679,6 +715,11 @@ class LanguageModel:
         pure-SSM cache has none); a ring (a sliding window's) admits a
         longer prompt and keeps each row's newest window, as the
         reference's.
+
+        ``mesh``: the serving mesh. ``cache`` is this rank's
+        (``LocalCache``) and ``slots`` index its slots; the prompts are
+        prefilled as :meth:`prefill` does on the mesh, and a leaf with a
+        sequence axis takes only the rows of this rank's stripe.
         """
         if self.cfg.family == "vlm":
             raise ValueError("prefill_at admits text prompts into slots; the "
@@ -694,14 +735,19 @@ class LanguageModel:
                              f"cache capacity {cap}")
         logits, small = self.prefill(
             params, tokens, cache_len=None if cap is None else min(S, cap),
-            lengths=lengths)
+            lengths=lengths, mesh=mesh)
+        stripe = getattr(cache, "stripe", None)
         slots = slots.to(device=cache["pos"].device, dtype=torch.long)
         cache["pos"].index_copy_(0, slots, small["pos"])
         for name, new in small.items():
             if name in STATE_LEAVES:           # (L, B, ...)
                 cache[name][:, slots] = new
             elif name != "pos":                # (L or A, B, S_buf, ...)
-                cache[name][:, slots, :new.shape[2]] = new
+                if stripe is not None:         # this rank's rows of them
+                    lo = stripe.index * stripe.rows
+                    new = new[:, :, lo:lo + stripe.rows]
+                if new.shape[2]:
+                    cache[name][:, slots, :new.shape[2]] = new
         return logits, cache
 
     @torch.no_grad()

@@ -23,25 +23,50 @@ class SlotCache:
     """Fixed (slots, capacity) device cache + free-slot accounting.
 
     ``capacity`` bounds prompt_len + max_new_tokens per request (the
-    cache leaves are (L, slots, capacity, ...)). A ``mesh`` is not yet
-    ported: the serving mesh (``cache_pspecs`` executed over ``model``) is
-    the slice after tensor parallelism.
+    cache leaves are (L, slots, capacity, ...)).
+
+    With a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`) the cache is
+    placed by ``distributed.sharding.cache_pspecs``, as the reference's:
+    the sequence over ``model`` (split-KV), the slots over ``data`` where
+    ``data`` divides them, else the sequence over ``("data", "model")``
+    (context parallelism: every rank holds every slot). ``data`` holds
+    this rank's leaves (a ``LocalCache`` that knows its stripe),
+    ``pspecs`` the reference's specs and ``shardings`` each leaf's
+    :class:`~repro_torch.distributed.sharding.LeafSharding`;
+    ``slot_block`` is the global slots this rank holds. The accounting
+    (``slots``, ``capacity``, the free list, :meth:`fits`) is global and
+    the same on every rank. MLA's latent cache split over ranks is not
+    yet ported (ROADMAP.md queue 1 item 4c-ii) and raises.
     """
 
     def __init__(self, model, slots: int, capacity: int, *, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded SlotCache is not yet ported to repro_torch: "
-                "the serving mesh is the slice after tensor parallelism "
-                "(training's data-parallel meshes are ported)")
         if slots < 1 or capacity < 1:
             raise ValueError(f"bad slot cache shape ({slots}, {capacity})")
         self.model = model
         self.slots = slots
         self.capacity = capacity
-        self.mesh = None
-        self.data = model.init_cache(slots, capacity, device=device)
+        self.mesh = mesh
+        self.pspecs = self.shardings = self.sharding = None
+        self.slot_block = slice(0, slots)
+        if mesh is None:
+            self.data = model.init_cache(slots, capacity, device=device)
+        else:
+            from repro_torch.distributed.sharding import CacheSharding
+            shapes = {k: v[0] for k, v in
+                      model.cache_shapes(slots, capacity).items()}
+            self.sharding = CacheSharding(model.cfg, mesh, shapes,
+                                          slots=slots)
+            if self.sharding.stripe is not None and model.cfg.use_mla:
+                raise NotImplementedError(
+                    f"{model.cfg.name}'s latent cache split over ranks "
+                    f"({dict(mesh.shape)} mesh, {slots} slots) is ROADMAP.md "
+                    "queue 1 item 4c-ii, not yet ported to repro_torch")
+            self.pspecs = self.sharding.specs
+            self.shardings = self.sharding.shardings
+            self.slot_block = self.sharding.slot_block
+            self.data = model.init_cache(slots, capacity, device=device,
+                                         sharding=self.sharding)
         self._free = list(range(slots - 1, -1, -1))   # pop() -> slot 0 first
 
     # ------------------------------------------------------------ slots

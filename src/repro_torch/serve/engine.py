@@ -1,8 +1,8 @@
 """The continuous-batching :class:`ServeEngine` (slot cache + FIFO or
 SLO-tiered scheduler + on-device sampling, with chunked prefill, a prefix
 store and preemption), the static-batch :class:`DecodeEngine` and the
-prefill/serve step factories: port of ``repro/serve/engine.py`` on one
-device.
+prefill/serve step factories: port of ``repro/serve/engine.py``, on one
+device or on a serving mesh of ``torch.distributed`` ranks.
 
 ServeEngine contract (the decode hot path):
   * ONE decode step per emitted token for the whole slot batch — every
@@ -33,19 +33,42 @@ ServeEngine contract (the decode hot path):
 ``ServeEngine`` serves the families of ``SERVE_FAMILIES``, as the
 reference's: the encdec and vlm families' prompts carry frames or image
 embeddings, which slot admission does not take, so they are served by
-:class:`DecodeEngine`. A mesh is not yet ported and raises: the serving
-mesh is the slice after tensor parallelism.
+:class:`DecodeEngine`.
+
+The serving mesh (``ServeEngine(mesh=...)``, a
+:class:`repro_torch.launch.mesh.Mesh`): every rank runs the same host
+scheduler over the same requests, so every host decision (admissions,
+finishes, tier order) comes out the same on every rank; the clock they
+decide by is rank 0's, broadcast (:meth:`ServeEngine.clock`). The params
+are cut by ``serve_param_pspecs``' ``model`` entries and the cache by
+``cache_pspecs`` (:class:`~repro_torch.serve.cache.SlotCache`): a rank
+decodes its block of the slots, against its stripe of the sequence
+(``flash_decode`` on the stripe, the ranks' partial softmaxes merged),
+samples from whole rows of the vocabulary (its block's argmax gathered
+under greedy, the rows gathered otherwise), and the ranks of ``data``
+gather their tokens, so the host sees every slot's. A ``model`` axis
+above 1 serves the dense family (any other raises, naming ROADMAP.md
+queue 1 item 4b-ii); a ``model`` axis of 1 every family of
+``SERVE_FAMILIES`` but moe over a ``data`` axis above 1 (each data rank
+would route its block of the slots alone). That, chunked prefill, the
+prefix store, preemption and :class:`DecodeEngine` on a mesh raise,
+naming queue 1 item 4c-ii.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (check_model_parallel,
+                                              serve_param_shardings,
+                                              shard_params)
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as kops
 from repro_torch.serve import sampling
@@ -56,6 +79,12 @@ from repro_torch.serve.scheduler import (FinishedRequest, PriorityScheduler,
                                          Request, RequestScheduler)
 
 SERVE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _not_on_mesh(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on a serving mesh is ROADMAP.md queue 1 item 4c-ii, not "
+        "yet ported to repro_torch")
 
 
 @dataclasses.dataclass
@@ -109,7 +138,9 @@ class DecodeEngine:
     The batch's tensors are moved there.
     """
 
-    def __init__(self, model, params, cfg=None):
+    def __init__(self, model, params, cfg=None, *, mesh=None):
+        if mesh is not None:
+            raise _not_on_mesh("DecodeEngine")
         self.model = model
         self.cfg = cfg if cfg is not None else model.cfg
         self.params = params
@@ -169,7 +200,11 @@ class ServeEngine:
     port's form of the reference's one-trace contract),
     ``flash_decode_launches`` (kernel launches inside those calls) and
     ``flash_decode_outside_ticks`` (launches during admission, chunks,
-    restores and snapshots: none, on either device).
+    restores and snapshots: none, on either device). On a mesh they are
+    this rank's.
+
+    ``mesh``: the serving mesh (module docstring). ``params`` are the
+    whole params; the engine keeps this rank's blocks of them.
     """
 
     def __init__(self, model, params, cfg=None, *, slots: int = 4,
@@ -188,13 +223,30 @@ class ServeEngine:
         if self.cfg.family not in SERVE_FAMILIES:
             raise ValueError(f"ServeEngine covers {SERVE_FAMILIES}, got "
                              f"{self.cfg.family!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...) is not yet ported to repro_torch: "
-                "the serving mesh is the slice after tensor parallelism "
-                "(training's data-parallel meshes are ported)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.launch.mesh import Mesh
+            if not isinstance(mesh, Mesh):
+                raise TypeError("ServeEngine's mesh must be a repro_torch."
+                                f"launch.mesh.Mesh, got {type(mesh)!r}")
+            check_model_parallel(self.cfg, mesh)
+            if self.cfg.family == "moe" and mesh.shape["data"] > 1:
+                # a data rank routes its block of the slots alone, and an
+                # expert's capacity is reckoned from the batch routed;
+                # the reference routes every slot at once
+                raise _not_on_mesh("the moe family over a data axis of "
+                                   f"{mesh.shape['data']} ranks")
+            if prefill_chunk is not None:
+                raise _not_on_mesh("chunked prefill (prefill_chunk)")
+            if prefix_entries > 0:
+                raise _not_on_mesh("the prefix store (prefix_entries)")
+            if preempt and slos is not None:
+                raise _not_on_mesh("preemption (slos with preempt=True)")
+            params = shard_params(params, serve_param_shardings(
+                self.cfg, params, mesh))
+        self._tp = C.model_parallel(mesh)
         self.sampler = sampler if sampler is not None else SamplerConfig()
         self.params = params
         self.device = params["embed"].device
@@ -202,17 +254,18 @@ class ServeEngine:
         kops.check_use_kernels(self.use_flash, self.device,
                                option="use_flash")
         self.seed = seed
-        self.cache = SlotCache(model, slots, capacity, device=self.device)
+        self.cache = SlotCache(model, slots, capacity, mesh=mesh,
+                               device=self.device)
         if slos is not None:
             self.scheduler: RequestScheduler = PriorityScheduler(
                 self.cache, slos=slos, max_queue=max_queue,
                 prefill_bucket=prefill_bucket, aging_s=aging_s,
                 preempt_at=preempt_at, over_budget_only=over_budget_only,
-                reserve_slots=reserve_slots)
+                reserve_slots=reserve_slots, clock=self.clock)
         else:
             self.scheduler = RequestScheduler(
                 self.cache, max_queue=max_queue,
-                prefill_bucket=prefill_bucket)
+                prefill_bucket=prefill_bucket, clock=self.clock)
         self.preempt_enabled = preempt and slos is not None
         if min_slots is not None and not 1 <= min_slots <= slots:
             raise ValueError(f"min_slots must be in [1, {slots}]")
@@ -248,15 +301,48 @@ class ServeEngine:
         self._pending: list[_PendingRow] = []
         self._prefilling: set[int] = set()
         self._snap_q: list[tuple[int, int]] = []    # (entry, src slot)
-        self._toks = torch.zeros((slots, 1), dtype=torch.int32,
+        # this rank's slots' tokens and keys (every slot off a mesh)
+        local = self.cache.slot_block.stop - self.cache.slot_block.start
+        self._toks = torch.zeros((local, 1), dtype=torch.int32,
                                  device=self.device)
-        self._keys = torch.zeros((slots, 2), dtype=torch.int64,
+        self._keys = torch.zeros((local, 2), dtype=torch.int64,
                                  device=self.device)
+        # on a mesh, every token recorded, folded in order: the host's
+        # decisions, to be compared across the ranks (scheduler_digest)
+        self._trail = hashlib.sha256() if mesh is not None else None
         # True while every logits row computed for a live request so far
         # was finite; read on the host only by :attr:`logits_finite`
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
 
     # ----------------------------------------------------------- device
+
+    def clock(self) -> float:
+        """The time the host decides by: ``time.perf_counter()``, and on a
+        mesh rank 0's, broadcast to every rank (a collective: every rank
+        reads it at the same points of the same host loop)."""
+        now = time.perf_counter()
+        return now if self.mesh is None else C.broadcast_scalar(now,
+                                                                self.mesh)
+
+    def _sample(self, logits: torch.Tensor, keys: torch.Tensor
+                ) -> torch.Tensor:
+        """One token a row from logits (n, V), or from this rank's block
+        of the vocabulary (n, V / ranks) where the mesh splits it: its
+        argmax gathered under greedy, the whole rows otherwise. The same
+        tokens on every rank of ``model``."""
+        if self._tp is None or logits.shape[-1] == self.cfg.vocab_size:
+            return sampling.sample(self.sampler, logits, keys)
+        if not self.sampler.stochastic:
+            return C.argmax_vocab(logits, self._tp)
+        return sampling.sample(self.sampler,
+                               C.gather_vocab(logits, self._tp), keys)
+
+    def _every_slot(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a per-slot tensor -> every slot's, gathered
+        over ``data`` where the mesh splits the slots."""
+        if self.cache.sharding is None or not self.cache.sharding.slots_split:
+            return x
+        return C.all_gather_rows(x.contiguous(), self.mesh, "data")
 
     def _outside_ticks(self, fn: Callable, *args):
         """Call ``fn`` and count the ``flash_decode`` launches it made
@@ -275,7 +361,7 @@ class ServeEngine:
         before = fd.LAUNCHES["flash_decode"]
         logits, cache = self.model.decode_step(
             self.params, self.cache.data, self._toks,
-            use_flash=self.use_flash, live=live)
+            use_flash=self.use_flash, live=live, mesh=self.mesh)
         self.stats["decode_calls"] += 1
         self.stats["flash_decode_launches"] += \
             fd.LAUNCHES["flash_decode"] - before
@@ -284,14 +370,19 @@ class ServeEngine:
             ok = ok | ~live[:, None, None]
         self._finite &= ok.all()
         keys = sampling.fold_positions(self._keys, cache["pos"])
-        nxt = sampling.sample(self.sampler, logits[:, -1], keys)[:, None]
+        nxt = self._sample(logits[:, -1], keys)[:, None]
         self._toks = nxt if live is None else torch.where(
             live[:, None], nxt, self._toks)
 
     def _admit(self, prompt: torch.Tensor, lengths: torch.Tensor,
                slot_ids: torch.Tensor, req_keys: torch.Tensor
                ) -> torch.Tensor:
-        """Prefill a group into its slots; sample its first tokens."""
+        """Prefill a group into its slots; sample its first tokens. On a
+        mesh a rank prefills the rows whose slots it holds, and the ranks
+        of ``data`` sum their first tokens (each row's is nonzero on its
+        own rank only), so every rank returns every row's."""
+        if self.mesh is not None:
+            return self._admit_on_mesh(prompt, lengths, slot_ids, req_keys)
         logits, _ = self.model.prefill_at(self.params, self.cache.data,
                                           prompt, slot_ids, lengths=lengths)
         self._finite &= torch.isfinite(logits).all()
@@ -299,6 +390,28 @@ class ServeEngine:
         first = sampling.sample(
             self.sampler, logits, sampling.fold_positions(req_keys, lengths))
         self._toks[slot_ids, 0] = first
+        return first
+
+    def _admit_on_mesh(self, prompt, lengths, slot_ids, req_keys
+                       ) -> torch.Tensor:
+        blk = self.cache.slot_block
+        ids = slot_ids.cpu()
+        rows = torch.nonzero((ids >= blk.start) & (ids < blk.stop))[:, 0]
+        first = torch.zeros(len(ids), dtype=torch.int32, device=self.device)
+        if len(rows):
+            local = (ids[rows] - blk.start).to(self.device)
+            rows = rows.to(self.device)
+            logits, _ = self.model.prefill_at(
+                self.params, self.cache.data, prompt[rows], local,
+                lengths=lengths[rows], mesh=self.mesh)
+            self._finite &= torch.isfinite(logits).all()
+            self._keys[local] = req_keys[rows]
+            mine = self._sample(logits, sampling.fold_positions(
+                req_keys[rows], lengths[rows]))
+            self._toks[local, 0] = mine
+            first[rows] = mine
+        if self.cache.sharding.slots_split:
+            C.all_reduce_sum(first, self.mesh, "data")
         return first
 
     def _admit_chunk(self, slot_ids: np.ndarray, chunk: np.ndarray,
@@ -364,7 +477,7 @@ class ServeEngine:
         req = Request(rid=rid, tokens=np.asarray(tokens),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       tier=tier)
-        self.scheduler.submit(req, now=time.perf_counter())
+        self.scheduler.submit(req, now=self.clock())
         return rid
 
     def _admit_budget(self) -> Optional[int]:
@@ -408,9 +521,12 @@ class ServeEngine:
                 req_keys)
             self.stats["admit_calls"] += 1
             first = first.cpu().numpy()
-            now = time.perf_counter()
-            for (slot, _, _), tok in zip(group, first):
+            now = self.clock()
+            for (slot, req, _), tok in zip(group, first):
                 self.stats["tokens_out"] += 1
+                if self._trail is not None:
+                    self._trail.update(np.asarray([req.rid, slot, int(tok)],
+                                                  np.int64).tobytes())
                 fin = self.scheduler.record(slot, int(tok), now)
                 if fin is not None:
                     finished.append(fin)
@@ -426,6 +542,9 @@ class ServeEngine:
         which is what a follow-up session turn will prefix-match."""
         st = self.scheduler.active[slot]
         self.stats["tokens_out"] += 1
+        if self._trail is not None:
+            self._trail.update(np.asarray([st.request.rid, slot, token],
+                                          np.int64).tobytes())
         fin = self.scheduler.record(slot, token, now)
         if fin is None:
             return
@@ -537,7 +656,7 @@ class ServeEngine:
         self.stats["chunk_calls"] += 1
         first = self._outside_ticks(self._admit_chunk, slot_ids, chunk,
                                     start, cl, full, rids, done)
-        now = time.perf_counter()
+        now = self.clock()
         still = []
         for i, r in enumerate(self._pending):
             r.start += int(cl[i])
@@ -580,7 +699,7 @@ class ServeEngine:
                 self._hold_preempt_snapshot(st.request.rid, resident, slot)
             self.stats["preemptions"] += 1
             self.stats["replayed_tokens"] += len(st.emitted)
-            self.scheduler.preempt(slot, time.perf_counter())
+            self.scheduler.preempt(slot, self.clock())
         self._flush_snaps()     # before admission reuses the freed slots
 
     def _hold_preempt_snapshot(self, rid: int, tokens: np.ndarray,
@@ -653,8 +772,9 @@ class ServeEngine:
                 self._decode(torch.from_numpy(mask).to(self.device))
             else:
                 self._decode()
-            emitted = self._toks[:, 0].cpu().numpy()   # the ONLY host copy
-            now = time.perf_counter()
+            # the ONLY host copy (every slot's: gathered over a mesh's data)
+            emitted = self._every_slot(self._toks[:, 0]).cpu().numpy()
+            now = self.clock()
             for slot in live:
                 self._record(slot, int(emitted[slot]), now, finished)
         self._flush_snaps()         # retirement snapshots from this tick
@@ -683,6 +803,25 @@ class ServeEngine:
         rids = [self.submit(p, max_new_tokens) for p in prompts]
         by_rid = {f.request.rid: f.tokens for f in self.run()}
         return [by_rid[r] for r in rids]
+
+    def scheduler_digest(self) -> int:
+        """A 62-bit digest of the host's decisions so far: on a mesh every
+        token recorded (request, slot, token, in order), the free slots,
+        the queue and the counters that are not times. Equal on every rank
+        of a mesh whose ranks decided alike."""
+        h = self._trail.copy() if self._trail is not None \
+            else hashlib.sha256()
+        h.update(repr((sorted(self.scheduler.active),
+                       [q.req.rid for q in self.scheduler.queue],
+                       {k: v for k, v in sorted(self.stats.items())
+                        if not k.startswith("flash_decode")})).encode())
+        return int.from_bytes(h.digest()[:8], "little") >> 2
+
+    def ranks_agree(self) -> bool:
+        """Whether every rank of the mesh has the same
+        :meth:`scheduler_digest` (a collective: every rank calls it).
+        True off a mesh."""
+        return C.all_agree(self.scheduler_digest(), self.mesh)
 
     @property
     def occupancy(self) -> float:

@@ -244,12 +244,14 @@ def _drive_wave(engine: ServeEngine, wave: Sequence[TrafficItem],
                 time_scale: float, classes: Optional[dict] = None) -> list:
     """Submit the wave's items at their scaled arrival offsets while
     stepping the engine; drain before returning. ``classes`` collects
-    rid -> traffic class for per-class percentiles."""
+    rid -> traffic class for per-class percentiles. The arrivals are
+    replayed by the engine's clock (on a serving mesh rank 0's, so that
+    every rank submits the same requests at the same tick)."""
     finished = []
     items = sorted(wave, key=lambda t: t.at)
-    i, t0 = 0, time.perf_counter()
+    i, t0 = 0, engine.clock()
     while i < len(items) or engine.scheduler.has_work():
-        now = time.perf_counter() - t0
+        now = engine.clock() - t0
         while i < len(items) and items[i].at * time_scale <= now:
             rid = engine.submit(items[i].tokens, items[i].max_new,
                                 tier=items[i].tier)

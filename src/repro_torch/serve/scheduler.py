@@ -1,6 +1,7 @@
 """Request schedulers for the continuous-batching engine: port of
 ``repro/serve/scheduler.py`` (host-side Python, no tensors; the
-reference's, verbatim but for this docstring and its import).
+reference's, verbatim but for this docstring, its import and the
+``clock`` a serving mesh hands it).
 
 A bounded queue of heterogeneous-length requests, per-slot progress
 tracking, admission batching (free slots x queued requests, grouped by
@@ -46,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 
@@ -142,12 +143,18 @@ class RequestScheduler:
     rows cancelled in between); ``record`` appends one emitted token to
     a slot and retires it on EOS/max-tokens; ``preempt`` evicts a slot
     and re-queues the request as a replayable continuation.
+
+    ``clock`` gives the time a call without ``now`` decides by
+    (``time.perf_counter``; on a serving mesh the engine's, rank 0's
+    time broadcast to every rank, so that every rank decides alike).
     """
 
     def __init__(self, cache: SlotCache, *, max_queue: int = 1024,
-                 prefill_bucket: int = 1):
+                 prefill_bucket: int = 1,
+                 clock: Callable[[], float] = time.perf_counter):
         if prefill_bucket < 1:
             raise ValueError("prefill_bucket must be >= 1")
+        self.clock = clock
         self.cache = cache
         self.max_queue = max_queue
         self.prefill_bucket = prefill_bucket
@@ -202,7 +209,7 @@ class RequestScheduler:
         recompilation under bursty arrivals. The caller must confirm
         each row with :meth:`claim_popped` before issuing its prefill.
         """
-        now = time.perf_counter() if now is None else now
+        now = self.clock() if now is None else now
         groups: dict[int, list[tuple[int, Request, float]]] = {}
         admitted = 0
         picked: list[_Queued] = []
@@ -400,9 +407,10 @@ class PriorityScheduler(RequestScheduler):
                  aging_s: Optional[float] = None,
                  preempt_at: float = 0.5,
                  over_budget_only: bool = False,
-                 reserve_slots: int = 0):
+                 reserve_slots: int = 0,
+                 clock: Callable[[], float] = time.perf_counter):
         super().__init__(cache, max_queue=max_queue,
-                         prefill_bucket=prefill_bucket)
+                         prefill_bucket=prefill_bucket, clock=clock)
         self.slos = normalize_slos(slos)
         if not self.slos:
             raise ValueError("PriorityScheduler needs at least one TierSLO")
@@ -451,7 +459,7 @@ class PriorityScheduler(RequestScheduler):
         still fits the cache — preferring higher tier numbers, then
         over-budget decodes, then the oldest. With ``over_budget_only``
         only victims past their latency SLO are eligible."""
-        now = time.perf_counter() if now is None else now
+        now = self.clock() if now is None else now
         if not self.queue:
             return []
         at_risk = []

@@ -1,5 +1,6 @@
 """Multi-process runs of the port over ``torch.distributed`` (gloo, CPU
-ranks) for the data-parallel and ZeRO tests.
+ranks) for the data-parallel, ZeRO, tensor-parallel and serving-mesh
+tests.
 
 ``spawn(scenario, world, tmp, **kwargs)`` starts ``world`` fresh Python
 processes running this file, one rank each; they rendezvous through a
@@ -509,8 +510,103 @@ def tensor_parallel(*, runs, inits, tokens, ckpt_dir: str = "",
     return out
 
 
+def serve_run(run: dict, init, prompts, mesh=None) -> dict:
+    """One serving run (``tests/test_torch_serve_mesh.py``): a reduced LM
+    (``run["arch"]`` with ``run["changes"]``) from the reference's
+    ``init`` (numpy; the port's seed-1 init where it is None) served by
+    ``ServeEngine(mesh=mesh, **run["engine"])`` (``mesh`` None: the port
+    alone) on ``prompts``, ``run["new"]`` tokens each, the request of
+    prompt i at tier ``run["tiers"][i]`` (0 without). Returns the tokens
+    by rid, the finish order, the decode ticks, ``decode_step`` calls
+    and ``flash_decode`` wrapper calls, whether the ranks' scheduler
+    digests agree, the stripe and the local leaf shapes. With
+    ``run["refuse"]`` the engine's construction must raise
+    ``NotImplementedError``: its message (None where it did not)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import SamplerConfig, ServeEngine
+    from repro_torch.serve.scheduler import Request, TierSLO
+    cfg = dataclasses.replace(get_config(run["arch"]).reduced(),
+                              **run.get("changes", {}))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), "cpu") \
+        if init is None else bridge.lm_params_to_torch(init, model)
+    kw = dict(run.get("engine", {}))
+    if "sampler" in kw:
+        kw["sampler"] = SamplerConfig(**kw["sampler"])
+    if "slos" in kw:
+        kw["slos"] = {t: TierSLO(*v) for t, v in kw["slos"].items()}
+    if run.get("refuse"):
+        try:
+            ServeEngine(model, params, cfg, mesh=mesh, **kw)
+        except NotImplementedError as e:
+            return {"refused": str(e)}
+        return {"refused": None}
+    calls = [0]
+    inner = ops.flash_decode
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    ops.flash_decode = counted
+    try:
+        engine = ServeEngine(model, params, cfg, mesh=mesh, **kw)
+        tiers = run.get("tiers") or [0] * len(prompts)
+        finished = engine.run([
+            Request(rid=i, tokens=np.asarray(p), max_new_tokens=run["new"],
+                    tier=t) for i, (p, t) in enumerate(zip(prompts, tiers))])
+    finally:
+        ops.flash_decode = inner
+    stripe = getattr(engine.cache.data, "stripe", None)
+    return {"tokens": {f.request.rid: f.tokens.tolist() for f in finished},
+            "order": [f.request.rid for f in finished],
+            "decode_steps": engine.stats["decode_steps"],
+            "decode_calls": engine.stats["decode_calls"],
+            "wrapper_calls": calls[0],
+            "agree": engine.ranks_agree(),
+            "stripe": None if stripe is None else tuple(stripe[:4]),
+            "slot_block": (engine.cache.slot_block.start,
+                           engine.cache.slot_block.stop),
+            "local": {k: tuple(v.shape) for k, v in
+                      engine.cache.data.items()},
+            "capacity": model.cache_capacity(engine.cache.data)}
+
+
+def serve_mesh(*, runs, inits, prompts, cli=None) -> dict:
+    """Every run of ``runs`` on its mesh (``run["mesh"]``, over the
+    leading ranks; each mesh built once, in order, on every rank):
+    :func:`serve_run`'s result by tag (nothing for a rank past a run's
+    mesh); with ``cli``, ``launch.serve.main(cli)`` (its ``--mesh``
+    included) under ``"cli"``: rank 0's report's tokens by rid, every
+    rank's digest agreement."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import mesh_from_spec
+    meshes, out = {}, {}
+    for run in runs:
+        if run["mesh"] not in meshes:
+            meshes[run["mesh"]] = mesh_from_spec(run["mesh"], device="cpu")
+        mesh = meshes[run["mesh"]]
+        if mesh is not None:
+            out[run["tag"]] = serve_run(run, inits.get(run["model"]),
+                                        prompts[run["model"]], mesh)
+    if cli:
+        rep = launch_serve.main(cli)
+        out["cli"] = {"tokens": {f.request.rid: f.tokens.tolist()
+                                 for f in rep.get("finished", [])},
+                      "agree": rep.get("ranks_agree"),
+                      "mesh": rep.get("mesh")}
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (zero_vs_replicated, golden, fuse_rules,
-                                      zero_smoke, tensor_parallel)}
+                                      zero_smoke, tensor_parallel,
+                                      serve_mesh)}
 
 
 def _main(scenario: str, rank: int, size: int, tmp: str) -> None:

@@ -1365,3 +1365,67 @@ def test_chunked_engine_on_the_card_matches_the_cpu(cuda):
             else 0)
         out[dev] = [got[r] for r in rids]
     assert out["cuda"] == out["cpu"]
+
+
+# ------------------------------- the log-sum-exp instances (serving mesh)
+
+# the lse instances at the mma kernel's D 64 and 128, the wide kernel's
+# D 256 (bf16) and the SIMT kernel's (f32), lengths 0, 1, S and past S
+# among the rows; each against its plain version: out at FD_TOL, lse at
+# 1e-5 of max(|lse|, 1), -inf exactly where a row has no key
+LSE_SHAPES = [(5, 1000, 3, 3, 64), (5, 700, 8, 5, 128), (5, 448, 1, 8, 256)]
+
+
+@pytest.mark.parametrize("shape", LSE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_flash_decode_lse_matches_plain(cuda, shape, dtype, cap):
+    q, k, v, lengths = _fd_inputs(*shape, dtype, cuda, seed=5)
+    scale = shape[-1] ** -0.5
+    before = fdk.LAUNCHES["flash_decode"]
+    out, lse = fdk.flash_decode(q, k, v, lengths, scale=scale, softcap=cap,
+                                lse=True)
+    torch.cuda.synchronize()
+    assert fdk.LAUNCHES["flash_decode"] == before + 1
+    want, want_lse = fdk.flash_decode_plain(q, k, v, lengths, scale=scale,
+                                            softcap=cap, lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    assert lse.shape == q.shape[:3]
+    torch.testing.assert_close(out, want, **FD_TOL[dtype])
+    empty = lengths == 0
+    assert torch.isneginf(lse[empty]).all() and (out[empty] == 0).all()
+    rel = (lse[~empty] - want_lse[~empty]).abs() \
+        / want_lse[~empty].abs().clamp(min=1.0)
+    assert rel.max() <= 1e-5
+    # the output without lse is the same kernel's, rounded to q's type
+    plain = fdk.flash_decode(q, k, v, lengths, scale=scale, softcap=cap)
+    torch.testing.assert_close(out.to(dtype).float(), plain.float(),
+                               **FD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 256])
+def test_three_merged_stripes_equal_the_whole_cache_kernel(cuda, dtype, D):
+    """The cache cut into three stripes of its keys, the lse instance on
+    each at its own valid length, merged (``merge_stripes``) and rounded
+    once: the whole-cache kernel's one launch within FD_TOL (f32) or one
+    bf16 ulp."""
+    rows, stripes = 300, 3
+    S = rows * stripes
+    q, k, v, lengths = _fd_inputs(6, S, 1, 8, D, dtype, cuda, seed=6)
+    lengths[1:5] = torch.tensor([rows, rows + 1, 2 * rows - 1, 1],
+                                device=cuda)
+    scale = D ** -0.5
+    whole = fdk.flash_decode(q, k, v, lengths, scale=scale)
+    outs, lses = [], []
+    for r in range(stripes):
+        n = torch.clamp(torch.clamp(lengths, max=S) - r * rows, 0, rows)
+        o, x = fdk.flash_decode(
+            q, k[:, r * rows:(r + 1) * rows].contiguous(),
+            v[:, r * rows:(r + 1) * rows].contiguous(), n.to(torch.int32),
+            scale=scale, lse=True)
+        outs.append(o)
+        lses.append(x)
+    got = fdk.merge_stripes(outs, lses).to(dtype)
+    torch.testing.assert_close(got.float(), whole.float(), **FD_TOL[dtype])

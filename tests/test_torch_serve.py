@@ -27,6 +27,7 @@ from repro.serve.scheduler import RequestScheduler as RefScheduler
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import mesh_from_spec
 from repro_torch.models import build_model
 from repro_torch.serve import report
 from repro_torch.serve import (QueueFull, Request, RequestScheduler,
@@ -306,18 +307,19 @@ def test_stochastic_output_is_independent_of_slot_and_admission_tick():
                                 {"prefix_entries": 2}, {"mesh": object()},
                                 {"min_slots": 1}])
 def test_engine_refuses_unported_options(kw):
-    """A mesh is not yet ported and raises. The other options, which
-    raised until this slice ported them, now run: an empty ``slos`` is
-    refused by the priority scheduler itself (as the reference's), and
-    chunked prefill, the prefix store and slot autoscaling serve the
-    same greedy tokens as the plain engine (4 requests through 2 slots).
-    tests/test_torch_serve_{slo,prefix}.py hold them against the
+    """Each of these options raised until a slice ported it, and now
+    runs: an empty ``slos`` is refused by the priority scheduler itself
+    (as the reference's), a mesh that is not a ``launch.mesh.Mesh`` by
+    the engine, and chunked prefill, the prefix store, slot autoscaling
+    and a real (one-rank) mesh serve the same greedy tokens as the plain
+    engine (4 requests through 2 slots).
+    tests/test_torch_serve_{slo,prefix,mesh}.py hold them against the
     reference."""
     cfg, model, params, _, _ = _pair()
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(TypeError, match="launch.mesh.Mesh"):
             ServeEngine(model, params, cfg, **kw)
-        return
+        kw = {"mesh": mesh_from_spec("1x1", device="cpu")}
     if "slos" in kw:
         with pytest.raises(ValueError, match="at least one TierSLO"):
             ServeEngine(model, params, cfg, **kw)
@@ -361,14 +363,16 @@ def test_launch_serve_runs_reduced_on_the_cpu(capsys):
     ["--set", "sliding_window=8"], ["--arch", "paligemma-3b"],
     ["--set", "attn_logit_softcap=30.0"], ["--arch", "whisper-base"]])
 def test_launch_serve_refuses_unported_options(extra, monkeypatch):
-    """What ``launch.serve`` still refuses: ``--mesh`` ("not yet
-    ported"), and the vlm and encdec archs with the reference's own
-    refusal (its ``ServeEngine`` does not serve their families). The
-    reference's other options, and a sliding window or the softcap set
-    through ``--set``, raised until this slice ported them; each now
-    serves its traffic (a window below the prompts' lengths: a ring),
-    every request finishing with finite logits and one ``decode_step``
-    call a tick."""
+    """What ``launch.serve`` refuses: the vlm and encdec archs, with the
+    reference's own refusal (its ``ServeEngine`` does not serve their
+    families), and ``--mesh 2x1`` without the ranks of its mesh: without
+    a process group the process is one rank, so it fails with the
+    reference's message, as ``launch.train``'s does (the mesh on ranks:
+    tests/test_torch_serve_mesh.py). The reference's other options, and
+    a sliding window or the softcap set through ``--set``, raised until
+    a slice ported them; each now serves its traffic (a window below the
+    prompts' lengths: a ring), every request finishing with finite
+    logits and one ``decode_step`` call a tick."""
     args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
             "--requests", "3"]
     if "--arch" in extra:
@@ -376,7 +380,7 @@ def test_launch_serve_refuses_unported_options(extra, monkeypatch):
             launch_serve.main(args + extra)
         return
     if "--mesh" in extra:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(SystemExit, match="needs 2 devices, have 1"):
             launch_serve.main(args + extra)
         return
     if "--scenario" in extra:
