@@ -347,8 +347,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
              outside the ticks, the ranks' scheduler digests and tokens
              equal; the share of requests whose tokens equal the run
              alone's, tick ms, the share of a tick in collectives, bytes
-             a tick and the peaks printed. The phases' wall times are
-             printed at the end.
+             a tick and the peaks printed; (f) the moe family on meshes,
+             in (a)'s ranks after their runs, on their ``2x1`` mesh and a
+             ``1x2`` mesh of the same two processes: granite-moe-3b-a800m
+             at full width and 1 of 32 layers, 2 f32 LARS steps of 2 x
+             4096 tokens (``2x1``: each global batch routed over
+             ``data``; ``1x2``: its 40 experts split, 20 a rank), each
+             against the same run alone on the card: step 0 layer 0's
+             kept (token, expert) slots differing in under 1 % of the run
+             alone's, losses within 2e-4, one ``norms_flat`` and one
+             ``apply_flat`` a step a rank on the global rows, the router
+             and the norm scales bit-identical across ``1x2``'s ranks;
+             step ms, the share in collectives and the peaks printed;
+             then ``launch.serve --mesh`` on both meshes: reduced granite
+             with drops (f32; greedy tokens identical to the run alone)
+             and granite at full width and 1 layer (bf16; phase 8's
+             traffic, 8 new tokens): one ``flash_decode`` a layer a tick
+             a rank (the lse instance on ``1x2``'s stripes), none outside
+             the ticks, digests equal, the share of requests whose
+             tokens equal the run alone's printed. (a)'s and (f)'s runs
+             alone run in this process beside the ranks. The phases'
+             wall times are printed at the end.
 
 From phase 13 on, a model's seeded init is drawn once per phase and
 shared by its training runs, sessions and serving (``shared_inits``:
@@ -878,6 +897,40 @@ SERVE_MESH_ARGS = {
              "--requests", "32", "--prompt-min", "520", "--prompt-max",
              "1450", "--new-min", "8", "--new-max", "8", "--arrival-every",
              "0", "--prefill-bucket", "64", "--seed", "0"]}
+# (f): the moe family on meshes, in (a)'s two ranks after their runs, on
+# a 2x1 mesh (each global batch's routing taken over data: the slots
+# counted per expert, the counts all-gathered) and on a second mesh of
+# the same two processes, 1x2 (expert parallelism: granite's 40 experts,
+# 20 a rank; the router and norms whole). Training: granite-moe-3b-a800m
+# at full width, 1 of its 32 layers, f32 LARS, 2 steps of 2 x 4096
+# tokens, each mesh against the same run alone on the card: at step 0
+# layer 0 the kept (token, expert) slots (~30 % drop at this width) may
+# differ in MOE_MESH_SLOT_SHARE of the run alone's (near-ties in the
+# router may flip), the losses within MOE_MESH_LOSS_RTOL (the reference's
+# own mesh tolerance, tests/test_pipeline.py:284-289), one norms_flat and
+# one apply_flat a step a rank on the global rows, every replicated leaf
+# (the router, the norm scales) bit-identical across 1x2's ranks.
+# Serving, through launch.serve --mesh on both meshes: reduced granite
+# with drops (f32; 4 slots of 48 rows), greedy tokens identical to the
+# run alone; granite at full width and 1 layer (bf16; phase 8's traffic
+# with 8 new tokens, as (e)): every request finished with finite logits,
+# one flash_decode a layer a tick a rank (the lse instance on 1x2's
+# stripes) and none outside the ticks, the ranks' digests equal; the
+# share of requests whose tokens equal the run alone's printed
+MOE_MESHES = ("2x1", "1x2")
+MOE_MESH_LAYERS = 1
+MOE_MESH_TRAIN = (2, 4096, 2)           # global batch, seq, steps
+MOE_MESH_SLOT_SHARE = 0.01
+MOE_MESH_LOSS_RTOL = 2e-4
+MOE_MESH_SERVE = {
+    "moe_reduced": ["--arch", GRANITE, "--reduced"]
+    + [a for k, v in GRANITE_DROP.items() for a in ("--set", f"{k}={v}")]
+    + SERVE_MESH_ARGS["reduced"][3:],
+    "moe_full": ["--arch", GRANITE, "--set", f"num_layers={MOE_MESH_LAYERS}",
+                 "--slots", "32", "--capacity", "4096", "--requests", "32",
+                 "--prompt-min", "256", "--prompt-max", "2048", "--new-min",
+                 "8", "--new-max", "8", "--arrival-every", "0",
+                 "--prefill-bucket", "64", "--seed", "0"]}
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -4019,8 +4072,9 @@ def serve_stack_phase(serve, fdk, lk, phase8: dict, workdir: str) -> dict:
 
 def zero_spec(name: str):
     """(cfg, model, optimizer, host batches, global batch, steps) of one
-    phase 20 run: LeNet at batch 1024 with f32 or int8 LARS momentum, or
-    smollm-135m at full width, 16 x 1024 tokens, f32 LARS."""
+    phase 20 run: LeNet at batch 1024 with f32 or int8 LARS momentum,
+    smollm-135m at full width, 16 x 1024 tokens, f32 LARS, or (f)'s
+    granite at full width and MOE_MESH_LAYERS layers."""
     from repro_torch.configs import get_config
     from repro_torch.core import lars
     from repro_torch.data import batch_iterator, synthetic_mnist
@@ -4032,6 +4086,13 @@ def zero_spec(name: str):
         x, y, _, _ = synthetic_mnist(4 * b, 8, seed=0)
         host = batch_iterator(x, y, batch=b, seed=0)
         slots = "int8" if name.endswith("int8") else "f32"
+    elif name.startswith("granite"):
+        import dataclasses
+        cfg = dataclasses.replace(get_config(GRANITE),
+                                  num_layers=MOE_MESH_LAYERS)
+        b, seq, steps = MOE_MESH_TRAIN
+        host = lm_batches(cfg, b, seq, seed=0)
+        slots = "f32"
     else:
         cfg = get_config("smollm-135m")
         b, seq, steps = ZERO_LM
@@ -4109,7 +4170,7 @@ def zero_run(name: str, mesh, zero: bool, rows_seen: list,
     apply = "apply_flat_q8" if name.endswith("int8") else "apply_flat"
     want = {k: int(k in ("norms_flat", apply)) for k in KERNELS}
     loader = ShardedLoader(host, dev, mesh=mesh, spec=pipe.batch_specs(
-        batch) if mesh is not None else None)
+        batch) if mesh is not None else None, blocks=pipe.row_blocks)
     losses, step_ms, coll_ms, staged = [], [], [], []
     launches = {k: 0 for k in KERNELS}
     launch_rows = {k: [] for k in KERNELS}
@@ -4160,6 +4221,15 @@ def zero_run(name: str, mesh, zero: bool, rows_seen: list,
            "pad_rows": layout.pad_rows, "slot_bytes": slot_bytes,
            "whole_slot_bytes": whole,
            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    if pipe.param_shardings is not None:
+        import hashlib
+        split = {p: sh.split for p, sh in
+                 tree_flatten_with_path(pipe.param_shardings)[0]}
+        leaves = tree_flatten_with_path(state.params)[0]
+        out["split"] = sorted("/".join(p) for p, _ in leaves if split[p])
+        out["replicated"] = {"/".join(p): hashlib.sha256(
+            x.float().cpu().numpy().tobytes()).hexdigest()
+            for p, x in leaves if not split[p]}
     if mesh is not None and zero:
         # the pad rows lie in the last rank's shard: zero weights and
         # momentum, int8 pad blocks at code 0 and scale 1.0
@@ -4243,10 +4313,118 @@ def zero_rank(rank: int, world: int, workdir: str) -> None:
                 torch.save([t.cpu() for t in zp], os.path.join(
                     workdir, f"params_{name}_rank{rank}.pt"))
                 del zp, rp
+            out["moe"] = moe_mesh_rank(mesh, rank, workdir, rows_seen)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def moe_mesh_rank_main(rank: int, world: int, workdir: str) -> None:
+    """Phase 20 (f) alone, one of its two ranks (``chip_smoke.py
+    --moe-mesh-rank R 2 DIR``): gloo over a file store, the rank's tensors
+    on ``cuda:0``, :func:`moe_mesh_rank` on a 2x1 mesh; its result in
+    ``DIR/rank<R>.json`` under ``"moe"``, as (a)'s ranks write it. To run
+    (f) without the rest of phase 20: :func:`moe_mesh_phase`."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.launch.mesh import mesh_from_spec
+    rows_seen: list = []
+    record_rows(lk, rows_seen)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    try:
+        with shared_inits():
+            out = {"moe": moe_mesh_rank(mesh_from_spec(
+                f"{world}x1", device="cuda:0"), rank, workdir, rows_seen)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def moe_mesh_phase(lk, workdir: str) -> dict:
+    """Phase 20 (f) alone (the kernels built first, ``kernels.build.
+    build_all()``): its two ranks (``--moe-mesh-rank``) and, beside them,
+    its runs alone in this process (:func:`moe_mesh_alone`); then its
+    gates (:func:`moe_mesh_against_alone`)."""
+    import torch
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    procs = start_ranks(workdir, "--moe-mesh-rank", ZERO_RANKS)
+    rows_seen: list = []
+    saved = record_rows(lk, rows_seen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with shared_inits():
+            alone = moe_mesh_alone(rows_seen)
+        ranks = join_ranks(workdir, procs, t0)
+        return moe_mesh_against_alone(ranks, workdir, alone)
+    finally:
+        stop_ranks(procs)
+        for k, fn in saved.items():
+            setattr(lk, k, fn)
+
+
+@contextlib.contextmanager
+def first_routing(box: dict):
+    """Within the block, the first MoE routing (``models.moe.place``: layer
+    0 of the first step's forward) leaves in ``box`` each token's k
+    expert ids and whether each slot was kept, (n, k) on the host."""
+    import torch
+    from repro_torch.models import moe
+    inner = moe.place
+
+    def place(cfg, r, lower=None):
+        s = inner(cfg, r, lower)
+        if not box:
+            keep = torch.empty_like(s.keep).scatter_(0, s.order, s.keep)
+            box.update(ids=r.expert_ids.cpu(),
+                       keep=keep.reshape(r.expert_ids.shape).cpu())
+        return s
+
+    moe.place = place
+    try:
+        yield box
+    finally:
+        moe.place = inner
+
+
+def moe_mesh_rank(mesh, rank: int, workdir: str, rows_seen: list) -> dict:
+    """Phase 20 (f), in one of (a)'s ranks (``mesh``: their 2x1 mesh; a
+    1x2 mesh of the same processes is built beside it): MOE_MESH_TRAIN's
+    granite run on each mesh (:func:`zero_run`: one ``norms_flat`` and
+    one ``apply_flat`` a step on the global rows, step ms, the share in
+    collectives, the peak, the replicated leaves' digests on 1x2), its
+    first routing in ``DIR/moe_keep_<mesh>_rank<R>.pt``; then each
+    MOE_MESH_SERVE run through ``launch.serve --mesh`` on each mesh
+    (:func:`serve_mesh_rank`)."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import mesh_from_spec
+    meshes = {"2x1": mesh, "1x2": mesh_from_spec("1x2", device="cuda:0")}
+    out: dict = {}
+    for tag in MOE_MESHES:
+        with first_routing({}) as box:
+            res, init, final = zero_run("granite_f32", meshes[tag], False,
+                                        rows_seen)
+        del init, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.save(box, os.path.join(workdir,
+                                     f"moe_keep_{tag}_rank{rank}.pt"))
+        out[tag] = res
+    out["serve"] = serve_mesh_rank(None, workdir, runs={
+        f"{name}_{tag}": (args, tag) for name, args in MOE_MESH_SERVE.items()
+        for tag in MOE_MESHES})
+    return out
 
 
 def start_ranks(workdir: str, flag: str = "--zero-rank",
@@ -4403,9 +4581,11 @@ def tp_rank(rank: int, world: int, workdir: str) -> None:
         json.dump(out, f)
 
 
-def serve_mesh_rank(world: int, workdir: str) -> dict:
+def serve_mesh_rank(world, workdir: str, runs: dict | None = None
+                    ) -> dict:
     """Phase 20 (e), in one of (c)'s ranks: each SERVE_MESH_ARGS run
-    through ``launch.serve --mesh 1xW`` (the counts set to 0 just before,
+    through ``launch.serve --mesh 1xW`` (``runs``: {tag: (args, mesh
+    spec)} instead, as (f) serves; the counts set to 0 just before,
     read just after). Each ``decode_step`` (a tick) is timed between
     syncs, its collectives by CUDA events (``timed_collectives``) and the
     bytes it handed them (``MOVED``). The run's first stripe kernel call
@@ -4423,7 +4603,10 @@ def serve_mesh_rank(world: int, workdir: str) -> dict:
     from repro_torch.models import LanguageModel
     dev = torch.device("cuda", 0)
     res = {}
-    for tag, args in SERVE_MESH_ARGS.items():
+    if runs is None:
+        runs = {tag: (args, f"1x{world}")
+                for tag, args in SERVE_MESH_ARGS.items()}
+    for tag, (args, spec) in runs.items():
         tick_ms, coll_ms, moved, prefill_ms = [], [], [], []
         inner = LanguageModel.decode_step
         inner_prefill = LanguageModel.prefill_at
@@ -4476,7 +4659,7 @@ def serve_mesh_rank(world: int, workdir: str) -> dict:
         collectives.merge_stripes = first_merge
         t0 = time.perf_counter()
         try:
-            rep = serve.main(args + ["--mesh", f"1x{world}"])
+            rep = serve.main(args + ["--mesh", spec])
         finally:
             LanguageModel.decode_step = inner
             LanguageModel.prefill_at = inner_prefill
@@ -4497,6 +4680,7 @@ def serve_mesh_rank(world: int, workdir: str) -> dict:
             "tick_ms": tick_ms, "collective_ms": coll_ms,
             "prefill_ms": prefill_ms,
             "moved_per_tick": moved, "moved_total": dict(collectives.MOVED),
+            "striped": "q" in first,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
             "wall_s": time.perf_counter() - t0}
     return res
@@ -4508,8 +4692,8 @@ def serve_mesh_rank_main(rank: int, world: int, workdir: str) -> None:
     tensors on ``cuda:0``, :func:`serve_mesh_rank`; its result in
     ``DIR/rank<R>.json`` under ``"serve"``, as (c)'s ranks write it. To
     run (e) without (c)'s training: build the kernels, then
-    ``serve_mesh_against_alone(spawn_ranks(dir, "--serve-mesh-rank",
-    TP_RANKS), dir)``."""
+    ``serve_mesh_against_alone([r["serve"] for r in spawn_ranks(dir,
+    "--serve-mesh-rank", TP_RANKS)], dir)``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4526,7 +4710,8 @@ def serve_mesh_rank_main(rank: int, world: int, workdir: str) -> None:
         json.dump(out, f)
 
 
-def serve_mesh_merge(fdk, workdir: str, tag: str) -> dict:
+def serve_mesh_merge(fdk, workdir: str, tag: str, nranks: int = TP_RANKS,
+                     label: str = "(e)") -> dict:
     """Phase 20 (e)'s numbers: each rank's first stripe kernel call of
     run ``tag`` (tick 1, layer 0, saved by :func:`serve_mesh_rank`)
     against the plain version on the same inputs: the stripe's out
@@ -4539,7 +4724,7 @@ def serve_mesh_merge(fdk, workdir: str, tag: str) -> dict:
     import torch
     dev = torch.device("cuda")
     caps = [torch.load(os.path.join(workdir, f"serve_{tag}_rank{r}.pt"))
-            for r in range(TP_RANKS)]
+            for r in range(nranks)]
     c0 = caps[0]
     name = str(c0["k"].dtype).removeprefix("torch.")
     rtol, atol = FD_TOL[name]
@@ -4589,7 +4774,7 @@ def serve_mesh_merge(fdk, workdir: str, tag: str) -> dict:
            "stripe_max_abs_err": out_err, "stripe_lse_max_rel_err": lse_err,
            "empty_stripe_rows": empty, "merged_max_abs_err":
            err.max().item()}
-    log(f"  (e) {tag}, tick 1 layer 0 on the ranks' stripes (whole cache "
+    log(f"  {label} {tag}, tick 1 layer 0 on the ranks' stripes (whole cache "
         f"{list(k.shape)} {name}): stripes against the plain version out "
         f"{out_err:.3g}, lse rel {lse_err:.3g} ({empty} empty stripe rows "
         f"at -inf); merged against the plain whole {err.max().item():.3g}")
@@ -4598,37 +4783,43 @@ def serve_mesh_merge(fdk, workdir: str, tag: str) -> dict:
     return res
 
 
-def serve_mesh_against_alone(ranks: list, workdir: str) -> dict:
-    """Phase 20 (e)'s gates, in the parent once the ranks have ended:
-    each SERVE_MESH_ARGS run alone on the card (``launch.serve`` without
-    ``--mesh``, the counts set to 0 just before it and read just after:
-    one launch a layer a tick), then every rank's run against it, and
-    the first tick's stripes and merge against the plain version
+def serve_mesh_against_alone(ranks: list, workdir: str,
+                             runs: dict | None = None,
+                             part: str = "(e)",
+                             alone: dict | None = None) -> dict:
+    """Phase 20 (e)'s gates (and (f)'s: ``runs`` {tag: (args, mesh
+    spec)}, ``part`` the label), in the parent once the ranks have
+    ended, ``ranks`` each rank's serving results: each run alone on the
+    card (:func:`serve_alone`, or ``alone``, its result), then every
+    rank's run against it, and where the ranks held stripes the first
+    tick's stripes and merge against the plain version
     (:func:`serve_mesh_merge`). Reduced f32: tokens identical. Full
     width, bf16: every request finished with finite logits, one
-    ``decode_step`` a tick with 30 launches on every rank and none
+    ``decode_step`` a tick with a launch a layer on every rank and none
     outside the ticks, the scheduler digests equal, the ranks' tokens
     equal; the share of requests whose tokens equal the run alone's,
     tick ms, the share of a tick in collectives, bytes a tick and peaks
     logged."""
-    import torch
     from repro_torch.kernels import flash_decode as fdk
-    from repro_torch.launch import serve
     res = {}
-    for tag, args in SERVE_MESH_ARGS.items():
-        fdk.reset_launch_counts()
-        rep = serve.main(args)
-        torch.cuda.synchronize()
+    if runs is None:
+        runs = {tag: (args, f"1x{TP_RANKS}")
+                for tag, args in SERVE_MESH_ARGS.items()}
+    # one run alone for every mesh of the same arguments
+    done = alone if alone is not None else serve_alone(
+        dict.fromkeys(tuple(a) for a, _ in runs.values()))
+    for tag, (args, spec) in runs.items():
+        rep, launched = done[tuple(args)]
         alone = {str(f.request.rid): f.tokens.tolist()
                  for f in rep["finished"]}
         per, n_req = rep["flash_decode_per_tick"], int(args[args.index(
             "--requests") + 1])
         bad = []
-        if fdk.LAUNCHES["flash_decode"] != per * rep["decode_steps"]:
-            bad.append(f"alone: {fdk.LAUNCHES} for {rep['decode_steps']} "
+        if launched["flash_decode"] != per * rep["decode_steps"]:
+            bad.append(f"alone: {launched} for {rep['decode_steps']} "
                        "ticks")
         for r, rk in enumerate(ranks):
-            got = rk["serve"][tag]
+            got = rk[tag]
             st = got["stats"]
             if got["requests"] != n_req or not got["finite"] \
                     or got["agree"] is not True:
@@ -4642,23 +4833,23 @@ def serve_mesh_against_alone(ranks: list, workdir: str) -> dict:
                 bad.append(f"rank {r}: {got['launches']} flash_decode "
                            f"launches for {got['ticks']} ticks, want {per} "
                            f"a tick; {st}")
-            if got["tokens"] != ranks[0]["serve"][tag]["tokens"]:
+            if got["tokens"] != ranks[0][tag]["tokens"]:
                 bad.append(f"rank {r}'s tokens differ from rank 0's")
-        mine = ranks[0]["serve"][tag]["tokens"]
+        mine = ranks[0][tag]["tokens"]
         same = sum(mine.get(k) == v for k, v in alone.items()) / len(alone)
-        if tag == "reduced" and same != 1.0:
+        if "reduced" in tag and same != 1.0:
             bad.append(f"greedy tokens equal the run alone's for {same:.1%} "
                        "of the requests")
-        r0 = ranks[0]["serve"][tag]
+        r0 = ranks[0][tag]
         share = statistics.median(
             c / t for c, t in zip(r0["collective_ms"], r0["tick_ms"]))
         res[tag] = {
             "requests": r0["requests"], "ticks": r0["ticks"],
-            "launches_per_tick": [rk["serve"][tag]["launches"]
-                                  / rk["serve"][tag]["ticks"]
+            "launches_per_tick": [rk[tag]["launches"]
+                                  / rk[tag]["ticks"]
                                   for rk in ranks],
             "tokens_equal_alone_share": same,
-            "tick_ms_median": [statistics.median(rk["serve"][tag]["tick_ms"])
+            "tick_ms_median": [statistics.median(rk[tag]["tick_ms"])
                                for rk in ranks],
             "alone_tick_ms": 1e3 * rep["wall_s"] / max(rep["decode_steps"],
                                                         1),
@@ -4666,15 +4857,19 @@ def serve_mesh_against_alone(ranks: list, workdir: str) -> dict:
             "collective_share": share,
             "moved_per_tick": statistics.median(r0["moved_per_tick"]),
             "moved_total": r0["moved_total"],
-            "peak_bytes": [rk["serve"][tag]["peak_bytes"] for rk in ranks],
-            "wall_s": [rk["serve"][tag]["wall_s"] for rk in ranks],
+            "peak_bytes": [rk[tag]["peak_bytes"] for rk in ranks],
+            "wall_s": [rk[tag]["wall_s"] for rk in ranks],
             "alone_wall_s": rep["wall_s"]}
-        res[tag]["first_merge"] = serve_mesh_merge(fdk, workdir, tag)
+        if ranks[0][tag]["striped"]:
+            res[tag]["first_merge"] = serve_mesh_merge(fdk, workdir, tag,
+                                                       len(ranks), part)
+        striped = ("lse instance on its stripe" if ranks[0][tag]["striped"]
+                   else "the sequence whole")
         x = res[tag]
-        log(f"  (e) serving mesh, {tag}, 1x{TP_RANKS} ({' '.join(args[:4])}"
+        log(f"  {part} serving mesh, {tag}, {spec} ({' '.join(args[:4])}"
             f"): {x['requests']} requests in {x['ticks']} ticks, "
-            f"flash_decode {per} a tick on every rank (lse instance on its "
-            f"stripe), digests equal; tokens equal the run alone's for "
+            f"flash_decode {per} a tick on every rank ({striped}), digests "
+            f"equal; tokens equal the run alone's for "
             f"{same:.1%} of the requests; tick ms "
             + " ".join(f"{t:.2f}" for t in x["tick_ms_median"])
             + f" (alone, admissions included: {x['alone_tick_ms']:.2f}), "
@@ -4819,23 +5014,30 @@ def zero_nccl_finish(train, workdir: str, started: tuple) -> dict:
             "wall_s": wall}
 
 
-def zero_against_alone(name: str, ranks: list, zdir: str,
-                       rows_seen: list, keep: dict | None = None
+def zero_alone(name: str, rows_seen: list) -> dict:
+    """Phase 20 (a)'s run ``name`` alone in this process, at one
+    microbatch (its result, init and final params) and split into
+    ``ZERO_RANKS`` microbatches as the ranks split the batch (its result
+    and final params), for :func:`zero_against_alone`."""
+    alone, init, final = zero_run(name, None, False, rows_seen)
+    split, _, split_final = zero_run(name, None, False, rows_seen,
+                                     accum=ZERO_RANKS)
+    return {"result": alone, "init": init, "final": final, "split": split,
+            "split_final": split_final}
+
+
+def zero_against_alone(name: str, ranks: list, zdir: str, runs: dict
                        ) -> dict:
     """Phase 20 (a)'s gates on one run: ZeRO against replicated on each
     rank, the ranks' params against each other, and both against the
-    same run alone in this process, at one microbatch (losses within
-    ``ZERO_MESH_RTOL``) and split into ``ZERO_RANKS`` microbatches as the
-    ranks split the batch (params within ``ZERO_PARAM_RTOL``); slot
-    bytes, peaks, step ms and the share in collectives logged. ``keep``
-    receives the run alone at one microbatch (its result, init and final
-    params) for (c)."""
+    same run alone in this process (``runs``: :func:`zero_alone`'s), at
+    one microbatch (losses within ``ZERO_MESH_RTOL``) and split into
+    ``ZERO_RANKS`` microbatches as the ranks split the batch (params
+    within ``ZERO_PARAM_RTOL``); slot bytes, peaks, step ms and the share
+    in collectives logged."""
     import torch
-    alone, init, final = zero_run(name, None, False, rows_seen)
-    if keep is not None:
-        keep.update(result=alone, init=init, final=final)
-    split, _, split_final = zero_run(name, None, False, rows_seen,
-                                     accum=ZERO_RANKS)
+    alone, init, final = runs["result"], runs["init"], runs["final"]
+    split, split_final = runs["split"], runs["split_final"]
     res = {"alone": {k: alone[k] for k in (
         "losses", "peak_bytes", "slot_bytes", "rows")},
            "split": {"losses": split["losses"]}}
@@ -4881,7 +5083,7 @@ def zero_against_alone(name: str, ranks: list, zdir: str,
         res[f"rank{r}"] = dict(got, rel_to_alone=rel,
                                drift_to_split=drift,
                                drift_to_alone=whole)
-    del params, init, final, split_final
+    del params
     z0 = ranks[0][name]["zero"]
     share = statistics.median(
         c / t for c, t in zip(z0["collective_ms"], z0["step_ms"]))
@@ -4930,12 +5132,142 @@ def zero_against_alone(name: str, ranks: list, zdir: str,
     return res
 
 
+def kept_slots(box: dict, experts: int):
+    """(n, E) bool: which (token, expert) slots a first routing kept."""
+    import torch
+    kept = torch.zeros(box["ids"].shape[0], experts, dtype=torch.bool)
+    return kept.scatter_(1, box["ids"].long(), box["keep"])
+
+
+def moe_mesh_alone(rows_seen: list) -> dict:
+    """Phase 20 (f)'s runs alone on the card, in this process: the
+    MOE_MESH_TRAIN run (its result and first routing) and each
+    MOE_MESH_SERVE run through ``launch.serve`` without ``--mesh``
+    (:func:`serve_alone`)."""
+    import torch
+    with first_routing({}) as box:
+        alone, init, final = zero_run("granite_f32", None, False, rows_seen)
+    del init, final
+    torch.cuda.empty_cache()
+    return {"result": alone, "box": box,
+            "serve": serve_alone(MOE_MESH_SERVE.values())}
+
+
+def serve_alone(runs) -> dict:
+    """Each ``launch.serve`` argument list of ``runs`` without a mesh on
+    the card, the ``flash_decode`` counts set to 0 just before it and
+    read just after: {tuple(args): (report, launches)}."""
+    import torch
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.launch import serve
+    done = {}
+    for args in runs:
+        fdk.reset_launch_counts()
+        done[tuple(args)] = (serve.main(list(args)), dict(fdk.LAUNCHES))
+        torch.cuda.synchronize()
+    return done
+
+
+def moe_mesh_against_alone(ranks: list, zdir: str, alone_runs: dict
+                           ) -> dict:
+    """Phase 20 (f)'s gates, in the parent once (a)'s ranks have ended,
+    against :func:`moe_mesh_alone`'s runs: the share of the run alone's kept
+    (token, expert) slots of step 0's layer 0 that the mesh's routing
+    differs in (2x1: the two ranks' rows side by side; 1x2: both ranks'
+    the same) under MOE_MESH_SLOT_SHARE, the ranks' losses equal and
+    within MOE_MESH_LOSS_RTOL of the run alone's, the replicated leaves
+    bit-identical across 1x2's ranks (one ``norms_flat`` and one
+    ``apply_flat`` a step a rank was checked in the ranks); step ms,
+    the share in collectives and the peaks printed. Then the serving
+    runs against theirs alone (:func:`serve_mesh_against_alone`)."""
+    import torch
+    from repro_torch.configs import get_config
+    experts = get_config(GRANITE).num_experts
+    alone, box = alone_runs["result"], alone_runs["box"]
+    want = kept_slots(box, experts)
+    slots = box["keep"].numel()
+    res = {"alone": {k: alone[k] for k in ("losses", "step_ms",
+                                           "peak_bytes", "rows")},
+           "alone_dropped_share": 1 - float(want.sum()) / slots}
+    lines = [f"  (f) the moe family on meshes: granite-moe-3b-a800m at full "
+             f"width, {MOE_MESH_LAYERS} layer, f32 LARS, "
+             f"{MOE_MESH_TRAIN[2]} steps of {MOE_MESH_TRAIN[0]} x "
+             f"{MOE_MESH_TRAIN[1]} tokens; alone: losses "
+             + " ".join(f"{x:.5f}" for x in alone["losses"])
+             + f", step 0 layer 0 drops {res['alone_dropped_share']:.4f} "
+             f"of {slots:,} slots, step ms "
+             f"{statistics.median(alone['step_ms']):.2f}, peak "
+             f"{alone['peak_bytes'] / 2**20:.1f} MiB"]
+    bad = []
+    for tag in MOE_MESHES:
+        got = [rk["moe"][tag] for rk in ranks]
+        boxes = [torch.load(os.path.join(zdir, f"moe_keep_{tag}_rank{r}.pt"))
+                 for r in range(len(ranks))]
+        if tag.startswith("1x"):
+            if not all(torch.equal(b["keep"], boxes[0]["keep"])
+                       and torch.equal(b["ids"], boxes[0]["ids"])
+                       for b in boxes):
+                bad.append(f"{tag}: the model ranks routed apart")
+            mine = kept_slots(boxes[0], experts)
+        else:
+            mine = torch.cat([kept_slots(b, experts) for b in boxes])
+        differ = float((mine ^ want).sum()) / float(want.sum())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                                      alone["losses"]))
+        share = statistics.median(c / t for c, t in zip(
+            got[0]["collective_ms"], got[0]["step_ms"]))
+        res[tag] = {"losses": got[0]["losses"], "rel_to_alone": rel,
+                    "kept_differ_share": differ,
+                    "step_ms": [g["step_ms"] for g in got],
+                    "collective_share": share,
+                    "peak_bytes": [g["peak_bytes"] for g in got],
+                    "split": got[0].get("split"),
+                    "replicated": sorted(got[0].get("replicated", {}))}
+        if any(g["losses"] != got[0]["losses"] for g in got):
+            bad.append(f"{tag}: the ranks' losses differ")
+        if tag.startswith("1x") and any(
+                g["replicated"] != got[0]["replicated"] for g in got):
+            bad.append(f"{tag}: a replicated leaf differs across the ranks")
+        if not differ < MOE_MESH_SLOT_SHARE:
+            bad.append(f"{tag}: {differ:.4%} of the kept slots differ")
+        if not rel <= MOE_MESH_LOSS_RTOL:
+            bad.append(f"{tag}: losses rel {rel} against the run alone")
+        steps = "; ".join(f"rank{r} " + " ".join(
+            f"{t:.2f}" for t in g["step_ms"]) for r, g in enumerate(got))
+        split = "" if not got[0].get("split") else (
+            f"; split {', '.join(got[0]['split'])}; replicated, "
+            "bit-identical across the ranks: "
+            + ", ".join(sorted(got[0]["replicated"])))
+        lines.append(
+            f"{tag}: losses "
+            + " ".join(f"{x:.5f}" for x in got[0]["losses"])
+            + f" (equal on both ranks) vs alone rel {rel:.3g} (limit "
+            f"{MOE_MESH_LOSS_RTOL:g}); step 0 layer 0's kept (token, "
+            f"expert) slots differ from the run alone's in {differ:.4%} "
+            f"(limit {MOE_MESH_SLOT_SHARE:.0%}); 1 norms_flat + 1 "
+            f"apply_flat a step a rank on {got[0]['rows']} rows; step ms "
+            f"{steps}, {share:.1%} of rank 0's in collectives; peak a "
+            "rank " + ", ".join(f"{g['peak_bytes'] / 2**20:.1f}"
+                                for g in got) + " MiB" + split)
+    log("\n      ".join(lines))
+    if bad:
+        raise AssertionError("moe on meshes: " + "; ".join(bad))
+    res["serve"] = serve_mesh_against_alone(
+        [rk["moe"]["serve"] for rk in ranks], zdir,
+        runs={f"{name}_{tag}": (args, tag)
+              for name, args in MOE_MESH_SERVE.items() for tag in MOE_MESHES},
+        part="(f)", alone=alone_runs["serve"])
+    return res
+
+
 def zero_phase(train, lk, bw: float, flops: float, floor: float,
                workdir: str) -> dict:
-    """Phase 20: data parallelism and ZeRO on the card. (a)'s two ranks,
-    (c)'s three and (b)'s torchrun start together (each mesh its own
-    process group), for the script's time limit: the step times each
-    logs were taken beside the others' processes."""
+    """Phase 20: data parallelism, ZeRO, tensor and expert parallelism
+    on the card. (a)'s two ranks (then (f) in them), (c)'s three and
+    (b)'s torchrun start together (each mesh its own process group), and
+    this process runs (a)'s and (f)'s runs alone beside them, for the
+    script's time limit: the step times each logs were taken beside the
+    others' processes. The gates come once the ranks have ended."""
     import torch
     out = {"two_ranks": {}, "wall_s": {}}
     zdir, tdir = (os.path.join(workdir, d) for d in ("zero", "tp"))
@@ -4947,32 +5279,42 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
     zprocs = start_ranks(zdir)
     tprocs = start_ranks(tdir, "--tp-rank", TP_RANKS)
     nccl = zero_nccl_start(zdir)
+    rows_seen: list = []
+    saved = record_rows(lk, rows_seen)
     try:
+        # the runs alone, while the ranks run (their step ms are taken
+        # beside the ranks' processes; no gate reads a time)
+        torch.backends.cudnn.deterministic = True
+        with shared_inits():        # one host draw of each model's init
+            runs = {name: zero_alone(name, rows_seen) for name in ZERO_RUNS}
+            moe_alone = moe_mesh_alone(rows_seen)
+        out["wall_s"]["alone_beside_ranks"] = time.perf_counter() - t0
         ranks = join_ranks(zdir, zprocs, t0)
         out["wall_s"]["two_ranks"] = time.perf_counter() - t0
         tp_ranks = join_ranks(tdir, tprocs, t0)
         out["wall_s"]["tp_ranks"] = time.perf_counter() - t0
     except BaseException:
+        stop_ranks(zprocs)
         stop_ranks(tprocs)
         nccl[0].kill()
         nccl[0].wait()
         nccl[1].close()
+        torch.backends.cudnn.deterministic = False
+        for k, fn in saved.items():
+            setattr(lk, k, fn)
         raise
     t0 = time.perf_counter()
-    rows_seen: list = []
-    saved = record_rows(lk, rows_seen)
-    alone: dict = {}
     try:
-        torch.backends.cudnn.deterministic = True
-        with shared_inits():        # one host draw of smollm's init
-            for name in ZERO_RUNS:
-                out["two_ranks"][name] = zero_against_alone(
-                    name, ranks, zdir, rows_seen,
-                    alone if name == "smollm_f32" else None)
-        out["tensor_parallel"] = tp_against_alone(tp_ranks, tdir, alone)
-        alone.clear()
+        for name in ZERO_RUNS:
+            out["two_ranks"][name] = zero_against_alone(name, ranks, zdir,
+                                                        runs[name])
+        out["moe_mesh"] = moe_mesh_against_alone(ranks, zdir, moe_alone)
+        out["tensor_parallel"] = tp_against_alone(tp_ranks, tdir,
+                                                  runs["smollm_f32"])
+        runs.clear()
         t1 = time.perf_counter()
-        out["serve_mesh"] = serve_mesh_against_alone(tp_ranks, tdir)
+        out["serve_mesh"] = serve_mesh_against_alone(
+            [rk["serve"] for rk in tp_ranks], tdir)
         out["wall_s"]["serve_mesh_alone"] = time.perf_counter() - t1
     except BaseException:
         nccl[0].kill()
@@ -5135,12 +5477,13 @@ def main() -> int:
     stack = serve_stack_phase(serve, fdk, lk, served,
                               os.path.join(ROOT, "build"))
 
-    phase(f"== 20. data parallelism, ZeRO and tensor parallelism: "
+    phase(f"== 20. data parallelism, ZeRO, tensor and expert parallelism: "
           f"{ZERO_RANKS} ranks on the card over gloo (LeNet, smollm-135m at "
-          f"full width), one rank over NCCL under torchrun, {TP_RANKS} "
-          f"ranks on a 1x{TP_RANKS} mesh (smollm-135m whole, trained and "
-          "served by the serving mesh), the LARS kernels on a shard's "
-          "rows")
+          f"full width; then granite-moe-3b-a800m at full width and "
+          f"{MOE_MESH_LAYERS} layer trained and served on 2x1 and 1x2), one "
+          f"rank over NCCL under torchrun, {TP_RANKS} ranks on a "
+          f"1x{TP_RANKS} mesh (smollm-135m whole, trained and served by the "
+          "serving mesh), the LARS kernels on a shard's rows")
     zero = zero_phase(train, lk, bw, flops, floor,
                       os.path.join(ROOT, "build"))
     stamps.append(("end", time.perf_counter()))
@@ -5412,5 +5755,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--serve-mesh-rank"]:
         serve_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--moe-mesh-rank"]:
+        moe_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -155,18 +155,21 @@ class ShardedLoader:
     ``mesh``: a data-parallel :class:`~repro_torch.launch.mesh.Mesh`;
     each batch is cut to this rank's rows per ``spec`` (a dict of
     ``PartitionSpec`` by key, default: dim 0 over ``data`` where it
-    divides) and yielded as a ``LocalBatch``. Call :meth:`close` when
-    done: it stops the thread and waits for every copy still in flight.
+    divides), as this rank's block of each of ``blocks`` equal row
+    blocks (``TrainPipeline.row_blocks``: the moe family's microbatches;
+    ``shard_rows``), and yielded as a ``LocalBatch``. Call :meth:`close`
+    when done: it stops the thread and waits for every copy still in
+    flight.
     """
 
     def __init__(self, it: Iterator[dict], device: torch.device | str, *,
                  mesh=None, spec: Optional[dict] = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, blocks: int = 1):
         self.device = torch.device(device)
         self._copier = (_CudaCopier(self.device)
                         if self.device.type == "cuda" else None)
         place_fn = self._copier or (lambda b: place(b, self.device))
-        self.mesh, self.spec = mesh, spec
+        self.mesh, self.spec, self.blocks = mesh, spec, blocks
         if mesh is not None:
             if not all(hasattr(mesh, a) for a in ("shape", "coords")):
                 raise TypeError(f"mesh must be a repro_torch.launch.mesh."
@@ -190,10 +193,10 @@ class ShardedLoader:
             split = ("data",) if n % self.mesh.shape["data"] == 0 else None
             spec = {k: P(split, *([None] * (np.ndim(v) - 1)))
                     for k, v in batch.items()}
-        cut = shard_rows(batch, tree_named(self.mesh, spec))
+        cut = shard_rows(batch, tree_named(self.mesh, spec), self.blocks)
         placed = inner(dict(cut))
         wrap = lambda b: LocalBatch(b, global_rows=cut.global_rows,  # noqa
-                                    sharded=cut.sharded)
+                                    sharded=cut.sharded, blocks=cut.blocks)
         if self._copier is None:
             return wrap(placed)
         out, event, pinned = placed

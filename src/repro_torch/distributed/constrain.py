@@ -26,10 +26,18 @@ the reference's ``shard_batch`` on the embedding's output pins.
 The ambient mesh is the one entered last with ``with mesh:`` on this
 thread (:meth:`repro_torch.launch.mesh.Mesh.__enter__`), as the
 reference reads the legacy ``with mesh:`` context.
+
+Beside it, :func:`rows_over_data` says that the batch of the forward
+passes run in its block is this rank's block of the rows of a global
+batch split over a mesh's ``data`` axis (``TrainPipeline`` enters it
+where it cuts the batch): what the MoE block needs to route every token
+as the global batch's (:mod:`repro_torch.models.moe`). GSPMD knows it
+from the batch's sharding; the port's ranks hold only their rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -57,6 +65,26 @@ def pop_mesh(mesh) -> None:
 def current_mesh() -> Optional[object]:
     """The ambient mesh, or None."""
     stack = _stack()
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def rows_over_data(mesh):
+    """Within the block, on this thread, the forward's batch rows are
+    this rank's block of ``mesh``'s ``data`` axis (``mesh`` None: the
+    whole batch)."""
+    stack = _LOCAL.__dict__.setdefault("rows", [])
+    stack.append(mesh)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def data_rows() -> Optional[object]:
+    """The mesh whose ``data`` axis splits the batch rows of the forward
+    being run (:func:`rows_over_data`), or None where they are whole."""
+    stack = _LOCAL.__dict__.get("rows")
     return stack[-1] if stack else None
 
 

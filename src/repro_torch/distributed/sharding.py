@@ -21,18 +21,22 @@ mesh no process group has (the tests' 16 x 16).
 What the port executes: on a data-parallel mesh (``model`` axis 1)
 every param is whole on every rank (the ``data`` entry of an FSDP param
 spec is the reference's; ZeRO shards the optimizer slots instead), a
-batch is cut into row blocks by :func:`batch_pspecs`, and :func:`named`
-/ :func:`tree_named` turn a spec into a :class:`LeafSharding` — which
-block of each dim this rank holds. On a ``model`` axis above 1 it also
-executes the ``model`` entries of the dense family's param specs (and
-LeNet's, all replicated): Megatron tensor parallelism.
+batch is cut into row blocks by :func:`batch_pspecs` (for the moe
+family under accumulation, each microbatch's block: :func:`shard_rows`'
+``blocks``), and :func:`named` / :func:`tree_named` turn a spec into a
+:class:`LeafSharding` — which block of each dim this rank holds. On a
+``model`` axis above 1 it also executes the ``model`` entries of the
+dense family's param specs (Megatron tensor parallelism), of the moe
+family's (expert parallelism: ``_MOE`` splits the experts, ``_MOE_TP``
+each expert's ff where ``model`` does not divide the experts; the
+router and the norms whole) and LeNet's (all replicated).
 :func:`model_pspecs` keeps a param spec's ``model`` entries and drops
 its ``data`` ones (FSDP's, queue 1 item 4b-ii: params stay whole over
 ``data``); :func:`param_shardings` turns them into one
 :class:`LeafSharding` a leaf, :func:`shard_params` cuts a whole params
 tree to this rank's blocks and :func:`gather_params` gathers them back.
-Every other family raises on a ``model`` axis above 1
-(:func:`check_model_parallel`).
+MLA, and the ssm, hybrid, encdec and vlm families, raise on a ``model``
+axis above 1 (:func:`check_model_parallel`, naming queue 1 item 4b-ii).
 
 The serving mesh executes :func:`serve_param_pspecs` (pure tensor
 parallelism, :func:`serve_param_shardings`) and :func:`cache_pspecs`
@@ -435,32 +439,54 @@ class LocalBatch(dict):
     """This rank's part of a global batch: its rows where the batch is
     split over the batch axes (``sharded``: the ranks' gradients differ
     and are reduced), the whole batch where it is replicated.
-    ``global_rows`` is the global batch size."""
+    ``global_rows`` is the global batch size; ``blocks`` the number of
+    equal row blocks (microbatches) of which the rank holds a block each
+    (:func:`shard_rows`)."""
 
-    def __init__(self, items, *, global_rows: int, sharded: bool):
+    def __init__(self, items, *, global_rows: int, sharded: bool,
+                 blocks: int = 1):
         super().__init__(items)
         self.global_rows = global_rows
         self.sharded = sharded
+        self.blocks = blocks
 
 
-def shard_rows(batch: dict, shardings: dict) -> LocalBatch:
+def shard_rows(batch: dict, shardings: dict, blocks: int = 1
+               ) -> LocalBatch:
     """A global batch dict -> this rank's :class:`LocalBatch` under
-    ``tree_named(mesh, batch_pspecs(...))``."""
+    ``tree_named(mesh, batch_pspecs(...))``. With ``blocks`` = k > 1 (a
+    split batch) the rows are cut into k equal blocks first, and the rank
+    holds its block of each, in order: its i-th 1/k of its rows is its
+    block of the global batch's i-th 1/k (microbatch i), where without
+    ``blocks`` it would be a block of its own contiguous rows."""
     first = next(iter(batch.values()))
     split = {shardings[k].sharded for k in batch}
     if len(split) > 1:
         raise ValueError("a batch's leaves must all split or all be "
                          "replicated")
-    return LocalBatch({k: shardings[k].shard(v) for k, v in batch.items()},
-                      global_rows=int(first.shape[0]),
-                      sharded=split.pop())
+    sharded = split.pop()
+    rows = int(first.shape[0])
+    if blocks == 1 or not sharded:
+        return LocalBatch({k: shardings[k].shard(v)
+                           for k, v in batch.items()},
+                          global_rows=rows, sharded=sharded)
+    if rows % blocks:
+        raise ValueError(f"{rows} rows do not split into {blocks} blocks")
+
+    def cut(v, sh):
+        per = v.reshape((blocks, rows // blocks) + tuple(v.shape[1:]))
+        mine = per[:, sh.rows(rows // blocks)]
+        return mine.reshape((-1,) + tuple(v.shape[1:]))
+    return LocalBatch({k: cut(v, shardings[k]) for k, v in batch.items()},
+                      global_rows=rows, sharded=True, blocks=blocks)
 
 
 # ------------------------------------------------------ tensor parallelism
 
 # families whose params the port splits over a model axis above 1: the
-# dense attention family, and LeNet (every spec replicated)
-TP_FAMILIES = ("cnn", "dense")
+# dense attention family, the MoE family without MLA (expert
+# parallelism) and LeNet (every spec replicated)
+TP_FAMILIES = ("cnn", "dense", "moe")
 
 
 def check_model_parallel(cfg, mesh) -> None:
@@ -472,7 +498,8 @@ def check_model_parallel(cfg, mesh) -> None:
         kind = cfg.family + (", MLA" if cfg.use_mla else "")
         raise NotImplementedError(
             f"tensor parallelism over 'model' ({mesh.shape['model']} "
-            f"ranks) is ported for the dense attention family; {cfg.name} "
+            f"ranks) is ported for the dense attention family and the moe "
+            f"family without MLA; {cfg.name} "
             f"({kind}) is ROADMAP.md queue 1 item 4b-ii, not yet ported "
             "to repro_torch")
 
@@ -560,12 +587,16 @@ class Stripe(NamedTuple):
 
 class LocalCache(dict):
     """This rank's leaves of a decode cache under a serving mesh: the
-    dict the models read and write in place, and its ``stripe`` (None
-    where the rank holds the whole sequence)."""
+    dict the models read and write in place, its ``stripe`` (None
+    where the rank holds the whole sequence) and ``data``: the mesh
+    whose ``data`` axis splits its slots (None where the rank holds
+    every slot)."""
 
-    def __init__(self, items, *, stripe: Optional[Stripe] = None):
+    def __init__(self, items, *, stripe: Optional[Stripe] = None,
+                 data=None):
         super().__init__(items)
         self.stripe = stripe
+        self.data = data
 
 
 class CacheSharding:
@@ -581,6 +612,7 @@ class CacheSharding:
 
     def __init__(self, cfg, mesh, shapes: dict, *, slots: int):
         import torch
+        self.mesh = mesh
         self.whole = {k: tuple(v) for k, v in shapes.items()}
         meta = {k: torch.empty(v, device="meta")
                 for k, v in self.whole.items()}

@@ -51,12 +51,22 @@ one device and no process group, as before (the reference defaults to
 optimizer slots over the mesh's data axis (the reference's
 ``TrainPipeline(zero=True)``, which its launcher does not expose). Each
 rank takes its rows of every global batch (the ranks of one ``data`` row
-the same rows). A ``model`` axis above 1 is tensor parallelism for the
-dense family (Megatron splits; any other family but LeNet raises,
-naming queue 1 item 4b-ii), e.g. on two CPU ranks:
+the same rows; for the moe family under ``--accum-steps``, its block of
+each microbatch), and the moe family routes each global microbatch
+together, as the reference. A ``model`` axis above 1 is tensor
+parallelism for the dense family (Megatron splits) and the moe family
+without MLA (expert parallelism: the experts split over ``model``, or
+each expert's ff where ``model`` does not divide the experts); MLA and
+the ssm, hybrid, encdec and vlm families raise, naming queue 1 item
+4b-ii; LeNet runs replicated. E.g. on two CPU ranks:
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
       repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
       --mesh 1x2 --batch 8 --seq 32 --steps 5
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
+      repro_torch.launch.train --arch granite-moe-3b-a800m --reduced \
+      --device cpu --mesh 2x1 --batch 8 --seq 32 --steps 5 \
+      --accum-steps 2 --set num_experts=8 --set experts_per_token=2 \
+      --set capacity_factor=0.5
 Only rank 0 prints the steps and writes the checkpoint (a ZeRO state's
 rows and a tensor-parallel state's blocks are gathered from every rank
 first: the file is the one-device run's).
@@ -144,7 +154,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mesh", default=None,
                     help="auto or DATAxMODEL: a (data, model) mesh over "
                     "the ranks of the process group (torchrun); MODEL > 1 "
-                    "is tensor parallelism (dense family); default none, "
+                    "is tensor parallelism (dense family) and expert "
+                    "parallelism (moe family without MLA); default none, "
                     "one device")
     ap.add_argument("--zero", action="store_true",
                     help="ZeRO: row-shard the packed optimizer slots over "
@@ -232,7 +243,8 @@ def main(argv=None) -> dict:
         host_batches = lm_batches(cfg, args.batch, args.seq, args.seed)
         eval_batches = None
     batches = ShardedLoader(host_batches, device, mesh=mesh, spec=(
-        pipeline.batch_specs(args.batch) if mesh is not None else None))
+        pipeline.batch_specs(args.batch) if mesh is not None else None),
+        blocks=pipeline.row_blocks)
     # hand train_loop the only reference to the first state: it drops
     # each state once the next exists, and a name held here would keep
     # the first alive through the run (22 GB of weights and slots at

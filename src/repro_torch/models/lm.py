@@ -75,10 +75,13 @@ On a serving mesh (:meth:`decode_step` and :meth:`prefill_at` with
 ``mesh``) the cache is this rank's
 (:class:`~repro_torch.distributed.sharding.LocalCache`: its slots, and
 its stripe of the sequence where the mesh splits it) and, on a
-``model`` axis above 1 (the dense family), the params are this rank's
-blocks: the lookup and the logits are vocab-parallel, the attention and
-MLP blocks Megatron's, the decode attention runs on the stripe and
-merges the ranks' partials, and prefill writes only the stripe's rows.
+``model`` axis above 1 (the dense and moe families), the params are this
+rank's blocks: the lookup and the logits are vocab-parallel, the
+attention and MLP blocks Megatron's, the MoE blocks expert-parallel, the
+decode attention runs on the stripe and merges the ranks' partials, and
+prefill writes only the stripe's rows. Where the slots are split over
+``data``, decode's MoE blocks route every slot of the mesh together, and
+each rank prefills a whole admitted group (``prefill_at(write=)``).
 
 The encdec family is :mod:`repro_torch.models.encdec`'s. MLA with a
 window or the softcap raises ``NotImplementedError`` wherever a decode
@@ -94,7 +97,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.constrain import current_mesh
+from repro_torch.distributed.constrain import current_mesh, data_rows
 from repro_torch.distributed.sharding import LocalCache, check_model_parallel
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
@@ -248,11 +251,16 @@ class LanguageModel:
         return A.attention_block(self.cfg, params_attn, h, positions,
                                  prefix_len=prefix_len, tp=tp)
 
-    def _ffn(self, params_l, h: torch.Tensor, tp=None
+    def _ffn(self, params_l, h: torch.Tensor, tp=None, data=None
              ) -> tuple[torch.Tensor, Optional[dict]]:
-        """The layer's MLP, or its MoE block with the block's aux."""
+        """The layer's MLP, or its MoE block with the block's aux
+        (``data``: the mesh whose ``data`` axis splits ``h``'s rows, for
+        the MoE's routing of the global batch)."""
         if self.cfg.family == "moe":
-            return moe_block(self.cfg, params_l["moe"], h)
+            if tp is None and data is None:
+                return moe_block(self.cfg, params_l["moe"], h)
+            return moe_block(self.cfg, params_l["moe"], h, tp=tp,
+                             data=data)
         return mlp_block(self.cfg, params_l["mlp"], h, tp), None
 
     def _shared_block(self, shared, x: torch.Tensor,
@@ -266,7 +274,7 @@ class LanguageModel:
 
     def _layer_train(self, params_l, x: torch.Tensor, aux: torch.Tensor,
                      positions: torch.Tensor, shared=None,
-                     prefix_len: Optional[int] = None, tp=None
+                     prefix_len: Optional[int] = None, tp=None, data=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """One layer on the carry (x, aux): aux gains the MoE block's
         load-balance loss. A Mamba layer is ``x + ssm(norm(x))``, then
@@ -281,25 +289,25 @@ class LanguageModel:
         x = x + self.attention_block(params_l["attn"], h, positions,
                                      prefix_len, tp)
         h = L.apply_norm(cfg, x, params_l["ln2"])
-        y, moe_aux = self._ffn(params_l, h, tp)
+        y, moe_aux = self._ffn(params_l, h, tp, data)
         if moe_aux is not None:
             aux = aux + moe_aux["aux_loss"]
         return x + y, aux
 
     def _block_train(self, layers, shared, x: torch.Tensor,
                      aux: torch.Tensor, positions: torch.Tensor, idx: range,
-                     prefix_len: Optional[int] = None, tp=None
+                     prefix_len: Optional[int] = None, tp=None, data=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Layers ``idx`` in order on the carry (x, aux), each
         checkpointed when ``cfg.remat``; ``shared``: the hybrid's shared
         block, applied after the layers :meth:`_applies_shared` names.
-        ``tp`` rides in the checkpoints' arguments, so a recompute (on
-        the autograd engine's thread, which has no ambient mesh) splits
-        as the forward did."""
+        ``tp`` and ``data`` ride in the checkpoints' arguments, so a
+        recompute (on the autograd engine's thread, which has no ambient
+        mesh) splits and routes as the forward did."""
         for i in idx:
             args = (_index(layers, i), x, aux, positions,
                     shared if self._applies_shared(i) else None, prefix_len,
-                    tp)
+                    tp, data)
             if self.cfg.remat:
                 x, aux = checkpoint(self._layer_train, *args,
                                     use_reentrant=False)
@@ -323,15 +331,20 @@ class LanguageModel:
         identity in value and in gradient; it has no counterpart here.
 
         Under an ambient mesh whose ``model`` axis has more than one rank
-        (the dense family only; any other raises) ``params`` are this
-        rank's shards and the forward is Megatron's: a vocab-parallel
-        embedding, column- then row-parallel attention and MLP blocks,
-        and logits over this rank's block of the vocabulary.
+        (the dense and moe families; any other raises) ``params`` are
+        this rank's shards and the forward is Megatron's: a
+        vocab-parallel embedding, column- then row-parallel attention and
+        MLP blocks, expert-parallel MoE blocks, and logits over this
+        rank's block of the vocabulary. Within
+        :func:`~repro_torch.distributed.constrain.rows_over_data` the
+        tokens are this rank's rows of a batch split over ``data``, and
+        the MoE blocks route the global batch.
         """
         cfg = self.cfg
         tp = C.model_parallel(current_mesh())
         if tp is not None:
             check_model_parallel(cfg, tp)
+        data = data_rows() if cfg.family == "moe" else None
         x, prefix_len = self._embed_inputs(params, tokens, image_embeddings,
                                            tp)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -343,11 +356,11 @@ class LanguageModel:
                 x, aux = checkpoint(self._block_train, params["layers"],
                                     shared, x, aux, positions,
                                     range(i, i + blk), prefix_len, tp,
-                                    use_reentrant=False)
+                                    data, use_reentrant=False)
         else:
             x, aux = self._block_train(params["layers"], shared, x, aux,
                                        positions, range(cfg.num_layers),
-                                       prefix_len, tp)
+                                       prefix_len, tp, data)
         aux = {"aux_loss": aux}
         if return_hidden:
             return L.apply_norm(cfg, x, params["final_norm"]), aux
@@ -418,7 +431,9 @@ class LanguageModel:
             cache[name] = torch.zeros(shape, dtype=dt, device=device)
         if sharding is None:
             return cache
-        return LocalCache(cache, stripe=sharding.stripe)
+        return LocalCache(cache, stripe=sharding.stripe,
+                          data=sharding.mesh if sharding.slots_split
+                          else None)
 
     def flash_decode_per_step(self) -> int:
         """``flash_decode`` launches one :meth:`decode_step` makes on the
@@ -444,12 +459,13 @@ class LanguageModel:
     # ---------------------------------------------------------------- decode
 
     def _layer_decode(self, params_l, x, cache_l: dict, pos, live=None,
-                      tp=None, stripe=None):
+                      tp=None, stripe=None, data=None):
         """One layer, one token; writes this layer's cache rows, or its
         new conv and recurrent state (``cache_l``: the layer's views of
         the cache leaves), for the rows ``live`` keeps (all without
         it). ``tp``/``stripe``: the serving mesh's split (the decode
-        attention's)."""
+        attention's); ``data``: the mesh whose ``data`` axis splits the
+        slots (the MoE routes every slot)."""
         cfg = self.cfg
         h = L.apply_norm(cfg, x, params_l["ln1"])
         if self.recurrent:
@@ -476,7 +492,7 @@ class LanguageModel:
                                            live, tp=tp, stripe=stripe)
         x = x + out
         h = L.apply_norm(cfg, x, params_l["ln2"])
-        return x + self._ffn(params_l, h, tp)[0]
+        return x + self._ffn(params_l, h, tp, data)[0]
 
     def _shared_decode(self, shared, x, cache_k, cache_v, pos, live=None,
                        stripe=None):
@@ -524,7 +540,9 @@ class LanguageModel:
         (``LocalCache``: its slots' rows, its stripe of the sequence),
         and on a ``model`` axis above 1 ``params`` are this rank's blocks
         and the logits (B, 1, V / ranks) its block of the vocabulary
-        where the unembedding is split.
+        where the unembedding is split. Where the cache's slots are split
+        over ``data`` (``cache.data``) the MoE blocks route every slot of
+        the mesh at once, as the reference's single-device step does.
         """
         pos = cache["pos"]
         kops.check_use_kernels(use_flash, pos.device, option="use_flash")
@@ -532,6 +550,7 @@ class LanguageModel:
         if tp is not None:
             check_model_parallel(self.cfg, tp)
         stripe = getattr(cache, "stripe", None)
+        data = getattr(cache, "data", None)
         x = self.embed_tokens(params, tokens, tp)
         layers = params["layers"]
         leaves = [name for name in cache
@@ -539,7 +558,7 @@ class LanguageModel:
         for i in range(self.cfg.num_layers):
             x = self._layer_decode(_index(layers, i), x,
                                    {name: cache[name][i] for name in leaves},
-                                   pos, live, tp, stripe)
+                                   pos, live, tp, stripe, data)
             if self._applies_shared(i):
                 a = i // self.cfg.attn_every
                 x = self._shared_decode(params["shared"], x,
@@ -575,9 +594,11 @@ class LanguageModel:
         The SSM and hybrid families carry their recurrent state through
         the prompt (:meth:`_prefill_recurrent`). Returns
         (last-valid-token logits (B, V) f32, cache). ``mesh``: a serving
-        mesh whose ``model`` axis splits the params (the dense family):
-        the forward is tensor-parallel, the cache's K/V hold every head
-        and the logits are this rank's block of the vocabulary.
+        mesh whose ``model`` axis splits the params (the dense and moe
+        families): the forward is tensor-parallel, the cache's K/V hold
+        every head and the logits are this rank's block of the
+        vocabulary. The prompts are the whole batch on every rank: the
+        MoE blocks route them alone.
         """
         cfg = self.cfg
         self._check_decode()
@@ -695,7 +716,8 @@ class LanguageModel:
     @torch.no_grad()
     def prefill_at(self, params, cache: dict, tokens: torch.Tensor,
                    slots: torch.Tensor, *,
-                   lengths: Optional[torch.Tensor] = None, mesh=None
+                   lengths: Optional[torch.Tensor] = None, mesh=None,
+                   write: Optional[torch.Tensor] = None
                    ) -> tuple[torch.Tensor, dict]:
         """Prefill prompts and write the resulting decode state into
         rows ``slots`` of a persistent slot cache (continuous-batching
@@ -720,6 +742,10 @@ class LanguageModel:
         (``LocalCache``) and ``slots`` index its slots; the prompts are
         prefilled as :meth:`prefill` does on the mesh, and a leaf with a
         sequence axis takes only the rows of this rank's stripe.
+        ``write`` (m,): the rows of ``tokens`` whose state is written,
+        into ``slots`` (m,), the rest prefilled only (all rows without
+        it): a rank prefills a whole admitted group, whose tokens the MoE
+        routes together, and keeps the rows of its own slots.
         """
         if self.cfg.family == "vlm":
             raise ValueError("prefill_at admits text prompts into slots; the "
@@ -737,6 +763,9 @@ class LanguageModel:
             params, tokens, cache_len=None if cap is None else min(S, cap),
             lengths=lengths, mesh=mesh)
         stripe = getattr(cache, "stripe", None)
+        if write is not None:
+            small = {name: new[write] if name == "pos" else new[:, write]
+                     for name, new in small.items()}
         slots = slots.to(device=cache["pos"].device, dtype=torch.long)
         cache["pos"].index_copy_(0, slots, small["pos"])
         for name, new in small.items():

@@ -18,13 +18,18 @@ def init_mlp(gen: torch.Generator, cfg, d: int, ff: int,
     return p
 
 
-def mlp_block(cfg, p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+def mlp_block(cfg, p: dict, x: torch.Tensor, tp=None, ff=None,
+              reduce: bool = True) -> torch.Tensor:
     """``tp``: a tensor-parallel mesh. Where its ``model`` axis splits
-    the hidden width (``wi``/``wg`` by columns, ``wo`` by rows) the block
-    runs between ``copy_to_model`` and ``reduce_from_model``: this
+    the hidden width (``wi``/``wg`` by columns, ``wo`` by rows: ``wo``
+    holds fewer rows than the whole width ``ff``, ``cfg.d_ff`` by
+    default; a shared expert's is ``moe_d_ff * num_shared_experts``) the
+    block runs between ``copy_to_model`` and ``reduce_from_model``: this
     rank's block of the hidden units, the ranks' partial outputs summed
-    (Megatron's MLP)."""
-    split = tp is not None and p["wo"].shape[0] != cfg.d_ff
+    (Megatron's MLP); with ``reduce=False`` the partial output, for the
+    caller to sum. A leaf the split left whole is computed whole."""
+    split = tp is not None and p["wo"].shape[0] != (cfg.d_ff if ff is None
+                                                    else ff)
     if split:
         x = C.copy_to_model(x, tp)
     act = L.act_fn(cfg)
@@ -33,4 +38,5 @@ def mlp_block(cfg, p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
         h = act(x @ p["wg"]) * h
     else:
         h = act(h)
-    return C.reduce_from_model(h @ p["wo"], tp) if split else h @ p["wo"]
+    y = h @ p["wo"]
+    return C.reduce_from_model(y, tp) if split and reduce else y

@@ -47,10 +47,17 @@ decodes its block of the slots, against its stripe of the sequence
 samples from whole rows of the vocabulary (its block's argmax gathered
 under greedy, the rows gathered otherwise), and the ranks of ``data``
 gather their tokens, so the host sees every slot's. A ``model`` axis
-above 1 serves the dense family (any other raises, naming ROADMAP.md
-queue 1 item 4b-ii); a ``model`` axis of 1 every family of
-``SERVE_FAMILIES`` but moe over a ``data`` axis above 1 (each data rank
-would route its block of the slots alone). That, chunked prefill, the
+above 1 serves the dense family and the moe family without MLA (its
+experts split over ``model``, each rank combining its experts' slots
+and the ranks' partial outputs summed); MLA and the ssm and hybrid
+families raise, naming ROADMAP.md queue 1 item 4b-ii. A ``model`` axis
+of 1 serves every family of ``SERVE_FAMILIES``. For the moe family over
+a ``data`` axis above 1 the tick's MoE blocks route every slot of the
+mesh together (dead slots included, as the reference's one engine
+routes its whole slot batch), and a rank holding a slot of an admitted
+group prefills the whole group, whose tokens the reference routes
+together, and writes only its own slots (no collective in the prefill:
+a rank without a slot of the group skips it). Chunked prefill, the
 prefix store, preemption and :class:`DecodeEngine` on a mesh raise,
 naming queue 1 item 4c-ii.
 """
@@ -232,12 +239,6 @@ class ServeEngine:
                 raise TypeError("ServeEngine's mesh must be a repro_torch."
                                 f"launch.mesh.Mesh, got {type(mesh)!r}")
             check_model_parallel(self.cfg, mesh)
-            if self.cfg.family == "moe" and mesh.shape["data"] > 1:
-                # a data rank routes its block of the slots alone, and an
-                # expert's capacity is reckoned from the batch routed;
-                # the reference routes every slot at once
-                raise _not_on_mesh("the moe family over a data axis of "
-                                   f"{mesh.shape['data']} ranks")
             if prefill_chunk is not None:
                 raise _not_on_mesh("chunked prefill (prefill_chunk)")
             if prefix_entries > 0:
@@ -378,9 +379,11 @@ class ServeEngine:
                slot_ids: torch.Tensor, req_keys: torch.Tensor
                ) -> torch.Tensor:
         """Prefill a group into its slots; sample its first tokens. On a
-        mesh a rank prefills the rows whose slots it holds, and the ranks
-        of ``data`` sum their first tokens (each row's is nonzero on its
-        own rank only), so every rank returns every row's."""
+        mesh a rank prefills the rows whose slots it holds (the moe
+        family over ``data``: the whole group, keeping those rows), and
+        the ranks of ``data`` sum their first tokens (each row's is
+        nonzero on its own rank only), so every rank returns every
+        row's."""
         if self.mesh is not None:
             return self._admit_on_mesh(prompt, lengths, slot_ids, req_keys)
         logits, _ = self.model.prefill_at(self.params, self.cache.data,
@@ -401,9 +404,17 @@ class ServeEngine:
         if len(rows):
             local = (ids[rows] - blk.start).to(self.device)
             rows = rows.to(self.device)
-            logits, _ = self.model.prefill_at(
-                self.params, self.cache.data, prompt[rows], local,
-                lengths=lengths[rows], mesh=self.mesh)
+            if self.cfg.family == "moe" and self.cache.sharding.slots_split:
+                # the MoE routes the group's tokens together: prefill it
+                # whole, keep this rank's rows
+                logits, _ = self.model.prefill_at(
+                    self.params, self.cache.data, prompt, local,
+                    lengths=lengths, mesh=self.mesh, write=rows)
+                logits = logits[rows]
+            else:
+                logits, _ = self.model.prefill_at(
+                    self.params, self.cache.data, prompt[rows], local,
+                    lengths=lengths[rows], mesh=self.mesh)
             self._finite &= torch.isfinite(logits).all()
             self._keys[local] = req_keys[rows]
             mine = self._sample(logits, sampling.fold_positions(

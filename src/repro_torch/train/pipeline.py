@@ -58,19 +58,28 @@ so both run the same step.
   microbatch's gradient inside its scan): the port sums a rank's
   microbatches first and the ranks after, which re-brackets the sum
   (held by tests/test_torch_zero.py). The loss and aux loss are the
-  mean over the ranks. A rank's microbatch is its own rows of the
-  global microbatch, not the reference's; the mean gradient is the
-  same. Caveat: the MoE family's load-balance loss and capacity are
-  taken over a rank's tokens, where the reference's GSPMD program
-  takes them over the global microbatch.
+  mean over the ranks. A rank's microbatch is a block of its own
+  contiguous rows; the mean gradient is the reference's. The moe family
+  is the exception: its routing couples the tokens of a microbatch
+  through the experts' capacity, so with ``accum_steps`` k > 1 each
+  rank's rows are cut as its block of each of the k global microbatches
+  (``row_blocks``; ``shard_rows(blocks=)``, ``ShardedLoader(blocks=)``),
+  and its microbatch i is its block of the reference's microbatch i.
+  The forward runs within ``constrain.rows_over_data``, and the MoE
+  blocks route the global microbatch, as the reference's GSPMD program
+  does (:mod:`repro_torch.models.moe`: capacity, dropped slots and the
+  load-balance loss of the global microbatch; the ranks' mean aux loss
+  and gradient are the reference's).
 * **Tensor-parallel mesh** (a ``model`` axis larger than 1; the dense
-  family, and LeNet, whose specs are all replicated; any other family
-  raises ``NotImplementedError`` naming queue 1 item 4b-ii). The params
-  are this rank's blocks as :func:`~repro_torch.distributed.sharding.
+  family, the moe family without MLA, and LeNet, whose specs are all
+  replicated; MLA and the ssm, hybrid, encdec and vlm families raise
+  ``NotImplementedError`` naming queue 1 item 4b-ii). The params are
+  this rank's blocks as :func:`~repro_torch.distributed.sharding.
   model_pspecs` cuts them (``param_shardings``); the forward and
-  backward are Megatron's (:mod:`repro_torch.models.lm`), and ranks in
-  one ``data`` row take the same batch rows. A packed optimizer state is
-  the GLOBAL one, as the reference's ``state_pspecs`` keeps it
+  backward are Megatron's, with expert parallelism in the MoE blocks
+  (:mod:`repro_torch.models.lm`, :mod:`repro_torch.models.moe`), and
+  ranks in one ``data`` row take the same batch rows. A packed optimizer
+  state is the GLOBAL one, as the reference's ``state_pspecs`` keeps it
   (replicated over ``model``; with ZeRO, rows over ``data``): once per
   global step the split leaves' gradients are all-gathered over
   ``model`` into whole leaves, packed and reduced over ``data`` as on a
@@ -98,7 +107,8 @@ and on a mesh (under ``torchrun``; see ``launch/train.py``)::
     pipe = TrainPipeline(model, opt, cfg, mesh=mesh, zero=True)
     state = pipe.init_state(torch.Generator().manual_seed(0))
     for batch in ShardedLoader(host_batches, mesh.device, mesh=mesh,
-                               spec=pipe.batch_specs(B)):
+                               spec=pipe.batch_specs(B),
+                               blocks=pipe.row_blocks):
         state, metrics = pipe(state, batch)
 """
 
@@ -113,6 +123,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.optim_base import PackedGrads
 from repro_torch.distributed import collectives
+from repro_torch.distributed.constrain import rows_over_data
 from repro_torch.distributed.sharding import (LocalBatch, batch_pspecs,
                                               check_model_parallel,
                                               gather_params, param_shardings,
@@ -181,6 +192,11 @@ class TrainPipeline:
         self.zero = zero
         self._zero_shards = int(mesh.shape["data"]) if zero else 1
         self.stats_fn = stats_fn
+        # the moe family routes each global microbatch together: each
+        # rank's rows are its block of every microbatch
+        self.row_blocks = accum_steps if (
+            mesh is not None and self.cfg.family == "moe"
+            and mesh.shape["data"] > 1) else 1
         self._peak_bytes: Optional[int] = None
         self._card_steps = 0
         # tensor parallelism: the whole params' shapes (a meta init,
@@ -274,12 +290,19 @@ class TrainPipeline:
 
     def local_batch(self, batch) -> LocalBatch:
         """This rank's part of a global batch dict (a LocalBatch, e.g.
-        from ``ShardedLoader(mesh=)``, as it is)."""
+        from ``ShardedLoader(mesh=, blocks=pipe.row_blocks)``, as it
+        is), cut in ``row_blocks`` blocks."""
         if isinstance(batch, LocalBatch):
+            if batch.sharded and batch.blocks != self.row_blocks:
+                raise ValueError(
+                    f"a batch cut in {batch.blocks} row blocks; this "
+                    f"pipeline takes {self.row_blocks} (ShardedLoader("
+                    "blocks=pipe.row_blocks))")
             return batch
         rows = next(iter(batch.values())).shape[0]
         return shard_rows(batch, tree_named(self.mesh,
-                                            self.batch_specs(rows)))
+                                            self.batch_specs(rows)),
+                          blocks=self.row_blocks)
 
     def peak_bytes(self, batch) -> Optional[int]:
         """Peak device memory of one step on ``batch``'s device, in bytes;
@@ -348,10 +371,15 @@ class TrainPipeline:
         with self.mesh_context():
             return self._local_step(state, batch)
 
+    def _grads(self, params, batch, rows_mesh):
+        """``value_and_grad`` on this rank's rows (of ``rows_mesh``'s
+        ``data`` axis, or a whole batch where it is None)."""
+        with rows_over_data(rows_mesh):
+            return value_and_grad(self.model, self.cfg, params, batch)
+
     def _local_step(self, state: TrainState, batch
                     ) -> tuple[TrainState, dict]:
-        model, cfg, k, mesh = self.model, self.cfg, self.accum_steps, \
-            self.mesh
+        model, k, mesh = self.model, self.accum_steps, self.mesh
         # the ranks' gradients differ only where their batch rows do; over
         # a one-rank data axis the reduction is the identity (sent through
         # the backend where a process group holds the axis)
@@ -359,6 +387,7 @@ class TrainPipeline:
         if mesh is not None:
             batch = self.local_batch(batch)
             reduce = batch.sharded
+        rows_mesh = mesh if reduce else None
         batch = cast_floats(batch, self.precision.compute_dtype)
         layout = state.opt_state.layout
         # never on a model axis above 1: the gradients are blocks there
@@ -372,8 +401,8 @@ class TrainPipeline:
             else None
         if k == 1:
             # make_train_step's step
-            loss, grads, (_, aux) = value_and_grad(model, cfg, state.params,
-                                                   batch)
+            loss, grads, (_, aux) = self._grads(state.params, batch,
+                                                rows_mesh)
             aux_loss = aux["aux_loss"]
         else:
             first = next(iter(batch.values()))
@@ -392,8 +421,7 @@ class TrainPipeline:
                                       device=first.device)
             for i in range(k):
                 mb = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
-                loss, g, (_, aux) = value_and_grad(model, cfg, state.params,
-                                                   mb)
+                loss, g, (_, aux) = self._grads(state.params, mb, rows_mesh)
                 if fuse:
                     # pack casts to f32 before the add: the sum is in f32
                     # even when the gradients are bf16, and each element

@@ -128,13 +128,14 @@ def _mnist_batches(n_train: int, batch: int, seed: int = 0):
 
 def zero_vs_replicated(*, slot_dtypes=("f32", "int8"), steps: int = 6,
                        batch: int = 64, accum: tuple = (1, 2),
-                       ckpt_dir: str = "") -> dict:
+                       ckpt_dir: str = "", moe: dict | None = None) -> dict:
     """LeNet on a (world, 1) mesh: ZeRO and replicated data parallelism
     from one init on the same global batches, f32 and int8 slots, with
     and without accumulation. Per run: losses, final params, the gathered
     slots, this rank's slot shapes and bytes, and the mean gradient of
     the last step and the params it started from (through
-    ``stats_fn``)."""
+    ``stats_fn``). With ``moe`` ({"runs", "inits", "tokens"}), each of
+    its runs through :func:`tp_run` on the same mesh, under ``"moe"``."""
     import torch
     from repro_torch.checkpoint import save_train_state
     from repro_torch.launch.mesh import mesh_from_spec, world
@@ -191,6 +192,10 @@ def zero_vs_replicated(*, slot_dtypes=("f32", "int8"), steps: int = 6,
                                 for n, v in next(it).items()})
         losses.append(float(m["loss"]))
     out["tree"] = {"losses": losses, "layout": state.opt_state.layout}
+    if moe:
+        out["moe"] = {run["tag"]: tp_run(run, moe["inits"][run["model"]],
+                                         moe["tokens"], mesh)
+                      for run in moe["runs"]}
     return out
 
 
@@ -322,7 +327,9 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
     final params (gathered; on model rank 0 of data row 0 only), a digest
     of every replicated leaf, the trust ratios the update applied on the
     last step (``lars_trust_ratio`` recorded) and the LARS kernel
-    wrappers called each step with their buffers' rows."""
+    wrappers called each step with their buffers' rows. For the moe
+    family also each step's aux loss and the first MoE call's
+    ``dropped_frac`` and input (the global batch's first layer)."""
     import dataclasses
     import hashlib
     import torch
@@ -332,6 +339,7 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
     from repro_torch.core import trust_ratio as tr
     from repro_torch.kernels import lars_kernels as lk
     from repro_torch.models import build_model
+    from repro_torch.models import lm as lm_module
     from repro_torch.train import TrainPipeline, train_state_from_params
     from repro_torch.treepath import tree_flatten_with_path, tree_leaves
     cfg = dataclasses.replace(get_config(run["arch"]).reduced(),
@@ -376,17 +384,29 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
             return _f(w2, *a, **kw)
         setattr(lk, k, wrapped)
     tr.lars_trust_ratio = trust
-    losses = []
+    first_moe: dict = {}
+    saved_moe = lm_module.moe_block
+
+    def moe_block(cfg_, p, x, **kw):
+        out, aux = saved_moe(cfg_, p, x, **kw)
+        if not first_moe:
+            first_moe.update(dropped=float(aux["dropped_frac"]), x=_np(x))
+        return out, aux
+
+    lm_module.moe_block = moe_block
+    losses, aux_losses = [], []
     try:
         for _ in range(run.get("steps", 2)):
             seen.append([])
             ratios.clear()
             state, m = pipe(state, {"tokens": torch.from_numpy(tokens)})
             losses.append(float(m["loss"]))
+            aux_losses.append(float(m["aux_loss"]))
     finally:
         for k, fn in saved.items():
             setattr(lk, k, fn)
         tr.lars_trust_ratio = saved_trust
+        lm_module.moe_block = saved_moe
     shardings = pipe.param_shardings
     split = {} if shardings is None else {
         p: sh.split for p, sh in tree_flatten_with_path(shardings)[0]}
@@ -408,6 +428,8 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
                              "s": state.opt_state.slots})))
     first = mesh is None or mesh.rank == 0
     return {"losses": losses, "params": whole if first else None,
+            "aux_losses": aux_losses, "dropped": first_moe.get("dropped"),
+            "moe_x": first_moe.get("x") if mesh is None else None,
             "replicated": replicated, "ratios": list(ratios),
             "kernels": seen,
             "local": {"/".join(p): tuple(x.shape) for p, x in
@@ -492,7 +514,8 @@ def tensor_parallel(*, runs, inits, tokens, ckpt_dir: str = "",
                     units: bool = False) -> dict:
     """Every run of ``runs`` on its mesh (``run["mesh"]``, ``DxM`` over
     the leading ranks; the meshes built once each, in order, on every
-    rank), from ``inits[run["arch"]]``: :func:`tp_run`'s result by tag
+    rank), from ``inits[run["model"]]`` (``run["arch"]`` without a
+    ``model``): :func:`tp_run`'s result by tag
     (nothing for a rank past a run's mesh); with ``units``,
     :func:`tp_units` on a ``1xW`` mesh under ``"units"``."""
     from repro_torch.launch.mesh import mesh_from_spec, world
@@ -505,7 +528,9 @@ def tensor_parallel(*, runs, inits, tokens, ckpt_dir: str = "",
             meshes[run["mesh"]] = mesh_from_spec(run["mesh"], device="cpu")
         mesh = meshes[run["mesh"]]
         if mesh is not None:
-            out[run["tag"]] = tp_run(run, inits[run["arch"]], tokens, mesh,
+            out[run["tag"]] = tp_run(run, inits[run.get("model",
+                                                        run["arch"])],
+                                     tokens, mesh,
                                      ckpt_dir if run.get("ckpt") else "")
     return out
 

@@ -264,15 +264,15 @@ def test_row_sharding_takes_this_ranks_block():
 
 
 def test_model_axis_refuses_the_families_not_yet_split():
-    """On a model axis above 1 a MoE config (and every other family but
-    the dense one and LeNet) raises naming queue 1 item 4b-ii; the mesh
-    is built by hand (constructing the pipeline sends nothing)."""
+    """On a model axis above 1 MLA (deepseek's MoE), the ssm family and
+    encdec (every family but the dense one, the moe one without MLA and
+    LeNet) raise naming queue 1 item 4b-ii; the mesh is built by hand
+    (constructing the pipeline sends nothing)."""
     from repro_torch.train import TrainPipeline
     mesh = port_mesh.Mesh(shape={"data": 1, "model": 2},
                           coords={"data": 0, "model": 1}, groups={},
                           device=torch.device("cpu"))
-    for arch in ("granite-moe-3b-a800m", "deepseek-v2-236b",
-                 "falcon-mamba-7b", "whisper-base"):
+    for arch in ("deepseek-v2-236b", "falcon-mamba-7b", "whisper-base"):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="4b-ii"):
             TrainPipeline(build_model(cfg), lars(0.01), cfg, mesh=mesh)

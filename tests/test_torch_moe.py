@@ -314,6 +314,72 @@ def test_moe_groups_must_split_the_tokens():
         moe.moe_block(cfg, p, torch.zeros(2, 4, cfg.d_model))
 
 
+# every slot's routing where the rows are split over ranks (equal
+# blocks, each with the counts of the blocks before it as its offsets):
+# measured 6.0e-8 at most between a block's expert outputs and the
+# whole batch's rows (the products run on a buffer of the block's slots)
+BLOCK_OUT_ATOL = 1e-6
+
+
+def _global_positions(cfg, r, s, lower=None):
+    """Each slot's (kept, position in its group and expert of the whole
+    batch), in token-major slot order."""
+    pos = s.pos if lower is None else \
+        s.pos + lower[r.first:r.first + r.groups].reshape(-1)[s.key]
+    back = lambda t: torch.empty_like(t).scatter_(0, s.order, t)  # noqa
+    return back(s.keep), back(pos)
+
+
+@pytest.mark.parametrize("groups,blocks,rows", [
+    (1, 2, 8), (1, 4, 8), (2, 2, 8), (2, 4, 8), (4, 2, 8), (4, 3, 6)])
+def test_row_blocks_with_global_offsets_route_as_the_whole_batch(
+        groups, blocks, rows):
+    """The routing ``moe_block`` runs over ``data``, on a hand-made split
+    without a process group: the (rows, 8) tokens cut into ``blocks``
+    equal row blocks (a dispatch group within a block, spanning blocks,
+    or, at 4 groups over 3 blocks, a block that starts mid-group), each
+    routed with the slot counts of the blocks before it as its offsets.
+    Every slot's kept decision and position are the whole batch's,
+    exactly; each block's combined expert outputs are the whole batch's
+    rows; the blocks' aux losses average to the whole's and each block's
+    ``dropped_frac`` is the whole's."""
+    _, cfg = _cfgs(moe_groups=groups)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, cfg.d_model,
+                     torch.float32, "cpu")
+    x = torch.randn(rows, 8, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    whole, aux = moe.moe_block(cfg, p, x)
+    xt = x.reshape(-1, cfg.d_model)
+    n = xt.shape[0] // blocks
+    r = moe.route(cfg, p["router"], xt)
+    keep, pos = _global_positions(cfg, r, moe.place(cfg, r))
+    assert not keep.all()
+    parts = [moe.route(cfg, p["router"], xt[i * n:(i + 1) * n],
+                       start=i * n, total=xt.shape[0])
+             for i in range(blocks)]
+    every = sum(q.counts for q in parts)
+    assert torch.equal(every, r.counts)
+    lower = torch.zeros_like(every)
+    got_keep, got_pos, outs, auxes = [], [], [], []
+    for i, q in enumerate(parts):
+        s = moe.place(cfg, q, lower)
+        k, at = _global_positions(cfg, q, s, lower)
+        got_keep.append(k)
+        got_pos.append(at)
+        outs.append(moe._experts(cfg, p, xt[i * n:(i + 1) * n], q, s,
+                                 None, compact=True)[0])
+        auxes.append(moe.balance(cfg, q, every, blocks))
+        lower = lower + q.counts
+    assert torch.equal(torch.cat(got_keep), keep)
+    assert torch.equal(torch.cat(got_pos), pos)
+    torch.testing.assert_close(torch.cat(outs), whole.reshape(xt.shape),
+                               rtol=0, atol=BLOCK_OUT_ATOL)
+    torch.testing.assert_close(sum(a for a, _ in auxes) / blocks,
+                               aux["aux_loss"], rtol=1e-6, atol=0)
+    for _, dropped in auxes:
+        assert dropped == aux["dropped_frac"]
+
+
 # ------------------------------------------------------------------- LM
 
 def _init(num_layers=2):

@@ -13,9 +13,12 @@ one device) is re-run in the port's form: qwen3-14b on 2x2 and 1x2, at
 one slot on 2x2 (context parallelism: the sequence over both axes, four
 stripes), at capacity 63 (no stripes: the cache is replicated) and at
 capacities whose stripes the prompts span; falcon-mamba on 2x1 (its
-family splits nothing over ``model``). Tokens are held IDENTICAL to the
-reference's; the stochastic sampler and the priority scheduler to the
-port's engine alone. What the slice leaves out still refuses.
+family splits nothing over ``model``); reduced granite with capacity
+drops (8 experts, top-2, capacity factor 0.5) on 2x1 (every slot routed
+over ``data`` at each tick, each admitted group prefilled whole), 1x2
+(the experts split over ``model``) and 2x2. Tokens are held IDENTICAL to
+the reference's; the stochastic sampler and the priority scheduler to
+the port's engine alone. What the slice leaves out still refuses.
 
 One spawn of 4 ranks and one of 2 serve every test (a module fixture),
 in threads beside the reference's engines.
@@ -70,17 +73,23 @@ def _eng(slots=4, capacity=64, **kw):
 # divide over 2 ranks (every head computed whole on every rank)
 MODELS = {"qwen3-14b": ("qwen3-14b", {}),
           "qwen3-heads3": ("qwen3-14b", {"num_heads": 3, "num_kv_heads": 1}),
-          "falcon-mamba-7b": ("falcon-mamba-7b", {})}
+          "falcon-mamba-7b": ("falcon-mamba-7b", {}),
+          "granite": ("granite-moe-3b-a800m",
+                      {"num_experts": 8, "experts_per_token": 2,
+                       "capacity_factor": 0.5})}
 # runs held against the reference's single-device engine (greedy)
 FOUR_REF = [_run("qwen3-2x2", "qwen3-14b", "2x2", **_eng()),
             _run("qwen3-2x2-cp", "qwen3-14b", "2x2", **_eng(slots=1)),
             _run("qwen3-2x2-span", "qwen3-14b", "2x2", **_eng(capacity=16)),
             _run("qwen3-2x2-cp-span", "qwen3-14b", "2x2",
-                 **_eng(slots=1, capacity=32))]
+                 **_eng(slots=1, capacity=32)),
+            _run("granite-2x2", "granite", "2x2", **_eng())]
 TWO_REF = [_run("qwen3-1x2", "qwen3-14b", "1x2", **_eng()),
            _run("qwen3-1x2-63", "qwen3-14b", "1x2", **_eng(capacity=63)),
            _run("heads3-1x2", "qwen3-heads3", "1x2", **_eng(capacity=16)),
-           _run("falcon-2x1", "falcon-mamba-7b", "2x1", **_eng())]
+           _run("falcon-2x1", "falcon-mamba-7b", "2x1", **_eng()),
+           _run("granite-2x1", "granite", "2x1", **_eng()),
+           _run("granite-1x2", "granite", "1x2", **_eng())]
 # runs held against the port's engine alone
 TOPK = {"kind": "top_k", "top_k": 8, "temperature": 0.8}
 SLOS = {0: (10.0, 60.0), 1: (30.0, 120.0)}
@@ -165,7 +174,7 @@ def test_tokens_match_the_references_single_device_engine(results, tag):
     engine's, identically (reduced qwen3-14b on 2x2, 1x2, context
     parallel, replicated and spanning stripes; 3 query heads on 1 KV
     head over 2 ranks: every head computed whole; falcon-mamba on
-    2x1)."""
+    2x1; granite with drops on 2x1, 1x2 and 2x2)."""
     ref, _, ranks = results
     want = ref[RUNS[tag]["model"]]
     for rank in _of(ranks, tag):
@@ -407,22 +416,6 @@ def test_decode_engine_refuses_a_mesh():
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="4c-ii"):
         DecodeEngine(model, params, cfg, mesh=object())
-
-
-def test_moe_family_on_a_data_axis_refuses():
-    """A data rank would route its block of the slots alone, and an
-    expert's capacity is reckoned from the batch routed (the reference
-    routes every slot at once): the moe family over a data axis above 1
-    is queue 1 item 4c-ii. The refusal comes before any collective."""
-    from repro_torch.launch.mesh import Mesh
-    cfg = get_config("granite-moe-3b-a800m").reduced()
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    mesh = Mesh(shape={"data": 2, "model": 1},
-                coords={"data": 0, "model": 0}, groups={},
-                device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="4c-ii"):
-        ServeEngine(model, params, cfg, slots=4, capacity=16, mesh=mesh)
 
 
 def test_a_mesh_of_one_rank_serves_the_engine_alones_tokens():

@@ -1,7 +1,7 @@
-"""Tensor parallelism over ``model`` for the dense LM family in the
-port, on gloo CPU ranks (tests/_torch_dist_worker.py), against the
-reference's single-device ``TrainPipeline`` and the port's own run
-without a mesh.
+"""Tensor parallelism over ``model`` for the dense LM family, and
+expert parallelism for the moe family, in the port, on gloo CPU ranks
+(tests/_torch_dist_worker.py), against the reference's single-device
+``TrainPipeline`` and the port's own run without a mesh.
 
 qwen3-14b, smollm-135m and qwen2-72b reduced (f32) start from the
 reference's init (``bridge``) and take 2 LARS steps of 2 microbatches
@@ -20,9 +20,23 @@ attention blocks are held alone against the plain functions; and
 checkpoints saved on ``1x2`` are the ``1x1`` files, which both packages
 restore.
 
+The moe family: reduced granite with capacity drops (8 experts, top-2,
+capacity factor 0.5) the same way, on ``1x2`` (``_MOE``: 4 experts a
+rank), with 5 experts and a shared expert (``_MOE_TP``: each expert's
+ff split, the shared expert's too), with a shared expert whose width 511
+the ranks do not divide (experts split, shared expert whole), with 5
+experts at ff 511 (every expert leaf whole on both ranks), in bf16 and
+with int8 slots, and on ``2x2`` with ZeRO on and off (the experts split
+over ``model``, each global microbatch routed over ``data``). Beside the
+gates above (the router is one of the replicated leaves), each run's aux
+loss is held against the reference's, and the first MoE call's
+``dropped_frac`` against the reference's ``moe_block`` on the same
+input.
+
 One spawn of 2 ranks and one of 4 serve every test (module fixtures).
 """
 
+import dataclasses
 import threading
 import zipfile
 
@@ -46,6 +60,19 @@ import _torch_dist_worker as worker
 from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("qwen3-14b", "smollm-135m", "qwen2-72b")
+GRANITE = "granite-moe-3b-a800m"
+# reduced granite with capacity drops (chip_smoke.py's GRANITE_DROP)
+DROP = {"num_experts": 8, "experts_per_token": 2, "capacity_factor": 0.5}
+# the models by name: (arch, config changes)
+MODELS = dict({a: (a, {}) for a in ARCHS}, **{
+    "granite": (GRANITE, DROP),
+    "granite-e5": (GRANITE, dict(DROP, num_experts=5,
+                                 num_shared_experts=1)),
+    "granite-shared": (GRANITE, dict(DROP, num_shared_experts=1,
+                                     moe_d_ff=511)),
+    "granite-oddff": (GRANITE, dict(DROP, num_experts=5, moe_d_ff=511,
+                                    num_shared_experts=1))})
+MOE_MODELS = [m for m in MODELS if m.startswith("granite")]
 STEPS, ACCUM, BATCH, SEQ = 2, 2, 8, 32
 # the reference's own tolerances for its (4, 2)-mesh pipeline against
 # its single-device pipeline (tests/test_pipeline.py:284-289)
@@ -66,9 +93,34 @@ INT8_PARAMS = dict(rtol=1e-4, atol=2e-5)
 BF16_LOSS = dict(rtol=1e-4, atol=0)
 BF16_PARAMS = dict(rtol=1e-2, atol=2e-3)
 BF16_TRUST_RTOL = 1e-2
+# the moe runs, f32, against the reference's pipeline: measured at most
+# 1.5e-7 relative on a loss and 1.2e-7 on a param (within REF_*), and
+# against the run alone 1.5e-7 on a loss, 1.2e-7 on a param and 3.0e-7
+# relative on a trust ratio (within PORT_*); the aux loss 1.9e-7
+# relative off the reference's, and the first MoE call's dropped share
+# equal to the reference's moe_block's on the same input
+MOE_AUX = dict(rtol=1e-5, atol=0)
+MOE_DROPPED = dict(rtol=1e-6, atol=0)
+# moe in bf16 against the run alone: each rank's partial combine of its
+# experts' slots is summed over the ranks in bf16 (measured 1.3e-4
+# relative on a loss, 9.8e-4 on a param, 1.8e-2 relative on a trust
+# ratio after 2 steps)
+MOE_BF16_LOSS = dict(rtol=5e-4, atol=0)
+MOE_BF16_TRUST_RTOL = 5e-2
 
+def _moe(tag, model, mesh, **kw):
+    arch, changes = MODELS[model]
+    return dict(tag=tag, arch=arch, model=model, changes=changes,
+                mesh=mesh, **kw)
+
+
+MOE_TWO = [_moe(f"{m}-1x2", m, "1x2") for m in MOE_MODELS] + [
+    _moe("granite-bf16", "granite", "1x2", precision="bf16"),
+    _moe("granite-int8", "granite", "1x2", slots="int8")]
+MOE_FOUR = [_moe(f"granite-2x2-{'zero' if z else 'repl'}", "granite", "2x2",
+                 zero=z) for z in (True, False)]
 TWO = [dict(tag=f"{a}-1x2", arch=a, mesh="1x2",
-            ckpt=a == "smollm-135m") for a in ARCHS] + [
+            ckpt=a == "smollm-135m") for a in ARCHS] + MOE_TWO + [
     dict(tag="bf16", arch="smollm-135m", mesh="1x2", precision="bf16"),
     dict(tag="int8", arch="smollm-135m", mesh="1x2", slots="int8"),
     dict(tag="tree", arch="smollm-135m", mesh="1x2", packed=False,
@@ -82,7 +134,7 @@ TWO = [dict(tag=f"{a}-1x2", arch=a, mesh="1x2",
     dict(tag="heads_3", arch="smollm-135m", mesh="1x2", port_init=True,
          changes={"num_heads": 3, "num_kv_heads": 1})]
 FOUR = [dict(tag=f"{a}-2x2-{'zero' if z else 'repl'}", arch=a, mesh="2x2",
-             zero=z) for a in ARCHS for z in (True, False)]
+             zero=z) for a in ARCHS for z in (True, False)] + MOE_FOUR
 RUNS = {r["tag"]: r for r in TWO + FOUR}
 
 
@@ -96,8 +148,13 @@ def _leaves(tree) -> dict:
             for p, x in tree_flatten_with_path(tree)[0]}
 
 
-def _reference_init(arch):
-    cfg = ref_get_config(arch).reduced()
+def _model(run) -> str:
+    return run.get("model", run["arch"])
+
+
+def _reference_init(model):
+    arch, changes = MODELS[model]
+    cfg = dataclasses.replace(ref_get_config(arch).reduced(), **changes)
     pipe = RefPipeline(ref_build_model(cfg),
                        ref_core.lars(0.05, trust_coefficient=0.01,
                                      use_pallas=False),
@@ -116,9 +173,9 @@ def results(tmp_path_factory):
     checkpoints in ``alone["_dir"]``)."""
     tmp = tmp_path_factory.mktemp("tp")
     (tmp / "ckpt").mkdir()
-    setup = {a: _reference_init(a) for a in ARCHS}
-    inits = {a: jax.tree_util.tree_map(np.asarray, st.params)
-             for a, (_, st, _) in setup.items()}
+    setup = {m: _reference_init(m) for m in MODELS}
+    inits = {m: jax.tree_util.tree_map(np.asarray, st.params)
+             for m, (_, st, _) in setup.items()}
     toks = setup[ARCHS[0]][2]
     assert all((t == toks).all() for _, _, t in setup.values())
     ranks = {"ckpt": tmp / "ckpt"}
@@ -132,14 +189,16 @@ def results(tmp_path_factory):
         t.start()
     try:
         reference = {}
-        for arch, (pipe, state, _) in setup.items():
-            losses = []
+        for model, (pipe, state, _) in setup.items():
+            losses, aux = [], []
             for _ in range(STEPS):
                 state, m = pipe(state, {"tokens": jnp.asarray(toks)})
                 losses.append(float(m["loss"]))
-            reference[arch] = {"losses": losses, "template": state,
-                               "params": jax.tree_util.tree_map(
-                                   np.asarray, state.params)}
+                aux.append(float(m["aux_loss"]))
+            reference[model] = {"losses": losses, "aux_losses": aux,
+                                "template": state, "init": inits[model],
+                                "params": jax.tree_util.tree_map(
+                                    np.asarray, state.params)}
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         alone, done = {"_dir": tmp / "alone"}, {}
@@ -150,7 +209,7 @@ def results(tmp_path_factory):
                               if k not in ("tag", "mesh", "zero")))
             if key not in done:
                 done[key] = worker.tp_run(
-                    run, inits[run["arch"]], toks,
+                    run, inits[_model(run)], toks,
                     ckpt_dir=str(alone["_dir"]) if run.get("ckpt") else "")
             alone[tag] = done[key]
         torch.set_num_threads(threads)
@@ -183,6 +242,8 @@ def _of(ranks, tag) -> list:
 
 def _tolerances(tag):
     run = RUNS[tag]
+    if run.get("precision") == "bf16" and run.get("model") in MOE_MODELS:
+        return MOE_BF16_LOSS, BF16_PARAMS, MOE_BF16_TRUST_RTOL
     if run.get("precision") == "bf16":
         return BF16_LOSS, BF16_PARAMS, BF16_TRUST_RTOL
     if run.get("slots") == "int8":
@@ -190,13 +251,14 @@ def _tolerances(tag):
     return PORT_LOSS, PORT_PARAMS, PORT_TRUST_RTOL
 
 
-MAIN = [f"{a}-1x2" for a in ARCHS] + [t["tag"] for t in FOUR]
+MAIN = [f"{a}-1x2" for a in ARCHS] + [f"{m}-1x2" for m in MOE_MODELS] \
+    + [t["tag"] for t in FOUR]
 
 
 @pytest.mark.parametrize("tag", MAIN)
 def test_matches_the_references_single_device_pipeline(reference, ranks,
                                                        tag):
-    ref = reference[RUNS[tag]["arch"]]
+    ref = reference[_model(RUNS[tag])]
     got = _of(ranks, tag)[0]
     np.testing.assert_allclose(got["losses"], ref["losses"], **REF_LOSS)
     want = _leaves(ref["params"])
@@ -273,6 +335,59 @@ def test_params_are_this_ranks_blocks(ranks):
     assert local["layers/ln1/scale"] == (2, 288)
     assert ranks["two"][0]["heads_3"]["local"]["layers/attn/wq"] == \
         (2, 288, 108)
+
+
+# each moe run's expert leaves on model rank 0 (layers, then the leaf)
+MOE_LOCAL = {
+    "granite-1x2": {"wi": (2, 4, 256, 512), "wo": (2, 4, 512, 256)},
+    "granite-e5-1x2": {"wi": (2, 5, 256, 256), "wo": (2, 5, 256, 256),
+                       "shared/wi": (2, 256, 256),
+                       "shared/wo": (2, 256, 256)},
+    "granite-shared-1x2": {"wi": (2, 4, 256, 511),
+                           "shared/wi": (2, 256, 511),
+                           "shared/wo": (2, 511, 256)},
+    "granite-oddff-1x2": {"wi": (2, 5, 256, 511), "wo": (2, 5, 511, 256),
+                          "shared/wo": (2, 511, 256)},
+    "granite-2x2-zero": {"wi": (2, 4, 256, 512)}}
+
+
+@pytest.mark.parametrize("tag", sorted(MOE_LOCAL))
+def test_moe_leaves_are_split_as_the_tables_say(ranks, tag):
+    """``_MOE`` splits the experts (8 over 2 ranks), ``_MOE_TP`` each
+    expert's ff where ``model`` does not divide the experts (5), and a
+    width ``model`` does not divide (511) stays whole, for the experts
+    and the shared expert alike; the router and the gates' leaves whole
+    on every rank."""
+    for rank in _of(ranks, tag):
+        local = rank["local"]
+        for leaf, shape in MOE_LOCAL[tag].items():
+            assert local[f"layers/moe/{leaf}"] == shape, leaf
+        experts = RUNS[tag]["changes"]["num_experts"]
+        assert local["layers/moe/router"] == (2, 256, experts)
+
+
+@pytest.mark.parametrize("tag", [f"{m}-1x2" for m in MOE_MODELS]
+                         + [t["tag"] for t in MOE_FOUR])
+def test_moe_aux_loss_and_dropped_share_match_the_reference(
+        reference, alone, ranks, tag):
+    """Every rank's aux loss a step is the reference pipeline's; the
+    first MoE call's ``dropped_frac`` (layer 0 of step 0's first
+    microbatch: the global microbatch's share on every rank) is the
+    reference's ``moe_block`` on the same input, which drops slots."""
+    from repro.models import moe as rmoe
+    model = _model(RUNS[tag])
+    ref = reference[model]
+    arch, changes = MODELS[model]
+    rcfg = dataclasses.replace(ref_get_config(arch).reduced(), **changes)
+    p0 = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]),
+                                ref["init"]["layers"]["moe"])
+    _, raux = rmoe.moe_block(rcfg, p0, jnp.asarray(alone[tag]["moe_x"]))
+    want = float(raux["dropped_frac"])
+    assert want > 0
+    for rank in _of(ranks, tag):
+        np.testing.assert_allclose(rank["aux_losses"], ref["aux_losses"],
+                                   **MOE_AUX)
+        np.testing.assert_allclose(rank["dropped"], want, **MOE_DROPPED)
 
 
 def test_vocab_parallel_loss_matches_the_plain_loss(ranks):

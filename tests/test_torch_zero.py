@@ -25,7 +25,19 @@ the two runs' checkpoints are byte-equal and restore in the reference's
 ``restore_train_state``; and a cut of ``zero_smoke`` (2 ranks, 1 epoch,
 ``n_train=256``) runs through ``GridRunner``, killed mid-grid and
 resumed to the uninterrupted trajectories.
+
+In the same spawn, the moe family on the (2, 1) mesh: reduced granite
+with capacity drops (8 experts, top-2, capacity factor 0.5) for 2 LARS
+steps of 2 microbatches, ``moe_groups`` 1 (a dispatch group spans both
+ranks) and 2 (each rank holds one group of each microbatch), against
+the reference's single-device pipeline. Each rank routes its block of
+the reference's global microbatch as the reference routes the whole:
+losses and params within the reference's own mesh tolerances, the aux
+loss within ``MOE_AUX`` (measured below).
 """
+
+import dataclasses
+import threading
 
 import os
 
@@ -38,7 +50,9 @@ import torch
 import repro.core as ref_core
 from repro.checkpoint import restore_train_state as ref_restore
 from repro.checkpoint import save_train_state as ref_save
+from repro.configs import get_config as ref_get_config
 from repro.core import packing as ref_packing
+from repro.models import build_model as ref_build_model
 from repro.models.lenet import LeNet as RefLeNet
 from repro.train import TrainPipeline as RefPipeline
 from repro.train import TrainState as RefTrainState
@@ -52,7 +66,7 @@ from repro_torch.launch.mesh import mesh_from_spec
 from repro_torch.models import build_model
 from repro_torch.train import TrainPipeline, TrainState
 from repro_torch.train.step import value_and_grad
-from repro_torch.treepath import tree_leaves, tree_map
+from repro_torch.treepath import tree_flatten_with_path, tree_leaves, tree_map
 from test_golden import ATOL as MESH_ATOL, MESH_RTOL
 import _torch_dist_worker as worker
 from _torch_threads import one_torch_thread  # noqa: F401
@@ -363,15 +377,84 @@ def test_zero_needs_a_mesh_and_the_packed_layout():
 # ------------------------------------------------------------ two ranks
 
 RUNS = ["f32-a1", "f32-a2", "int8-a1", "int8-a2"]
+GRANITE = "granite-moe-3b-a800m"
+MOE_DROP = {"num_experts": 8, "experts_per_token": 2,
+            "capacity_factor": 0.5}
+MOE_RUNS = [dict(tag=f"granite-2x1-g{g}", arch=GRANITE, model=f"g{g}",
+                 changes=dict(MOE_DROP, moe_groups=g), mesh="2x1", accum=2)
+            for g in (1, 2)]
+# the reference's tolerances for its mesh pipeline against its single
+# device (tests/test_pipeline.py:284-289); the moe runs measured at most
+# 7.6e-8 relative on a loss, 1.2e-7 on a param and 9.0e-8 relative on
+# the aux loss. Each rank routing only its own tokens (capacity from
+# them), the losses were 1.9e-3 (groups 1) and 2.6e-3 (groups 2)
+# relative off, the aux losses 1.5e-2 and 2.8e-2.
+MOE_LOSS = dict(rtol=2e-4, atol=2e-5)
+MOE_PARAMS = dict(rtol=5e-3, atol=5e-4)
+MOE_AUX = dict(rtol=1e-5, atol=0)
+
+
+def _moe_reference(run):
+    """The reference's single-device pipeline on ``run``'s config: its
+    init (numpy), the (8, 32) tokens, and 2 LARS steps' losses, aux losses
+    and final params."""
+    cfg = dataclasses.replace(ref_get_config(run["arch"]).reduced(),
+                              **run["changes"])
+    pipe = RefPipeline(ref_build_model(cfg), ref_core.lars(
+        0.05, trust_coefficient=0.01, use_pallas=False), cfg,
+        accum_steps=run["accum"], donate=False)
+    state = pipe.init_state(jax.random.key(0))
+    init = jax.tree_util.tree_map(np.asarray, state.params)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 32)).astype(np.int32)
+    losses, aux = [], []
+    for _ in range(2):
+        state, m = pipe(state, {"tokens": jnp.asarray(tokens)})
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux_loss"]))
+    return {"init": init, "tokens": tokens, "losses": losses,
+            "aux_losses": aux,
+            "params": jax.tree_util.tree_map(np.asarray, state.params)}
 
 
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
+def spawned(tmp_path_factory):
+    """The two-rank spawn (LeNet's runs, then the moe runs from the
+    reference's inits), and the reference's moe runs, computed in this
+    process while the ranks run."""
     tmp = tmp_path_factory.mktemp("two")
     (tmp / "ckpt").mkdir()
-    out = worker.spawn("zero_vs_replicated", 2, tmp / "spawn",
-                       ckpt_dir=str(tmp / "ckpt"))
-    return out, tmp / "ckpt"
+    inits = {}
+    for run in MOE_RUNS:
+        cfg = dataclasses.replace(ref_get_config(GRANITE).reduced(),
+                                  **run["changes"])
+        inits[run["model"]] = jax.tree_util.tree_map(
+            np.asarray, ref_build_model(cfg).init(jax.random.key(0)))
+    tokens = np.random.default_rng(0).integers(
+        0, ref_get_config(GRANITE).reduced().vocab_size,
+        (8, 32)).astype(np.int32)
+    got = {}
+    spawn = threading.Thread(target=lambda: got.update(out=worker.spawn(
+        "zero_vs_replicated", 2, tmp / "spawn", ckpt_dir=str(tmp / "ckpt"),
+        moe=dict(runs=MOE_RUNS, inits=inits, tokens=tokens))))
+    spawn.start()
+    try:
+        reference = {run["tag"]: _moe_reference(run) for run in MOE_RUNS}
+    finally:
+        spawn.join()
+    assert "out" in got, "the spawn failed"
+    for run in MOE_RUNS:
+        ref = reference[run["tag"]]
+        assert (ref["tokens"] == tokens).all()
+        assert all(np.array_equal(a, b) for a, b in zip(
+            jax.tree_util.tree_leaves(ref["init"]),
+            jax.tree_util.tree_leaves(inits[run["model"]])))
+    return got["out"], tmp / "ckpt", reference
+
+
+@pytest.fixture(scope="module")
+def two_ranks(spawned):
+    return spawned[:2]
 
 
 def _one_process(slot_dtype, accum, steps=6, batch=64, packed=True):
@@ -463,6 +546,33 @@ def test_accumulation_reduces_once_per_step(two_ranks):
     for a, b, c in zip(tree_leaves(got), tree_leaves(port), tree_leaves(ref)):
         assert a.tobytes() == b.numpy().tobytes()
         np.testing.assert_allclose(a, c.numpy(), rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("run", MOE_RUNS, ids=lambda r: r["tag"])
+def test_moe_on_two_data_ranks_routes_the_global_microbatch(spawned, run):
+    """Reduced granite with drops on 2x1, 2 microbatches: each rank's
+    losses and aux losses and the final params are the reference
+    single-device pipeline's, whose routing (capacity, dropped slots,
+    load-balance loss) is the global microbatch's; the ranks agree."""
+    out, _, reference = spawned
+    ref = reference[run["tag"]]
+    ranks = [rank["moe"][run["tag"]] for rank in out]
+    for got in ranks:
+        np.testing.assert_allclose(got["losses"], ref["losses"], **MOE_LOSS)
+        np.testing.assert_allclose(got["aux_losses"], ref["aux_losses"],
+                                   **MOE_AUX)
+        assert got["replicated"] == ranks[0]["replicated"]
+        assert got["kernels"] == [[("norms_flat", got["rows"]),
+                                   ("apply_flat", got["rows"])]] * 2
+        assert got["dropped"] > 0
+    mine = {"/".join(p): v for p, v in
+            tree_flatten_with_path(ranks[0]["params"])[0]}
+    want = {"/".join(p): np.asarray(v, np.float32) for p, v in
+            tree_flatten_with_path(ref["params"])[0]}
+    assert sorted(mine) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(mine[k], want[k], **MOE_PARAMS,
+                                   err_msg=k)
 
 
 def test_two_rank_checkpoints_are_one_file(two_ranks):
