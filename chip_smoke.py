@@ -173,9 +173,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
              same seed-0 init, layer 0's dropped share, its MLA attention
              and MoE block timed apart (forward and backward, CUDA
              events) and a profiled f32 LARS step; ``launch.serve.main``
-             with all 160 experts at 1 layer (bf16), phase 8's traffic:
-             no ``flash_decode`` launch (the absorbed decode is torch
-             ops), every request finished, finite logits, the decode
+             with all 160 experts at 1 layer (bf16), phase 8's traffic
+             with 8 new tokens a request: no ``flash_decode`` launch (the
+             absorbed decode is torch ops), every request finished,
+             finite logits, the decode
              ticks' dropped share and the latent cache's bytes beside an
              expanded K/V cache's; reduced deepseek with a nonzero query
              rank in f32: 20 LARS steps card against CPU within 1e-5, 16
@@ -365,9 +366,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
              traffic, 8 new tokens): one ``flash_decode`` a layer a tick
              a rank (the lse instance on ``1x2``'s stripes), none outside
              the ticks, digests equal, the share of requests whose
-             tokens equal the run alone's printed. (a)'s and (f)'s runs
-             alone run in this process beside the ranks. The phases'
-             wall times are printed at the end.
+             tokens equal the run alone's printed; (g) MLA on meshes, in
+             two processes of its own (``--mla-mesh-rank``) started once
+             every other rank of the phase has ended (each needs ~37
+             GiB), on a ``1x2`` mesh: deepseek-v2-236b at full width, 1 layer
+             and 16 routed experts (its 128 heads 64 a rank), 2 f32 LARS
+             steps of 4 x 4096 tokens through ``launch.train --mesh
+             1x2``, held against phase 15's own f32 LARS run: losses
+             within 2e-4, step 0 layer 0's kept slots differing in under
+             1 %, one ``norms_flat`` and one ``apply_flat`` a step a rank
+             on the global rows, the down projections, their norms, the
+             router and the norms bit-identical across the ranks (step
+             ms, the share in collectives, the bytes handed to them and
+             the peaks printed); ``launch.serve --mesh 1x2`` on reduced
+             deepseek with a query rank of 48 and drops (f32, a 48-row
+             latent cache in two stripes; greedy tokens identical to the
+             run alone) and on phase 15's full-width serving run (every
+             request finished with finite logits, no ``flash_decode``
+             launch, digests equal, the share of requests whose tokens
+             equal phase 15's printed), the first tick's layer 0 on each
+             rank (each stripe's out_lat and lse, the merged latent)
+             against the plain absorbed decode within MLA_MERGE_TOL.
+             (a)'s and (f)'s runs alone, and (e)'s and (g)'s reduced
+             serving runs alone, run in this process beside the ranks.
+             The phases' wall times are printed at the end.
 
 From phase 13 on, a model's seeded init is drawn once per phase and
 shared by its training runs, sessions and serving (``shared_inits``:
@@ -618,10 +640,15 @@ DEEPSEEK_ARGS = ["--arch", DEEPSEEK] + [
     str(DEEPSEEK_STEPS), "--lr", "0.01", "--log-every", "0"]
 # served at every width with all 160 experts, 1 of 60 layers
 # (5,020,680,192 parameters, bf16; cut from 2 to keep the script within its
-# time limit), phase 8's traffic over a latent cache
+# time limit), phase 8's traffic over a latent cache with 8 new tokens a
+# request (32-256 until phase 20 (g) held its 1x2 mesh against this run:
+# the same traffic, paid for by this run's shorter decode), its weights
+# drawn on the card from DEEPSEEK_SERVE_DRAW
 DEEPSEEK_SERVE_LAYERS = 1
 DEEPSEEK_SERVE_ARGS = ["--arch", DEEPSEEK, "--set",
-                       f"num_layers={DEEPSEEK_SERVE_LAYERS}"] + SERVE_ARGS[2:]
+                       f"num_layers={DEEPSEEK_SERVE_LAYERS}"] \
+    + SERVE_ARGS[2:] + ["--new-min", "8", "--new-max", "8"]
+DEEPSEEK_SERVE_DRAW = 15
 # reduced deepseek in f32 with a nonzero query rank (the full width's
 # q_down / q_norm / q_up path; the reduced preset sets 0): 20 LARS steps
 # card against CPU at phase 12's gate, its decode at phase 9's
@@ -931,6 +958,47 @@ MOE_MESH_SERVE = {
                  "--prompt-min", "256", "--prompt-max", "2048", "--new-min",
                  "8", "--new-max", "8", "--arrival-every", "0",
                  "--prefill-bucket", "64", "--seed", "0"]}
+# (g): MLA on meshes, in two ranks of its own started once the phase's
+# other ranks have ended (each holds deepseek's whole packed f32 LARS
+# state and its update's buffers: ~37 GiB), on a 1x2 mesh
+# (deepseek's 128 heads split 64 a rank, its 16 routed experts 8 a rank;
+# q_down, kv_down, their norms and the router whole). Training: phase
+# 15's f32 LARS run (full width, 1 layer, 16 routed experts, 4 x 4096
+# tokens, the lean knobs, seed 0) through launch.train --mesh 1x2 for
+# MLA_MESH_STEPS steps, held against phase 15's run itself (its first
+# losses and step 0 layer 0's kept slots: the run alone costs no time of
+# its own): losses within MOE_MESH_LOSS_RTOL, kept slots within
+# MOE_MESH_SLOT_SHARE, one norms_flat and one apply_flat a step a rank
+# on the global rows, the replicated leaves bit-identical across the
+# ranks. Serving through launch.serve --mesh 1x2: reduced deepseek with a
+# query rank of 48 and granite's drops (f32; 4 slots of 48 rows: two
+# stripes of 24), greedy tokens identical to the run alone; phase 15's
+# full-width run (all 160 experts, 1 layer, bf16, phase 8's traffic with
+# 8 new tokens, the same card draw), held against phase 15's: every
+# request finished with finite logits, no flash_decode launch, digests
+# equal; the first tick's layer 0 on each rank (each stripe's out_lat
+# and lse, the merged latent) against the plain absorbed decode
+MLA_MESH = "1x2"
+MLA_MESH_STEPS = 2
+# each rank's share of the card (38.0 GiB of an H100's 79.18): a rank
+# peaked at 37,382.4 MiB allocated before the step dropped its packed
+# gradient ahead of cutting the blocks (~6 GiB less at that point since);
+# without a share one rank's cached blocks starved the other (the card
+# full while the failing rank held 26.1 GiB)
+MLA_MESH_CARD_SHARE = 0.48
+MLA_MESH_TRAIN = DEEPSEEK_ARGS + QWEN_RUNS["lars"] + [
+    "--steps", str(MLA_MESH_STEPS), "--mesh", MLA_MESH]
+MLA_MESH_SERVE = {
+    "mla_reduced": ["--arch", DEEPSEEK, "--reduced"]
+    + [a for k, v in dict(GRANITE_DROP, **DEEPSEEK_Q_LORA).items()
+       for a in ("--set", f"{k}={v}")] + SERVE_MESH_ARGS["reduced"][3:],
+    "mla_full": DEEPSEEK_SERVE_ARGS}
+# each stripe's (out_lat, lse) and the merged latent against the plain
+# absorbed decode (masked softmax over the stripe, or over the whole
+# latent cache), all in f32: (rtol, atol). Measured on an H100 at full
+# width (a bf16 cache of 32 x 4096 rows, 128 heads): 4.3e-7 on a stripe,
+# 4.0e-7 merged, the lse exact
+MLA_MERGE_TOL = (1e-5, 1e-5)
 
 # Published HBM bandwidth (B/s) and f32 non-tensor-core peak (FLOP/s), by
 # the name nvidia-smi reports (NVIDIA data sheets).
@@ -1870,7 +1938,8 @@ def fd_timed_row(fdk, shape: tuple, gen, bw: float, flops: float,
 
 
 def serve_phase(serve, fdk, lk, args=SERVE_ARGS, requests: int = 32,
-                phase8=None, label: str = "") -> dict:
+                phase8=None, label: str = "", keep: dict | None = None
+                ) -> dict:
     """Phase 8 (and 14, for granite; 15, for deepseek, whose absorbed MLA
     decode launches no ``flash_decode``; 16, for falcon-mamba, which
     launches none, and zamba2, one per application of its shared block;
@@ -1885,7 +1954,9 @@ def serve_phase(serve, fdk, lk, args=SERVE_ARGS, requests: int = 32,
     phase 8's peak plus the prefix store's bytes plus 1 GiB (a masked
     decode or chunk call that copied the cache would pass it), and the
     tick, occupancy, TTFT and latency (by tier) are logged beside phase
-    8's."""
+    8's. ``keep`` takes the report and the launches under ``tuple(args)``
+    (a mesh's run is held against them, as :func:`serve_alone` gives
+    them)."""
     import torch
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1898,6 +1969,8 @@ def serve_phase(serve, fdk, lk, args=SERVE_ARGS, requests: int = 32,
     peak = torch.cuda.max_memory_allocated() - base
     launches = dict(fdk.LAUNCHES)
     lars = dict(lk.LAUNCHES)
+    if keep is not None:
+        keep[tuple(args)] = (rep, launches)
     st, per = rep["stats"], rep["flash_decode_per_tick"]
     ticks = rep["decode_steps"]
     want = per * ticks
@@ -3059,10 +3132,11 @@ def deepseek_cfg(cut=DEEPSEEK_CUT + DEEPSEEK_LEAN):
     return apply_overrides(get_config(DEEPSEEK), cut)
 
 
-def deepseek_serve(serve, fdk, lk) -> dict:
+def deepseek_serve(serve, fdk, lk, keep: dict | None = None) -> dict:
     """Phase 15: ``launch.serve`` on deepseek at every width, all 160
-    experts, DEEPSEEK_SERVE_LAYERS layers (phase 8's traffic; its init
-    drawn on the card, ``card_draws``): no
+    experts, DEEPSEEK_SERVE_LAYERS layers (phase 8's traffic with 8 new
+    tokens; its init drawn on the card, ``card_draws``; the report kept
+    in ``keep`` for phase 20 (g)): no
     ``flash_decode`` launch in the run; the share of slots the decode
     ticks' MoE blocks drop (each
     tick routes all 32 slots: capacity round(6 * 32 / 160 * 1.25) = 2 an
@@ -3081,8 +3155,9 @@ def deepseek_serve(serve, fdk, lk) -> dict:
 
     lm_module.moe_block = recording
     try:
-        with card_draws(15):
-            out = serve_phase(serve, fdk, lk, DEEPSEEK_SERVE_ARGS)
+        with card_draws(DEEPSEEK_SERVE_DRAW):
+            out = serve_phase(serve, fdk, lk, DEEPSEEK_SERVE_ARGS,
+                              keep=keep)
     finally:
         lm_module.moe_block = inner
     out["decode_dropped_frac"] = float(torch.stack(drops).mean())
@@ -3099,6 +3174,27 @@ def deepseek_serve(serve, fdk, lk) -> dict:
         f"{out['latent_cache_bytes']:,} B against an expanded K/V cache's "
         f"{out['expanded_kv_cache_bytes']:,} B")
     return out
+
+
+def mla_alone(train, lk, fdk, runs: dict, keep: dict) -> dict:
+    """Phase 15's deepseek training runs (``runs`` through
+    ``launch.train`` at DEEPSEEK_ARGS; the f32 LARS run first) and what
+    phase 20 (g)'s mesh is held against, in ``keep["train"]``: that
+    run's losses, its global packed rows and step 0 layer 0's routing
+    (:func:`first_routing`). (Its serving run alone is phase 15's
+    :func:`deepseek_serve`, kept in ``keep["serve"]``.) Returns
+    :func:`lm_train_runs`' result."""
+    first = next(iter(runs))
+    if runs[first] != QWEN_RUNS["lars"]:
+        raise ValueError(f"the first run must be f32 LARS, not {first}")
+    with first_routing({}) as box:
+        res = lm_train_runs(train, lk, fdk, DEEPSEEK_ARGS, runs,
+                            DEEPSEEK_STEPS, aux=True)
+    keep["train"] = {"losses": res[first]["losses"], "box": box,
+                     "rows": lm_layout(deepseek_cfg()).buffer_shape[0],
+                     "peak_bytes": res[first]["peak_bytes"],
+                     "step_ms": 1e3 / res[first]["steps_per_s"]}
+    return res
 
 
 def masks_phase(train, lk, fdk, stock_tokens_per_s=None) -> dict:
@@ -3119,20 +3215,23 @@ def masks_phase(train, lk, fdk, stock_tokens_per_s=None) -> dict:
 
 
 def mla_phase(train, serve, lk, fdk, bw: float, flops: float, floor: float,
-              stock_tokens_per_s=None) -> dict:
+              stock_tokens_per_s, keep: dict) -> dict:
     """Phase 15: MLA (deepseek-v2-236b) trained and served on the card,
-    and the training side of sliding windows and the softcap."""
+    and the training side of sliding windows and the softcap. ``keep``
+    takes what phase 20 (g)'s mesh is held against (:func:`mla_alone`):
+    the f32 LARS run's losses, rows and first routing, and the full-width
+    serving report."""
     t_phase = time.perf_counter()
     layout = lm_layout(deepseek_cfg())
     out = {"rows": layout.buffer_shape[0], "slices": layout.num_slices,
            "kernel_rows": large_kernel_rows(lk, layout, 4, bw, flops,
                                             floor)}
-    out["runs"] = lm_train_runs(train, lk, fdk, DEEPSEEK_ARGS, QWEN_RUNS,
-                                DEEPSEEK_STEPS, aux=True)
+    out["runs"] = mla_alone(train, lk, fdk, QWEN_RUNS, keep)
     out["session"] = moe_session(deepseek_cfg(), DEEPSEEK_BATCH,
                                  f"deepseek ({DEEPSEEK_LAYERS} layer, 16 "
                                  "routed experts)")
-    out["serve"] = deepseek_serve(serve, fdk, lk)
+    out["serve"] = deepseek_serve(serve, fdk, lk, keep.setdefault(
+        "serve", {}))
     # reduced deepseek in f32 with a nonzero query rank: training and its
     # decode (16 teacher-forced steps, the engine's greedy tokens)
     out["card_vs_cpu"] = {
@@ -4320,6 +4419,156 @@ def zero_rank(rank: int, world: int, workdir: str) -> None:
         json.dump(out, f)
 
 
+def mla_mesh_rank_main(rank: int, world: int, workdir: str) -> None:
+    """Phase 20 (g), one of its two ranks (``chip_smoke.py
+    --mla-mesh-rank R 2 DIR``, started once every other rank of the phase
+    has ended: two ranks of deepseek's cut need most of the card): gloo
+    over a file store, the rank's tensors on ``cuda:0``,
+    :func:`mla_mesh_rank`; its result in ``DIR/rank<R>.json`` under
+    ``"mla"``. To run (g) without the rest of phase 20: ``chip_smoke.py
+    --phase-20g`` (:func:`mla_mesh_phase`)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    # the two ranks share the card: each allocator keeps what it holds,
+    # its cache included, within its share, so neither starves the other
+    torch.cuda.set_per_process_memory_fraction(MLA_MESH_CARD_SHARE, 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import lars_kernels as lk
+    rows_seen: list = []
+    record_rows(lk, rows_seen)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world)
+    try:
+        with shared_inits():
+            out = {"mla": mla_mesh_rank(rank, workdir, rows_seen)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def free_card() -> None:
+    """Before (g)'s ranks: this process's unreferenced blocks returned to
+    the card, and the device copies of the packed layouts' static maps
+    that every layout trained so far left cached (a few GiB by phase
+    20); the card's free bytes and what this process still holds
+    logged."""
+    import gc
+    import torch
+    from repro_torch.core import packing
+    packing._on_device.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  the card before (g)'s ranks: {torch.cuda.mem_get_info()[0]:,} B "
+        f"free, this process holds {torch.cuda.memory_allocated():,} B "
+        f"({torch.cuda.memory_reserved():,} B reserved)")
+
+
+def mla_mesh_phase(train, serve, lk, fdk, workdir: str) -> dict:
+    """Phase 20 (g) alone (the kernels built first): what phase 15 runs
+    and (g) is held against (:func:`mla_alone`: the f32 LARS run and the
+    full-width serving run), the reduced serving run alone, then (g)'s
+    two ranks (``--mla-mesh-rank``) and their gates
+    (:func:`mla_mesh_against_alone`)."""
+    import torch
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    keep: dict = {}
+    rows_seen: list = []
+    saved = record_rows(lk, rows_seen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with shared_inits():
+            mla_alone(train, lk, fdk, {"lars": QWEN_RUNS["lars"]}, keep)
+            deepseek_serve(serve, fdk, lk, keep.setdefault("serve", {}))
+        keep["serve"].update(serve_alone([MLA_MESH_SERVE["mla_reduced"]]))
+        free_card()
+        ranks = spawn_ranks(workdir, "--mla-mesh-rank", ZERO_RANKS)
+        return mla_mesh_against_alone(ranks, workdir, keep)
+    finally:
+        for k, fn in saved.items():
+            setattr(lk, k, fn)
+
+
+def mla_mesh_rank(rank: int, workdir: str, rows_seen: list) -> dict:
+    """Phase 20 (g), in one of its two ranks: MLA_MESH_TRAIN
+    through ``launch.train --mesh`` (each step timed between syncs, its
+    collectives by CUDA events (``timed_collectives``), the bytes it
+    handed them (``MOVED``), its LARS launches and the rows each was
+    given; step 0 layer 0's routing in ``DIR/mla_keep_rank<R>.pt``; the
+    split leaves, a digest of every replicated leaf; the peak), then each
+    MLA_MESH_SERVE run through ``launch.serve --mesh``
+    (:func:`serve_mesh_rank`)."""
+    import gc
+    import hashlib
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.launch import train
+    from repro_torch.train import TrainPipeline
+    from repro_torch.treepath import tree_flatten_with_path
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    free = torch.cuda.mem_get_info(dev)[0]
+    steps: list = []
+    last: dict = {}
+    inner = TrainPipeline.__call__
+
+    def step(self, state, batch):
+        lk.reset_launch_counts()
+        collectives.reset_counts()
+        rows_seen.clear()
+        events: list = []
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with timed_collectives(events):
+            out = inner(self, state, batch)
+        torch.cuda.synchronize(dev)
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "collective_ms": sum(a.elapsed_time(z)
+                                           for a, z in events),
+                      "moved": dict(collectives.MOVED),
+                      "staged": dict(collectives.STAGED),
+                      "launches": dict(lk.LAUNCHES),
+                      "rows": [list(r) for r in rows_seen]})
+        last.update(pipe=self, state=out[0])
+        return out
+
+    TrainPipeline.__call__ = step
+    try:
+        with first_routing({}) as box:
+            summary = train.main(MLA_MESH_TRAIN)
+    finally:
+        TrainPipeline.__call__ = inner
+    torch.save(box, os.path.join(workdir, f"mla_keep_rank{rank}.pt"))
+    split = {p: sh.split for p, sh in
+             tree_flatten_with_path(last["pipe"].param_shardings)[0]}
+    leaves = tree_flatten_with_path(last["state"].params)[0]
+    out = {"losses": summary["losses"], "aux_losses": summary["aux_losses"],
+           "steps": steps,
+           "split": sorted("/".join(p) for p, _ in leaves if split[p]),
+           "replicated": {"/".join(p): hashlib.sha256(
+               x.float().cpu().numpy().tobytes()).hexdigest()
+               for p, x in leaves if not split[p]},
+           "rows": int(last["state"].opt_state.slots["momentum"].shape[0]),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+           "free_bytes_at_start": free}
+    del leaves
+    last.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = serve_mesh_rank(None, workdir, runs={
+        tag: (args, MLA_MESH) for tag, args in MLA_MESH_SERVE.items()})
+    return out
+
+
 def moe_mesh_rank_main(rank: int, world: int, workdir: str) -> None:
     """Phase 20 (f) alone, one of its two ranks (``chip_smoke.py
     --moe-mesh-rank R 2 DIR``): gloo over a file store, the rank's tensors
@@ -4591,9 +4840,13 @@ def serve_mesh_rank(world, workdir: str, runs: dict | None = None
     bytes it handed them (``MOVED``). The run's first stripe kernel call
     (tick 1, layer 0) is kept: its inputs, its (out, lse) and the merged
     output, in ``DIR/serve_<run>_rank<R>.pt`` (:func:`serve_mesh_merge`
-    holds them against the plain version). Returns per run: the tokens
-    by rid, the report's counts, the rank's launches, the ticks' ms,
-    collective ms and bytes, the peak."""
+    holds them against the plain version); for MLA, whose absorbed
+    decode launches no kernel, its first stripe call
+    (``models.mla.latent_attention``) instead. Phase 15's full-width
+    deepseek run draws its weights as phase 15 does
+    (DEEPSEEK_SERVE_DRAW). Returns per run: the tokens by rid, the
+    report's counts, the rank's launches, the ticks' ms, collective ms
+    and bytes, the peak."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed import collectives
@@ -4601,6 +4854,7 @@ def serve_mesh_rank(world, workdir: str, runs: dict | None = None
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve
     from repro_torch.models import LanguageModel
+    from repro_torch.models import mla
     dev = torch.device("cuda", 0)
     res = {}
     if runs is None:
@@ -4611,7 +4865,17 @@ def serve_mesh_rank(world, workdir: str, runs: dict | None = None
         inner = LanguageModel.decode_step
         inner_prefill = LanguageModel.prefill_at
         inner_fd, inner_merge = kops.flash_decode, collectives.merge_stripes
+        inner_latent = mla.latent_attention
         first: dict = {}
+
+        def first_latent(q_lat, q_rope, ckv, krope, n, scale):
+            got = inner_latent(q_lat, q_rope, ckv, krope, n, scale)
+            if "q" not in first:
+                first.update(mla=True, q=q_lat.clone(), q_rope=q_rope.clone(),
+                             k=ckv.clone(), v=krope.clone(), n=n.clone(),
+                             part=got[0].clone(), lse=got[1].clone(),
+                             scale=scale)
+            return got
 
         def first_stripe(q, k, v, n, **kw):
             got = inner_fd(q, k, v, n, **kw)
@@ -4657,14 +4921,19 @@ def serve_mesh_rank(world, workdir: str, runs: dict | None = None
         LanguageModel.prefill_at = timed_prefill
         kops.flash_decode = first_stripe
         collectives.merge_stripes = first_merge
+        mla.latent_attention = first_latent
+        draw = card_draws(DEEPSEEK_SERVE_DRAW) \
+            if args == DEEPSEEK_SERVE_ARGS else contextlib.nullcontext()
         t0 = time.perf_counter()
         try:
-            rep = serve.main(args + ["--mesh", spec])
+            with draw:
+                rep = serve.main(args + ["--mesh", spec])
         finally:
             LanguageModel.decode_step = inner
             LanguageModel.prefill_at = inner_prefill
             kops.flash_decode = inner_fd
             collectives.merge_stripes = inner_merge
+            mla.latent_attention = inner_latent
         torch.save({k: x.cpu() if torch.is_tensor(x) else x
                     for k, x in first.items()},
                    os.path.join(workdir, f"serve_{tag}_rank"
@@ -4725,6 +4994,8 @@ def serve_mesh_merge(fdk, workdir: str, tag: str, nranks: int = TP_RANKS,
     dev = torch.device("cuda")
     caps = [torch.load(os.path.join(workdir, f"serve_{tag}_rank{r}.pt"))
             for r in range(nranks)]
+    if caps[0].get("mla"):
+        return mla_mesh_merge(caps, tag, label)
     c0 = caps[0]
     name = str(c0["k"].dtype).removeprefix("torch.")
     rtol, atol = FD_TOL[name]
@@ -4778,6 +5049,89 @@ def serve_mesh_merge(fdk, workdir: str, tag: str, nranks: int = TP_RANKS,
         f"{list(k.shape)} {name}): stripes against the plain version out "
         f"{out_err:.3g}, lse rel {lse_err:.3g} ({empty} empty stripe rows "
         f"at -inf); merged against the plain whole {err.max().item():.3g}")
+    if bad:
+        raise AssertionError(f"serving mesh {tag}: " + "; ".join(bad))
+    return res
+
+
+def mla_plain(q_lat, q_rope, ckv, krope, n, scale: float) -> tuple:
+    """The plain absorbed decode's attention on a whole latent cache, as
+    the reference's ``mla_decode`` computes it: each head's scaled scores
+    against the first ``n`` rows of its sequence, masked to -1e30 and
+    softmaxed,
+    the probability-weighted latents (B, H, r); and the scores'
+    log-sum-exp (B, H), -inf where a sequence has no row. All in f32."""
+    import torch
+    ckv, krope = ckv.float(), krope.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+         + torch.einsum("bhe,bse->bhs", q_rope, krope)) * scale
+    valid = torch.arange(ckv.shape[1], device=ckv.device) \
+        < n[:, None, None]
+    probs = torch.softmax(torch.where(valid, s, -1.0e30), dim=-1)
+    return (torch.einsum("bhs,bsr->bhr", probs, ckv),
+            torch.logsumexp(torch.where(valid, s, -torch.inf), dim=-1))
+
+
+def mla_mesh_merge(caps: list, tag: str, label: str) -> dict:
+    """Phase 20 (g)'s first tick, layer 0, on each rank's stripe of the
+    latent cache (``caps``: what :func:`serve_mesh_rank` kept of the first
+    ``latent_attention`` call and merge): each stripe's out_lat and lse
+    against :func:`mla_plain` on the stripe within MLA_MERGE_TOL (out_lat
+    exactly 0 and lse -inf where the stripe holds no row of a sequence),
+    and the merged latent against :func:`mla_plain` on the whole cache
+    (the stripes side by side, the lengths summed); the queries and the
+    merged latent bit-identical on every rank. Raises beyond them."""
+    import torch
+    dev = torch.device("cuda")
+    rtol, atol = MLA_MERGE_TOL
+    c0 = caps[0]
+    bad, out_err, lse_err, empty = [], 0.0, 0.0, 0
+    for r, c in enumerate(caps):
+        if not all(torch.equal(c[k], c0[k]) for k in ("q", "q_rope",
+                                                     "merged")):
+            bad.append(f"rank {r}'s queries or merged latent differ from "
+                       "rank 0's")
+        q, qr, k, v, n = (c[x].to(dev) for x in ("q", "q_rope", "k", "v",
+                                                  "n"))
+        want, want_lse = mla_plain(q, qr, k, v, n, c["scale"])
+        part, lse = c["part"].to(dev), c["lse"].to(dev)
+        none = (n == 0)[:, None].expand(lse.shape)
+        empty += int((n == 0).sum())
+        if not (bool((part[none] == 0).all())
+                and bool(torch.isneginf(lse[none]).all())
+                and bool(torch.isfinite(lse[~none]).all())):
+            bad.append(f"rank {r}: an empty stripe row is not (0, -inf), "
+                       "or a row with keys has an infinite lse")
+        if bool((~none).any()):
+            err = (part - want).abs()[~none]
+            out_err = max(out_err, err.max().item())
+            if not bool((err <= atol + rtol * want.abs()[~none]).all()):
+                bad.append(f"rank {r}'s stripe out_lat max abs err "
+                           f"{err.max().item()}")
+            rel = ((lse - want_lse).abs()[~none]
+                   / want_lse.abs()[~none].clamp(min=1.0)).max().item()
+            lse_err = max(lse_err, rel)
+            if not rel <= rtol:
+                bad.append(f"rank {r}'s stripe lse max rel err {rel}")
+    k = torch.cat([c["k"] for c in caps], dim=1).to(dev)
+    v = torch.cat([c["v"] for c in caps], dim=1).to(dev)
+    lens = sum(c["n"] for c in caps).to(dev)
+    whole = mla_plain(c0["q"].to(dev), c0["q_rope"].to(dev), k, v, lens,
+                      c0["scale"])[0]
+    err = (c0["merged"].to(dev) - whole).abs()
+    if not bool((err <= atol + rtol * whole.abs()).all()):
+        bad.append(f"merged max abs err {err.max().item()} against the "
+                   "plain absorbed decode on the whole latent cache")
+    res = {"shape": list(k.shape), "dtype": str(k.dtype).removeprefix(
+        "torch."), "stripe_max_abs_err": out_err,
+        "stripe_lse_max_rel_err": lse_err, "empty_stripe_rows": empty,
+        "merged_max_abs_err": err.max().item(), "tol": list(MLA_MERGE_TOL)}
+    log(f"  {label} {tag}, tick 1 layer 0 on the ranks' stripes of the "
+        f"latent cache (whole {list(k.shape)} {res['dtype']}, "
+        f"{c0['q'].shape[1]} heads): stripes against the plain absorbed "
+        f"decode out_lat {out_err:.3g}, lse rel {lse_err:.3g} ({empty} "
+        f"empty stripe rows at (0, -inf)); merged against the plain whole "
+        f"{err.max().item():.3g} (tolerance rtol {rtol:g}, atol {atol:g})")
     if bad:
         raise AssertionError(f"serving mesh {tag}: " + "; ".join(bad))
     return res
@@ -4863,7 +5217,8 @@ def serve_mesh_against_alone(ranks: list, workdir: str,
         if ranks[0][tag]["striped"]:
             res[tag]["first_merge"] = serve_mesh_merge(fdk, workdir, tag,
                                                        len(ranks), part)
-        striped = ("lse instance on its stripe" if ranks[0][tag]["striped"]
+        striped = ("on its stripe of the cache, the stripes merged by "
+                   "log-sum-exp" if ranks[0][tag]["striped"]
                    else "the sequence whole")
         x = res[tag]
         log(f"  {part} serving mesh, {tag}, {spec} ({' '.join(args[:4])}"
@@ -5260,18 +5615,121 @@ def moe_mesh_against_alone(ranks: list, zdir: str, alone_runs: dict
     return res
 
 
+def mla_mesh_against_alone(ranks: list, zdir: str, alone: dict) -> dict:
+    """Phase 20 (g)'s gates, in the parent once the ranks have ended,
+    against phase 15's runs (``alone``, :func:`mla_alone`'s ``keep``, with
+    the reduced serving run alone added): both ranks routed step 0 layer
+    0 alike, and its kept (token, expert) slots differ from the run
+    alone's in under MOE_MESH_SLOT_SHARE; the ranks' losses equal and
+    within MOE_MESH_LOSS_RTOL of the run alone's first MLA_MESH_STEPS;
+    every step of every rank one ``norms_flat`` and one ``apply_flat`` on
+    the global rows (the run alone's); the replicated leaves (``q_down``,
+    ``q_norm``, ``kv_down``, ``kv_norm``, the router, the norms among
+    them) bit-identical across the ranks; step ms, the share in
+    collectives, the bytes handed to them and the peaks printed. Then the
+    serving runs against theirs alone (:func:`serve_mesh_against_alone`)."""
+    import torch
+    cfg = deepseek_cfg()
+    train_alone = alone["train"]
+    want = kept_slots(train_alone["box"], cfg.num_experts)
+    got = [rk["mla"] for rk in ranks]
+    boxes = [torch.load(os.path.join(zdir, f"mla_keep_rank{r}.pt"))
+             for r in range(len(ranks))]
+    bad = []
+    if not all(torch.equal(b["keep"], boxes[0]["keep"])
+               and torch.equal(b["ids"], boxes[0]["ids"]) for b in boxes):
+        bad.append("the model ranks routed apart")
+    differ = float((kept_slots(boxes[0], cfg.num_experts) ^ want).sum()) \
+        / float(want.sum())
+    ref = train_alone["losses"][:MLA_MESH_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], ref))
+    rows = train_alone["rows"]
+    step = [("norms_flat", rows), ("apply_flat", rows)]
+    per = {"norms_flat": 1, "apply_flat": 1, "apply_flat_q8": 0}
+    if any(g["losses"] != got[0]["losses"] for g in got):
+        bad.append("the ranks' losses differ")
+    if any(g["replicated"] != got[0]["replicated"] for g in got):
+        bad.append("a replicated leaf differs across the ranks")
+    named = ("q_down", "q_norm", "kv_down", "kv_norm")
+    if not all(f"layers/attn/{n}" in got[0]["replicated"] for n in named) \
+            or "layers/moe/router" not in got[0]["replicated"]:
+        bad.append(f"not replicated: {sorted(got[0]['replicated'])}")
+    for r, g in enumerate(got):
+        if len(g["steps"]) != MLA_MESH_STEPS or g["rows"] != rows or any(
+                st["launches"] != per or [tuple(x) for x in st["rows"]]
+                != step for st in g["steps"]):
+            bad.append(f"rank {r}: launches "
+                       f"{[st['launches'] for st in g['steps']]} on rows "
+                       f"{[st['rows'] for st in g['steps']]}, want {per} on "
+                       f"{rows} rows a step")
+    if not differ < MOE_MESH_SLOT_SHARE:
+        bad.append(f"{differ:.4%} of the kept slots differ")
+    if not rel <= MOE_MESH_LOSS_RTOL:
+        bad.append(f"losses rel {rel} against the run alone")
+    share = statistics.median(st["collective_ms"] / st["ms"]
+                              for st in got[0]["steps"])
+    res = {"losses": got[0]["losses"], "alone_losses": ref,
+           "rel_to_alone": rel, "kept_differ_share": differ,
+           "rows": rows, "launches": [
+               {k: sum(st["launches"][k] for st in g["steps"]) for k in per}
+               for g in got], "split": got[0]["split"],
+           "replicated": sorted(got[0]["replicated"]),
+           "step_ms": [[st["ms"] for st in g["steps"]] for g in got],
+           "collective_share": share,
+           "moved_per_step": [st["moved"] for st in got[0]["steps"]],
+           "staged_per_step": [st["staged"] for st in got[0]["steps"]],
+           "peak_bytes": [g["peak_bytes"] for g in got],
+           "alone_peak_bytes": train_alone["peak_bytes"],
+           "alone_step_ms": train_alone["step_ms"]}
+    moved = got[0]["steps"][-1]["moved"]
+    log(f"  (g) MLA on {MLA_MESH}: {DEEPSEEK} at full width, "
+        f"{DEEPSEEK_LAYERS} layer, {cfg.num_experts} routed experts, "
+        f"f32 LARS, {MLA_MESH_STEPS} steps of {DEEPSEEK_BATCH} x 4096 "
+        f"tokens: losses " + " ".join(f"{x:.5f}" for x in got[0]["losses"])
+        + " (equal on both ranks) vs phase 15's " + " ".join(
+            f"{x:.5f}" for x in ref) + f", rel {rel:.3g} (limit "
+        f"{MOE_MESH_LOSS_RTOL:g}); step 0 layer 0's kept (token, expert) "
+        f"slots differ from phase 15's in {differ:.4%} (limit "
+        f"{MOE_MESH_SLOT_SHARE:.0%}); 1 norms_flat + 1 apply_flat a step a "
+        f"rank on the global {rows:,} rows; step ms " + "; ".join(
+            f"rank{r} " + " ".join(f"{t:.2f}" for t in ms)
+            for r, ms in enumerate(res["step_ms"]))
+        + f" (phase 15's run alone: {train_alone['step_ms']:.2f} a step, "
+        f"its first included), {share:.1%} of rank 0's in collectives; "
+        f"bytes handed a step (rank 0): " + ", ".join(
+            f"{k} {v:,}" for k, v in moved.items() if v)
+        + "; peak a rank " + ", ".join(
+            f"{b / 2**20:.1f}" for b in res["peak_bytes"])
+        + f" MiB (alone {train_alone['peak_bytes'] / 2**20:.1f}; the card "
+        f"had {got[0]['free_bytes_at_start'] / 2**30:.1f} GiB free at "
+        f"rank 0's start); split "
+        f"{', '.join(res['split'])}; replicated, bit-identical across the "
+        f"ranks: {', '.join(res['replicated'])}")
+    if bad:
+        raise AssertionError("MLA on meshes: " + "; ".join(bad))
+    res["serve"] = serve_mesh_against_alone(
+        [g["serve"] for g in got], zdir,
+        runs={tag: (args, MLA_MESH) for tag, args in MLA_MESH_SERVE.items()},
+        part="(g)", alone=alone["serve"])
+    return res
+
+
 def zero_phase(train, lk, bw: float, flops: float, floor: float,
-               workdir: str) -> dict:
-    """Phase 20: data parallelism, ZeRO, tensor and expert parallelism
-    on the card. (a)'s two ranks (then (f) in them), (c)'s three and
-    (b)'s torchrun start together (each mesh its own process group), and
-    this process runs (a)'s and (f)'s runs alone beside them, for the
-    script's time limit: the step times each logs were taken beside the
-    others' processes. The gates come once the ranks have ended."""
+               workdir: str, mla_keep: dict) -> dict:
+    """Phase 20: data parallelism, ZeRO, tensor, expert and MLA's head
+    parallelism on the card. (a)'s two ranks (then (f) in them), (c)'s
+    three and (b)'s torchrun start together (each mesh its own process
+    group), and this process runs (a)'s and (f)'s runs alone and (e)'s and
+    (g)'s reduced serving run alone beside them, for the script's time
+    limit: the step times each logs were taken beside the others'
+    processes. (g)'s two ranks start once those have ended (each needs
+    ~37 GiB); its other runs alone are phase 15's (``mla_keep``,
+    :func:`mla_alone`). The gates come once the ranks have ended."""
     import torch
     out = {"two_ranks": {}, "wall_s": {}}
-    zdir, tdir = (os.path.join(workdir, d) for d in ("zero", "tp"))
-    for d in (zdir, tdir):
+    zdir, tdir, gdir = (os.path.join(workdir, d)
+                        for d in ("zero", "tp", "mla"))
+    for d in (zdir, tdir, gdir):
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
     torch.cuda.empty_cache()
@@ -5288,6 +5746,9 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
         with shared_inits():        # one host draw of each model's init
             runs = {name: zero_alone(name, rows_seen) for name in ZERO_RUNS}
             moe_alone = moe_mesh_alone(rows_seen)
+        serve_runs = serve_alone(list(SERVE_MESH_ARGS.values())
+                                 + [MLA_MESH_SERVE["mla_reduced"]])
+        mla_keep["serve"].update(serve_runs)
         out["wall_s"]["alone_beside_ranks"] = time.perf_counter() - t0
         ranks = join_ranks(zdir, zprocs, t0)
         out["wall_s"]["two_ranks"] = time.perf_counter() - t0
@@ -5314,8 +5775,15 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
         runs.clear()
         t1 = time.perf_counter()
         out["serve_mesh"] = serve_mesh_against_alone(
-            [rk["serve"] for rk in tp_ranks], tdir)
+            [rk["serve"] for rk in tp_ranks], tdir, alone=serve_runs)
         out["wall_s"]["serve_mesh_alone"] = time.perf_counter() - t1
+        # (g)'s two ranks need most of the card: they start once every
+        # other process of the phase has ended and this one has freed it
+        t1 = time.perf_counter()
+        free_card()
+        mla_ranks = spawn_ranks(gdir, "--mla-mesh-rank", ZERO_RANKS)
+        out["wall_s"]["mla_ranks"] = time.perf_counter() - t1
+        out["mla_mesh"] = mla_mesh_against_alone(mla_ranks, gdir, mla_keep)
     except BaseException:
         nccl[0].kill()
         nccl[0].wait()
@@ -5343,6 +5811,32 @@ def zero_phase(train, lk, bw: float, flops: float, floor: float,
     log("  phase 20 parts, s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in out["wall_s"].items()))
     return out
+
+
+def mla_mesh_phase_main() -> int:
+    """``chip_smoke.py --phase-20g``: phase 20 (g) alone on the card (the
+    kernels built, then :func:`mla_mesh_phase` in ``build/mla_mesh``), its
+    result logged. Not the smoke run: the whole script stays the proof
+    that the port starts on the card."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build, flash_decode as fdk
+    from repro_torch.kernels import lars_kernels as lk
+    from repro_torch.launch import serve, train
+    torch.cuda.init()
+    build.build_all()
+    t0 = time.perf_counter()
+    res = mla_mesh_phase(train, serve, lk, fdk,
+                         os.path.join(ROOT, "build", "mla_mesh"))
+    log(f"phase 20 (g) alone: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps(res))
+    return 0
 
 
 def main() -> int:
@@ -5448,9 +5942,10 @@ def main() -> int:
           f"160 at "
           f"{DEEPSEEK_SERVE_LAYERS}; sliding windows and the softcap in "
           f"training")
+    mla_keep: dict = {}            # what phase 20 (g) is held against
     with shared_inits():
         mla = mla_phase(train, serve, lk, fdk, bw, flops, floor,
-                        lm["runs"]["lars"]["tokens_per_s"])
+                        lm["runs"]["lars"]["tokens_per_s"], mla_keep)
 
     phase(f"== 16. the SSM and hybrid families: {FALCON} trained and "
           f"served at full width and {SSM_LAYERS[FALCON]} layers, {ZAMBA} "
@@ -5480,12 +5975,15 @@ def main() -> int:
     phase(f"== 20. data parallelism, ZeRO, tensor and expert parallelism: "
           f"{ZERO_RANKS} ranks on the card over gloo (LeNet, smollm-135m at "
           f"full width; then granite-moe-3b-a800m at full width and "
-          f"{MOE_MESH_LAYERS} layer trained and served on 2x1 and 1x2), one "
+          f"{MOE_MESH_LAYERS} layer trained and served on 2x1 and 1x2; then "
+          f"{DEEPSEEK}'s MLA at full width trained and served on "
+          f"{MLA_MESH}), one "
           f"rank over NCCL under torchrun, {TP_RANKS} ranks on a "
           f"1x{TP_RANKS} mesh (smollm-135m whole, trained and served by the "
           "serving mesh), the LARS kernels on a shard's rows")
     zero = zero_phase(train, lk, bw, flops, floor,
-                      os.path.join(ROOT, "build"))
+                      os.path.join(ROOT, "build"), mla_keep)
+    mla_keep.clear()
     stamps.append(("end", time.perf_counter()))
     phase_s = {a[0]: b[1] - a[1] for a, b in zip(stamps, stamps[1:])}
     log("phase wall times, s: " + ", ".join(f"{k}: {v:.1f}" for k, v in
@@ -5624,6 +6122,12 @@ def main() -> int:
                            for t in ("smollm", "qwen3"))}
         entry["shapes"] += [zero["kernel_rows"][t][kname]
                             for t in ("smollm", "qwen3")]
+        if not int8:
+            # phase 20 (g): each rank of deepseek's 1x2 mesh, on the
+            # global rows
+            entry["launches_by_mla_mesh_rank"] = {
+                "rows": zero["mla_mesh"]["rows"],
+                "launches": [n[kname] for n in zero["mla_mesh"]["launches"]]}
         # each rank's launches over its ZeRO run and the rows they took
         entry["launches_by_zero_run"] = {
             run: {f"rank{i}": {
@@ -5759,4 +6263,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--moe-mesh-rank"]:
         moe_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
+    if sys.argv[1:2] == ["--mla-mesh-rank"]:
+        mla_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--phase-20g"]:      # (g) alone; not the contract
+        sys.exit(mla_mesh_phase_main())
     sys.exit(main())

@@ -157,14 +157,18 @@ def save_train_state(path: str, state: TrainState, *,
     atomically. A ZeRO state is gathered and stripped of its pad rows
     first, a tensor-parallel state's split leaves gathered
     (``shardings``); every rank of its mesh must call this, and only
-    rank 0 of the process group writes."""
+    rank 0 of the process group writes. Every array is written in C
+    order, as the reference writes it (a leaf gathered along its last
+    dim is a transposed view, which ``np.save`` would write in Fortran
+    order)."""
     state = _whole_slots(state)
     if shardings is not None:
         state = _map_split(gather_leaf, state, shardings)
     if world()[0] != 0:
         return
-    arrays = {k: v if isinstance(v, np.ndarray) else tensor_to_numpy(v)
-              for k, v in _flatten(state).items()}
+    arrays = {k: np.asarray(
+        v if isinstance(v, np.ndarray) else tensor_to_numpy(v), order="C")
+        for k, v in _flatten(state).items()}
     _atomic(_npz(path), lambda tmp: np.savez(tmp, **arrays))
 
 

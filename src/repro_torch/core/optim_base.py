@@ -318,7 +318,10 @@ def _packed_update(rule: LayerwiseRule, layout: packing.PackedLayout,
     if master:
         new_slots[packing.MASTER_SLOT] = wbuf2
     else:
-        wbuf2 = packing.quantize_to_storage(layout, wbuf2)
+        # every rule's apply returns a fresh buffer: round it where it lies
+        assert wbuf2 is not wbuf and all(wbuf2 is not s
+                                         for s in slots.values())
+        wbuf2 = packing.round_to_storage_(layout, wbuf2)
         new_slots[packing.WEIGHT_SLOT] = wbuf2
     # a ZeRO row shard's one all-gather per step: the updated weight rows
     return packing.unpack(layout, packing.gather_rows(layout, wbuf2)), \

@@ -59,9 +59,11 @@ MASTER_SLOT = "master"
 # kept under the f32 precision policy: the weights live packed across
 # steps so the per-step params pack disappears. The buffer is rounded
 # through each segment's storage dtype after every update
-# (``quantize_to_storage``), so the trajectory equals repacking the
+# (``round_to_storage_``), so the trajectory equals repacking the
 # storage-dtype params every step.
 WEIGHT_SLOT = "packed_weights"
+# rows ``round_to_storage_`` rounds at once (128 MiB of f32 at lane 512)
+ROUND_CHUNK_ROWS = 1 << 16
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -379,24 +381,27 @@ def init_master(layout: PackedLayout, params: Pytree) -> torch.Tensor:
     return pack(layout, params)
 
 
-def quantize_to_storage(layout: PackedLayout, buf: torch.Tensor
-                        ) -> torch.Tensor:
-    """Round each segment's rows through its storage dtype (in f32).
-
-    All-f32 layouts are returned as they are; otherwise a new buffer is
-    returned and ``buf`` is left untouched. Zero padding is preserved. A
-    ZeRO row shard rounds the rows of each segment that it holds.
+def round_to_storage_(layout: PackedLayout, buf: torch.Tensor
+                      ) -> torch.Tensor:
+    """The reference's ``quantize_to_storage``, in place: round each
+    segment's rows of ``buf`` through its storage dtype (in f32) and
+    return ``buf``. The reference returns a new buffer; a copy of the
+    whole superbuffer at the update's peak would not fit beside a
+    tensor-parallel rank's state, so the caller hands this a buffer no
+    one else holds (an update's fresh output), never a slot. All-f32
+    layouts are left as they are. Zero padding is preserved. A ZeRO row
+    shard rounds the rows of each segment that it holds.
     """
     lowp = [seg for seg in layout.segments if seg.dtype != "float32"]
     if not lowp:
         return buf
     start, stop = shard_span(layout, buf.shape[0])
-    buf = buf.clone()
     for seg in lowp:
         lo = max(seg.row_offset, start)
         hi = min(seg.row_offset + seg.layers * seg.rows, stop)
-        if lo < hi:
-            rows = slice(lo - start, hi - start)
+        # a chunk of rows at a time: the rounded copies stay small
+        for at in range(lo, hi, ROUND_CHUNK_ROWS):
+            rows = slice(at - start, min(at + ROUND_CHUNK_ROWS, hi) - start)
             buf[rows] = buf[rows].to(torch_dtype(seg.dtype)).float()
     return buf
 

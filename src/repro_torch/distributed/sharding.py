@@ -26,17 +26,20 @@ family under accumulation, each microbatch's block: :func:`shard_rows`'
 ``blocks``), and :func:`named` / :func:`tree_named` turn a spec into a
 :class:`LeafSharding` — which block of each dim this rank holds. On a
 ``model`` axis above 1 it also executes the ``model`` entries of the
-dense family's param specs (Megatron tensor parallelism), of the moe
+dense family's param specs (Megatron tensor parallelism), of MLA's
+(``q_up``/``wq``, ``k_up`` and ``v_up`` by columns and ``wo`` by rows:
+the heads; ``q_down``, ``kv_down`` and their norms whole), of the moe
 family's (expert parallelism: ``_MOE`` splits the experts, ``_MOE_TP``
 each expert's ff where ``model`` does not divide the experts; the
-router and the norms whole) and LeNet's (all replicated).
+router and the norms whole) and LeNet's (all replicated). Where
+:func:`_divisible` drops a split, the leaf is whole on every rank.
 :func:`model_pspecs` keeps a param spec's ``model`` entries and drops
 its ``data`` ones (FSDP's, queue 1 item 4b-ii: params stay whole over
 ``data``); :func:`param_shardings` turns them into one
 :class:`LeafSharding` a leaf, :func:`shard_params` cuts a whole params
 tree to this rank's blocks and :func:`gather_params` gathers them back.
-MLA, and the ssm, hybrid, encdec and vlm families, raise on a ``model``
-axis above 1 (:func:`check_model_parallel`, naming queue 1 item 4b-ii).
+The ssm, hybrid, encdec and vlm families raise on a ``model`` axis above
+1 (:func:`check_model_parallel`, naming queue 1 item 4b-ii).
 
 The serving mesh executes :func:`serve_param_pspecs` (pure tensor
 parallelism, :func:`serve_param_shardings`) and :func:`cache_pspecs`
@@ -484,8 +487,8 @@ def shard_rows(batch: dict, shardings: dict, blocks: int = 1
 # ------------------------------------------------------ tensor parallelism
 
 # families whose params the port splits over a model axis above 1: the
-# dense attention family, the MoE family without MLA (expert
-# parallelism) and LeNet (every spec replicated)
+# dense family and the moe family (expert parallelism), with GQA or MLA
+# attention (split by heads), and LeNet (every spec replicated)
 TP_FAMILIES = ("cnn", "dense", "moe")
 
 
@@ -494,14 +497,12 @@ def check_model_parallel(cfg, mesh) -> None:
     more than one rank and ``cfg`` is not of a family the port splits."""
     if mesh is None or mesh.shape.get("model", 1) == 1:
         return
-    if cfg.family not in TP_FAMILIES or cfg.use_mla:
-        kind = cfg.family + (", MLA" if cfg.use_mla else "")
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"tensor parallelism over 'model' ({mesh.shape['model']} "
-            f"ranks) is ported for the dense attention family and the moe "
-            f"family without MLA; {cfg.name} "
-            f"({kind}) is ROADMAP.md queue 1 item 4b-ii, not yet ported "
-            "to repro_torch")
+            f"ranks) is ported for the dense and moe families (GQA or "
+            f"MLA attention); {cfg.name} ({cfg.family}) is ROADMAP.md "
+            "queue 1 item 4b-ii, not yet ported to repro_torch")
 
 
 def _model_only(spec: PartitionSpec) -> PartitionSpec:

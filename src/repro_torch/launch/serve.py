@@ -21,15 +21,16 @@ prompts one chunk a tick while the resident slots keep decoding.
 of the ranks of a ``torch.distributed`` process group (``torchrun``;
 NCCL for ``cuda``, gloo for ``--device cpu``), as ``launch.train
 --mesh`` does: the slots over ``data``, the params and the KV cache's
-sequence over ``model`` (the dense family, and the moe family without
-MLA, whose experts split over ``model``; a ``model`` axis of 1 serves
-every family). The moe family routes every slot of the mesh together at
-each tick, and each ``data`` rank prefills a whole admitted group, as
-the reference's one engine does. Every rank runs the same traffic; only
+sequence over ``model`` (the dense family, and the moe family, whose
+experts split over ``model``, deepseek's MLA included: its latent cache
+striped, its heads split; a ``model`` axis of 1 serves every family).
+The moe family routes every slot of the mesh together at each tick, and
+each ``data`` rank prefills a whole admitted group, as the reference's
+one engine does. Every rank runs the same traffic; only
 rank 0 prints. Without a process group the process is one rank, so
 ``--mesh 2x1`` fails with the reference's message. Chunked prefill, the
-prefix store and preemption on a mesh (queue 1 item 4c-ii), and MLA and
-the ssm and hybrid families on a ``model`` axis above 1 (4b-ii), are not
+prefix store and preemption on a mesh (queue 1 item 4c-ii), and the
+ssm and hybrid families on a ``model`` axis above 1 (4b-ii), are not
 yet ported and raise::
 
     OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --standalone \
@@ -40,6 +41,10 @@ yet ported and raise::
         --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2x1 \
         --requests 6 --set num_experts=8 --set experts_per_token=2 \
         --set capacity_factor=0.5
+    OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --reduced --device cpu --mesh 1x2 \
+        --requests 6 --set q_lora_rank=48
 
 ``--scenario NAME`` replays a scenario-library traffic shape (steady /
 bursty / diurnal / heavy_tail, priority-tiered; or the port's
@@ -255,7 +260,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mesh", default="none",
                     help="none, auto or DATAxMODEL: a (data, model) mesh "
                     "over the ranks of the process group (torchrun); "
-                    "MODEL > 1 splits the dense and moe (no MLA) families")
+                    "MODEL > 1 splits the dense and moe families (MLA "
+                    "included)")
     ap.add_argument("--use-flash", action="store_true",
                     help="ask for the flash_decode kernel (needs the card; "
                     "default: the kernel on the card, its plain version "

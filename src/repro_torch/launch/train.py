@@ -55,10 +55,11 @@ the same rows; for the moe family under ``--accum-steps``, its block of
 each microbatch), and the moe family routes each global microbatch
 together, as the reference. A ``model`` axis above 1 is tensor
 parallelism for the dense family (Megatron splits) and the moe family
-without MLA (expert parallelism: the experts split over ``model``, or
-each expert's ff where ``model`` does not divide the experts); MLA and
-the ssm, hybrid, encdec and vlm families raise, naming queue 1 item
-4b-ii; LeNet runs replicated. E.g. on two CPU ranks:
+(expert parallelism: the experts split over ``model``, or each expert's
+ff where ``model`` does not divide the experts), with GQA or MLA
+attention (deepseek's heads split); the ssm, hybrid, encdec and vlm
+families raise, naming queue 1 item 4b-ii; LeNet runs replicated. E.g.
+on two CPU ranks:
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
       repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
       --mesh 1x2 --batch 8 --seq 32 --steps 5
@@ -154,9 +155,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mesh", default=None,
                     help="auto or DATAxMODEL: a (data, model) mesh over "
                     "the ranks of the process group (torchrun); MODEL > 1 "
-                    "is tensor parallelism (dense family) and expert "
-                    "parallelism (moe family without MLA); default none, "
-                    "one device")
+                    "is tensor parallelism (heads, GQA or MLA; MLPs) and "
+                    "expert parallelism (moe family); default none, one "
+                    "device")
     ap.add_argument("--zero", action="store_true",
                     help="ZeRO: row-shard the packed optimizer slots over "
                     "the mesh's data axis (needs --mesh)")

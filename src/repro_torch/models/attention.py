@@ -455,25 +455,14 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                                    tp, all_q=True)
     row = pos % S_buf if ring_windowed(cfg, S_buf) else pos
     softcap = float(cfg.attn_logit_softcap or 0.0)
+    local, write, n = stripe_rows(row, pos, S_loc, stripe, live)
+    _insert_at(cache_k, k_new, local, write)
+    _insert_at(cache_v, v_new, local, write)
     if stripe is None:
-        _insert_at(cache_k, k_new, row, live)
-        _insert_at(cache_v, v_new, row, live)
-        kv_len = torch.clamp(pos + 1, max=S_buf).to(torch.int32)
-        out = kops.flash_decode(q[:, 0], cache_k, cache_v, kv_len,
-                                scale=hd ** -0.5, softcap=softcap)
+        out = kops.flash_decode(q[:, 0], cache_k, cache_v,
+                                n.to(torch.int32), scale=hd ** -0.5,
+                                softcap=softcap)
     else:
-        if live is not None:
-            raise NotImplementedError(
-                "the masked live decode (chunked prefill) on a serving "
-                "mesh is ROADMAP.md queue 1 item 4c-ii, not yet ported to "
-                "repro_torch")
-        lo = stripe.index * S_loc
-        local = torch.clamp(row, max=S_buf - 1) - lo
-        mine = (local >= 0) & (local < S_loc)
-        local = torch.clamp(local, 0, S_loc - 1)
-        _insert_at(cache_k, k_new, local, mine)
-        _insert_at(cache_v, v_new, local, mine)
-        n = torch.clamp(torch.clamp(pos + 1, max=S_buf) - lo, 0, S_loc)
         part, lse = kops.flash_decode(q[:, 0], cache_k, cache_v,
                                       n.to(torch.int32), scale=hd ** -0.5,
                                       softcap=softcap, lse=True)
@@ -484,6 +473,33 @@ def decode_attention(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
         return out @ p["wo"], cache_k, cache_v
     out = C.split_dim(out, tp, -1)
     return C.reduce_from_model(out @ p["wo"], tp), cache_k, cache_v
+
+
+def stripe_rows(row: torch.Tensor, pos: torch.Tensor, rows: int,
+                stripe=None, live: torch.Tensor | None = None):
+    """Where one decode token's new cache row goes in this rank's
+    ``rows`` rows of a cache, and what they attend: (the new row's local
+    index, the write mask for :func:`_insert_at`, each sequence's valid
+    length), all (B,). ``row`` is the new row's index in the whole cache
+    (``pos``, or a ring's ``pos % S``), clamped to its last row; ``stripe``
+    (:class:`~repro_torch.distributed.sharding.Stripe`, None: the rank
+    holds the whole cache) puts the rank's rows at ``lo = index * rows``
+    of ``S = count * rows``: only the rank whose stripe holds the new row
+    writes it, and each attends ``clamp(min(pos + 1, S) - lo, 0, rows)``
+    of its rows. ``live`` masks the writes of a whole cache; the masked
+    live decode on a stripe is not ported and raises."""
+    if stripe is None:
+        return torch.clamp(row, max=rows - 1), live, \
+            torch.clamp(pos + 1, max=rows)
+    if live is not None:
+        raise NotImplementedError(
+            "the masked live decode (chunked prefill) on a serving mesh is "
+            "ROADMAP.md queue 1 item 4c-ii, not yet ported to repro_torch")
+    S, lo = stripe.count * rows, stripe.index * rows
+    local = torch.clamp(row, max=S - 1) - lo
+    mine = (local >= 0) & (local < rows)
+    return torch.clamp(local, 0, rows - 1), mine, \
+        torch.clamp(torch.clamp(pos + 1, max=S) - lo, 0, rows)
 
 
 def _insert_at(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

@@ -75,13 +75,15 @@ On a serving mesh (:meth:`decode_step` and :meth:`prefill_at` with
 ``mesh``) the cache is this rank's
 (:class:`~repro_torch.distributed.sharding.LocalCache`: its slots, and
 its stripe of the sequence where the mesh splits it) and, on a
-``model`` axis above 1 (the dense and moe families), the params are this
-rank's blocks: the lookup and the logits are vocab-parallel, the
-attention and MLP blocks Megatron's, the MoE blocks expert-parallel, the
-decode attention runs on the stripe and merges the ranks' partials, and
-prefill writes only the stripe's rows. Where the slots are split over
-``data``, decode's MoE blocks route every slot of the mesh together, and
-each rank prefills a whole admitted group (``prefill_at(write=)``).
+``model`` axis above 1 (the dense and moe families, MLA included), the
+params are this rank's blocks: the lookup and the logits are
+vocab-parallel, the attention (GQA or MLA) and MLP blocks Megatron's, the
+MoE blocks expert-parallel, the decode attention (``flash_decode``, or
+MLA's absorbed decode over the latent cache) runs on the stripe and
+merges the ranks' partials, and prefill writes only the stripe's rows.
+Where the slots are split over ``data``, decode's MoE blocks route every
+slot of the mesh together, and each rank prefills a whole admitted group
+(``prefill_at(write=)``).
 
 The encdec family is :mod:`repro_torch.models.encdec`'s. MLA with a
 window or the softcap raises ``NotImplementedError`` wherever a decode
@@ -244,10 +246,10 @@ class LanguageModel:
                         ) -> torch.Tensor:
         """The layer's attention sub-block for training: MLA's expanded
         block or the GQA block, with the vlm family's bidirectional
-        prefix of ``prefix_len`` positions; ``tp``: the dense family's
-        tensor-parallel mesh."""
+        prefix of ``prefix_len`` positions; ``tp``: the tensor-parallel
+        mesh (Megatron's split by heads, for both)."""
         if self.cfg.use_mla:
-            return MLA.mla_block(self.cfg, params_attn, h, positions)
+            return MLA.mla_block(self.cfg, params_attn, h, positions, tp=tp)
         return A.attention_block(self.cfg, params_attn, h, positions,
                                  prefix_len=prefix_len, tp=tp)
 
@@ -478,14 +480,9 @@ class LanguageModel:
                 cache_l[name].copy_(new)
             return x + y
         if cfg.use_mla:
-            if stripe is not None:
-                raise NotImplementedError(
-                    "MLA's decode over a cache whose sequence is split over "
-                    "ranks is ROADMAP.md queue 1 item 4c-ii, not yet ported "
-                    "to repro_torch")
             out, _, _ = MLA.mla_decode(cfg, params_l["attn"], h,
                                        cache_l["ckv"], cache_l["krope"], pos,
-                                       live)
+                                       live, tp=tp, stripe=stripe)
         else:
             out, _, _ = A.decode_attention(cfg, params_l["attn"], h,
                                            cache_l["k"], cache_l["v"], pos,
@@ -595,10 +592,11 @@ class LanguageModel:
         the prompt (:meth:`_prefill_recurrent`). Returns
         (last-valid-token logits (B, V) f32, cache). ``mesh``: a serving
         mesh whose ``model`` axis splits the params (the dense and moe
-        families): the forward is tensor-parallel, the cache's K/V hold
-        every head and the logits are this rank's block of the
-        vocabulary. The prompts are the whole batch on every rank: the
-        MoE blocks route them alone.
+        families, MLA included): the forward is tensor-parallel, the
+        cache's K/V hold every head (MLA's latents are whole: every rank
+        computes them from the replicated ``kv_down``) and the logits are
+        this rank's block of the vocabulary. The prompts are the whole
+        batch on every rank: the MoE blocks route them alone.
         """
         cfg = self.cfg
         self._check_decode()
@@ -624,7 +622,7 @@ class LanguageModel:
                 h = L.apply_norm(cfg, x, params_l["ln1"])
                 if cfg.use_mla:
                     ckv, krope = MLA._latents(cfg, p, h, positions)
-                    x = x + MLA.mla_block(cfg, p, h, positions)
+                    x = x + MLA.mla_block(cfg, p, h, positions, tp=tp)
                     rows["ckv"].append(ckv)
                     rows["krope"].append(krope[:, :, 0])
                 else:

@@ -35,8 +35,8 @@ class SlotCache:
     :class:`~repro_torch.distributed.sharding.LeafSharding`;
     ``slot_block`` is the global slots this rank holds. The accounting
     (``slots``, ``capacity``, the free list, :meth:`fits`) is global and
-    the same on every rank. MLA's latent cache split over ranks is not
-    yet ported (ROADMAP.md queue 1 item 4c-ii) and raises.
+    the same on every rank. MLA's latent cache (``ckv``, ``krope``) is
+    striped as a K/V cache is.
     """
 
     def __init__(self, model, slots: int, capacity: int, *, mesh=None,
@@ -57,11 +57,6 @@ class SlotCache:
                       model.cache_shapes(slots, capacity).items()}
             self.sharding = CacheSharding(model.cfg, mesh, shapes,
                                           slots=slots)
-            if self.sharding.stripe is not None and model.cfg.use_mla:
-                raise NotImplementedError(
-                    f"{model.cfg.name}'s latent cache split over ranks "
-                    f"({dict(mesh.shape)} mesh, {slots} slots) is ROADMAP.md "
-                    "queue 1 item 4c-ii, not yet ported to repro_torch")
             self.pspecs = self.sharding.specs
             self.shardings = self.sharding.shardings
             self.slot_block = self.sharding.slot_block

@@ -47,10 +47,12 @@ decodes its block of the slots, against its stripe of the sequence
 samples from whole rows of the vocabulary (its block's argmax gathered
 under greedy, the rows gathered otherwise), and the ranks of ``data``
 gather their tokens, so the host sees every slot's. A ``model`` axis
-above 1 serves the dense family and the moe family without MLA (its
-experts split over ``model``, each rank combining its experts' slots
-and the ranks' partial outputs summed); MLA and the ssm and hybrid
-families raise, naming ROADMAP.md queue 1 item 4b-ii. A ``model`` axis
+above 1 serves the dense family and the moe family (its experts split
+over ``model``, each rank combining its experts' slots and the ranks'
+partial outputs summed), with GQA or MLA attention (MLA's latent cache
+striped as a K/V cache, its absorbed decode merged over the stripes);
+the ssm and hybrid families raise, naming ROADMAP.md queue 1 item
+4b-ii. A ``model`` axis
 of 1 serves every family of ``SERVE_FAMILIES``. For the moe family over
 a ``data`` axis above 1 the tick's MoE blocks route every slot of the
 mesh together (dead slots included, as the reference's one engine

@@ -71,8 +71,8 @@ so both run the same step.
   load-balance loss of the global microbatch; the ranks' mean aux loss
   and gradient are the reference's).
 * **Tensor-parallel mesh** (a ``model`` axis larger than 1; the dense
-  family, the moe family without MLA, and LeNet, whose specs are all
-  replicated; MLA and the ssm, hybrid, encdec and vlm families raise
+  and moe families, with GQA or MLA attention, and LeNet, whose specs
+  are all replicated; the ssm, hybrid, encdec and vlm families raise
   ``NotImplementedError`` naming queue 1 item 4b-ii). The params are
   this rank's blocks as :func:`~repro_torch.distributed.sharding.
   model_pspecs` cuts them (``param_shardings``); the forward and
@@ -442,8 +442,10 @@ class TrainPipeline:
         shardings = self.param_shardings
         if shardings is not None and layout is not None:
             # the global packed state takes whole leaves: one all-gather
-            # over model of each split leaf's gradient, once a step
-            grads = gather_params(grads, shardings)
+            # over model of each split leaf's gradient, once a step,
+            # packed at once (the whole tree is freed before the update)
+            grads = PackedGrads(packing.pack(
+                layout, gather_params(grads, shardings)))
         if reduce:
             grads = self._reduce_grads(grads, layout)
             both = collectives.all_reduce_sum(torch.stack(
@@ -468,6 +470,7 @@ class TrainPipeline:
         state, metrics = apply_update(
             self.optimizer, state, grads, loss, aux_loss, stacked,
             shardings if layout is None else None)
+        del grads                   # the packed gradient, before the cut
         if shardings is not None and layout is not None:
             state = state._replace(params=shard_params(state.params,
                                                        shardings))

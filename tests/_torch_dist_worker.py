@@ -328,8 +328,10 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
     of every replicated leaf, the trust ratios the update applied on the
     last step (``lars_trust_ratio`` recorded) and the LARS kernel
     wrappers called each step with their buffers' rows. For the moe
-    family also each step's aux loss and the first MoE call's
-    ``dropped_frac`` and input (the global batch's first layer)."""
+    family also each step's aux loss, the first MoE call's
+    ``dropped_frac`` and input (the global batch's first layer) and every
+    routing's kept (token, expert) slots, (n, E) bool, in call order
+    (``routes``)."""
     import dataclasses
     import hashlib
     import torch
@@ -340,6 +342,7 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
     from repro_torch.kernels import lars_kernels as lk
     from repro_torch.models import build_model
     from repro_torch.models import lm as lm_module
+    from repro_torch.models import moe as moe_module
     from repro_torch.train import TrainPipeline, train_state_from_params
     from repro_torch.treepath import tree_flatten_with_path, tree_leaves
     cfg = dataclasses.replace(get_config(run["arch"]).reduced(),
@@ -393,7 +396,20 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
             first_moe.update(dropped=float(aux["dropped_frac"]), x=_np(x))
         return out, aux
 
+    routes: list = []
+    saved_place = moe_module.place
+
+    def place(cfg_, r, lower=None):
+        s = saved_place(cfg_, r, lower)
+        keep = torch.empty_like(s.keep).scatter_(0, s.order, s.keep)
+        routes.append(torch.zeros(r.expert_ids.shape[0], cfg_.num_experts,
+                                  dtype=torch.bool).scatter_(
+            1, r.expert_ids.long(), keep.reshape(r.expert_ids.shape)
+        ).numpy())
+        return s
+
     lm_module.moe_block = moe_block
+    moe_module.place = place
     losses, aux_losses = [], []
     try:
         for _ in range(run.get("steps", 2)):
@@ -407,6 +423,7 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
             setattr(lk, k, fn)
         tr.lars_trust_ratio = saved_trust
         lm_module.moe_block = saved_moe
+        moe_module.place = saved_place
     shardings = pipe.param_shardings
     split = {} if shardings is None else {
         p: sh.split for p, sh in tree_flatten_with_path(shardings)[0]}
@@ -429,6 +446,7 @@ def tp_run(run: dict, init, tokens, mesh=None, ckpt_dir: str = "") -> dict:
     first = mesh is None or mesh.rank == 0
     return {"losses": losses, "params": whole if first else None,
             "aux_losses": aux_losses, "dropped": first_moe.get("dropped"),
+            "routes": routes,
             "moe_x": first_moe.get("x") if mesh is None else None,
             "replicated": replicated, "ratios": list(ratios),
             "kernels": seen,
@@ -448,16 +466,18 @@ def tp_units(mesh) -> dict:
     """Tensor parallelism's pieces alone against the plain functions on
     this rank, as max gaps relative to the plain result's largest
     magnitude: the vocab-parallel NLL (value and gradient) and attention
-    blocks whose heads the model axis does not split evenly (output, the
-    input's gradient and every param's gathered gradient)."""
+    blocks, GQA and MLA, whose heads the model axis does not split evenly
+    (output, the input's gradient and every param's gathered gradient),
+    and MLA's decode at such heads (output)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed import collectives as C
-    from repro_torch.distributed.sharding import (gather_params,
+    from repro_torch.distributed.sharding import (Stripe, gather_params,
                                                   param_shardings,
                                                   shard_params)
     from repro_torch.models import attention as A
+    from repro_torch.models import mla
     from repro_torch.train.losses import softmax_cross_entropy
     from repro_torch.treepath import tree_leaves
     g = torch.Generator().manual_seed(5)
@@ -474,15 +494,24 @@ def tp_units(mesh) -> dict:
         whole.grad, mesh, -1)))
     # 3 heads over 2 ranks (every head computed whole, q/k norms and
     # biases too); 6 heads on 3 KV heads (this rank's heads, the KV heads
-    # gathered and taken one per query head)
+    # gathered and taken one per query head); MLA's 3 heads over 2 ranks
+    # with a query rank (q_up, k_up, v_up and wo split mid-head) and
+    # without one at a value width of 15 (wq and k_up split, v_up and wo
+    # whole: their 45 rows do not divide)
     base = get_config("qwen3-14b").reduced()
-    for name, ch in (("heads_3", dict(num_heads=3, num_kv_heads=3,
-                                      qkv_bias=True)),
-                     ("heads_6_kv_3", dict(num_heads=6, num_kv_heads=3,
-                                           head_dim=16))):
-        cfg = dataclasses.replace(base, **ch)
-        p = A.init_attention(torch.Generator().manual_seed(6), cfg,
-                             cfg.d_model, torch.float32, "cpu")
+    deepseek = get_config("deepseek-v2-236b").reduced()
+    for name, base_cfg, init, block, ch in (
+            ("heads_3", base, A.init_attention, A.attention_block,
+             dict(num_heads=3, num_kv_heads=3, qkv_bias=True)),
+            ("heads_6_kv_3", base, A.init_attention, A.attention_block,
+             dict(num_heads=6, num_kv_heads=3, head_dim=16)),
+            ("mla_heads_3", deepseek, mla.init_mla, mla.mla_block,
+             dict(num_heads=3, q_lora_rank=48)),
+            ("mla_heads_3_vd_15", deepseek, mla.init_mla, mla.mla_block,
+             dict(num_heads=3, v_head_dim=15))):
+        cfg = dataclasses.replace(base_cfg, **ch)
+        p = init(torch.Generator().manual_seed(6), cfg, cfg.d_model,
+                 torch.float32, "cpu")
         if cfg.qkv_bias:
             p = {k: v + 0.1 * torch.randn(v.shape, generator=g)
                  if k.startswith("b") else v for k, v in p.items()}
@@ -492,12 +521,12 @@ def tp_units(mesh) -> dict:
         pos = torch.arange(5)
         pw = {k: v.clone().requires_grad_(True) for k, v in p.items()}
         xw = x.clone().requires_grad_(True)
-        y = A.attention_block(cfg, pw, xw, pos)
+        y = block(cfg, pw, xw, pos)
         (y * cot).sum().backward()
         pl = {k: v.clone().requires_grad_(True)
               for k, v in shard_params(p, sh).items()}
         xl = x.clone().requires_grad_(True)
-        yl = A.attention_block(cfg, pl, xl, pos, tp=mesh)
+        yl = block(cfg, pl, xl, pos, tp=mesh)
         (yl * cot).sum().backward()
         grads = gather_params({k: v.grad for k, v in pl.items()}, sh)
         out[name] = {
@@ -507,6 +536,31 @@ def tp_units(mesh) -> dict:
                                zip(tree_leaves(grads), tree_leaves(pw))),
             "split": sorted(k for k, v in pl.items()
                             if v.shape != p[k].shape)}
+    # MLA's absorbed decode at 3 heads (every head on every rank, each
+    # rank its share of wo, the shares summed): on the whole latent cache
+    # and on the rank's stripe of it (rows over model, the partials
+    # merged), at lengths 1, S/2 + 1 and past capacity, against the plain
+    # decode on the whole cache
+    cfg = dataclasses.replace(deepseek, num_heads=3, q_lora_rank=48)
+    p = mla.init_mla(torch.Generator().manual_seed(7), cfg, cfg.d_model,
+                     torch.float32, "cpu")
+    pl = shard_params(p, param_shardings(cfg, p, mesh))
+    W, S = mesh.shape["model"], 8
+    rows, at = S // W, mesh.coords["model"]
+    x = torch.randn(3, 1, cfg.d_model, generator=g)
+    ckv = torch.randn(3, S, cfg.kv_lora_rank, generator=g)
+    krope = torch.randn(3, S, cfg.qk_rope_dim, generator=g)
+    pos = torch.tensor([0, S // 2, S + 2], dtype=torch.int32)
+    want = mla.mla_decode(cfg, p, x, ckv.clone(), krope.clone(), pos)[0]
+    whole = mla.mla_decode(cfg, pl, x, ckv.clone(), krope.clone(), pos,
+                           tp=mesh)[0]
+    sl = slice(at * rows, (at + 1) * rows)
+    striped = mla.mla_decode(cfg, pl, x, ckv[:, sl].clone(),
+                             krope[:, sl].clone(), pos, tp=mesh,
+                             stripe=Stripe(at, W, rows, "model", mesh))[0]
+    out["mla_decode_heads_3"] = {
+        "whole": _rel(whole, want), "striped": _rel(striped, want),
+        "split": sorted(k for k in p if pl[k].shape != p[k].shape)}
     return out
 
 

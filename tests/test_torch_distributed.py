@@ -21,6 +21,8 @@ unfused replicated step at ``MESH_RTOL`` (the reference's
 ``_fused_zero_check``), and raises ValueError on a (2, 2) mesh.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -264,21 +266,28 @@ def test_row_sharding_takes_this_ranks_block():
 
 
 def test_model_axis_refuses_the_families_not_yet_split():
-    """On a model axis above 1 MLA (deepseek's MoE), the ssm family and
-    encdec (every family but the dense one, the moe one without MLA and
+    """On a model axis above 1 the ssm, hybrid, encdec and vlm families
+    (every family but the dense one, the moe one, MLA included, and
     LeNet) raise naming queue 1 item 4b-ii; the mesh is built by hand
-    (constructing the pipeline sends nothing)."""
+    (constructing the pipeline sends nothing). deepseek's MLA splits its
+    heads: ``q_up``'s columns over the two ranks."""
     from repro_torch.train import TrainPipeline
     mesh = port_mesh.Mesh(shape={"data": 1, "model": 2},
                           coords={"data": 0, "model": 1}, groups={},
                           device=torch.device("cpu"))
-    for arch in ("deepseek-v2-236b", "falcon-mamba-7b", "whisper-base"):
+    for arch in ("falcon-mamba-7b", "zamba2-7b", "whisper-base",
+                 "paligemma-3b"):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="4b-ii"):
             TrainPipeline(build_model(cfg), lars(0.01), cfg, mesh=mesh)
     cfg = get_config("smollm-135m").reduced()
     pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg, mesh=mesh)
     assert pipe.param_shardings["embed"].parts == (2, 1)
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                              q_lora_rank=48)
+    pipe = TrainPipeline(build_model(cfg), lars(0.01), cfg, mesh=mesh)
+    attn = pipe.param_shardings["layers"]["attn"]
+    assert attn["q_up"].parts == (1, 1, 2) and not attn["q_down"].split
 
 
 # ------------------------------------------------------ four CPU ranks

@@ -28,9 +28,15 @@ Tolerances, each measured here:
     forward's, within 1.1e-5 (the absorbed decode sums in another
     order than the expanded block), held at 5e-5; the engine's greedy
     tokens equal.
+  * the striped absorbed decode (a serving mesh's, without ranks: one
+    thread a stripe): the merged output within 4.8e-7 of ``mla_decode``
+    on the whole cache and 1.1e-6 of the reference's (values up to 2.9),
+    held at rtol 1e-5 / atol 1e-6 (``STRIPE_TOL``); an empty stripe's
+    partial exactly (0, -inf).
 """
 
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +52,9 @@ from repro.serve import ServeEngine as RefServeEngine
 from repro.train.step import _forward_and_loss as ref_forward_and_loss
 from repro_torch import bridge
 from repro_torch.configs import get_config, param_count
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import Stripe
+from repro_torch.kernels.flash_decode import merge_stripes
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model, mla
@@ -63,6 +72,8 @@ RANKS = [0, Q_LORA]
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 DECODE_VS_FORWARD = dict(rtol=5e-5, atol=5e-5)
+# the striped decode against the whole cache's, f32 (measured 1.1e-6)
+STRIPE_TOL = dict(rtol=1e-5, atol=1e-6)
 LOSS_RTOL = 1e-6
 GRAD_RTOL_OF_MAX = 1e-5
 SEQ = 24
@@ -249,6 +260,153 @@ def test_mla_decode_matches_the_reference_past_capacity(q_lora):
     _close(c1, rckv)
     _close(c2, rkrope)
     assert not np.array_equal(_np(c1)[2, S - 1], ckv[2, S - 1])
+
+
+# ------------------------------------------------------ striped decode
+
+STRIPE_ROWS = 6
+
+
+class _Stripes:
+    """The merge over ``count`` stripes without ranks: each stripe's
+    ``mla_decode`` runs in a thread of its own, posts its partial (its
+    stripe's index rides in ``Stripe.axis``) and, once every stripe has
+    posted, merges all of them in stripe order, as
+    ``collectives.merge_stripes`` merges the ranks' partials."""
+
+    def __init__(self, count):
+        self.parts = [None] * count
+        self.barrier = threading.Barrier(count, timeout=60)
+
+    def merge(self, out, lse, mesh, axis):
+        self.parts[axis] = (out.clone(), lse.clone())
+        self.barrier.wait()
+        return merge_stripes([o for o, _ in self.parts],
+                             [x for _, x in self.parts])
+
+
+def _striped_decode(cfg, p, x, ckv, krope, pos, count, monkeypatch):
+    """``mla_decode`` on ``count`` stripes of the caches (views: every
+    stripe writes into ``ckv``/``krope``), one thread a stripe; each
+    stripe's (out, lse) and every stripe's output."""
+    stripes = _Stripes(count)
+    monkeypatch.setattr(collectives, "merge_stripes", stripes.merge)
+    rows = ckv.shape[1] // count
+    outs = [None] * count
+
+    def run(i):
+        sl = slice(i * rows, (i + 1) * rows)
+        outs[i] = mla.mla_decode(
+            cfg, p, x, ckv[:, sl], krope[:, sl], pos,
+            stripe=Stripe(i, count, rows, i, None))[0]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(count)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(o is not None for o in outs), "a stripe failed"
+    return stripes.parts, outs
+
+
+@pytest.mark.parametrize("count", [2, 3, 4])
+@pytest.mark.parametrize("q_lora", RANKS)
+def test_striped_absorbed_decode_equals_the_whole_cache(q_lora, count,
+                                                        monkeypatch):
+    """The latent cache cut into 2, 3 and 4 stripes of STRIPE_ROWS rows:
+    each stripe writes the new row only where it holds row min(pos, S-1)
+    and attends its own valid rows; the merged output equals
+    ``mla_decode`` on the whole cache and the reference's, and the
+    caches equal the whole cache's, at lengths (pos + 1) 1, S/2, S and
+    S + 7 (past capacity: the write clamps to row S-1). A stripe that
+    holds no key of a row gives lse -inf and an output of exactly 0, so
+    a row of length 1 merges to stripe 0's output bit for bit."""
+    rcfg, cfg = _cfgs(q_lora_rank=q_lora)
+    p, x = _block_inputs(rcfg, seed=11, shape=(4, 1))
+    S = STRIPE_ROWS * count
+    rng = np.random.default_rng(12)
+    ckv = rng.standard_normal((4, S, cfg.kv_lora_rank)).astype(np.float32)
+    krope = rng.standard_normal((4, S, cfg.qk_rope_dim)).astype(np.float32)
+    pos = np.array([0, S // 2 - 1, S - 1, S + 6], np.int32)
+    tp = bridge.params_to_torch(p)
+    whole = [torch.from_numpy(ckv.copy()), torch.from_numpy(krope.copy())]
+    want = mla.mla_decode(cfg, tp, torch.from_numpy(x), *whole,
+                          torch.from_numpy(pos))[0]
+    rout = rmla.mla_decode(rcfg, jax.tree_util.tree_map(jnp.asarray, p),
+                           jnp.asarray(x), jnp.asarray(ckv),
+                           jnp.asarray(krope), jnp.asarray(pos))[0]
+    striped = [torch.from_numpy(ckv.copy()), torch.from_numpy(krope.copy())]
+    parts, outs = _striped_decode(cfg, tp, torch.from_numpy(x), *striped,
+                                  torch.from_numpy(pos), count, monkeypatch)
+    for got in outs:
+        assert torch.equal(got, outs[0])
+        _close(got, want, **STRIPE_TOL)
+        _close(got, rout, **STRIPE_TOL)
+    for a, b in zip(striped, whole):
+        assert torch.equal(a, b)
+    valid = np.minimum(pos + 1, S)
+    for i, (out, lse) in enumerate(parts):
+        empty = torch.from_numpy(valid <= i * STRIPE_ROWS)
+        assert torch.isneginf(lse[empty]).all()
+        assert torch.isfinite(lse[~empty]).all()
+        assert (out[empty] == 0).all()
+    # row 0 (length 1) lies in stripe 0 alone: the merge is its partial
+    merged = merge_stripes([o for o, _ in parts], [x for _, x in parts])
+    assert torch.equal(merged[0], parts[0][0][0])
+
+
+def _masked_softmax_partial(q_lat, q_rope, ckv, krope, lengths, scale):
+    """A stripe's partial as a masked softmax takes it (scores set to
+    NEG_INF past the length, then the softmax), for the test below: what
+    ``latent_attention`` must not be."""
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+         + torch.einsum("bhe,bse->bhs", q_rope, krope)) * scale
+    valid = torch.arange(ckv.shape[1]) < lengths[:, None, None]
+    s = torch.where(valid, s, mla.NEG_INF)
+    return (torch.einsum("bhs,bsr->bhr", torch.softmax(s, -1), ckv),
+            torch.logsumexp(s, -1))
+
+
+@pytest.mark.parametrize("count", [2, 3, 4])
+def test_latent_attention_stripes_merge_to_the_whole_cache(count):
+    """``latent_attention`` on each stripe at its length clamp(n - lo, 0,
+    rows) and ``merge_stripes``: the whole cache's attention over its
+    first min(n, S) rows, for n in 0, 1, S/2, S and S + 7; a row no
+    stripe holds a key of (n = 0) merges to exactly 0, with lse -inf in
+    every stripe. A masked softmax fails that row: it averages an empty
+    stripe's latents."""
+    g = torch.Generator().manual_seed(13)
+    S, r, e, H = STRIPE_ROWS * count, 16, 8, 3
+    lengths = torch.tensor([0, 1, S // 2, S, S + 7])
+    B = len(lengths)
+    q_lat, q_rope = torch.randn(B, H, r, generator=g), \
+        torch.randn(B, H, e, generator=g)
+    ckv, krope = torch.randn(B, S, r, generator=g), \
+        torch.randn(B, S, e, generator=g)
+    scale = 0.3
+    n = torch.clamp(lengths, max=S)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+         + torch.einsum("bhe,bse->bhs", q_rope, krope)) * scale
+    s = torch.where(torch.arange(S) < n[:, None, None], s, -torch.inf)
+    want = torch.nan_to_num(torch.einsum("bhs,bsr->bhr",
+                                         torch.softmax(s, -1), ckv))
+
+    def merged(partial):
+        parts = []
+        for i in range(count):
+            sl = slice(i * STRIPE_ROWS, (i + 1) * STRIPE_ROWS)
+            parts.append(partial(q_lat, q_rope, ckv[:, sl], krope[:, sl],
+                                 torch.clamp(n - i * STRIPE_ROWS, 0,
+                                             STRIPE_ROWS), scale))
+        return parts, merge_stripes([o for o, _ in parts],
+                                    [x for _, x in parts])
+
+    parts, got = merged(mla.latent_attention)
+    torch.testing.assert_close(got, want, **STRIPE_TOL)
+    assert (got[0] == 0).all()
+    assert all(torch.isneginf(x[0]).all() for _, x in parts)
+    _, naive = merged(_masked_softmax_partial)
+    assert not (naive[0] == 0).all()
 
 
 # ---------------------------------------------------------------------- LM

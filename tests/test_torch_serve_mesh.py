@@ -16,9 +16,15 @@ capacities whose stripes the prompts span; falcon-mamba on 2x1 (its
 family splits nothing over ``model``); reduced granite with capacity
 drops (8 experts, top-2, capacity factor 0.5) on 2x1 (every slot routed
 over ``data`` at each tick, each admitted group prefilled whole), 1x2
-(the experts split over ``model``) and 2x2. Tokens are held IDENTICAL to
-the reference's; the stochastic sampler and the priority scheduler to
-the port's engine alone. What the slice leaves out still refuses.
+(the experts split over ``model``) and 2x2; reduced deepseek-v2-236b
+(MLA) with a query rank of 48 and the same drops on 2x1, 1x2 and 2x2 (its
+heads split, its latent cache striped), at 3 slots on 2x2 (``data`` does
+not divide them: the latent cache's sequence over both axes, four
+stripes, held against the reference's engine at 3 slots, whose routing
+the slot count changes) and at capacity 63 on 1x2 (no stripes: the
+latent cache replicated). Tokens are held IDENTICAL to the reference's;
+the stochastic sampler and the priority scheduler to the port's engine
+alone. What the slice leaves out still refuses.
 
 One spawn of 4 ranks and one of 2 serve every test (a module fixture),
 in threads beside the reference's engines.
@@ -69,27 +75,42 @@ def _eng(slots=4, capacity=64, **kw):
     return {"engine": dict(slots=slots, capacity=capacity, **kw)}
 
 
+# the slots of the reference's engine each run is held against: 4, or
+# the run's own where the MoE's capacity couples the slots' tokens
+REF_SLOTS = 4
+
+
+def _ref_key(run) -> tuple:
+    return run["model"], run.get("ref_slots", REF_SLOTS)
+
+
+DROP = {"num_experts": 8, "experts_per_token": 2, "capacity_factor": 0.5}
 # the models: (config, changes); 3 query heads on 1 KV head do not
 # divide over 2 ranks (every head computed whole on every rank)
 MODELS = {"qwen3-14b": ("qwen3-14b", {}),
           "qwen3-heads3": ("qwen3-14b", {"num_heads": 3, "num_kv_heads": 1}),
           "falcon-mamba-7b": ("falcon-mamba-7b", {}),
-          "granite": ("granite-moe-3b-a800m",
-                      {"num_experts": 8, "experts_per_token": 2,
-                       "capacity_factor": 0.5})}
+          "granite": ("granite-moe-3b-a800m", DROP),
+          "deepseek": ("deepseek-v2-236b", dict(DROP, q_lora_rank=48))}
 # runs held against the reference's single-device engine (greedy)
 FOUR_REF = [_run("qwen3-2x2", "qwen3-14b", "2x2", **_eng()),
             _run("qwen3-2x2-cp", "qwen3-14b", "2x2", **_eng(slots=1)),
             _run("qwen3-2x2-span", "qwen3-14b", "2x2", **_eng(capacity=16)),
             _run("qwen3-2x2-cp-span", "qwen3-14b", "2x2",
                  **_eng(slots=1, capacity=32)),
-            _run("granite-2x2", "granite", "2x2", **_eng())]
+            _run("granite-2x2", "granite", "2x2", **_eng()),
+            _run("deepseek-2x2", "deepseek", "2x2", **_eng()),
+            _run("deepseek-2x2-cp", "deepseek", "2x2", ref_slots=3,
+                 **_eng(slots=3))]
 TWO_REF = [_run("qwen3-1x2", "qwen3-14b", "1x2", **_eng()),
            _run("qwen3-1x2-63", "qwen3-14b", "1x2", **_eng(capacity=63)),
            _run("heads3-1x2", "qwen3-heads3", "1x2", **_eng(capacity=16)),
            _run("falcon-2x1", "falcon-mamba-7b", "2x1", **_eng()),
            _run("granite-2x1", "granite", "2x1", **_eng()),
-           _run("granite-1x2", "granite", "1x2", **_eng())]
+           _run("granite-1x2", "granite", "1x2", **_eng()),
+           _run("deepseek-2x1", "deepseek", "2x1", **_eng()),
+           _run("deepseek-1x2", "deepseek", "1x2", **_eng()),
+           _run("deepseek-1x2-63", "deepseek", "1x2", **_eng(capacity=63))]
 # runs held against the port's engine alone
 TOPK = {"kind": "top_k", "top_k": 8, "temperature": 0.8}
 SLOS = {0: (10.0, 60.0), 1: (30.0, 120.0)}
@@ -100,6 +121,7 @@ FOUR_ALONE = [_run("top_k-2x2", "qwen3-14b", "2x2", **_eng(sampler=TOPK)),
 # message names)
 REFUSED = {"falcon-1x2": ("falcon-mamba-7b", {}, "4b-ii"),
            "chunk-1x2": ("qwen3-14b", {"prefill_chunk": 4}, "4c-ii"),
+           "chunk-mla-1x2": ("deepseek", {"prefill_chunk": 4}, "4c-ii"),
            "prefix-1x2": ("qwen3-14b", {"prefix_entries": 2}, "4c-ii"),
            "preempt-1x2": ("qwen3-14b", {"slos": SLOS}, "4c-ii")}
 TWO_REFUSE = [_run(tag, model, "1x2", refuse=True, **_eng(**kw))
@@ -142,10 +164,12 @@ def results(tmp_path_factory):
     for t in threads:
         t.start()
     try:
-        tokens = {model: [t.tolist() for t in RefServeEngine(
-            rmodel, params, cfg, slots=4, capacity=64).generate(
-                prompts[model], NEW)]
-            for model, (cfg, rmodel, params) in ref.items()}
+        tokens = {}
+        for model, slots in sorted({_ref_key(r) for r in FOUR_REF + TWO_REF}):
+            cfg, rmodel, params = ref[model]
+            tokens[model, slots] = [t.tolist() for t in RefServeEngine(
+                rmodel, params, cfg, slots=slots, capacity=64).generate(
+                    prompts[model], NEW)]
         before = torch.get_num_threads()
         torch.set_num_threads(1)
         alone = {run["tag"]: worker.serve_run(
@@ -174,9 +198,11 @@ def test_tokens_match_the_references_single_device_engine(results, tag):
     engine's, identically (reduced qwen3-14b on 2x2, 1x2, context
     parallel, replicated and spanning stripes; 3 query heads on 1 KV
     head over 2 ranks: every head computed whole; falcon-mamba on
-    2x1; granite with drops on 2x1, 1x2 and 2x2)."""
+    2x1; granite with drops on 2x1, 1x2 and 2x2; deepseek's MLA with
+    drops on 2x1, 1x2 and 2x2, over four stripes at 3 slots on 2x2, and
+    replicated at capacity 63)."""
     ref, _, ranks = results
-    want = ref[RUNS[tag]["model"]]
+    want = ref[_ref_key(RUNS[tag])]
     for rank in _of(ranks, tag):
         assert [rank["tokens"][i] for i in range(len(LENS))] == want
 
@@ -185,11 +211,13 @@ def test_tokens_match_the_references_single_device_engine(results, tag):
 def test_one_decode_step_and_a_wrapper_call_a_layer_each_tick(results, tag):
     """One ``decode_step`` a tick on every rank, and ``num_layers``
     ``flash_decode`` wrapper calls in it (none outside the ticks; none
-    for the SSM family); the ranks' scheduler digests agree."""
+    for the SSM family or MLA, whose absorbed decode is torch ops); the
+    ranks' scheduler digests agree."""
     _, _, ranks = results
     run = RUNS[tag]
     layers = get_config("qwen3-14b").reduced().num_layers
-    per_tick = 0 if run["arch"] == "falcon-mamba-7b" else layers
+    per_tick = 0 if run["arch"] in ("falcon-mamba-7b", "deepseek-v2-236b") \
+        else layers
     for rank in _of(ranks, tag):
         assert rank["decode_calls"] == rank["decode_steps"] > 0
         assert rank["wrapper_calls"] == per_tick * rank["decode_calls"]
@@ -199,13 +227,16 @@ def test_one_decode_step_and_a_wrapper_call_a_layer_each_tick(results, tag):
 @pytest.mark.parametrize("tag,stripe", [
     ("qwen3-2x2", "model"), ("qwen3-2x2-cp", ("data", "model")),
     ("qwen3-1x2", "model"), ("qwen3-1x2-63", None),
-    ("qwen3-2x2-span", "model"), ("falcon-2x1", None)])
+    ("qwen3-2x2-span", "model"), ("falcon-2x1", None),
+    ("deepseek-1x2", "model"), ("deepseek-2x2-cp", ("data", "model")),
+    ("deepseek-1x2-63", None), ("deepseek-2x1", None)])
 def test_the_cache_is_split_as_cache_pspecs_says(results, tag, stripe):
     """Each rank's leaves are its block of the slots and its stripe of
     the sequence: 2x2 splits 4 slots over data and 64 rows over model;
-    one slot on 2x2 keeps the slot whole and splits the rows four ways
-    (stripe d * 2 + m); capacity 63 keeps every leaf whole. The cache
-    reports the whole capacity on every rank."""
+    one slot (or three: ``data`` does not divide them) on 2x2 keeps the
+    slots whole and splits the rows four ways (stripe d * 2 + m);
+    capacity 63 keeps every leaf whole. MLA's latent cache as a K/V
+    cache. The cache reports the whole capacity on every rank."""
     _, _, ranks = results
     run = RUNS[tag]
     slots, cap = run["engine"]["slots"], run["engine"]["capacity"]
@@ -221,7 +252,9 @@ def test_the_cache_is_split_as_cache_pspecs_says(results, tag, stripe):
         if run["arch"] != "falcon-mamba-7b":
             assert rank["capacity"] == cap
             rows = cap if rank["stripe"] is None else rank["stripe"][2]
-            assert rank["local"]["k"][2] == rows
+            for leaf in ("k", "ckv", "krope"):
+                if leaf in rank["local"]:
+                    assert rank["local"][leaf][2] == rows
         data = 2 if run["mesh"].startswith("2") else 1
         split = data > 1 and slots % data == 0
         per = slots // data if split else slots
@@ -250,8 +283,8 @@ def test_sampler_and_tiers_match_the_engine_alone(results, tag):
 @pytest.mark.parametrize("tag", list(REFUSED))
 def test_what_the_slice_leaves_out_still_refuses(results, tag):
     """falcon-mamba on a model axis of 2 (the SSM family splits nothing:
-    queue 1 item 4b-ii); chunked prefill, the prefix store and
-    preemption on a mesh (item 4c-ii)."""
+    queue 1 item 4b-ii); chunked prefill (GQA and MLA's), the prefix
+    store and preemption on a mesh (item 4c-ii)."""
     _, _, ranks = results
     item = REFUSED[tag][2]
     for rank in _of(ranks, tag):

@@ -33,6 +33,16 @@ loss is held against the reference's, and the first MoE call's
 ``dropped_frac`` against the reference's ``moe_block`` on the same
 input.
 
+MLA (deepseek-v2-236b reduced: 4 heads; ``q_up``/``wq``, ``k_up`` and
+``v_up`` split by columns, ``wo`` by rows, the down projections and
+their norms whole): without a query rank (``wq``), and with a query rank
+of 48 and granite's drop settings, on ``1x2`` and on ``2x2`` with ZeRO
+on and off, in bf16 on ``1x2`` without drops (with and without the
+query rank) and with int8 slots (rank 48, drops) on ``1x2``; the
+same gates (the down projections among the replicated leaves), the
+drops' gates for the rank-48 runs, and its checkpoint saved on ``1x2``.
+3 MLA heads over 2 ranks are held alone against the plain block.
+
 One spawn of 2 ranks and one of 4 serve every test (module fixtures).
 """
 
@@ -61,6 +71,7 @@ from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("qwen3-14b", "smollm-135m", "qwen2-72b")
 GRANITE = "granite-moe-3b-a800m"
+DEEPSEEK = "deepseek-v2-236b"
 # reduced granite with capacity drops (chip_smoke.py's GRANITE_DROP)
 DROP = {"num_experts": 8, "experts_per_token": 2, "capacity_factor": 0.5}
 # the models by name: (arch, config changes)
@@ -71,8 +82,17 @@ MODELS = dict({a: (a, {}) for a in ARCHS}, **{
     "granite-shared": (GRANITE, dict(DROP, num_shared_experts=1,
                                      moe_d_ff=511)),
     "granite-oddff": (GRANITE, dict(DROP, num_experts=5, moe_d_ff=511,
-                                    num_shared_experts=1))})
-MOE_MODELS = [m for m in MODELS if m.startswith("granite")]
+                                    num_shared_experts=1)),
+    # MLA: the reduced preset's wq, and a query rank with drops and
+    # without them
+    "deepseek": (DEEPSEEK, {}),
+    "deepseek-q48": (DEEPSEEK, dict(DROP, q_lora_rank=48)),
+    "deepseek-q48-nodrop": (DEEPSEEK, dict(q_lora_rank=48))})
+# the moe runs whose routing drops slots (deepseek's reduced preset
+# routes every token to all 4 experts)
+MOE_MODELS = [m for m in MODELS if m.startswith("granite")] + \
+    ["deepseek-q48"]
+MLA_MODELS = ["deepseek", "deepseek-q48"]
 STEPS, ACCUM, BATCH, SEQ = 2, 2, 8, 32
 # the reference's own tolerances for its (4, 2)-mesh pipeline against
 # its single-device pipeline (tests/test_pipeline.py:284-289)
@@ -93,6 +113,9 @@ INT8_PARAMS = dict(rtol=1e-4, atol=2e-5)
 BF16_LOSS = dict(rtol=1e-4, atol=0)
 BF16_PARAMS = dict(rtol=1e-2, atol=2e-3)
 BF16_TRUST_RTOL = 1e-2
+# MLA's f32 runs against the run alone: measured 7.2e-8 relative on a
+# loss, 1.2e-7 on a param and 2.3e-7 relative on a trust ratio (int8
+# slots: 2.3e-6 on a param)
 # the moe runs, f32, against the reference's pipeline: measured at most
 # 1.5e-7 relative on a loss and 1.2e-7 on a param (within REF_*), and
 # against the run alone 1.5e-7 on a loss, 1.2e-7 on a param and 3.0e-7
@@ -107,6 +130,14 @@ MOE_DROPPED = dict(rtol=1e-6, atol=0)
 # ratio after 2 steps)
 MOE_BF16_LOSS = dict(rtol=5e-4, atol=0)
 MOE_BF16_TRUST_RTOL = 5e-2
+# deepseek in bf16 (its MLA and its moe block, no drops: the routing
+# keeps every slot) takes the moe loss limit and the dense params' and
+# trust ratios' (tests/tp_bf16_gaps.py: 1.4e-4 and 6.7e-5 relative on a
+# loss, 3.9e-3 and 7.8e-3 on a param, 1.7e-3 and 4.2e-3 relative on a
+# trust ratio, without a query rank and at 48). With granite's drops
+# bf16 flips its routing against the run alone's (10 of 16 routings keep
+# other slots, up to 12.5 %; f32 flips none): the two train different
+# functions (7.3e-4 on a loss), so that run stays f32 and int8.
 
 def _moe(tag, model, mesh, **kw):
     arch, changes = MODELS[model]
@@ -114,13 +145,22 @@ def _moe(tag, model, mesh, **kw):
                 mesh=mesh, **kw)
 
 
-MOE_TWO = [_moe(f"{m}-1x2", m, "1x2") for m in MOE_MODELS] + [
+MOE_TWO = [_moe(f"{m}-1x2", m, "1x2") for m in MODELS
+           if m.startswith("granite")] + [
     _moe("granite-bf16", "granite", "1x2", precision="bf16"),
     _moe("granite-int8", "granite", "1x2", slots="int8")]
 MOE_FOUR = [_moe(f"granite-2x2-{'zero' if z else 'repl'}", "granite", "2x2",
                  zero=z) for z in (True, False)]
+MLA_TWO = [_moe(f"{m}-1x2", m, "1x2", ckpt=m == "deepseek-q48")
+           for m in MLA_MODELS] + [
+    _moe("deepseek-bf16", "deepseek", "1x2", precision="bf16"),
+    _moe("deepseek-q48-bf16", "deepseek-q48-nodrop", "1x2",
+         precision="bf16"),
+    _moe("deepseek-int8", "deepseek-q48", "1x2", slots="int8")]
+MLA_FOUR = [_moe(f"{m}-2x2-{'zero' if z else 'repl'}", m, "2x2", zero=z)
+            for m in MLA_MODELS for z in (True, False)]
 TWO = [dict(tag=f"{a}-1x2", arch=a, mesh="1x2",
-            ckpt=a == "smollm-135m") for a in ARCHS] + MOE_TWO + [
+            ckpt=a == "smollm-135m") for a in ARCHS] + MOE_TWO + MLA_TWO + [
     dict(tag="bf16", arch="smollm-135m", mesh="1x2", precision="bf16"),
     dict(tag="int8", arch="smollm-135m", mesh="1x2", slots="int8"),
     dict(tag="tree", arch="smollm-135m", mesh="1x2", packed=False,
@@ -134,7 +174,8 @@ TWO = [dict(tag=f"{a}-1x2", arch=a, mesh="1x2",
     dict(tag="heads_3", arch="smollm-135m", mesh="1x2", port_init=True,
          changes={"num_heads": 3, "num_kv_heads": 1})]
 FOUR = [dict(tag=f"{a}-2x2-{'zero' if z else 'repl'}", arch=a, mesh="2x2",
-             zero=z) for a in ARCHS for z in (True, False)] + MOE_FOUR
+             zero=z) for a in ARCHS for z in (True, False)] + MOE_FOUR \
+    + MLA_FOUR
 RUNS = {r["tag"]: r for r in TWO + FOUR}
 
 
@@ -244,6 +285,8 @@ def _tolerances(tag):
     run = RUNS[tag]
     if run.get("precision") == "bf16" and run.get("model") in MOE_MODELS:
         return MOE_BF16_LOSS, BF16_PARAMS, MOE_BF16_TRUST_RTOL
+    if run.get("precision") == "bf16" and run["arch"] == DEEPSEEK:
+        return MOE_BF16_LOSS, BF16_PARAMS, BF16_TRUST_RTOL
     if run.get("precision") == "bf16":
         return BF16_LOSS, BF16_PARAMS, BF16_TRUST_RTOL
     if run.get("slots") == "int8":
@@ -251,7 +294,9 @@ def _tolerances(tag):
     return PORT_LOSS, PORT_PARAMS, PORT_TRUST_RTOL
 
 
-MAIN = [f"{a}-1x2" for a in ARCHS] + [f"{m}-1x2" for m in MOE_MODELS] \
+MAIN = [f"{a}-1x2" for a in ARCHS] + [f"{m}-1x2" for m in MODELS
+                                      if m not in ARCHS
+                                      and f"{m}-1x2" in RUNS] \
     + [t["tag"] for t in FOUR]
 
 
@@ -366,8 +411,39 @@ def test_moe_leaves_are_split_as_the_tables_say(ranks, tag):
         assert local["layers/moe/router"] == (2, 256, experts)
 
 
+# each MLA run's attention leaves on every rank: 4 heads over 2 ranks
+# (q_up / wq 4 x 48 columns, k_up 4 x 32, v_up 4 x 32, wo's rows 4 x 32),
+# the down projections and their norms whole
+MLA_LOCAL = {
+    "deepseek-1x2": {"wq": (2, 256, 96), "k_up": (2, 64, 64),
+                     "v_up": (2, 64, 64), "wo": (2, 64, 256),
+                     "kv_down": (2, 256, 80), "kv_norm": (2, 64)},
+    "deepseek-q48-1x2": {"q_down": (2, 256, 48), "q_norm": (2, 48),
+                         "q_up": (2, 48, 96), "k_up": (2, 64, 64),
+                         "v_up": (2, 64, 64), "wo": (2, 64, 256),
+                         "kv_down": (2, 256, 80), "kv_norm": (2, 64)},
+    "deepseek-q48-2x2-zero": {"q_up": (2, 48, 96), "wo": (2, 64, 256),
+                              "q_down": (2, 256, 48)}}
+
+
+@pytest.mark.parametrize("tag", sorted(MLA_LOCAL))
+def test_mla_leaves_are_split_as_the_tables_say(ranks, tag):
+    """The reference's ``_ATTN`` rules for MLA: ``q_up``/``wq``, ``k_up``
+    and ``v_up`` by columns and ``wo`` by rows, each rank whole heads;
+    ``q_down``, ``kv_down`` and the norms whole, and among the leaves the
+    ranks hold bit-identical."""
+    for rank in _of(ranks, tag):
+        local = rank["local"]
+        for leaf, shape in MLA_LOCAL[tag].items():
+            assert local[f"layers/attn/{leaf}"] == shape, leaf
+        for leaf in ("q_down", "q_norm", "kv_down", "kv_norm"):
+            if f"layers/attn/{leaf}" in local:
+                assert f"layers/attn/{leaf}" in rank["replicated"], leaf
+
+
 @pytest.mark.parametrize("tag", [f"{m}-1x2" for m in MOE_MODELS]
-                         + [t["tag"] for t in MOE_FOUR])
+                         + [t["tag"] for t in MOE_FOUR + MLA_FOUR
+                            if t["model"] in MOE_MODELS])
 def test_moe_aux_loss_and_dropped_share_match_the_reference(
         reference, alone, ranks, tag):
     """Every rank's aux loss a step is the reference pipeline's; the
@@ -396,16 +472,25 @@ def test_vocab_parallel_loss_matches_the_plain_loss(ranks):
         assert value <= 1e-6 and grad <= 2e-6     # 0 and 3.6e-7
 
 
-@pytest.mark.parametrize("name", ["heads_3", "heads_6_kv_3"])
+# the leaves each non-aligned unit stores split over its 2 ranks
+NON_ALIGNED_SPLIT = {
+    "heads_3": ["bk", "bq", "bv", "wk", "wo", "wq", "wv"],
+    "heads_6_kv_3": ["wk", "wo", "wq", "wv"],
+    "mla_heads_3": ["k_up", "q_up", "v_up", "wo"],
+    "mla_heads_3_vd_15": ["k_up", "wq"]}
+
+
+@pytest.mark.parametrize("name", sorted(NON_ALIGNED_SPLIT))
 def test_non_aligned_heads_match_the_plain_block(ranks, name):
     """Heads the ranks do not split evenly: the leaves are still stored
-    split; gathered for the product; output and gradients as the plain
-    block's."""
+    split; gathered for the product (the whole ones passed through
+    ``copy_to_model``); output and gradients as the plain block's, GQA
+    and MLA (3 heads; at a value width of 15 ``v_up`` and ``wo`` are
+    whole, and each rank takes its ``tensor_split`` chunk of ``wo``'s
+    rows)."""
     for rank in ranks["two"]:
         got = rank["units"][name]
-        assert got["split"] == (["bk", "bq", "bv", "wk", "wo", "wq", "wv"]
-                                if name == "heads_3"
-                                else ["wk", "wo", "wq", "wv"])
+        assert got["split"] == NON_ALIGNED_SPLIT[name]
         # relative to the plain block's largest magnitude; measured
         # 4.9e-7, 5.6e-7 and 8.5e-7 at most
         assert got["out"] <= 5e-6
@@ -413,12 +498,26 @@ def test_non_aligned_heads_match_the_plain_block(ranks, name):
         assert got["param_grads"] <= 5e-6
 
 
+def test_non_aligned_mla_decode_matches_the_plain_decode(ranks):
+    """3 MLA heads over 2 ranks at decode: every head computed on every
+    rank (the split leaves gathered), each rank its share of ``wo``, the
+    shares summed; on the whole latent cache and on the rank's stripe of
+    it (the stripes' partials merged), as the plain absorbed decode."""
+    for rank in ranks["two"]:
+        got = rank["units"]["mla_decode_heads_3"]
+        assert got["split"] == ["k_up", "q_up", "v_up", "wo"]
+        # relative to the plain output's largest magnitude; measured
+        # 2.2e-7 either way
+        assert got["whole"] <= 5e-6 and got["striped"] <= 5e-6
+
+
 def _npz(path) -> list:
     with zipfile.ZipFile(path) as z:
         return [(n, z.read(n)) for n in z.namelist()]
 
 
-@pytest.mark.parametrize("tag", ["smollm-135m-1x2", "tree"])
+@pytest.mark.parametrize("tag", ["smollm-135m-1x2", "tree",
+                                 "deepseek-q48-1x2"])
 def test_checkpoints_saved_on_1x2_are_the_1x1_files(alone, ranks, reference,
                                                     tmp_path, tag):
     """The initial state saved on 1x2 is byte-equal to the run alone's;
@@ -430,7 +529,8 @@ def test_checkpoints_saved_on_1x2_are_the_1x1_files(alone, ranks, reference,
         _npz(one_dir / f"{tag}-init.npz")
     assert all(r[tag]["restored"] for r in ranks["two"])
     run = RUNS[tag]
-    cfg = get_config(run["arch"]).reduced()
+    cfg = dataclasses.replace(get_config(run["arch"]).reduced(),
+                              **run.get("changes", {}))
     from repro_torch.core import lars
     pipe = TrainPipeline(build_model(cfg),
                          lars(0.05, trust_coefficient=0.01), cfg,
@@ -442,7 +542,7 @@ def test_checkpoints_saved_on_1x2_are_the_1x1_files(alone, ranks, reference,
     got = _leaves(ranks["two"][0][tag]["params"])
     for k, v in _leaves(state.params).items():
         assert np.array_equal(v, got[k])
-    template = reference[run["arch"]]["template"]
+    template = reference[_model(run)]["template"]
     if not run.get("packed", True):
         ref_cfg = ref_get_config(run["arch"]).reduced()
         template = RefPipeline(
